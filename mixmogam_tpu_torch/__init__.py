@@ -1,0 +1,40 @@
+"""mixmogam_tpu_torch — the PyTorch/CUDA port of mixmogam_tpu.
+
+A second package beside ``mixmogam_tpu`` (the JAX reference, unchanged).
+Slice 1 carries the main path: single-trait EMMAX over a fully observed
+int8 genome held 2-bit packed in device memory —
+
+  pack + upload once      models.resident.ResidentGenome.from_source
+  IBS kinship (int gram)  models.resident.kinship_resident  -> kernel K1
+  eigh(K)                 ops.eigen.eigen_k (host LAPACK or torch.linalg)
+  null-model REML (f64)   ops.reml.fit_null_model
+  rotated null            ops.scan.build_rotated_null
+  per-tile scan           models.resident.emmax_scan_packed -> K2 / K3
+  f64 p-values + rescore  models.streaming.finalize_scan
+
+Modules keep the JAX package's paths and names. The port imports torch,
+numpy and scipy, and reuses the JAX package's jax-free host layers
+(``mixmogam_tpu.data``, ``.oracle``, ``.native``, ``.config``) by import;
+it never imports jax. The device is explicit: tensors on a CUDA device run
+the hand-written Hopper kernels (``csrc/``, ``ops/hopper_*.py``), tensors
+on the CPU run each kernel's plain PyTorch version.
+"""
+
+__version__ = "0.1.0"
+
+__all__ = ["emmax", "emmax_resident", "kinship_resident", "ResidentGenome",
+           "__version__"]
+
+
+def __getattr__(name):
+    # lazy facade: `import mixmogam_tpu_torch` stays cheap (no torch import)
+    if name == "emmax":
+        from mixmogam_tpu_torch.models.emmax import emmax
+
+        return emmax
+    if name in {"ResidentGenome", "emmax_resident", "kinship_resident"}:
+        from mixmogam_tpu_torch.models import resident
+
+        return getattr(resident, name)
+    raise AttributeError(
+        f"module 'mixmogam_tpu_torch' has no attribute {name!r}")

@@ -1,0 +1,71 @@
+"""State carried over from the JAX package as numpy arrays.
+
+The JAX package's NullModel / RotatedNull / ResidentGenome hold jax
+arrays; pass their fields through np.asarray and these constructors build
+the port's counterparts on `device`, so that both packages can be fed the
+same null model, the same int8 digit planes and the same packed rows.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _t(a, device, dtype=None):
+    # np.array copies: a jax array's numpy view is read-only
+    t = torch.from_numpy(np.array(a)).to(device)
+    return t if dtype is None else t.to(dtype)
+
+
+def null_from_numpy(phi, U, delta, log_delta, ll, sigma_g2, sigma_e2,
+                    pseudo_heritability, y, X0, device="cpu",
+                    dtype=torch.float64):
+    """NullModel from the fields of a fitted (JAX) null model."""
+    from mixmogam_tpu_torch.ops.reml import NullModel
+
+    X0 = np.asarray(X0)
+    if X0.ndim == 1:
+        X0 = X0[:, None]
+    return NullModel(
+        phi=_t(phi, device, dtype), U=_t(U, device, dtype),
+        delta=_t(delta, device, dtype), log_delta=_t(log_delta, device,
+                                                     dtype),
+        ll=_t(ll, device, dtype), sigma_g2=_t(sigma_g2, device, dtype),
+        sigma_e2=_t(sigma_e2, device, dtype),
+        pseudo_heritability=_t(pseudo_heritability, device, dtype),
+        y=_t(y, device, dtype).reshape(-1), X0=_t(X0, device, dtype))
+
+
+def rotated_null_from_numpy(W, sd, Q0, y_res, rss0, dof, w_scale=None,
+                            device="cpu", dtype=torch.float64):
+    """RotatedNull from the JAX fields. An int8 W (K, n, n) is taken as
+    the digit planes, unchanged; a float W = U * sd (the exact tier)
+    becomes the port's U = W / sd, since the port whitens inside the
+    scan kernel."""
+    from mixmogam_tpu_torch.ops.scan import RotatedNull
+
+    W = np.asarray(W)
+    sd_t = _t(sd, device, dtype)
+    planes = U = None
+    if W.dtype == np.int8:
+        planes = _t(W, device)
+    else:
+        U = _t(W, device, dtype) / sd_t[None, :]
+    Q0 = np.asarray(Q0)
+    if Q0.ndim == 1:
+        Q0 = Q0[:, None]
+    return RotatedNull(
+        sd=sd_t, Q0=_t(Q0, device, dtype), y_res=_t(y_res, device, dtype),
+        rss0=_t(rss0, device, dtype), dof=_t(dof, device, dtype), U=U,
+        planes=planes,
+        w_scale=None if w_scale is None else _t(w_scale, device, dtype))
+
+
+def resident_from_packed(host_packed, M, n, ploidy, tile, has_missing,
+                         device="cpu"):
+    """ResidentGenome from packed host rows (M_pad, ceil(n/4)) uint8."""
+    from mixmogam_tpu_torch.models.resident import ResidentGenome
+
+    hp = np.array(host_packed, dtype=np.uint8, order="C")
+    return ResidentGenome(hp, M, n, ploidy, tile, has_missing, device)

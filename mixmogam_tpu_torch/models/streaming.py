@@ -1,0 +1,102 @@
+"""The scan-finalizing helpers of mixmogam_tpu/models/streaming.py:
+_impute_tile, _host_float_tile, finalize_scan and _exact_rescore. The
+streamed scan itself (host -> device tiles with checkpoint/resume) waits
+for ROADMAP slice 3."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _impute_tile(t_i8: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """int8 tile (m, n) with -1 missing -> float (dtype), per-SNP mean
+    imputed on the tensor's device (oracle.kinship.mean_impute's rule)."""
+    t = t_i8.to(dtype)
+    miss = t_i8 < 0
+    obs = torch.where(miss, torch.zeros((), dtype=dtype,
+                                        device=t.device), t)
+    cnt = torch.clamp((~miss).sum(dim=1, keepdim=True), min=1)
+    mu = obs.sum(dim=1, keepdim=True) / cnt
+    return torch.where(miss, mu, t)
+
+
+def _host_float_tile(chunk: np.ndarray, dtype) -> np.ndarray:
+    """Float-source tile: NaN = missing, per-SNP mean imputed on the host.
+    np.array COPY: imputing a view in place would overwrite the caller's
+    NaNs."""
+    C = np.array(chunk, dtype=np.float64)
+    miss = np.isnan(C)
+    if miss.any():
+        mu = np.nanmean(C, axis=1)
+        mu = np.where(np.isnan(mu), 0.0, mu)
+        idx = np.where(miss)
+        C[idx] = mu[idx[0]]
+    return C.astype(dtype)
+
+
+def finalize_scan(matrix_source, null, dtype, f_stats, mask,
+                  betas=None, var_perc=None, with_betas: bool = True,
+                  rescore_top: int = 0, rd=None, tier_name=None,
+                  dof: int = 0):
+    """p-value finalize + threshold-complete exact rescore + output dict,
+    shared by the in-core and resident paths. f_stats/mask (and betas/
+    var_perc when given) are float64/bool host arrays, patched in place by
+    the rescore pass, which engages only on an int8 tier (rd set)."""
+    from mixmogam_tpu_torch.ops.scan import select_rescore_idx
+    from mixmogam_tpu_torch.ops.stats import f_sf_host as _fsf
+
+    dof = int(dof)
+    ps = np.where(mask, _fsf(f_stats, 1.0, dof), 1.0)
+    rescored = np.zeros(0, dtype=np.int64)
+    if rescore_top and rd is not None:
+        idx = select_rescore_idx(ps, rescore_top, rd)
+        idx, d_ex = _exact_rescore(matrix_source, idx, null, dtype)
+        f_stats[idx] = d_ex["f_stats"]
+        mask[idx] = d_ex["mask"]
+        ps[idx] = np.where(mask[idx], _fsf(f_stats[idx], 1.0, dof), 1.0)
+        if betas is not None:
+            betas[idx] = d_ex["betas"]
+            var_perc[idx] = d_ex["var_perc"]
+        rescored = idx
+    out = {
+        "ps": ps, "f_stats": f_stats, "mask": mask,
+        "rescored_idx": rescored,
+        "pseudo_heritability": float(null.pseudo_heritability),
+        "delta": float(null.delta), "sigma_g2": float(null.sigma_g2),
+        "sigma_e2": float(null.sigma_e2), "dof": dof,
+        "ll_null": float(null.ll),
+        "precision_tier": (tier_name if tier_name is not None
+                           else (rd or "exact")),
+    }
+    if with_betas and betas is not None:
+        out["betas"] = betas
+        out["var_perc"] = var_perc
+    return out
+
+
+def _exact_rescore(matrix_source, idx, null, dtype, tile: int = 16_384):
+    """Re-test SNP rows `idx` at the exact tier. Rows come from the host
+    source (a ResidentGenome answers from its host copy of the packed
+    rows, never by a read-back from the card), strictly increasing and
+    unique; the scan runs on the null model's device, tile by tile."""
+    from mixmogam_tpu_torch.ops.scan import (build_rotated_null,
+                                             emmax_scan_stats, stats_dict)
+
+    idx = np.unique(np.asarray(idx, dtype=np.int64))
+    rot_ex = build_rotated_null(null)       # exact tier, same delta
+    dev = null.U.device
+    outs = []
+    for s in range(0, len(idx), tile):
+        rows = np.asarray(matrix_source[idx[s:s + tile]])
+        if rows.dtype == np.int8:
+            rows_d = _impute_tile(torch.as_tensor(rows, device=dev), dtype)
+        else:
+            rows_d = torch.as_tensor(_host_float_tile(rows, np.float64),
+                                     device=dev).to(dtype)
+        outs.append(stats_dict(emmax_scan_stats(rows_d, rot_ex)))
+    if not outs:
+        return idx, {"f_stats": np.zeros(0), "betas": np.zeros(0),
+                     "var_perc": np.zeros(0),
+                     "mask": np.zeros(0, dtype=bool)}
+    return idx, {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}

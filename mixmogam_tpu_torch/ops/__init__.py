@@ -1,0 +1,36 @@
+"""Device compute ops (PyTorch + hand-written Hopper kernels).
+
+Importing this package pins float32 matmuls to true fp32 — the twin of
+the JAX package's ``jax_default_matmul_precision='highest'`` pin
+(mixmogam_tpu/ops/__init__.py). A TF32 GEMM keeps a 10-bit mantissa and
+would silently turn the exact scan tier into a ~1e-3-grade tier.
+Importing builds and loads no kernel: that happens at first CUDA use
+(ops._build).
+"""
+
+import torch
+
+
+def _pin_matmul_precision() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError("could not pin float32 matmuls to full fp32; "
+                           "the exact tier would run in TF32")
+
+
+_pin_matmul_precision()
+
+
+def assert_fp32_matmuls() -> None:
+    """Raise if something re-enabled TF32 after import (called by the
+    exact-tier scan before its float32 rotation GEMMs)."""
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            "TF32 matmuls were re-enabled (torch.backends.cuda.matmul."
+            "allow_tf32 / set_float32_matmul_precision); the exact tier "
+            "needs full fp32 GEMMs")

@@ -1,0 +1,163 @@
+"""PyTorch port, the slice as a whole: emmax / emmax_resident against the
+JAX package on the same data (CPU, float64)."""
+
+import numpy as np
+import pytest
+import torch
+
+import mixmogam_tpu_torch as mt
+from mixmogam_tpu.models.emmax import emmax as j_emmax
+from mixmogam_tpu.models.resident import ResidentGenome as JResident
+from mixmogam_tpu.models.resident import emmax_resident as j_resident
+from mixmogam_tpu.ops.eigen import eigen_k as j_eigen_k
+from mixmogam_tpu.ops.kinship import kinship as j_kinship
+from mixmogam_tpu.oracle.kinship import scale_k
+from mixmogam_tpu_torch.convert import resident_from_packed
+from mixmogam_tpu_torch.models.emmax import emmax
+from mixmogam_tpu_torch.models.resident import (ResidentGenome,
+                                                emmax_resident)
+
+torch.set_num_threads(1)
+
+
+def _data(seed=0, n=96, m=500, ploidy=1, missing=0.0):
+    """tests/test_resident.py's generator."""
+    rng = np.random.default_rng(seed)
+    G = rng.integers(0, ploidy + 1, (m, n)).astype(np.int8)
+    if missing:
+        G[rng.random((m, n)) < missing] = -1
+    Gf = G.astype(np.float64)
+    Gf[G < 0] = np.nan
+    mu = np.nanmean(Gf, axis=1)
+    imp = np.where(np.isnan(Gf), np.where(np.isnan(mu), 0, mu)[:, None], Gf)
+    y = imp[3] * 0.9 + rng.normal(size=n)
+    return G, imp, y
+
+
+def _pair(G, tile=128):
+    jrg = JResident.from_source(G, tile=tile)
+    rg = resident_from_packed(jrg.host_packed, jrg.M, jrg.n, jrg.ploidy,
+                              jrg.tile, jrg.has_missing)
+    return jrg, rg
+
+
+def _eig(K):
+    phi, U = j_eigen_k(K)
+    return np.asarray(phi), np.asarray(U)
+
+
+@pytest.mark.parametrize("ploidy", [1, 2])
+def test_resident_exact_matches_jax(ploidy):
+    G, _, y = _data(3, ploidy=ploidy)
+    K = scale_k(j_kinship(G, method="ibs"))
+    jrg, rg = _pair(G)
+    ref = j_resident(jrg, y, K=K)
+    res = emmax_resident(rg, y, K=K)
+    np.testing.assert_allclose(res["ps"], ref["ps"], rtol=0, atol=1e-9)
+    np.testing.assert_allclose(res["betas"], ref["betas"], atol=1e-9)
+    np.testing.assert_allclose(res["var_perc"], ref["var_perc"], atol=1e-9)
+    np.testing.assert_array_equal(res["mask"], ref["mask"])
+    assert res["dof"] == ref["dof"]
+    for k in ("delta", "pseudo_heritability", "ll_null"):
+        assert abs(res[k] - ref[k]) < 1e-9
+    assert res["precision_tier"] == ref["precision_tier"] == "exact"
+
+
+def test_resident_missing_imputed_exact_matches_jax():
+    G, _, y = _data(4, missing=0.04)
+    K = scale_k(j_kinship(G, method="ibs"))
+    jrg, rg = _pair(G)
+    ref = j_resident(jrg, y, K=K)
+    res = emmax_resident(rg, y, K=K)
+    np.testing.assert_allclose(res["ps"], ref["ps"], rtol=0, atol=1e-9)
+    assert res["dof"] == ref["dof"]
+
+
+def test_resident_int8x3_rescore_matches_jax():
+    G, _, y = _data(6)
+    eig = _eig(scale_k(j_kinship(G, method="ibs")))
+    jrg, rg = _pair(G)
+    ref = j_resident(jrg, y, eig_k=eig, precision="int8x3", rescore_top=16)
+    res = emmax_resident(rg, y, eig_k=eig, precision="int8x3",
+                         rescore_top=16)
+    assert res["precision_tier"] == "int8x3"
+    np.testing.assert_array_equal(res["rescored_idx"], ref["rescored_idx"])
+    assert len(res["rescored_idx"]) >= 16
+    lp = np.abs(np.log10(res["ps"]) - np.log10(ref["ps"]))
+    assert lp.max() < 1e-4
+
+
+@pytest.mark.parametrize("tier", ["int8x2", "int8x4"])
+def test_resident_int8_tiers_close_to_exact(tier):
+    G, _, y = _data(8)
+    eig = _eig(scale_k(j_kinship(G, method="ibs")))
+    rg = ResidentGenome.from_source(G, tile=128)
+    ex = emmax_resident(rg, y, eig_k=eig)
+    q = emmax_resident(rg, y, eig_k=eig, precision=tier)
+    np.testing.assert_array_equal(q["mask"], ex["mask"])
+    assert np.abs(q["ps"] - ex["ps"]).max() < (1e-3 if tier == "int8x2"
+                                               else 1e-7)
+
+
+def test_int8_refused_with_missing():
+    G, _, y = _data(5, missing=0.04)
+    K = scale_k(j_kinship(G, method="ibs"))
+    rg = ResidentGenome.from_source(G, tile=128)
+    with pytest.raises(ValueError, match="fully-observed"):
+        emmax_resident(rg, y, K=K, rotate_in_bf16="int8x2")
+    with pytest.raises(ValueError, match="integer dosages"):
+        emmax(G, y, K=K, precision="int8x3")
+
+
+@pytest.mark.parametrize("source", ["float", "int8"])
+def test_incore_route_matches_jax(small_dataset, kinship_small, source):
+    G = small_dataset["G"] if source == "float" else small_dataset["G_int"]
+    y, K = small_dataset["y"], kinship_small
+    ref = j_emmax(G, y, K=K, stream=False)
+    res = emmax(G, y, K=K)
+    np.testing.assert_allclose(res["ps"], ref["ps"], rtol=0, atol=1e-9)
+    np.testing.assert_allclose(res["betas"], ref["betas"], atol=1e-9)
+    assert res["dof"] == ref["dof"]
+
+
+def test_incore_covariates_match_jax(small_dataset, kinship_small):
+    G, y, K = small_dataset["G"], small_dataset["y"], kinship_small
+    rng = np.random.default_rng(2)
+    X0 = np.column_stack([np.ones(len(y)), rng.normal(size=len(y))])
+    ref = j_emmax(G, y, K=K, X0=X0, stream=False)
+    res = emmax(G, y, K=K, X0=X0)
+    np.testing.assert_allclose(res["ps"], ref["ps"], rtol=0, atol=1e-9)
+    assert res["dof"] == ref["dof"] == len(y) - 3
+
+
+def test_incore_int8_tier_packs_and_matches_jax(small_dataset,
+                                                kinship_small):
+    G, y = small_dataset["G_int"], small_dataset["y"]
+    eig = _eig(kinship_small)
+    ref = j_emmax(G, y, eig_k=eig, precision="int8x3", stream=False)
+    res = emmax(G, y, eig_k=eig, precision="int8x3")
+    assert res["precision_tier"] == ref["precision_tier"] == "int8x3"
+    lp = np.abs(np.log10(res["ps"]) - np.log10(ref["ps"]))
+    assert lp.max() < 1e-4
+
+
+def test_emmax_routes_resident_genome_and_facade():
+    G, _, y = _data(9)
+    K = scale_k(j_kinship(G, method="ibs"))
+    rg = ResidentGenome.from_source(G, tile=128)
+    a = mt.emmax(rg, y, K=K)
+    b = mt.emmax_resident(rg, y, K=K)
+    np.testing.assert_array_equal(a["ps"], b["ps"])
+    assert mt.ResidentGenome is ResidentGenome
+    np.testing.assert_array_equal(rg[[0, 7, 499]], G[[0, 7, 499]])
+    np.testing.assert_array_equal(np.asarray(rg), G)
+
+
+@pytest.mark.parametrize("kw", [dict(stream=True), dict(mesh=object()),
+                                dict(checkpoint_dir="ckpt"),
+                                dict(precision="bf16"),
+                                dict(precision="high"),
+                                dict(matmul_precision="high")])
+def test_unported_options_raise(kw, small_dataset, kinship_small):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        emmax(small_dataset["G"], small_dataset["y"], K=kinship_small, **kw)

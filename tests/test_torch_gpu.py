@@ -1,0 +1,108 @@
+"""PyTorch port on the card: each CUDA kernel against its plain version
+at small, ragged shapes. Marked `gpu`; skips without CUDA. This file
+imports no jax, so the card's machine runs it without the JAX package's
+conftest:
+
+  python -m pytest tests/test_torch_gpu.py --noconftest -m gpu -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mixmogam_tpu.data.simulate import simulate_genotypes
+from mixmogam_tpu_torch.models.emmax import emmax
+from mixmogam_tpu_torch.models.resident import ResidentGenome
+from mixmogam_tpu_torch.ops.hopper_kinship import (ibs_gram_packed,
+                                                   ibs_gram_packed_plain)
+from mixmogam_tpu_torch.ops.hopper_scan import (
+    rotate_scan_int8_packed, rotate_scan_int8_packed_plain, scan_stats,
+    scan_stats_plain)
+from mixmogam_tpu_torch.ops.reml import NullModel
+from mixmogam_tpu_torch.ops.scan import build_rotated_null
+
+torch.set_num_threads(1)
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "False)")
+    return torch.device("cuda")
+
+
+def _null(n, q, dev, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    U, _ = torch.linalg.qr(torch.randn(n, n, generator=g))
+    X0 = torch.cat([torch.ones(n, 1), torch.randn(n, q - 1, generator=g)],
+                   dim=1)
+    one = torch.ones(())
+    null = NullModel(phi=torch.rand(n, generator=g).sort(
+        descending=True).values, U=U, delta=one, log_delta=0 * one, ll=one,
+        sigma_g2=one, sigma_e2=one, pseudo_heritability=one / 2,
+        y=torch.randn(n, generator=g), X0=X0)
+    return NullModel(**{k: v.to(dev) for k, v in vars(null).items()})
+
+
+def _close(got, ref):
+    assert torch.equal(got[3] > 0.5, ref[3] > 0.5)
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,m", [(1002, 700), (64, 64), (257, 3001)])
+@pytest.mark.parametrize("ploidy", [1, 2])
+def test_k1_bit_equal(cuda, n, m, ploidy):
+    G, _, _ = simulate_genotypes(n, m, ploidy=ploidy, seed=n + m)
+    rg = ResidentGenome.from_source(G, tile=512, ploidy=ploidy, device=cuda)
+    before = ibs_gram_packed.launches
+    S = ibs_gram_packed(rg.packed, n, m, ploidy)
+    assert ibs_gram_packed.launches == before + 1
+    assert torch.equal(S, ibs_gram_packed_plain(rg.packed, n, m, ploidy))
+
+
+@pytest.mark.parametrize("tier", ["int8x2", "int8x3", "int8x4"])
+@pytest.mark.parametrize("n,q", [(1002, 1), (130, 3), (64, 16)])
+def test_k2_vs_plain(cuda, tier, n, q):
+    G, _, _ = simulate_genotypes(n, 900, seed=n)
+    rg = ResidentGenome.from_source(G, tile=512, device=cuda)
+    rot = build_rotated_null(_null(n, q, cuda), rotate_dtype=tier)
+    a = (rg.packed, n, rot.planes, rot.w_scale, rot.y_res, rot.Q0,
+         rot.rss0, rot.dof)
+    got = rotate_scan_int8_packed(*a)
+    _close(got, rotate_scan_int8_packed_plain(*a))
+    assert not (got[3, 900:] > 0.5).any()       # zero pad rows masked
+
+
+@pytest.mark.parametrize("n,q", [(1002, 1), (130, 3), (64, 16), (77, 5)])
+def test_k3_vs_plain(cuda, n, q):
+    G, _, _ = simulate_genotypes(n, 700, seed=n + 1)
+    rot = build_rotated_null(_null(n, q, cuda))
+    Xr = torch.as_tensor(G, device=cuda).float() @ rot.U
+    a = (Xr, rot.sd, rot.y_res, rot.Q0, rot.rss0, rot.dof)
+    _close(scan_stats(*a), scan_stats_plain(*a))
+
+
+def test_card_emmax_vs_cpu_float64(cuda):
+    from mixmogam_tpu.oracle.kinship import ibs_kinship, scale_k
+
+    G, _, _ = simulate_genotypes(300, 2000, seed=5, missing_rate=0.01)
+    Gf = G.astype(np.float64)
+    Gf[G < 0] = np.nan
+    K = scale_k(ibs_kinship(Gf))
+    y = np.nan_to_num(Gf[10], nan=0.5) + np.random.default_rng(0).normal(
+        size=300)
+    a = emmax(G, y, K=K, device="cuda")
+    b = emmax(G, y, K=K, device="cpu")
+    assert np.array_equal(a["mask"], b["mask"])
+    assert np.abs(a["ps"] - b["ps"]).max() <= 1e-5
+
+
+def test_cuda_wrappers_refuse_float64(cuda):
+    rot = build_rotated_null(_null(64, 1, cuda))
+    Xr = torch.zeros((8, 64), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        scan_stats(Xr, rot.sd.double(), rot.y_res.double(),
+                   rot.Q0.double(), rot.rss0, rot.dof)

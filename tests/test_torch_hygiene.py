@@ -1,0 +1,89 @@
+"""PyTorch port hygiene: no jax anywhere in the port, importing it builds
+or loads no kernel, and chip_smoke.py fails without a card."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "mixmogam_tpu_torch"
+_FORBIDDEN = ("mixmogam_tpu.ops", "mixmogam_tpu.models",
+              "mixmogam_tpu.parallel", "mixmogam_tpu.api",
+              "mixmogam_tpu.compat")
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+            if node.module == "mixmogam_tpu":
+                yield from (f"mixmogam_tpu.{a.name}" for a in node.names)
+
+
+def _bad(name):
+    return (name == "jax" or name.startswith("jax.")
+            or any(name == f or name.startswith(f + ".")
+                   for f in _FORBIDDEN))
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = [m for m in _imports(path) if _bad(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_ast_scan_catches_forbidden_forms(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import jax.numpy as jnp\nfrom mixmogam_tpu import ops\n"
+                 "from mixmogam_tpu.models.resident import x\n"
+                 "from mixmogam_tpu import native\n")
+    assert [m for m in _imports(f) if _bad(m)] == [
+        "jax.numpy", "mixmogam_tpu.ops", "mixmogam_tpu.models.resident"]
+
+
+def _run(code, cwd, **env):
+    e = dict(os.environ)
+    e.update(env)
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=e,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_importing_the_port_builds_nothing():
+    code = (
+        "import pkgutil, sys, importlib\n"
+        "import mixmogam_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "'mixmogam_tpu_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "from mixmogam_tpu_torch.ops import _build\n"
+        "assert _build._libs == {} and _build.BUILD_LOG == {}\n"
+        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert 'triton' not in sys.modules\n"
+        "print(len(mods))\n")
+    r = _run(code, ROOT, PYTHONPATH=str(ROOT))
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip()) >= 14
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_card(tmp_path, alone):
+    """Here torch has no CUDA: the script must exit non-zero and print no
+    result, in the repo and in a directory holding only the script."""
+    if alone:
+        (tmp_path / "chip_smoke.py").write_text(
+            (ROOT / "chip_smoke.py").read_text())
+        cwd, pp = tmp_path, ""
+    else:
+        cwd, pp = ROOT, str(ROOT)
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                       env={**os.environ, "PYTHONPATH": pp},
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
