@@ -6,16 +6,27 @@
 Phases (each prints its own seconds):
   1 device check: fails without CUDA; prints the card's name and power
     limit as nvidia-smi reports them
-  2 build the three CUDA kernels from mixmogam_tpu_torch/csrc
+  2 build the five CUDA kernels from mixmogam_tpu_torch/csrc, one nvcc
+    each, all started together
   3 each kernel against its plain PyTorch version on the card, at the
-    main path's shapes (K1 bit-equal for ploidy 1 and 2; K2 int8x3 and
-    K3 within f rtol 1e-4 / atol 1e-4, beta atol 1e-5, identical masks)
+    main path's shapes (n samples, one 16,384-row tile): K1 and K4 (over
+    a row range that starts mid-tile) bit-equal for ploidy 1 and 2; K2
+    int8x3, K3 and K5 (bf16, bf16x2, bf16x3, and bf16x3 on a genome with
+    2 % missing genotypes) within f rtol 1e-4 / atol 1e-4, beta atol
+    1e-5, identical masks
   4 the main path at full width: simulate -> ResidentGenome on the card
     -> kinship_resident (K1) -> scale_k -> eigh on the card (float64)
-    -> fit_null_model -> emmax_resident at 'exact' (K3) and 'int8x3'
-    (K2); every kernel's launch count must be > 0
+    -> fit_null_model -> emmax_resident at 'exact' (K3), 'int8x3' (K2)
+    and 'bf16x3' (K5); every kernel's launch count must be > 0, and each
+    fast tier within max |dp| 1e-4 of exact
   5 end-to-end accuracy: exact-tier emmax on the card vs the port's
     float64 CPU path at n = 2,048 x 8,192 (max |dp| <= 1e-5, same masks)
+  6 LOCO at full width on phase 4's genome, split into 5 chromosomes in
+    proportion to the Arabidopsis TAIR10 lengths (no boundary on a
+    tile): emmax_loco at 'exact' and at 'bf16x3', each launching K4
+    exactly once per chromosome and K1 once; bf16x3 within max |dp|
+    1e-4 of exact; one chromosome's K_loco equal to scale_k of K1's gram
+    over the other chromosomes' rows (max |d| <= 1e-12)
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}. Any
@@ -26,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import subprocess
 import sys
 import time
@@ -73,6 +85,14 @@ def _check_stats(name, got, ref):
     return df.max().item()
 
 
+def _check_no_jax() -> None:
+    """The port runs without JAX and without the JAX package."""
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "mixmogam_tpu"))
+    if bad:
+        raise AssertionError(f"the port imported {bad[:5]}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--samples", type=int, default=10_240)
@@ -97,37 +117,42 @@ def main(argv=None) -> int:
           f"python {sys.version.split()[0]} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     import numpy as np
+    # the p-values' scipy.stats takes seconds to import: load it here, not
+    # inside the first timed emmax call
+    import scipy.stats  # noqa: F401
 
-    from mixmogam_tpu.data.simulate import (simulate_genotypes,
-                                            simulate_phenotype)
-    from mixmogam_tpu.oracle.kinship import scale_k
+    from mixmogam_tpu_torch.data.simulate import (simulate_genotypes,
+                                                  simulate_phenotype)
     from mixmogam_tpu_torch.models.emmax import emmax
+    from mixmogam_tpu_torch.models.loco import emmax_loco, loco_kinships
     from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                     emmax_resident,
                                                     emmax_scan_packed,
-                                                    kinship_resident)
+                                                    kinship_resident,
+                                                    row_means_packed,
+                                                    scale_k)
     from mixmogam_tpu_torch.ops import _build
     from mixmogam_tpu_torch.ops.eigen import eigen_k
     from mixmogam_tpu_torch.ops.hopper_kinship import (
-        ibs_gram_packed, ibs_gram_packed_plain)
+        ibs_gram_packed, ibs_gram_packed_plain, ibs_gram_tri_packed,
+        ibs_gram_tri_packed_plain)
     from mixmogam_tpu_torch.ops.hopper_scan import (
+        rotate_scan_bf16_packed, rotate_scan_bf16_packed_plain,
         rotate_scan_int8_packed, rotate_scan_int8_packed_plain, scan_stats,
         scan_stats_plain)
     from mixmogam_tpu_torch.ops.reml import NullModel, fit_null_model
     from mixmogam_tpu_torch.ops.scan import build_rotated_null
 
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    _check_no_jax()
     dev = torch.device("cuda")
     _phase("1 device check", t0)
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    for name in ("ibs_gram", "rotate_scan_int8", "scan_stats"):
-        tb = time.perf_counter()
-        _build.build(name)
-        print(f"built {name}.cu in {time.perf_counter() - tb:.3f} s",
-              flush=True)
+    built = _build.build_all(("ibs_gram", "ibs_gram_tri", "rotate_scan_int8",
+                              "rotate_scan_bf16", "scan_stats"))
+    for name, sec in built.items():
+        print(f"built {name}.cu in {sec:.3f} s", flush=True)
         for line in _build.BUILD_LOG.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  ptxas {name}: {line.strip()}", file=sys.stderr)
@@ -158,7 +183,30 @@ def main(argv=None) -> int:
         if ploidy == 1:
             report["ibs_gram_packed"] = dict(max_abs_err=0.0, ms=ms,
                                              plain_ms=pms)
+        # K4 over a row range that starts and ends inside a tile; it must
+        # equal its plain version and K1 over the same rows
+        s3, e3 = rows // 5 + 3, rows - 123
+        S4 = ibs_gram_tri_packed(rgc.packed, n, s3, e3, ploidy)
+        S4_ref = ibs_gram_tri_packed_plain(rgc.packed, n, s3, e3, ploidy)
+        sub = rgc.slice_rows(s3, e3)
+        S1_sub = ibs_gram_packed(sub.packed, n, sub.M, ploidy)
+        if not (torch.equal(S4, S4_ref) and torch.equal(S4, S1_sub)):
+            raise AssertionError(
+                f"K4 ploidy {ploidy} rows [{s3}, {e3}): not bit-equal ("
+                f"{int((S4 != S4_ref).sum())} entries differ from the "
+                f"plain version, {int((S4 != S1_sub).sum())} from K1)")
+        ms = _cuda_ms(lambda: ibs_gram_tri_packed(rgc.packed, n, s3, e3,
+                                                  ploidy))
+        pms = _cuda_ms(lambda: ibs_gram_tri_packed_plain(rgc.packed, n, s3,
+                                                         e3, ploidy))
+        print(f"K4 ibs_gram_tri_packed ploidy {ploidy} n={n} rows "
+              f"[{s3}, {e3}): bit-equal (and to K1 on those rows), kernel "
+              f"{ms:.3f} ms, plain {pms:.3f} ms", flush=True)
+        if ploidy == 1:
+            report["ibs_gram_tri_packed"] = dict(max_abs_err=0.0, ms=ms,
+                                                 plain_ms=pms)
             G1, rg1 = Gc, rgc
+        del sub, S1_sub, S4, S4_ref
     # a rotated null at the main path's width: random orthonormal U
     g = torch.Generator(device=dev).manual_seed(args.seed)
     U, _ = torch.linalg.qr(torch.randn(n, n, generator=g, device=dev))
@@ -180,6 +228,30 @@ def main(argv=None) -> int:
                                              plain_ms=pms)
     print(f"K2 rotate_scan_int8_packed int8x3 n={n} rows={rows}: max|df| "
           f"{err:.3e}, kernel {ms:.3f} ms, plain {pms:.3f} ms", flush=True)
+    # K5 at each bf16 tier, then bf16x3 on a genome with 2 % missing
+    # genotypes (per-row means, rounded to bf16 in the kernel)
+    Gm, _, _ = simulate_genotypes(n, rows, ploidy=1, missing_rate=0.02,
+                                  seed=args.seed + 20)
+    rgm = ResidentGenome.from_source(Gm, device=dev)
+    mu = row_means_packed(rgm.packed, n, rgm.tile, torch.float32)
+    errs = []
+    for tier in ("bf16", "bf16x2", "bf16x3", "bf16x3 missing"):
+        rotb = build_rotated_null(null, tier.split()[0])
+        a5 = (rg1.packed, n, rotb.parts, rotb.y_res, rotb.Q0, rotb.rss0,
+              rotb.dof)
+        if tier.endswith("missing"):
+            a5 = (rgm.packed,) + a5[1:] + (mu,)
+        errs.append(_check_stats(f"K5 {tier}", rotate_scan_bf16_packed(*a5),
+                                 rotate_scan_bf16_packed_plain(*a5)))
+        ms = _cuda_ms(lambda: rotate_scan_bf16_packed(*a5))
+        pms = _cuda_ms(lambda: rotate_scan_bf16_packed_plain(*a5))
+        print(f"K5 rotate_scan_bf16_packed {tier} n={n} rows={rows}: "
+              f"max|df| {errs[-1]:.3e}, kernel {ms:.3f} ms, plain "
+              f"{pms:.3f} ms", flush=True)
+        if tier == "bf16x3":
+            report["rotate_scan_bf16_packed"] = dict(ms=ms, plain_ms=pms)
+    report["rotate_scan_bf16_packed"]["max_abs_err"] = max(errs)
+    del a5, rotb, rgm, Gm, mu
     rot = build_rotated_null(null)
     Xr = torch.as_tensor(G1, device=dev).float() @ rot.U
     a3 = (Xr, rot.sd, rot.y_res, rot.Q0, rot.rss0, rot.dof)
@@ -203,7 +275,8 @@ def main(argv=None) -> int:
                                    causal_effect=1.0, seed=args.seed)
     print(f"simulate {M} x {n}: {time.perf_counter() - ts:.3f} s",
           flush=True)
-    kernels = (ibs_gram_packed, rotate_scan_int8_packed, scan_stats)
+    kernels = (ibs_gram_packed, ibs_gram_tri_packed, rotate_scan_int8_packed,
+               rotate_scan_bf16_packed, scan_stats)
     for k in kernels:
         k.launches = 0
     ts = time.perf_counter()
@@ -226,7 +299,7 @@ def main(argv=None) -> int:
     print(f"fit_null_model: {time.perf_counter() - ts:.3f} s "
           f"(h2 {float(null.pseudo_heritability):.4f})", flush=True)
     res = {}
-    for tier in ("exact", "int8x3"):
+    for tier in ("exact", "int8x3", "bf16x3"):
         rot = build_rotated_null(null, None if tier == "exact" else tier)
         torch.cuda.synchronize()
         ts = time.perf_counter()
@@ -242,9 +315,9 @@ def main(argv=None) -> int:
         del rot
     launches = {k.__name__: k.launches for k in kernels}
     for name, cnt in launches.items():
-        if cnt <= 0:
+        if cnt <= 0 and name != "ibs_gram_tri_packed":
             raise AssertionError(f"main path never launched {name}")
-    ex, i8 = res["exact"], res["int8x3"]
+    ex = res["exact"]
     for tier, r in res.items():
         ps = r["ps"]
         if ps.shape != (M,) or not np.isfinite(ps).all() or (
@@ -252,14 +325,16 @@ def main(argv=None) -> int:
             raise AssertionError(f"{tier}: p-values malformed")
         if r["dof"] != n - 2:
             raise AssertionError(f"{tier}: dof {r['dof']} != {n - 2}")
-    dp = float(np.abs(i8["ps"] - ex["ps"]).max())
+    dps = {t: float(np.abs(res[t]["ps"] - ex["ps"]).max())
+           for t in ("int8x3", "bf16x3")}
     top = set(np.argsort(ex["ps"])[:20].tolist())
     hits = len(top & set(causal.tolist()))
-    print(f"int8x3 vs exact: max|dp| {dp:.3e}; causal SNPs among the "
-          f"exact top 20: {hits} of {len(causal)}", flush=True)
-    if dp > 1e-4 or hits < 3:
+    print(f"int8x3 vs exact: max|dp| {dps['int8x3']:.3e}; bf16x3 vs exact: "
+          f"max|dp| {dps['bf16x3']:.3e}; causal SNPs among the exact top "
+          f"20: {hits} of {len(causal)}", flush=True)
+    if max(dps.values()) > 1e-4 or hits < 3:
         raise AssertionError("main path results off")
-    del rg, G, K, phi, U, null, res, ex, i8
+    del G, K, phi, U, null, res, ex          # rg and y stay for phase 6
     torch.cuda.empty_cache()
     _phase("4 main path", t0)
 
@@ -279,6 +354,61 @@ def main(argv=None) -> int:
         raise AssertionError("card vs CPU p-values disagree")
     _phase("5 accuracy vs CPU float64", t0)
 
+    # ---- 6. LOCO at full width --------------------------------------------
+    t0 = time.perf_counter()
+    logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
+    logging.getLogger("mixmogam_tpu_torch.loco").setLevel(logging.INFO)
+    tair10_mb = np.array([30.43, 19.70, 23.46, 18.59, 26.98])
+    bounds = np.round(np.cumsum(tair10_mb) / tair10_mb.sum() * M).astype(int)
+    if (bounds[:-1] % rg.tile == 0).any():
+        raise AssertionError(f"a chromosome boundary is tile-aligned: "
+                             f"{bounds.tolist()}")
+    chrom = np.repeat(np.arange(1, 6), np.diff(np.r_[0, bounds]))
+    print(f"LOCO chromosome ends {bounds.tolist()} (tile {rg.tile})",
+          flush=True)
+    loco = {}
+    for tier, scan_kernel in (("exact", scan_stats),
+                              ("bf16x3", rotate_scan_bf16_packed)):
+        for k in kernels:
+            k.launches = 0
+        ts = time.perf_counter()
+        loco[tier] = emmax_loco(rg, y, chromosomes=chrom, precision=tier)
+        torch.cuda.synchronize()
+        run = {k.__name__: k.launches for k in kernels}
+        print(f"emmax_loco {tier}: {time.perf_counter() - ts:.3f} s; "
+              f"launches {run}", flush=True)
+        if (run["ibs_gram_tri_packed"] != 5 or run["ibs_gram_packed"] != 1
+                or run[scan_kernel.__name__] <= 0):
+            raise AssertionError(f"LOCO {tier}: launches {run}")
+        for name, cnt in run.items():
+            launches[name] += cnt
+    for tier, r in loco.items():
+        ps = r["ps"]
+        if ps.shape != (M,) or not np.isfinite(ps).all() or (
+                (ps < 0) | (ps > 1)).any():
+            raise AssertionError(f"LOCO {tier}: p-values malformed")
+    dpl = float(np.abs(loco["bf16x3"]["ps"] - loco["exact"]["ps"]).max())
+    print(f"LOCO bf16x3 vs exact: max|dp| {dpl:.3e}; deltas "
+          f"{[round(v['delta'], 6) for v in loco['exact']['loco'].values()]}",
+          flush=True)
+    if dpl > 1e-4:
+        raise AssertionError("LOCO bf16x3 disagrees with exact")
+    ts = time.perf_counter()
+    c, s_c, e_c = 3, bounds[1], bounds[2]
+    K_c = loco_kinships(rg, chrom)[c]
+    rest = torch.cat([rg.packed[:s_c], rg.packed[e_c:M]])
+    rg_rest = ResidentGenome(rest, rest.shape[0], n, rg.ploidy, rg.tile,
+                             False)
+    dk = float(np.abs(K_c - scale_k(kinship_resident(rg_rest))).max())
+    print(f"K_loco identity, chromosome {c}: max|d| {dk:.3e} "
+          f"({time.perf_counter() - ts:.3f} s)", flush=True)
+    if dk > 1e-12:
+        raise AssertionError("K_loco differs from the direct gram")
+    del rg, rg_rest, rest, K_c, loco
+    torch.cuda.empty_cache()
+    _check_no_jax()
+    _phase("6 LOCO", t0)
+
     for k in kernels:
         report[k.__name__]["launches"] = launches[k.__name__]
     meta = {
@@ -289,6 +419,12 @@ def main(argv=None) -> int:
             "mixmogam_tpu/ops/pallas_scan.py:369"),
         "scan_stats": ("cuda", "mixmogam_tpu_torch/csrc/scan_stats.cu",
                        "mixmogam_tpu/ops/pallas_scan.py:108"),
+        "ibs_gram_tri_packed": (
+            "cuda", "mixmogam_tpu_torch/csrc/ibs_gram_tri.cu",
+            "mixmogam_tpu/ops/pallas_kinship.py:112"),
+        "rotate_scan_bf16_packed": (
+            "cuda", "mixmogam_tpu_torch/csrc/rotate_scan_bf16.cu",
+            "mixmogam_tpu/ops/pallas_scan.py:221"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": meta[name][0], "source": meta[name][1],

@@ -12,10 +12,15 @@ int8 genome held 2-bit packed in device memory —
   per-tile scan           models.resident.emmax_scan_packed -> K2 / K3
   f64 p-values + rescore  models.streaming.finalize_scan
 
+Slice 2 adds leave-one-chromosome-out EMMAX (models.loco: emmax_loco,
+loco_kinships; per-chromosome range grams through kernel K4) and the
+split-W bf16 tiers 'bf16' / 'bf16x2' / 'bf16x3' (kernel K5).
+
 Modules keep the JAX package's paths and names. The port imports torch,
-numpy and scipy, and reuses the JAX package's jax-free host layers
-(``mixmogam_tpu.data``, ``.oracle``, ``.native``, ``.config``) by import;
-it never imports jax. The device is explicit: tensors on a CUDA device run
+numpy and scipy, and nothing of jax or of the JAX package: the few numpy
+helpers it shares with that package (data.simulate, scale_k) are copies,
+pinned to the originals by its tests, and it packs genotypes on the
+device itself. The device is explicit: tensors on a CUDA device run
 the hand-written Hopper kernels (``csrc/``, ``ops/hopper_*.py``), tensors
 on the CPU run each kernel's plain PyTorch version.
 """
@@ -23,7 +28,7 @@ on the CPU run each kernel's plain PyTorch version.
 __version__ = "0.1.0"
 
 __all__ = ["emmax", "emmax_resident", "kinship_resident", "ResidentGenome",
-           "__version__"]
+           "emmax_loco", "loco_kinships", "__version__"]
 
 
 def __getattr__(name):
@@ -36,5 +41,9 @@ def __getattr__(name):
         from mixmogam_tpu_torch.models import resident
 
         return getattr(resident, name)
+    if name in {"emmax_loco", "loco_kinships"}:
+        from mixmogam_tpu_torch.models import loco
+
+        return getattr(loco, name)
     raise AttributeError(
         f"module 'mixmogam_tpu_torch' has no attribute {name!r}")

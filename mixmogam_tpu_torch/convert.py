@@ -40,16 +40,24 @@ def null_from_numpy(phi, U, delta, log_delta, ll, sigma_g2, sigma_e2,
 def rotated_null_from_numpy(W, sd, Q0, y_res, rss0, dof, w_scale=None,
                             device="cpu", dtype=torch.float64):
     """RotatedNull from the JAX fields. An int8 W (K, n, n) is taken as
-    the digit planes, unchanged; a float W = U * sd (the exact tier)
-    becomes the port's U = W / sd, since the port whitens inside the
-    scan kernel."""
+    the digit planes, unchanged; a bfloat16 W (ml_dtypes) is taken as the
+    split-W parts: (K, n, n) stacked, (n, K*n) concat ('bf16xKc') or
+    (n, n) for the 1-pass 'bf16' tier (bf16 -> float32 -> bf16 is exact);
+    a float W = U * sd (the exact tier) becomes the port's U = W / sd,
+    since the port whitens inside the scan kernel."""
     from mixmogam_tpu_torch.ops.scan import RotatedNull
 
     W = np.asarray(W)
     sd_t = _t(sd, device, dtype)
-    planes = U = None
+    planes = U = parts = None
     if W.dtype == np.int8:
         planes = _t(W, device)
+    elif W.dtype.name == "bfloat16":
+        n = sd_t.shape[0]
+        P = W.astype(np.float32)
+        if P.ndim == 2:
+            P = P.reshape(n, -1, n).transpose(1, 0, 2)
+        parts = _t(P, device, torch.bfloat16)
     else:
         U = _t(W, device, dtype) / sd_t[None, :]
     Q0 = np.asarray(Q0)
@@ -58,7 +66,7 @@ def rotated_null_from_numpy(W, sd, Q0, y_res, rss0, dof, w_scale=None,
     return RotatedNull(
         sd=sd_t, Q0=_t(Q0, device, dtype), y_res=_t(y_res, device, dtype),
         rss0=_t(rss0, device, dtype), dof=_t(dof, device, dtype), U=U,
-        planes=planes,
+        planes=planes, parts=parts,
         w_scale=None if w_scale is None else _t(w_scale, device, dtype))
 
 
@@ -68,4 +76,5 @@ def resident_from_packed(host_packed, M, n, ploidy, tile, has_missing,
     from mixmogam_tpu_torch.models.resident import ResidentGenome
 
     hp = np.array(host_packed, dtype=np.uint8, order="C")
-    return ResidentGenome(hp, M, n, ploidy, tile, has_missing, device)
+    return ResidentGenome(torch.from_numpy(hp).to(device), M, n, ploidy,
+                          tile, has_missing, host_packed=hp)

@@ -20,6 +20,7 @@
 // multiply-adds). Device-memory traffic is the K planes (K * n^2 bytes),
 // re-read once per block of TM = 128 rows, i.e. 128 int8 MACs per byte;
 // the blocks in flight walk the planes in step, so most of it hits L2.
+// The row sums and the epilogue are scan_epilogue.cuh, shared with K5.
 // Design: 8 warps; each warp owns a 32-row x 32-column tile of one
 // 128 x 64 output step and issues mma.sync m16n8k32 s8 x s8 -> s32 per
 // plane (int32 sums are exact, so the result does not depend on the
@@ -35,20 +36,21 @@
 // or wgmma yet.
 
 #include <cstdint>
-#include <cfloat>
 #include <cuda_runtime.h>
+
+#include "scan_epilogue.cuh"
 
 namespace {
 
-constexpr int TM = 128;      // SNP rows per block
+using scan_epi::QMAX;
+using scan_epi::THREADS;
+using scan_epi::TM;
+using scan_epi::WN;
 constexpr int TN = 64;       // output columns per step
 constexpr int TK = 64;       // input samples per chunk
 constexpr int GW = TK / 16;  // 32-bit words of packed G per row per chunk
 constexpr int WST = TK + 16; // bytes per plane column in shared memory:
                              // 80 keeps the B fragment reads conflict-free
-constexpr int THREADS = 256;
-constexpr int WN = 2;        // warps along the output columns
-constexpr int QMAX = 16;
 
 // one packed byte (4 samples, 2 bits each) -> 4 int8 lanes; code 3
 // (missing, or column padding beyond n) becomes 0
@@ -78,7 +80,7 @@ rotate_scan_int8_kernel(const uint8_t* __restrict__ packed, long long rows,
                         float dof, float* __restrict__ out) {
   __shared__ uint32_t sG[TM * GW];                   // [row][word]
   __shared__ __align__(16) uint8_t sW[NP * TN * WST];  // [p][col][k]
-  __shared__ float ss_s[WN][TM], xy_s[WN][TM], cc_s[WN][TM * QMAX];
+  __shared__ scan_epi::Sums sums;
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
@@ -89,11 +91,7 @@ rotate_scan_int8_kernel(const uint8_t* __restrict__ packed, long long rows,
   const int t4 = lane % 4;                    // mma threadID_in_group
   const long long r0 = (long long)blockIdx.x * TM;
 
-  for (int t = tid; t < WN * TM; t += THREADS) {
-    (&ss_s[0][0])[t] = 0.f;
-    (&xy_s[0][0])[t] = 0.f;
-  }
-  for (int t = tid; t < WN * TM * QMAX; t += THREADS) (&cc_s[0][0])[t] = 0.f;
+  scan_epi::zero_sums(sums);
 
   // this thread's share of one chunk: 2 words of packed G, NP x 16 bytes
   // of planes (TN * TK / 16 == THREADS)
@@ -176,18 +174,14 @@ rotate_scan_int8_kernel(const uint8_t* __restrict__ packed, long long rows,
     }
 
     // recombine the planes in f32 (low digit first, as XLA does), then
-    // this column step's row partial sums. Accumulator element i of tile
-    // (mt, nt) sits at row g + 8 * (i / 2), column 2 * t4 + i % 2.
+    // this column step's row partial sums
     float xs[2][4][4];
-    float yr[4][2], ws[4][2];
+    float ws[4][2];
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int j = j0 + wn * 32 + nt * 8 + 2 * t4 + e;
-        yr[nt][e] = y_res[j];
-        ws[nt][e] = w_scale[j];
-      }
+      for (int e = 0; e < 2; ++e)
+        ws[nt][e] = w_scale[j0 + wn * 32 + nt * 8 + 2 * t4 + e];
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -203,78 +197,10 @@ rotate_scan_int8_kernel(const uint8_t* __restrict__ packed, long long rows,
           }
           xs[mt][nt][i] = x * ws[nt][i % 2];
         }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int lr = wm * 32 + mt * 16 + h * 8 + g;
-        float ss = 0.f, xy = 0.f;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float x = xs[mt][nt][2 * h + e];
-            ss += x * x;
-            xy += x * yr[nt][e];
-          }
-#pragma unroll
-        for (int off = 1; off < 4; off <<= 1) {
-          ss += __shfl_xor_sync(0xffffffffu, ss, off);
-          xy += __shfl_xor_sync(0xffffffffu, xy, off);
-        }
-        if (t4 == 0) {
-          ss_s[wn][lr] += ss;
-          xy_s[wn][lr] += xy;
-        }
-      }
-    for (int qq = 0; qq < q; ++qq) {
-      float qv[4][2];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          qv[nt][e] =
-              q0[(long long)(j0 + wn * 32 + nt * 8 + 2 * t4 + e) * q + qq];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float cc = 0.f;
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) cc += xs[mt][nt][2 * h + e] * qv[nt][e];
-#pragma unroll
-          for (int off = 1; off < 4; off <<= 1)
-            cc += __shfl_xor_sync(0xffffffffu, cc, off);
-          if (t4 == 0)
-            cc_s[wn][(wm * 32 + mt * 16 + h * 8 + g) * QMAX + qq] += cc;
-        }
-    }
+    scan_epi::scan_step_sums(xs, j0, wm, wn, g, t4, y_res, q0, q, sums);
   }
   __syncthreads();
-
-  if (tid < TM && r0 + tid < rows) {
-    const float eps = 100.f * FLT_EPSILON;
-    const float tiny = FLT_MIN;
-    const float ss = ss_s[0][tid] + ss_s[1][tid];
-    const float xy = xy_s[0][tid] + xy_s[1][tid];
-    float c2 = 0.f;
-    for (int qq = 0; qq < q; ++qq) {
-      const float c = cc_s[0][tid * QMAX + qq] + cc_s[1][tid * QMAX + qq];
-      c2 += c * c;
-    }
-    const float xx = ss - c2;
-    const bool mask = xx > eps * fmaxf(ss, tiny);
-    const float xx_safe = mask ? xx : 1.f;
-    const float expl = mask ? fminf(xy * xy / xx_safe, rss0) : 0.f;
-    const float rss1 = fmaxf(rss0 - expl, tiny);
-    const long long row = r0 + tid;
-    out[row] = mask ? expl * dof / rss1 : 0.f;
-    out[rows + row] = mask ? xy / xx_safe : 0.f;
-    out[2 * rows + row] = mask ? expl / rss0 : 0.f;
-    out[3 * rows + row] = mask ? 1.f : 0.f;
-  }
+  scan_epi::scan_write_stats(sums, r0, rows, q, rss0, dof, out);
 }
 
 template <int NP>

@@ -3,9 +3,11 @@ _as_dosage, _as_design, emmax).
 
 Ported routes: the resident route (a ResidentGenome, or a big int8
 source auto-packed onto the card) and the in-core route (the whole
-genome on the scan's device, exact tier). An int8 tier on in-core
+genome on the scan's device, exact tier). An int8 or bf16 tier on in-core
 integer dosages packs them and takes the resident route, where kernel K2
-reads packed rows. Streaming (stream=True, checkpoint_dir=) and meshes
+(int8) or K5 (bf16, which also takes missing genotypes) reads packed
+rows. Fractional dosages at a bf16 tier wait for a float-tile loader
+(ROADMAP Queue 1); streaming (stream=True, checkpoint_dir=) and meshes
 wait for ROADMAP slice 3.
 """
 
@@ -18,11 +20,10 @@ import torch
 
 
 def _as_dosage(G, dtype) -> np.ndarray:
-    """GenotypeData or array -> (M, n) float array (numpy dtype) with the
-    per-SNP mean imputation (int8: -1 = missing; float: NaN = missing)."""
-    from mixmogam_tpu.data.genotype import GenotypeData
-
-    if isinstance(G, GenotypeData):
+    """GenotypeData (anything with dosage_f64()) or array -> (M, n) float
+    array (numpy dtype) with the per-SNP mean imputation (int8: -1 =
+    missing; float: NaN = missing)."""
+    if hasattr(G, "dosage_f64"):
         return G.dosage_f64().astype(dtype)
     G = np.asarray(G)
     if G.dtype == np.int8:
@@ -84,20 +85,21 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
     device: where the scan runs ('cuda' for the card; default the CPU).
     A ResidentGenome scans on its own device. dtype (a torch dtype)
     defaults to float32 on the card and float64 on the CPU. precision:
-    'exact' / 'int8x2' / 'int8x3' / 'int8x4'; 'auto' and 'fast' resolve
-    to 'exact'."""
+    'exact', 'bf16' / 'bf16x2' / 'bf16x3' (and the 'c' spellings) or
+    'int8x2' / 'int8x3' / 'int8x4'; 'auto' and 'fast' resolve to
+    'exact'."""
     from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                     _default_dtype,
                                                     emmax_resident,
                                                     resident_budget_bytes)
-    from mixmogam_tpu_torch.models.source import (resolve_source,
+    from mixmogam_tpu_torch.models.source import (as_int8_dosage,
+                                                  resolve_source,
                                                   should_stream)
     from mixmogam_tpu_torch.models.streaming import finalize_scan
     from mixmogam_tpu_torch.ops.reml import (esp_to_refine_iters,
                                              fit_null_model)
     from mixmogam_tpu_torch.ops.scan import (build_rotated_null,
                                              emmax_scan_stats,
-                                             is_integer_dosage,
                                              normalize_rotate_tier,
                                              resolve_precision)
 
@@ -140,31 +142,41 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
             "this source exceeds the card's in-core budget and does not "
             "fit 2-bit packed; streaming is ROADMAP slice 3 item 15")
 
-    G_raw = G.matrix if hasattr(G, "matrix") else np.asarray(G)
-    if (isinstance(G_raw, np.ndarray) and G_raw.dtype == np.int8
-            and not (G_raw < 0).any()):
-        Gf = G_raw
-    else:
-        Gf = _as_dosage(G, np.float64)
     rb = rotate_in_bf16
     if precision is not None:
         if rotate_in_bf16:
             raise ValueError("pass either precision= or the legacy "
                              "rotate_in_bf16 kwarg, not both")
         rb, _ = resolve_precision(precision)
-    if normalize_rotate_tier(rb) is not None:
-        # int8 tiers run on packed rows (kernel K2): pack the integer
-        # dosages and take the resident route
-        if not is_integer_dosage(Gf):
+    rd = normalize_rotate_tier(rb)
+    if rd is not None:
+        # int8 and bf16 tiers run on packed rows (kernels K2 / K5): pack
+        # the integer dosages (-1 / NaN missing; K5 imputes per row) and
+        # take the resident route
+        G8 = as_int8_dosage(G)
+        if rd.startswith("int8") and (G8 is None
+                                      or (np.asarray(G8) < 0).any()):
             raise ValueError(
-                f"tier {precision or rotate_in_bf16!r} requires integer "
-                "dosages (the digit-plane products take int8 genotypes; "
-                "mean-imputed fractional dosages would be silently "
-                "altered). Use the exact tier for imputed dosages.")
-        rg = ResidentGenome.from_source(np.round(Gf).astype(np.int8),
-                                        tile=tile, device=device)
+                f"tier {precision or rotate_in_bf16!r} requires "
+                "integer dosages (the digit-plane products take int8 "
+                "genotypes; mean-imputed fractional dosages would be "
+                "silently altered). Use the exact tier for imputed "
+                "dosages.")
+        if G8 is None:
+            raise NotImplementedError(
+                f"tier {precision or rotate_in_bf16!r} on fractional "
+                "dosages needs the float-tile bf16 loader, which is "
+                "not ported yet (ROADMAP Queue 1 item 17); use the "
+                "exact tier")
+        rg = ResidentGenome.from_source(G8, tile=tile, device=device)
         return emmax_resident(rg, y, K=K, X0=X0, eig_k=eig_k, dtype=dtype,
                               **kw)
+    G_raw = G.matrix if hasattr(G, "matrix") else np.asarray(G)
+    if (isinstance(G_raw, np.ndarray) and G_raw.dtype == np.int8
+            and not (G_raw < 0).any()):
+        Gf = G_raw
+    else:
+        Gf = _as_dosage(G, np.float64)
     if X0 is None:
         X0 = np.ones((n, 1))
     X0 = _as_design(X0, n)

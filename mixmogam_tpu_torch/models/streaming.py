@@ -9,15 +9,22 @@ import numpy as np
 import torch
 
 
-def _impute_tile(t_i8: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
-    """int8 tile (m, n) with -1 missing -> float (dtype), per-SNP mean
-    imputed on the tensor's device (oracle.kinship.mean_impute's rule)."""
+def _impute_means(t_i8: torch.Tensor, dtype=torch.float32):
+    """(per-SNP means (m, 1) over the observed dosages in dtype, 0 for an
+    all-missing row; the missing mask; the tile in dtype) — the rule of
+    _impute_tile, shared with the bf16 scan's per-row means."""
     t = t_i8.to(dtype)
     miss = t_i8 < 0
     obs = torch.where(miss, torch.zeros((), dtype=dtype,
                                         device=t.device), t)
     cnt = torch.clamp((~miss).sum(dim=1, keepdim=True), min=1)
-    mu = obs.sum(dim=1, keepdim=True) / cnt
+    return obs.sum(dim=1, keepdim=True) / cnt, miss, t
+
+
+def _impute_tile(t_i8: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """int8 tile (m, n) with -1 missing -> float (dtype), per-SNP mean
+    imputed on the tensor's device (oracle.kinship.mean_impute's rule)."""
+    mu, miss, t = _impute_means(t_i8, dtype)
     return torch.where(miss, mu, t)
 
 
@@ -38,19 +45,23 @@ def _host_float_tile(chunk: np.ndarray, dtype) -> np.ndarray:
 def finalize_scan(matrix_source, null, dtype, f_stats, mask,
                   betas=None, var_perc=None, with_betas: bool = True,
                   rescore_top: int = 0, rd=None, tier_name=None,
-                  dof: int = 0):
+                  dof: int = 0, rescore_cut_M=None):
     """p-value finalize + threshold-complete exact rescore + output dict,
     shared by the in-core and resident paths. f_stats/mask (and betas/
     var_perc when given) are float64/bool host arrays, patched in place by
-    the rescore pass, which engages only on an int8 tier (rd set)."""
-    from mixmogam_tpu_torch.ops.scan import select_rescore_idx
+    the rescore pass, which engages only on an int8 or bf16 tier (rd set).
+    rescore_cut_M: the study's SNP count for the rescore cut when these
+    rows are part of it (LOCO); default the row count."""
+    from mixmogam_tpu_torch.ops.scan import (select_rescore_idx,
+                                             tier_drift_name)
     from mixmogam_tpu_torch.ops.stats import f_sf_host as _fsf
 
     dof = int(dof)
     ps = np.where(mask, _fsf(f_stats, 1.0, dof), 1.0)
     rescored = np.zeros(0, dtype=np.int64)
     if rescore_top and rd is not None:
-        idx = select_rescore_idx(ps, rescore_top, rd)
+        idx = select_rescore_idx(ps, rescore_top, tier_drift_name(rd),
+                                 M_cut=rescore_cut_M)
         idx, d_ex = _exact_rescore(matrix_source, idx, null, dtype)
         f_stats[idx] = d_ex["f_stats"]
         mask[idx] = d_ex["mask"]

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exports a plain C interface and is compiled by
 ``nvcc`` alone (no PyTorch headers: seconds, not minutes) into
-``mixmogam_tpu_torch/_kernels/<name>-<hash>.so``, keyed on the source's
-content, and loaded with ctypes. Every pointer and the stream cross as
+``mixmogam_tpu_torch/_kernels/<name>-<hash>.so``, keyed on the content of
+the source and of the shared headers (``csrc/*.cuh``), and loaded with
+ctypes. Every pointer and the stream cross as
 ``c_void_p``; each C entry returns ``cudaGetLastError()`` after its launch
 and the wrappers raise when it is not 0. A failed build raises — there
 is no fallback.
@@ -12,11 +13,13 @@ is no fallback.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -44,28 +47,53 @@ def _nvcc() -> str:
     return found
 
 
+def _compile(name: str) -> str:
+    """Path of ``csrc/<name>.cu``'s shared library; runs nvcc when no
+    library of the current sources is cached."""
+    src = os.path.join(CSRC, name + ".cu")
+    h = hashlib.sha256()
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    os.makedirs(KERNEL_DIR, exist_ok=True)
+    so = os.path.join(KERNEL_DIR, f"{name}-{h.hexdigest()[:12]}.so")
+    if not os.path.exists(so):
+        tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
+        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                           capture_output=True, text=True)
+        BUILD_LOG[name] = r.stdout + r.stderr
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{r.stderr}")
+        os.replace(tmp, so)
+    return so
+
+
 def build(name: str) -> ctypes.CDLL:
     """Compile (if needed) and load ``csrc/<name>.cu``."""
     with _lock:
         lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        src = os.path.join(CSRC, name + ".cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:12]
-        os.makedirs(KERNEL_DIR, exist_ok=True)
-        so = os.path.join(KERNEL_DIR, f"{name}-{digest}.so")
-        if not os.path.exists(so):
-            tmp = f"{so}.{os.getpid()}.tmp"
-            r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                               capture_output=True, text=True)
-            BUILD_LOG[name] = r.stdout + r.stderr
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src}:\n{r.stderr}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
-        _libs[name] = lib
+        if lib is None:
+            lib = _libs[name] = ctypes.CDLL(_compile(name))
         return lib
+
+
+def build_all(names) -> Dict[str, float]:
+    """Compile the named kernels with one nvcc each, all started
+    together, then load them; returns each compile's seconds. Raises if
+    any build fails."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(name):
+        t0 = time.perf_counter()
+        _compile(name)
+        return time.perf_counter() - t0
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as ex:
+        secs = dict(zip(names, ex.map(one, names)))
+    for name in names:
+        build(name)
+    return secs
 
 
 def check_launch(rc: int, what: str) -> None:

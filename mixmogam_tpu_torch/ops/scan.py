@@ -6,14 +6,17 @@ With eigh(K) = (phi, U) and the null REML delta, sd = 1/sqrt(phi+delta):
   c  = Xs @ Q0, xy = Xs @ y_res, xx = row_sum(Xs^2) - row_sum(c^2)
   F  = (xy^2/xx) * dof / (rss0 - xy^2/xx)
 
-Tiers ported in this slice: 'exact' (full fp32 GEMM G @ U on the card,
-then the scan_stats kernel K3 whitens and runs the epilogue) and the int8
-digit-plane tiers 'int8x2/3/4' (kernel K2 on the packed rows). The bf16
-tiers and 'high' wait for ROADMAP Queue 2 (kernel #4). On CUDA, 'auto' and
+Tiers: 'exact' (full fp32 GEMM G @ U on the card, then the scan_stats
+kernel K3 whitens and runs the epilogue), the int8 digit-plane tiers
+'int8x2/3/4' (kernel K2 on the packed rows) and the split-W bf16 tiers
+'bf16' / 'bf16x2' / 'bf16x3' (kernel K5 on the packed rows; the 'c'
+concat spellings are an XLA layout choice and take the same K5 path).
+'high' would mean TF32 on the card, which the port pins off
+(ops/__init__.py); it raises (ROADMAP Queue 1). On CUDA, 'auto' and
 'fast' resolve to 'exact', as resolve_precision does off-TPU in the JAX
-package. is_integer_dosage, TIER_P_DRIFT, rescore_p_cut and
-select_rescore_idx are numpy-only copies of the JAX functions, pinned to
-the originals by tests/test_torch_ops.py.
+package. TIER_P_DRIFT, tier_drift_name, rescore_p_cut and
+select_rescore_idx are numpy-only copies of the JAX functions, pinned
+to the originals by tests/test_torch_ops.py and tests/test_torch_bf16.py.
 """
 
 from __future__ import annotations
@@ -26,19 +29,20 @@ import torch
 
 from mixmogam_tpu_torch.ops.reml import NullModel
 
-_NOT_PORTED = ("the {} tier is not ported yet (ROADMAP Queue 2: the "
-               "bf16/split-W rotate+scan kernel); use 'exact' or "
-               "'int8x2'/'int8x3'/'int8x4'")
+_HIGH_NOT_PORTED = ("the 'high' tier (a TF32 rotation GEMM on the card) is "
+                    "not ported: the port pins TF32 off (ROADMAP Queue 1); "
+                    "use 'exact', 'bf16x3' or 'int8x3'")
 
 
 @dataclasses.dataclass
 class RotatedNull:
     """Scan-phase constants, on the scan's device in its compute dtype.
 
-    Exactly one of U / planes is set: the exact tier rotates by the
-    eigenbasis U and whitens by sd inside the scan kernel; the int8 tiers
-    carry the digit planes of W = U * sd (low digit first) with their
-    per-column power-of-two scale w_scale."""
+    Exactly one of U / planes / parts is set: the exact tier rotates by
+    the eigenbasis U and whitens by sd inside the scan kernel; the int8
+    tiers carry the digit planes of W = U * sd (low digit first) with
+    their per-column power-of-two scale w_scale; the bf16 tiers carry the
+    split-W parts of W = U * sd (largest first; W ~ sum of the parts)."""
 
     sd: torch.Tensor                 # (n,) 1/sqrt(phi+delta)
     Q0: torch.Tensor                 # (n, q) orthonormal whitened design
@@ -48,60 +52,63 @@ class RotatedNull:
     U: Optional[torch.Tensor] = None       # (n, n) exact tier
     planes: Optional[torch.Tensor] = None  # (K, n, n) int8, int8xK tiers
     w_scale: Optional[torch.Tensor] = None  # (n,) int8xK tiers
+    parts: Optional[torch.Tensor] = None   # (K, n, n) bf16, bf16 tiers
 
 
-_ROTATE_TIERS = frozenset({"int8x2", "int8x3", "int8x4"})
+_INT8_TIERS = frozenset({"int8x2", "int8x3", "int8x4"})
 _BF16_TIERS = frozenset({"bf16x2", "bf16x3", "bf16x2c", "bf16x3c"})
+_ROTATE_TIERS = _INT8_TIERS | _BF16_TIERS
 
 
 def normalize_rotate_tier(rotate_in_bf16):
-    """The JAX package's tier spelling -> None (exact fp32) or an
-    'int8xK' name. bf16 spellings raise NotImplementedError, unknown
-    names ValueError."""
+    """The JAX package's tier spelling -> None (exact fp32), 'bf16' (the
+    1-pass tier, which the JAX function returns as jnp.bfloat16) or a
+    split/digit tier name ('bf16x3', 'int8x3', ...). Unknown names raise
+    ValueError, as in the JAX package."""
     if not rotate_in_bf16:
         return None
     if rotate_in_bf16 is True:
-        raise NotImplementedError(_NOT_PORTED.format("bf16"))
+        return "bf16"
     s = str(rotate_in_bf16)
     if s in ("bf16", "bfloat16"):
-        raise NotImplementedError(_NOT_PORTED.format("bf16"))
+        return "bf16"
     if not s.startswith(("bf16", "int8")):
         s = "bf16" + s
-    if s in _BF16_TIERS:
-        raise NotImplementedError(_NOT_PORTED.format(s))
     if s not in _ROTATE_TIERS:
         raise ValueError(
             f"unknown rotation tier {rotate_in_bf16!r}; choose from "
-            f"False (exact fp32), {sorted(_ROTATE_TIERS)}")
+            f"False (exact fp32), True/'bf16', {sorted(_ROTATE_TIERS)}")
     return s
 
 
-def is_integer_dosage(G) -> bool:
-    """True when every dosage is an exact small integer (int8-safe)."""
-    G = np.asarray(G)
-    if np.issubdtype(G.dtype, np.integer):
-        return bool(G.min(initial=0) >= 0 and G.max(initial=0) <= 127)
-    if not np.issubdtype(G.dtype, np.floating):
-        return False
-    if G.size and (np.isnan(G).any() or np.abs(G).max() > 127):
-        return False
-    return bool(np.array_equal(G, np.round(G)))
+def bf16_parts_count(rotate_dtype) -> int:
+    """Number of split-W parts of a bf16 tier name ('bf16' -> 1), 0 for
+    any other tier."""
+    if rotate_dtype == "bf16":
+        return 1
+    return int(rotate_dtype[5]) if rotate_dtype in _BF16_TIERS else 0
 
 
-#: user-facing precision names -> rotate tier (ported tiers only)
-PRECISION_TIERS = {"exact": False, "int8x2": "int8x2", "int8x3": "int8x3",
-                   "int8x4": "int8x4"}
+#: user-facing precision names -> rotate tier ('high' is refused)
+PRECISION_TIERS = {
+    "exact": False,
+    "bf16": True,
+    "bf16x2": "bf16x2", "bf16x3": "bf16x3",
+    "bf16x2c": "bf16x2c", "bf16x3c": "bf16x3c",
+    "int8x2": "int8x2", "int8x3": "int8x3", "int8x4": "int8x4",
+}
 
 
 def resolve_precision(precision: str):
     """Resolve a unified `precision` name -> (rotate tier, resolved name).
     'auto' and 'fast' resolve to 'exact': their int8 routing was measured
-    on the TPU only (ROADMAP H100 cell 1(a) decides it for the card)."""
+    on the TPU only (ROADMAP H100 cell 1(a) decides it for the card).
+    'high' raises NotImplementedError: on the card it would be TF32."""
     p = str(precision)
     if p in ("auto", "fast"):
         p = "exact"
-    if p == "high" or p.startswith("bf16"):
-        raise NotImplementedError(_NOT_PORTED.format(p))
+    if p == "high":
+        raise NotImplementedError(_HIGH_NOT_PORTED)
     if p not in PRECISION_TIERS:
         raise ValueError(
             f"unknown precision tier {precision!r}; choose from "
@@ -124,6 +131,14 @@ TIER_P_DRIFT = {
 }
 
 
+def tier_drift_name(rd, matmul_precision=None) -> str:
+    """normalize_rotate_tier's result (+ matmul_precision) -> the
+    TIER_P_DRIFT key of the active scan tier."""
+    if isinstance(rd, str):
+        return rd
+    return matmul_precision or "exact"
+
+
 def rescore_p_cut(M: int, tier, alpha: float = 0.05,
                   safety: float = 8.0) -> float:
     """Fast-tier p cut below which every SNP is exactly re-scored:
@@ -133,27 +148,60 @@ def rescore_p_cut(M: int, tier, alpha: float = 0.05,
 
 
 def select_rescore_idx(ps, rescore_top: int, tier,
-                       alpha: float = 0.05, safety: float = 8.0):
+                       alpha: float = 0.05, safety: float = 8.0,
+                       M_cut: Optional[int] = None):
     """{all SNPs with p <= rescore_p_cut} ∪ {top rescore_top by p},
-    uncapped (the JAX package's threshold-complete rescore contract)."""
+    uncapped (the JAX package's threshold-complete rescore contract).
+    M_cut: the SNP count of the Bonferroni cut when ps covers only part of
+    the study (a LOCO chromosome); default len(ps)."""
     ps = np.asarray(ps)
-    M = ps.shape[0]
-    k = min(int(rescore_top), M)
+    M = ps.shape[0] if M_cut is None else int(M_cut)
+    k = min(int(rescore_top), ps.shape[0])
     cand = np.argsort(ps, kind="stable")[:k]
     near = np.flatnonzero(ps <= rescore_p_cut(M, tier, alpha, safety))
     return np.union1d(cand, near)
 
 
+def _flush_subnormal(x: torch.Tensor) -> torch.Tensor:
+    """float32 subnormals -> signed zero, as XLA gives them (flush-to-zero
+    in its float64 -> float32 convert and its arithmetic, on the CPU and
+    the TPU); torch keeps them. Only entries below 1.2e-38 are touched.
+    The card's parts go through it too: a W built on the card then splits
+    into the same parts as the JAX package's, and a JAX W carried over by
+    convert.py scans like one built here."""
+    return torch.where(x.abs() < torch.finfo(torch.float32).tiny, x * 0, x)
+
+
 def quantize_rotation(W: torch.Tensor, rotate_dtype, sd_dtype=None):
-    """(n, n) W -> ((K, n, n) int8 balanced base-256 digit planes, low
-    digit first; (n,) power-of-two column scale) for 'int8xK'. Bit-equal
-    to the JAX package's quantize_rotation (tests/test_torch_ops.py):
-    torch.remainder / floor_divide follow Python's sign rule like jnp's
-    % and //."""
+    """(n, n) W -> its representation in the tier `rotate_dtype`:
+
+    - 'int8xK': ((K, n, n) int8 balanced base-256 digit planes, low digit
+      first; (n,) power-of-two column scale). torch.remainder /
+      floor_divide follow Python's sign rule like jnp's % and //.
+    - 'bf16' / 'bf16xK' (and the 'c' spellings): ((K, n, n) bf16 split-W
+      parts, None). The residual stays in float32 and each part is its
+      round-to-nearest-even bf16 cast, as XLA's convert; 'bf16' is K = 1.
+      Subnormal residuals flush to zero as in XLA, which makes the parts
+      bit-equal to JAX's for a float64 W; for a float32 W with subnormal
+      entries (below 1.2e-38) the lower parts may differ from XLA's.
+
+    Bit-equal to the JAX package's quantize_rotation
+    (tests/test_torch_ops.py, tests/test_torch_bf16.py)."""
     if rotate_dtype is None:
         return W, None
-    if rotate_dtype not in _ROTATE_TIERS:
-        raise NotImplementedError(_NOT_PORTED.format(rotate_dtype))
+    k = bf16_parts_count(rotate_dtype)
+    if k:
+        resid = W.to(torch.float32)
+        if W.dtype != torch.float32:
+            resid = _flush_subnormal(resid)
+        parts = []
+        for _ in range(k):
+            p = resid.to(torch.bfloat16)
+            parts.append(p)
+            resid = _flush_subnormal(resid - p.to(torch.float32))
+        return torch.stack(parts), None
+    if rotate_dtype not in _INT8_TIERS:
+        raise ValueError(f"unknown rotation tier {rotate_dtype!r}")
     if sd_dtype is None:
         sd_dtype = W.dtype
     k = int(rotate_dtype[5])
@@ -178,11 +226,27 @@ def quantize_rotation(W: torch.Tensor, rotate_dtype, sd_dtype=None):
 def apply_rotation(G_tile: torch.Tensor, W: torch.Tensor, w_scale, dt
                    ) -> torch.Tensor:
     """Xs = G_tile @ W in plain torch, accumulated and returned in dt, for
-    the exact tier (float W) and the int8xK tiers (W = the (K, n, n) digit
-    planes with their scale w_scale). Each plane product runs in float64,
-    which is exact for these integers (|sum| <= 2 * 128 * n << 2^53), so
-    it equals the int32 accumulation of kernel K2 and of XLA; the
-    base-256 recombine follows in dt, as in the JAX package."""
+    the exact tier (float W), the int8xK tiers (W = the (K, n, n) digit
+    planes with their scale w_scale) and the bf16 tiers (W = the (K, n, n)
+    bf16 parts).
+
+    int8: each plane product runs in float64, which is exact for these
+    integers (|sum| <= 2 * 128 * n << 2^53), so it equals the int32
+    accumulation of kernel K2 and of XLA; the base-256 recombine follows
+    in dt, as in the JAX package.
+
+    bf16: G is rounded to bf16 first (as XLA's G.astype(bf16); integer
+    dosages are exact, imputed means round), then each part's product runs
+    on float64 copies: a bf16 x bf16 product is exact in float64, so this
+    is XLA's dot with preferred_element_type=dt up to summation order. A
+    bf16 `@` on the CPU would round its output to bf16."""
+    if W.dtype == torch.bfloat16:
+        Gd = G_tile.to(torch.bfloat16).to(torch.float64)
+        Xs = None
+        for i in range(W.shape[0]):
+            term = (Gd @ W[i].to(torch.float64)).to(dt)
+            Xs = term if Xs is None else Xs + term
+        return Xs
     if W.dtype != torch.int8:
         return (G_tile.to(W.dtype) @ W).to(dt)
     Gd = G_tile.to(torch.float64)
@@ -195,15 +259,19 @@ def apply_rotation(G_tile: torch.Tensor, W: torch.Tensor, w_scale, dt
 
 def build_rotated_null(null: NullModel, rotate_dtype=None) -> RotatedNull:
     """Scan constants of the null model, on the null's device and dtype.
-    rotate_dtype: None (exact) or 'int8x2' / 'int8x3' / 'int8x4'."""
+    rotate_dtype: None (exact), a bf16 tier ('bf16', 'bf16x2', 'bf16x3',
+    'bf16x2c', 'bf16x3c') or an int8 tier ('int8x2' / 'int8x3' /
+    'int8x4')."""
     from mixmogam_tpu_torch.ops.eigen import orthonormal_basis
 
     phi, U, delta = null.phi, null.U, null.delta
     sd = 1.0 / torch.sqrt(phi + delta)
+    Ur = planes = w_scale = parts = None
     if rotate_dtype is None:
-        Ur, planes, w_scale = U, None, None
+        Ur = U
+    elif bf16_parts_count(rotate_dtype):
+        parts, _ = quantize_rotation(U * sd[None, :], rotate_dtype)
     else:
-        Ur = None
         planes, w_scale = quantize_rotation(U * sd[None, :], rotate_dtype,
                                             sd_dtype=sd.dtype)
     y_star = (null.y @ U) * sd
@@ -215,7 +283,7 @@ def build_rotated_null(null: NullModel, rotate_dtype=None) -> RotatedNull:
     return RotatedNull(sd=sd, Q0=Q0, y_res=y_res, rss0=rss0,
                        dof=torch.tensor(n - q - 1, dtype=sd.dtype,
                                         device=sd.device),
-                       U=Ur, planes=planes, w_scale=w_scale)
+                       U=Ur, planes=planes, w_scale=w_scale, parts=parts)
 
 
 def scan_epilogue(Xs: torch.Tensor, Q0, y_res, rss0, dof
@@ -256,8 +324,9 @@ def emmax_scan_stats(G_tile: torch.Tensor, rot: RotatedNull
     from mixmogam_tpu_torch.ops.hopper_scan import scan_stats
 
     if rot.U is None:
-        raise ValueError("emmax_scan_stats runs the exact tier; int8 "
-                         "tiers scan packed rows (rotate_scan_int8_packed)")
+        raise ValueError("emmax_scan_stats runs the exact tier; int8 and "
+                         "bf16 tiers scan packed rows (rotate_scan_int8_"
+                         "packed / rotate_scan_bf16_packed)")
     assert_fp32_matmuls()
     Xr = apply_rotation(G_tile, rot.U, None, rot.U.dtype)
     return scan_stats(Xr, rot.sd, rot.y_res, rot.Q0, rot.rss0, rot.dof)

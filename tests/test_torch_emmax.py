@@ -155,7 +155,7 @@ def test_emmax_routes_resident_genome_and_facade():
 
 @pytest.mark.parametrize("kw", [dict(stream=True), dict(mesh=object()),
                                 dict(checkpoint_dir="ckpt"),
-                                dict(precision="bf16"),
+                                dict(stream_budget_bytes=0),
                                 dict(precision="high"),
                                 dict(matmul_precision="high")])
 def test_unported_options_raise(kw, small_dataset, kinship_small):

@@ -10,12 +10,16 @@ import numpy as np
 import pytest
 import torch
 
-from mixmogam_tpu.data.simulate import simulate_genotypes
+from mixmogam_tpu_torch.data.simulate import simulate_genotypes
 from mixmogam_tpu_torch.models.emmax import emmax
-from mixmogam_tpu_torch.models.resident import ResidentGenome
-from mixmogam_tpu_torch.ops.hopper_kinship import (ibs_gram_packed,
-                                                   ibs_gram_packed_plain)
+from mixmogam_tpu_torch.models.loco import emmax_loco
+from mixmogam_tpu_torch.models.resident import (ResidentGenome,
+                                                row_means_packed)
+from mixmogam_tpu_torch.ops.hopper_kinship import (
+    ibs_gram_packed, ibs_gram_packed_plain, ibs_gram_tri_packed,
+    ibs_gram_tri_packed_plain)
 from mixmogam_tpu_torch.ops.hopper_scan import (
+    rotate_scan_bf16_packed, rotate_scan_bf16_packed_plain,
     rotate_scan_int8_packed, rotate_scan_int8_packed_plain, scan_stats,
     scan_stats_plain)
 from mixmogam_tpu_torch.ops.reml import NullModel
@@ -83,6 +87,69 @@ def test_k3_vs_plain(cuda, n, q):
     Xr = torch.as_tensor(G, device=cuda).float() @ rot.U
     a = (Xr, rot.sd, rot.y_res, rot.Q0, rot.rss0, rot.dof)
     _close(scan_stats(*a), scan_stats_plain(*a))
+
+
+@pytest.mark.parametrize("n,m", [(1002, 700), (64, 64), (257, 3001)])
+@pytest.mark.parametrize("ploidy", [1, 2])
+def test_k4_bit_equal(cuda, n, m, ploidy):
+    G, _, _ = simulate_genotypes(n, m, ploidy=ploidy, seed=n + m + 1)
+    rg = ResidentGenome.from_source(G, tile=512, ploidy=ploidy, device=cuda)
+    for s, e in ((0, m), (m // 3 + 1, m - 5), (m - 1, m)):
+        before = ibs_gram_tri_packed.launches
+        S = ibs_gram_tri_packed(rg.packed, n, s, e, ploidy)
+        assert ibs_gram_tri_packed.launches == before + 1
+        assert torch.equal(S, ibs_gram_tri_packed_plain(rg.packed, n, s, e,
+                                                        ploidy))
+        sub = rg.slice_rows(s, e)
+        assert torch.equal(S, ibs_gram_packed(sub.packed, n, sub.M, ploidy))
+
+
+@pytest.mark.parametrize("tier", ["bf16", "bf16x2", "bf16x3"])
+@pytest.mark.parametrize("n,q", [(1002, 1), (130, 3), (64, 16), (77, 5)])
+@pytest.mark.parametrize("missing", [0.0, 0.03])
+def test_k5_vs_plain(cuda, tier, n, q, missing):
+    G, _, _ = simulate_genotypes(n, 900, seed=n + 2, missing_rate=missing)
+    rg = ResidentGenome.from_source(G, tile=512, device=cuda)
+    rot = build_rotated_null(_null(n, q, cuda), rotate_dtype=tier)
+    mu = (row_means_packed(rg.packed, n, rg.tile, torch.float32)
+          if missing else None)
+    a = (rg.packed, n, rot.parts, rot.y_res, rot.Q0, rot.rss0, rot.dof, mu)
+    before = rotate_scan_bf16_packed.launches
+    got = rotate_scan_bf16_packed(*a)
+    assert rotate_scan_bf16_packed.launches == before + 1
+    _close(got, rotate_scan_bf16_packed_plain(*a))
+    assert not (got[3, 900:] > 0.5).any()       # zero pad rows masked
+
+
+@pytest.mark.parametrize("n", [1002, 77])
+def test_scan_kernels_on_row_views(cuda, n):
+    """slice_rows hands K2 and K5 views that start at any row; each row's
+    stats match those of the launch over the whole genome."""
+    G, _, _ = simulate_genotypes(n, 1500, seed=n + 3)
+    rg = ResidentGenome.from_source(G, tile=512, device=cuda)
+    s, e = 333, 1201
+    sub = rg.slice_rows(s, e)
+    null = _null(n, 2, cuda)
+    rot = build_rotated_null(null, rotate_dtype="bf16x3")
+    a = (n, rot.parts, rot.y_res, rot.Q0, rot.rss0, rot.dof)
+    _close(rotate_scan_bf16_packed(sub.packed, *a),
+           rotate_scan_bf16_packed(rg.packed, *a)[:, s:e])
+    rot = build_rotated_null(null, rotate_dtype="int8x3")
+    a = (n, rot.planes, rot.w_scale, rot.y_res, rot.Q0, rot.rss0, rot.dof)
+    _close(rotate_scan_int8_packed(sub.packed, *a),
+           rotate_scan_int8_packed(rg.packed, *a)[:, s:e])
+
+
+@pytest.mark.parametrize("precision", ["exact", "bf16x3"])
+def test_card_loco_vs_cpu_float64(cuda, precision):
+    rng = np.random.default_rng(3)
+    G = rng.integers(0, 3, (1500, 200)).astype(np.int8)
+    ch = np.repeat([1, 2, 3], [600, 333, 567])
+    y = G[5] + rng.normal(size=200)
+    a = emmax_loco(G, y, chromosomes=ch, precision=precision, device=cuda)
+    b = emmax_loco(G, y, chromosomes=ch, precision=precision, device="cpu")
+    assert np.array_equal(a["mask"], b["mask"])
+    assert np.abs(a["ps"] - b["ps"]).max() <= 1e-5
 
 
 def test_card_emmax_vs_cpu_float64(cuda):

@@ -1,5 +1,6 @@
-"""PyTorch port hygiene: no jax anywhere in the port, importing it builds
-or loads no kernel, and chip_smoke.py fails without a card."""
+"""PyTorch port hygiene: no jax and nothing of the JAX package anywhere
+in the port or chip_smoke.py, importing the port builds or loads no
+kernel, and chip_smoke.py fails without a card."""
 
 import ast
 import os
@@ -11,9 +12,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "mixmogam_tpu_torch"
-_FORBIDDEN = ("mixmogam_tpu.ops", "mixmogam_tpu.models",
-              "mixmogam_tpu.parallel", "mixmogam_tpu.api",
-              "mixmogam_tpu.compat")
+_FORBIDDEN = ("jax", "mixmogam_tpu")
 
 
 def _imports(path):
@@ -27,9 +26,7 @@ def _imports(path):
 
 
 def _bad(name):
-    return (name == "jax" or name.startswith("jax.")
-            or any(name == f or name.startswith(f + ".")
-                   for f in _FORBIDDEN))
+    return name.split(".")[0] in _FORBIDDEN
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
@@ -43,9 +40,13 @@ def test_ast_scan_catches_forbidden_forms(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import jax.numpy as jnp\nfrom mixmogam_tpu import ops\n"
                  "from mixmogam_tpu.models.resident import x\n"
-                 "from mixmogam_tpu import native\n")
+                 "from mixmogam_tpu import native\n"
+                 "import mixmogam_tpu_torch.ops\n"
+                 "from mixmogam_tpu_torch import models\n")
     assert [m for m in _imports(f) if _bad(m)] == [
-        "jax.numpy", "mixmogam_tpu.ops", "mixmogam_tpu.models.resident"]
+        "jax.numpy", "mixmogam_tpu", "mixmogam_tpu.ops",
+        "mixmogam_tpu.models.resident", "mixmogam_tpu",
+        "mixmogam_tpu.native"]
 
 
 def _run(code, cwd, **env):
@@ -65,6 +66,7 @@ def test_importing_the_port_builds_nothing():
         "from mixmogam_tpu_torch.ops import _build\n"
         "assert _build._libs == {} and _build.BUILD_LOG == {}\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert 'mixmogam_tpu' not in sys.modules, 'JAX package imported'\n"
         "assert 'triton' not in sys.modules\n"
         "print(len(mods))\n")
     r = _run(code, ROOT, PYTHONPATH=str(ROOT))
