@@ -10,10 +10,14 @@ Phases (each prints its own seconds):
     each, all started together
   3 each kernel against its plain PyTorch version on the card, at the
     main path's shapes (n samples, one 16,384-row tile): K1 and K4 (over
-    a row range that starts mid-tile) bit-equal for ploidy 1 and 2; K2
-    int8x3, K3 and K5 (bf16, bf16x2, bf16x3, and bf16x3 on a genome with
-    2 % missing genotypes) within f rtol 1e-4 / atol 1e-4, beta atol
-    1e-5, identical masks
+    a row range that starts mid-tile) bit-equal for ploidy 1 and 2, and
+    again at n = 2,042 (a row pitch of 511 bytes: the kernels' byte loads)
+    over 3,001 rows; K2 int8x3, K3 and K5 (bf16, bf16x2, bf16x3, and
+    bf16x3 on a genome with 2 % missing genotypes) within f rtol 1e-4 /
+    atol 1e-4, beta atol 1e-5, identical masks. Each kernel's time stands
+    beside its bound (the larger of its bytes over 3.35 TB/s and its
+    operations over the card's data-sheet peak for their type) and, for
+    K1 and K4, beside one torch._int_mm over the unpacked int8 rows
   4 the main path at full width: simulate -> ResidentGenome on the card
     -> kinship_resident (K1) -> scale_k -> eigh on the card (float64)
     -> fit_null_model -> emmax_resident at 'exact' (K3), 'int8x3' (K2)
@@ -29,7 +33,7 @@ Phases (each prints its own seconds):
     over the other chromosomes' rows (max |d| <= 1e-12)
 
 The line before the last is a JSON object with each kernel's launches,
-error and times; the last line is {"ok": true, "device": {...}}. Any
+error, times and bound; the last line is {"ok": true, "device": {...}}. Any
 failed phase exits non-zero before either is printed.
 """
 
@@ -61,6 +65,48 @@ def _cuda_ms(fn, reps: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# NVIDIA's data sheet for the H100 SXM, dense: operations a second by
+# operand type, and device-memory bytes a second
+_PEAK = {"int8": 1.979e15, "bf16": 9.89e14, "fp32": 6.7e13}
+_HBM_BYTES_S = 3.35e12
+
+
+def _bound(ops: float, kind: str, *tensors) -> dict:
+    """The least time the card could take: every tensor given (inputs and
+    the output) crosses device memory once, `ops` operations run at the
+    peak rate of `kind`; the larger of the two, in ms."""
+    by = sum(t.numel() * t.element_size() for t in tensors)
+    t_b, t_o = by / _HBM_BYTES_S * 1e3, ops / _PEAK[kind] * 1e3
+    return dict(bound_ms=max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations")
+
+
+def _gram_ops(n: int, rows: int, ploidy: int) -> float:
+    """K1 / K4: the upper triangle (diagonal included) of the 0/1 planes'
+    gram, ploidy * rows deep, two operations a multiply-add."""
+    return 2.0 * (n * (n + 1) // 2) * ploidy * rows
+
+
+def _int_mm_ms(Zt, what: str):
+    """Time of one torch._int_mm(Z^T, Z) over unpacked int8 rows given as
+    the contiguous (n, rows) Z^T (rows padded with zeros to a multiple of
+    8, which the call requires); None, with the reason printed, if this
+    PyTorch lacks the call or refuses the shape."""
+    import torch
+
+    k = Zt.shape[1]
+    if k % 8:
+        Zt = torch.nn.functional.pad(Zt, (0, -k % 8))
+    try:
+        fn = torch._int_mm
+        ms = _cuda_ms(lambda: fn(Zt, Zt.t()))
+    except (AttributeError, RuntimeError) as exc:
+        print(f"{what}: torch._int_mm not timed: {str(exc)[:200]}",
+              flush=True)
+        return None
+    return ms
 
 
 def _check_stats(name, got, ref):
@@ -180,9 +226,17 @@ def main(argv=None) -> int:
         print(f"K1 ibs_gram_packed ploidy {ploidy} n={n} rows={rows}: "
               f"bit-equal, kernel {ms:.3f} ms, plain {pms:.3f} ms",
               flush=True)
+        bnd = _bound(_gram_ops(n, rows, ploidy), "int8", rgc.packed, S)
+        print(f"   bound {bnd['bound_ms']:.3f} ms by {bnd['bound_by']}",
+              flush=True)
         if ploidy == 1:
+            Zt = torch.as_tensor(Gc, device=dev).T.contiguous()
+            lms = _int_mm_ms(Zt, "K1")
+            print(f"   torch._int_mm(Z^T, Z), full square, n={n} "
+                  f"rows={rows}: {lms} ms", flush=True)
             report["ibs_gram_packed"] = dict(max_abs_err=0.0, ms=ms,
-                                             plain_ms=pms)
+                                             plain_ms=pms, library_ms=lms,
+                                             **bnd)
         # K4 over a row range that starts and ends inside a tile; it must
         # equal its plain version and K1 over the same rows
         s3, e3 = rows // 5 + 3, rows - 123
@@ -202,11 +256,48 @@ def main(argv=None) -> int:
         print(f"K4 ibs_gram_tri_packed ploidy {ploidy} n={n} rows "
               f"[{s3}, {e3}): bit-equal (and to K1 on those rows), kernel "
               f"{ms:.3f} ms, plain {pms:.3f} ms", flush=True)
+        bnd = _bound(_gram_ops(n, e3 - s3, ploidy), "int8",
+                     rgc.packed[s3:e3], S4)
+        print(f"   bound {bnd['bound_ms']:.3f} ms by {bnd['bound_by']}",
+              flush=True)
         if ploidy == 1:
+            lms = _int_mm_ms(Zt[:, s3:e3].contiguous(), "K4")
+            print(f"   torch._int_mm(Z^T, Z), full square, rows "
+                  f"[{s3}, {e3}): {lms} ms", flush=True)
             report["ibs_gram_tri_packed"] = dict(max_abs_err=0.0, ms=ms,
-                                                 plain_ms=pms)
+                                                 plain_ms=pms,
+                                                 library_ms=lms, **bnd)
             G1, rg1 = Gc, rgc
+            del Zt
         del sub, S1_sub, S4, S4_ref
+    # K1 and K4 again where the row pitch is no multiple of 4 bytes (the
+    # kernels' byte loads), n ends inside a tile and the rows inside a stage
+    nr, mr = 2_042, 3_001
+    for ploidy in (1, 2):
+        Gr, _, _ = simulate_genotypes(nr, mr, ploidy=ploidy,
+                                      seed=args.seed + 30 + ploidy)
+        rgr = ResidentGenome.from_source(Gr, ploidy=ploidy)
+        sr, er = mr // 7 + 1, mr - 70
+        Sr = ibs_gram_packed(rgr.packed, nr, mr, ploidy)
+        S4r = ibs_gram_tri_packed(rgr.packed, nr, sr, er, ploidy)
+        if not (torch.equal(Sr, ibs_gram_packed_plain(rgr.packed, nr, mr,
+                                                      ploidy))
+                and torch.equal(S4r, ibs_gram_tri_packed_plain(
+                    rgr.packed, nr, sr, er, ploidy))
+                and torch.equal(S4r, ibs_gram_packed(
+                    rgr.packed[sr:er], nr, er - sr, ploidy))
+                and torch.equal(Sr, ibs_gram_tri_packed(rgr.packed, nr, 0,
+                                                        mr, ploidy))):
+            raise AssertionError(f"K1/K4 ploidy {ploidy} n={nr} rows={mr}: "
+                                 "not bit-equal")
+        ms = _cuda_ms(lambda: ibs_gram_packed(rgr.packed, nr, mr, ploidy))
+        msw = _cuda_ms(lambda: ibs_gram_packed(
+            rgr.packed[:, :508].contiguous(), 2_032, mr, ploidy))
+        print(f"K1/K4 ploidy {ploidy} n={nr} (pitch {rgr.packed.shape[1]}) "
+              f"rows={mr}, K4 rows [{sr}, {er}): bit-equal to plain and to "
+              f"each other; K1 {ms:.3f} ms with byte loads, {msw:.3f} ms "
+              f"with 32-bit loads at n=2032", flush=True)
+    del Gr, rgr, Sr, S4r
     # a rotated null at the main path's width: random orthonormal U
     g = torch.Generator(device=dev).manual_seed(args.seed)
     U, _ = torch.linalg.qr(torch.randn(n, n, generator=g, device=dev))
@@ -224,10 +315,17 @@ def main(argv=None) -> int:
                        rotate_scan_int8_packed_plain(*a8))
     ms = _cuda_ms(lambda: rotate_scan_int8_packed(*a8))
     pms = _cuda_ms(lambda: rotate_scan_int8_packed_plain(*a8))
+    # three plane products of rows x n x n multiply-adds; the epilogue's
+    # few operations a row are left out
+    bnd = _bound(2.0 * 3 * rows * n * n, "int8",
+                 *(t for t in a8 if isinstance(t, torch.Tensor)),
+                 torch.empty((4, rows)))
     report["rotate_scan_int8_packed"] = dict(max_abs_err=err, ms=ms,
-                                             plain_ms=pms)
+                                             plain_ms=pms, library_ms=None,
+                                             **bnd)
     print(f"K2 rotate_scan_int8_packed int8x3 n={n} rows={rows}: max|df| "
-          f"{err:.3e}, kernel {ms:.3f} ms, plain {pms:.3f} ms", flush=True)
+          f"{err:.3e}, kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
+          f"{bnd['bound_ms']:.3f} ms by {bnd['bound_by']}", flush=True)
     # K5 at each bf16 tier, then bf16x3 on a genome with 2 % missing
     # genotypes (per-row means, rounded to bf16 in the kernel)
     Gm, _, _ = simulate_genotypes(n, rows, ploidy=1, missing_rate=0.02,
@@ -245,11 +343,18 @@ def main(argv=None) -> int:
                                  rotate_scan_bf16_packed_plain(*a5)))
         ms = _cuda_ms(lambda: rotate_scan_bf16_packed(*a5))
         pms = _cuda_ms(lambda: rotate_scan_bf16_packed_plain(*a5))
+        # one product of rows x n x n multiply-adds for each bf16 part
+        nparts = {"bf16": 1, "bf16x2": 2, "bf16x3": 3}[tier.split()[0]]
+        bnd = _bound(2.0 * nparts * rows * n * n, "bf16",
+                     *(t for t in a5 if isinstance(t, torch.Tensor)),
+                     torch.empty((4, rows)))
         print(f"K5 rotate_scan_bf16_packed {tier} n={n} rows={rows}: "
               f"max|df| {errs[-1]:.3e}, kernel {ms:.3f} ms, plain "
-              f"{pms:.3f} ms", flush=True)
+              f"{pms:.3f} ms, bound {bnd['bound_ms']:.3f} ms by "
+              f"{bnd['bound_by']}", flush=True)
         if tier == "bf16x3":
-            report["rotate_scan_bf16_packed"] = dict(ms=ms, plain_ms=pms)
+            report["rotate_scan_bf16_packed"] = dict(ms=ms, plain_ms=pms,
+                                                     library_ms=None, **bnd)
     report["rotate_scan_bf16_packed"]["max_abs_err"] = max(errs)
     del a5, rotb, rgm, Gm, mu
     rot = build_rotated_null(null)
@@ -259,9 +364,16 @@ def main(argv=None) -> int:
                        scan_stats_plain(*a3))
     ms = _cuda_ms(lambda: scan_stats(*a3))
     pms = _cuda_ms(lambda: scan_stats_plain(*a3))
-    report["scan_stats"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    # a row's dot products with y_res and the q columns of Q0, and its
+    # sum of squares: 2 n (2 + q) float32 operations
+    bnd = _bound(2.0 * rows * n * (2 + rot.Q0.shape[1]), "fp32",
+                 *(t for t in a3 if isinstance(t, torch.Tensor)),
+                 torch.empty((4, rows)))
+    report["scan_stats"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                library_ms=None, **bnd)
     print(f"K3 scan_stats n={n} rows={rows}: max|df| {err:.3e}, kernel "
-          f"{ms:.3f} ms, plain {pms:.3f} ms", flush=True)
+          f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bnd['bound_ms']:.3f} ms "
+          f"by {bnd['bound_by']}", flush=True)
     del Xr, a3, a8, rot8, rot, null, U, rg1, rgc, G1, Gc, S, S_ref
     torch.cuda.empty_cache()
     _phase("3 kernels vs plain", t0)
@@ -280,7 +392,7 @@ def main(argv=None) -> int:
     for k in kernels:
         k.launches = 0
     ts = time.perf_counter()
-    rg = ResidentGenome.from_source(G, device=dev)
+    rg = ResidentGenome.from_source(G)          # no device=: the card
     torch.cuda.synchronize()
     print(f"pack + upload: {time.perf_counter() - ts:.3f} s "
           f"({rg.nbytes_packed / 1e6:.1f} MB packed)", flush=True)
@@ -317,6 +429,15 @@ def main(argv=None) -> int:
     for name, cnt in launches.items():
         if cnt <= 0 and name != "ibs_gram_tri_packed":
             raise AssertionError(f"main path never launched {name}")
+    # K1 alone over the whole genome (after the counts were read: this
+    # launch is a timing, not part of the path)
+    k1_ms = _cuda_ms(lambda: ibs_gram_packed(rg.packed, n, M, rg.ploidy),
+                     reps=2)
+    bnd = _bound(_gram_ops(n, rg.packed.shape[0], rg.ploidy), "int8",
+                 rg.packed, torch.empty((n, n), dtype=torch.int32))
+    print(f"K1 over the whole genome (n={n}, M={M}): {k1_ms:.3f} ms a "
+          f"launch, bound {bnd['bound_ms']:.3f} ms by {bnd['bound_by']}",
+          flush=True)
     ex = res["exact"]
     for tier, r in res.items():
         ps = r["ps"]
@@ -343,9 +464,17 @@ def main(argv=None) -> int:
     na, Ma = 2_048, 8_192
     Ga, _, _ = simulate_genotypes(na, Ma, ploidy=1, seed=args.seed + 1)
     ya, _ = simulate_phenotype(Ga, h2=0.5, n_causal=5, seed=args.seed + 1)
-    Ka = scale_k(kinship_resident(ResidentGenome.from_source(Ga)))
+    # no device= means the card: pack, gram (K1) and scan there; the
+    # float64 reference asks for the CPU
+    rga = ResidentGenome.from_source(Ga)
+    if rga.device.type != "cuda":
+        raise AssertionError(f"default device is {rga.device}, not the card")
+    k1_before = ibs_gram_packed.launches
+    Ka = scale_k(kinship_resident(rga))
+    if ibs_gram_packed.launches != k1_before + 1:
+        raise AssertionError("phase 5's kinship did not launch K1")
     eig = eigen_k(Ka)
-    a = emmax(Ga, ya, eig_k=eig, device="cuda")
+    a = emmax(Ga, ya, eig_k=eig)
     b = emmax(Ga, ya, eig_k=eig, device="cpu")
     dpa = float(np.abs(a["ps"] - b["ps"]).max())
     print(f"emmax exact, card f32 vs CPU f64 (n={na}, M={Ma}): "
@@ -430,7 +559,9 @@ def main(argv=None) -> int:
         {"name": name, "route": meta[name][0], "source": meta[name][1],
          "replaces": meta[name][2], "launches": r["launches"],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"]} for name, r in report.items()]}))
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        for name, r in report.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,37 +5,25 @@
 // runs in XLA (mixmogam_tpu/models/resident.py _ibs_resident_fused).
 //
 // Computes S[i][j] = ploidy*M - sum_k |g_ki - g_kj| (int32) over all packed
-// rows; the tile body is ibs_tile.cuh, shared with K4.
+// rows (zero pad rows add nothing), as the thermometer-coded s8 gram of
+// ibs_tile.cuh, shared with K4.
 //
-// Bound on the H100: integer ALU throughput. The work is n^2 * M_pad / 4
-// four-byte absolute-difference sums (__vsadu4); the packed input is
-// n/4 bytes per SNP row and every block re-reads only two 16-byte strips
-// per row, so device-memory traffic is small next to the ALU work.
-// Design: one block of 256 threads per 64x64 output tile (ibs_tile.cuh).
-// Simple first: no tensor cores, both triangles computed.
+// Bound on the H100: the tensor cores' s8 rate over the upper triangle,
+// n^2/2 * ploidy * M_pad MACs at 1,979 TOP/s; device memory sees the packed
+// rows once (n/4 bytes a row) and the int32 output once, and the blocks'
+// strip reads (96 bytes a row and tile) come from L2.
+// Design: K4's grid over every row: upper-triangle 128 x 256 tiles on wgmma,
+// each mirrored into the lower half by the block that computed it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "ibs_tile.cuh"
 
-namespace {
-
-__global__ void __launch_bounds__(ibs::THREADS)
-ibs_gram_kernel(const uint8_t* __restrict__ packed, long long rows, int rb,
-                int n, int M, int ploidy, int32_t* __restrict__ out) {
-  ibs::ibs_tile(packed, rows, rb, n, ploidy * M, blockIdx.y * ibs::TILE,
-                blockIdx.x * ibs::TILE, out);
-}
-
-}  // namespace
-
+// d: n int32 of scratch (the planes' column sums)
 extern "C" int ibs_gram_packed(const void* packed, long long rows, int rb,
-                               int n, int M, int ploidy, void* out,
-                               void* stream) {
-  const int nt = (n + ibs::TILE - 1) / ibs::TILE;
-  dim3 grid(nt, nt);
-  ibs_gram_kernel<<<grid, ibs::THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)packed, rows, rb, n, M, ploidy, (int32_t*)out);
-  return (int)cudaGetLastError();
+                               int n, int M, int ploidy, int wide, void* d,
+                               void* out, void* stream) {
+  return ibs::launch(packed, rows, rb, n, ploidy * M, ploidy, wide, d, out,
+                     stream);
 }

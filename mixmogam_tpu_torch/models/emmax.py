@@ -71,7 +71,7 @@ def incore_budget_bytes(device) -> Optional[int]:
 def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
           ngrids: int = 100, llim: float = -10.0, ulim: float = 10.0,
           esp: float = 1e-6, with_betas: bool = True, dtype=None,
-          tile: int = 16_384, host_eigh: bool = True,
+          tile: int = 16_384, host_eigh: Optional[bool] = None,
           rotate_in_bf16=False, matmul_precision: str = None,
           precision: str = None, stream: Optional[bool] = None,
           stream_budget_bytes: Optional[int] = None,
@@ -82,8 +82,10 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
     dict. G: GenotypeData, (M, n) dosages or a ResidentGenome; y: (n,);
     K: (n, n) kinship or eig_k=(phi, U); X0: (n, q) null design.
 
-    device: where the scan runs ('cuda' for the card; default the CPU).
-    A ResidentGenome scans on its own device. dtype (a torch dtype)
+    device: where the scan runs: the card by default (without one the
+    call raises), 'cpu' on request. A ResidentGenome scans on its own
+    device. host_eigh: None takes the card's float64 eigh on the card and
+    host LAPACK on the CPU; True asks for host LAPACK. dtype (a torch dtype)
     defaults to float32 on the card and float64 on the CPU. precision:
     'exact', 'bf16' / 'bf16x2' / 'bf16x3' (and the 'c' spellings) or
     'int8x2' / 'int8x3' / 'int8x4'; 'auto' and 'fast' resolve to
@@ -96,6 +98,7 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
                                                   resolve_source,
                                                   should_stream)
     from mixmogam_tpu_torch.models.streaming import finalize_scan
+    from mixmogam_tpu_torch.ops import resolve_device
     from mixmogam_tpu_torch.ops.reml import (esp_to_refine_iters,
                                              fit_null_model)
     from mixmogam_tpu_torch.ops.scan import (build_rotated_null,
@@ -122,7 +125,7 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
     if isinstance(G_src, ResidentGenome):
         return emmax_resident(G_src, y, K=K, X0=X0, eig_k=eig_k,
                               dtype=dtype, **kw)
-    device = torch.device("cpu" if device is None else device)
+    device = resolve_device(device)
     if dtype is None:
         dtype = _default_dtype(device)
     itemsize = torch.empty((), dtype=dtype).element_size()

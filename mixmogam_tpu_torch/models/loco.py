@@ -33,7 +33,8 @@ import time as _time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
+
+from mixmogam_tpu_torch.ops.eigen import eigen_k_on
 
 __all__ = ["loco_kinships", "emmax_loco"]
 
@@ -62,18 +63,6 @@ def _chrom_ranges(chromosomes: np.ndarray) -> List[Tuple[object, int, int]]:
             out.append((c, s, i))
             s = i
     return out
-
-
-def _eigh_loco(K: np.ndarray, factor_dtype, device: torch.device
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(phi, U) descending of a host K_loco: float64 cuSOLVER on the card
-    (float32 for 'fast'), host LAPACK on the CPU (ssyevd for 'fast')."""
-    from mixmogam_tpu_torch.ops.eigen import eigen_k
-
-    if device.type == "cuda":
-        dt = torch.float32 if factor_dtype is np.float32 else torch.float64
-        return eigen_k(torch.as_tensor(K, device=device).to(dt), host=False)
-    return eigen_k(K, host=True, factor_dtype=factor_dtype)
 
 
 def _source_content_key(G) -> Optional[str]:
@@ -147,8 +136,7 @@ def _as_resident(G, device, ploidy: Optional[int]):
             "5); pass integer dosages")
     if ploidy is None:
         ploidy = getattr(G, "ploidy", None)
-    return ResidentGenome.from_source(G8, ploidy=ploidy,
-                                      device=torch.device(device))
+    return ResidentGenome.from_source(G8, ploidy=ploidy, device=device)
 
 
 def _check_chromosomes(G, chromosomes):
@@ -171,13 +159,14 @@ def _check_chromosomes(G, chromosomes):
 def loco_kinships(G, chromosomes=None, method: str = "ibs",
                   ploidy: Optional[int] = None, scale: bool = True,
                   K_total: Optional[np.ndarray] = None,
-                  device="cpu") -> Dict[object, np.ndarray]:
+                  device=None) -> Dict[object, np.ndarray]:
     """{chrom: K_loco} — kinship from every chromosome EXCEPT the key,
     float64 host arrays.
 
     G: ResidentGenome, GenotypeData (chromosomes taken from it when not
     given) or an (M, n) integer-dosage array + explicit per-SNP
-    chromosomes, packed onto `device`. K_total: reuse an already-built
+    chromosomes, packed onto `device` (the card by default, 'cpu' on
+    request). K_total: reuse an already-built
     whole-genome kinship of the same method (un-scaled); None builds it
     (K1). scale: scale_k-normalize each LOCO matrix (the facade
     convention before REML)."""
@@ -208,7 +197,7 @@ def emmax_loco(G, y, chromosomes=None, method: str = "ibs",
                precision: Optional[str] = None,
                dtype=None, pipeline_eigh: bool = True,
                cache_dir: Optional[str] = None,
-               mesh=None, device="cpu", **kw) -> Dict[str, np.ndarray]:
+               mesh=None, device=None, **kw) -> Dict[str, np.ndarray]:
     """EMMAX where each chromosome is scanned under the null whose random
     effect excludes that chromosome (LOCO).
 
@@ -224,8 +213,9 @@ def emmax_loco(G, y, chromosomes=None, method: str = "ibs",
     total-kinship gram too when every chromosome hits. Explicit kinships
     are keyed by their own content hash.
 
-    device: where an array or GenotypeData source is packed and scanned
-    ('cuda' for the card); a ResidentGenome scans on its own device.
+    device: where an array or GenotypeData source is packed and scanned:
+    the card by default (without one the call raises), 'cpu' on request;
+    a ResidentGenome scans on its own device.
     **kw goes to each chromosome's emmax_resident (e.g. rescore_top); the
     rescore cut counts the whole genome's SNPs, as in the JAX package."""
     from concurrent.futures import ThreadPoolExecutor
@@ -264,7 +254,8 @@ def emmax_loco(G, y, chromosomes=None, method: str = "ibs",
             hit = _eigen_cache_load(cpath)
             if hit is not None:
                 return hit
-        eig = _eigh_loco(np.asarray(K_c, np.float64), factor_dtype, dev)
+        eig = eigen_k_on(np.asarray(K_c, np.float64), dev,
+                         factor_dtype=factor_dtype)
         _save(cpath, eig)
         return eig
 
@@ -303,7 +294,8 @@ def emmax_loco(G, y, chromosomes=None, method: str = "ibs",
                 rg, s_c, e_c, method=method, ploidy=pl, return_den=True)
             t1 = _time.time()
             Kl = (num_tot - K_c * den_c) / (den_tot - den_c)
-            eig = _eigh_loco(res_mod.scale_k(Kl), factor_dtype, dev)
+            eig = eigen_k_on(res_mod.scale_k(Kl), dev,
+                             factor_dtype=factor_dtype)
             _log.info("loco prep [%d,%d): gram+fetch %.1fs, "
                       "algebra+eigh %.1fs", s_c, e_c, t1 - t0,
                       _time.time() - t1)

@@ -133,14 +133,17 @@ class ResidentGenome:
     @classmethod
     def from_source(cls, G, tile: int = 16_384, chunk: int = 65_536,
                     ploidy: Optional[int] = None,
-                    device="cpu") -> "ResidentGenome":
+                    device=None) -> "ResidentGenome":
         """Pack an int8 host source (ndarray / memmap / h5py /
-        GenotypeData) chunk by chunk on `device` (pack_2bit_device) and
+        GenotypeData) chunk by chunk on `device` (the card by default,
+        'cpu' on request; pack_2bit_device) and
         keep a host copy of the packed rows (one read-back). Rows are
         zero-padded to a tile multiple: dosage-0 pad rows are degenerate
         in the scan (masked) and add nothing to any kinship term."""
         from mixmogam_tpu_torch.models.source import resolve_source
+        from mixmogam_tpu_torch.ops import resolve_device
 
+        device = resolve_device(device)
         mat = resolve_source(G)
         if np.dtype(mat.dtype) != np.int8:
             raise TypeError(

@@ -5,7 +5,8 @@ the JAX package's ``jax_default_matmul_precision='highest'`` pin
 (mixmogam_tpu/ops/__init__.py). A TF32 GEMM keeps a 10-bit mantissa and
 would silently turn the exact scan tier into a ~1e-3-grade tier.
 Importing builds and loads no kernel: that happens at first CUDA use
-(ops._build).
+(ops._build). resolve_device is the entry points' device rule: the card
+unless the caller asks for the CPU.
 """
 
 import torch
@@ -34,3 +35,16 @@ def assert_fp32_matmuls() -> None:
             "TF32 matmuls were re-enabled (torch.backends.cuda.matmul."
             "allow_tf32 / set_float32_matmul_precision); the exact tier "
             "needs full fp32 GEMMs")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the caller's, else the card.
+    Without a card it raises; nothing runs on the CPU unless asked to."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available (torch.cuda.is_available() is "
+            "False) and this call runs on the card by default; pass "
+            'device="cpu" to run it on the CPU')
+    return torch.device("cuda")

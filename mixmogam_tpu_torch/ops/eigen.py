@@ -36,6 +36,18 @@ def eigen_k(K, host: bool = True, factor_dtype=None
     return w.flip(0), v.flip(1)
 
 
+def eigen_k_on(K, device, host_eigh=None, factor_dtype=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """eigh(K) where a null model lives: on a CUDA device cuSOLVER in
+    float64 (float32 for factor_dtype=np.float32) unless host_eigh asks
+    for host LAPACK; on the CPU host LAPACK (ssyevd for np.float32)."""
+    device = torch.device(device)
+    if host_eigh or device.type != "cuda":
+        return eigen_k(K, host=True, factor_dtype=factor_dtype)
+    dt = torch.float32 if factor_dtype is np.float32 else torch.float64
+    return eigen_k(torch.as_tensor(K, device=device).to(dt), host=False)
+
+
 def orthonormal_basis(X: torch.Tensor) -> torch.Tensor:
     """Orthonormal basis of span(X) for tall-skinny X (n, q): Gram matrix
     on the device, q x q Cholesky in float64 on the host (q is tiny),

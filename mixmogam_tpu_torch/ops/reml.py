@@ -17,7 +17,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from mixmogam_tpu_torch.ops.eigen import eigen_k
+from mixmogam_tpu_torch.ops import resolve_device
+from mixmogam_tpu_torch.ops.eigen import eigen_k_on
 
 
 def esp_to_refine_iters(esp: float, ngrids: int = 100, llim: float = -10.0,
@@ -130,13 +131,17 @@ class NullModel:
 def fit_null_model(y, X0, K=None, eig_k: Optional[Tuple] = None,
                    ngrids: int = 100, llim: float = -10.0,
                    ulim: float = 10.0, refine_iters: int = 32,
-                   host_eigh: bool = True, ml: bool = False,
+                   host_eigh: Optional[bool] = None,
+                   ml: bool = False,
                    method: str = "auto", eigh_dtype=None, device=None,
                    dtype=None) -> NullModel:
     """Null-model REML from eigh(K) alone, optimized in float64 on the
     host. y/X0/K/eig_k may be numpy arrays or tensors; the model's
-    tensors land on `device` (default: y's device, else the CPU) in
-    `dtype` (default: y's dtype, else float64)."""
+    tensors land on `device` (default: a tensor y's own device; for
+    array input the card, or 'cpu' on request) in `dtype` (default: y's
+    dtype, else float64). host_eigh: None factors K in float64 where the
+    model lives (cuSOLVER on the card, host LAPACK on the CPU); True asks
+    for host LAPACK."""
     if method == "spectrum":
         raise NotImplementedError(
             "method='spectrum' (the device grid optimizer) is not ported "
@@ -144,8 +149,8 @@ def fit_null_model(y, X0, K=None, eig_k: Optional[Tuple] = None,
     if method not in ("auto", "explicit"):
         raise ValueError(f"unknown method {method!r} "
                          "(expected 'auto', 'explicit' or 'spectrum')")
-    if device is None:
-        device = y.device if isinstance(y, torch.Tensor) else "cpu"
+    device = y.device if device is None and isinstance(
+        y, torch.Tensor) else resolve_device(device)
     if dtype is None:
         dtype = (y.dtype if isinstance(y, torch.Tensor)
                  and y.is_floating_point() else torch.float64)
@@ -156,7 +161,7 @@ def fit_null_model(y, X0, K=None, eig_k: Optional[Tuple] = None,
     if eig_k is None:
         if K is None:
             raise ValueError("need K or eig_k")
-        phi, U = eigen_k(K, host=host_eigh, factor_dtype=eigh_dtype)
+        phi, U = eigen_k_on(K, device, host_eigh, eigh_dtype)
     else:
         phi, U = eig_k
     phi, U = _tensor(phi), _tensor(U)

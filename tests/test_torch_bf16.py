@@ -125,7 +125,7 @@ def test_plain_k5_vs_pallas_interpret(tier):
     rot_j = jscan.build_rotated_null(null, rotate_dtype=tier)
     pal = pallas_rotate_scan(G, rot_j, tm=128, nb=128, interpret=True)
     rot = _carry(rot_j, torch.float32)
-    rg = ResidentGenome.from_source(G, tile=128)
+    rg = ResidentGenome.from_source(G, tile=128, device="cpu")
     ours = rotate_scan_bf16_packed_plain(rg.packed, rg.n, rot.parts,
                                          rot.y_res, rot.Q0, rot.rss0,
                                          rot.dof)[:, :rg.M]
@@ -181,7 +181,7 @@ def test_resident_bf16_matches_jax(tier, missing):
 
 def test_int8_tiers_still_refuse_missing():
     G, y = _data(4, missing=0.04)
-    rg = ResidentGenome.from_source(G, tile=128)
+    rg = ResidentGenome.from_source(G, tile=128, device="cpu")
     K = _kinship(np.where(G < 0, 0, G).astype(np.int8))
     out = emmax_resident(rg, y, K=K, precision="bf16x3")
     assert np.isfinite(out["ps"]).all()
@@ -193,7 +193,7 @@ def test_int8_tiers_still_refuse_missing():
 def test_bf16_tiers_close_to_exact():
     G, y = _data(5)
     eig = tuple(np.asarray(a) for a in j_eigen_k(_kinship(G)))
-    rg = ResidentGenome.from_source(G, tile=128)
+    rg = ResidentGenome.from_source(G, tile=128, device="cpu")
     ex = emmax_resident(rg, y, eig_k=eig)
     for tier, tol in (("bf16x3", 1e-7), ("bf16x2", 1e-4), ("bf16", 5e-2)):
         q = emmax_resident(rg, y, eig_k=eig, precision=tier)
@@ -205,7 +205,7 @@ def test_bf16_tiers_close_to_exact():
 def test_concat_tier_gives_the_stacked_numbers(k):
     G, y = _data(6)
     eig = tuple(np.asarray(a) for a in j_eigen_k(_kinship(G)))
-    rg = ResidentGenome.from_source(G, tile=128)
+    rg = ResidentGenome.from_source(G, tile=128, device="cpu")
     a = emmax_resident(rg, y, eig_k=eig, precision=f"bf16x{k}")
     b = emmax_resident(rg, y, eig_k=eig, precision=f"bf16x{k}c")
     np.testing.assert_array_equal(a["ps"], b["ps"])
@@ -249,7 +249,8 @@ def test_convert_carries_jax_bf16_w(tier):
     from mixmogam_tpu_torch.ops.reml import fit_null_model
 
     nt = fit_null_model(y, np.ones((len(y), 1)),
-                        eig_k=(np.asarray(null.phi), np.asarray(null.U)))
+                        eig_k=(np.asarray(null.phi), np.asarray(null.U)),
+                        device="cpu")
     own = scan.build_rotated_null(nt, rotate_dtype=tier)
     assert rot.U is None and rot.planes is None
     np.testing.assert_array_equal(_bits(rot.parts), _bits(own.parts))
@@ -260,15 +261,16 @@ def test_incore_bf16_routes_and_fractional_refusal():
     K = _kinship(np.where(G < 0, 0, G).astype(np.int8))
     eig = tuple(np.asarray(a) for a in j_eigen_k(K))
     ref = j_emmax(G, y, eig_k=eig, precision="bf16x3", stream=False)
-    res = emmax(G, y, eig_k=eig, precision="bf16x3")
+    res = emmax(G, y, eig_k=eig, precision="bf16x3", device="cpu")
     np.testing.assert_allclose(res["ps"], ref["ps"], rtol=0, atol=1e-9)
     Gf = G.astype(np.float64)
     Gf[G < 0] = np.nan                               # NaN-missing float
     np.testing.assert_array_equal(
-        emmax(Gf, y, eig_k=eig, precision="bf16x3")["ps"], res["ps"])
+        emmax(Gf, y, eig_k=eig, precision="bf16x3",
+              device="cpu")["ps"], res["ps"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         emmax(np.where(G < 0, 0.5, G).astype(np.float64), y, eig_k=eig,
-              precision="bf16x3")
+              precision="bf16x3", device="cpu")
 
 
 def test_k5_wrapper_routes_cpu_to_plain_and_refuses_other_devices():
@@ -276,7 +278,7 @@ def test_k5_wrapper_routes_cpu_to_plain_and_refuses_other_devices():
     null = j_fit(y, np.ones((len(y), 1)), K=_kinship(G))
     rot = _carry(jscan.build_rotated_null(null, rotate_dtype="bf16x2"),
                  torch.float64)
-    rg = ResidentGenome.from_source(G, tile=64)
+    rg = ResidentGenome.from_source(G, tile=64, device="cpu")
     a = (rg.packed, rg.n, rot.parts, rot.y_res, rot.Q0, rot.rss0, rot.dof)
     before = rotate_scan_bf16_packed.launches
     torch.testing.assert_close(rotate_scan_bf16_packed(*a),

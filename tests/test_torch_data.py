@@ -66,7 +66,7 @@ def test_from_source_matches_jax_package(n, missing, ploidy):
     G, _, _ = jsim.simulate_genotypes(n, 301, ploidy=ploidy,
                                       missing_rate=missing, seed=n)
     jrg = jres.ResidentGenome.from_source(G, tile=64)
-    rg = ResidentGenome.from_source(G, tile=64, chunk=100)
+    rg = ResidentGenome.from_source(G, tile=64, chunk=100, device="cpu")
     np.testing.assert_array_equal(rg.host_packed, jrg.host_packed)
     np.testing.assert_array_equal(rg.packed.numpy(), jrg.host_packed)
     assert (rg.M, rg.n, rg.ploidy, rg.has_missing) == (
@@ -82,6 +82,6 @@ def test_from_source_refuses_out_of_range():
     G = np.zeros((5, 8), np.int8)
     G[2, 3] = 3
     with pytest.raises(ValueError, match="0..2"):
-        ResidentGenome.from_source(G)
+        ResidentGenome.from_source(G, device="cpu")
     with pytest.raises(TypeError, match="int8"):
-        ResidentGenome.from_source(G.astype(np.float32))
+        ResidentGenome.from_source(G.astype(np.float32), device="cpu")

@@ -91,7 +91,7 @@ def test_resident_int8x3_rescore_matches_jax():
 def test_resident_int8_tiers_close_to_exact(tier):
     G, _, y = _data(8)
     eig = _eig(scale_k(j_kinship(G, method="ibs")))
-    rg = ResidentGenome.from_source(G, tile=128)
+    rg = ResidentGenome.from_source(G, tile=128, device="cpu")
     ex = emmax_resident(rg, y, eig_k=eig)
     q = emmax_resident(rg, y, eig_k=eig, precision=tier)
     np.testing.assert_array_equal(q["mask"], ex["mask"])
@@ -102,11 +102,11 @@ def test_resident_int8_tiers_close_to_exact(tier):
 def test_int8_refused_with_missing():
     G, _, y = _data(5, missing=0.04)
     K = scale_k(j_kinship(G, method="ibs"))
-    rg = ResidentGenome.from_source(G, tile=128)
+    rg = ResidentGenome.from_source(G, tile=128, device="cpu")
     with pytest.raises(ValueError, match="fully-observed"):
         emmax_resident(rg, y, K=K, rotate_in_bf16="int8x2")
     with pytest.raises(ValueError, match="integer dosages"):
-        emmax(G, y, K=K, precision="int8x3")
+        emmax(G, y, K=K, precision="int8x3", device="cpu")
 
 
 @pytest.mark.parametrize("source", ["float", "int8"])
@@ -114,7 +114,7 @@ def test_incore_route_matches_jax(small_dataset, kinship_small, source):
     G = small_dataset["G"] if source == "float" else small_dataset["G_int"]
     y, K = small_dataset["y"], kinship_small
     ref = j_emmax(G, y, K=K, stream=False)
-    res = emmax(G, y, K=K)
+    res = emmax(G, y, K=K, device="cpu")
     np.testing.assert_allclose(res["ps"], ref["ps"], rtol=0, atol=1e-9)
     np.testing.assert_allclose(res["betas"], ref["betas"], atol=1e-9)
     assert res["dof"] == ref["dof"]
@@ -125,7 +125,7 @@ def test_incore_covariates_match_jax(small_dataset, kinship_small):
     rng = np.random.default_rng(2)
     X0 = np.column_stack([np.ones(len(y)), rng.normal(size=len(y))])
     ref = j_emmax(G, y, K=K, X0=X0, stream=False)
-    res = emmax(G, y, K=K, X0=X0)
+    res = emmax(G, y, K=K, X0=X0, device="cpu")
     np.testing.assert_allclose(res["ps"], ref["ps"], rtol=0, atol=1e-9)
     assert res["dof"] == ref["dof"] == len(y) - 3
 
@@ -135,7 +135,7 @@ def test_incore_int8_tier_packs_and_matches_jax(small_dataset,
     G, y = small_dataset["G_int"], small_dataset["y"]
     eig = _eig(kinship_small)
     ref = j_emmax(G, y, eig_k=eig, precision="int8x3", stream=False)
-    res = emmax(G, y, eig_k=eig, precision="int8x3")
+    res = emmax(G, y, eig_k=eig, precision="int8x3", device="cpu")
     assert res["precision_tier"] == ref["precision_tier"] == "int8x3"
     lp = np.abs(np.log10(res["ps"]) - np.log10(ref["ps"]))
     assert lp.max() < 1e-4
@@ -144,7 +144,7 @@ def test_incore_int8_tier_packs_and_matches_jax(small_dataset,
 def test_emmax_routes_resident_genome_and_facade():
     G, _, y = _data(9)
     K = scale_k(j_kinship(G, method="ibs"))
-    rg = ResidentGenome.from_source(G, tile=128)
+    rg = ResidentGenome.from_source(G, tile=128, device="cpu")
     a = mt.emmax(rg, y, K=K)
     b = mt.emmax_resident(rg, y, K=K)
     np.testing.assert_array_equal(a["ps"], b["ps"])
@@ -160,4 +160,61 @@ def test_emmax_routes_resident_genome_and_facade():
                                 dict(matmul_precision="high")])
 def test_unported_options_raise(kw, small_dataset, kinship_small):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        emmax(small_dataset["G"], small_dataset["y"], K=kinship_small, **kw)
+        emmax(small_dataset["G"], small_dataset["y"], K=kinship_small, **kw,
+              device="cpu")
+
+
+def _entry_points():
+    """name -> call(device kwargs) for every entry point that picks a
+    device for array input."""
+    from mixmogam_tpu_torch.models.loco import emmax_loco, loco_kinships
+    from mixmogam_tpu_torch.ops.reml import fit_null_model
+
+    G, imp, y = _data(seed=4, n=40, m=120)
+    K = scale_k(np.asarray(j_kinship(imp)))
+    ch = np.repeat([1, 2], [70, 50])
+    return {
+        "emmax": lambda **d: emmax(G, y, K=K, **d),
+        "from_source": lambda **d: ResidentGenome.from_source(G, **d),
+        "emmax_loco": lambda **d: emmax_loco(G, y, chromosomes=ch, **d),
+        "loco_kinships": lambda **d: loco_kinships(G, ch, **d),
+        "fit_null_model": lambda **d: fit_null_model(
+            y, np.ones((40, 1)), K=K, **d),
+    }
+
+
+@pytest.mark.parametrize("name", ["emmax", "from_source", "emmax_loco",
+                                  "loco_kinships", "fit_null_model"])
+def test_default_device_is_the_card_or_an_error(name, monkeypatch):
+    """Without a card and without device= every entry point raises and
+    names device="cpu"; it never carries on on the CPU by itself. Asked
+    for the CPU it runs there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = _entry_points()[name]
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        call()
+    out = call(device="cpu")
+    where = {"from_source": lambda r: r.device,
+             "fit_null_model": lambda r: r.U.device}.get(name)
+    if where is not None:
+        assert where(out).type == "cpu"
+
+
+def test_device_default_leaves_cpu_results_unchanged():
+    """device="cpu" gives what the CPU default gave: host LAPACK eigh
+    (host_eigh=None on the CPU) and float64, equal to the JAX package."""
+    from mixmogam_tpu_torch.ops import resolve_device
+    from mixmogam_tpu_torch.ops.eigen import eigen_k, eigen_k_on
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cpu")).type == "cpu"
+    G, imp, y = _data(seed=6, n=48, m=200)
+    K = scale_k(np.asarray(j_kinship(imp)))
+    for host_eigh in (None, True):
+        phi, U = eigen_k_on(K, "cpu", host_eigh)
+        ref_phi, ref_U = eigen_k(K, host=True)
+        assert torch.equal(phi, ref_phi) and torch.equal(U, ref_U)
+    ref = j_emmax(G, y, K=K, stream=False)
+    res = emmax(G, y, K=K, device="cpu")
+    np.testing.assert_allclose(res["ps"], np.asarray(ref["ps"]), rtol=1e-8,
+                               atol=1e-12)

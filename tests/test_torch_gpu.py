@@ -56,7 +56,14 @@ def _close(got, ref):
     torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("n,m", [(1002, 700), (64, 64), (257, 3001)])
+# pitches ceil(n/4): 251, 16, 65, 511, 38 and 375 bytes take the kernels' byte
+# loads or (16, 256, 320) their 32-bit loads; n < one 128 x 256 tile and
+# n over several; rows below one 256-row stage, ragged, and over several
+_GRAM_SHAPES = [(1002, 700), (64, 64), (257, 3001), (2042, 300), (150, 100),
+                (1024, 513), (1280, 1100), (300, 7), (1500, 2100)]
+
+
+@pytest.mark.parametrize("n,m", _GRAM_SHAPES)
 @pytest.mark.parametrize("ploidy", [1, 2])
 def test_k1_bit_equal(cuda, n, m, ploidy):
     G, _, _ = simulate_genotypes(n, m, ploidy=ploidy, seed=n + m)
@@ -64,7 +71,12 @@ def test_k1_bit_equal(cuda, n, m, ploidy):
     before = ibs_gram_packed.launches
     S = ibs_gram_packed(rg.packed, n, m, ploidy)
     assert ibs_gram_packed.launches == before + 1
-    assert torch.equal(S, ibs_gram_packed_plain(rg.packed, n, m, ploidy))
+    ref = ibs_gram_packed_plain(rg.packed, n, m, ploidy)
+    assert torch.equal(S, ref)
+    # the byte-load path on every pitch, and K4 over all rows
+    assert torch.equal(ibs_gram_packed(rg.packed, n, m, ploidy,
+                                       _narrow=True), ref)
+    assert torch.equal(ibs_gram_tri_packed(rg.packed, n, 0, m, ploidy), ref)
 
 
 @pytest.mark.parametrize("tier", ["int8x2", "int8x3", "int8x4"])
@@ -89,19 +101,22 @@ def test_k3_vs_plain(cuda, n, q):
     _close(scan_stats(*a), scan_stats_plain(*a))
 
 
-@pytest.mark.parametrize("n,m", [(1002, 700), (64, 64), (257, 3001)])
+@pytest.mark.parametrize("n,m", _GRAM_SHAPES)
 @pytest.mark.parametrize("ploidy", [1, 2])
 def test_k4_bit_equal(cuda, n, m, ploidy):
     G, _, _ = simulate_genotypes(n, m, ploidy=ploidy, seed=n + m + 1)
     rg = ResidentGenome.from_source(G, tile=512, ploidy=ploidy, device=cuda)
-    for s, e in ((0, m), (m // 3 + 1, m - 5), (m - 1, m)):
+    for s, e in ((0, m), (m // 3 + 1, m - 2), (m - 1, m),
+                 (0, rg.packed.shape[0])):
         before = ibs_gram_tri_packed.launches
         S = ibs_gram_tri_packed(rg.packed, n, s, e, ploidy)
         assert ibs_gram_tri_packed.launches == before + 1
         assert torch.equal(S, ibs_gram_tri_packed_plain(rg.packed, n, s, e,
                                                         ploidy))
-        sub = rg.slice_rows(s, e)
-        assert torch.equal(S, ibs_gram_packed(sub.packed, n, sub.M, ploidy))
+        assert torch.equal(S, ibs_gram_packed(rg.packed[s:e], n, e - s,
+                                              ploidy))
+        assert torch.equal(S, ibs_gram_tri_packed(rg.packed, n, s, e, ploidy,
+                                                  _narrow=True))
 
 
 @pytest.mark.parametrize("tier", ["bf16", "bf16x2", "bf16x3"])
@@ -173,3 +188,31 @@ def test_cuda_wrappers_refuse_float64(cuda):
     with pytest.raises(ValueError, match="float32"):
         scan_stats(Xr, rot.sd.double(), rot.y_res.double(),
                    rot.Q0.double(), rot.rss0, rot.dof)
+
+
+def test_default_device_is_the_card(cuda):
+    """Without device= the entry points pack, fit and scan on the card."""
+    from mixmogam_tpu_torch.models.loco import loco_kinships
+    from mixmogam_tpu_torch.ops import resolve_device
+    from mixmogam_tpu_torch.ops.reml import fit_null_model
+
+    assert resolve_device(None).type == "cuda"
+    rng = np.random.default_rng(4)
+    G = rng.integers(0, 2, (900, 130)).astype(np.int8)
+    ch = np.repeat([1, 2], [500, 400])
+    y = G[3] + rng.normal(size=130)
+    rg = ResidentGenome.from_source(G)
+    assert rg.device.type == "cuda"
+    before = (ibs_gram_packed.launches, ibs_gram_tri_packed.launches,
+              scan_stats.launches)
+    Ks = loco_kinships(G, ch)
+    res = emmax_loco(G, y, chromosomes=ch)
+    assert ibs_gram_packed.launches >= before[0] + 2
+    assert ibs_gram_tri_packed.launches >= before[1] + 4
+    null = fit_null_model(y, np.ones((130, 1)), K=Ks[1])
+    assert null.U.device.type == "cuda"
+    a = emmax(G, y, K=Ks[1])
+    assert scan_stats.launches > before[2]
+    b = emmax(G, y, K=Ks[1], device="cpu")
+    assert np.abs(a["ps"] - b["ps"]).max() <= 1e-5
+    assert np.isfinite(res["ps"]).all()

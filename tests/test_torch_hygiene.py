@@ -36,6 +36,14 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_library_int8_gemm_in_the_port(path):
+    """torch._int_mm is chip_smoke.py's yardstick for K1 and K4 only: the
+    port itself never names it."""
+    assert "_int_mm" not in path.read_text()
+
+
 def test_ast_scan_catches_forbidden_forms(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import jax.numpy as jnp\nfrom mixmogam_tpu import ops\n"

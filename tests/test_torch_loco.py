@@ -77,19 +77,20 @@ def test_content_keys_match_jax():
     G, ch, _ = _data(1)
     jrg, rg = _pair(G)
     assert rg.content_key() == jrg.content_key()
-    assert ResidentGenome.from_source(G, tile=32).content_key() \
+    assert ResidentGenome.from_source(G, tile=32, device="cpu").content_key() \
         == jrg.content_key()
     assert loco._source_content_key(rg) == jloco._source_content_key(jrg)
     assert loco._source_content_key(G) == jloco._source_content_key(G)
     G2 = G.copy()
     G2[0, 0] = (G2[0, 0] + 1) % 3
-    assert ResidentGenome.from_source(G2, tile=32).content_key() \
+    assert ResidentGenome.from_source(G2, tile=32,
+                                      device="cpu").content_key() \
         != rg.content_key()
 
 
 def test_slice_rows():
     G, _, _ = _data(2, missing=0.03)
-    rg = ResidentGenome.from_source(G, tile=32)
+    rg = ResidentGenome.from_source(G, tile=32, device="cpu")
     sub = rg.slice_rows(60, 133)
     assert (sub.M, sub.n, sub.tile, sub.has_missing) == (73, rg.n, 32, True)
     # views of the parent's rows, on the device and on the host: no copy
@@ -110,7 +111,7 @@ def test_tri_gram_plain_vs_pallas_tri_interpret(s, e):
     """Binary genotypes (the Pallas kernel's domain): K4's plain version
     over rows [s, e) == pallas_ibs_kinship_tri on the same rows."""
     G, _, _ = _data(3, ploidy=1)
-    rg = ResidentGenome.from_source(G, tile=32)
+    rg = ResidentGenome.from_source(G, tile=32, device="cpu")
     S = ibs_gram_tri_packed_plain(rg.packed, rg.n, s, e, 1)
     K = pallas_ibs_kinship_tri(G[s:e], tm=64, tn=32, interpret=True)
     np.testing.assert_array_equal(S.numpy() / (e - s), K)
@@ -135,7 +136,7 @@ def test_range_kinship_equals_jax(ploidy):
 
 def test_range_gram_wrapper_cpu_and_refusals():
     G, _, _ = _data(6)
-    rg = ResidentGenome.from_source(G, tile=32)
+    rg = ResidentGenome.from_source(G, tile=32, device="cpu")
     before = ibs_gram_tri_packed.launches
     ibs_gram_tri_packed(rg.packed, rg.n, 3, 50, 2)
     assert ibs_gram_tri_packed.launches == before
@@ -160,10 +161,11 @@ def test_loco_kinships_match_jax(ploidy):
     # the recombination identity: K1's gram over the other chromosomes
     for c, s, e in loco._chrom_ranges(ch):
         rest = ResidentGenome.from_source(G[ch != c], tile=32,
-                                          ploidy=ploidy)
+                                          ploidy=ploidy, device="cpu")
         direct = scale_k(kinship_resident(rest))
         assert np.abs(ours[c] - direct).max() <= 1e-12
-    unscaled = loco.loco_kinships(G, ch, ploidy=ploidy, scale=False)
+    unscaled = loco.loco_kinships(G, ch, ploidy=ploidy, scale=False,
+                                  device="cpu")
     ref_u = jloco.loco_kinships(G, ch, ploidy=ploidy, scale=False)
     for c in ref_u:
         np.testing.assert_allclose(unscaled[c], ref_u[c], atol=1e-12)
@@ -188,7 +190,7 @@ def test_emmax_loco_matches_jax(precision):
 
 def test_pipeline_matches_serial():
     G, ch, y = _data(9)
-    rg = ResidentGenome.from_source(G, tile=32)
+    rg = ResidentGenome.from_source(G, tile=32, device="cpu")
     a = loco.emmax_loco(rg, y, chromosomes=ch, pipeline_eigh=True)
     b = loco.emmax_loco(rg, y, chromosomes=ch, pipeline_eigh=False)
     np.testing.assert_allclose(a["ps"], b["ps"], atol=1e-12)
@@ -201,12 +203,12 @@ def test_sources_array_genotype_data_and_facade():
     from mixmogam_tpu.data import GenotypeData
 
     G, ch, y = _data(10)
-    rg = ResidentGenome.from_source(G, tile=32)
+    rg = ResidentGenome.from_source(G, tile=32, device="cpu")
     ref = loco.emmax_loco(rg, y, chromosomes=ch)
     gd = GenotypeData(G, ch, np.arange(G.shape[0]),
                       [f"a{i}" for i in range(G.shape[1])], ploidy=2)
     for src, kw in ((G, dict(chromosomes=ch)), (gd, {})):
-        out = mt.emmax_loco(src, y, **kw)
+        out = mt.emmax_loco(src, y, **kw, device="cpu")
         np.testing.assert_allclose(out["ps"], ref["ps"], atol=1e-12)
     assert mt.loco_kinships is loco.loco_kinships
 
@@ -215,7 +217,7 @@ def test_cache_hit_skips_eigh_and_gram(tmp_path, monkeypatch):
     from mixmogam_tpu_torch.models import resident as res_mod
 
     G, ch, y = _data(11, n=48)
-    rg = ResidentGenome.from_source(G, tile=32)
+    rg = ResidentGenome.from_source(G, tile=32, device="cpu")
     r1 = loco.emmax_loco(rg, y, chromosomes=ch, cache_dir=str(tmp_path))
     files = sorted(tmp_path.glob("loco_eigen_*.npz"))
     assert len(files) == len(np.unique(ch))
@@ -230,7 +232,7 @@ def test_cache_hit_skips_eigh_and_gram(tmp_path, monkeypatch):
         calls["kin"] += 1
         return real_kin(*a, **k)
 
-    monkeypatch.setattr(loco, "_eigh_loco", no_eigh)
+    monkeypatch.setattr(loco, "eigen_k_on", no_eigh)
     monkeypatch.setattr(res_mod, "kinship_resident", count_kin)
     r2 = loco.emmax_loco(rg, y, chromosomes=ch, cache_dir=str(tmp_path))
     assert calls["kin"] == 0          # total gram skipped on a full cache
@@ -251,17 +253,17 @@ def test_cache_entries_named_as_jax(tmp_path):
 
 def test_explicit_kinships_cached_by_content(tmp_path, monkeypatch):
     G, ch, y = _data(13, n=48)
-    ks = loco.loco_kinships(G, ch)
+    ks = loco.loco_kinships(G, ch, device="cpu")
     r1 = loco.emmax_loco(G, y, chromosomes=ch, kinships=ks,
-                         cache_dir=str(tmp_path))
+                         cache_dir=str(tmp_path), device="cpu")
     assert list(tmp_path.glob("loco_eigen_K*.npz"))
 
     def no_eigh(*a, **k):
         raise AssertionError("eigh ran despite a full cache")
 
-    monkeypatch.setattr(loco, "_eigh_loco", no_eigh)
+    monkeypatch.setattr(loco, "eigen_k_on", no_eigh)
     r2 = loco.emmax_loco(G, y, chromosomes=ch, kinships=ks,
-                         cache_dir=str(tmp_path))
+                         cache_dir=str(tmp_path), device="cpu")
     np.testing.assert_allclose(r2["ps"], r1["ps"], atol=1e-12)
 
 
@@ -276,8 +278,8 @@ def test_rescore_cut_counts_the_whole_genome():
     np.testing.assert_array_equal(got, want)
     G, ch, y = _data(14)
     res = loco.emmax_loco(G, y, chromosomes=ch, precision="bf16x2",
-                          rescore_top=8)
-    ex = loco.emmax_loco(G, y, chromosomes=ch)
+                          rescore_top=8, device="cpu")
+    ex = loco.emmax_loco(G, y, chromosomes=ch, device="cpu")
     top = np.argsort(res["ps"])[:8]
     np.testing.assert_allclose(res["ps"][top], ex["ps"][top], rtol=1e-12)
 
@@ -293,13 +295,13 @@ def test_refusals(kw, exc):
     G, ch, y = _data(15)
     kw = {"chromosomes": ch, **kw}
     with pytest.raises(exc):
-        loco.emmax_loco(G, y, **kw)
+        loco.emmax_loco(G, y, **kw, device="cpu")
 
 
 def test_missing_genotypes_raise_until_ported():
     G, ch, y = _data(16, missing=0.03)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loco.emmax_loco(G, y, chromosomes=ch)
+        loco.emmax_loco(G, y, chromosomes=ch, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         loco.emmax_loco(np.where(G < 0, 0.5, G).astype(float), y,
-                        chromosomes=ch)
+                        chromosomes=ch, device="cpu")

@@ -159,7 +159,7 @@ def test_eigen_k_host_matches_jax():
 def test_fit_null_model_matches_jax(q):
     _, K, y, X0 = _problem(seed=q, q=q)
     nj = jreml.fit_null_model(y, X0, K=K)
-    nt = reml.fit_null_model(y, X0, K=K)
+    nt = reml.fit_null_model(y, X0, K=K, device="cpu")
     for f in ("delta", "ll", "pseudo_heritability", "sigma_g2",
               "log_delta"):
         np.testing.assert_allclose(float(getattr(nt, f)),
@@ -170,7 +170,7 @@ def test_fit_null_model_matches_jax(q):
 def test_fit_null_model_spectrum_not_ported():
     _, K, y, X0 = _problem()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        reml.fit_null_model(y, X0, K=K, method="spectrum")
+        reml.fit_null_model(y, X0, K=K, method="spectrum", device="cpu")
 
 
 @pytest.mark.parametrize("q", [1, 3])
@@ -178,7 +178,7 @@ def test_build_rotated_null_matches_jax(q):
     _, K, y, X0 = _problem(seed=10 + q, q=q)
     nj = jreml.fit_null_model(y, X0, K=K)
     nt = reml.fit_null_model(y, X0, eig_k=(np.asarray(nj.phi),
-                                          np.asarray(nj.U)))
+                                          np.asarray(nj.U)), device="cpu")
     rj = jscan.build_rotated_null(nj)
     rt = scan.build_rotated_null(nt)
     np.testing.assert_allclose((rt.U * rt.sd[None, :]).numpy(),

@@ -57,7 +57,7 @@ def test_plain_int8_packed_vs_pallas_interpret(small_dataset, kinship_small,
     pal = pallas_rotate_scan_int8(G, rot_j, tm=128, nb=128,
                                   interpret=True)
     rot = _carry(rot_j, torch.float32)
-    rg = ResidentGenome.from_source(G, tile=128)
+    rg = ResidentGenome.from_source(G, tile=128, device="cpu")
     ours = rotate_scan_int8_packed_plain(
         rg.packed, rg.n, rot.planes, rot.w_scale, rot.y_res, rot.Q0,
         rot.rss0, rot.dof)[:, :rg.M]
@@ -78,7 +78,7 @@ def test_plain_int8_packed_matches_jax_xla_tier_f64(small_dataset,
     rot_j = jscan.build_rotated_null(null, rotate_dtype="int8x3")
     ref = jscan.emmax_scan_all(jnp.asarray(G), rot_j, tile=256)
     rot = _carry(rot_j, torch.float64)
-    rg = ResidentGenome.from_source(G, tile=128)
+    rg = ResidentGenome.from_source(G, tile=128, device="cpu")
     ours = rotate_scan_int8_packed_plain(
         rg.packed, rg.n, rot.planes, rot.w_scale, rot.y_res, rot.Q0,
         rot.rss0, rot.dof)[:, :rg.M]
