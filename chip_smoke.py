@@ -12,12 +12,16 @@ Phases (each prints its own seconds):
     main path's shapes (n samples, one 16,384-row tile): K1 and K4 (over
     a row range that starts mid-tile) bit-equal for ploidy 1 and 2, and
     again at n = 2,042 (a row pitch of 511 bytes: the kernels' byte loads)
-    over 3,001 rows; K2 int8x3, K3 and K5 (bf16, bf16x2, bf16x3, and
-    bf16x3 on a genome with 2 % missing genotypes) within f rtol 1e-4 /
-    atol 1e-4, beta atol 1e-5, identical masks. Each kernel's time stands
-    beside its bound (the larger of its bytes over 3.35 TB/s and its
-    operations over the card's data-sheet peak for their type) and, for
-    K1 and K4, beside one torch._int_mm over the unpacked int8 rows
+    over 3,001 rows; K2 (int8x2, int8x3), K3 and K5 (bf16, bf16x2, bf16x3,
+    and bf16x3 on a genome with 2 % missing genotypes) within f rtol 1e-4 /
+    atol 1e-4, beta atol 1e-5, identical masks, and bit-equal between a
+    launch on the operand prepared once per rotated null and one that
+    prepares it on the spot. Each kernel's time stands beside its bound
+    (the larger of its bytes over 3.35 TB/s and its operations over the
+    card's data-sheet peak for their type) and, for K1 and K4, beside one
+    torch._int_mm over the unpacked int8 rows; beside K2 and K5 stand their
+    products alone through the library on unpacked rows (torch._int_mm a
+    plane, a bf16 matmul a part), which the port never calls
   4 the main path at full width: simulate -> ResidentGenome on the card
     -> kinship_resident (K1) -> scale_k -> eigh on the card (float64)
     -> fit_null_model -> emmax_resident at 'exact' (K3), 'int8x3' (K2)
@@ -184,8 +188,8 @@ def main(argv=None) -> int:
         ibs_gram_tri_packed_plain)
     from mixmogam_tpu_torch.ops.hopper_scan import (
         rotate_scan_bf16_packed, rotate_scan_bf16_packed_plain,
-        rotate_scan_int8_packed, rotate_scan_int8_packed_plain, scan_stats,
-        scan_stats_plain)
+        rotate_scan_int8_packed, rotate_scan_int8_packed_plain, scan_operand,
+        scan_stats, scan_stats_plain)
     from mixmogam_tpu_torch.ops.reml import NullModel, fit_null_model
     from mixmogam_tpu_torch.ops.scan import build_rotated_null
 
@@ -200,7 +204,8 @@ def main(argv=None) -> int:
     for name, sec in built.items():
         print(f"built {name}.cu in {sec:.3f} s", flush=True)
         for line in _build.BUILD_LOG.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if ("registers" in line or "spill" in line or "error" in line
+                    or "Performance Loss" in line):
                 print(f"  ptxas {name}: {line.strip()}", file=sys.stderr)
     _phase("2 build", t0)
 
@@ -308,24 +313,57 @@ def main(argv=None) -> int:
     null = NullModel(phi=phi, U=U, delta=one, log_delta=0 * one, ll=one,
                      sigma_g2=one, sigma_e2=one, pseudo_heritability=one / 2,
                      y=yv, X0=torch.ones((n, 1), device=dev))
-    rot8 = build_rotated_null(null, rotate_dtype="int8x3")
-    a8 = (rg1.packed, n, rot8.planes, rot8.w_scale, rot8.y_res, rot8.Q0,
-          rot8.rss0, rot8.dof)
-    err = _check_stats("K2 int8x3", rotate_scan_int8_packed(*a8),
-                       rotate_scan_int8_packed_plain(*a8))
-    ms = _cuda_ms(lambda: rotate_scan_int8_packed(*a8))
-    pms = _cuda_ms(lambda: rotate_scan_int8_packed_plain(*a8))
-    # three plane products of rows x n x n multiply-adds; the epilogue's
-    # few operations a row are left out
-    bnd = _bound(2.0 * 3 * rows * n * n, "int8",
-                 *(t for t in a8 if isinstance(t, torch.Tensor)),
-                 torch.empty((4, rows)))
-    report["rotate_scan_int8_packed"] = dict(max_abs_err=err, ms=ms,
-                                             plain_ms=pms, library_ms=None,
-                                             **bnd)
-    print(f"K2 rotate_scan_int8_packed int8x3 n={n} rows={rows}: max|df| "
-          f"{err:.3e}, kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
-          f"{bnd['bound_ms']:.3f} ms by {bnd['bound_by']}", flush=True)
+    # the unpacked rows for the library's products: the share of cuBLAS's
+    # rate that the fused kernels reach (the port never calls these)
+    G8 = torch.as_tensor(G1, device=dev)
+    Gb = G8.to(torch.bfloat16)
+
+    def lib_ms(fn, what):
+        try:
+            return _cuda_ms(fn)
+        except (AttributeError, RuntimeError) as exc:
+            print(f"{what}: not timed: {str(exc)[:200]}", flush=True)
+            return None
+
+    # K2 at the fast tier and at the fp32-grade one (the report's row); the
+    # operand is prepared once per rotated null, as on the main path, so
+    # the time is the kernel's alone
+    for tier in ("int8x2", "int8x3"):
+        rot8 = build_rotated_null(null, rotate_dtype=tier)
+        a8 = (rg1.packed, n, rot8.planes, rot8.w_scale, rot8.y_res, rot8.Q0,
+              rot8.rss0, rot8.dof)
+        ts = time.perf_counter()
+        op8 = scan_operand(rot8)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - ts
+        got = rotate_scan_int8_packed(*a8, operand=op8)
+        if not torch.equal(got, rotate_scan_int8_packed(*a8)):
+            raise AssertionError(f"K2 {tier}: a second launch (operand "
+                                 "prepared on the spot) is not bit-equal")
+        err = _check_stats(f"K2 {tier}", got,
+                           rotate_scan_int8_packed_plain(*a8))
+        ms = _cuda_ms(lambda: rotate_scan_int8_packed(*a8, operand=op8))
+        pms = _cuda_ms(lambda: rotate_scan_int8_packed_plain(*a8))
+        # a product of rows x n x n multiply-adds for each plane; the
+        # epilogue's few operations a row are left out
+        nplanes = rot8.planes.shape[0]
+        bnd = _bound(2.0 * nplanes * rows * n * n, "int8",
+                     *(t for t in a8 if isinstance(t, torch.Tensor)),
+                     torch.empty((4, rows)))
+        planes_t = [p_.t().contiguous().t() for p_ in rot8.planes]
+        lms = lib_ms(lambda: [torch._int_mm(G8, p_) for p_ in planes_t],
+                     f"{nplanes} x torch._int_mm(G_s8, P_p)")
+        print(f"   products alone through the library, unpacked rows: "
+              f"{nplanes} x torch._int_mm(G_s8, P_p) {lms} ms; operand "
+              f"prepared once in {prep_s * 1e3:.1f} ms", flush=True)
+        print(f"K2 rotate_scan_int8_packed {tier} n={n} rows={rows}: "
+              f"max|df| {err:.3e}, kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+              f"bound {bnd['bound_ms']:.3f} ms by {bnd['bound_by']}",
+              flush=True)
+        if tier == "int8x3":
+            report["rotate_scan_int8_packed"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None, **bnd)
+        del planes_t, op8, rot8, a8
     # K5 at each bf16 tier, then bf16x3 on a genome with 2 % missing
     # genotypes (per-row means, rounded to bf16 in the kernel)
     Gm, _, _ = simulate_genotypes(n, rows, ploidy=1, missing_rate=0.02,
@@ -336,26 +374,43 @@ def main(argv=None) -> int:
     for tier in ("bf16", "bf16x2", "bf16x3", "bf16x3 missing"):
         rotb = build_rotated_null(null, tier.split()[0])
         a5 = (rg1.packed, n, rotb.parts, rotb.y_res, rotb.Q0, rotb.rss0,
-              rotb.dof)
+              rotb.dof, None)
         if tier.endswith("missing"):
-            a5 = (rgm.packed,) + a5[1:] + (mu,)
-        errs.append(_check_stats(f"K5 {tier}", rotate_scan_bf16_packed(*a5),
-                                 rotate_scan_bf16_packed_plain(*a5)))
-        ms = _cuda_ms(lambda: rotate_scan_bf16_packed(*a5))
+            a5 = (rgm.packed,) + a5[1:-1] + (mu,)
+        ts = time.perf_counter()
+        op5 = scan_operand(rotb)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - ts
+        got = rotate_scan_bf16_packed(*a5, operand=op5)
+        if not torch.equal(got, rotate_scan_bf16_packed(*a5)):
+            raise AssertionError(f"K5 {tier}: a second launch (operand "
+                                 "prepared on the spot) is not bit-equal")
+        ref = rotate_scan_bf16_packed_plain(*a5)
+        errs.append(_check_stats(f"K5 {tier}", got, ref))
+        dbeta = float((got[1] - ref[1]).abs().max())
+        ms = _cuda_ms(lambda: rotate_scan_bf16_packed(*a5, operand=op5))
         pms = _cuda_ms(lambda: rotate_scan_bf16_packed_plain(*a5))
         # one product of rows x n x n multiply-adds for each bf16 part
-        nparts = {"bf16": 1, "bf16x2": 2, "bf16x3": 3}[tier.split()[0]]
+        nparts = rotb.parts.shape[0]
         bnd = _bound(2.0 * nparts * rows * n * n, "bf16",
                      *(t for t in a5 if isinstance(t, torch.Tensor)),
                      torch.empty((4, rows)))
+        if not tier.endswith("missing"):
+            lms = lib_ms(lambda: [Gb @ p_ for p_ in rotb.parts],
+                         f"{nparts} x (G_bf16 @ P_p)")
+            print(f"   products alone through the library, unpacked rows: "
+                  f"{nparts} x (G_bf16 @ P_p) {lms} ms; operand prepared "
+                  f"once in {prep_s * 1e3:.1f} ms", flush=True)
         print(f"K5 rotate_scan_bf16_packed {tier} n={n} rows={rows}: "
-              f"max|df| {errs[-1]:.3e}, kernel {ms:.3f} ms, plain "
-              f"{pms:.3f} ms, bound {bnd['bound_ms']:.3f} ms by "
-              f"{bnd['bound_by']}", flush=True)
+              f"max|df| {errs[-1]:.3e}, max|dbeta| {dbeta:.3e}, kernel "
+              f"{ms:.3f} ms, plain {pms:.3f} ms, bound "
+              f"{bnd['bound_ms']:.3f} ms by {bnd['bound_by']}", flush=True)
         if tier == "bf16x3":
             report["rotate_scan_bf16_packed"] = dict(ms=ms, plain_ms=pms,
                                                      library_ms=None, **bnd)
+        del op5
     report["rotate_scan_bf16_packed"]["max_abs_err"] = max(errs)
+    del G8, Gb, got, ref
     del a5, rotb, rgm, Gm, mu
     rot = build_rotated_null(null)
     Xr = torch.as_tensor(G1, device=dev).float() @ rot.U
@@ -374,7 +429,7 @@ def main(argv=None) -> int:
     print(f"K3 scan_stats n={n} rows={rows}: max|df| {err:.3e}, kernel "
           f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bnd['bound_ms']:.3f} ms "
           f"by {bnd['bound_by']}", flush=True)
-    del Xr, a3, a8, rot8, rot, null, U, rg1, rgc, G1, Gc, S, S_ref
+    del Xr, a3, rot, null, U, rg1, rgc, G1, Gc, S, S_ref
     torch.cuda.empty_cache()
     _phase("3 kernels vs plain", t0)
 

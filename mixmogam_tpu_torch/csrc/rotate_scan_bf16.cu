@@ -6,260 +6,247 @@
 // tiers the JAX main path runs in XLA (ops/scan.py apply_rotation +
 // scan_epilogue via models/resident.py emmax_scan_packed).
 //
-// For a block of TM SNP rows: Xs = G @ (P_0 + ... + P_{K-1}), with G the
-// unpacked dosages as bf16 (missing codes replaced by the row's mean
-// rounded to bf16 when row means are given, else 0) and P_p the K bf16
-// split-W parts of W = U * sd. Every bf16 x bf16 product is exact and
-// accumulates in f32 on the tensor cores, each part in its own
-// accumulator and over one 64-sample chunk only; after each chunk the
-// parts' sums (smallest part first) are added into a running f32 sum in
-// registers, with IEEE round-to-nearest. The tensor cores' f32
-// accumulation drops the low bits of addends much smaller than its
-// running sum (truncating alignment), so a sum over all n inputs in one
-// accumulator, and even more one shared by the parts, drifted from the
-// float64 plain version: measured on the card at n = 10,240, bf16x3 max
-// |d beta| 2.3e-5 with one shared accumulator, 1.2e-5 with one per part.
-// Summation order differs from XLA's per-part dots, which the tolerance
-// covers.
-// From each finished Xs column block the shared epilogue
-// (scan_epilogue.cuh, as in K2) accumulates ss, xy and cc = Xs @ Q0; Xs
-// never reaches device memory. Output (4, rows) = [f, beta, var_perc,
-// mask].
+// Xs = G @ (P_0 + ... + P_{K-1}), with G the unpacked dosages as bf16
+// (missing codes replaced by the row's mean rounded to bf16 when row means
+// are given, else 0) and P_p the K bf16 split-W parts of W = U * sd. Every
+// bf16 x bf16 product is exact and accumulates in f32 on the tensor cores.
+// Their f32 accumulation drops the low bits of addends much smaller than the
+// running sum (truncating alignment), so a sum over all n samples in one
+// accumulator drifts from the float64 plain version. Hence the sums are kept
+// short: one accumulator takes one 64-sample chunk of every part, smallest
+// part first (the parts stacked along K), and is then added into a running
+// f32 sum in registers with IEEE round-to-nearest. (-DROTATE_SCAN_ADD_EACH_PART
+// builds the other candidate, an IEEE add after every part of a chunk, for
+// scripts/torch_rotate_scan_ablation.py.) Row sums and the GLS epilogue:
+// rotate_scan_tile.cuh, shared with K2. Output (4, rows) = [f, beta,
+// var_perc, mask].
 //
 // Bound on the H100: bf16 tensor-core throughput (K * rows * n^2
-// multiply-adds). Device-memory traffic is the K parts (2 * K * n^2 bytes),
-// re-read once per block of TM = 128 rows, i.e. 64 MACs per byte; the
-// blocks in flight walk the parts in step, so most of it hits L2.
-// Design: 8 warps; each warp owns a 32-row x 32-column tile of one
-// 128 x 64 output step and issues mma.sync m16n8k16 bf16 -> f32. The
-// contraction runs in chunks of 64 samples. The k order inside each
-// 16-sample step is permuted (the sum does not care): logical inputs
-// {2t, 2t+1, 2t+8, 2t+9} of mma thread t are the physical samples
-// 4t..4t+3, i.e. ONE packed byte. So the packed G bytes go to shared
-// memory as they are and each thread decodes its own A fragment registers
-// from one byte per row; the parts arrive pre-transposed (K, n_pad,
-// n_pad)[p][out][in], so the matching B fragment (2 registers) is one
-// 8-byte load of 4 consecutive inputs. Their shared-memory rows are XOR
-// swizzled in 8-byte slots so those loads are bank-conflict-free. The
-// next chunk's global loads are issued into registers before the current
-// chunk's products. Simple first: no ldmatrix, cp.async, TMA or wgmma.
+// multiply-adds); device memory sees the parts and the packed rows once,
+// everything else is L2 traffic (the header says how it is held down).
+// Design (the kernel's own part; ring, barriers and row sums are the
+// header's): a stage is one 64-sample chunk of a 64-column step for all K
+// parts; a consumer warpgroup issues wgmma.mma_async m64n64k16 bf16 x bf16
+// -> f32 for its two 64-row tiles, 4 k-steps a part. The sample order inside
+// a chunk is permuted so that the 16 samples a thread feeds into the 4
+// k-steps are ONE 32-bit word of the packed row, and byte s of it is the two
+// A registers of k-step s. The decode is a table look-up in registers: the
+// bf16 low and high bytes of the four codes {0, 1, 2, missing -> the row's
+// mean} are two 4-byte pools a row, and one byte permute (prmt) with two
+// codes in its selector nibbles gives two bf16 values; the selectors come
+// from the whole word at once (27 operations for its 8 registers). The A
+// registers of a chunk are decoded once and serve every part; two sets
+// alternate, so the next chunk is decoded while this one's wgmma run.
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "scan_epilogue.cuh"
+#include "rotate_scan_tile.cuh"
 
 namespace {
 
-using scan_epi::THREADS;
-using scan_epi::TM;
-using scan_epi::WN;
-constexpr int TN = 64;       // output columns per step
-constexpr int TK = 64;       // input samples per chunk
-constexpr int GW = TK / 16;  // 32-bit words of packed G per row per chunk
-constexpr int WROW = TK * 2; // bytes per part column per chunk (16 slots)
+#define K5_D8(i)                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// bf16 bits of a 2-bit code: 0 -> 0.0, 1 -> 1.0, 2 -> 2.0, 3 (missing, or
-// column padding beyond n) -> the row's mean (0 without row means)
-__device__ __forceinline__ uint32_t code_bf16(uint32_t c, uint32_t mb) {
-  return c == 3u ? mb : (c == 0u ? 0u : 0x3F00u + (c << 7));
-}
-
-// byte offset of 8-byte slot `slot` (0..15) of part column `col`
-__device__ __forceinline__ int w_off(int col, int slot) {
-  return col * WROW + ((slot ^ ((col & 3) << 2)) << 3);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// d (64 x 64, f32) = A (64 x 16 bf16, registers) * B (16 x 64 bf16, shared,
+// K-major) + (acc ? d : 0)
+__device__ __forceinline__ void wgmma_m64n64k16_bf16(float (&d)[32],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t db, int acc) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : K5_D8(0), K5_D8(8), K5_D8(16), K5_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
-template <int NP>
-__global__ void __launch_bounds__(THREADS, 1)
-rotate_scan_bf16_kernel(const uint8_t* __restrict__ packed, long long rows,
-                        int rb, int n_pad, const uint16_t* __restrict__ wt,
-                        const float* __restrict__ y_res,
-                        const float* __restrict__ q0, int q,
-                        const float* __restrict__ row_mean, float rss0,
-                        float dof, float* __restrict__ out) {
-  __shared__ uint32_t sG[TM * GW];                    // [row][word]
-  __shared__ __align__(16) uint8_t sW[NP * TN * WROW];  // [p][col][slots]
-  __shared__ uint32_t sMean[TM];                      // bf16 bits
-  __shared__ scan_epi::Sums sums;
+#undef K5_D8
 
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int wm = warp % (THREADS / 32 / WN);  // 32-row slab of the block
-  const int wn = warp / (THREADS / 32 / WN);  // 32-column half of a step
-  const int g = lane / 4;                     // mma groupID
-  const int t4 = lane % 4;                    // mma threadID_in_group
-  const long long r0 = (long long)blockIdx.x * TM;
+template <int NP, bool AL>
+struct Bf16Policy {
+  static constexpr bool ALIGNED = AL;
+  static constexpr int CN = 64;             // output columns a step
+  static constexpr int KS = 64;             // samples a stage (one chunk)
+  static constexpr int GB = KS / 4;         // packed bytes a row a stage
+  static constexpr int GBW = GB + (AL ? 0 : 16);    // a row's window
+  static constexpr int W_PART = CN * KS * 2;   // bytes of one part's image
+  static constexpr int W_STAGE = NP * W_PART;
+  static constexpr int LBO = 8 * 128;       // between 16-byte K chunks
+  static constexpr int STAGES = NP == 3 ? 6 : 8;
 
-  scan_epi::zero_sums(sums);
-  if (tid < TM) {
-    uint32_t mb = 0u;
-    if (row_mean != nullptr && r0 + tid < rows)
-      mb = __bfloat16_as_ushort(__float2bfloat16_rn(row_mean[r0 + tid]));
-    sMean[tid] = mb;
+  struct State {
+    float run[2][32];      // the running IEEE f32 sums of this column step
+    uint32_t lo[4], hi[4]; // the code -> bf16 byte pools of rows (mt, hh)
+    int shift[4];          // where the row's bytes start in its window
+  };
+
+  __device__ static __forceinline__ void init(State& s, const rscan::Args& a,
+                                              long long row0, int warp,
+                                              int g) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const long long row = row0 + (i >> 1) * 64 + 16 * warp + 8 * (i & 1) + g;
+      uint32_t mb = 0u;
+      if (a.row_mean != nullptr && row < a.rows)
+        mb = __bfloat16_as_ushort(__float2bfloat16_rn(a.row_mean[row]));
+      // bytes by code: 0 -> 0x0000, 1 -> 0x3F80, 2 -> 0x4000, 3 -> mb
+      s.shift[i] = AL ? 0 : rscan::row_shift(a, row);
+      s.lo[i] = 0x00008000u | ((mb & 0xFFu) << 24);
+      s.hi[i] = 0x00403F00u | ((mb >> 8) << 24);
+    }
   }
 
-  // this thread's share of one chunk: 2 words of packed G, NP x 2 x 16
-  // bytes of parts (NP * TN * WROW / 16 == NP * 2 * THREADS)
-  uint32_t pg[2];
-  uint4 pw[NP][2];
-  auto load_chunk = [&](int j0, int k0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int w = tid + h * THREADS;
-      const long long grow = r0 + w / GW;
-      const int bc = k0 / 4 + (w % GW) * 4;
-      uint32_t word = 0;
-      if (grow < rows) {
-        const uint8_t* src = packed + grow * rb;
-#pragma unroll
-        for (int s = 0; s < 4; ++s)
-          if (bc + s < rb) word |= (uint32_t)src[bc + s] << (8 * s);
-      }
-      pg[h] = word;
-    }
-#pragma unroll
-    for (int p = 0; p < NP; ++p)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int idx = tid + h * THREADS;
-        const int col = idx / 8;
-        const int v = idx % 8;
-        pw[p][h] = *reinterpret_cast<const uint4*>(
-            wt + ((long long)p * n_pad + j0 + col) * n_pad + k0 + 8 * v);
-      }
-  };
-  auto store_chunk = [&]() {
-    sG[tid] = pg[0];
-    sG[tid + THREADS] = pg[1];
-#pragma unroll
-    for (int p = 0; p < NP; ++p)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int idx = tid + h * THREADS;
-        const int col = idx / 8;
-        const int v = idx % 8;
-        *reinterpret_cast<uint4*>(sW + p * TN * WROW + w_off(col, 2 * v)) =
-            pw[p][h];
-      }
-  };
-
-  const uint8_t* gb = reinterpret_cast<const uint8_t*>(sG);
-  for (int j0 = 0; j0 < n_pad; j0 += TN) {
-    float xs[2][4][4];  // this column step's Xs, summed over the chunks
+  // the A registers of one chunk from the warpgroup's packed bytes
+  __device__ static __forceinline__ void decode(const State& s,
+                                                uint32_t (&a)[4][2][4],
+                                                const uint8_t* sG, int warp,
+                                                int g, int t4) {
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
+      for (int hh = 0; hh < 2; ++hh) {
+        const uint32_t w = rscan::lds_word<AL>(
+            sG + (mt * 64 + 16 * warp + 8 * hh + g) * GBW +
+            s.shift[2 * mt + hh] + 4 * t4);
+        const uint32_t lo = s.lo[2 * mt + hh], hi = s.hi[2 * mt + hh];
+        // code i of every byte, masked out for the whole word at once,
+        // then as the selector byte (c, 4 + c) = 0x40 + 0x11 c: low byte
+        // of the code's bf16 from `lo`, high byte from `hi`
+        const uint32_t s0 = (w & 0x03030303u) * 0x11u + 0x40404040u;
+        const uint32_t s1 = ((w >> 2) & 0x03030303u) * 0x11u + 0x40404040u;
+        const uint32_t s2 = ((w >> 4) & 0x03030303u) * 0x11u + 0x40404040u;
+        const uint32_t s3 = ((w >> 6) & 0x03030303u) * 0x11u + 0x40404040u;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) xs[mt][nt][i] = 0.f;
-
-    load_chunk(j0, 0);
-    for (int k0 = 0; k0 < n_pad; k0 += TK) {
-      __syncthreads();  // the previous chunk's products are done
-      store_chunk();
-      __syncthreads();
-      if (k0 + TK < n_pad) load_chunk(j0, k0 + TK);  // in flight meanwhile
-      float acc[NP][2][4][4];
-#pragma unroll
-      for (int p = 0; p < NP; ++p)
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) acc[p][mt][nt][i] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < TK / 16; ++ks) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = wm * 32 + mt * 16 + h * 8 + g;
-            const uint32_t b = gb[row * (TK / 4) + ks * 4 + t4];
-            const uint32_t mb = sMean[row];
-            a[mt][h] = code_bf16(b & 3u, mb) |
-                       (code_bf16((b >> 2) & 3u, mb) << 16);
-            a[mt][2 + h] = code_bf16((b >> 4) & 3u, mb) |
-                           (code_bf16((b >> 6) & 3u, mb) << 16);
-          }
+        for (int ks = 0; ks < 4; ++ks) {     // byte ks of the word
+          const uint32_t sel01 = __byte_perm(s0, s1, 0x40 + 0x11 * ks);
+          const uint32_t sel23 = __byte_perm(s2, s3, 0x40 + 0x11 * ks);
+          a[ks][mt][hh] = __byte_perm(lo, hi, sel01);      // k 2t, 2t+1
+          a[ks][mt][2 + hh] = __byte_perm(lo, hi, sel23);  // k 2t+8, 2t+9
         }
-#pragma unroll
-        for (int p = 0; p < NP; ++p)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            const uint2 bw = *reinterpret_cast<const uint2*>(
-                sW + p * TN * WROW +
-                w_off(wn * 32 + nt * 8 + g, ks * 4 + t4));
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt)
-              mma_bf16(acc[p][mt][nt], a[mt], bw.x, bw.y);
-          }
       }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float t = acc[NP - 1][mt][nt][i];
-#pragma unroll
-            for (int p = NP - 2; p >= 0; --p) t = t + acc[p][mt][nt][i];
-            xs[mt][nt][i] += t;
-          }
-    }
-    scan_epi::scan_step_sums(xs, j0, wm, wn, g, t4, y_res, q0, q, sums);
   }
-  __syncthreads();
-  scan_epi::scan_write_stats(sums, r0, rows, q, rss0, dof, out);
-}
 
-template <int NP>
-int launch(const void* packed, long long rows, int rb, int n_pad,
-           const void* wt, const void* y_res, const void* q0, int q,
-           const void* row_mean, float rss0, float dof, void* out,
-           void* stream) {
-  const long long blocks = (rows + TM - 1) / TM;
-  rotate_scan_bf16_kernel<NP><<<(unsigned)blocks, THREADS, 0,
-                                (cudaStream_t)stream>>>(
-      (const uint8_t*)packed, rows, rb, n_pad, (const uint16_t*)wt,
-      (const float*)y_res, (const float*)q0, q, (const float*)row_mean, rss0,
-      dof, (float*)out);
-  return (int)cudaGetLastError();
-}
+  __device__ static __forceinline__ void add(State& s,
+                                             const float (&acc)[2][32]) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s.run[mt][i] += acc[mt][i];
+  }
+
+  // One chunk: its wgmma from the decoded registers `a`; while they run,
+  // the next chunk (if any) is decoded into `an`; then the chunk's sums go
+  // into the running sums and its stage is released.
+  __device__ static __forceinline__ void chunk(State& s, rscan::Ring& ring,
+                                               const uint32_t (&a)[4][2][4],
+                                               uint32_t (&an)[4][2][4],
+                                               bool has_next, int warp, int g,
+                                               int t4) {
+    const uint32_t sW = ring.sW();
+    const int cur = ring.slot;
+    float acc[2][32];
+    rscan::wgmma_fence();
+#pragma unroll
+    for (int p = NP - 1; p >= 0; --p) {
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const uint64_t db =
+            rscan::b_desc(sW + p * W_PART + ks * 2 * LBO, LBO);
+#ifdef ROTATE_SCAN_ADD_EACH_PART
+        const int first = ks == 0;
+#else
+        const int first = ks == 0 && p == NP - 1;
+#endif
+        wgmma_m64n64k16_bf16(acc[0], a[ks][0], db, !first);
+        wgmma_m64n64k16_bf16(acc[1], a[ks][1], db, !first);
+      }
+#ifdef ROTATE_SCAN_ADD_EACH_PART
+      rscan::wgmma_commit();
+      rscan::wgmma_wait<0>();
+      add(s, acc);
+      if (p > 0) rscan::wgmma_fence();
+#endif
+    }
+#ifndef ROTATE_SCAN_ADD_EACH_PART
+    rscan::wgmma_commit();
+#endif
+    ring.advance();
+    if (has_next) {
+      ring.wait_full();
+      decode(s, an, ring.sG(), warp, g, t4);
+    }
+#ifndef ROTATE_SCAN_ADD_EACH_PART
+    rscan::wgmma_wait<0>();
+    add(s, acc);
+#endif
+    ring.release(cur);
+  }
+
+  __device__ static __forceinline__ void step(State& s, rscan::Ring& ring,
+                                              int n_stages, int warp, int g,
+                                              int t4) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s.run[mt][i] = 0.f;
+    uint32_t a0[4][2][4], a1[4][2][4];   // [k-step][tile][register], in turn
+    ring.wait_full();
+    decode(s, a0, ring.sG(), warp, g, t4);
+    for (int st = 0; st < n_stages; st += 2) {
+      chunk(s, ring, a0, a1, st + 1 < n_stages, warp, g, t4);
+      if (st + 1 < n_stages)
+        chunk(s, ring, a1, a0, st + 2 < n_stages, warp, g, t4);
+    }
+  }
+
+  __device__ static __forceinline__ void finish_step(State& s,
+                                                     float (&xs)[2][CN / 2],
+                                                     const rscan::Args&, int,
+                                                     int) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) xs[mt][i] = s.run[mt][i];
+  }
+};
 
 }  // namespace
 
-// wt: (num_parts, n_pad, n_pad) bf16, the parts transposed to [p][out][in]
-// and zero-padded; y_res: (n_pad,) f32; q0: (n_pad, q) f32; row_mean:
-// (rows,) f32 or null (fully observed: missing codes count as 0)
+// w_img: the parts as stage images (hopper_scan.py prepare_bf16_operand):
+// [n_steps][n_stages][num_parts][64 * 64] bf16; y_res: (n_steps * 64,) f32;
+// q0t: (q, n_steps * 64) f32; row_mean: (rows,) f32 or null (fully observed:
+// missing codes count as 0); part: (nsplit, 2 + q, rows) f32 scratch.
+// K2 and K5 share one argument list: w_scale is K2's and is not read here.
 extern "C" int rotate_scan_bf16_packed(const void* packed, long long rows,
-                                       int rb, int n_pad, int num_parts,
-                                       const void* wt, const void* y_res,
-                                       const void* q0, int q,
-                                       const void* row_mean, float rss0,
-                                       float dof, void* out, void* stream) {
-  if (n_pad % TK != 0 || n_pad % TN != 0 || q < 0 || q > scan_epi::QMAX)
-    return (int)cudaErrorInvalidValue;
+                                       int rb, int num_parts,
+                                       const void* w_img, int n_steps,
+                                       int n_stages, const void* /*w_scale*/,
+                                       const void* y_res, const void* q0t,
+                                       int q, const void* row_mean,
+                                       float rss0, float dof, int nsplit,
+                                       void* part, void* out, void* stream) {
+  const rscan::Args a{(const uint8_t*)packed, rows, rb,
+                      (const uint8_t*)w_img, n_steps, n_stages, nullptr,
+                      (const float*)y_res, (const float*)q0t, q,
+                      (const float*)row_mean, (float*)part};
+  auto s = (cudaStream_t)stream;
   switch (num_parts) {
-    case 1: return launch<1>(packed, rows, rb, n_pad, wt, y_res, q0, q,
-                             row_mean, rss0, dof, out, stream);
-    case 2: return launch<2>(packed, rows, rb, n_pad, wt, y_res, q0, q,
-                             row_mean, rss0, dof, out, stream);
-    case 3: return launch<3>(packed, rows, rb, n_pad, wt, y_res, q0, q,
-                             row_mean, rss0, dof, out, stream);
+    case 1: return rscan::launch<Bf16Policy, 1>(a, nsplit, rss0, dof,
+                                                (float*)out, s);
+    case 2: return rscan::launch<Bf16Policy, 2>(a, nsplit, rss0, dof,
+                                                (float*)out, s);
+    case 3: return rscan::launch<Bf16Policy, 3>(a, nsplit, rss0, dof,
+                                                (float*)out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -6,236 +6,219 @@
 // the JAX main path runs in XLA (ops/scan.py apply_rotation +
 // scan_epilogue via models/resident.py emmax_scan_packed).
 //
-// For a block of TM SNP rows: Xs = (sum_p 256^p * (G @ P_p)) * w_scale,
-// with G the unpacked int8 dosages and P_p the K int8 digit planes of
-// W = U * sd; every plane product accumulates EXACTLY in int32 over all n
-// inputs before the f32 recombine (the XLA tier's numerics). From each
-// finished Xs column block it accumulates ss = sum Xs^2, xy = Xs . y_res
-// and cc = Xs @ Q0; Xs never reaches device memory. The epilogue matches
-// ops/scan.py scan_epilogue in f32: mask = xx > 100*eps*max(ss, tiny),
-// expl clamped to rss0, rss1 floored at tiny, outputs zeroed off-mask.
-// Output (4, rows) = [f, beta, var_perc, mask].
+// Xs = (sum_p 256^p * (G @ P_p)) * w_scale, with G the unpacked int8
+// dosages and P_p the K int8 digit planes of W = U * sd; every plane product
+// accumulates EXACTLY in int32 over all n inputs before the f32 recombine,
+// low digit first (the XLA tier's numerics). Row sums and the GLS epilogue:
+// rotate_scan_tile.cuh, shared with K5. Output (4, rows) = [f, beta,
+// var_perc, mask].
 //
 // Bound on the H100: int8 tensor-core throughput (K * rows * n^2
-// multiply-adds). Device-memory traffic is the K planes (K * n^2 bytes),
-// re-read once per block of TM = 128 rows, i.e. 128 int8 MACs per byte;
-// the blocks in flight walk the planes in step, so most of it hits L2.
-// The row sums and the epilogue are scan_epilogue.cuh, shared with K5.
-// Design: 8 warps; each warp owns a 32-row x 32-column tile of one
-// 128 x 64 output step and issues mma.sync m16n8k32 s8 x s8 -> s32 per
-// plane (int32 sums are exact, so the result does not depend on the
-// summation order). The contraction runs in chunks of 64 samples: the
-// packed G bytes go to shared memory as they are, and each thread builds
-// its A fragments straight from them (one packed byte = 4 consecutive
-// samples = one 32-bit fragment register); the planes arrive
-// pre-transposed (K, n_pad, n_pad)[p][j][k], so 4 consecutive k are one
-// B fragment register too. The next chunk's global loads are issued into
-// registers before the current chunk's products. Row sums reduce across
-// the 4 lanes of a quad with shuffles into per-warp shared slots
-// (deterministic, no atomics). Simple first: no ldmatrix, cp.async, TMA
-// or wgmma yet.
+// multiply-adds); device memory sees the planes once and the packed rows
+// once, everything else is L2 traffic (the header says how it is held down).
+// Design (the kernel's own part; ring, barriers and row sums are the
+// header's): the K planes of one column step lie side by side along the
+// wgmma N axis, CN = 192 / K columns each, so that every tier issues
+// wgmma.mma_async m64n192k32 s8 x s8 -> s32 with one accumulator set of 96
+// registers a 64-row tile, 192 a thread. A stage is 128 samples: the 8
+// packed bytes a thread needs of each of its 4 rows are two aligned words,
+// and one byte is one A register (4 consecutive samples). With 192
+// accumulators there is no room for a second set of A registers, so a
+// warpgroup unpacks and multiplies in turn and the two warpgroups overlap
+// each other.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "scan_epilogue.cuh"
+#include "rotate_scan_tile.cuh"
 
 namespace {
 
-using scan_epi::QMAX;
-using scan_epi::THREADS;
-using scan_epi::TM;
-using scan_epi::WN;
-constexpr int TN = 64;       // output columns per step
-constexpr int TK = 64;       // input samples per chunk
-constexpr int GW = TK / 16;  // 32-bit words of packed G per row per chunk
-constexpr int WST = TK + 16; // bytes per plane column in shared memory:
-                             // 80 keeps the B fragment reads conflict-free
-
-// one packed byte (4 samples, 2 bits each) -> 4 int8 lanes; code 3
-// (missing, or column padding beyond n) becomes 0
-__device__ __forceinline__ uint32_t unpack4(uint32_t b) {
-  uint32_t w = (b & 0x3u) | ((b & 0xCu) << 6) | ((b & 0x30u) << 12) |
-               ((b & 0xC0u) << 18);
-  const uint32_t m3 = w & (w >> 1) & 0x01010101u;
-  return w & ~(m3 * 3u);
+// one packed word (4 bytes of 4 samples, 2 bits each) -> 4 registers of 4
+// int8 lanes, r[j] from byte j; code 3 (missing, or column padding beyond
+// n) becomes 0. The four codes of every byte are masked out for the whole
+// word at once and byte permutes gather them: 19 operations a word.
+__device__ __forceinline__ void unpack_word(uint32_t w, uint32_t (&r)[4]) {
+  const uint32_t m3 = w & (w >> 1) & 0x55555555u;
+  w ^= m3 * 3u;
+  const uint32_t c0 = w & 0x03030303u, c1 = (w >> 2) & 0x03030303u;
+  const uint32_t c2 = (w >> 4) & 0x03030303u, c3 = (w >> 6) & 0x03030303u;
+  const uint32_t lo01 = __byte_perm(c0, c1, 0x5140);  // bytes 0, 1: c0 c1
+  const uint32_t lo23 = __byte_perm(c0, c1, 0x7362);  // bytes 2, 3
+  const uint32_t hi01 = __byte_perm(c2, c3, 0x5140);  // bytes 0, 1: c2 c3
+  const uint32_t hi23 = __byte_perm(c2, c3, 0x7362);
+  r[0] = __byte_perm(lo01, hi01, 0x5410);
+  r[1] = __byte_perm(lo01, hi01, 0x7632);
+  r[2] = __byte_perm(lo23, hi23, 0x5410);
+  r[3] = __byte_perm(lo23, hi23, 0x7632);
 }
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
+#define K2_D8(i)                                                       \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),          \
+      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+#define K2_D32(i) K2_D8(i), K2_D8(i + 8), K2_D8(i + 16), K2_D8(i + 24)
+
+// d (64 x 192, s32) += A (64 x 32 s8, registers) * B (32 x 192 s8, shared)
+__device__ __forceinline__ void wgmma_m64n192k32_s8(int32_t (&d)[96],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p;\n"
+      "}\n"
+      : K2_D32(0), K2_D32(32), K2_D32(64)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int NP>
-__global__ void __launch_bounds__(THREADS, 1)
-rotate_scan_int8_kernel(const uint8_t* __restrict__ packed, long long rows,
-                        int rb, int n_pad, const int8_t* __restrict__ wt,
-                        const float* __restrict__ w_scale,
-                        const float* __restrict__ y_res,
-                        const float* __restrict__ q0, int q, float rss0,
-                        float dof, float* __restrict__ out) {
-  __shared__ uint32_t sG[TM * GW];                   // [row][word]
-  __shared__ __align__(16) uint8_t sW[NP * TN * WST];  // [p][col][k]
-  __shared__ scan_epi::Sums sums;
+#undef K2_D32
+#undef K2_D8
 
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int wm = warp % (THREADS / 32 / WN);  // 32-row slab of the block
-  const int wn = warp / (THREADS / 32 / WN);  // 32-column half of a step
-  const int g = lane / 4;                     // mma groupID
-  const int t4 = lane % 4;                    // mma threadID_in_group
-  const long long r0 = (long long)blockIdx.x * TM;
+template <int NP, bool AL>
+struct Int8Policy {
+  static constexpr bool ALIGNED = AL;
+  static constexpr int CN = 192 / NP;      // output columns a step
+  static constexpr int KS = 128;           // samples a stage
+  static constexpr int GB = KS / 4;        // packed bytes a row a stage
+  static constexpr int GBW = GB + (AL ? 0 : 16);   // a row's window
+  static constexpr int W_STAGE = 192 * KS; // bytes of a W stage image
+  static constexpr int LBO = 24 * 128;     // between 16-byte K chunks
+  static constexpr int STAGES = 5;
+  static constexpr int NJ = CN / 8;
 
-  scan_epi::zero_sums(sums);
-
-  // this thread's share of one chunk: 2 words of packed G, NP x 16 bytes
-  // of planes (TN * TK / 16 == THREADS)
-  uint32_t pg[2];
-  uint4 pw[NP];
-  auto load_chunk = [&](int j0, int k0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int w = tid + h * THREADS;
-      const long long grow = r0 + w / GW;
-      const int bc = k0 / 4 + (w % GW) * 4;
-      uint32_t word = 0;
-      if (grow < rows) {
-        const uint8_t* src = packed + grow * rb;
-#pragma unroll
-        for (int s = 0; s < 4; ++s)
-          if (bc + s < rb) word |= (uint32_t)src[bc + s] << (8 * s);
-      }
-      pg[h] = word;
-    }
-    const int col = tid / (TK / 16);
-    const int v = tid % (TK / 16);
-#pragma unroll
-    for (int p = 0; p < NP; ++p)
-      pw[p] = *reinterpret_cast<const uint4*>(
-          wt + ((long long)p * n_pad + j0 + col) * n_pad + k0 + 16 * v);
-  };
-  auto store_chunk = [&]() {
-    sG[tid] = pg[0];
-    sG[tid + THREADS] = pg[1];
-    const int col = tid / (TK / 16);
-    const int v = tid % (TK / 16);
-#pragma unroll
-    for (int p = 0; p < NP; ++p)
-      *reinterpret_cast<uint4*>(sW + (p * TN + col) * WST + 16 * v) = pw[p];
+  struct State {
+    int32_t acc[2][96];
+    int shift[AL ? 1 : 4]; // where row (mt, hh)'s bytes start in its window
   };
 
-  const uint8_t* gb = reinterpret_cast<const uint8_t*>(sG);
-  for (int j0 = 0; j0 < n_pad; j0 += TN) {
-    int acc[NP][2][4][4];
+  __device__ static __forceinline__ void init(State& s, const rscan::Args& a,
+                                              long long row0, int warp,
+                                              int g) {
 #pragma unroll
-    for (int p = 0; p < NP; ++p)
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[p][mt][nt][i] = 0;
+    for (int i = 0; i < (AL ? 1 : 4); ++i)
+      s.shift[i] = AL ? 0 : rscan::row_shift(a, row0 + (i >> 1) * 64 +
+                                                    16 * warp + 8 * (i & 1) + g);
+  }
 
-    load_chunk(j0, 0);
-    for (int k0 = 0; k0 < n_pad; k0 += TK) {
-      __syncthreads();  // the previous chunk's products are done
-      store_chunk();
-      __syncthreads();
-      if (k0 + TK < n_pad) load_chunk(j0, k0 + TK);  // in flight meanwhile
-#pragma unroll
-      for (int ks = 0; ks < TK / 32; ++ks) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const int ra = (wm * 32 + mt * 16 + g) * (TK / 4) + ks * 8 + t4;
-          const int rb8 = ra + 8 * (TK / 4);
-          a[mt][0] = unpack4(gb[ra]);
-          a[mt][1] = unpack4(gb[rb8]);
-          a[mt][2] = unpack4(gb[ra + 4]);
-          a[mt][3] = unpack4(gb[rb8 + 4]);
-        }
-#pragma unroll
-        for (int p = 0; p < NP; ++p)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            const uint32_t* wp = reinterpret_cast<const uint32_t*>(
-                sW + (p * TN + wn * 32 + nt * 8 + g) * WST + ks * 32);
-            const uint32_t b0 = wp[t4];
-            const uint32_t b1 = wp[4 + t4];
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) mma_s8(acc[p][mt][nt], a[mt], b0, b1);
-          }
-      }
-    }
-
-    // recombine the planes in f32 (low digit first, as XLA does), then
-    // this column step's row partial sums
-    float xs[2][4][4];
-    float ws[4][2];
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        ws[nt][e] = w_scale[j0 + wn * 32 + nt * 8 + 2 * t4 + e];
+  // One column step: all n samples into the step's int32 accumulators.
+  // A stage goes in two halves of two k-steps: a thread unpacks one 32-bit
+  // word of each of its 4 rows into the halves' 16 A registers, issues the
+  // 4 wgmma and waits for them; meanwhile the other consumer warpgroup
+  // unpacks or multiplies.
+  __device__ static __forceinline__ void step(State& s, rscan::Ring& ring,
+                                              int n_stages, int warp, int g,
+                                              int t4) {
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
+      for (int i = 0; i < 96; ++i) s.acc[mt][i] = 0;
+    for (int st = 0; st < n_stages; ++st) {
+      ring.wait_full();
+      const uint32_t sW = ring.sW();
+      // this thread's bytes 8 t4 .. 8 t4 + 7 of row (mt, hh): byte
+      // 2 * ks + h is the A register of k-step ks, half h (samples
+      // 16 h + 4 t4 ..+3 of the step)
+      const uint8_t* sG = ring.sG() + (16 * warp + g) * GBW + 8 * t4;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float x = (float)acc[0][mt][nt][i];
+      for (int half = 0; half < 2; ++half) {
+        uint32_t a[2][2][4];     // [k-step of the half][tile][register]
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            uint32_t r[4];
+            unpack_word(rscan::lds_word<AL>(
+                            sG + (mt * 64 + 8 * hh) * GBW +
+                            s.shift[AL ? 0 : 2 * mt + hh] + 4 * half),
+                        r);
+#pragma unroll
+            for (int ks = 0; ks < 2; ++ks) {
+              a[ks][mt][hh] = r[2 * ks];
+              a[ks][mt][2 + hh] = r[2 * ks + 1];
+            }
+          }
+        rscan::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          const uint64_t db =
+              rscan::b_desc(sW + (2 * half + ks) * 2 * LBO, LBO);
+          wgmma_m64n192k32_s8(s.acc[0], a[ks][0], db);
+          wgmma_m64n192k32_s8(s.acc[1], a[ks][1], db);
+        }
+        rscan::wgmma_commit();
+        rscan::wgmma_wait<0>();
+      }
+      ring.release(ring.slot);
+      ring.advance();
+    }
+  }
+
+  // recombine the planes in f32, low digit first, then the column's scale
+  __device__ static __forceinline__ void finish_step(State& s,
+                                                     float (&xs)[2][CN / 2],
+                                                     const rscan::Args& a,
+                                                     int j0, int t4) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float2 ws = __ldg(
+          reinterpret_cast<const float2*>(a.w_scale + j0 + 8 * j + 2 * t4));
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = (float)s.acc[mt][4 * j + e];
           float scale = 1.f;
 #pragma unroll
           for (int p = 1; p < NP; ++p) {
             scale *= 256.f;
-            x = x + (float)acc[p][mt][nt][i] * scale;
+            x = x + (float)s.acc[mt][4 * (p * NJ + j) + e] * scale;
           }
-          xs[mt][nt][i] = x * ws[nt][i % 2];
+          xs[mt][4 * j + e] = x * ((e & 1) ? ws.y : ws.x);
         }
-    scan_epi::scan_step_sums(xs, j0, wm, wn, g, t4, y_res, q0, q, sums);
+    }
   }
-  __syncthreads();
-  scan_epi::scan_write_stats(sums, r0, rows, q, rss0, dof, out);
-}
-
-template <int NP>
-int launch(const void* packed, long long rows, int rb, int n_pad,
-           const void* wt, const void* w_scale, const void* y_res,
-           const void* q0, int q, float rss0, float dof, void* out,
-           void* stream) {
-  const long long blocks = (rows + TM - 1) / TM;
-  rotate_scan_int8_kernel<NP><<<(unsigned)blocks, THREADS, 0,
-                                (cudaStream_t)stream>>>(
-      (const uint8_t*)packed, rows, rb, n_pad, (const int8_t*)wt,
-      (const float*)w_scale, (const float*)y_res, (const float*)q0, q, rss0,
-      dof, (float*)out);
-  return (int)cudaGetLastError();
-}
+};
 
 }  // namespace
 
-// wt: (num_planes, n_pad, n_pad) int8, the planes transposed to [p][out][in]
-// and zero-padded; w_scale / y_res: (n_pad,) f32; q0: (n_pad, q) f32
+// w_img: the planes as stage images (hopper_scan.py prepare_int8_operand):
+// [n_steps][n_stages][192 * 128] int8; w_scale / y_res: (n_steps * CN,)
+// f32; q0t: (q, n_steps * CN) f32; part: (nsplit, 2 + q, rows) f32 scratch.
+// K2 and K5 share one argument list: row_mean is K5's and is not read here.
 extern "C" int rotate_scan_int8_packed(const void* packed, long long rows,
-                                       int rb, int n_pad, int num_planes,
-                                       const void* wt, const void* w_scale,
-                                       const void* y_res, const void* q0,
-                                       int q, float rss0, float dof,
-                                       void* out, void* stream) {
-  if (n_pad % TK != 0 || n_pad % TN != 0 || q < 0 || q > QMAX)
-    return (int)cudaErrorInvalidValue;
+                                       int rb, int num_planes,
+                                       const void* w_img, int n_steps,
+                                       int n_stages, const void* w_scale,
+                                       const void* y_res, const void* q0t,
+                                       int q, const void* /*row_mean*/,
+                                       float rss0, float dof, int nsplit,
+                                       void* part, void* out, void* stream) {
+  const rscan::Args a{(const uint8_t*)packed, rows, rb,
+                      (const uint8_t*)w_img, n_steps, n_stages,
+                      (const float*)w_scale, (const float*)y_res,
+                      (const float*)q0t, q, nullptr, (float*)part};
+  auto s = (cudaStream_t)stream;
   switch (num_planes) {
-    case 2: return launch<2>(packed, rows, rb, n_pad, wt, w_scale, y_res, q0,
-                             q, rss0, dof, out, stream);
-    case 3: return launch<3>(packed, rows, rb, n_pad, wt, w_scale, y_res, q0,
-                             q, rss0, dof, out, stream);
-    case 4: return launch<4>(packed, rows, rb, n_pad, wt, w_scale, y_res, q0,
-                             q, rss0, dof, out, stream);
+    case 2: return rscan::launch<Int8Policy, 2>(a, nsplit, rss0, dof,
+                                                (float*)out, s);
+    case 3: return rscan::launch<Int8Policy, 3>(a, nsplit, rss0, dof,
+                                                (float*)out, s);
+    case 4: return rscan::launch<Int8Policy, 4>(a, nsplit, rss0, dof,
+                                                (float*)out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -204,20 +204,25 @@ def emmax_scan_packed(packed: torch.Tensor, rot, n: int, tile: int,
     U -> K3."""
     from mixmogam_tpu_torch.models.streaming import _impute_tile
     from mixmogam_tpu_torch.ops.hopper_scan import (rotate_scan_bf16_packed,
-                                                    rotate_scan_int8_packed)
+                                                    rotate_scan_int8_packed,
+                                                    scan_operand)
     from mixmogam_tpu_torch.ops.scan import emmax_scan_stats
 
     dt = rot.sd.dtype
+    # the kernels' prepared W, built once per rotated null and kept with it
+    op = scan_operand(rot) if packed.device.type == "cuda" else None
     if rot.parts is not None:
         mu = row_means_packed(packed, n, tile, dt) if impute else None
         return rotate_scan_bf16_packed(packed, n, rot.parts, rot.y_res,
-                                       rot.Q0, rot.rss0, rot.dof, mu)
+                                       rot.Q0, rot.rss0, rot.dof, mu,
+                                       operand=op)
     if rot.planes is not None:
         if impute:
             raise ValueError("int8 digit-plane tiers need fully observed "
                              "dosages")
         return rotate_scan_int8_packed(packed, n, rot.planes, rot.w_scale,
-                                       rot.y_res, rot.Q0, rot.rss0, rot.dof)
+                                       rot.y_res, rot.Q0, rot.rss0, rot.dof,
+                                       operand=op)
     outs = []
     for s in range(0, packed.shape[0], tile):
         Gt = unpack_2bit_device(packed[s:s + tile], n)

@@ -10,6 +10,11 @@ the packed rows, for the 'bf16' / 'bf16x2' / 'bf16x3' tiers. K3 scan_stats
 over pre-rotated rows; it serves the exact tier after the fp32 G @ U
 GEMM, and the exact rescore.
 
+K2 and K5 (wgmma; csrc/rotate_scan_tile.cuh is their shared part) read W
+as prepared stage images: scan_operand(rot) builds them once per
+RotatedNull and keeps them with it; a call with bare planes / parts
+prepares them on the spot.
+
 All return (4, rows) [f, beta, var_perc, mask (0/1)]. A CUDA tensor
 launches the kernel (float32 only) or raises; a CPU tensor takes the
 plain version, which runs in the inputs' dtype.
@@ -18,6 +23,8 @@ plain version, which runs in the inputs' dtype.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import Optional
 
 import torch
 
@@ -25,7 +32,6 @@ from mixmogam_tpu_torch.ops.pack2 import unpack_2bit_device
 from mixmogam_tpu_torch.ops.scan import apply_rotation, scan_epilogue
 
 _QMAX = 16
-_TK = 64          # K2's and K5's contraction chunk and column step
 
 
 def _as_float(x) -> float:
@@ -37,6 +43,180 @@ def _check_cuda_f32(what: str, **tensors) -> None:
         if t.device.type != "cuda" or t.dtype != torch.float32:
             raise ValueError(f"{what}: {name} must be a float32 CUDA "
                              f"tensor; got {t.dtype} on {t.device}")
+
+
+# ---------------------------------------------------------------------------
+# The kernel-ready W operand of K2 and K5
+# ---------------------------------------------------------------------------
+
+_TM = 256         # rows a block (csrc/rotate_scan_tile.cuh)
+_MAX_SPLIT = 16   # blocks along the column steps, at most
+
+
+def _stage_perm(kind: str) -> torch.Tensor:
+    """perm[L] = the physical sample, inside a K stage of the packed row,
+    that sits at the tensor cores' logical contraction position L. The
+    kernels decode a thread's A fragment registers from consecutive bytes
+    of the raw packed row, so the stage images of W hold their in-axis in
+    this order (csrc/rotate_scan_tile.cuh).
+
+    'int8': a stage is 128 samples = 4 k-steps of 32; position
+    32 ks + 16 h + 4 t + i (thread-in-quad t, half h) is sample
+    32 t + 8 ks + 4 h + i: the thread's bytes 8 t .. 8 t + 7 of the row.
+    'bf16': a stage is 64 samples = 4 k-steps of 16; a thread's four k of
+    a step are {2t, 2t+1, 2t+8, 2t+9}, so position 16 ks + l is sample
+    16 t + 4 ks + i with t = (l % 8) // 2, i = l % 2 + 2 * (l // 8): byte
+    ks of the thread's word 4 t .. 4 t + 3."""
+    if kind == "int8":
+        L = torch.arange(128)
+        ks, l = L // 32, L % 32
+        return 32 * ((l % 16) // 4) + 8 * ks + 4 * (l // 16) + l % 4
+    L = torch.arange(64)
+    ks, l = L // 16, L % 16
+    return 16 * ((l % 8) // 2) + 4 * ks + l % 2 + 2 * (l // 8)
+
+
+@dataclasses.dataclass
+class ScanOperand:
+    """What K2 / K5 read besides the packed rows, built once per rotated
+    null: W as the shared-memory image of every (column step, K stage),
+    and the column vectors padded to the step."""
+
+    kind: str                 # 'int8' or 'bf16'
+    n: int
+    K: int                    # planes or parts
+    cn: int                   # output columns a step
+    ks: int                   # samples a stage
+    w_img: torch.Tensor       # int8: (steps, stages, ks/16, K, cn, 16)
+    #                           bf16: (steps, stages, K, ks/8, cn, 8)
+    y_res: torch.Tensor       # (steps * cn,) f32
+    q0t: torch.Tensor         # (q, steps * cn) f32
+    w_scale: Optional[torch.Tensor] = None   # (steps * cn,) f32, int8 only
+
+    @property
+    def n_steps(self) -> int:
+        return self.w_img.shape[0]
+
+    @property
+    def n_stages(self) -> int:
+        return self.w_img.shape[1]
+
+
+def _prepare_operand(kind: str, W: torch.Tensor, n: int, y_res, Q0,
+                     w_scale=None) -> ScanOperand:
+    K = W.shape[0]
+    cn, ks, kb = (192 // K, 128, 16) if kind == "int8" else (64, 64, 8)
+    steps, stages = -(-n // cn), -(-n // ks)
+    dev = W.device
+    wt = torch.zeros((K, steps * cn, stages * ks), dtype=W.dtype, device=dev)
+    wt[:, :n, :n] = W.transpose(1, 2)               # [p][out][in]
+    wt = wt.view(K, steps, cn, stages, ks)[..., _stage_perm(kind).to(dev)]
+    wt = wt.view(K, steps, cn, stages, ks // kb, kb)
+    order = (1, 3, 4, 0, 2, 5) if kind == "int8" else (1, 3, 0, 4, 2, 5)
+    img = wt.permute(*order).contiguous()
+
+    def pad(v):
+        o = torch.zeros(v.shape[:-1] + (steps * cn,), dtype=torch.float32,
+                        device=dev)
+        o[..., :n] = v
+        return o
+
+    return ScanOperand(kind=kind, n=n, K=K, cn=cn, ks=ks, w_img=img,
+                       y_res=pad(y_res), q0t=pad(Q0.t()),
+                       w_scale=None if w_scale is None else pad(w_scale))
+
+
+def prepare_int8_operand(planes, w_scale, y_res, Q0) -> ScanOperand:
+    """K2's operand from the (K, n, n) int8 digit planes: the K planes of
+    a column step side by side (192 / K columns each), 128 samples a
+    stage; pad entries zero."""
+    return _prepare_operand("int8", planes, planes.shape[1], y_res, Q0,
+                            w_scale)
+
+
+def prepare_bf16_operand(parts, y_res, Q0) -> ScanOperand:
+    """K5's operand from the (K, n, n) bf16 parts: 64 columns a step, one
+    64-sample chunk of every part a stage; pad entries zero."""
+    return _prepare_operand("bf16", parts, parts.shape[1], y_res, Q0)
+
+
+def operand_dense(op: ScanOperand) -> torch.Tensor:
+    """Undo the stage images: (K, steps * cn, stages * ks) [p][out][in],
+    whose [:, :n, :n] corner is the planes / parts transposed and whose
+    other entries are zero."""
+    order = (3, 0, 4, 1, 2, 5) if op.kind == "int8" else (2, 0, 4, 1, 3, 5)
+    wt = op.w_img.permute(*order).reshape(
+        op.K, op.n_steps, op.cn, op.n_stages, op.ks)
+    out = torch.empty_like(wt)
+    out[..., _stage_perm(op.kind).to(wt.device)] = wt
+    return out.reshape(op.K, op.n_steps * op.cn, op.n_stages * op.ks)
+
+
+def scan_operand(rot) -> Optional[ScanOperand]:
+    """The K2 / K5 operand of a RotatedNull, built at first use and kept
+    with it; None for the exact tier. (The plain versions read planes /
+    parts as they are: on the CPU nothing asks for it.)"""
+    if rot.planes is None and rot.parts is None:
+        return None
+    if rot.operand is None:
+        if rot.planes is not None:
+            rot.operand = prepare_int8_operand(rot.planes, rot.w_scale,
+                                               rot.y_res, rot.Q0)
+        else:
+            rot.operand = prepare_bf16_operand(rot.parts, rot.y_res, rot.Q0)
+        scan_operand.builds += 1
+    return rot.operand
+
+
+scan_operand.builds = 0
+
+
+def _check_packed(what: str, packed: torch.Tensor, n: int) -> None:
+    rb = (n + 3) // 4
+    if (packed.dtype != torch.uint8 or packed.ndim != 2
+            or packed.shape[1] != rb or not packed.is_contiguous()
+            or packed.shape[0] == 0):
+        raise ValueError(f"{what} needs a contiguous uint8 (M_pad > 0, {rb}) "
+                         f"tensor; got {packed.dtype} {tuple(packed.shape)}")
+
+
+def _check_operand(what: str, op: ScanOperand, kind: str, n: int, W, Q0,
+                   dev) -> None:
+    if (op.kind != kind or op.n != n or op.K != W.shape[0]
+            or op.w_img.device != dev or op.q0t.shape[0] != Q0.shape[1]):
+        raise ValueError(f"{what}: the prepared operand ({op.kind}, n="
+                         f"{op.n}, K={op.K}, q={op.q0t.shape[0]}, "
+                         f"{op.w_img.device}) does not belong to these "
+                         f"arguments")
+
+
+def launch_rotate_scan(fn, packed: torch.Tensor, op: ScanOperand, rss0, dof,
+                       row_mean=None) -> torch.Tensor:
+    """Launch K2 / K5 through their C entry `fn` (one argument list for
+    both) on checked arguments: sizes the column split so that a launch
+    with few row blocks still fills the card, allocates its (nsplit, 2 + q,
+    rows) scratch and the (4, rows) output."""
+    from mixmogam_tpu_torch.ops._build import check_launch
+
+    dev, rows, q = packed.device, packed.shape[0], op.q0t.shape[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nsplit = max(1, min(op.n_steps, _MAX_SPLIT, sms // (-(-rows // _TM))))
+    part = torch.empty((nsplit, 2 + q, rows), dtype=torch.float32,
+                       device=dev)
+    out = torch.empty((4, rows), dtype=torch.float32, device=dev)
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.restype = ci
+    fn.argtypes = [vp, ctypes.c_longlong, ci, ci, vp, ci, ci, vp, vp, vp,
+                   ci, vp, cf, cf, ci, vp, vp, vp]
+    rc = fn(packed.data_ptr(), rows, packed.shape[1], op.K,
+            op.w_img.data_ptr(), op.n_steps, op.n_stages,
+            None if op.w_scale is None else op.w_scale.data_ptr(),
+            op.y_res.data_ptr(), op.q0t.data_ptr(), q,
+            None if row_mean is None else row_mean.data_ptr(),
+            _as_float(rss0), _as_float(dof), nsplit, part.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(rc, fn.__name__)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -59,20 +239,18 @@ def rotate_scan_int8_packed_plain(packed, n, planes, w_scale, y_res, Q0,
 def rotate_scan_int8_packed(packed: torch.Tensor, n: int,
                             planes: torch.Tensor, w_scale: torch.Tensor,
                             y_res: torch.Tensor, Q0: torch.Tensor, rss0,
-                            dof) -> torch.Tensor:
-    """(4, M_pad) scan of every packed row at the int8xK tier (K2)."""
+                            dof, operand: Optional[ScanOperand] = None
+                            ) -> torch.Tensor:
+    """(4, M_pad) scan of every packed row at the int8xK tier (K2).
+    operand: scan_operand(rot) of the RotatedNull the other arguments come
+    from; without it the operand is prepared here, at every call."""
     if packed.device.type == "cpu":
         return rotate_scan_int8_packed_plain(packed, n, planes, w_scale,
                                              y_res, Q0, rss0, dof)
     if packed.device.type != "cuda":
         raise ValueError(f"rotate_scan_int8_packed: unsupported device "
                          f"{packed.device}")
-    rb = (n + 3) // 4
-    if (packed.dtype != torch.uint8 or packed.ndim != 2
-            or packed.shape[1] != rb or not packed.is_contiguous()):
-        raise ValueError(f"rotate_scan_int8_packed needs a contiguous "
-                         f"uint8 (M_pad, {rb}) tensor; got {packed.dtype} "
-                         f"{tuple(packed.shape)}")
+    _check_packed("rotate_scan_int8_packed", packed, n)
     K = planes.shape[0]
     if (planes.dtype != torch.int8 or planes.device != packed.device
             or tuple(planes.shape) != (K, n, n) or K not in (2, 3, 4)):
@@ -84,39 +262,15 @@ def rotate_scan_int8_packed(packed: torch.Tensor, n: int,
                          f"{_QMAX}); got {tuple(Q0.shape)}")
     _check_cuda_f32("rotate_scan_int8_packed", w_scale=w_scale,
                     y_res=y_res, Q0=Q0)
-    from mixmogam_tpu_torch.ops._build import build, check_launch
+    from mixmogam_tpu_torch.ops._build import build
 
-    # pre-transpose the planes to (K, n_out, n_in) and zero-pad both
-    # sample axes to the kernel's chunk: 4 consecutive inputs form one
-    # mma B-fragment register, and pad columns contribute exact zeros
-    n_pad = -(-n // _TK) * _TK
     dev = packed.device
-    wt = torch.zeros((K, n_pad, n_pad), dtype=torch.int8, device=dev)
-    wt[:, :n, :n] = planes.transpose(1, 2)
-    q = Q0.shape[1]
-
-    def pad1(v):
-        o = torch.zeros(n_pad, dtype=torch.float32, device=dev)
-        o[:n] = v
-        return o
-
-    ws, yr = pad1(w_scale), pad1(y_res)
-    q0 = torch.zeros((n_pad, q), dtype=torch.float32, device=dev)
-    q0[:n] = Q0
-    rows = packed.shape[0]
-    out = torch.empty((4, rows), dtype=torch.float32, device=dev)
-    fn = build("rotate_scan_int8").rotate_scan_int8_packed
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    rc = fn(packed.data_ptr(), rows, rb, n_pad, K, wt.data_ptr(),
-            ws.data_ptr(), yr.data_ptr(), q0.data_ptr(), q,
-            _as_float(rss0), _as_float(dof), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    check_launch(rc, "rotate_scan_int8_packed")
+    if operand is None:
+        operand = prepare_int8_operand(planes, w_scale, y_res, Q0)
+    _check_operand("rotate_scan_int8_packed", operand, "int8", n, planes,
+                   Q0, dev)
+    out = launch_rotate_scan(build("rotate_scan_int8").rotate_scan_int8_packed,
+                             packed, operand, rss0, dof)
     rotate_scan_int8_packed.launches += 1
     return out
 
@@ -151,23 +305,22 @@ def rotate_scan_bf16_packed_plain(packed, n, parts, y_res, Q0, rss0, dof,
 def rotate_scan_bf16_packed(packed: torch.Tensor, n: int,
                             parts: torch.Tensor, y_res: torch.Tensor,
                             Q0: torch.Tensor, rss0, dof,
-                            row_mean: torch.Tensor = None) -> torch.Tensor:
+                            row_mean: torch.Tensor = None,
+                            operand: Optional[ScanOperand] = None
+                            ) -> torch.Tensor:
     """(4, M_pad) scan of every packed row at a bf16 tier (K5). parts:
     (K in 1..3, n, n) bf16 split-W parts of W = U * sd. row_mean: (M_pad,)
     per-row means that replace missing genotypes (rounded to bf16, as the
-    cast after _impute_tile gives); None for a fully observed genome."""
+    cast after _impute_tile gives); None for a fully observed genome.
+    operand: scan_operand(rot) of the RotatedNull the other arguments come
+    from; without it the operand is prepared here, at every call."""
     if packed.device.type == "cpu":
         return rotate_scan_bf16_packed_plain(packed, n, parts, y_res, Q0,
                                              rss0, dof, row_mean)
     if packed.device.type != "cuda":
         raise ValueError(f"rotate_scan_bf16_packed: unsupported device "
                          f"{packed.device}")
-    rb = (n + 3) // 4
-    if (packed.dtype != torch.uint8 or packed.ndim != 2
-            or packed.shape[1] != rb or not packed.is_contiguous()):
-        raise ValueError(f"rotate_scan_bf16_packed needs a contiguous "
-                         f"uint8 (M_pad, {rb}) tensor; got {packed.dtype} "
-                         f"{tuple(packed.shape)}")
+    _check_packed("rotate_scan_bf16_packed", packed, n)
     K = parts.shape[0]
     if (parts.dtype != torch.bfloat16 or parts.device != packed.device
             or tuple(parts.shape) != (K, n, n) or K not in (1, 2, 3)):
@@ -185,34 +338,15 @@ def rotate_scan_bf16_packed(packed: torch.Tensor, n: int,
             raise ValueError(f"rotate_scan_bf16_packed: row_mean must be "
                              f"({rows},); got {tuple(row_mean.shape)}")
         row_mean = row_mean.contiguous()
-    from mixmogam_tpu_torch.ops._build import build, check_launch
+    from mixmogam_tpu_torch.ops._build import build
 
-    # pre-transpose the parts to (K, n_out, n_in) and zero-pad both sample
-    # axes to the kernel's chunk: 4 consecutive inputs form one mma
-    # B-fragment pair, and pad columns contribute exact zeros
-    n_pad = -(-n // _TK) * _TK
     dev = packed.device
-    wt = torch.zeros((K, n_pad, n_pad), dtype=torch.bfloat16, device=dev)
-    wt[:, :n, :n] = parts.transpose(1, 2)
-    q = Q0.shape[1]
-    yr = torch.zeros(n_pad, dtype=torch.float32, device=dev)
-    yr[:n] = y_res
-    q0 = torch.zeros((n_pad, q), dtype=torch.float32, device=dev)
-    q0[:n] = Q0
-    out = torch.empty((4, rows), dtype=torch.float32, device=dev)
-    fn = build("rotate_scan_bf16").rotate_scan_bf16_packed
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_float, ctypes.c_float,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    rc = fn(packed.data_ptr(), rows, rb, n_pad, K, wt.data_ptr(),
-            yr.data_ptr(), q0.data_ptr(), q,
-            None if row_mean is None else row_mean.data_ptr(),
-            _as_float(rss0), _as_float(dof), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    check_launch(rc, "rotate_scan_bf16_packed")
+    if operand is None:
+        operand = prepare_bf16_operand(parts, y_res, Q0)
+    _check_operand("rotate_scan_bf16_packed", operand, "bf16", n, parts, Q0,
+                   dev)
+    out = launch_rotate_scan(build("rotate_scan_bf16").rotate_scan_bf16_packed,
+                             packed, operand, rss0, dof, row_mean)
     rotate_scan_bf16_packed.launches += 1
     return out
 

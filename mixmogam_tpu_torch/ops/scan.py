@@ -53,6 +53,10 @@ class RotatedNull:
     planes: Optional[torch.Tensor] = None  # (K, n, n) int8, int8xK tiers
     w_scale: Optional[torch.Tensor] = None  # (n,) int8xK tiers
     parts: Optional[torch.Tensor] = None   # (K, n, n) bf16, bf16 tiers
+    #: kernels K2 / K5's prepared form of planes / parts on the card
+    #: (ops/hopper_scan.py scan_operand builds it at the first scan)
+    operand: Optional[object] = dataclasses.field(default=None, repr=False,
+                                                  compare=False)
 
 
 _INT8_TIERS = frozenset({"int8x2", "int8x3", "int8x4"})

@@ -20,8 +20,8 @@ from mixmogam_tpu_torch.ops.hopper_kinship import (
     ibs_gram_tri_packed_plain)
 from mixmogam_tpu_torch.ops.hopper_scan import (
     rotate_scan_bf16_packed, rotate_scan_bf16_packed_plain,
-    rotate_scan_int8_packed, rotate_scan_int8_packed_plain, scan_stats,
-    scan_stats_plain)
+    rotate_scan_int8_packed, rotate_scan_int8_packed_plain, scan_operand,
+    scan_stats, scan_stats_plain)
 from mixmogam_tpu_torch.ops.reml import NullModel
 from mixmogam_tpu_torch.ops.scan import build_rotated_null
 
@@ -79,17 +79,35 @@ def test_k1_bit_equal(cuda, n, m, ploidy):
     assert torch.equal(ibs_gram_tri_packed(rg.packed, n, 0, m, ploidy), ref)
 
 
-@pytest.mark.parametrize("tier", ["int8x2", "int8x3", "int8x4"])
-@pytest.mark.parametrize("n,q", [(1002, 1), (130, 3), (64, 16)])
-def test_k2_vs_plain(cuda, tier, n, q):
-    G, _, _ = simulate_genotypes(n, 900, seed=n)
+# K2 / K5 shapes (n, q, rows): n = 2,042 has a row pitch of 511 bytes (the
+# producer's byte loads), 1,024 one of 256 (its 16-byte copies); n = 64 and 77
+# lie below one K stage; rows 1, 127, 129 and 3,001 end inside a 256-row block
+_SCAN_SHAPES = [(1002, 1, 900), (130, 3, 129), (64, 16, 127), (77, 5, 1),
+                (2042, 16, 3001), (1024, 2, 700)]
+
+
+def _rows(n, m, cuda, seed, missing=0.0):
+    """m packed rows (no tile padding) of a simulated genome."""
+    G, _, _ = simulate_genotypes(n, m, seed=seed, missing_rate=missing)
     rg = ResidentGenome.from_source(G, tile=512, device=cuda)
+    return rg, rg.packed[:m]
+
+
+@pytest.mark.parametrize("tier", ["int8x2", "int8x3", "int8x4"])
+@pytest.mark.parametrize("n,q,m", _SCAN_SHAPES)
+def test_k2_vs_plain(cuda, tier, n, q, m):
+    rg, packed = _rows(n, m, cuda, n)
     rot = build_rotated_null(_null(n, q, cuda), rotate_dtype=tier)
-    a = (rg.packed, n, rot.planes, rot.w_scale, rot.y_res, rot.Q0,
-         rot.rss0, rot.dof)
-    got = rotate_scan_int8_packed(*a)
-    _close(got, rotate_scan_int8_packed_plain(*a))
-    assert not (got[3, 900:] > 0.5).any()       # zero pad rows masked
+    a = (n, rot.planes, rot.w_scale, rot.y_res, rot.Q0, rot.rss0, rot.dof)
+    before = rotate_scan_int8_packed.launches
+    got = rotate_scan_int8_packed(packed, *a)
+    assert rotate_scan_int8_packed.launches == before + 1
+    _close(got, rotate_scan_int8_packed_plain(packed, *a))
+    # the same launch again, on the operand kept with the rotated null
+    assert torch.equal(got, rotate_scan_int8_packed(
+        packed, *a, operand=scan_operand(rot)))
+    pad = rotate_scan_int8_packed(rg.packed, *a)
+    assert not (pad[3, m:] > 0.5).any()         # zero pad rows masked
 
 
 @pytest.mark.parametrize("n,q", [(1002, 1), (130, 3), (64, 16), (77, 5)])
@@ -120,23 +138,27 @@ def test_k4_bit_equal(cuda, n, m, ploidy):
 
 
 @pytest.mark.parametrize("tier", ["bf16", "bf16x2", "bf16x3"])
-@pytest.mark.parametrize("n,q", [(1002, 1), (130, 3), (64, 16), (77, 5)])
+@pytest.mark.parametrize("n,q,m", _SCAN_SHAPES)
 @pytest.mark.parametrize("missing", [0.0, 0.03])
-def test_k5_vs_plain(cuda, tier, n, q, missing):
-    G, _, _ = simulate_genotypes(n, 900, seed=n + 2, missing_rate=missing)
-    rg = ResidentGenome.from_source(G, tile=512, device=cuda)
+def test_k5_vs_plain(cuda, tier, n, q, m, missing):
+    rg, packed = _rows(n, m, cuda, n + 2, missing)
     rot = build_rotated_null(_null(n, q, cuda), rotate_dtype=tier)
-    mu = (row_means_packed(rg.packed, n, rg.tile, torch.float32)
-          if missing else None)
-    a = (rg.packed, n, rot.parts, rot.y_res, rot.Q0, rot.rss0, rot.dof, mu)
+    mu_all = (row_means_packed(rg.packed, n, rg.tile, torch.float32)
+              if missing else None)
+    mu = mu_all[:m] if missing else None
+    a = (n, rot.parts, rot.y_res, rot.Q0, rot.rss0, rot.dof)
     before = rotate_scan_bf16_packed.launches
-    got = rotate_scan_bf16_packed(*a)
+    got = rotate_scan_bf16_packed(packed, *a, mu)
     assert rotate_scan_bf16_packed.launches == before + 1
-    _close(got, rotate_scan_bf16_packed_plain(*a))
-    assert not (got[3, 900:] > 0.5).any()       # zero pad rows masked
+    _close(got, rotate_scan_bf16_packed_plain(packed, *a, mu))
+    # the same launch again, on the operand kept with the rotated null
+    assert torch.equal(got, rotate_scan_bf16_packed(
+        packed, *a, mu, operand=scan_operand(rot)))
+    pad = rotate_scan_bf16_packed(rg.packed, *a, mu_all)
+    assert not (pad[3, m:] > 0.5).any()         # zero pad rows masked
 
 
-@pytest.mark.parametrize("n", [1002, 77])
+@pytest.mark.parametrize("n", [1002, 77, 2042, 1024])
 def test_scan_kernels_on_row_views(cuda, n):
     """slice_rows hands K2 and K5 views that start at any row; each row's
     stats match those of the launch over the whole genome."""
@@ -153,6 +175,41 @@ def test_scan_kernels_on_row_views(cuda, n):
     a = (n, rot.planes, rot.w_scale, rot.y_res, rot.Q0, rot.rss0, rot.dof)
     _close(rotate_scan_int8_packed(sub.packed, *a),
            rotate_scan_int8_packed(rg.packed, *a)[:, s:e])
+
+
+@pytest.mark.parametrize("offset", [1, 4, 8])
+def test_scan_kernels_on_a_base_that_is_not_16_byte_aligned(cuda, offset):
+    """A 16-byte pitch (n = 1,024: 256 bytes a row) on a base address that
+    is not: the kernels take their byte loads and give the aligned launch's
+    bits."""
+    n, m = 1024, 700
+    rg, packed = _rows(n, m, cuda, 11)
+    buf = torch.zeros(packed.numel() + 16, dtype=torch.uint8, device=cuda)
+    base = (-buf.data_ptr()) % 16 + offset
+    view = buf[base:base + packed.numel()].view(packed.shape)
+    view.copy_(packed)
+    assert view.is_contiguous() and view.data_ptr() % 16 == offset
+    null = _null(n, 3, cuda)
+    rot = build_rotated_null(null, rotate_dtype="bf16x2")
+    a = (n, rot.parts, rot.y_res, rot.Q0, rot.rss0, rot.dof)
+    assert torch.equal(rotate_scan_bf16_packed(view, *a),
+                       rotate_scan_bf16_packed(packed, *a))
+    rot = build_rotated_null(null, rotate_dtype="int8x3")
+    a = (n, rot.planes, rot.w_scale, rot.y_res, rot.Q0, rot.rss0, rot.dof)
+    assert torch.equal(rotate_scan_int8_packed(view, *a),
+                       rotate_scan_int8_packed(packed, *a))
+
+
+def test_scan_operand_is_built_once_on_the_main_path(cuda):
+    from mixmogam_tpu_torch.models.resident import emmax_scan_packed
+
+    n = 130
+    rg, _ = _rows(n, 900, cuda, 5)
+    rot = build_rotated_null(_null(n, 2, cuda), rotate_dtype="int8x3")
+    before = scan_operand.builds
+    a = emmax_scan_packed(rg.packed, rot, n, rg.tile)
+    b = emmax_scan_packed(rg.packed, rot, n, rg.tile)
+    assert scan_operand.builds == before + 1 and torch.equal(a, b)
 
 
 @pytest.mark.parametrize("precision", ["exact", "bf16x3"])
