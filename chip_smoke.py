@@ -16,7 +16,11 @@ Phases (each prints its own seconds):
     and bf16x3 on a genome with 2 % missing genotypes) within f rtol 1e-4 /
     atol 1e-4, beta atol 1e-5, identical masks, and bit-equal between a
     launch on the operand prepared once per rotated null and one that
-    prepares it on the spot. Each kernel's time stands beside its bound
+    prepares it on the spot. K2 and K5 run, as on the main path, one launch
+    over all rows in 256-row blocks: they are held and timed on the least
+    launch that fills the card (one block an SM: 33,792 rows on an H100),
+    and their time is also given per 16,384 rows. Each kernel's time stands
+    beside its bound
     (the larger of its bytes over 3.35 TB/s and its operations over the
     card's data-sheet peak for their type) and, for K1 and K4, beside one
     torch._int_mm over the unpacked int8 rows; beside K2 and K5 stand their
@@ -103,14 +107,25 @@ def _int_mm_ms(Zt, what: str):
     k = Zt.shape[1]
     if k % 8:
         Zt = torch.nn.functional.pad(Zt, (0, -k % 8))
+    return _library_ms(lambda: torch._int_mm(Zt, Zt.t()),
+                       f"{what}: torch._int_mm")
+
+
+def _library_ms(fn, what: str):
+    """Time of the library call fn(), which the port never makes; None,
+    with the reason printed, if this PyTorch lacks the call or refuses the
+    shape. A fault that an earlier kernel left on the card raises before
+    the attempt, and one in the timed launches after it: neither is taken
+    for a refusal."""
+    import torch
+
+    torch.cuda.synchronize()
     try:
-        fn = torch._int_mm
-        ms = _cuda_ms(lambda: fn(Zt, Zt.t()))
+        fn()
     except (AttributeError, RuntimeError) as exc:
-        print(f"{what}: torch._int_mm not timed: {str(exc)[:200]}",
-              flush=True)
+        print(f"{what} not timed: {str(exc)[:200]}", flush=True)
         return None
-    return ms
+    return _cuda_ms(fn)
 
 
 def _check_stats(name, got, ref):
@@ -313,24 +328,23 @@ def main(argv=None) -> int:
     null = NullModel(phi=phi, U=U, delta=one, log_delta=0 * one, ll=one,
                      sigma_g2=one, sigma_e2=one, pseudo_heritability=one / 2,
                      y=yv, X0=torch.ones((n, 1), device=dev))
+    # K2 and K5 take all rows in one launch of 256-row blocks, on the main
+    # path several to an SM: the least launch of that kind, one block an SM
+    srows = min(args.snps, 256 * torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    Gs, _, _ = simulate_genotypes(n, srows, ploidy=1, seed=args.seed + 40)
+    packed_s = ResidentGenome.from_source(Gs, tile=256,
+                                          device=dev).packed[:srows]
     # the unpacked rows for the library's products: the share of cuBLAS's
     # rate that the fused kernels reach (the port never calls these)
-    G8 = torch.as_tensor(G1, device=dev)
+    G8 = torch.as_tensor(Gs, device=dev)
     Gb = G8.to(torch.bfloat16)
-
-    def lib_ms(fn, what):
-        try:
-            return _cuda_ms(fn)
-        except (AttributeError, RuntimeError) as exc:
-            print(f"{what}: not timed: {str(exc)[:200]}", flush=True)
-            return None
-
     # K2 at the fast tier and at the fp32-grade one (the report's row); the
     # operand is prepared once per rotated null, as on the main path, so
     # the time is the kernel's alone
     for tier in ("int8x2", "int8x3"):
         rot8 = build_rotated_null(null, rotate_dtype=tier)
-        a8 = (rg1.packed, n, rot8.planes, rot8.w_scale, rot8.y_res, rot8.Q0,
+        a8 = (packed_s, n, rot8.planes, rot8.w_scale, rot8.y_res, rot8.Q0,
               rot8.rss0, rot8.dof)
         ts = time.perf_counter()
         op8 = scan_operand(rot8)
@@ -347,36 +361,37 @@ def main(argv=None) -> int:
         # a product of rows x n x n multiply-adds for each plane; the
         # epilogue's few operations a row are left out
         nplanes = rot8.planes.shape[0]
-        bnd = _bound(2.0 * nplanes * rows * n * n, "int8",
+        bnd = _bound(2.0 * nplanes * srows * n * n, "int8",
                      *(t for t in a8 if isinstance(t, torch.Tensor)),
-                     torch.empty((4, rows)))
+                     torch.empty((4, srows)))
         planes_t = [p_.t().contiguous().t() for p_ in rot8.planes]
-        lms = lib_ms(lambda: [torch._int_mm(G8, p_) for p_ in planes_t],
+        lms = _library_ms(lambda: [torch._int_mm(G8, p_) for p_ in planes_t],
                      f"{nplanes} x torch._int_mm(G_s8, P_p)")
         print(f"   products alone through the library, unpacked rows: "
               f"{nplanes} x torch._int_mm(G_s8, P_p) {lms} ms; operand "
               f"prepared once in {prep_s * 1e3:.1f} ms", flush=True)
-        print(f"K2 rotate_scan_int8_packed {tier} n={n} rows={rows}: "
-              f"max|df| {err:.3e}, kernel {ms:.3f} ms, plain {pms:.3f} ms, "
-              f"bound {bnd['bound_ms']:.3f} ms by {bnd['bound_by']}",
-              flush=True)
+        print(f"K2 rotate_scan_int8_packed {tier} n={n} rows={srows}: "
+              f"max|df| {err:.3e}, kernel {ms:.3f} ms "
+              f"({ms * 16_384 / srows:.3f} ms per 16,384 rows), plain "
+              f"{pms:.3f} ms, bound {bnd['bound_ms']:.3f} ms by "
+              f"{bnd['bound_by']}", flush=True)
         if tier == "int8x3":
             report["rotate_scan_int8_packed"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None, **bnd)
         del planes_t, op8, rot8, a8
     # K5 at each bf16 tier, then bf16x3 on a genome with 2 % missing
     # genotypes (per-row means, rounded to bf16 in the kernel)
-    Gm, _, _ = simulate_genotypes(n, rows, ploidy=1, missing_rate=0.02,
+    Gm, _, _ = simulate_genotypes(n, srows, ploidy=1, missing_rate=0.02,
                                   seed=args.seed + 20)
-    rgm = ResidentGenome.from_source(Gm, device=dev)
-    mu = row_means_packed(rgm.packed, n, rgm.tile, torch.float32)
+    rgm = ResidentGenome.from_source(Gm, tile=256, device=dev)
+    mu = row_means_packed(rgm.packed, n, 16_384, torch.float32)[:srows]
     errs = []
     for tier in ("bf16", "bf16x2", "bf16x3", "bf16x3 missing"):
         rotb = build_rotated_null(null, tier.split()[0])
-        a5 = (rg1.packed, n, rotb.parts, rotb.y_res, rotb.Q0, rotb.rss0,
+        a5 = (packed_s, n, rotb.parts, rotb.y_res, rotb.Q0, rotb.rss0,
               rotb.dof, None)
         if tier.endswith("missing"):
-            a5 = (rgm.packed,) + a5[1:-1] + (mu,)
+            a5 = (rgm.packed[:srows],) + a5[1:-1] + (mu,)
         ts = time.perf_counter()
         op5 = scan_operand(rotb)
         torch.cuda.synchronize()
@@ -392,26 +407,27 @@ def main(argv=None) -> int:
         pms = _cuda_ms(lambda: rotate_scan_bf16_packed_plain(*a5))
         # one product of rows x n x n multiply-adds for each bf16 part
         nparts = rotb.parts.shape[0]
-        bnd = _bound(2.0 * nparts * rows * n * n, "bf16",
+        bnd = _bound(2.0 * nparts * srows * n * n, "bf16",
                      *(t for t in a5 if isinstance(t, torch.Tensor)),
-                     torch.empty((4, rows)))
+                     torch.empty((4, srows)))
         if not tier.endswith("missing"):
-            lms = lib_ms(lambda: [Gb @ p_ for p_ in rotb.parts],
+            lms = _library_ms(lambda: [Gb @ p_ for p_ in rotb.parts],
                          f"{nparts} x (G_bf16 @ P_p)")
             print(f"   products alone through the library, unpacked rows: "
                   f"{nparts} x (G_bf16 @ P_p) {lms} ms; operand prepared "
                   f"once in {prep_s * 1e3:.1f} ms", flush=True)
-        print(f"K5 rotate_scan_bf16_packed {tier} n={n} rows={rows}: "
+        print(f"K5 rotate_scan_bf16_packed {tier} n={n} rows={srows}: "
               f"max|df| {errs[-1]:.3e}, max|dbeta| {dbeta:.3e}, kernel "
-              f"{ms:.3f} ms, plain {pms:.3f} ms, bound "
-              f"{bnd['bound_ms']:.3f} ms by {bnd['bound_by']}", flush=True)
+              f"{ms:.3f} ms ({ms * 16_384 / srows:.3f} ms per 16,384 rows), "
+              f"plain {pms:.3f} ms, bound {bnd['bound_ms']:.3f} ms by "
+              f"{bnd['bound_by']}", flush=True)
         if tier == "bf16x3":
             report["rotate_scan_bf16_packed"] = dict(ms=ms, plain_ms=pms,
                                                      library_ms=None, **bnd)
         del op5
     report["rotate_scan_bf16_packed"]["max_abs_err"] = max(errs)
     del G8, Gb, got, ref
-    del a5, rotb, rgm, Gm, mu
+    del a5, rotb, rgm, Gm, mu, Gs, packed_s
     rot = build_rotated_null(null)
     Xr = torch.as_tensor(G1, device=dev).float() @ rot.U
     a3 = (Xr, rot.sd, rot.y_res, rot.Q0, rot.rss0, rot.dof)

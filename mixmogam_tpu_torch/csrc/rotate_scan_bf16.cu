@@ -15,11 +15,9 @@
 // accumulator drifts from the float64 plain version. Hence the sums are kept
 // short: one accumulator takes one 64-sample chunk of every part, smallest
 // part first (the parts stacked along K), and is then added into a running
-// f32 sum in registers with IEEE round-to-nearest. (-DROTATE_SCAN_ADD_EACH_PART
-// builds the other candidate, an IEEE add after every part of a chunk, for
-// scripts/torch_rotate_scan_ablation.py.) Row sums and the GLS epilogue:
-// rotate_scan_tile.cuh, shared with K2. Output (4, rows) = [f, beta,
-// var_perc, mask].
+// f32 sum in registers with IEEE round-to-nearest. Row sums and the GLS
+// epilogue: rotate_scan_tile.cuh, shared with K2. Output (4, rows) = [f,
+// beta, var_perc, mask].
 //
 // Bound on the H100: bf16 tensor-core throughput (K * rows * n^2
 // multiply-adds); device memory sees the parts and the packed rows once,
@@ -162,33 +160,19 @@ struct Bf16Policy {
       for (int ks = 0; ks < 4; ++ks) {
         const uint64_t db =
             rscan::b_desc(sW + p * W_PART + ks * 2 * LBO, LBO);
-#ifdef ROTATE_SCAN_ADD_EACH_PART
-        const int first = ks == 0;
-#else
         const int first = ks == 0 && p == NP - 1;
-#endif
         wgmma_m64n64k16_bf16(acc[0], a[ks][0], db, !first);
         wgmma_m64n64k16_bf16(acc[1], a[ks][1], db, !first);
       }
-#ifdef ROTATE_SCAN_ADD_EACH_PART
-      rscan::wgmma_commit();
-      rscan::wgmma_wait<0>();
-      add(s, acc);
-      if (p > 0) rscan::wgmma_fence();
-#endif
     }
-#ifndef ROTATE_SCAN_ADD_EACH_PART
     rscan::wgmma_commit();
-#endif
     ring.advance();
     if (has_next) {
       ring.wait_full();
       decode(s, an, ring.sG(), warp, g, t4);
     }
-#ifndef ROTATE_SCAN_ADD_EACH_PART
     rscan::wgmma_wait<0>();
     add(s, acc);
-#endif
     ring.release(cur);
   }
 
@@ -225,7 +209,7 @@ struct Bf16Policy {
 // w_img: the parts as stage images (hopper_scan.py prepare_bf16_operand):
 // [n_steps][n_stages][num_parts][64 * 64] bf16; y_res: (n_steps * 64,) f32;
 // q0t: (q, n_steps * 64) f32; row_mean: (rows,) f32 or null (fully observed:
-// missing codes count as 0); part: (nsplit, 2 + q, rows) f32 scratch.
+// missing codes count as 0).
 // K2 and K5 share one argument list: w_scale is K2's and is not read here.
 extern "C" int rotate_scan_bf16_packed(const void* packed, long long rows,
                                        int rb, int num_parts,
@@ -233,20 +217,17 @@ extern "C" int rotate_scan_bf16_packed(const void* packed, long long rows,
                                        int n_stages, const void* /*w_scale*/,
                                        const void* y_res, const void* q0t,
                                        int q, const void* row_mean,
-                                       float rss0, float dof, int nsplit,
-                                       void* part, void* out, void* stream) {
+                                       float rss0, float dof, void* out,
+                                       void* stream) {
   const rscan::Args a{(const uint8_t*)packed, rows, rb,
                       (const uint8_t*)w_img, n_steps, n_stages, nullptr,
                       (const float*)y_res, (const float*)q0t, q,
-                      (const float*)row_mean, (float*)part};
+                      (const float*)row_mean, rss0, dof, (float*)out};
   auto s = (cudaStream_t)stream;
   switch (num_parts) {
-    case 1: return rscan::launch<Bf16Policy, 1>(a, nsplit, rss0, dof,
-                                                (float*)out, s);
-    case 2: return rscan::launch<Bf16Policy, 2>(a, nsplit, rss0, dof,
-                                                (float*)out, s);
-    case 3: return rscan::launch<Bf16Policy, 3>(a, nsplit, rss0, dof,
-                                                (float*)out, s);
+    case 1: return rscan::launch<Bf16Policy, 1>(a, s);
+    case 2: return rscan::launch<Bf16Policy, 2>(a, s);
+    case 3: return rscan::launch<Bf16Policy, 3>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

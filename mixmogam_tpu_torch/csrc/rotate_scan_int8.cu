@@ -197,7 +197,7 @@ struct Int8Policy {
 
 // w_img: the planes as stage images (hopper_scan.py prepare_int8_operand):
 // [n_steps][n_stages][192 * 128] int8; w_scale / y_res: (n_steps * CN,)
-// f32; q0t: (q, n_steps * CN) f32; part: (nsplit, 2 + q, rows) f32 scratch.
+// f32; q0t: (q, n_steps * CN) f32.
 // K2 and K5 share one argument list: row_mean is K5's and is not read here.
 extern "C" int rotate_scan_int8_packed(const void* packed, long long rows,
                                        int rb, int num_planes,
@@ -205,20 +205,17 @@ extern "C" int rotate_scan_int8_packed(const void* packed, long long rows,
                                        int n_stages, const void* w_scale,
                                        const void* y_res, const void* q0t,
                                        int q, const void* /*row_mean*/,
-                                       float rss0, float dof, int nsplit,
-                                       void* part, void* out, void* stream) {
+                                       float rss0, float dof, void* out,
+                                       void* stream) {
   const rscan::Args a{(const uint8_t*)packed, rows, rb,
                       (const uint8_t*)w_img, n_steps, n_stages,
                       (const float*)w_scale, (const float*)y_res,
-                      (const float*)q0t, q, nullptr, (float*)part};
+                      (const float*)q0t, q, nullptr, rss0, dof, (float*)out};
   auto s = (cudaStream_t)stream;
   switch (num_planes) {
-    case 2: return rscan::launch<Int8Policy, 2>(a, nsplit, rss0, dof,
-                                                (float*)out, s);
-    case 3: return rscan::launch<Int8Policy, 3>(a, nsplit, rss0, dof,
-                                                (float*)out, s);
-    case 4: return rscan::launch<Int8Policy, 4>(a, nsplit, rss0, dof,
-                                                (float*)out, s);
+    case 2: return rscan::launch<Int8Policy, 2>(a, s);
+    case 3: return rscan::launch<Int8Policy, 3>(a, s);
+    case 4: return rscan::launch<Int8Policy, 4>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

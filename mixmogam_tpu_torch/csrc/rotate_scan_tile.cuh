@@ -2,14 +2,13 @@
 // tensor cores, shared by K2 (rotate_scan_int8.cu, int8 digit planes) and
 // K5 (rotate_scan_bf16.cu, split-W bf16 parts).
 //
-// For a block of TM = 256 SNP rows and a range of output column steps:
-// Xs = G @ W (the operand type, the decode of G and the accumulation are the
-// two kernels' own: their Policy), then per row ss = sum Xs^2, xy = Xs .
-// y_res and cc = Xs @ Q0 over the block's columns; Xs never reaches device
-// memory. rotate_scan_finish then adds the column ranges' partial sums in a
-// fixed order and applies ops/scan.py scan_epilogue in f32: mask = xx >
-// 100*eps*max(ss, tiny), expl clamped to rss0, rss1 floored at tiny, outputs
-// zeroed off-mask, into out (4, rows) = [f, beta, var_perc, mask].
+// For a block of TM = 256 SNP rows, one column step after another: Xs = G @ W
+// (the operand type, the decode of G and the accumulation are the two
+// kernels' own: their Policy), then per row ss = sum Xs^2, xy = Xs . y_res
+// and cc = Xs @ Q0 over all columns; Xs never reaches device memory. Each row
+// then gets ops/scan.py scan_epilogue in f32: mask = xx > 100*eps*max(ss,
+// tiny), expl clamped to rss0, rss1 floored at tiny, outputs zeroed
+// off-mask, into out (4, rows) = [f, beta, var_perc, mask].
 //
 // Design.
 //  * Three warpgroups a block, one block an SM. Two consumer warpgroups own
@@ -40,10 +39,8 @@
 //    two warpgroups overlap each other). A ring of Policy::STAGES stages.
 //  * L2 traffic: every block re-reads all of W, so the block is tall (256
 //    rows: half the bytes a multiply-add of a 128-row block) rather than a
-//    cluster of two. A launch with fewer row blocks than SMs splits the
-//    column steps over gridDim.y blocks instead (same bytes a multiply-add);
-//    each writes its partial row sums to scratch and rotate_scan_finish adds
-//    them, so the result does not depend on which block ran first.
+//    cluster of two. A launch fills the card from one row block an SM on
+//    (33,792 rows on 132 SMs).
 //  * Row sums: after each column step ss, xy and cc go through quad
 //    shuffles into the row's own shared slots (one writer a slot, no
 //    atomics): results repeat bit for bit.
@@ -147,7 +144,8 @@ struct Args {
   const float* q0t;        // (q, n_out_pad): Q0 transposed
   int q;
   const float* row_mean;   // (rows,) or null, K5 only
-  float* part;             // (gridDim.y, 2 + q, rows) partial row sums
+  float rss0, dof;         // the null model's residual sum and n - q - 1
+  float* out;              // (4, rows)
 };
 
 // ---- producer ----------------------------------------------------------------
@@ -348,10 +346,6 @@ __global__ void __launch_bounds__(THREADS, 1) rotate_scan_kernel(const Args a) {
   __syncthreads();
 
   const long long r0 = (long long)blockIdx.x * TM;
-  // this block's column steps
-  const int per = (a.n_steps + gridDim.y - 1) / gridDim.y;
-  const int step0 = blockIdx.y * per;
-  const int step1 = min(a.n_steps, step0 + per);
 
   if (wg == 2) {
     // ===== producer =====
@@ -359,7 +353,7 @@ __global__ void __launch_bounds__(THREADS, 1) rotate_scan_kernel(const Args a) {
     const int ptid = tid - 256;
     int slot = 0;
     uint32_t parity = 1;              // the ring starts empty
-    for (int js = step0; js < step1; ++js) {
+    for (int js = 0; js < a.n_steps; ++js) {
       const uint8_t* wsrc =
           a.w_img + (long long)js * a.n_stages * P::W_STAGE;
       for (int ks = 0; ks < a.n_stages; ++ks) {
@@ -395,7 +389,7 @@ __global__ void __launch_bounds__(THREADS, 1) rotate_scan_kernel(const Args a) {
 
     Ring ring{smem, full0, empty0, L::STAGE, P::W_STAGE,
               wg * WG_ROWS * P::GBW, P::STAGES, 0, 0u};
-    for (int js = step0; js < step1; ++js) {
+    for (int js = 0; js < a.n_steps; ++js) {
       P::step(st, ring, a.n_stages, warp, g, t4);
       float xs[2][P::CN / 2];
       P::finish_step(st, xs, a, js * P::CN, t4);
@@ -404,78 +398,51 @@ __global__ void __launch_bounds__(THREADS, 1) rotate_scan_kernel(const Args a) {
     }
 
     wg_sync(wg);
-    // one row a thread: this block's partial sums to scratch
+    // one row a thread: the GLS epilogue
     const long long row = r0 + wg * WG_ROWS + wtid;
     if (row < a.rows) {
-      float* dst = a.part + (long long)blockIdx.y * (2 + a.q) * a.rows + row;
-      dst[0] = ssum[wtid];
-      dst[a.rows] = xsum[wtid];
-      for (int qq = 0; qq < a.q; ++qq)
-        dst[(2 + qq) * a.rows] = cc[wtid * QMAX + qq];
+      const float ss = ssum[wtid], xy = xsum[wtid];
+      float c2 = 0.f;
+      for (int qq = 0; qq < a.q; ++qq) {
+        const float c = cc[wtid * QMAX + qq];
+        c2 += c * c;
+      }
+      const float eps = 100.f * FLT_EPSILON;
+      const float tiny = FLT_MIN;
+      const float xx = ss - c2;
+      const bool mask = xx > eps * fmaxf(ss, tiny);
+      const float xx_safe = mask ? xx : 1.f;
+      const float expl = mask ? fminf(xy * xy / xx_safe, a.rss0) : 0.f;
+      const float rss1 = fmaxf(a.rss0 - expl, tiny);
+      a.out[row] = mask ? expl * a.dof / rss1 : 0.f;
+      a.out[a.rows + row] = mask ? xy / xx_safe : 0.f;
+      a.out[2 * a.rows + row] = mask ? expl / a.rss0 : 0.f;
+      a.out[3 * a.rows + row] = mask ? 1.f : 0.f;
     }
   }
 }
 
-// Adds the column ranges' partial sums (in order) and applies the GLS
-// epilogue: one row a thread.
-__global__ void __launch_bounds__(256)
-rotate_scan_finish(const float* __restrict__ part, int nsplit, long long rows,
-                   int q, float rss0, float dof, float* __restrict__ out) {
-  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= rows) return;
-  const long long ps = (long long)(2 + q) * rows;
-  float ss = 0.f, xy = 0.f, c2 = 0.f;
-  for (int s = 0; s < nsplit; ++s) {
-    ss += part[s * ps + row];
-    xy += part[s * ps + rows + row];
-  }
-  for (int qq = 0; qq < q; ++qq) {
-    float c = 0.f;
-    for (int s = 0; s < nsplit; ++s) c += part[s * ps + (2 + qq) * rows + row];
-    c2 += c * c;
-  }
-  const float eps = 100.f * FLT_EPSILON;
-  const float tiny = FLT_MIN;
-  const float xx = ss - c2;
-  const bool mask = xx > eps * fmaxf(ss, tiny);
-  const float xx_safe = mask ? xx : 1.f;
-  const float expl = mask ? fminf(xy * xy / xx_safe, rss0) : 0.f;
-  const float rss1 = fmaxf(rss0 - expl, tiny);
-  out[row] = mask ? expl * dof / rss1 : 0.f;
-  out[rows + row] = mask ? xy / xx_safe : 0.f;
-  out[2 * rows + row] = mask ? expl / rss0 : 0.f;
-  out[3 * rows + row] = mask ? 1.f : 0.f;
-}
-
-// nsplit: blocks along the column steps (the wrapper sizes `part` for it)
 template <class P>
-inline int launch_t(const Args& a, int nsplit, float rss0, float dof, float* out,
-                  cudaStream_t stream) {
-  if (a.rows <= 0 || a.q < 0 || a.q > QMAX || nsplit < 1 ||
-      nsplit > a.n_steps || a.n_stages < 1)
+inline int launch_t(const Args& a, cudaStream_t stream) {
+  if (a.rows <= 0 || a.q < 0 || a.q > QMAX || a.n_steps < 1 ||
+      a.n_stages < 1)
     return (int)cudaErrorInvalidValue;
   auto kern = rotate_scan_kernel<P>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<P>::BYTES);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)((a.rows + TM - 1) / TM), (unsigned)nsplit);
-  kern<<<grid, THREADS, Layout<P>::BYTES, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  rotate_scan_finish<<<(unsigned)((a.rows + 255) / 256), 256, 0, stream>>>(
-      a.part, nsplit, a.rows, a.q, rss0, dof, out);
+  kern<<<(unsigned)((a.rows + TM - 1) / TM), THREADS, Layout<P>::BYTES,
+         stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // Policy<NP, ALIGNED> by what the packed rows' pitch and address allow
 template <template <int, bool> class Policy, int NP>
-inline int launch(const Args& a, int nsplit, float rss0, float dof, float* out,
-                  cudaStream_t stream) {
+inline int launch(const Args& a, cudaStream_t stream) {
   const bool aligned =
       a.rb % 16 == 0 && reinterpret_cast<uintptr_t>(a.packed) % 16 == 0;
-  return aligned
-             ? launch_t<Policy<NP, true>>(a, nsplit, rss0, dof, out, stream)
-             : launch_t<Policy<NP, false>>(a, nsplit, rss0, dof, out, stream);
+  return aligned ? launch_t<Policy<NP, true>>(a, stream)
+                 : launch_t<Policy<NP, false>>(a, stream);
 }
 
 }  // namespace rscan

@@ -49,10 +49,6 @@ def _check_cuda_f32(what: str, **tensors) -> None:
 # The kernel-ready W operand of K2 and K5
 # ---------------------------------------------------------------------------
 
-_TM = 256         # rows a block (csrc/rotate_scan_tile.cuh)
-_MAX_SPLIT = 16   # blocks along the column steps, at most
-
-
 def _stage_perm(kind: str) -> torch.Tensor:
     """perm[L] = the physical sample, inside a K stage of the packed row,
     that sits at the tensor cores' logical contraction position L. The
@@ -92,6 +88,7 @@ class ScanOperand:
     y_res: torch.Tensor       # (steps * cn,) f32
     q0t: torch.Tensor         # (q, steps * cn) f32
     w_scale: Optional[torch.Tensor] = None   # (steps * cn,) f32, int8 only
+    source: tuple = ()        # _source_key of the tensors it was built from
 
     @property
     def n_steps(self) -> int:
@@ -100,6 +97,13 @@ class ScanOperand:
     @property
     def n_stages(self) -> int:
         return self.w_img.shape[1]
+
+
+def _source_key(*tensors) -> tuple:
+    """Which tensors, in which state: address and in-place version of each
+    (None for an absent one)."""
+    return tuple(None if t is None else (t.data_ptr(), t._version)
+                 for t in tensors)
 
 
 def _prepare_operand(kind: str, W: torch.Tensor, n: int, y_res, Q0,
@@ -123,7 +127,8 @@ def _prepare_operand(kind: str, W: torch.Tensor, n: int, y_res, Q0,
 
     return ScanOperand(kind=kind, n=n, K=K, cn=cn, ks=ks, w_img=img,
                        y_res=pad(y_res), q0t=pad(Q0.t()),
-                       w_scale=None if w_scale is None else pad(w_scale))
+                       w_scale=None if w_scale is None else pad(w_scale),
+                       source=_source_key(W, y_res, Q0, w_scale))
 
 
 def prepare_int8_operand(planes, w_scale, y_res, Q0) -> ScanOperand:
@@ -154,11 +159,15 @@ def operand_dense(op: ScanOperand) -> torch.Tensor:
 
 def scan_operand(rot) -> Optional[ScanOperand]:
     """The K2 / K5 operand of a RotatedNull, built at first use and kept
-    with it; None for the exact tier. (The plain versions read planes /
+    with it (built again if rot's tensors were replaced or written to
+    since); None for the exact tier. (The plain versions read planes /
     parts as they are: on the CPU nothing asks for it.)"""
     if rot.planes is None and rot.parts is None:
         return None
-    if rot.operand is None:
+    W = rot.planes if rot.planes is not None else rot.parts
+    key = _source_key(W, rot.y_res, rot.Q0,
+                      rot.w_scale if rot.planes is not None else None)
+    if rot.operand is None or rot.operand.source != key:
         if rot.planes is not None:
             rot.operand = prepare_int8_operand(rot.planes, rot.w_scale,
                                                rot.y_res, rot.Q0)
@@ -180,10 +189,11 @@ def _check_packed(what: str, packed: torch.Tensor, n: int) -> None:
                          f"tensor; got {packed.dtype} {tuple(packed.shape)}")
 
 
-def _check_operand(what: str, op: ScanOperand, kind: str, n: int, W, Q0,
-                   dev) -> None:
-    if (op.kind != kind or op.n != n or op.K != W.shape[0]
-            or op.w_img.device != dev or op.q0t.shape[0] != Q0.shape[1]):
+def _check_operand(what: str, op: ScanOperand, kind: str, W, y_res, Q0,
+                   w_scale=None) -> None:
+    """The kernel reads W, y_res, Q0 and w_scale from the operand, not from
+    the wrapper's arguments: they must be the tensors it was built from."""
+    if op.kind != kind or op.source != _source_key(W, y_res, Q0, w_scale):
         raise ValueError(f"{what}: the prepared operand ({op.kind}, n="
                          f"{op.n}, K={op.K}, q={op.q0t.shape[0]}, "
                          f"{op.w_img.device}) does not belong to these "
@@ -193,28 +203,22 @@ def _check_operand(what: str, op: ScanOperand, kind: str, n: int, W, Q0,
 def launch_rotate_scan(fn, packed: torch.Tensor, op: ScanOperand, rss0, dof,
                        row_mean=None) -> torch.Tensor:
     """Launch K2 / K5 through their C entry `fn` (one argument list for
-    both) on checked arguments: sizes the column split so that a launch
-    with few row blocks still fills the card, allocates its (nsplit, 2 + q,
-    rows) scratch and the (4, rows) output."""
+    both) on checked arguments; allocates the (4, rows) output."""
     from mixmogam_tpu_torch.ops._build import check_launch
 
     dev, rows, q = packed.device, packed.shape[0], op.q0t.shape[0]
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    nsplit = max(1, min(op.n_steps, _MAX_SPLIT, sms // (-(-rows // _TM))))
-    part = torch.empty((nsplit, 2 + q, rows), dtype=torch.float32,
-                       device=dev)
     out = torch.empty((4, rows), dtype=torch.float32, device=dev)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.restype = ci
     fn.argtypes = [vp, ctypes.c_longlong, ci, ci, vp, ci, ci, vp, vp, vp,
-                   ci, vp, cf, cf, ci, vp, vp, vp]
+                   ci, vp, cf, cf, vp, vp]
     rc = fn(packed.data_ptr(), rows, packed.shape[1], op.K,
             op.w_img.data_ptr(), op.n_steps, op.n_stages,
             None if op.w_scale is None else op.w_scale.data_ptr(),
             op.y_res.data_ptr(), op.q0t.data_ptr(), q,
             None if row_mean is None else row_mean.data_ptr(),
-            _as_float(rss0), _as_float(dof), nsplit, part.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            _as_float(rss0), _as_float(dof), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, fn.__name__)
     return out
 
@@ -264,11 +268,10 @@ def rotate_scan_int8_packed(packed: torch.Tensor, n: int,
                     y_res=y_res, Q0=Q0)
     from mixmogam_tpu_torch.ops._build import build
 
-    dev = packed.device
     if operand is None:
         operand = prepare_int8_operand(planes, w_scale, y_res, Q0)
-    _check_operand("rotate_scan_int8_packed", operand, "int8", n, planes,
-                   Q0, dev)
+    _check_operand("rotate_scan_int8_packed", operand, "int8", planes,
+                   y_res, Q0, w_scale)
     out = launch_rotate_scan(build("rotate_scan_int8").rotate_scan_int8_packed,
                              packed, operand, rss0, dof)
     rotate_scan_int8_packed.launches += 1
@@ -340,11 +343,10 @@ def rotate_scan_bf16_packed(packed: torch.Tensor, n: int,
         row_mean = row_mean.contiguous()
     from mixmogam_tpu_torch.ops._build import build
 
-    dev = packed.device
     if operand is None:
         operand = prepare_bf16_operand(parts, y_res, Q0)
-    _check_operand("rotate_scan_bf16_packed", operand, "bf16", n, parts, Q0,
-                   dev)
+    _check_operand("rotate_scan_bf16_packed", operand, "bf16", parts, y_res,
+                   Q0)
     out = launch_rotate_scan(build("rotate_scan_bf16").rotate_scan_bf16_packed,
                              packed, operand, rss0, dof, row_mean)
     rotate_scan_bf16_packed.launches += 1

@@ -16,14 +16,17 @@ times every build on the same packed genome and rotated null at 'bf16',
                whatever shared memory holds, wgmma, row sums
   no_sums      no row sums after a column step (the last step's only)
   no_add       K5 only: the chunk sums are not added into the running sums
-  each_part    K5 only, -DROTATE_SCAN_ADD_EACH_PART: an IEEE add into the
-               running sum after every part of a chunk, not one a chunk
+  each_part    K5 only, the other accumulation candidate: an IEEE add into
+               the running sum after every part of a chunk, not one a chunk
 
 A cut-down build computes wrong sums; base and each_part are held against
 the plain version and their max |d beta| and max |d f| are printed. Run from
 the repository root:
 
   python3 scripts/torch_rotate_scan_ablation.py [--samples N] [--rows R]
+
+R defaults to one 256-row block for every SM of the card (33,792 rows on an
+H100's 132): the least launch that fills it.
 """
 
 from __future__ import annotations
@@ -46,7 +49,9 @@ DEC16 = ("          a[ks][mt][hh] = __byte_perm(lo, hi, sel01);"
          "      // k 2t, 2t+1\n"
          "          a[ks][mt][2 + hh] = __byte_perm(lo, hi, sel23);"
          "  // k 2t+8, 2t+9\n")
-ADD = "    add(s, acc);\n#endif\n    ring.release(cur);\n"
+ADD = "    rscan::wgmma_wait<0>();\n    add(s, acc);\n    ring.release(cur);\n"
+FIRST = "        const int first = ks == 0 && p == NP - 1;\n"
+COMMIT = "      }\n    }\n    rscan::wgmma_commit();\n"
 W_COPY = ("          bulk_load(smem_u32(st), wsrc + (long long)ks * P::W_STAGE,\n"
           "                    P::W_STAGE, full0 + 8 * slot);\n")
 W_EXPECT = "          mbar_expect_tx(full0 + 8 * slot, P::W_STAGE);\n"
@@ -58,9 +63,10 @@ SUMS = ("      step_sums<P::CN / 8>(xs, js * P::CN, n_out_pad, warp, g, t4, a, "
 
 
 def _variants(tile: str, k2: str, k5: str):
-    """name -> (header, K2 source, K5 source, extra nvcc flags)."""
+    """name -> (header, K2 source, K5 source)."""
     for text, parts in ((tile, (W_COPY, W_EXPECT, G_COPY, SUMS)),
-                        (k2, (MMA8, DEC8)), (k5, (MMA16, DEC16, ADD))):
+                        (k2, (MMA8, DEC8)),
+                        (k5, (MMA16, DEC16, ADD, FIRST, COMMIT))):
         for part in parts:
             if text.count(part) != 1:
                 raise SystemExit(f"the sources no longer hold:\n{part}")
@@ -74,34 +80,41 @@ def _variants(tile: str, k2: str, k5: str):
                 "        acc[1][ks] = (first ? 0.f : acc[1][ks]) + (float)(a[ks][1]"
                 "[0] ^ a[ks][1][1] ^ a[ks][1][2] ^ a[ks][1][3] ^ (uint32_t)db);\n")
     return {
-        "base": (tile, k2, k5, []),
+        "base": (tile, k2, k5),
         "no_mma": (tile, k2.replace(MMA8, no_mma8),
                    k5.replace(MMA16, no_mma16).replace(
                        "    float acc[2][32];\n",
-                       "    float acc[2][32] = {};\n"), []),
+                       "    float acc[2][32] = {};\n")),
         "no_decode": (tile,
                       k2.replace(DEC8, "  r[0] = w; r[1] = w >> 8; r[2] = w >> "
                                  "16; r[3] = w >> 24;\n  return;\n"),
                       k5.replace(DEC16, "          a[ks][mt][hh] = (w >> ks) ^ "
                                  "lo;\n          a[ks][mt][2 + hh] = (w >> ks) ^"
-                                 " hi;\n"),
-                      []),
-        "no_w": (tile.replace(W_COPY, "").replace(W_EXPECT, ""), k2, k5, []),
-        "no_g": (tile.replace(G_COPY, "        mbar_arrive(full0 + 8 * slot);\n"), k2, k5, []),
+                                 " hi;\n")),
+        "no_w": (tile.replace(W_COPY, "").replace(W_EXPECT, ""), k2, k5),
+        "no_g": (tile.replace(G_COPY, "        mbar_arrive(full0 + 8 * slot);\n"),
+                 k2, k5),
         "no_sums": (tile.replace(
-            SUMS, "      if (js + 1 == step1) step_sums<P::CN / 8>(xs, js * "
+            SUMS, "      if (js + 1 == a.n_steps) step_sums<P::CN / 8>(xs, js * "
             "P::CN, n_out_pad, warp, g, t4, a, ssum, xsum, cc);\n"),
-            k2, k5, []),
-        "no_add": (tile, k2, k5.replace(ADD, "    s.run[0][0] += acc[0][0] + acc[1][0];\n#endif\n"
-                                            "    ring.release(cur);\n"), []),
-        "each_part": (tile, k2, k5, ["-DROTATE_SCAN_ADD_EACH_PART"]),
+            k2, k5),
+        "no_add": (tile, k2, k5.replace(
+            ADD, "    rscan::wgmma_wait<0>();\n    s.run[0][0] += acc[0][0] + "
+            "acc[1][0];\n    ring.release(cur);\n")),
+        "each_part": (tile, k2, k5.replace(FIRST, "        const int first = "
+                                           "ks == 0;\n")
+                      .replace(COMMIT, "      }\n      rscan::wgmma_commit();\n"
+                               "      rscan::wgmma_wait<0>();\n"
+                               "      add(s, acc);\n"
+                               "      if (p > 0) rscan::wgmma_fence();\n    }\n")
+                      .replace(ADD, "    ring.release(cur);\n")),
     }
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--samples", type=int, default=10_240)
-    ap.add_argument("--rows", type=int, default=16_384)
+    ap.add_argument("--rows", type=int, default=None)
     args = ap.parse_args(argv)
     import torch
 
@@ -127,8 +140,9 @@ def main(argv=None) -> int:
             src[fn] = f.read()
     variants = _variants(*src.values())
 
-    n, rows = args.samples, args.rows
     dev = torch.device("cuda")
+    n, rows = args.samples, args.rows or 256 * torch.cuda.get_device_properties(
+        dev).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(0)
     packed = pack_2bit_device(torch.randint(
         0, 2, (rows, n), dtype=torch.int8, device=dev, generator=g))
@@ -171,7 +185,7 @@ def main(argv=None) -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         procs = []
-        for name, (tile, k2, k5, flags) in variants.items():  # all together
+        for name, (tile, k2, k5) in variants.items():  # all together
             d = os.path.join(tmp, name)
             os.makedirs(d)
             for fn, text in zip(src, (tile, k2, k5)):
@@ -181,7 +195,7 @@ def main(argv=None) -> int:
                 if name in ("each_part", "no_add") and cu == "rotate_scan_int8":
                     continue
                 procs.append((name, cu, d, subprocess.Popen(
-                    [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o",
+                    [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
                      os.path.join(d, cu + ".so"),
                      os.path.join(d, cu + ".cu")],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

@@ -6,11 +6,12 @@ mixmogam_tpu_torch) on one NVIDIA card: build, check, time.
   2 holds every tier against its plain version at small ragged shapes
     (pitches of 16, 33, 251 and 511 bytes; 1 to 900 rows; q = 1..16; with
     and without missing genotypes for K5)
-  3 times every tier at full width on one 16,384-row tile and on 16 tiles
-    in one launch (CUDA events, mean of 3 launches after a warm-up), at a
-    16-byte pitch (n = 10,240) and at one that is not (n = 10,236), with
-    the operand prepared once, and checks that two launches give the same
-    bits
+  3 holds and times every tier at full width on the least launch that fills
+    the card (one 256-row block an SM: 33,792 rows on an H100's 132) and on
+    8 such in one launch (CUDA events, mean of 3 launches after a warm-up),
+    at a 16-byte pitch (n = 10,240) and at one that is not (n = 10,236),
+    with the operand prepared once, and checks that a second launch and the
+    last eighth of the long one give the same bits
 
 Run from the repository root; exits non-zero when a check fails:
 
@@ -34,7 +35,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--samples", type=int, nargs="+",
                     default=[10_240, 10_236])
-    ap.add_argument("--rows", type=int, default=16_384)
+    ap.add_argument("--rows", type=int, default=None)
     args = ap.parse_args(argv)
     import torch
 
@@ -56,6 +57,8 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
     dev = torch.device("cuda")
+    rows = args.rows or 256 * torch.cuda.get_device_properties(
+        dev).multi_processor_count
 
     # ---- 1. build ----------------------------------------------------------
     names = ("rotate_scan_int8", "rotate_scan_bf16")
@@ -135,24 +138,27 @@ def main(argv=None) -> int:
         return t0.elapsed_time(t1) / reps
 
     for n in args.samples:
-        G, _, _ = simulate_genotypes(n, args.rows, seed=11)
-        rg = ResidentGenome.from_source(G, device=dev)
-        big = torch.cat([rg.packed] * 16)
+        G, _, _ = simulate_genotypes(n, rows, seed=11)
+        rg = ResidentGenome.from_source(G, tile=256, device=dev)
+        big = torch.cat([rg.packed] * 8)
         null = null_model(n, 1)
         for tier in INT8_TIERS + BF16_TIERS:
             rot = build_rotated_null(null, rotate_dtype=tier)
             op = scan_operand(rot)
             fn, plain, a = tier_call(tier, rot, rg.packed, n)
             got = fn(*a, operand=op)
-            good &= check(f"{tier} n={n} rows={args.rows}", got, plain(*a))
-            same = torch.equal(got, fn(*a, operand=op))
+            good &= check(f"{tier} n={n} rows={rows}", got, plain(*a))
+            m = rg.packed.shape[0]
+            same = (torch.equal(got, fn(*a, operand=op)) and torch.equal(
+                got, fn(big, *a[1:], operand=op)[:, -m:]))
             good &= same
             ms = cuda_ms(lambda: fn(*a, operand=op))
-            ms16 = cuda_ms(lambda: fn(big, *a[1:], operand=op), reps=1)
+            ms8 = cuda_ms(lambda: fn(big, *a[1:], operand=op), reps=1)
             print(f"   {tier} n={n} (pitch {rg.packed.shape[1]}): "
-                  f"{ms:.3f} ms a {args.rows}-row tile, {ms16:.3f} ms for 16 "
-                  f"tiles in one launch; a second launch gives "
-                  f"{'the same bits' if same else 'OTHER BITS'}", flush=True)
+                  f"{ms:.3f} ms a {m}-row launch, {ms8:.3f} ms for 8 such "
+                  f"in one launch; a second launch and the long one's last "
+                  f"eighth give {'the same bits' if same else 'OTHER BITS'}",
+                  flush=True)
             del rot, op
     return 0 if good else 2
 

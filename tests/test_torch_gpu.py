@@ -177,6 +177,40 @@ def test_scan_kernels_on_row_views(cuda, n):
            rotate_scan_int8_packed(rg.packed, *a)[:, s:e])
 
 
+@pytest.mark.parametrize("n,q", [(130, 3), (1002, 1)])
+def test_scan_kernels_over_more_row_blocks_than_sms(cuda, n, q):
+    """The main path's grid: several 256-row blocks to an SM, the last one
+    ragged; every row against the plain version, and the same bits as a
+    launch over a row view of the last blocks alone."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    m = 256 * (2 * sms + 3) + 77
+    rg, packed = _rows(n, m, cuda, n + 7)
+    null = _null(n, q, cuda)
+    rot = build_rotated_null(null, rotate_dtype="bf16x3")
+    a = (n, rot.parts, rot.y_res, rot.Q0, rot.rss0, rot.dof)
+    got = rotate_scan_bf16_packed(packed, *a)
+    _close(got, rotate_scan_bf16_packed_plain(packed, *a))
+    s = 256 * 2 * sms
+    assert torch.equal(got[:, s:], rotate_scan_bf16_packed(packed[s:], *a))
+    rot = build_rotated_null(null, rotate_dtype="int8x3")
+    a = (n, rot.planes, rot.w_scale, rot.y_res, rot.Q0, rot.rss0, rot.dof)
+    got = rotate_scan_int8_packed(packed, *a)
+    _close(got, rotate_scan_int8_packed_plain(packed, *a))
+    assert torch.equal(got[:, s:], rotate_scan_int8_packed(packed[s:], *a))
+
+
+def test_wrappers_refuse_another_nulls_operand(cuda):
+    n = 130
+    _, packed = _rows(n, 300, cuda, 9)
+    rot = build_rotated_null(_null(n, 2, cuda), rotate_dtype="int8x3")
+    other = build_rotated_null(_null(n, 2, cuda, seed=1),
+                               rotate_dtype="int8x3")
+    with pytest.raises(ValueError, match="does not belong"):
+        rotate_scan_int8_packed(packed, n, rot.planes, rot.w_scale,
+                                rot.y_res, rot.Q0, rot.rss0, rot.dof,
+                                operand=scan_operand(other))
+
+
 @pytest.mark.parametrize("offset", [1, 4, 8])
 def test_scan_kernels_on_a_base_that_is_not_16_byte_aligned(cuda, offset):
     """A 16-byte pitch (n = 1,024: 256 bytes a row) on a base address that

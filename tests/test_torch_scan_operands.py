@@ -179,9 +179,38 @@ def test_cpu_scan_prepares_nothing_and_matches_jax(tier):
 
 
 def test_wrappers_refuse_a_foreign_operand():
+    """The kernels read W, y_res, Q0 and w_scale from the operand: one
+    built from other tensors, of the same shape too, is refused."""
     Wq, op, (w_scale, y_res, Q0) = _operand(64, "int8x3")
+    Wo, other, (ws_o, y_o, Q0_o) = _operand(64, "int8x3", seed=5)
     with pytest.raises(ValueError, match="does not belong"):
-        hs._check_operand("k2", op, "int8", 77, Wq, Q0, Wq.device)
+        hs._check_operand("k2", other, "int8", Wq, y_res, Q0, w_scale)
     with pytest.raises(ValueError, match="does not belong"):
-        hs._check_operand("k5", op, "bf16", 64, Wq, Q0, Wq.device)
-    hs._check_operand("k2", op, "int8", 64, Wq, Q0, Wq.device)
+        hs._check_operand("k2", op, "int8", Wq, y_o, Q0, w_scale)
+    with pytest.raises(ValueError, match="does not belong"):
+        hs._check_operand("k2", op, "int8", Wq, y_res, Q0, ws_o)
+    with pytest.raises(ValueError, match="does not belong"):
+        hs._check_operand("k5", op, "bf16", Wq, y_res, Q0)
+    hs._check_operand("k2", op, "int8", Wq, y_res, Q0, w_scale)
+    y_res += 1.0                                  # written to since
+    with pytest.raises(ValueError, match="does not belong"):
+        hs._check_operand("k2", op, "int8", Wq, y_res, Q0, w_scale)
+
+
+@pytest.mark.parametrize("tier", ["int8x3", "bf16x2"])
+def test_operand_is_rebuilt_when_the_rotated_null_changes(tier):
+    _, _, rot = _rot(tier, 4)
+    op = hs.scan_operand(rot)
+    before = hs.scan_operand.builds
+    if rot.planes is not None:
+        rot.planes = rot.planes.clone()
+    else:
+        rot.parts = rot.parts.clone()
+    op2 = hs.scan_operand(rot)
+    assert op2 is not op and hs.scan_operand.builds == before + 1
+    assert torch.equal(op2.w_img, op.w_img)
+    rot.y_res.mul_(2.0)                           # in place
+    op3 = hs.scan_operand(rot)
+    assert hs.scan_operand.builds == before + 2
+    assert torch.equal(op3.y_res, 2.0 * op2.y_res)
+    assert hs.scan_operand(rot) is op3            # unchanged: kept
