@@ -26,19 +26,35 @@ Phases (each prints its own seconds):
     torch._int_mm over the unpacked int8 rows; beside K2 and K5 stand their
     products alone through the library on unpacked rows (torch._int_mm a
     plane, a bf16 matmul a part), which the port never calls
-  4 the main path at full width: simulate -> ResidentGenome on the card
+  4 the main path at full width: draw the genome -> ResidentGenome on the
+    card
     -> kinship_resident (K1) -> scale_k -> eigh on the card (float64)
     -> fit_null_model -> emmax_resident at 'exact' (K3), 'int8x3' (K2)
     and 'bf16x3' (K5); every kernel's launch count must be > 0, and each
     fast tier within max |dp| 1e-4 of exact
   5 end-to-end accuracy: exact-tier emmax on the card vs the port's
     float64 CPU path at n = 2,048 x 8,192 (max |dp| <= 1e-5, same masks)
-  6 LOCO at full width on phase 4's genome, split into 5 chromosomes in
-    proportion to the Arabidopsis TAIR10 lengths (no boundary on a
-    tile): emmax_loco at 'exact' and at 'bf16x3', each launching K4
-    exactly once per chromosome and K1 once; bf16x3 within max |dp|
-    1e-4 of exact; one chromosome's K_loco equal to scale_k of K1's gram
-    over the other chromosomes' rows (max |d| <= 1e-12)
+  6 LOCO at full width, on phase 4's genome cut to --facade-snps rows in 5
+    chromosomes in proportion to the Arabidopsis TAIR10 lengths (no
+    boundary on a tile): the genome goes to a PLINK fileset (the port's
+    write_plink) and the phenotype to a CSV, and api.run_gwas runs
+    method='emmax_loco' from those files on the card (no device=); on its
+    filtered rows emmax_loco runs directly at 'exact' and at 'bf16x3', each
+    launching K4 exactly once per chromosome and K1 once; the facade's
+    p-values equal the direct exact call's (max |dp| <= 1e-12) and its own
+    ranked CSV; bf16x3 within max |dp| 1e-4 of exact; one chromosome's
+    K_loco equal to scale_k of K1's gram over the other chromosomes' rows
+    (max |d| <= 1e-12)
+  7 the facade at full width, from the same files: api.run_gwas on the
+    card with method='emmax' at 'exact', 'int8x3' and 'bf16x3'; each
+    call's timings_s and route (in-core, or packed and resident) are
+    printed; its p-values must equal (max |dp| <= 1e-12) those of the
+    port's emmax called on the same filtered rows, y and K, the ranked CSV
+    must parse back to the same p-values, and the kernels' launch counts
+    must be the tabled ones (PERF.md section 6), as for phase 6's call.
+    Then at n = 2,048 x 8,192 with 2 % missing calls: run_gwas with the IBS
+    and with the VanRaden kinship (float32 matmuls on the card) against the
+    same call on the float64 CPU path: max |dK| <= 1e-5, max |dp| <= 1e-4
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}. Any
@@ -50,8 +66,10 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -150,6 +168,46 @@ def _check_stats(name, got, ref):
     return df.max().item()
 
 
+def _read_ranked_csv(path):
+    """{(chromosome, position): p} from a ranked p-value CSV."""
+    with open(path) as f:
+        head = f.readline().strip().split(",")
+        if head[:3] != ["chromosomes", "positions", "scores"]:
+            raise AssertionError(f"{path}: header {head}")
+        return {(int(c), int(p)): float(v) for c, p, v in (
+            line.split(",")[:3] for line in f)}
+
+
+def _draw_genotypes(n: int, m: int, ploidy: int = 1,
+                    missing_rate: float = 0.0, seed: int = 0):
+    """(m, n) int8 host genotypes (-1 = missing) of data/simulate.py's
+    model (Balding-Nichols: 3 populations, Fst 0.1, ancestral frequencies
+    uniform on 0.05-0.5). The per-SNP frequencies come from numpy; the
+    (m, n) uniform draws are made on the card, which numpy makes in half a
+    minute for 262,144 x 10,240 on the host."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(0.05, 0.5, size=m)
+    freqs = torch.as_tensor(
+        rng.beta(p * 9.0, (1.0 - p) * 9.0, size=(3, m)).astype(np.float32),
+        device="cuda")
+    pop = torch.as_tensor(rng.integers(0, 3, size=n), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    G = np.empty((m, n), dtype=np.int8)
+    for s in range(0, m, 16_384):
+        f = freqs[:, s:s + 16_384][pop].T               # (rows, n)
+        acc = torch.zeros(f.shape, dtype=torch.int8, device="cuda")
+        for _ in range(ploidy):
+            acc += torch.rand(f.shape, generator=g, device="cuda") < f
+        if missing_rate > 0:
+            acc[torch.rand(f.shape, generator=g, device="cuda")
+                < missing_rate] = -1
+        G[s:s + 16_384] = acc.cpu().numpy()
+    return G
+
+
 def _check_no_jax() -> None:
     """The port runs without JAX and without the JAX package."""
     bad = sorted(m for m in sys.modules
@@ -163,6 +221,11 @@ def main(argv=None) -> int:
     ap.add_argument("--samples", type=int, default=10_240)
     ap.add_argument("--snps", type=int, default=262_144)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--facade-snps", type=int, default=32_768,
+                    help="SNP rows of phases 6 and 7 (LOCO and the facade): "
+                         "the host data layer decodes, gathers and filters "
+                         "the int8 matrix with numpy, seconds for each "
+                         "32,768 rows")
     args = ap.parse_args(argv)
 
     # ---- 1. device check ------------------------------------------------
@@ -186,6 +249,10 @@ def main(argv=None) -> int:
     # inside the first timed emmax call
     import scipy.stats  # noqa: F401
 
+    from mixmogam_tpu_torch import api
+    from mixmogam_tpu_torch.data.genotype import GenotypeData
+    from mixmogam_tpu_torch.data.phenotype import PhenotypeData
+    from mixmogam_tpu_torch.data.plink import write_plink
     from mixmogam_tpu_torch.data.simulate import (simulate_genotypes,
                                                   simulate_phenotype)
     from mixmogam_tpu_torch.models.emmax import emmax
@@ -207,6 +274,7 @@ def main(argv=None) -> int:
         scan_stats, scan_stats_plain)
     from mixmogam_tpu_torch.ops.reml import NullModel, fit_null_model
     from mixmogam_tpu_torch.ops.scan import build_rotated_null
+    from mixmogam_tpu_torch.utils.caching import cached_kinship
 
     _check_no_jax()
     dev = torch.device("cuda")
@@ -228,11 +296,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     # the kernels see the main path's widths: all n samples, and one
     # resident tile of SNP rows
-    n, rows = args.samples, min(16_384, args.snps)
+    n, M = args.samples, args.snps
+    rows = min(16_384, M)
     report = {}
     for ploidy in (1, 2):
-        Gc, _, _ = simulate_genotypes(n, rows, ploidy=ploidy,
-                                      seed=args.seed + 10 + ploidy)
+        Gc = _draw_genotypes(n, rows, ploidy=ploidy,
+                             seed=args.seed + 10 + ploidy)
         rgc = ResidentGenome.from_source(Gc, device=dev, ploidy=ploidy)
         S = ibs_gram_packed(rgc.packed, n, rows, ploidy)
         S_ref = ibs_gram_packed_plain(rgc.packed, n, rows, ploidy)
@@ -294,8 +363,8 @@ def main(argv=None) -> int:
     # kernels' byte loads), n ends inside a tile and the rows inside a stage
     nr, mr = 2_042, 3_001
     for ploidy in (1, 2):
-        Gr, _, _ = simulate_genotypes(nr, mr, ploidy=ploidy,
-                                      seed=args.seed + 30 + ploidy)
+        Gr = _draw_genotypes(nr, mr, ploidy=ploidy,
+                             seed=args.seed + 30 + ploidy)
         rgr = ResidentGenome.from_source(Gr, ploidy=ploidy)
         sr, er = mr // 7 + 1, mr - 70
         Sr = ibs_gram_packed(rgr.packed, nr, mr, ploidy)
@@ -332,7 +401,7 @@ def main(argv=None) -> int:
     # path several to an SM: the least launch of that kind, one block an SM
     srows = min(args.snps, 256 * torch.cuda.get_device_properties(
         dev).multi_processor_count)
-    Gs, _, _ = simulate_genotypes(n, srows, ploidy=1, seed=args.seed + 40)
+    Gs = _draw_genotypes(n, srows, seed=args.seed + 40)
     packed_s = ResidentGenome.from_source(Gs, tile=256,
                                           device=dev).packed[:srows]
     # the unpacked rows for the library's products: the share of cuBLAS's
@@ -381,8 +450,7 @@ def main(argv=None) -> int:
         del planes_t, op8, rot8, a8
     # K5 at each bf16 tier, then bf16x3 on a genome with 2 % missing
     # genotypes (per-row means, rounded to bf16 in the kernel)
-    Gm, _, _ = simulate_genotypes(n, srows, ploidy=1, missing_rate=0.02,
-                                  seed=args.seed + 20)
+    Gm = _draw_genotypes(n, srows, missing_rate=0.02, seed=args.seed + 20)
     rgm = ResidentGenome.from_source(Gm, tile=256, device=dev)
     mu = row_means_packed(rgm.packed, n, 16_384, torch.float32)[:srows]
     errs = []
@@ -451,13 +519,12 @@ def main(argv=None) -> int:
 
     # ---- 4. main path at full width --------------------------------------
     t0 = time.perf_counter()
-    M = args.snps
     ts = time.perf_counter()
-    G, _, _ = simulate_genotypes(n, M, ploidy=1, seed=args.seed)
+    G = _draw_genotypes(n, M, seed=args.seed)
     y, causal = simulate_phenotype(G[:16_384], h2=0.6, n_causal=10,
                                    causal_effect=1.0, seed=args.seed)
-    print(f"simulate {M} x {n}: {time.perf_counter() - ts:.3f} s",
-          flush=True)
+    print(f"draw {M} x {n} genotypes (uniform draws on the card) and the "
+          f"phenotype: {time.perf_counter() - ts:.3f} s", flush=True)
     kernels = (ibs_gram_packed, ibs_gram_tri_packed, rotate_scan_int8_packed,
                rotate_scan_bf16_packed, scan_stats)
     for k in kernels:
@@ -526,7 +593,7 @@ def main(argv=None) -> int:
           f"20: {hits} of {len(causal)}", flush=True)
     if max(dps.values()) > 1e-4 or hits < 3:
         raise AssertionError("main path results off")
-    del G, K, phi, U, null, res, ex          # rg and y stay for phase 6
+    del K, phi, U, null, res, ex, rg    # G, y stay for phase 6's files
     torch.cuda.empty_cache()
     _phase("4 main path", t0)
 
@@ -554,60 +621,238 @@ def main(argv=None) -> int:
         raise AssertionError("card vs CPU p-values disagree")
     _phase("5 accuracy vs CPU float64", t0)
 
-    # ---- 6. LOCO at full width --------------------------------------------
+    # ---- 6. LOCO at full width: from files through the facade, and direct -
     t0 = time.perf_counter()
     logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
+    # run_gwas's own phase lines (utils/profiling.py sets its logger up
+    # when first imported): each call's timings are printed below
+    import mixmogam_tpu_torch.utils.profiling  # noqa: F401
+    logging.getLogger("mixmogam_tpu_torch").setLevel(logging.WARNING)
     logging.getLogger("mixmogam_tpu_torch.loco").setLevel(logging.INFO)
-    tair10_mb = np.array([30.43, 19.70, 23.46, 18.59, 26.98])
-    bounds = np.round(np.cumsum(tair10_mb) / tair10_mb.sum() * M).astype(int)
-    if (bounds[:-1] % rg.tile == 0).any():
-        raise AssertionError(f"a chromosome boundary is tile-aligned: "
-                             f"{bounds.tolist()}")
-    chrom = np.repeat(np.arange(1, 6), np.diff(np.r_[0, bounds]))
-    print(f"LOCO chromosome ends {bounds.tolist()} (tile {rg.tile})",
-          flush=True)
+    Mf = min(args.facade_snps, M)
+    acc = [f"acc{i}" for i in range(n)]
+
+    def facade(label, files, direct, expect, **kw):
+        """One run_gwas call from files on the card, held to `direct` (the
+        port's scan entry point on the call's own filtered rows, y and K)
+        and to the launch counts `expect(result)`."""
+        for k in kernels:
+            k.launches = 0
+        ResidentGenome.packs = 0
+        out = api.run_gwas(files[0], files[1], data_format="plink",
+                           plots=False, out_prefix=files[2], **kw)
+        run = {k.__name__: k.launches for k in kernels}
+        packs = ResidentGenome.packs
+        for name, cnt in run.items():
+            launches[name] += cnt
+        g2, ps = out["genotype"], out["scan"]["ps"]
+        with open(out["files"]["summary"]) as f:
+            timings = json.load(f)["timings_s"]
+        print(f"run_gwas {label} on {torch.cuda.get_device_name(0)}: "
+              f"n={g2.num_samples} M={g2.num_snps} ploidy={g2.ploidy} "
+              f"timings_s {json.dumps(timings)}", flush=True)
+        route = ("in-core (the genome packed once, for the kinship)"
+                 if packs == 1 and kw.get("method") != "emmax_loco"
+                 else f"resident (the genome packed {packs} time(s))")
+        print(f"   route: {route}; launches {run}", flush=True)
+        if packs == 2:
+            ts = time.perf_counter()
+            ResidentGenome.from_source(g2)
+            torch.cuda.synchronize()
+            print(f"   one packing of these rows (pack + upload + the packed "
+                  f"rows' read-back), timed alone: "
+                  f"{time.perf_counter() - ts:.3f} s", flush=True)
+        if ps.shape != (g2.num_snps,) or not np.isfinite(ps).all() or (
+                (ps < 0) | (ps > 1)).any():
+            raise AssertionError(f"run_gwas {label}: p-values malformed")
+        want = expect(g2)
+        if run != want:
+            raise AssertionError(f"run_gwas {label}: launches {run}, "
+                                 f"tabled {want}")
+        ts = time.perf_counter()
+        ref = direct(g2, out["y"])
+        dp = float(np.abs(ps - ref["ps"]).max())
+        on_disk = _read_ranked_csv(out["files"]["pvals"])
+        back = np.array([on_disk[(int(c), int(p_))] for c, p_ in
+                         zip(g2.chromosomes, g2.positions)])
+        dcsv = float(np.abs(back - ps).max())
+        print(f"   vs the direct call on the same rows, y and K: max|dp| "
+              f"{dp:.3e}; CSV read back: max|dp| {dcsv:.3e} over "
+              f"{len(on_disk)} rows ({time.perf_counter() - ts:.3f} s)",
+              flush=True)
+        if dp > 1e-12 or dcsv != 0.0 or len(on_disk) != g2.num_snps:
+            raise AssertionError(f"run_gwas {label} disagrees with the "
+                                 "direct path or with its own CSV")
+        return out
+
+    def loco_ranges(g2):
+        c = g2.chromosomes
+        cuts = np.flatnonzero(np.diff(c)) + 1
+        return list(zip(np.r_[0, cuts].tolist(), np.r_[cuts, len(c)].tolist()))
+
+    def tiles(g2, ranges=None):
+        ranges = ranges or [(0, g2.num_snps)]
+        return sum(-(-(e - s) // 16_384) for s, e in ranges)
+
+    def counts(**kw):
+        return {**{k.__name__: 0 for k in kernels}, **kw}
+
     loco = {}
-    for tier, scan_kernel in (("exact", scan_stats),
-                              ("bf16x3", rotate_scan_bf16_packed)):
+
+    def loco_direct(tier, scan_kernel):
+        """emmax_loco on the facade call's own rows, packed once and kept
+        on the card: the direct LOCO path, its launches counted."""
         for k in kernels:
             k.launches = 0
         ts = time.perf_counter()
-        loco[tier] = emmax_loco(rg, y, chromosomes=chrom, precision=tier)
+        r = emmax_loco(loco["rg"], loco["y"], chromosomes=loco["chrom"],
+                       precision=tier)
         torch.cuda.synchronize()
         run = {k.__name__: k.launches for k in kernels}
-        print(f"emmax_loco {tier}: {time.perf_counter() - ts:.3f} s; "
-              f"launches {run}", flush=True)
+        print(f"emmax_loco {tier} (M={loco['rg'].M}): "
+              f"{time.perf_counter() - ts:.3f} s; launches {run}", flush=True)
         if (run["ibs_gram_tri_packed"] != 5 or run["ibs_gram_packed"] != 1
                 or run[scan_kernel.__name__] <= 0):
             raise AssertionError(f"LOCO {tier}: launches {run}")
         for name, cnt in run.items():
             launches[name] += cnt
-    for tier, r in loco.items():
         ps = r["ps"]
-        if ps.shape != (M,) or not np.isfinite(ps).all() or (
+        if ps.shape != (loco["rg"].M,) or not np.isfinite(ps).all() or (
                 (ps < 0) | (ps > 1)).any():
             raise AssertionError(f"LOCO {tier}: p-values malformed")
-    dpl = float(np.abs(loco["bf16x3"]["ps"] - loco["exact"]["ps"]).max())
-    print(f"LOCO bf16x3 vs exact: max|dp| {dpl:.3e}; deltas "
-          f"{[round(v['delta'], 6) for v in loco['exact']['loco'].values()]}",
-          flush=True)
-    if dpl > 1e-4:
-        raise AssertionError("LOCO bf16x3 disagrees with exact")
-    ts = time.perf_counter()
-    c, s_c, e_c = 3, bounds[1], bounds[2]
-    K_c = loco_kinships(rg, chrom)[c]
-    rest = torch.cat([rg.packed[:s_c], rg.packed[e_c:M]])
-    rg_rest = ResidentGenome(rest, rest.shape[0], n, rg.ploidy, rg.tile,
-                             False)
-    dk = float(np.abs(K_c - scale_k(kinship_resident(rg_rest))).max())
-    print(f"K_loco identity, chromosome {c}: max|d| {dk:.3e} "
-          f"({time.perf_counter() - ts:.3f} s)", flush=True)
-    if dk > 1e-12:
-        raise AssertionError("K_loco differs from the direct gram")
-    del rg, rg_rest, rest, K_c, loco
+        return r
+
+    def loco_exact_on(g2, y2):
+        loco.update(rg=ResidentGenome.from_source(g2), y=y2,
+                    chrom=np.asarray(g2.chromosomes))
+        loco["exact"] = loco_direct("exact", scan_stats)
+        return loco["exact"]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ts = time.perf_counter()
+        # the first Mf rows, in 5 chromosomes of TAIR10's proportions
+        tair10_mb = np.array([30.43, 19.70, 23.46, 18.59, 26.98])
+        ends = np.round(np.cumsum(tair10_mb) / tair10_mb.sum()
+                        * Mf).astype(int)
+        gd = GenotypeData(G[:Mf], np.repeat(np.arange(1, 6),
+                                            np.diff(np.r_[0, ends])),
+                          np.arange(1, Mf + 1) * 100, acc, ploidy=1)
+        prefix = os.path.join(tmp, "cohort")
+        write_plink(prefix, gd)
+        pheno = os.path.join(tmp, "pheno.csv")
+        PhenotypeData.from_arrays(1, "trait", acc, y).write_to_file(pheno)
+        bed_mb = os.path.getsize(prefix + ".bed") / 1e6
+        print(f"wrote {prefix}.bed/.bim/.fam ({bed_mb:.1f} MB) and the "
+              f"phenotype CSV: {time.perf_counter() - ts:.3f} s (M={Mf})",
+              flush=True)
+        del gd, G
+        files = (prefix + ".bed", pheno)
+        # the facade's LOCO call, held to the direct exact call on its rows;
+        # then the bf16x3 tier on the same rows against that exact call
+        facade("emmax_loco exact", files + (os.path.join(tmp, "loco"),),
+               loco_exact_on,
+               lambda g2: counts(ibs_gram_packed=1,
+                                 ibs_gram_tri_packed=len(loco_ranges(g2)),
+                                 scan_stats=tiles(g2, loco_ranges(g2))),
+               method="emmax_loco")
+        rg, chrom = loco["rg"], loco["chrom"]
+        cuts = np.flatnonzero(np.diff(chrom)) + 1
+        print(f"LOCO chromosome starts {cuts.tolist()} of {rg.M} rows (tile "
+              f"{rg.tile})", flush=True)
+        if len(cuts) != 4 or (cuts % rg.tile == 0).any():
+            raise AssertionError(f"LOCO needs 5 chromosomes with no boundary "
+                                 f"on a tile: {cuts.tolist()}")
+        loco["bf16x3"] = loco_direct("bf16x3", rotate_scan_bf16_packed)
+        dpl = float(np.abs(loco["bf16x3"]["ps"] - loco["exact"]["ps"]).max())
+        deltas = [round(v["delta"], 6)
+                  for v in loco["exact"]["loco"].values()]
+        print(f"LOCO bf16x3 vs exact: max|dp| {dpl:.3e}; deltas {deltas}",
+              flush=True)
+        if dpl > 1e-4:
+            raise AssertionError("LOCO bf16x3 disagrees with exact")
+        # K_loco of the middle chromosome against the direct gram over the
+        # other rows; its neighbours are merged to a side each, so three
+        # kinships are built for the one that is read
+        ts = time.perf_counter()
+        s_c, e_c = int(cuts[1]), int(cuts[2])
+        sides = np.repeat([0, 1, 2], [s_c, e_c - s_c, rg.M - e_c])
+        K_c = loco_kinships(rg, sides)[1]
+        rest = torch.cat([rg.packed[:s_c], rg.packed[e_c:rg.M]])
+        rg_rest = ResidentGenome(rest, rest.shape[0], n, rg.ploidy, rg.tile,
+                                 False)
+        dk = float(np.abs(K_c - scale_k(kinship_resident(rg_rest))).max())
+        print(f"K_loco identity, chromosome 3: max|d| {dk:.3e} "
+              f"({time.perf_counter() - ts:.3f} s)", flush=True)
+        if dk > 1e-12:
+            raise AssertionError("K_loco differs from the direct gram")
+        del rg, rg_rest, rest, K_c
+        loco.clear()
+        torch.cuda.empty_cache()
+        _check_no_jax()
+        _phase("6 LOCO", t0)
+
+        # ---- 7. the facade: files -> run_gwas -> ranked CSV ---------------
+        t0 = time.perf_counter()
+        logging.getLogger("mixmogam_tpu_torch.loco").setLevel(logging.WARNING)
+
+        def direct_emmax(precision):
+            def fn(g2, y2):
+                K2 = cached_kinship(g2, "ibs")
+                return emmax(g2, y2, K=K2, precision=precision)
+            return fn
+
+        facade("emmax exact", files + (os.path.join(tmp, "exact"),),
+               direct_emmax(None),
+               lambda g2: counts(ibs_gram_packed=1, scan_stats=tiles(g2)))
+        facade("emmax int8x3", files + (os.path.join(tmp, "int8x3"),),
+               direct_emmax("int8x3"),
+               lambda g2: counts(ibs_gram_packed=1, rotate_scan_int8_packed=1),
+               precision="int8x3")
+        facade("emmax bf16x3", files + (os.path.join(tmp, "bf16x3"),),
+               direct_emmax("bf16x3"),
+               lambda g2: counts(ibs_gram_packed=1, rotate_scan_bf16_packed=1),
+               precision="bf16x3")
+
+        # missing calls and the VanRaden kinship: float32 matmuls on the
+        # card against the float64 CPU path, from the same files
+        ts = time.perf_counter()
+        nm, Mm = 2_048, 8_192
+        Gm, chm, pom = simulate_genotypes(nm, Mm, ploidy=2, missing_rate=0.02,
+                                          seed=args.seed + 50)
+        ym, _ = simulate_phenotype(Gm, h2=0.5, n_causal=5, seed=args.seed + 50)
+        accm = [f"m{i}" for i in range(nm)]
+        pm = os.path.join(tmp, "missing")
+        write_plink(pm, GenotypeData(Gm, chm, pom, accm, ploidy=2))
+        phm = os.path.join(tmp, "pheno_m.csv")
+        PhenotypeData.from_arrays(1, "trait", accm, ym).write_to_file(phm)
+        for km in ("ibs", "vanraden"):
+            for k in kernels:
+                k.launches = 0
+            kw = dict(data_format="plink", plots=False, kinship_method=km)
+            a = api.run_gwas(pm + ".bed", phm, **kw)
+            if ibs_gram_packed.launches:
+                raise AssertionError(f"{km} with missing calls launched K1")
+            b = api.run_gwas(pm + ".bed", phm, device="cpu", **kw)
+            g2 = a["genotype"]
+            if not (g2.matrix < 0).any() or g2.ploidy != 2:
+                raise AssertionError("the missing-call fileset lost its "
+                                     "missing calls or its ploidy")
+            dK = float(np.abs(cached_kinship(g2, km)
+                              - cached_kinship(g2, km, device="cpu")).max())
+            dp = float(np.abs(a["scan"]["ps"] - b["scan"]["ps"]).max())
+            timings = {k: round(v, 3) for k, v in a["timings"].items()}
+            print(f"run_gwas kinship_method={km}, 2 % missing calls, "
+                  f"n={g2.num_samples} M={g2.num_snps}: card float32 vs CPU "
+                  f"float64 max|dK| {dK:.3e}, max|dp| {dp:.3e}; card "
+                  f"timings_s {json.dumps(timings)}", flush=True)
+            if dK > 1e-5 or dp > 1e-4 or not np.array_equal(
+                    a["scan"]["mask"], b["scan"]["mask"]):
+                raise AssertionError(f"{km}: card and CPU disagree")
+        print(f"missing-call and VanRaden runs: "
+              f"{time.perf_counter() - ts:.3f} s", flush=True)
     torch.cuda.empty_cache()
     _check_no_jax()
-    _phase("6 LOCO", t0)
+    _phase("7 facade", t0)
 
     for k in kernels:
         report[k.__name__]["launches"] = launches[k.__name__]

@@ -16,10 +16,19 @@ Slice 2 adds leave-one-chromosome-out EMMAX (models.loco: emmax_loco,
 loco_kinships; per-chromosome range grams through kernel K4) and the
 split-W bf16 tiers 'bf16' / 'bf16x2' / 'bf16x3' (kernel K5).
 
+Slice 3 adds the way in: the facade api.run_gwas / api.run_gwas_multi and
+the CLI (cli.py) for method 'emmax' and 'emmax_loco', with the data layer
+(data/: GenotypeData, PhenotypeData, the CSV / PLINK / VCF / HDF5 parsers
+and writers), the results layer (results/, plotting/), the artifact caches
+(utils/caching.py), run metrics (utils/profiling.py), and the kinship
+module ops.kinship.kinship (IBS with or without missing genotypes,
+VanRaden; fully observed int8 through kernel K1).
+
 Modules keep the JAX package's paths and names. The port imports torch,
 numpy and scipy, and nothing of jax or of the JAX package: the few numpy
-helpers it shares with that package (data.simulate, scale_k) are copies,
-pinned to the originals by its tests, and it packs genotypes on the
+modules it shares with that package (the data, results and plotting
+layers, the kinship oracle, the caches) are copies, pinned to the originals
+by its tests, and it packs genotypes on the
 device itself. The device is explicit: tensors on a CUDA device run
 the hand-written Hopper kernels (``csrc/``, ``ops/hopper_*.py``), tensors
 on the CPU run each kernel's plain PyTorch version.
@@ -28,7 +37,15 @@ on the CPU run each kernel's plain PyTorch version.
 __version__ = "0.1.0"
 
 __all__ = ["emmax", "emmax_resident", "kinship_resident", "ResidentGenome",
-           "emmax_loco", "loco_kinships", "__version__"]
+           "emmax_loco", "loco_kinships", "kinship", "run_gwas",
+           "run_gwas_multi", "parse_snp_data", "parse_phenotype_file",
+           "calc_ibs_kinship", "calc_ibd_kinship", "save_kinship_to_file",
+           "load_kinship_from_file", "GenotypeData", "PhenotypeData",
+           "__version__"]
+
+_API = {"run_gwas", "run_gwas_multi", "parse_snp_data",
+        "parse_phenotype_file", "calc_ibs_kinship", "calc_ibd_kinship",
+        "save_kinship_to_file", "load_kinship_from_file"}
 
 
 def __getattr__(name):
@@ -45,5 +62,17 @@ def __getattr__(name):
         from mixmogam_tpu_torch.models import loco
 
         return getattr(loco, name)
+    if name == "kinship":
+        from mixmogam_tpu_torch.ops.kinship import kinship
+
+        return kinship
+    if name in _API:
+        from mixmogam_tpu_torch import api
+
+        return getattr(api, name)
+    if name in {"GenotypeData", "PhenotypeData"}:
+        from mixmogam_tpu_torch import data
+
+        return getattr(data, name)
     raise AttributeError(
         f"module 'mixmogam_tpu_torch' has no attribute {name!r}")

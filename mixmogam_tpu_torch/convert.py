@@ -3,7 +3,10 @@
 The JAX package's NullModel / RotatedNull / ResidentGenome hold jax
 arrays; pass their fields through np.asarray and these constructors build
 the port's counterparts on `device`, so that both packages can be fed the
-same null model, the same int8 digit planes and the same packed rows.
+same null model, the same int8 digit planes and the same packed rows. Its
+host objects (GenotypeData / DosageData, PhenotypeData, Result,
+GwasConfig) are carried across from their numpy and Python fields, read
+by attribute: nothing of the JAX package is imported here.
 """
 
 from __future__ import annotations
@@ -78,3 +81,67 @@ def resident_from_packed(host_packed, M, n, ploidy, tile, has_missing,
     hp = np.array(host_packed, dtype=np.uint8, order="C")
     return ResidentGenome(torch.from_numpy(hp).to(device), M, n, ploidy,
                           tile, has_missing, host_packed=hp)
+
+
+def genotype_from_fields(gd):
+    """The port's GenotypeData (or DosageData, for a float matrix) from
+    any object with the JAX container's fields."""
+    from mixmogam_tpu_torch.data.genotype import DosageData, GenotypeData
+
+    mat = np.asarray(gd.matrix)
+    cls = DosageData if np.issubdtype(mat.dtype, np.floating) \
+        else GenotypeData
+    return cls(matrix=np.array(mat), chromosomes=np.array(gd.chromosomes),
+               positions=np.array(gd.positions),
+               accessions=list(gd.accessions), ploidy=int(gd.ploidy),
+               alleles=None if gd.alleles is None else np.array(gd.alleles))
+
+
+def phenotype_from_fields(phend):
+    """The port's PhenotypeData from the JAX container's phen_dict (names,
+    ecotypes, values, transformation and the raw values)."""
+    from mixmogam_tpu_torch.data.phenotype import PhenotypeData
+
+    out = PhenotypeData()
+    for pid, p in phend.phen_dict.items():
+        out.add_phenotype(pid, p.name, p.ecotypes, p.values)
+        q = out.phen_dict[pid]
+        q.transformation = p.transformation
+        q.raw_values = None if p.raw_values is None else list(p.raw_values)
+    return out
+
+
+def result_from_fields(res):
+    """The port's Result from the JAX Result's arrays."""
+    from mixmogam_tpu_torch.results.result import Result
+
+    return Result(np.array(res.scores), np.array(res.chromosomes),
+                  np.array(res.positions),
+                  mafs=None if res.mafs is None else np.array(res.mafs),
+                  macs=None if res.macs is None else np.array(res.macs),
+                  additional={k: np.array(v)
+                              for k, v in res.additional.items()},
+                  score_type=res.score_type)
+
+
+def config_from_fields(cfg):
+    """The port's GwasConfig from the JAX GwasConfig: the REML, filter,
+    mesh and precision settings carry over; of the tiles only the kinship
+    block does (the scan tile stays the port's own default)."""
+    import dataclasses
+
+    from mixmogam_tpu_torch import config as C
+
+    def carry(cls, src, **override):
+        names = {f.name for f in dataclasses.fields(cls)}
+        kw = {k: getattr(src, k) for k in names if hasattr(src, k)}
+        kw.update(override)
+        return cls(**kw)
+
+    return C.GwasConfig(
+        reml=carry(C.RemlConfig, cfg.reml),
+        filters=carry(C.FilterConfig, cfg.filters),
+        tiles=carry(C.TileConfig, cfg.tiles,
+                    scan_snp_tile=C.TileConfig().scan_snp_tile),
+        mesh=carry(C.MeshConfig, cfg.mesh),
+        precision=carry(C.PrecisionConfig, cfg.precision))

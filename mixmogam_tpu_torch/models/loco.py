@@ -139,6 +139,24 @@ def _as_resident(G, device, ploidy: Optional[int]):
     return ResidentGenome.from_source(G8, ploidy=ploidy, device=device)
 
 
+def _loco_resident(G, device, ploidy: Optional[int], method: str):
+    """_as_resident for a LOCO whose kinships are built here: fully
+    observed IBS (K1 / K4) so far. The method is refused before the genome
+    is packed."""
+    from mixmogam_tpu_torch.ops.kinship import check_kinship_method
+
+    if check_kinship_method(method) == "vanraden":
+        raise NotImplementedError(
+            "LOCO with the VanRaden kinship is not ported yet: ROADMAP "
+            "Queue 1 item 5")
+    rg = _as_resident(G, device, ploidy)
+    if rg.has_missing:
+        raise NotImplementedError(
+            "LOCO over a genome with missing genotypes (mean-imputed float "
+            "kinships) is not ported yet: ROADMAP Queue 1 item 5")
+    return rg
+
+
 def _check_chromosomes(G, chromosomes):
     if chromosomes is None:
         chromosomes = getattr(G, "chromosomes", None)
@@ -175,7 +193,7 @@ def loco_kinships(G, chromosomes=None, method: str = "ibs",
                                                     scale_k)
 
     chromosomes, ranges = _check_chromosomes(G, chromosomes)
-    rg = _as_resident(G, device, ploidy)
+    rg = _loco_resident(G, device, ploidy, method)
     pl = rg.ploidy if ploidy is None else ploidy
     if K_total is None:
         K_total = kinship_resident(rg, method=method, ploidy=pl)
@@ -228,7 +246,8 @@ def emmax_loco(G, y, chromosomes=None, method: str = "ibs",
     chromosomes, ranges = _check_chromosomes(G, chromosomes)
     y = np.asarray(y, dtype=np.float64).ravel()
     M = len(chromosomes)
-    rg = _as_resident(G, device, ploidy)
+    rg = (_loco_resident(G, device, ploidy, method) if kinships is None
+          else _as_resident(G, device, ploidy))
     dev = rg.device
     factor_dtype = np.float32 if str(precision) == "fast" else None
     ftag = "f32" if factor_dtype is np.float32 else "f64"

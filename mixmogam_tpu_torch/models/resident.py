@@ -5,16 +5,17 @@ The packed rows (n/4 bytes per SNP) are uploaded once; kinship and every
 scan then run on the device with no host traffic:
 
 - kinship_resident: fully observed IBS through kernel K1
-  (ops/hopper_kinship.py), which reads the packed rows directly;
-- kinship_resident_range: the same gram over a row range [s, e) (LOCO's
-  per-chromosome grams) through kernel K4, upper-triangle tiles only;
+  (ops/hopper_kinship.py), which reads the packed rows directly; IBS with
+  missing genotypes and VanRaden unpack and mean-impute each tile on the
+  device and accumulate float matmuls (ops/kinship.py);
+- kinship_resident_range: the same over a row range [s, e) (LOCO's
+  per-chromosome grams), fully observed IBS through kernel K4,
+  upper-triangle tiles only;
 - emmax_scan_packed: the int8 tiers through kernel K2 and the bf16 tiers
   through kernel K5 (ops/hopper_scan.py), which read the packed rows
   directly (K5 replaces missing genotypes by per-row means); the exact
   tier unpacks each tile, mean-imputes missing genotypes, rotates by a
   full-fp32 GEMM and finishes in kernel K3.
-
-Missing-data and VanRaden kinship wait for ROADMAP Queue 1 item 5.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from mixmogam_tpu_torch.oracle.kinship import scale_k  # noqa: F401
 from mixmogam_tpu_torch.ops.pack2 import (pack_2bit_device,
                                          unpack_2bit_device)
 
@@ -51,6 +53,9 @@ class ResidentGenome:
     (int8), and slicing / integer-array row indexing return HOST int8
     rows (-1 for missing), decoded from the host copy of the packed rows
     (no read-back from the card)."""
+
+    # from_source calls so far, counted like the kernel wrappers' .launches
+    packs = 0
 
     def __init__(self, packed: torch.Tensor, M: int, n: int, ploidy: int,
                  tile: int, has_missing: bool,
@@ -144,6 +149,7 @@ class ResidentGenome:
         from mixmogam_tpu_torch.ops import resolve_device
 
         device = resolve_device(device)
+        ResidentGenome.packs += 1
         mat = resolve_source(G)
         if np.dtype(mat.dtype) != np.int8:
             raise TypeError(
@@ -172,12 +178,6 @@ class ResidentGenome:
         if ploidy is None:
             ploidy = 2 if vmax > 1 else 1
         return cls(packed, M, n, ploidy, tile, has_missing)
-
-
-def scale_k(K: np.ndarray) -> np.ndarray:
-    """K / mean(diag(K)): the JAX package's oracle.kinship.scale_k, the
-    normalization every kinship gets before REML."""
-    return K / np.mean(np.diag(K))
 
 
 def row_means_packed(packed: torch.Tensor, n: int, tile: int, dtype
@@ -302,54 +302,97 @@ def emmax_resident(rg: ResidentGenome, y, K=None, X0=None, eig_k=None,
         tier_name=tier_name, dof=int(rot.dof), rescore_cut_M=rescore_cut_M)
 
 
-def _check_ported_kinship(rg: ResidentGenome, method: str) -> None:
-    if method in ("vanraden", "ibd"):
-        raise NotImplementedError(
-            "VanRaden kinship is not ported yet: ROADMAP Queue 1 item 5")
-    if method != "ibs":
-        raise ValueError(f"unknown kinship method {method!r}")
-    if rg.has_missing:
-        raise NotImplementedError(
-            "IBS kinship with missing genotypes (the mean-imputed float "
-            "accumulation) is not ported yet: ROADMAP Queue 1 item 5")
+def _float_tiles(rg: ResidentGenome, dtype):
+    """The genome's REAL rows tile by tile as float tiles on its device,
+    mean-imputed when it has missing genotypes. The last tile is cut at
+    rg.M, so the zero pad rows (which would look like genotype 0) never
+    reach a float update and need no mask."""
+    from mixmogam_tpu_torch.models.streaming import _impute_tile
 
-
-def _sharing_fractions(S: torch.Tensor, m: int, ploidy: int,
-                       return_den: bool):
-    """int32 sharing counts over m SNPs -> float64 host fractions (/ m
-    binary, / 2m diploid), with the denominator's SNP count if asked."""
-    Sh = S.cpu().numpy().astype(np.float64)
-    Kh = Sh / m if ploidy == 1 else Sh / (2.0 * m)
-    return (Kh, float(m)) if return_den else Kh
+    for s in range(0, rg.M, rg.tile):
+        Gt = unpack_2bit_device(rg.packed[s:min(s + rg.tile, rg.M)], rg.n)
+        yield _impute_tile(Gt, dtype) if rg.has_missing else Gt.to(dtype)
 
 
 def kinship_resident(rg: ResidentGenome, method: str = "ibs",
-                     ploidy: Optional[int] = None,
+                     ploidy: Optional[int] = None, dtype=None,
                      return_den: bool = False):
-    """IBS kinship (float64 host (n, n) sharing fractions) of a fully
-    observed ResidentGenome: kernel K1 on the card, its plain version on
-    the CPU; divided by M (binary) or 2M (diploid). return_den also
-    returns the denominator's SNP count."""
-    from mixmogam_tpu_torch.ops.hopper_kinship import ibs_gram_packed
+    """Kinship (float64 host (n, n)) from a ResidentGenome, on its device.
 
-    _check_ported_kinship(rg, method)
+    Fully observed IBS: the integer sharing counts of kernel K1 (its plain
+    version on the CPU), divided by M (binary) or 2M (diploid). IBS with
+    missing genotypes and VanRaden: each tile is unpacked and mean-imputed
+    on the device and accumulated by the float updates of ops/kinship.py
+    (matmuls in `dtype`: float32 on the card, float64 on the CPU, unless
+    given). Every route divides in float64 on the device and copies the
+    matrix once.
+
+    return_den=True also returns the normalization denominator (VanRaden:
+    ploidy * sum p(1-p); IBS: the SNP count) — what LOCO's
+    gram-subtraction identity needs."""
+    from mixmogam_tpu_torch.ops.hopper_kinship import ibs_gram_packed
+    from mixmogam_tpu_torch.ops.kinship import (_check_matmul_precision,
+                                                _ibs_binary_update,
+                                                _ibs_diploid_update,
+                                                _soft_onehots,
+                                                _vanraden_update,
+                                                check_kinship_method,
+                                                finish_on_device,
+                                                resolve_compute_dtype)
+
+    method = check_kinship_method(method)
     ploidy = rg.ploidy if ploidy is None else ploidy
-    S = ibs_gram_packed(rg.packed, rg.n, rg.M, ploidy)
-    return _sharing_fractions(S, rg.M, ploidy, return_den)
+    M, n = rg.M, rg.n
+    if method == "ibs" and not rg.has_missing:
+        S = ibs_gram_packed(rg.packed, n, M, ploidy)
+        Kh = finish_on_device(S, float(M) if ploidy == 1 else 2.0 * M)
+        return (Kh, float(M)) if return_den else Kh
+
+    dtype = resolve_compute_dtype(dtype, rg.device)
+    K = torch.zeros((n, n), dtype=dtype, device=rg.device)
+    _check_matmul_precision(K)
+    if method == "vanraden":
+        den = torch.zeros((), dtype=torch.float64, device=rg.device)
+        for C in _float_tiles(rg, dtype):
+            p = C.sum(dim=1) / (ploidy * n)
+            den += (ploidy * (p * (1.0 - p)).sum()).double()
+            _vanraden_update(K, C - (ploidy * p)[:, None])
+        denom = float(den)
+    else:
+        # missing genotypes: device-imputed float accumulation (the rule of
+        # ops.kinship.kinship's float path)
+        for C in _float_tiles(rg, dtype):
+            if ploidy == 1:
+                _ibs_binary_update(K, C, float(C.shape[0]))
+            else:
+                _ibs_diploid_update(K, C, *_soft_onehots(C),
+                                    float(C.shape[0]))
+        denom = float(M)
+    Kh = finish_on_device(K, denom)
+    return (Kh, denom) if return_den else Kh
 
 
 def kinship_resident_range(rg: ResidentGenome, s: int, e: int,
                            method: str = "ibs",
-                           ploidy: Optional[int] = None,
+                           ploidy: Optional[int] = None, dtype=None,
                            return_den: bool = False):
-    """IBS kinship over the SNP row range [s, e) of a fully observed
-    ResidentGenome (LOCO's per-chromosome grams): kernel K4 on the card,
-    its plain version on the CPU; divided by m = e - s (binary) or 2m."""
+    """Kinship over the SNP row range [s, e) of a ResidentGenome (LOCO's
+    per-chromosome grams). Fully observed IBS: kernel K4 on the card, its
+    plain version on the CPU, divided by m = e - s (binary) or 2m;
+    everything else: kinship_resident over a view of those rows."""
     from mixmogam_tpu_torch.ops.hopper_kinship import ibs_gram_tri_packed
+    from mixmogam_tpu_torch.ops.kinship import (check_kinship_method,
+                                                finish_on_device)
 
     if not (0 <= s < e <= rg.M):
         raise ValueError(f"invalid row range [{s}, {e}) for M={rg.M}")
-    _check_ported_kinship(rg, method)
+    method = check_kinship_method(method)
     ploidy = rg.ploidy if ploidy is None else ploidy
-    S = ibs_gram_tri_packed(rg.packed, rg.n, s, e, ploidy)
-    return _sharing_fractions(S, e - s, ploidy, return_den)
+    if method == "ibs" and not rg.has_missing:
+        m = e - s
+        S = ibs_gram_tri_packed(rg.packed, rg.n, s, e, ploidy)
+        Kh = finish_on_device(S, float(m) if ploidy == 1 else 2.0 * m)
+        return (Kh, float(m)) if return_den else Kh
+    return kinship_resident(rg.slice_rows(s, e), method=method,
+                            ploidy=ploidy, dtype=dtype,
+                            return_den=return_den)

@@ -307,3 +307,165 @@ def test_default_device_is_the_card(cuda):
     b = emmax(G, y, K=Ks[1], device="cpu")
     assert np.abs(a["ps"] - b["ps"]).max() <= 1e-5
     assert np.isfinite(res["ps"]).all()
+
+
+# ---- the kinship module and the facade on the card ----------------------
+
+def _float_genome(n=301, m=4_000, ploidy=2, missing=0.02, seed=0):
+    G, ch, po = simulate_genotypes(n, m, ploidy=ploidy,
+                                   missing_rate=missing, seed=seed)
+    return G, ch, po
+
+
+@pytest.mark.parametrize("method,ploidy,missing", [
+    ("ibs", 1, 0.02), ("ibs", 2, 0.02), ("vanraden", 2, 0.02),
+    ("vanraden", 1, 0.0)])
+def test_card_float_kinships_vs_cpu_float64(cuda, method, ploidy, missing):
+    """The float kinships accumulate in float32 on the card (TF32 off):
+    against the float64 CPU path max |dK| <= 1e-5 (chip_smoke.py saw 2.9e-7
+    for IBS and 1.2e-6 for VanRaden at n = 2,048 x 8,186 on an NVIDIA H100
+    80GB HBM3 at 700.00 W), and agreement to 1e-12 when the card is asked for
+    float64."""
+    from mixmogam_tpu_torch.models.resident import kinship_resident
+    from mixmogam_tpu_torch.ops.kinship import kinship
+
+    G, _, _ = _float_genome(ploidy=ploidy, missing=missing)
+    ref = kinship(G, method=method, ploidy=ploidy, device="cpu")
+    K = kinship(G, method=method, ploidy=ploidy)          # the card, f32
+    assert np.abs(K - ref).max() <= 1e-5
+    K64 = kinship(G, method=method, ploidy=ploidy, dtype=torch.float64)
+    assert np.abs(K64 - ref).max() <= 1e-12
+    rg = ResidentGenome.from_source(G, tile=1_024, ploidy=ploidy)
+    Kr, den = kinship_resident(rg, method=method, return_den=True)
+    rc = ResidentGenome.from_source(G, tile=1_024, ploidy=ploidy,
+                                    device="cpu")
+    Kc, denc = kinship_resident(rc, method=method, return_den=True)
+    assert np.abs(Kr - Kc).max() <= 1e-5
+    assert abs(den - denc) <= 1e-5 * abs(denc)
+    assert np.abs(kinship_resident(rg, method=method, dtype=torch.float64)
+                  - Kc).max() <= 1e-12
+
+
+@pytest.mark.parametrize("ploidy", [1, 2])
+def test_card_integer_kinship_divides_on_the_card(cuda, ploidy):
+    """Fully observed int8: K1, then the float64 division on the card,
+    bit-equal to the host division of the same counts and to the CPU
+    path."""
+    from mixmogam_tpu_torch.models.resident import kinship_resident
+    from mixmogam_tpu_torch.ops.kinship import kinship
+
+    G, _, _ = _float_genome(m=3_001, ploidy=ploidy, missing=0.0)
+    before = ibs_gram_packed.launches
+    K = kinship(G, ploidy=ploidy)
+    assert ibs_gram_packed.launches == before + 1
+    rg = ResidentGenome.from_source(G, ploidy=ploidy)
+    S = ibs_gram_packed(rg.packed, rg.n, rg.M, ploidy).cpu().numpy()
+    np.testing.assert_array_equal(
+        K, S.astype(np.float64) / (3_001 if ploidy == 1 else 2.0 * 3_001))
+    np.testing.assert_array_equal(K, kinship(G, ploidy=ploidy,
+                                             device="cpu"))
+    np.testing.assert_array_equal(kinship_resident(rg), K)
+
+
+def test_card_resident_from_plink_and_vcf(cuda, tmp_path):
+    from mixmogam_tpu_torch.data.genotype import GenotypeData
+    from mixmogam_tpu_torch.data.plink import (resident_from_plink,
+                                               write_plink)
+    from mixmogam_tpu_torch.data.vcf import read_vcf_packed, write_vcf
+
+    G, ch, po = _float_genome(n=203, m=700)
+    gd = GenotypeData(G, ch, po, [f"s{i}" for i in range(203)], ploidy=2)
+    write_plink(str(tmp_path / "a"), gd)
+    rg = resident_from_plink(str(tmp_path / "a"), tile=256)[0]
+    ref = ResidentGenome.from_source(gd, tile=256)
+    assert rg.device.type == "cuda" and rg.has_missing
+    assert torch.equal(rg.packed, ref.packed)
+    assert rg.content_key() == ref.content_key()
+    write_vcf(gd, str(tmp_path / "a.vcf"))
+    rv = read_vcf_packed(str(tmp_path / "a.vcf"), tile=256,
+                         chunk_rows=300)[0]
+    assert rv.device.type == "cuda" and torch.equal(rv.packed, ref.packed)
+
+
+def _facade_card_and_cpu(tmp_path, kw, noise: bool):
+    """run_gwas from the same files on the card (no device=) and on the
+    float64 CPU path. noise: add unit-variance noise to the phenotype, which
+    keeps delta off its lower bound."""
+    from mixmogam_tpu_torch import api
+    from mixmogam_tpu_torch.data.genotype import GenotypeData
+    from mixmogam_tpu_torch.data.phenotype import PhenotypeData
+    from mixmogam_tpu_torch.data.simulate import simulate_phenotype
+
+    G, ch, po = _float_genome(n=256, m=3_000, ploidy=1, missing=0.0, seed=3)
+    acc = [f"s{i}" for i in range(256)]
+    y, _ = simulate_phenotype(G, h2=0.5, n_causal=4, seed=3)
+    if noise:
+        y = y + np.random.default_rng(3).normal(size=256) * y.std()
+    g, p = str(tmp_path / "g.csv"), str(tmp_path / "p.csv")
+    GenotypeData(G, ch, po, acc, ploidy=1).write_csv(g)
+    PhenotypeData.from_arrays(1, "t", acc, y).write_to_file(p)
+    a = api.run_gwas(g, p, plots=False, out_prefix=str(tmp_path / "o"), **kw)
+    b = api.run_gwas(g, p, plots=False, device="cpu", **kw)
+    return a, b
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(precision="int8x3"), dict(method="emmax_loco"),
+    dict(kinship_method="vanraden")])
+def test_card_run_gwas_vs_cpu_float64(cuda, tmp_path, kw):
+    """The facade from files: no device= runs on the card; against the
+    same call on the float64 CPU path max |dp| <= 1e-4 (int8x3 and the
+    float32 VanRaden kinship) or 1e-5 (exact, as the direct calls above).
+    The phenotype carries noise that keeps delta off its lower bound: the
+    case at the bound is the test below."""
+    k3 = scan_stats.launches
+    a, b = _facade_card_and_cpu(tmp_path, kw, noise=True)
+    assert kw.get("precision") or scan_stats.launches > k3
+    limit = 1e-5 if kw in (dict(), dict(method="emmax_loco")) else 1e-4
+    assert np.abs(a["scan"]["ps"] - b["scan"]["ps"]).max() <= limit
+    np.testing.assert_array_equal(a["scan"]["mask"], b["scan"]["mask"])
+    assert a["genotype"].accessions == b["genotype"].accessions
+
+
+@pytest.mark.xfail(strict=False, reason=(
+    "open fault (ROADMAP Queue 3): VanRaden's K has a zero eigenvalue along "
+    "the intercept; with delta at its lower bound that coordinate is "
+    "weighted by 1/delta and the float32 exact scan loses a SNP's residual "
+    "to cancellation, so a mask differs from the float64 path"))
+def test_card_run_gwas_vanraden_delta_at_its_bound(cuda, tmp_path):
+    """The input that showed the fault: n = 256, seed 3, no added noise.
+    The float32 kinship is not at fault (float32 and float64 K gave
+    max |dp| 2.9e-8 under one scan precision)."""
+    a, b = _facade_card_and_cpu(tmp_path, dict(kinship_method="vanraden"),
+                                noise=False)
+    same = a["scan"]["mask"] == b["scan"]["mask"]
+    dp = np.abs(a["scan"]["ps"] - b["scan"]["ps"])
+    # --runxfail shows these numbers
+    assert same.all() and dp.max() <= 1e-4, (
+        f"delta {a['scan']['delta']:.3e}: {int((~same).sum())} mask(s) differ "
+        f"(rows {np.flatnonzero(~same).tolist()}, max|dp| {dp.max():.3e}); "
+        f"max|dp| {dp[same].max():.3e} where the masks agree")
+
+
+def test_card_cached_eigen_default_is_the_card(cuda, tmp_path, monkeypatch):
+    """cached_eigen without device= factors on the card (float64 cuSOLVER)
+    and agrees with host LAPACK on request."""
+    from mixmogam_tpu_torch.ops import eigen
+    from mixmogam_tpu_torch.utils.caching import cached_eigen
+
+    rng = np.random.default_rng(0)
+    A = rng.normal(size=(300, 300))
+    K = A @ A.T / 300
+    seen = []
+    factor = eigen.eigen_k_on
+    monkeypatch.setattr(eigen, "eigen_k_on", lambda K_, device: (
+        seen.append(torch.device(device).type), factor(K_, device))[1])
+    phi, U = cached_eigen(K, cache_dir=str(tmp_path / "card"))
+    assert seen == ["cuda"] and U.dtype == np.float64
+    np.testing.assert_allclose((U * phi) @ U.T, K, atol=1e-12)
+    phic, _ = cached_eigen(K, cache_dir=str(tmp_path / "cpu"), device="cpu")
+    assert seen == ["cuda", "cpu"]
+    np.testing.assert_allclose(phi, phic, atol=1e-12)
+    # a hit factors nothing
+    cached_eigen(K, cache_dir=str(tmp_path / "card"))
+    assert seen == ["cuda", "cpu"]

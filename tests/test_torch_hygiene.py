@@ -76,10 +76,85 @@ def test_importing_the_port_builds_nothing():
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'mixmogam_tpu' not in sys.modules, 'JAX package imported'\n"
         "assert 'triton' not in sys.modules\n"
+        "assert 'h5py' not in sys.modules, 'h5py imported'\n"
+        "assert 'matplotlib' not in sys.modules, 'matplotlib imported'\n"
         "print(len(mods))\n")
     r = _run(code, ROOT, PYTHONPATH=str(ROOT))
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 14
+    # every module of the port, the facade's layers included
+    assert int(r.stdout.strip()) == len(
+        [f for f in PORT.rglob("*.py") if f.name != "__init__.py"]) + len(
+        [d for d in PORT.rglob("__init__.py") if d.parent != PORT]) >= 38
+
+
+def test_importing_the_package_alone_is_cheap():
+    """`import mixmogam_tpu_torch` (and its lazy names' owner modules not
+    touched) imports no torch, h5py or matplotlib."""
+    code = (
+        "import sys\n"
+        "import mixmogam_tpu_torch as p\n"
+        "bad = [m for m in ('torch', 'h5py', 'matplotlib', 'jax', 'scipy')"
+        " if m in sys.modules]\n"
+        "assert not bad, bad\n"
+        "assert sorted(p.__all__) == sorted(set(p.__all__))\n"
+        "p.GenotypeData, p.PhenotypeData\n"
+        "assert 'torch' not in sys.modules, 'the data layer imported torch'\n"
+        "for name in p.__all__: getattr(p, name)\n")
+    r = _run(code, ROOT, PYTHONPATH=str(ROOT))
+    assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("fmt", ["csv", "plink"])
+def test_the_facade_needs_no_h5py_or_matplotlib(tmp_path, fmt):
+    """The main path with plots=False and CSV / PLINK input imports
+    neither (the card's machine has neither), nor jax."""
+    code = (
+        "import sys\n"
+        "from mixmogam_tpu_torch import cli\n"
+        "from mixmogam_tpu_torch.data import parsers, plink\n"
+        "assert cli.main(['simulate', '-n', '60', '-m', '400', '-o', "
+        "'s']) == 0\n"
+        "g = 's.genotypes.csv'\n"
+        f"if {fmt == 'plink'!r}:\n"
+        "    gd = parsers.parse_snp_data(g)\n"
+        "    plink.write_plink('s', gd)\n"
+        "    g = 's.bed'\n"
+        "for extra in ([], ['--method', 'emmax_loco'], "
+        "['--precision', 'int8x3']):\n"
+        "    if extra == ['--precision', 'int8x3'] and g == 's.bed':\n"
+        "        extra = ['--precision', 'bf16x3']\n"
+        "    assert cli.main(['run', g, 's.phenotypes.csv', '--no-plots', "
+        "'--min-mac', '3', '--device', 'cpu', '-o', 'o'] + extra) == 0\n"
+        "bad = [m for m in ('h5py', 'matplotlib', 'jax', 'mixmogam_tpu') "
+        "if m in sys.modules]\n"
+        "assert not bad, bad\n")
+    r = _run(code, tmp_path, PYTHONPATH=str(ROOT), MIXMOGAM_LOGLEVEL="ERROR")
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_every_kernel_source_is_packaged():
+    """An installed copy builds its kernels from csrc/: every file there
+    (the .cu sources and the .cuh headers they include) matches a pattern
+    of pyproject.toml's package-data and of MANIFEST.in."""
+    import fnmatch
+    import tomllib
+
+    files = sorted(f.name for f in (PORT / "csrc").iterdir() if f.is_file())
+    assert any(f.endswith(".cuh") for f in files)
+    pats = tomllib.loads((ROOT / "pyproject.toml").read_text())["tool"][
+        "setuptools"]["package-data"]["mixmogam_tpu_torch"]
+    line = [ln.split() for ln in (ROOT / "MANIFEST.in").read_text()
+            .splitlines() if ln.startswith(
+                "recursive-include mixmogam_tpu_torch/csrc")]
+    assert len(line) == 1
+    for f in files:
+        assert any(fnmatch.fnmatch(f"csrc/{f}", p_) for p_ in pats), f
+        assert any(fnmatch.fnmatch(f, p_) for p_ in line[0][2:]), f
+    # and each header a source includes is there
+    for cu in (PORT / "csrc").glob("*.cu*"):
+        for ln in cu.read_text().splitlines():
+            if ln.startswith('#include "'):
+                assert ln.split('"')[1] in files, (cu.name, ln)
 
 
 @pytest.mark.parametrize("alone", [False, True])

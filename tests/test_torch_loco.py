@@ -145,8 +145,13 @@ def test_range_gram_wrapper_cpu_and_refusals():
         ibs_gram_tri_packed(meta, 64, 0, 10, 1)
     with pytest.raises(ValueError, match="invalid row range"):
         kinship_resident_range(rg, 50, 50)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kinship_resident_range(rg, 0, 50, method="vanraden")
+    # VanRaden over a range is ported now (it used to raise): the range
+    # call equals the whole call on those rows; an unknown method raises
+    Kr = kinship_resident_range(rg, 0, 50, method="vanraden")
+    np.testing.assert_array_equal(
+        Kr, kinship_resident(rg.slice_rows(0, 50), method="vanraden"))
+    with pytest.raises(ValueError, match="unknown kinship method"):
+        kinship_resident_range(rg, 0, 50, method="nope")
 
 
 @pytest.mark.parametrize("ploidy", [1, 2])
