@@ -31,7 +31,8 @@ Phases (each prints its own seconds):
     -> kinship_resident (K1) -> scale_k -> eigh on the card (float64)
     -> fit_null_model -> emmax_resident at 'exact' (K3), 'int8x3' (K2)
     and 'bf16x3' (K5); every kernel's launch count must be > 0, and each
-    fast tier within max |dp| 1e-4 of exact
+    fast tier within max |dp| 1e-4 of exact. K3 is also held and timed at
+    q = 11 and q = 128 Q0 columns (a grown stepwise design)
   5 end-to-end accuracy: exact-tier emmax on the card vs the port's
     float64 CPU path at n = 2,048 x 8,192 (max |dp| <= 1e-5, same masks)
   6 LOCO at full width, on phase 4's genome cut to --facade-snps rows in 5
@@ -54,7 +55,25 @@ Phases (each prints its own seconds):
     must be the tabled ones (PERF.md section 6), as for phase 6's call.
     Then at n = 2,048 x 8,192 with 2 % missing calls: run_gwas with the IBS
     and with the VanRaden kinship (float32 matmuls on the card) against the
-    same call on the float64 CPU path: max |dK| <= 1e-5, max |dp| <= 1e-4
+    same call on the float64 CPU path: max |dK| <= 1e-5, max |dp| <= 1e-4;
+    on that genome, VanRaden's K_loco of the middle chromosome in float64 on
+    the card equals the direct kinship over the other rows (max |d| <=
+    1e-12). Then VanRaden's K with delta at its lower bound (n = 256 x 3,000, seed
+    3, no noise; a zero eigenvalue along the intercept): run_gwas on the
+    card at 'exact' against the float64 CPU path, identical masks and
+    max |dp| <= 1e-4, with int8x3 and bf16x3 printed beside it. Then, from
+    phase 6's PLINK fileset: run_gwas method='emmax_stepwise' with its
+    timings_s (K3 must launch), and emmax_loco with the VanRaden kinship on
+    the card (float32 kinship matmuls, no K1 or K4: the float route; K3)
+  8 stepwise MLMM on phase 4's resident genome, K and eigh (n x M, binary):
+    emmax_step_wise with the stored rotation (10 steps: G @ U' once, then
+    one K3 launch over all rows a step) and over the rotation budget (3
+    steps: unpack + fp32 GEMM + K3 a tile, every step); each route's wall,
+    the rotation, the mean per-step scan and K3's launches are printed; the
+    two routes choose the same cofactors and their forward min_p agree to
+    rtol 1e-4. Then the card (float32) against the float64 CPU path at
+    n = 1,024 x 8,192: the same cofactor path and selected models, step 0's
+    scan within max |dp| 1e-5 with identical masks
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}. Any
@@ -257,6 +276,7 @@ def main(argv=None) -> int:
                                                   simulate_phenotype)
     from mixmogam_tpu_torch.models.emmax import emmax
     from mixmogam_tpu_torch.models.loco import emmax_loco, loco_kinships
+    from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
     from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                     emmax_resident,
                                                     emmax_scan_packed,
@@ -513,7 +533,31 @@ def main(argv=None) -> int:
     print(f"K3 scan_stats n={n} rows={rows}: max|df| {err:.3e}, kernel "
           f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bnd['bound_ms']:.3f} ms "
           f"by {bnd['bound_by']}", flush=True)
-    del Xr, a3, rot, null, U, rg1, rgc, G1, Gc, S, S_ref
+    # K3 at the widths of a grown stepwise design: q = 11 on the register
+    # path, q = 128 (the most it takes) on the wide one
+    for q in (11, 128):
+        Qq, _ = torch.linalg.qr(torch.randn(n, q, generator=g, device=dev))
+        yq = rot.y_res - Qq @ (Qq.T @ rot.y_res)
+        aq = (Xr, rot.sd, yq, Qq, float(yq @ yq), float(n - q - 1))
+        got = scan_stats(*aq)
+        if not torch.equal(got, scan_stats(*aq)):
+            raise AssertionError(f"K3 q={q}: two launches differ")
+        errq = _check_stats(f"K3 scan_stats q={q}", got,
+                            scan_stats_plain(*aq))
+        msq = _cuda_ms(lambda: scan_stats(*aq))
+        bq = _bound(2.0 * rows * n * (2 + q), "fp32", Xr, rot.sd, yq, Qq,
+                    torch.empty((4, rows)))
+        print(f"K3 scan_stats q={q} n={n} rows={rows}: max|df| {errq:.3e}, "
+              f"kernel {msq:.3f} ms, bound {bq['bound_ms']:.3f} ms by "
+              f"{bq['bound_by']}", flush=True)
+    try:
+        scan_stats(Xr, rot.sd, rot.y_res, torch.zeros((n, 129), device=dev),
+                   rot.rss0, rot.dof)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("K3 took 129 columns of Q0")
+    del Xr, a3, rot, null, U, rg1, rgc, G1, Gc, S, S_ref, got
     torch.cuda.empty_cache()
     _phase("3 kernels vs plain", t0)
 
@@ -543,10 +587,13 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     print(f"eigh on the card (float64, n={n}): "
           f"{time.perf_counter() - ts:.3f} s", flush=True)
-    ts = time.perf_counter()
-    null = fit_null_model(y, np.ones((n, 1)), eig_k=(phi, U), device=dev,
-                          dtype=torch.float32)
-    print(f"fit_null_model: {time.perf_counter() - ts:.3f} s "
+    fits = []
+    for _ in range(2):      # the first pays the process's first REML
+        ts = time.perf_counter()
+        null = fit_null_model(y, np.ones((n, 1)), eig_k=(phi, U), device=dev,
+                              dtype=torch.float32)
+        fits.append(time.perf_counter() - ts)
+    print(f"fit_null_model: {fits[0]:.3f} s, again {fits[1]:.3f} s "
           f"(h2 {float(null.pseudo_heritability):.4f})", flush=True)
     res = {}
     for tier in ("exact", "int8x3", "bf16x3"):
@@ -593,7 +640,10 @@ def main(argv=None) -> int:
           f"20: {hits} of {len(causal)}", flush=True)
     if max(dps.values()) > 1e-4 or hits < 3:
         raise AssertionError("main path results off")
-    del K, phi, U, null, res, ex, rg    # G, y stay for phase 6's files
+    # G and y stay for phase 6's files; the resident genome and eigh(K)
+    # for phase 8
+    main = dict(rg=rg, eig=(phi, U), y=y)
+    del K, null, res, ex
     torch.cuda.empty_cache()
     _phase("4 main path", t0)
 
@@ -848,11 +898,153 @@ def main(argv=None) -> int:
             if dK > 1e-5 or dp > 1e-4 or not np.array_equal(
                     a["scan"]["mask"], b["scan"]["mask"]):
                 raise AssertionError(f"{km}: card and CPU disagree")
+        # LOCO's float kinships (VanRaden over these missing calls) in
+        # float64 on the card: K_loco of the middle chromosome against the
+        # direct kinship over the other chromosomes' rows
+        ch_m = np.asarray(g2.chromosomes)
+        c_mid = np.unique(ch_m)[len(np.unique(ch_m)) // 2]
+        K_v = loco_kinships(ResidentGenome.from_source(g2), ch_m,
+                            method="vanraden", dtype=torch.float64)[c_mid]
+        rest = ResidentGenome.from_source(g2.matrix[ch_m != c_mid],
+                                          ploidy=g2.ploidy)
+        dk = float(np.abs(K_v - scale_k(kinship_resident(
+            rest, method="vanraden", dtype=torch.float64))).max())
+        print(f"VanRaden K_loco identity over missing calls (float64 on the "
+              f"card), chromosome {c_mid}: max|d| {dk:.3e}", flush=True)
+        if dk > 1e-12:
+            raise AssertionError("VanRaden K_loco differs from the direct "
+                                 "kinship")
         print(f"missing-call and VanRaden runs: "
               f"{time.perf_counter() - ts:.3f} s", flush=True)
+
+        # VanRaden's K with delta at its lower bound: the float32 exact scan
+        # against the float64 CPU path (ROADMAP Queue 3's repaired fault)
+        ts = time.perf_counter()
+        Gv, chv, pov = simulate_genotypes(256, 3_000, ploidy=1, seed=3)
+        accv = [f"s{i}" for i in range(256)]
+        yv, _ = simulate_phenotype(Gv, h2=0.5, n_causal=4, seed=3)
+        gv, pv = os.path.join(tmp, "v.csv"), os.path.join(tmp, "v_p.csv")
+        GenotypeData(Gv, chv, pov, accv, ploidy=1).write_csv(gv)
+        PhenotypeData.from_arrays(1, "t", accv, yv).write_to_file(pv)
+        kv = dict(kinship_method="vanraden", plots=False)
+        ref_v = api.run_gwas(gv, pv, device="cpu", **kv)["scan"]
+        for tier in ("exact", "int8x3", "bf16x3"):
+            sv = api.run_gwas(gv, pv, precision=tier, **kv)["scan"]
+            diff = sv["mask"] != ref_v["mask"]
+            dpv = np.abs(sv["ps"] - ref_v["ps"])
+            print(f"VanRaden K, delta {ref_v['delta']:.3e} (its bound), "
+                  f"{tier} on the card vs float64 CPU: {int(diff.sum())} "
+                  f"mask(s) differ, max|dp| {dpv.max():.3e}, where the "
+                  f"masks agree {dpv[~diff].max():.3e}", flush=True)
+            if tier == "exact" and (diff.any() or dpv.max() > 1e-4):
+                raise AssertionError("the float32 exact scan under a "
+                                     "singular K disagrees with float64")
+        print(f"singular-K runs: {time.perf_counter() - ts:.3f} s",
+              flush=True)
+
+        # stepwise through the facade, from phase 6's PLINK fileset
+        for k in kernels:
+            k.launches = 0
+        sw_out = api.run_gwas(files[0], files[1], data_format="plink",
+                              method="emmax_stepwise", num_steps=3,
+                              plots=False, out_prefix=os.path.join(tmp, "sw"))
+        run = {k.__name__: k.launches for k in kernels}
+        for name, cnt in run.items():
+            launches[name] += cnt
+        with open(sw_out["files"]["summary"]) as f:
+            timings = json.load(f)["timings_s"]
+        sel = {k: v["cofactors"] for k, v in
+               sw_out["scan"]["stepwise"]["selected"].items()}
+        print(f"run_gwas emmax_stepwise (3 steps) n={n} "
+              f"M={sw_out['genotype'].num_snps}: timings_s "
+              f"{json.dumps(timings)}; selected {json.dumps(sel)}; "
+              f"launches {run}", flush=True)
+        if run["scan_stats"] <= 0 or sw_out["scan"]["ps"] is not None:
+            raise AssertionError("run_gwas emmax_stepwise: no K3 launch")
+
+        # LOCO with the VanRaden kinship on the same rows
+        ts = time.perf_counter()
+        gd_f = sw_out["genotype"]
+        rg_f = ResidentGenome.from_source(gd_f)
+        ch_f = np.asarray(gd_f.chromosomes)
+        for k in kernels:
+            k.launches = 0
+        lv = emmax_loco(rg_f, sw_out["y"], chromosomes=ch_f,
+                        method="vanraden")
+        run = {k.__name__: k.launches for k in kernels}
+        for name, cnt in run.items():
+            launches[name] += cnt
+        print(f"emmax_loco vanraden (M={rg_f.M}): "
+              f"{time.perf_counter() - ts:.3f} s; launches {run}; deltas "
+              f"{[round(v['delta'], 6) for v in lv['loco'].values()]}",
+              flush=True)
+        if (run["scan_stats"] <= 0 or not np.isfinite(lv["ps"]).all()
+                or lv["ps"].shape != (rg_f.M,)):
+            raise AssertionError("LOCO vanraden: malformed")
+        del rg_f, sw_out, gd_f
     torch.cuda.empty_cache()
     _check_no_jax()
     _phase("7 facade", t0)
+
+    # ---- 8. stepwise MLMM at full width -----------------------------------
+    t0 = time.perf_counter()
+    sw = {}
+    for route, kw in (("stored", dict(max_steps=10)),
+                      ("over budget", dict(max_steps=3,
+                                           rot_budget_bytes=1 << 30))):
+        for k in kernels:
+            k.launches = 0
+        ts = time.perf_counter()
+        r = emmax_step_wise(main["rg"], main["y"], eig_k=main["eig"], **kw)
+        wall = time.perf_counter() - ts
+        run = {k.__name__: k.launches for k in kernels}
+        for name, cnt in run.items():
+            launches[name] += cnt
+        tm = r["timings_s"]
+        print(f"stepwise {route} ({tm['route']}, {kw['max_steps']} steps, "
+              f"n={n} M={M}): {wall:.3f} s; rotation {tm['rotate']:.3f} s; "
+              f"scan a step {np.mean(tm['scan']):.3f} s (host p-values "
+              f"included); K3 launches {run['scan_stats']}; path "
+              f"{[s['min_p_snp'] for s in r['steps'] if s['min_p_snp'] >= 0]}"
+              f"; selected ebic {r['selected']['ebic']['cofactors']}",
+              flush=True)
+        if run["scan_stats"] <= 0:
+            raise AssertionError(f"stepwise {route}: K3 never launched")
+        sw[route] = r
+    fa = [s for s in sw["stored"]["steps"] if s["phase"] == "forward"][:3]
+    fb = [s for s in sw["over budget"]["steps"]
+          if s["phase"] == "forward"][:3]
+    if [s["min_p_snp"] for s in fa] != [s["min_p_snp"] for s in fb]:
+        raise AssertionError("the stepwise routes chose other cofactors")
+    rel = max(abs(a["min_p"] - b["min_p"]) / b["min_p"]
+              for a, b in zip(fa, fb))
+    print(f"stored vs over-budget: the same 3 cofactors, forward min_p "
+          f"{[s['min_p'] for s in fa]} and {[s['min_p'] for s in fb]}, "
+          f"within rtol {rel:.3e}", flush=True)
+    if rel > 1e-4:
+        raise AssertionError("the stepwise routes' min_p disagree")
+    del main, sw
+    torch.cuda.empty_cache()
+    # the card (float32) against the float64 CPU path
+    ts = time.perf_counter()
+    Gs, _, _ = simulate_genotypes(1_024, 8_192, ploidy=1, seed=args.seed + 8)
+    ys, _ = simulate_phenotype(Gs, h2=0.6, n_causal=4, seed=args.seed + 8)
+    Ks = scale_k(kinship_resident(ResidentGenome.from_source(Gs)))
+    a = emmax_step_wise(Gs, ys, K=Ks, max_steps=3, save_scans=True)
+    b = emmax_step_wise(Gs, ys, K=Ks, max_steps=3, save_scans=True,
+                        device="cpu")
+    pa, pb = a["steps"][0]["scan_ps"], b["steps"][0]["scan_ps"]
+    dps = float(np.abs(pa - pb).max())
+    print(f"stepwise card f32 vs CPU f64 (n=1024, M=8192, 3 steps): path "
+          f"{[s['cofactors'] for s in a['steps']]}; step 0 max|dp| "
+          f"{dps:.3e} ({time.perf_counter() - ts:.3f} s)", flush=True)
+    if ([s["cofactors"] for s in a["steps"]]
+            != [s["cofactors"] for s in b["steps"]]
+            or a["selected"] != b["selected"] or dps > 1e-5
+            or not np.array_equal(pa < 1.0, pb < 1.0)):
+        raise AssertionError("stepwise: card and CPU disagree")
+    _check_no_jax()
+    _phase("8 stepwise", t0)
 
     for k in kernels:
         report[k.__name__]["launches"] = launches[k.__name__]

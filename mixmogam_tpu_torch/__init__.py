@@ -24,6 +24,11 @@ and writers), the results layer (results/, plotting/), the artifact caches
 module ops.kinship.kinship (IBS with or without missing genotypes,
 VanRaden; fully observed int8 through kernel K1).
 
+Slice 4 adds stepwise MLMM (models.stepwise.emmax_step_wise, method
+'emmax_stepwise' of run_gwas): the genome rotated once and scanned by kernel
+K3 at every step, with the per-step REML of ops.xreml; LOCO takes the
+VanRaden kinship and missing genotypes.
+
 Modules keep the JAX package's paths and names. The port imports torch,
 numpy and scipy, and nothing of jax or of the JAX package: the few numpy
 modules it shares with that package (the data, results and plotting
@@ -37,7 +42,8 @@ on the CPU run each kernel's plain PyTorch version.
 __version__ = "0.1.0"
 
 __all__ = ["emmax", "emmax_resident", "kinship_resident", "ResidentGenome",
-           "emmax_loco", "loco_kinships", "kinship", "run_gwas",
+           "emmax_loco", "loco_kinships", "emmax_step_wise", "kinship",
+           "run_gwas",
            "run_gwas_multi", "parse_snp_data", "parse_phenotype_file",
            "calc_ibs_kinship", "calc_ibd_kinship", "save_kinship_to_file",
            "load_kinship_from_file", "GenotypeData", "PhenotypeData",
@@ -62,6 +68,10 @@ def __getattr__(name):
         from mixmogam_tpu_torch.models import loco
 
         return getattr(loco, name)
+    if name == "emmax_step_wise":
+        from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
+
+        return emmax_step_wise
     if name == "kinship":
         from mixmogam_tpu_torch.ops.kinship import kinship
 

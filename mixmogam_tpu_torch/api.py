@@ -2,8 +2,9 @@
 SURVEY.md L7: convenience functions gluing parse -> coordinate -> kinship ->
 scan -> results/plots).
 
-run_gwas runs method='emmax' and method='emmax_loco' on the port's models
-layer, on the card unless the caller passes device='cpu'. The JAX package's
+run_gwas runs method='emmax', 'emmax_loco' and 'emmax_stepwise' on the
+port's models layer, on the card unless the caller passes device='cpu'. The
+JAX package's
 other methods are not ported yet: each raises NotImplementedError naming its
 ROADMAP item before any file is read."""
 
@@ -29,7 +30,8 @@ from mixmogam_tpu_torch.utils.caching import (
 
 __all__ = [
     "parse_snp_data", "parse_phenotype_file", "calc_ibs_kinship",
-    "calc_ibd_kinship", "emmax", "emmax_loco", "run_gwas", "run_gwas_multi",
+    "calc_ibd_kinship", "emmax", "emmax_loco", "emmax_step_wise", "run_gwas",
+    "run_gwas_multi",
     "save_kinship_to_file", "load_kinship_from_file",
 ]
 
@@ -40,10 +42,9 @@ _NOT_PORTED = {
     "lm": "ROADMAP Queue 1 item 12 (models/linear.py)",
     "anova": "ROADMAP Queue 1 item 12 (models/linear.py)",
     "kw": "ROADMAP Queue 1 item 12 (models/linear.py)",
-    "emmax_stepwise": "ROADMAP Queue 1 item 9 (models/stepwise.py)",
     "emmax_gxe": "ROADMAP Queue 1 item 13 (models/gxe.py)",
 }
-_METHODS = ("emmax", "emmax_loco")
+_METHODS = ("emmax", "emmax_loco", "emmax_stepwise")
 
 
 def __getattr__(name):
@@ -56,6 +57,10 @@ def __getattr__(name):
         from mixmogam_tpu_torch.models.loco import emmax_loco
 
         return emmax_loco
+    if name == "emmax_step_wise":
+        from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
+
+        return emmax_step_wise
     raise AttributeError(
         f"module 'mixmogam_tpu_torch.api' has no attribute {name!r}")
 
@@ -122,9 +127,11 @@ def run_gwas(genotype_file: str, phenotype_file: str, pid: int = 1,
     scan -> ranked CSV + Manhattan/QQ plots + JSON run summary.
 
     method: 'emmax' | 'emmax_loco' (LOCO builds per-chromosome kinships
-            itself). 'emma', 'lm', 'anova', 'kw', 'emmax_stepwise' and
-            'emmax_gxe' raise NotImplementedError (num_steps and env_pid
-            are theirs and stay in the signature for them).
+            itself) | 'emmax_stepwise' (num_steps forward steps; the
+            result's scan is {'stepwise': ..., 'ps': None}: no ranked CSV
+            and no plots). 'emma', 'lm', 'anova', 'kw' and 'emmax_gxe'
+            raise NotImplementedError (env_pid is emmax_gxe's and stays in
+            the signature for it).
     device: where the kinship and the scan run: the card by default (the
             call raises without one, before any file is read), 'cpu' on
             request.
@@ -214,7 +221,7 @@ def run_gwas(genotype_file: str, phenotype_file: str, pid: int = 1,
             gd2 = gd2.filter_mac_snps(min_mac)
 
     K = None
-    if method == "emmax":
+    if method in ("emmax", "emmax_stepwise"):
         with rm.phase("kinship"):
             if kinship_file and os.path.exists(kinship_file):
                 from mixmogam_tpu_torch.oracle.kinship import prepare_k
@@ -231,6 +238,13 @@ def run_gwas(genotype_file: str, phenotype_file: str, pid: int = 1,
             from mixmogam_tpu_torch.models.emmax import emmax
 
             scan = emmax(gd2, y, K=K, dtype=dtype, device=device, **model_kw)
+        elif method == "emmax_stepwise":
+            from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
+
+            sw = emmax_step_wise(gd2, y, K=K, max_steps=num_steps,
+                                 dtype=dtype, save_scans=False,
+                                 device=device, **model_kw)
+            scan = {"stepwise": sw, "ps": None}
         else:
             # LOCO builds its own per-chromosome kinships (a global K
             # would be wasted work and scale_k breaks gram additivity)
@@ -246,21 +260,24 @@ def run_gwas(genotype_file: str, phenotype_file: str, pid: int = 1,
     timings = dict(rm.phases)
 
     files = {}
-    result = Result.from_scan(scan, gd2.chromosomes, gd2.positions,
-                              mafs=gd2.get_mafs(), macs=gd2.get_macs())
-    if out_prefix:
-        csv = f"{out_prefix}.pvals.csv"
-        result.write_to_file(csv)
-        files["pvals"] = csv
-        if plots:
-            from mixmogam_tpu_torch.plotting import manhattan_plot, qq_plot
+    result = None
+    if scan.get("ps") is not None:
+        result = Result.from_scan(scan, gd2.chromosomes, gd2.positions,
+                                  mafs=gd2.get_mafs(), macs=gd2.get_macs())
+        if out_prefix:
+            csv = f"{out_prefix}.pvals.csv"
+            result.write_to_file(csv)
+            files["pvals"] = csv
+            if plots:
+                from mixmogam_tpu_torch.plotting import (manhattan_plot,
+                                                         qq_plot)
 
-            man = f"{out_prefix}.manhattan.png"
-            qq = f"{out_prefix}.qq.png"
-            manhattan_plot(result, man,
-                           threshold=bonferroni_threshold(len(result)))
-            qq_plot(scan["ps"], qq)
-            files.update(manhattan=man, qq=qq)
+                man = f"{out_prefix}.manhattan.png"
+                qq = f"{out_prefix}.qq.png"
+                manhattan_plot(result, man,
+                               threshold=bonferroni_threshold(len(result)))
+                qq_plot(scan["ps"], qq)
+                files.update(manhattan=man, qq=qq)
     timings["total"] = time.time() - rm._t0
 
     if out_prefix:
@@ -277,10 +294,11 @@ def run_gwas(genotype_file: str, phenotype_file: str, pid: int = 1,
         for k in ("pseudo_heritability", "delta", "sigma_g2", "sigma_e2"):
             if k in scan:
                 summary[k] = scan[k]
-        summary["min_p"] = float(np.min(scan["ps"]))
-        summary["bonferroni"] = bonferroni_threshold(gd2.num_snps)
-        summary["bh_thres"] = get_bh_thres(scan["ps"])
-        summary["bhy_thres"] = get_bhy_thres(scan["ps"])
+        if scan.get("ps") is not None:
+            summary["min_p"] = float(np.min(scan["ps"]))
+            summary["bonferroni"] = bonferroni_threshold(gd2.num_snps)
+            summary["bh_thres"] = get_bh_thres(scan["ps"])
+            summary["bhy_thres"] = get_bhy_thres(scan["ps"])
         sj = f"{out_prefix}.summary.json"
         with open(sj, "w") as f:
             json.dump(summary, f, indent=2, default=float)

@@ -191,6 +191,11 @@ def main(argv=None) -> int:
             profile_dir=args.profile_dir, covariate_pids=cov,
             env_pid=args.env_pid, ploidy=args.ploidy, device=args.device,
             **tier_kw)
+        if args.method == "emmax_stepwise":
+            sw = out["scan"]["stepwise"]
+            sel = {k: v["cofactors"] for k, v in sw["selected"].items()}
+            print(json.dumps({"selected": sel}, indent=2))
+            return 0
         ps = out["scan"]["ps"]
         print(f"scanned {len(ps)} SNPs; min p = {np.min(ps):.3e}; "
               f"files: {json.dumps(out['files'])}")

@@ -2,13 +2,17 @@
 mixmogam_tpu/models/loco.py: loco_kinships, emmax_loco).
 
 Each chromosome c is scanned under the null whose kinship leaves c out.
-Every IBS kinship is a sum of per-SNP sharing counts, so
+Every kinship here is a sum of per-SNP terms over its denominator, so
 
     num_loco(c) = num_total - num(c),  den_loco(c) = den_total - den(c)
 
-with num = sharing fraction x SNP count: one whole-genome gram (kernel K1)
-plus one range gram per chromosome (kernel K4, rows [s, e) of the packed
-genome) give every K_loco, in float64 on the host. The per-chromosome
+with num = K x den: one whole-genome kinship plus one range kinship per
+chromosome give every K_loco, in float64 on the host. The denominator is
+the SNP count for IBS (fully observed: kernels K1 and K4, rows [s, e) of
+the packed genome; with missing genotypes: mean-imputed tiles and float
+matmuls, the SNP count all the same) and ploidy * sum p(1 - p) over the
+rows for VanRaden, with each row's p taken after the same imputation
+(models/resident.py::kinship_resident). The per-chromosome
 eigh runs through ops/eigen.py::eigen_k (on the card: float64 cuSOLVER;
 on the CPU: host LAPACK; 'fast': float32). With pipeline_eigh, a one-worker
 thread builds chromosome c+1's K_loco and its eigh while chromosome c's
@@ -18,9 +22,8 @@ view of the packed rows), at the user's precision tier.
 
 Sources: a ResidentGenome scans on its own device; an int8 array or a
 GenotypeData (or a float array of integer dosages, NaN missing) is packed
-into a ResidentGenome on `device`. The kinships are fully observed IBS
-(K1/K4); VanRaden and missing-genotype IBS raise NotImplementedError
-(ROADMAP Queue 1 item 5). mesh= waits for slice 3.
+into a ResidentGenome on `device`; fractional dosages raise
+NotImplementedError (ROADMAP Queue 1 item 5). mesh= waits for slice 3.
 
 _chrom_ranges and the eigen-cache helpers are numpy-only copies of the
 JAX functions, pinned to the originals by tests/test_torch_loco.py.
@@ -140,21 +143,12 @@ def _as_resident(G, device, ploidy: Optional[int]):
 
 
 def _loco_resident(G, device, ploidy: Optional[int], method: str):
-    """_as_resident for a LOCO whose kinships are built here: fully
-    observed IBS (K1 / K4) so far. The method is refused before the genome
-    is packed."""
+    """_as_resident for a LOCO whose kinships are built here: an unknown
+    kinship method is refused before the genome is packed."""
     from mixmogam_tpu_torch.ops.kinship import check_kinship_method
 
-    if check_kinship_method(method) == "vanraden":
-        raise NotImplementedError(
-            "LOCO with the VanRaden kinship is not ported yet: ROADMAP "
-            "Queue 1 item 5")
-    rg = _as_resident(G, device, ploidy)
-    if rg.has_missing:
-        raise NotImplementedError(
-            "LOCO over a genome with missing genotypes (mean-imputed float "
-            "kinships) is not ported yet: ROADMAP Queue 1 item 5")
-    return rg
+    check_kinship_method(method)
+    return _as_resident(G, device, ploidy)
 
 
 def _check_chromosomes(G, chromosomes):
@@ -177,7 +171,7 @@ def _check_chromosomes(G, chromosomes):
 def loco_kinships(G, chromosomes=None, method: str = "ibs",
                   ploidy: Optional[int] = None, scale: bool = True,
                   K_total: Optional[np.ndarray] = None,
-                  device=None) -> Dict[object, np.ndarray]:
+                  device=None, dtype=None) -> Dict[object, np.ndarray]:
     """{chrom: K_loco} — kinship from every chromosome EXCEPT the key,
     float64 host arrays.
 
@@ -185,10 +179,13 @@ def loco_kinships(G, chromosomes=None, method: str = "ibs",
     given) or an (M, n) integer-dosage array + explicit per-SNP
     chromosomes, packed onto `device` (the card by default, 'cpu' on
     request). K_total: reuse an already-built
-    whole-genome kinship of the same method (un-scaled); None builds it
-    (K1). scale: scale_k-normalize each LOCO matrix (the facade
-    convention before REML)."""
-    from mixmogam_tpu_torch.models.resident import (kinship_resident,
+    whole-genome kinship of the same method (un-scaled); None builds it.
+    scale: scale_k-normalize each LOCO matrix (the facade convention
+    before REML). dtype: the float kinships' matmul dtype (VanRaden,
+    missing genotypes): float32 on the card, float64 on the CPU by
+    default."""
+    from mixmogam_tpu_torch.models.resident import (kinship_den,
+                                                    kinship_resident,
                                                     kinship_resident_range,
                                                     scale_k)
 
@@ -196,13 +193,17 @@ def loco_kinships(G, chromosomes=None, method: str = "ibs",
     rg = _loco_resident(G, device, ploidy, method)
     pl = rg.ploidy if ploidy is None else ploidy
     if K_total is None:
-        K_total = kinship_resident(rg, method=method, ploidy=pl)
-    num_tot = np.asarray(K_total, dtype=np.float64) * float(rg.M)
+        K_total, den_tot = kinship_resident(rg, method=method, ploidy=pl,
+                                            dtype=dtype, return_den=True)
+    else:
+        den_tot = kinship_den(rg, method=method, ploidy=pl, dtype=dtype)
+    num_tot = np.asarray(K_total, dtype=np.float64) * den_tot
     out: Dict[object, np.ndarray] = {}
     for c, s, e in ranges:
         K_c, den_c = kinship_resident_range(rg, s, e, method=method,
-                                            ploidy=pl, return_den=True)
-        Kl = (num_tot - K_c * den_c) / (float(rg.M) - den_c)
+                                            ploidy=pl, dtype=dtype,
+                                            return_den=True)
+        Kl = (num_tot - K_c * den_c) / (den_tot - den_c)
         out[c] = scale_k(Kl) if scale else Kl
     return out
 

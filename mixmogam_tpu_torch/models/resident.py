@@ -314,6 +314,46 @@ def _float_tiles(rg: ResidentGenome, dtype):
         yield _impute_tile(Gt, dtype) if rg.has_missing else Gt.to(dtype)
 
 
+def rotate_resident_to_device(rg: ResidentGenome, U=None, dtype=None,
+                              design=None):
+    """(G_rot, keep): G_rot = impute(G) @ U (M, n) built tile by tile from
+    the packed rows on rg's device (unpack, mean-impute where rg has
+    missing genotypes, full-fp32 GEMM), with no host traffic; U=None gives
+    the imputed dosages themselves (the identity K). design and keep: as in
+    models/streaming.py::rotate_tiles."""
+    from mixmogam_tpu_torch.models.streaming import rotate_tiles
+
+    if dtype is None:
+        dtype = _default_dtype(rg.device)
+    return rotate_tiles(_float_tiles(rg, dtype), rg.M, rg.n, U, dtype,
+                        rg.device, design)
+
+
+def _vanraden_freqs(C: torch.Tensor, ploidy: int):
+    """Per-row allele frequencies p of a mean-imputed float tile, and the
+    tile's part of VanRaden's denominator, ploidy * sum p (1 - p), as a
+    float64 0-d tensor."""
+    p = C.sum(dim=1) / (ploidy * C.shape[1])
+    return p, (ploidy * (p * (1.0 - p)).sum()).double()
+
+
+def kinship_den(rg: ResidentGenome, method: str = "ibs",
+                ploidy: Optional[int] = None, dtype=None) -> float:
+    """The denominator kinship_resident(rg, method, return_den=True) gives,
+    without the gram: the SNP count for IBS; for VanRaden one pass over
+    the mean-imputed tiles (LOCO's num_total when the caller brings the
+    whole-genome K)."""
+    from mixmogam_tpu_torch.ops.kinship import (check_kinship_method,
+                                                resolve_compute_dtype)
+
+    if check_kinship_method(method) == "ibs":
+        return float(rg.M)
+    ploidy = rg.ploidy if ploidy is None else ploidy
+    dtype = resolve_compute_dtype(dtype, rg.device)
+    return float(sum(_vanraden_freqs(C, ploidy)[1]
+                     for C in _float_tiles(rg, dtype)))
+
+
 def kinship_resident(rg: ResidentGenome, method: str = "ibs",
                      ploidy: Optional[int] = None, dtype=None,
                      return_den: bool = False):
@@ -354,8 +394,8 @@ def kinship_resident(rg: ResidentGenome, method: str = "ibs",
     if method == "vanraden":
         den = torch.zeros((), dtype=torch.float64, device=rg.device)
         for C in _float_tiles(rg, dtype):
-            p = C.sum(dim=1) / (ploidy * n)
-            den += (ploidy * (p * (1.0 - p)).sum()).double()
+            p, d = _vanraden_freqs(C, ploidy)
+            den += d
             _vanraden_update(K, C - (ploidy * p)[:, None])
         denom = float(den)
     else:

@@ -1,5 +1,7 @@
-"""The scan-finalizing helpers of mixmogam_tpu/models/streaming.py:
-_impute_tile, _host_float_tile, finalize_scan and _exact_rescore. The
+"""The helpers of mixmogam_tpu/models/streaming.py that the port has:
+_impute_tile, _host_float_tile, finalize_scan, _exact_rescore, and
+rotate_streamed_to_device (G_rot = impute(G) @ U built on the device tile
+by tile from a host source: stepwise's 'rotate once, scan many'). The
 streamed scan itself (host -> device tiles with checkpoint/resume) waits
 for ROADMAP slice 3."""
 
@@ -40,6 +42,68 @@ def _host_float_tile(chunk: np.ndarray, dtype) -> np.ndarray:
         idx = np.where(miss)
         C[idx] = mu[idx[0]]
     return C.astype(dtype)
+
+
+def host_tiles(G_src, dtype, device, tile: int = 16_384):
+    """Float tiles (m, n) in dtype on device over the rows of a host
+    source, in order: an int8 source (-1 missing) goes up as int8 and is
+    mean-imputed on the device (_impute_tile); a float source (NaN
+    missing, fractional dosages) is imputed per tile on the host."""
+    int8_source = np.dtype(getattr(G_src, "dtype", np.int8)) == np.int8
+    np_dt = np.float64 if dtype == torch.float64 else np.float32
+    for s in range(0, G_src.shape[0], tile):
+        if int8_source:
+            t = torch.from_numpy(np.ascontiguousarray(
+                np.asarray(G_src[s:s + tile], dtype=np.int8))).to(device)
+            yield _impute_tile(t, dtype)
+        else:
+            yield torch.from_numpy(_host_float_tile(
+                G_src[s:s + tile], np_dt)).to(device)
+
+
+def rotate_tiles(tiles, M: int, n: int, U, dtype, device, design=None):
+    """(G_rot, keep): G_rot (M, n) in dtype on device, the float tiles
+    (which cover the M rows in order) times U, a full-fp32 GEMM on the card
+    (TF32 off), or the tiles themselves for U=None (the identity K); one
+    preallocated output, so the device holds G_rot and one tile. design:
+    the (X0, X0p) of a projected U (ops/scan.py::project_design): keep is
+    then outside_design of every row, from the same tiles; else None."""
+    from mixmogam_tpu_torch.ops import assert_fp32_matmuls
+    from mixmogam_tpu_torch.ops.scan import outside_design
+
+    out = torch.empty((M, n), dtype=dtype, device=device)
+    keep = (None if design is None
+            else torch.empty(M, dtype=torch.bool, device=device))
+    if U is not None:
+        U = U.to(device=device, dtype=dtype)
+        assert_fp32_matmuls()
+    s = 0
+    for t in tiles:
+        e = s + t.shape[0]
+        out[s:e] = t if U is None else t @ U
+        if keep is not None:
+            keep[s:e] = outside_design(t, *design)
+        s = e
+    if s != M:
+        raise ValueError(f"the tiles held {s} rows, not {M}")
+    return out, keep
+
+
+def rotate_streamed_to_device(G_src, U, dtype=None, tile: int = 16_384,
+                              design=None, device=None):
+    """(G_rot, keep) = rotate_tiles over host_tiles(G_src): the rotated
+    genotype matrix of a host source built on the device (U's, else
+    `device`: the card unless asked for the CPU). G_src: (M, n) sliceable,
+    int8 (-1 missing) or float (NaN missing, fractional dosages)."""
+    from mixmogam_tpu_torch.models.resident import _default_dtype
+    from mixmogam_tpu_torch.ops import resolve_device
+
+    device = U.device if U is not None else resolve_device(device)
+    if dtype is None:
+        dtype = _default_dtype(device)
+    M, n = G_src.shape
+    return rotate_tiles(host_tiles(G_src, dtype, device, tile), M, n, U,
+                        dtype, device, design)
 
 
 def finalize_scan(matrix_source, null, dtype, f_stats, mask,

@@ -31,7 +31,11 @@ import torch
 from mixmogam_tpu_torch.ops.pack2 import unpack_2bit_device
 from mixmogam_tpu_torch.ops.scan import apply_rotation, scan_epilogue
 
+#: Q0 columns K2 and K5 take (their shared wgmma epilogue keeps each
+#: row's q sums in registers under its setmaxnreg split); K3 takes up to
+#: the TPU kernel's QPAD, 128
 _QMAX = 16
+_K3_QMAX = 128
 
 
 def _as_float(x) -> float:
@@ -180,6 +184,14 @@ def scan_operand(rot) -> Optional[ScanOperand]:
 scan_operand.builds = 0
 
 
+def _check_q0(what: str, Q0: torch.Tensor, n: int) -> None:
+    """K2 / K5 take Q0 (n, q <= 16): their wgmma epilogue keeps a row's q
+    sums in registers under the setmaxnreg split (ROADMAP Queue 3)."""
+    if Q0.ndim != 2 or Q0.shape[0] != n or Q0.shape[1] > _QMAX:
+        raise ValueError(f"{what}: Q0 must be (n, q <= {_QMAX}); got "
+                         f"{tuple(Q0.shape)}")
+
+
 def _check_packed(what: str, packed: torch.Tensor, n: int) -> None:
     rb = (n + 3) // 4
     if (packed.dtype != torch.uint8 or packed.ndim != 2
@@ -261,9 +273,7 @@ def rotate_scan_int8_packed(packed: torch.Tensor, n: int,
         raise ValueError(f"rotate_scan_int8_packed needs int8 planes "
                          f"(K in 2..4, {n}, {n}) on {packed.device}; got "
                          f"{planes.dtype} {tuple(planes.shape)}")
-    if Q0.ndim != 2 or Q0.shape[0] != n or Q0.shape[1] > _QMAX:
-        raise ValueError(f"rotate_scan_int8_packed: Q0 must be (n, q <= "
-                         f"{_QMAX}); got {tuple(Q0.shape)}")
+    _check_q0("rotate_scan_int8_packed", Q0, n)
     _check_cuda_f32("rotate_scan_int8_packed", w_scale=w_scale,
                     y_res=y_res, Q0=Q0)
     from mixmogam_tpu_torch.ops._build import build
@@ -330,9 +340,7 @@ def rotate_scan_bf16_packed(packed: torch.Tensor, n: int,
         raise ValueError(f"rotate_scan_bf16_packed needs bf16 parts "
                          f"(K in 1..3, {n}, {n}) on {packed.device}; got "
                          f"{parts.dtype} {tuple(parts.shape)}")
-    if Q0.ndim != 2 or Q0.shape[0] != n or Q0.shape[1] > _QMAX:
-        raise ValueError(f"rotate_scan_bf16_packed: Q0 must be (n, q <= "
-                         f"{_QMAX}); got {tuple(Q0.shape)}")
+    _check_q0("rotate_scan_bf16_packed", Q0, n)
     rows = packed.shape[0]
     _check_cuda_f32("rotate_scan_bf16_packed", y_res=y_res, Q0=Q0)
     if row_mean is not None:
@@ -367,7 +375,8 @@ def scan_stats_plain(Xr, sd, y_res, Q0, rss0, dof) -> torch.Tensor:
 
 def scan_stats(Xr: torch.Tensor, sd: torch.Tensor, y_res: torch.Tensor,
                Q0: torch.Tensor, rss0, dof) -> torch.Tensor:
-    """(4, m) scan of pre-rotated rows Xr = G @ U (K3)."""
+    """(4, m) scan of pre-rotated rows Xr = G @ U (K3); Q0 (n, q <= 128),
+    as the TPU kernel's QPAD. A wider Q0 on the card raises."""
     if Xr.device.type == "cpu":
         return scan_stats_plain(Xr, sd, y_res, Q0, rss0, dof)
     if Xr.device.type != "cuda":
@@ -378,14 +387,15 @@ def scan_stats(Xr: torch.Tensor, sd: torch.Tensor, y_res: torch.Tensor,
                          f"{tuple(Xr.shape)}")
     m, n = Xr.shape
     if (sd.shape != (n,) or y_res.shape != (n,) or Q0.ndim != 2
-            or Q0.shape[0] != n or not 1 <= Q0.shape[1] <= _QMAX):
+            or Q0.shape[0] != n or not 1 <= Q0.shape[1] <= _K3_QMAX):
         raise ValueError(f"scan_stats: sd/y_res must be ({n},) and Q0 "
-                         f"({n}, q <= {_QMAX}); got {tuple(sd.shape)}, "
+                         f"({n}, q <= {_K3_QMAX}); got {tuple(sd.shape)}, "
                          f"{tuple(y_res.shape)}, {tuple(Q0.shape)}")
     from mixmogam_tpu_torch.ops._build import build, check_launch
 
     q = Q0.shape[1]
-    qp = 1 << (q - 1).bit_length()           # 1, 2, 4, 8 or 16
+    # 1, 2, 4, 8, 16: the register path; 32, 64, 128: the wide path
+    qp = max(1 << (q - 1).bit_length(), 32 if q > 16 else 1)
     q0 = torch.zeros((n, qp), dtype=torch.float32, device=Xr.device)
     q0[:, :q] = Q0
     out = torch.empty((4, m), dtype=torch.float32, device=Xr.device)

@@ -53,6 +53,11 @@ class RotatedNull:
     planes: Optional[torch.Tensor] = None  # (K, n, n) int8, int8xK tiers
     w_scale: Optional[torch.Tensor] = None  # (n,) int8xK tiers
     parts: Optional[torch.Tensor] = None   # (K, n, n) bf16, bf16 tiers
+    #: the exact tier's design: X0 and X0p = X0 (X0^T X0)^-1, (n, q) each.
+    #: Its U is then (I - P_X0) U (project_design), and the scan masks the
+    #: rows that lie in X0's span in sample space (outside_design)
+    X0: Optional[torch.Tensor] = None
+    X0p: Optional[torch.Tensor] = None
     #: kernels K2 / K5's prepared form of planes / parts on the card
     #: (ops/hopper_scan.py scan_operand builds it at the first scan)
     operand: Optional[object] = dataclasses.field(default=None, repr=False,
@@ -270,9 +275,9 @@ def build_rotated_null(null: NullModel, rotate_dtype=None) -> RotatedNull:
 
     phi, U, delta = null.phi, null.U, null.delta
     sd = 1.0 / torch.sqrt(phi + delta)
-    Ur = planes = w_scale = parts = None
+    Ur = planes = w_scale = parts = X0 = X0p = None
     if rotate_dtype is None:
-        Ur = U
+        Ur, X0, X0p = project_design(U, null.X0)
     elif bf16_parts_count(rotate_dtype):
         parts, _ = quantize_rotation(U * sd[None, :], rotate_dtype)
     else:
@@ -287,7 +292,48 @@ def build_rotated_null(null: NullModel, rotate_dtype=None) -> RotatedNull:
     return RotatedNull(sd=sd, Q0=Q0, y_res=y_res, rss0=rss0,
                        dof=torch.tensor(n - q - 1, dtype=sd.dtype,
                                         device=sd.device),
-                       U=Ur, planes=planes, w_scale=w_scale, parts=parts)
+                       U=Ur, planes=planes, w_scale=w_scale, parts=parts,
+                       X0=X0, X0p=X0p)
+
+
+def project_design(U: torch.Tensor, X0: torch.Tensor, block: int = 4_096):
+    """((I - P_X0) U, X0, X0p) in U's dtype on U's device, with P_X0 =
+    X0 (X0^T X0)^-1 X0^T the projection onto the null design's columns in
+    sample space and X0p = X0 (X0^T X0)^-1; the product runs in float64, a
+    block of U's columns at a time.
+
+    A SNP row g and g - P_X0 g give the same F, beta and var_perc: the scan
+    projects col(X0) out after whitening. Rotating by the projected U keeps
+    that span out of the rotated rows. Where K is singular along a column
+    of X0 (VanRaden's K along the intercept) and delta is small, that span
+    would otherwise weigh 1/delta times the rest of the row, and a float32
+    scan would lose the residual sum xx = ss - |Q0^T x|^2 to cancellation
+    and mask the row."""
+    X = X0.to(device=U.device, dtype=torch.float64)
+    if X.ndim == 1:
+        X = X[:, None]
+    Xp = torch.linalg.solve(X.T @ X, X.T).T
+    Up = torch.empty_like(U)
+    for j in range(0, U.shape[1], block):
+        Ub = U[:, j:j + block].double()
+        Up[:, j:j + block] = Ub - X @ (Xp.T @ Ub)
+    return Up, X.to(U.dtype), Xp.to(U.dtype)
+
+
+def outside_design(G_tile: torch.Tensor, X0: torch.Tensor,
+                   X0p: torch.Tensor) -> torch.Tensor:
+    """(m,) bool: True where a dosage row g keeps a part outside col(X0)
+    in sample space, |g - P_X0 g|^2 > eps * |g|^2 in G_tile's dtype.
+
+    The exact tier rotates by the projected U, so a row inside col(X0) (a
+    monomorphic SNP under an intercept) reaches the scan as rounding noise,
+    which the scan's relative mask would pass; this mask catches it where
+    the unprojected scan did. A real SNP leaves at least about |g|^2 / n
+    outside: many orders of magnitude above eps."""
+    fi = torch.finfo(G_tile.dtype)
+    R = G_tile - (G_tile @ X0p) @ X0.T
+    gg = (G_tile * G_tile).sum(dim=1)
+    return (R * R).sum(dim=1) > fi.eps * torch.clamp(gg, min=fi.tiny)
 
 
 def scan_epilogue(Xs: torch.Tensor, Q0, y_res, rss0, dof
@@ -323,9 +369,9 @@ def emmax_scan_stats(G_tile: torch.Tensor, rot: RotatedNull
                      ) -> torch.Tensor:
     """(4, m) [f, beta, var_perc, mask] for one tile of float dosage rows
     (mean-imputed) at the exact tier: Xr = G_tile @ U (full fp32 GEMM on
-    the card, TF32 off), then scan_stats (kernel K3 on CUDA)."""
+    the card, TF32 off), then scan_stats (kernel K3 on CUDA); the rows
+    inside the null design's span come out masked (outside_design)."""
     from mixmogam_tpu_torch.ops import assert_fp32_matmuls
-    from mixmogam_tpu_torch.ops.hopper_scan import scan_stats
 
     if rot.U is None:
         raise ValueError("emmax_scan_stats runs the exact tier; int8 and "
@@ -333,7 +379,23 @@ def emmax_scan_stats(G_tile: torch.Tensor, rot: RotatedNull
                          "packed / rotate_scan_bf16_packed)")
     assert_fp32_matmuls()
     Xr = apply_rotation(G_tile, rot.U, None, rot.U.dtype)
-    return scan_stats(Xr, rot.sd, rot.y_res, rot.Q0, rot.rss0, rot.dof)
+    keep = (None if rot.X0p is None else
+            outside_design(G_tile.to(rot.X0p.dtype), rot.X0, rot.X0p))
+    return emmax_scan_prerotated(Xr, rot, keep)
+
+
+def emmax_scan_prerotated(Xr: torch.Tensor, rot: RotatedNull, keep=None
+                          ) -> torch.Tensor:
+    """(4, m) stats of pre-rotated rows Xr = G @ U (or the imputed dosages
+    themselves where K is the identity), all m rows in one launch of
+    scan_stats (kernel K3 on CUDA; no tile padding). keep: (m,) bool from
+    outside_design when U was projected; the other rows come out masked."""
+    from mixmogam_tpu_torch.ops.hopper_scan import scan_stats
+
+    out = scan_stats(Xr, rot.sd, rot.y_res, rot.Q0, rot.rss0, rot.dof)
+    # the rows inside X0's span: every output zeroed, the mask included
+    # (a where, not a product: such a row's f may be inf)
+    return out if keep is None else torch.where(keep[None, :], out, 0.0)
 
 
 def stats_dict(out: torch.Tensor) -> Dict[str, np.ndarray]:

@@ -240,8 +240,29 @@ def test_plink_input_with_missing_and_vanraden(files):
         assert np.abs(res["scan"]["ps"] - ref["scan"]["ps"]).max() <= 1e-4
 
 
+def test_emmax_stepwise_matches_jax(files):
+    """method='emmax_stepwise' from the same files, with the covariates:
+    the same cofactor path and selected models, no ranked CSV, the same
+    summary keys."""
+    ref, res = _both(files, "sw", method="emmax_stepwise", num_steps=2,
+                     covariate_pids=[2])
+    assert res["scan"]["ps"] is None and res["result"] is None
+    sw, jsw = res["scan"]["stepwise"], ref["scan"]["stepwise"]
+    assert [s["cofactors"] for s in sw["steps"]] == [
+        s["cofactors"] for s in jsw["steps"]]
+    assert sw["selected"] == jsw["selected"]
+    for a, b in zip(sw["steps"], jsw["steps"]):
+        for k in ("bic", "ebic", "mbic", "delta"):
+            assert abs(a[k] - b[k]) <= 1e-8 * max(1.0, abs(b[k])), k
+    assert sorted(res["files"]) == sorted(ref["files"]) == [
+        "metrics", "summary"]
+    with open(res["files"]["summary"]) as f, \
+            open(ref["files"]["summary"]) as g:
+        assert sorted(json.load(f)) == sorted(json.load(g))
+
+
 @pytest.mark.parametrize("method", ["emma", "lm", "anova", "kw",
-                                    "emmax_stepwise", "emmax_gxe"])
+                                    "emmax_gxe"])
 def test_unported_methods_raise_before_parsing(method):
     """No file is read: the paths do not exist."""
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):

@@ -79,6 +79,20 @@ def test_run_matches_the_jax_cli(sim, tmp_path):
     assert np.abs(pa - pb).max() <= 1e-9
 
 
+def test_stepwise_matches_the_jax_cli(sim, capsys, tmp_path):
+    """--method emmax_stepwise prints the selected cofactors as JSON, as
+    the JAX package's CLI does: the same selection."""
+    d, prefix = sim
+    args = ["run", prefix + ".genotypes.csv", prefix + ".phenotypes.csv",
+            "-o", str(tmp_path / "sw"), "--no-plots", "--method",
+            "emmax_stepwise", "--num-steps", "2"]
+    assert cli.main(args + ["--device", "cpu"]) == 0
+    ours = json.loads(capsys.readouterr().out)
+    assert jcli.main(args) == 0
+    assert ours == json.loads(capsys.readouterr().out)
+    assert set(ours["selected"]) == {"bic", "ebic", "mbic", "mbonf"}
+
+
 @pytest.mark.parametrize("method", ["ibs", "vanraden"])
 def test_kinship_command(sim, capsys, method):
     d, prefix = sim
@@ -124,7 +138,7 @@ def test_refused_options_exit_with_argparses_error(capsys, extra):
     ["run", "no_such.csv", "no_such_pheno.csv", "--method", "emma",
      "--device", "cpu"],
     ["run", "no_such.csv", "no_such_pheno.csv", "--method",
-     "emmax_stepwise", "--device", "cpu"]])
+     "emmax_gxe", "--device", "cpu"]])
 def test_unported_commands_raise_with_their_roadmap_item(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         cli.main(argv)

@@ -218,3 +218,56 @@ def test_device_default_leaves_cpu_results_unchanged():
     res = emmax(G, y, K=K, device="cpu")
     np.testing.assert_allclose(res["ps"], np.asarray(ref["ps"]), rtol=1e-8,
                                atol=1e-12)
+
+
+# ---- a singular kinship with delta at its bound (ROADMAP Queue 3) --------
+
+def _vanraden_fixture(tmp_path):
+    """The input of the card test test_card_run_gwas_vanraden_delta_at_its_
+    bound: n = 256, M = 3,000, binary, seed 3, no noise on the phenotype.
+    VanRaden's K is singular along the intercept and REML puts delta at
+    exp(-10)."""
+    from mixmogam_tpu_torch.data.genotype import GenotypeData
+    from mixmogam_tpu_torch.data.phenotype import PhenotypeData
+    from mixmogam_tpu_torch.data.simulate import (simulate_genotypes,
+                                                  simulate_phenotype)
+
+    G, ch, po = simulate_genotypes(256, 3_000, ploidy=1, seed=3)
+    acc = [f"s{i}" for i in range(256)]
+    y, _ = simulate_phenotype(G, h2=0.5, n_causal=4, seed=3)
+    g, p = str(tmp_path / "g.csv"), str(tmp_path / "p.csv")
+    GenotypeData(G, ch, po, acc, ploidy=1).write_csv(g)
+    PhenotypeData.from_arrays(1, "t", acc, y).write_to_file(p)
+    return g, p
+
+
+def test_float32_scan_under_a_singular_kinship(tmp_path):
+    """The CPU twin of the card test: run_gwas with the VanRaden kinship
+    in float32 against float64, identical masks and max |dp| <= 1e-4 (the
+    float32 exact scan masked one SNP and lost 1e-3 elsewhere before the
+    design was projected out of the rotation)."""
+    g, p = _vanraden_fixture(tmp_path)
+    kw = dict(kinship_method="vanraden", plots=False, device="cpu")
+    a = mt.run_gwas(g, p, dtype=torch.float32, **kw)["scan"]
+    b = mt.run_gwas(g, p, **kw)["scan"]
+    assert b["delta"] < 1e-4
+    np.testing.assert_array_equal(a["mask"], b["mask"])
+    assert np.abs(a["ps"] - b["ps"]).max() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("method", ["ibs", "vanraden"])
+def test_rows_inside_the_design_stay_masked(method, dtype):
+    """Monomorphic SNPs lie in the intercept's span: the projected rotation
+    turns them into rounding noise, and the exact tier still masks them as
+    the JAX package does (p = 1); every other row as in JAX x64."""
+    G, _, y = _data(5, n=96, m=300)
+    G[[4, 9, 17]] = np.array([1, 0, 1], dtype=np.int8)[:, None]
+    K = scale_k(j_kinship(G, method=method, dtype=np.float64))
+    ref = j_emmax(G, y, K=K)
+    res = emmax(G, y, K=K, device="cpu", dtype=dtype)
+    assert not res["mask"][[4, 9, 17]].any()
+    np.testing.assert_array_equal(res["mask"], np.asarray(ref["mask"]))
+    np.testing.assert_array_equal(res["ps"][[4, 9, 17]], 1.0)
+    limit = 1e-10 if dtype == torch.float64 else 1e-4
+    assert np.abs(res["ps"] - np.asarray(ref["ps"])).max() <= limit

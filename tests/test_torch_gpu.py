@@ -119,6 +119,90 @@ def test_k3_vs_plain(cuda, n, q):
     _close(scan_stats(*a), scan_stats_plain(*a))
 
 
+@pytest.mark.parametrize("q", [1, 11, 17, 64, 128])
+def test_k3_wide_q_vs_plain(cuda, q):
+    """K3 takes Q0 up to 128 columns (a grown stepwise design): within the
+    kernel tolerances of its plain version, identical masks, bit-equal from
+    launch to launch; 129 columns raise."""
+    n = 300
+    G, _, _ = simulate_genotypes(n, 1_000, seed=q)
+    rot = build_rotated_null(_null(n, q, cuda))
+    Xr = torch.as_tensor(G, device=cuda).float() @ rot.U
+    a = (Xr, rot.sd, rot.y_res, rot.Q0, rot.rss0, rot.dof)
+    before = scan_stats.launches
+    got = scan_stats(*a)
+    assert scan_stats.launches == before + 1
+    _close(got, scan_stats_plain(*a))
+    assert torch.equal(got, scan_stats(*a))
+    # one row, as stepwise re-tests a cofactor
+    _close(scan_stats(Xr[5:6].contiguous(), *a[1:]),
+           scan_stats_plain(Xr[5:6], *a[1:]))
+    if q == 128:
+        wide = torch.zeros((n, 129), device=cuda)
+        with pytest.raises(ValueError, match="q <= 128"):
+            scan_stats(Xr, rot.sd, rot.y_res, wide, rot.rss0, rot.dof)
+
+
+def test_card_stepwise_vs_cpu_float64(cuda):
+    """emmax_step_wise on the card (float32, no device=) against the float64
+    CPU path: the same cofactor path and selected models, step 0's scan
+    within max |dp| 1e-5 with identical masks; the stored route launches
+    K3 once a forward step plus once a cofactor re-test, and the
+    over-budget resident route agrees."""
+    from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
+    from mixmogam_tpu_torch.oracle.kinship import ibs_kinship, scale_k
+
+    G, _, _ = simulate_genotypes(400, 3_000, seed=8, missing_rate=0.01)
+    rng = np.random.default_rng(8)
+    Gf = np.where(G < 0, 1, G).astype(np.float64)
+    y = Gf[100] + 0.7 * Gf[2_000] + rng.normal(size=400)
+    K = scale_k(ibs_kinship(Gf))
+    rg = ResidentGenome.from_source(G, tile=1_024)
+    before = scan_stats.launches
+    a = emmax_step_wise(rg, y, K=K, max_steps=3, save_scans=True)
+    k3 = scan_stats.launches - before
+    b = emmax_step_wise(G, y, K=K, max_steps=3, save_scans=True,
+                        device="cpu")
+    assert a["timings_s"]["route"] == "stored"
+    retests = sum(len(s["cofactors"]) for s in a["steps"])
+    assert k3 == 3 + retests
+    assert [s["cofactors"] for s in a["steps"]] == [
+        s["cofactors"] for s in b["steps"]]
+    assert a["selected"] == b["selected"]
+    pa, pb = a["steps"][0]["scan_ps"], b["steps"][0]["scan_ps"]
+    assert np.array_equal(pa < 1.0, pb < 1.0)
+    assert np.abs(pa - pb).max() <= 1e-5
+    c = emmax_step_wise(rg, y, K=K, max_steps=3, rot_budget_bytes=1 << 20)
+    assert c["timings_s"]["route"] == "resident"
+    assert c["selected"] == a["selected"]
+
+
+def test_card_loco_vanraden_and_missing_vs_cpu_float64(cuda):
+    """LOCO with the VanRaden kinship over a genome with missing calls on
+    the card (float32 kinship matmuls) against the float64 CPU path; in
+    float64 on the card, K_loco equals the direct kinship over the other
+    chromosomes' rows to 1e-12."""
+    from mixmogam_tpu_torch.models.loco import loco_kinships
+    from mixmogam_tpu_torch.models.resident import kinship_resident
+    from mixmogam_tpu_torch.oracle.kinship import scale_k
+
+    G, _, _ = simulate_genotypes(250, 2_400, ploidy=2, seed=9,
+                                 missing_rate=0.02)
+    ch = np.repeat([1, 2, 3], [900, 700, 800])
+    y = np.where(G[11] < 0, 1, G[11]) + np.random.default_rng(9).normal(
+        size=250)
+    a = emmax_loco(G, y, chromosomes=ch, method="vanraden")
+    b = emmax_loco(G, y, chromosomes=ch, method="vanraden", device="cpu")
+    assert np.array_equal(a["mask"], b["mask"])
+    assert np.abs(a["ps"] - b["ps"]).max() <= 1e-4
+    rg = ResidentGenome.from_source(G)
+    ks = loco_kinships(rg, ch, method="vanraden", dtype=torch.float64)
+    rest = ResidentGenome.from_source(G[ch != 2])
+    direct = scale_k(kinship_resident(rest, method="vanraden",
+                                      dtype=torch.float64))
+    assert np.abs(ks[2] - direct).max() <= 1e-12
+
+
 @pytest.mark.parametrize("n,m", _GRAM_SHAPES)
 @pytest.mark.parametrize("ploidy", [1, 2])
 def test_k4_bit_equal(cuda, n, m, ploidy):
@@ -427,20 +511,18 @@ def test_card_run_gwas_vs_cpu_float64(cuda, tmp_path, kw):
     assert a["genotype"].accessions == b["genotype"].accessions
 
 
-@pytest.mark.xfail(strict=False, reason=(
-    "open fault (ROADMAP Queue 3): VanRaden's K has a zero eigenvalue along "
-    "the intercept; with delta at its lower bound that coordinate is "
-    "weighted by 1/delta and the float32 exact scan loses a SNP's residual "
-    "to cancellation, so a mask differs from the float64 path"))
 def test_card_run_gwas_vanraden_delta_at_its_bound(cuda, tmp_path):
-    """The input that showed the fault: n = 256, seed 3, no added noise.
-    The float32 kinship is not at fault (float32 and float64 K gave
-    max |dp| 2.9e-8 under one scan precision)."""
+    """The input that showed a float32 fault: n = 256, seed 3, no added
+    noise. VanRaden's K has a zero eigenvalue along the intercept and REML
+    puts delta at exp(-10); the exact tier rotates by (I - P_X0) U, so that
+    coordinate no longer dwarfs the rest of each row and the float32 scan
+    keeps every mask and p of the float64 path (before: one mask differed,
+    max |dp| 0.917, 1.363e-3 elsewhere)."""
     a, b = _facade_card_and_cpu(tmp_path, dict(kinship_method="vanraden"),
                                 noise=False)
+    assert a["scan"]["delta"] < 1e-4
     same = a["scan"]["mask"] == b["scan"]["mask"]
     dp = np.abs(a["scan"]["ps"] - b["scan"]["ps"])
-    # --runxfail shows these numbers
     assert same.all() and dp.max() <= 1e-4, (
         f"delta {a['scan']['delta']:.3e}: {int((~same).sum())} mask(s) differ "
         f"(rows {np.flatnonzero(~same).tolist()}, max|dp| {dp.max():.3e}); "

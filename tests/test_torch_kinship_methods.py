@@ -229,16 +229,22 @@ def test_refusals_and_defaults():
 
 
 def test_loco_still_refuses_these_kinships():
-    """LOCO with VanRaden or missing genotypes is not held to the JAX
-    package yet and stays refused."""
+    """LOCO takes VanRaden ('ibd' too) and missing genotypes now
+    (tests/test_torch_loco.py holds them to the JAX package); what it
+    still refuses: fractional dosages and an unknown kinship method."""
     from mixmogam_tpu_torch.models import loco
 
     G = _genome(m=300, missing=0.03)
     ch = np.repeat([1, 2, 3], 100)
     y = np.random.default_rng(0).normal(size=57)
+    ks = loco.loco_kinships(G, ch, device="cpu")
+    assert set(ks) == {1, 2, 3}
+    kv = loco.loco_kinships(np.abs(G), ch, method="ibd", device="cpu")
+    assert all(np.isfinite(k).all() for k in kv.values())
+    res = loco.emmax_loco(np.abs(G), y, ch, method="ibd", device="cpu")
+    assert np.isfinite(res["ps"]).all()
+    frac = np.where(G < 0, 0.5, G).astype(float)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loco.loco_kinships(G, ch, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loco.loco_kinships(np.abs(G), ch, method="vanraden", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loco.emmax_loco(np.abs(G), y, ch, method="ibd", device="cpu")
+        loco.loco_kinships(frac, ch, device="cpu")
+    with pytest.raises(ValueError, match="unknown kinship method"):
+        loco.emmax_loco(np.abs(G), y, ch, method="nope", device="cpu")

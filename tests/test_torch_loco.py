@@ -4,6 +4,7 @@ loco_kinships and emmax_loco against the JAX package (CPU, x64), the
 pipelined eighs, the eigen cache and the numpy helpers copied from
 mixmogam_tpu/models/loco.py."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -291,7 +292,7 @@ def test_rescore_cut_counts_the_whole_genome():
 
 @pytest.mark.parametrize("kw,exc", [
     (dict(mesh=object()), NotImplementedError),
-    (dict(method="vanraden"), NotImplementedError),
+    (dict(precision="high"), NotImplementedError),
     (dict(chromosomes=np.ones(300, int)), ValueError),
     (dict(chromosomes=np.r_[np.ones(150, int), np.full(100, 2),
                             np.ones(50, int)]), ValueError),
@@ -304,9 +305,64 @@ def test_refusals(kw, exc):
 
 
 def test_missing_genotypes_raise_until_ported():
+    """Missing calls are ported (the tests below hold them to JAX);
+    fractional dosages still wait for the float kinship accumulation."""
     G, ch, y = _data(16, missing=0.03)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loco.emmax_loco(G, y, chromosomes=ch, device="cpu")
+    res = loco.emmax_loco(G, y, chromosomes=ch, device="cpu")
+    assert np.isfinite(res["ps"]).all() and res["ps"].shape == (300,)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         loco.emmax_loco(np.where(G < 0, 0.5, G).astype(float), y,
                         chromosomes=ch, device="cpu")
+
+
+_FLOAT_KINSHIPS = [("vanraden", 2, 0.0), ("vanraden", 1, 0.0),
+                   ("ibs", 2, 0.02), ("ibs", 1, 0.02), ("vanraden", 2, 0.02)]
+
+
+@pytest.mark.parametrize("method,ploidy,missing", _FLOAT_KINSHIPS)
+def test_loco_float_kinships_match_jax_and_direct(method, ploidy, missing):
+    """VanRaden and IBS with 2 % missing calls: K_loco against the JAX
+    package's loco_kinships and against the direct kinship over the other
+    chromosomes' rows (VanRaden's denominator recomputed over them), both
+    to 1e-12."""
+    G, ch, _ = _data(30 + ploidy, ploidy=ploidy, missing=missing)
+    _, rg = _pair(G)
+    # the JAX package's float kinships default to float32: ask for float64
+    ref = jloco.loco_kinships(G, ch, method=method, ploidy=ploidy,
+                              dtype=jnp.float64)
+    ours = loco.loco_kinships(rg, ch, method=method, ploidy=ploidy)
+    assert set(ours) == set(ref)
+    for c, s, e in loco._chrom_ranges(ch):
+        assert np.abs(ours[c] - ref[c]).max() <= 1e-12
+        rest = ResidentGenome.from_source(G[ch != c], tile=32,
+                                          ploidy=ploidy, device="cpu")
+        direct = scale_k(kinship_resident(rest, method=method))
+        assert np.abs(ours[c] - direct).max() <= 1e-12
+    # a caller's whole-genome K: the denominator is recomputed from rg
+    K_tot = kinship_resident(rg, method=method, ploidy=ploidy)
+    again = loco.loco_kinships(rg, ch, method=method, ploidy=ploidy,
+                               K_total=K_tot)
+    for c in ref:
+        assert np.abs(again[c] - ours[c]).max() <= 1e-12
+
+
+@pytest.mark.parametrize("method,ploidy,missing", _FLOAT_KINSHIPS[::2])
+def test_emmax_loco_float_kinships_match_jax(method, ploidy, missing):
+    """emmax_loco with VanRaden or missing calls against the JAX package's
+    (x64): p to 1e-10, identical masks, the per-chromosome nulls."""
+    G, ch, y = _data(40 + ploidy, ploidy=ploidy, missing=missing)
+    _, rg = _pair(G)
+    ks = jloco.loco_kinships(G, ch, method=method, ploidy=ploidy,
+                             dtype=jnp.float64)
+    ref = jloco.emmax_loco(G, y, chromosomes=ch, method=method,
+                           ploidy=ploidy, kinships=ks)
+    res = loco.emmax_loco(rg, y, chromosomes=ch, method=method)
+    np.testing.assert_allclose(res["ps"], ref["ps"], rtol=0, atol=1e-10)
+    np.testing.assert_array_equal(res["mask"], ref["mask"])
+    for c in ref["loco"]:
+        for k in ("delta", "pseudo_heritability", "ll_null"):
+            assert abs(res["loco"][c][k] - ref["loco"][c][k]) <= 1e-8
+    # an int8 array source: the same call, packed on the CPU
+    direct = loco.emmax_loco(G, y, chromosomes=ch, method=method,
+                             device="cpu")
+    np.testing.assert_allclose(direct["ps"], res["ps"], atol=1e-12)

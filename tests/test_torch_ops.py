@@ -13,7 +13,7 @@ from mixmogam_tpu.ops import reml as jreml
 from mixmogam_tpu.ops import scan as jscan
 from mixmogam_tpu.ops.pack2 import unpack_2bit_device as j_unpack
 from mixmogam_tpu.oracle.kinship import ibs_kinship, scale_k
-from mixmogam_tpu_torch.ops import eigen, reml, scan
+from mixmogam_tpu_torch.ops import eigen, reml, scan, xreml
 from mixmogam_tpu_torch.ops.pack2 import unpack_2bit_device
 
 torch.set_num_threads(1)
@@ -118,18 +118,25 @@ def test_esp_to_refine_iters_copy(esp, ngrids):
 
 @pytest.mark.parametrize("q,ml", [(1, False), (3, False), (1, True)])
 def test_explicit_reml_copy(q, ml):
+    """fit_null_model's optimizer, ops/xreml.py's explicit_reml (float64,
+    torch), against the JAX package's host optimizer, whose numpy copy it
+    replaced in the port: the fit to 1e-10, LL and dLL/dlog delta to
+    1e-10 relative."""
     G, K, y, X0 = _problem(q=q)
     w, v = np.linalg.eigh(K)
     phi, U = w[::-1], v[:, ::-1]
     args = (phi, U.T @ y, U.T @ X0)
-    assert (reml._explicit_reml_host(*args, ml=ml)
-            == jreml._explicit_reml_host(*args, ml=ml))
-    ours = reml._explicit_ll_host(*args, ml=ml)
-    ref = jreml._explicit_ll_host(*args, ml=ml)
-    assert ours[3] == ref[3]
+    targs = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in args)
+    ref = jreml._explicit_reml_host(*args, ml=ml)
+    ours = xreml.explicit_reml(*targs, reml=not ml)
+    for k, v in ref.items():
+        assert abs(float(ours[k]) - v) <= 1e-10 * max(1.0, abs(v)), k
+    ll_at, dll_at = jreml._explicit_ll_host(*args, ml=ml)[:2]
     for ld in (-3.0, 0.0, 2.5):
-        assert ours[0](ld) == ref[0](ld)
-        assert ours[1](ld) == ref[1](ld)
+        got = float(xreml.ll_explicit(ld, *targs, reml=not ml))
+        assert abs(got - ll_at(ld)) <= 1e-10 * abs(ll_at(ld))
+        got = float(xreml.dll_explicit(ld, *targs, reml=not ml))
+        assert abs(got - dll_at(ld)) <= 1e-10 * max(1.0, abs(dll_at(ld)))
 
 
 def test_numpy_helper_copies():
@@ -181,8 +188,14 @@ def test_build_rotated_null_matches_jax(q):
                                           np.asarray(nj.U)), device="cpu")
     rj = jscan.build_rotated_null(nj)
     rt = scan.build_rotated_null(nt)
+    # the exact tier rotates by (I - P_X0) U: the null design projected
+    # out in sample space (scan.project_design)
+    X = np.asarray(X0, dtype=np.float64).reshape(len(y), -1)
+    W = np.asarray(rj.W)
     np.testing.assert_allclose((rt.U * rt.sd[None, :]).numpy(),
-                               np.asarray(rj.W), atol=1e-10)
+                               W - X @ np.linalg.solve(X.T @ X, X.T @ W),
+                               atol=1e-10)
+    np.testing.assert_allclose(rt.X0.numpy(), X, atol=0)
     for f in ("sd", "Q0", "y_res", "rss0", "dof"):
         np.testing.assert_allclose(getattr(rt, f).numpy(),
                                    np.asarray(getattr(rj, f)), rtol=1e-10,

@@ -157,3 +157,44 @@ def test_scan_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="device"):
         rotate_scan_int8_packed(packed, 8, torch.zeros(
             (3, 8, 8), dtype=torch.int8), v, v, v[:, None], 1.0, 6.0)
+
+
+@pytest.mark.parametrize("q", [11, 17, 64, 128])
+def test_plain_scan_stats_wide_q_vs_pallas_interpret(q):
+    """K3 takes Q0 up to the TPU kernel's QPAD (128): its plain version at
+    the widths of a grown stepwise design against pallas_scan_stats in
+    interpret mode (float32, the kernel tolerances, identical masks)."""
+    rng = np.random.default_rng(q)
+    n, m = 150, 40
+    G_rot = rng.normal(size=(m, n)).astype(np.float32)
+    Q0, _ = np.linalg.qr(rng.normal(size=(n, q)))
+    G_rot[7] = (Q0[:, :2] @ np.array([1.5, -2.0])).astype(np.float32)
+    sd = rng.uniform(0.5, 1.5, n)
+    G_rot[7] /= sd                             # inside span(Q0) once whitened
+    y_res = rng.normal(size=n)
+    y_res -= Q0 @ (Q0.T @ y_res)
+    rss0 = float(y_res @ y_res)
+    rot_j = jscan.RotatedNull(W=None, sd=jnp.asarray(sd, jnp.float32),
+                              Q0=jnp.asarray(Q0, jnp.float32),
+                              y_res=jnp.asarray(y_res, jnp.float32),
+                              rss0=jnp.asarray(rss0, jnp.float32),
+                              dof=jnp.asarray(n - q - 1.0, jnp.float32))
+    pal = pallas_scan_stats(G_rot, rot_j, tm=64, tn=128, interpret=True)
+    t = (lambda a: torch.from_numpy(np.asarray(a, dtype=np.float32)))
+    ours = scan_stats(t(G_rot), t(sd), t(y_res), t(Q0), rss0, n - q - 1.0)
+    _assert_f32_parity(ours, pal)
+    assert not ours[3, 7]
+
+
+def test_k2_k5_keep_q_at_most_16():
+    """K2 and K5 take Q0 with q <= 16 (their wgmma epilogue holds a row's
+    q sums in registers; ROADMAP Queue 3): this refusal message stands
+    until they are widened; K3's wrapper takes 128 and refuses 129."""
+    from mixmogam_tpu_torch.ops import hopper_scan
+
+    hopper_scan._check_q0("rotate_scan_int8_packed", torch.zeros(8, 16), 8)
+    with pytest.raises(ValueError, match=r"rotate_scan_bf16_packed: Q0 must "
+                                         r"be \(n, q <= 16\); got \(8, 17\)"):
+        hopper_scan._check_q0("rotate_scan_bf16_packed", torch.zeros(8, 17),
+                              8)
+    assert hopper_scan._K3_QMAX == 128
