@@ -12,12 +12,16 @@ Phases (each prints its own seconds):
     main path's shapes (n samples, one 16,384-row tile): K1 and K4 (over
     a row range that starts mid-tile) bit-equal for ploidy 1 and 2, and
     again at n = 2,042 (a row pitch of 511 bytes: the kernels' byte loads)
-    over 3,001 rows; K2 (int8x2, int8x3), K3 and K5 (bf16, bf16x2, bf16x3,
-    and bf16x3 on a genome with 2 % missing genotypes) within f rtol 1e-4 /
+    over 3,001 rows; K2 (int8x2, int8x3) and K5 (bf16, bf16x2, bf16x3,
+    and bf16x3 on a genome with 2 % missing genotypes) on the main path's
+    operands (the folded W'' and no Q0 columns) within f rtol 1e-4 /
     atol 1e-4, beta atol 1e-5, identical masks, and bit-equal between a
     launch on the operand prepared once per rotated null and one that
-    prepares it on the spot. K2 and K5 run, as on the main path, one launch
-    over all rows in 256-row blocks: they are held and timed on the least
+    prepares it on the spot; K3 at q = 1, 2, 4, 8, 11, 16, 20, 32, 64 and
+    128 Q0 columns on the rotated rows of a real tile, each within those
+    tolerances, bit-equal on repeat and timed beside its bound, then at
+    m = 1 and at n = 2,042 (an 8,168-byte row pitch). K2 and K5 run, as
+    on the main path, one launch over all rows in 256-row blocks: they are held and timed on the least
     launch that fills the card (one block an SM: 33,792 rows on an H100),
     and their time is also given per 16,384 rows. Each kernel's time stands
     beside its bound
@@ -31,8 +35,10 @@ Phases (each prints its own seconds):
     -> kinship_resident (K1) -> scale_k -> eigh on the card (float64)
     -> fit_null_model -> emmax_resident at 'exact' (K3), 'int8x3' (K2)
     and 'bf16x3' (K5); every kernel's launch count must be > 0, and each
-    fast tier within max |dp| 1e-4 of exact. K3 is also held and timed at
-    q = 11 and q = 128 Q0 columns (a grown stepwise design)
+    fast tier within max |dp| 1e-4 of exact; each scan's rate beside PR 7's,
+    and the fast tiers' mask of the rows inside col(X0) timed alone. Then
+    a design of an intercept and 19 covariates and one of 128 columns at
+    the three tiers: each fast tier with exact's masks, max |dp| <= 1e-4
   5 end-to-end accuracy: exact-tier emmax on the card vs the port's
     float64 CPU path at n = 2,048 x 8,192 (max |dp| <= 1e-5, same masks)
   6 LOCO at full width, on phase 4's genome cut to --facade-snps rows in 5
@@ -60,8 +66,8 @@ Phases (each prints its own seconds):
     the card equals the direct kinship over the other rows (max |d| <=
     1e-12). Then VanRaden's K with delta at its lower bound (n = 256 x 3,000, seed
     3, no noise; a zero eigenvalue along the intercept): run_gwas on the
-    card at 'exact' against the float64 CPU path, identical masks and
-    max |dp| <= 1e-4, with int8x3 and bf16x3 printed beside it. Then, from
+    card at 'exact', 'int8x3' and 'bf16x3', each against the float64 CPU
+    path with identical masks and max |dp| <= 1e-4. Then, from
     phase 6's PLINK fileset: run_gwas method='emmax_stepwise' with its
     timings_s (K3 must launch), and emmax_loco with the VanRaden kinship on
     the card (float32 kinship matmuls, no K1 or K4: the float route; K3)
@@ -279,6 +285,7 @@ def main(argv=None) -> int:
     from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
     from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                     emmax_resident,
+                                                    design_mask_packed,
                                                     emmax_scan_packed,
                                                     kinship_resident,
                                                     row_means_packed,
@@ -433,8 +440,9 @@ def main(argv=None) -> int:
     # the time is the kernel's alone
     for tier in ("int8x2", "int8x3"):
         rot8 = build_rotated_null(null, rotate_dtype=tier)
-        a8 = (packed_s, n, rot8.planes, rot8.w_scale, rot8.y_res, rot8.Q0,
-              rot8.rss0, rot8.dof)
+        # the main path's operands: the folded W'' and no Q0 columns
+        a8 = (packed_s, n, rot8.planes, rot8.w_scale, rot8.y_res,
+              rot8.scan_q0, rot8.rss0, rot8.dof)
         ts = time.perf_counter()
         op8 = scan_operand(rot8)
         torch.cuda.synchronize()
@@ -476,7 +484,7 @@ def main(argv=None) -> int:
     errs = []
     for tier in ("bf16", "bf16x2", "bf16x3", "bf16x3 missing"):
         rotb = build_rotated_null(null, tier.split()[0])
-        a5 = (packed_s, n, rotb.parts, rotb.y_res, rotb.Q0, rotb.rss0,
+        a5 = (packed_s, n, rotb.parts, rotb.y_res, rotb.scan_q0, rotb.rss0,
               rotb.dof, None)
         if tier.endswith("missing"):
             a5 = (rgm.packed[:srows],) + a5[1:-1] + (mu,)
@@ -516,27 +524,15 @@ def main(argv=None) -> int:
     report["rotate_scan_bf16_packed"]["max_abs_err"] = max(errs)
     del G8, Gb, got, ref
     del a5, rotb, rgm, Gm, mu, Gs, packed_s
+    # K3 at every width class of its one kernel: the exact tier's q = 1
+    # (the report's row), a covariate design's q = 11 or 20, stepwise's
+    # growing designs, the TPU kernel's QPAD of 128; on the rotated rows of
+    # a real tile
     rot = build_rotated_null(null)
     Xr = torch.as_tensor(G1, device=dev).float() @ rot.U
-    a3 = (Xr, rot.sd, rot.y_res, rot.Q0, rot.rss0, rot.dof)
-    err = _check_stats("K3 scan_stats", scan_stats(*a3),
-                       scan_stats_plain(*a3))
-    ms = _cuda_ms(lambda: scan_stats(*a3))
-    pms = _cuda_ms(lambda: scan_stats_plain(*a3))
-    # a row's dot products with y_res and the q columns of Q0, and its
-    # sum of squares: 2 n (2 + q) float32 operations
-    bnd = _bound(2.0 * rows * n * (2 + rot.Q0.shape[1]), "fp32",
-                 *(t for t in a3 if isinstance(t, torch.Tensor)),
-                 torch.empty((4, rows)))
-    report["scan_stats"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                                library_ms=None, **bnd)
-    print(f"K3 scan_stats n={n} rows={rows}: max|df| {err:.3e}, kernel "
-          f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bnd['bound_ms']:.3f} ms "
-          f"by {bnd['bound_by']}", flush=True)
-    # K3 at the widths of a grown stepwise design: q = 11 on the register
-    # path, q = 128 (the most it takes) on the wide one
-    for q in (11, 128):
-        Qq, _ = torch.linalg.qr(torch.randn(n, q, generator=g, device=dev))
+    for q in (1, 2, 4, 8, 11, 16, 20, 32, 64, 128):
+        Qq = (rot.Q0 if q == 1 else
+              torch.linalg.qr(torch.randn(n, q, generator=g, device=dev))[0])
         yq = rot.y_res - Qq @ (Qq.T @ rot.y_res)
         aq = (Xr, rot.sd, yq, Qq, float(yq @ yq), float(n - q - 1))
         got = scan_stats(*aq)
@@ -545,11 +541,36 @@ def main(argv=None) -> int:
         errq = _check_stats(f"K3 scan_stats q={q}", got,
                             scan_stats_plain(*aq))
         msq = _cuda_ms(lambda: scan_stats(*aq))
+        # a row's dot products with y_res and the q columns of Q0, and its
+        # sum of squares: 2 n (2 + q) float32 operations
         bq = _bound(2.0 * rows * n * (2 + q), "fp32", Xr, rot.sd, yq, Qq,
                     torch.empty((4, rows)))
+        # PR 7's two paths at these widths (PERF.md section 6)
+        pr7 = {1: 0.292, 2: 0.289, 4: 0.331, 8: 0.476, 11: 1.539,
+               16: 1.524, 64: 2.717, 128: 2.443}.get(q)
         print(f"K3 scan_stats q={q} n={n} rows={rows}: max|df| {errq:.3e}, "
-              f"kernel {msq:.3f} ms, bound {bq['bound_ms']:.3f} ms by "
-              f"{bq['bound_by']}", flush=True)
+              f"bit-equal on repeat, kernel {msq:.3f} ms"
+              f"{f' (PR 7: {pr7})' if pr7 else ''}, bound "
+              f"{bq['bound_ms']:.3f} ms by {bq['bound_by']}", flush=True)
+        if q == 1:
+            pms = _cuda_ms(lambda: scan_stats_plain(*aq))
+            report["scan_stats"] = dict(max_abs_err=errq, ms=msq,
+                                        plain_ms=pms, library_ms=None, **bq)
+            print(f"   plain {pms:.3f} ms", flush=True)
+    a3 = (rot.sd, rot.y_res, rot.Q0, rot.rss0, rot.dof)
+    # one row (stepwise's re-tests) and a pitch of 8,168 bytes (n = 2,042)
+    _check_stats("K3 m=1", scan_stats(Xr[7:8], *a3),
+                 scan_stats_plain(Xr[7:8], *a3))
+    Xo = torch.randn(3_001, 2_042, generator=g, device=dev)
+    Qo = torch.linalg.qr(torch.randn(2_042, 20, generator=g,
+                                     device=dev))[0]
+    so = torch.rand(2_042, generator=g, device=dev) + 0.5
+    yo = torch.randn(2_042, generator=g, device=dev)
+    yo = yo - Qo @ (Qo.T @ yo)
+    ao = (so, yo, Qo, float(yo @ yo), 2_021.0)
+    _check_stats("K3 n=2042", scan_stats(Xo, *ao), scan_stats_plain(Xo, *ao))
+    print("K3 m=1 and n=2,042 (an 8,168-byte pitch), q=20: within the kernel "
+          "tolerances", flush=True)
     try:
         scan_stats(Xr, rot.sd, rot.y_res, torch.zeros((n, 129), device=dev),
                    rot.rss0, rot.dof)
@@ -557,7 +578,7 @@ def main(argv=None) -> int:
         pass
     else:
         raise AssertionError("K3 took 129 columns of Q0")
-    del Xr, a3, rot, null, U, rg1, rgc, G1, Gc, S, S_ref, got
+    del Xr, Xo, a3, aq, rot, null, U, rg1, rgc, G1, Gc, S, S_ref, got
     torch.cuda.empty_cache()
     _phase("3 kernels vs plain", t0)
 
@@ -596,6 +617,7 @@ def main(argv=None) -> int:
     print(f"fit_null_model: {fits[0]:.3f} s, again {fits[1]:.3f} s "
           f"(h2 {float(null.pseudo_heritability):.4f})", flush=True)
     res = {}
+    pr7_rate = {"exact": 237_211, "int8x3": 2_394_025, "bf16x3": 1_172_266}
     for tier in ("exact", "int8x3", "bf16x3"):
         rot = build_rotated_null(null, None if tier == "exact" else tier)
         torch.cuda.synchronize()
@@ -607,8 +629,21 @@ def main(argv=None) -> int:
         res[tier] = emmax_resident(rg, y, eig_k=(phi, U), precision=tier)
         dt_all = time.perf_counter() - ts
         print(f"scan {tier}: {dt_scan:.3f} s = {M / dt_scan:,.0f} "
-              f"SNP-tests/s; emmax_resident {tier} (null fit + scan + "
-              f"p-values): {dt_all:.3f} s", flush=True)
+              f"SNP-tests/s (PR 7: {pr7_rate[tier]:,}); emmax_resident "
+              f"{tier} (null fit + scan + p-values): {dt_all:.3f} s",
+              flush=True)
+        if tier == "int8x3":
+            # the fast tiers' mask of the rows inside col(X0), alone: one
+            # pass over the packed genome (unpack, f32, outside_design)
+            design_mask_packed(rg.packed, rot, n, rg.tile)
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            design_mask_packed(rg.packed, rot, n, rg.tile)
+            torch.cuda.synchronize()
+            dt_mask = time.perf_counter() - ts
+            print(f"   the mask pass alone (inside the int8x3 scan above): "
+                  f"{dt_mask:.3f} s, {dt_mask / dt_scan:.2f} of that scan",
+                  flush=True)
         del rot
     launches = {k.__name__: k.launches for k in kernels}
     for name, cnt in launches.items():
@@ -640,6 +675,30 @@ def main(argv=None) -> int:
           f"20: {hits} of {len(causal)}", flush=True)
     if max(dps.values()) > 1e-4 or hits < 3:
         raise AssertionError("main path results off")
+    # designs of an intercept + 19 covariates and of 128 columns at each
+    # tier (the fast tiers took at most 15 covariates before: K2 / K5 now
+    # see no Q0 columns); each fast tier held to exact
+    rng = np.random.default_rng(args.seed + 60)
+    for q in (20, 128):
+        X0q = np.column_stack([np.ones(n), rng.normal(size=(n, q - 1))])
+        wide = {}
+        for tier in ("exact", "int8x3", "bf16x3"):
+            ts = time.perf_counter()
+            wide[tier] = emmax_resident(rg, y, X0=X0q, eig_k=(phi, U),
+                                        precision=tier)
+            dt_all = time.perf_counter() - ts
+            print(f"emmax_resident {tier}, {q} design columns: "
+                  f"{dt_all:.3f} s (null fit + scan + p-values)", flush=True)
+        for tier in ("int8x3", "bf16x3"):
+            r, e = wide[tier], wide["exact"]
+            nm = int((r["mask"] != e["mask"]).sum())
+            dpq = float(np.abs(r["ps"] - e["ps"]).max())
+            print(f"   {tier} vs exact, {q} design columns: {nm} mask(s) "
+                  f"differ, max|dp| {dpq:.3e}", flush=True)
+            if nm or dpq > 1e-4 or r["dof"] != n - q - 1:
+                raise AssertionError(f"{tier} with {q} design columns "
+                                     "disagrees with exact")
+        del wide
     # G and y stay for phase 6's files; the resident genome and eigh(K)
     # for phase 8
     main = dict(rg=rg, eig=(phi, U), y=y)
@@ -917,8 +976,9 @@ def main(argv=None) -> int:
         print(f"missing-call and VanRaden runs: "
               f"{time.perf_counter() - ts:.3f} s", flush=True)
 
-        # VanRaden's K with delta at its lower bound: the float32 exact scan
-        # against the float64 CPU path (ROADMAP Queue 3's repaired fault)
+        # VanRaden's K with delta at its lower bound: the float32 scan at each
+        # tier against the float64 CPU path (ROADMAP Queue 3's repaired
+        # faults: exact since PR 7, int8x3 and bf16x3 by the folded W'')
         ts = time.perf_counter()
         Gv, chv, pov = simulate_genotypes(256, 3_000, ploidy=1, seed=3)
         accv = [f"s{i}" for i in range(256)]
@@ -936,8 +996,8 @@ def main(argv=None) -> int:
                   f"{tier} on the card vs float64 CPU: {int(diff.sum())} "
                   f"mask(s) differ, max|dp| {dpv.max():.3e}, where the "
                   f"masks agree {dpv[~diff].max():.3e}", flush=True)
-            if tier == "exact" and (diff.any() or dpv.max() > 1e-4):
-                raise AssertionError("the float32 exact scan under a "
+            if diff.any() or dpv.max() > 1e-4:
+                raise AssertionError(f"the float32 {tier} scan under a "
                                      "singular K disagrees with float64")
         print(f"singular-K runs: {time.perf_counter() - ts:.3f} s",
               flush=True)

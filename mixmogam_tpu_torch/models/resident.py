@@ -13,7 +13,9 @@ scan then run on the device with no host traffic:
   upper-triangle tiles only;
 - emmax_scan_packed: the int8 tiers through kernel K2 and the bf16 tiers
   through kernel K5 (ops/hopper_scan.py), which read the packed rows
-  directly (K5 replaces missing genotypes by per-row means); the exact
+  directly (K5 replaces missing genotypes by per-row means), with the
+  design folded into their W (ops/scan.py fold_design) and the rows
+  inside col(X0) masked by one more pass over the packed rows; the exact
   tier unpacks each tile, mean-imputes missing genotypes, rotates by a
   full-fp32 GEMM and finishes in kernel K3.
 """
@@ -195,13 +197,36 @@ def row_means_packed(packed: torch.Tensor, n: int, tile: int, dtype
     return torch.cat(means)
 
 
+def design_mask_packed(packed: torch.Tensor, rot, n: int, tile: int,
+                       impute: bool = False) -> torch.Tensor:
+    """(M_pad,) bool on packed's device: ops/scan.py outside_design of
+    every packed row (mean-imputed first where imputing, as _impute_tile),
+    in rot's dtype, one tile at a time: the rows whose part outside
+    col(X0) is more than rounding. The int8 / bf16 tiers' W'' sends a row
+    inside col(X0) (a monomorphic SNP, a cofactor's own row) to rounding
+    noise, which their relative mask would pass. Zero pad rows come out
+    False."""
+    from mixmogam_tpu_torch.models.streaming import _impute_tile
+    from mixmogam_tpu_torch.ops.scan import outside_design
+
+    dt = rot.X0p.dtype
+    keep = []
+    for s in range(0, packed.shape[0], tile):
+        Gt = unpack_2bit_device(packed[s:s + tile], n)
+        Gt = _impute_tile(Gt, dt) if impute else Gt.to(dt)
+        keep.append(outside_design(Gt, rot.X0, rot.X0p))
+    return torch.cat(keep)
+
+
 def emmax_scan_packed(packed: torch.Tensor, rot, n: int, tile: int,
                       impute: bool = False) -> torch.Tensor:
     """(4, M_pad) EMMAX stats [f, beta, var_perc, mask] over a packed
     genome on its device. int8 tiers: one K2 launch over every row. bf16
     tiers: one K5 launch over every row (with per-row means when
-    imputing). Exact tier: per tile, unpack (+ mean-impute) -> fp32 GEMM by
-    U -> K3."""
+    imputing). Both take rot.scan_q0 (no columns for the folded W'' of
+    build_rotated_null) and then the mask of the rows inside col(X0)
+    (design_mask_packed, one pass over the packed rows a call). Exact
+    tier: per tile, unpack (+ mean-impute) -> fp32 GEMM by U -> K3."""
     from mixmogam_tpu_torch.models.streaming import _impute_tile
     from mixmogam_tpu_torch.ops.hopper_scan import (rotate_scan_bf16_packed,
                                                     rotate_scan_int8_packed,
@@ -209,26 +234,32 @@ def emmax_scan_packed(packed: torch.Tensor, rot, n: int, tile: int,
     from mixmogam_tpu_torch.ops.scan import emmax_scan_stats
 
     dt = rot.sd.dtype
+    if rot.parts is None and rot.planes is None:
+        outs = []
+        for s in range(0, packed.shape[0], tile):
+            Gt = unpack_2bit_device(packed[s:s + tile], n)
+            Gt = _impute_tile(Gt, dt) if impute else Gt.to(dt)
+            outs.append(emmax_scan_stats(Gt, rot))
+        return torch.cat(outs, dim=1)
     # the kernels' prepared W, built once per rotated null and kept with it
     op = scan_operand(rot) if packed.device.type == "cuda" else None
     if rot.parts is not None:
         mu = row_means_packed(packed, n, tile, dt) if impute else None
-        return rotate_scan_bf16_packed(packed, n, rot.parts, rot.y_res,
-                                       rot.Q0, rot.rss0, rot.dof, mu,
-                                       operand=op)
-    if rot.planes is not None:
+        out = rotate_scan_bf16_packed(packed, n, rot.parts, rot.y_res,
+                                      rot.scan_q0, rot.rss0, rot.dof, mu,
+                                      operand=op)
+    else:
         if impute:
             raise ValueError("int8 digit-plane tiers need fully observed "
                              "dosages")
-        return rotate_scan_int8_packed(packed, n, rot.planes, rot.w_scale,
-                                       rot.y_res, rot.Q0, rot.rss0, rot.dof,
-                                       operand=op)
-    outs = []
-    for s in range(0, packed.shape[0], tile):
-        Gt = unpack_2bit_device(packed[s:s + tile], n)
-        Gt = _impute_tile(Gt, dt) if impute else Gt.to(dt)
-        outs.append(emmax_scan_stats(Gt, rot))
-    return torch.cat(outs, dim=1)
+        out = rotate_scan_int8_packed(packed, n, rot.planes, rot.w_scale,
+                                      rot.y_res, rot.scan_q0, rot.rss0,
+                                      rot.dof, operand=op)
+    if not rot.folded:
+        return out
+    keep = design_mask_packed(packed, rot, n, tile, impute)
+    # every output zeroed off the mask, the mask included
+    return torch.where(keep[None, :], out, 0.0)
 
 
 def _default_dtype(device) -> torch.dtype:

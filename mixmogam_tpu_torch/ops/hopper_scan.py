@@ -32,8 +32,9 @@ from mixmogam_tpu_torch.ops.pack2 import unpack_2bit_device
 from mixmogam_tpu_torch.ops.scan import apply_rotation, scan_epilogue
 
 #: Q0 columns K2 and K5 take (their shared wgmma epilogue keeps each
-#: row's q sums in registers under its setmaxnreg split); K3 takes up to
-#: the TPU kernel's QPAD, 128
+#: row's q sums in shared slots of this width; the entry points pass none:
+#: the design is folded into their W); K3 takes up to the TPU kernel's
+#: QPAD, 128
 _QMAX = 16
 _K3_QMAX = 128
 
@@ -169,14 +170,15 @@ def scan_operand(rot) -> Optional[ScanOperand]:
     if rot.planes is None and rot.parts is None:
         return None
     W = rot.planes if rot.planes is not None else rot.parts
-    key = _source_key(W, rot.y_res, rot.Q0,
+    q0 = rot.scan_q0
+    key = _source_key(W, rot.y_res, q0,
                       rot.w_scale if rot.planes is not None else None)
     if rot.operand is None or rot.operand.source != key:
         if rot.planes is not None:
             rot.operand = prepare_int8_operand(rot.planes, rot.w_scale,
-                                               rot.y_res, rot.Q0)
+                                               rot.y_res, q0)
         else:
-            rot.operand = prepare_bf16_operand(rot.parts, rot.y_res, rot.Q0)
+            rot.operand = prepare_bf16_operand(rot.parts, rot.y_res, q0)
         scan_operand.builds += 1
     return rot.operand
 
@@ -186,7 +188,10 @@ scan_operand.builds = 0
 
 def _check_q0(what: str, Q0: torch.Tensor, n: int) -> None:
     """K2 / K5 take Q0 (n, q <= 16): their wgmma epilogue keeps a row's q
-    sums in registers under the setmaxnreg split (ROADMAP Queue 3)."""
+    sums in shared slots of that width. The entry points give them none
+    (q = 0: the folded W'' of ops/scan.py fold_design), whatever the
+    design's width; with q = 0 the kernel reads no Q0, and the empty
+    operand's pointer may be null."""
     if Q0.ndim != 2 or Q0.shape[0] != n or Q0.shape[1] > _QMAX:
         raise ValueError(f"{what}: Q0 must be (n, q <= {_QMAX}); got "
                          f"{tuple(Q0.shape)}")
@@ -322,9 +327,10 @@ def rotate_scan_bf16_packed(packed: torch.Tensor, n: int,
                             operand: Optional[ScanOperand] = None
                             ) -> torch.Tensor:
     """(4, M_pad) scan of every packed row at a bf16 tier (K5). parts:
-    (K in 1..3, n, n) bf16 split-W parts of W = U * sd. row_mean: (M_pad,)
-    per-row means that replace missing genotypes (rounded to bf16, as the
-    cast after _impute_tile gives); None for a fully observed genome.
+    (K in 1..3, n, n) bf16 split-W parts of W (RotatedNull). row_mean:
+    (M_pad,) per-row means that replace missing genotypes (rounded to bf16,
+    as the cast after _impute_tile gives); None for a fully observed
+    genome.
     operand: scan_operand(rot) of the RotatedNull the other arguments come
     from; without it the operand is prepared here, at every call."""
     if packed.device.type == "cpu":
@@ -373,18 +379,32 @@ def scan_stats_plain(Xr, sd, y_res, Q0, rss0, dof) -> torch.Tensor:
     return scan_epilogue(Xr * sd[None, :], Q0, y_res, rss0, dof)
 
 
+#: K3's width classes of Q0 (csrc/scan_stats.cu): Q0 is padded to the
+#: least that holds its columns
+_K3_WIDTHS = (8, 16, 32, 64, 96, 128)
+_K3_NPAD = 256                  # n is padded to a multiple (K3's stages)
+#: up to this width class K3 reads Q0's slice of a stage (256 rows) column
+#: by column (csrc/scan_stats.cu, DIRECT)
+_K3_DIRECT = (16, 256)
+
+
 def scan_stats(Xr: torch.Tensor, sd: torch.Tensor, y_res: torch.Tensor,
                Q0: torch.Tensor, rss0, dof) -> torch.Tensor:
-    """(4, m) scan of pre-rotated rows Xr = G @ U (K3); Q0 (n, q <= 128),
-    as the TPU kernel's QPAD. A wider Q0 on the card raises."""
+    """(4, m) scan of pre-rotated rows Xr = G @ U (K3); Q0 (n, 1 <= q <=
+    128), as the TPU kernel's QPAD. Xr may have any row pitch (stride(0)
+    >= n, stride(1) = 1): the kernel takes rows whose pitch or start is no
+    multiple of 16 bytes by narrower copies. A wider Q0 on the card
+    raises."""
     if Xr.device.type == "cpu":
         return scan_stats_plain(Xr, sd, y_res, Q0, rss0, dof)
     if Xr.device.type != "cuda":
         raise ValueError(f"scan_stats: unsupported device {Xr.device}")
     _check_cuda_f32("scan_stats", Xr=Xr, sd=sd, y_res=y_res, Q0=Q0)
-    if Xr.ndim != 2 or not Xr.is_contiguous():
-        raise ValueError(f"scan_stats needs a contiguous (m, n) Xr; got "
-                         f"{tuple(Xr.shape)}")
+    if (Xr.ndim != 2 or Xr.shape[0] == 0 or Xr.stride(1) != 1
+            or Xr.stride(0) < Xr.shape[1]):
+        raise ValueError(f"scan_stats needs an (m > 0, n) Xr with unit "
+                         f"column stride; got {tuple(Xr.shape)} strides "
+                         f"{Xr.stride()}")
     m, n = Xr.shape
     if (sd.shape != (n,) or y_res.shape != (n,) or Q0.ndim != 2
             or Q0.shape[0] != n or not 1 <= Q0.shape[1] <= _K3_QMAX):
@@ -394,20 +414,35 @@ def scan_stats(Xr: torch.Tensor, sd: torch.Tensor, y_res: torch.Tensor,
     from mixmogam_tpu_torch.ops._build import build, check_launch
 
     q = Q0.shape[1]
-    # 1, 2, 4, 8, 16: the register path; 32, 64, 128: the wide path
-    qp = max(1 << (q - 1).bit_length(), 32 if q > 16 else 1)
-    q0 = torch.zeros((n, qp), dtype=torch.float32, device=Xr.device)
-    q0[:, :q] = Q0
+    qw = next(w for w in _K3_WIDTHS if w >= q)
+    n_pad = -(-n // _K3_NPAD) * _K3_NPAD
+    # one zero-padded block: Q0 (n_pad, qw), then sd and y_res (n_pad,)
+    buf = torch.zeros(n_pad * (qw + 2), dtype=torch.float32,
+                      device=Xr.device)
+    q0 = buf[:n_pad * qw].view(n_pad, qw)
+    if qw <= _K3_DIRECT[0]:
+        # the narrow classes read a stage's slice column by column
+        kc = _K3_DIRECT[1]
+        qp = torch.zeros((n_pad, qw), dtype=torch.float32, device=Xr.device)
+        qp[:n, :q] = Q0
+        q0.view(n_pad // kc, qw, kc).copy_(
+            qp.view(n_pad // kc, kc, qw).transpose(1, 2))
+    else:
+        q0[:n, :q] = Q0
+    sdp, yp = buf[n_pad * qw:].view(2, n_pad)
+    sdp[:n] = sd
+    yp[:n] = y_res
     out = torch.empty((4, m), dtype=torch.float32, device=Xr.device)
     fn = build("scan_stats").scan_stats
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    rc = fn(Xr.data_ptr(), m, n, sd.contiguous().data_ptr(),
-            y_res.contiguous().data_ptr(), q0.data_ptr(), qp,
-            _as_float(rss0), _as_float(dof), out.data_ptr(),
+                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    rc = fn(Xr.data_ptr(), m, n, Xr.stride(0), sdp.data_ptr(),
+            yp.data_ptr(), q0.data_ptr(), qw, n_pad, _as_float(rss0),
+            _as_float(dof), out.data_ptr(),
             torch.cuda.current_stream(Xr.device).cuda_stream)
     check_launch(rc, "scan_stats")
     scan_stats.launches += 1

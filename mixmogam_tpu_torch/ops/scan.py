@@ -40,9 +40,12 @@ class RotatedNull:
 
     Exactly one of U / planes / parts is set: the exact tier rotates by
     the eigenbasis U and whitens by sd inside the scan kernel; the int8
-    tiers carry the digit planes of W = U * sd (low digit first) with
-    their per-column power-of-two scale w_scale; the bf16 tiers carry the
-    split-W parts of W = U * sd (largest first; W ~ sum of the parts)."""
+    tiers carry the digit planes of W (low digit first) with their
+    per-column power-of-two scale w_scale; the bf16 tiers carry the
+    split-W parts of W (largest first; W ~ sum of the parts). W is
+    W'' = (U * sd)(I - Q0 Q0^T) where build_rotated_null made it
+    (folded), U * sd as the JAX package has it where convert.py carried
+    it over."""
 
     sd: torch.Tensor                 # (n,) 1/sqrt(phi+delta)
     Q0: torch.Tensor                 # (n, q) orthonormal whitened design
@@ -58,11 +61,25 @@ class RotatedNull:
     #: rows that lie in X0's span in sample space (outside_design)
     X0: Optional[torch.Tensor] = None
     X0p: Optional[torch.Tensor] = None
+    #: the int8 / bf16 tiers' W is W'' = W (I - Q0 Q0^T): the rotated rows
+    #: come out orthogonal to Q0, so the kernels take Q0 with no columns
+    #: (scan_q0) and ss is xx itself; X0 / X0p then serve the mask of the
+    #: rows inside col(X0) (outside_design), as on the exact tier
+    folded: bool = False
     #: kernels K2 / K5's prepared form of planes / parts on the card
     #: (ops/hopper_scan.py scan_operand builds it at the first scan)
     operand: Optional[object] = dataclasses.field(default=None, repr=False,
                                                   compare=False)
 
+    @property
+    def scan_q0(self) -> torch.Tensor:
+        """The Q0 the scan kernels take: (n, 0) for a folded W, else Q0."""
+        return self.Q0[:, :0] if self.folded else self.Q0
+
+
+#: design columns the int8 / bf16 tiers take, the TPU kernels' QPAD: their
+#: exact rescore runs kernel K3, which takes Q0 up to that width
+DESIGN_QMAX = 128
 
 _INT8_TIERS = frozenset({"int8x2", "int8x3", "int8x4"})
 _BF16_TIERS = frozenset({"bf16x2", "bf16x3", "bf16x2c", "bf16x3c"})
@@ -217,6 +234,10 @@ def quantize_rotation(W: torch.Tensor, rotate_dtype, sd_dtype=None):
     bits = 8 * k - 2                       # top balanced digit fits int8
     colmax = W.abs().amax(dim=0)
     _, e = torch.frexp(colmax)             # colmax <= 2^e exactly
+    # a column below sd_dtype's smallest normal (all zero, or a folded
+    # design column at rounding level) would get a scale that underflows
+    # to 0: it takes the scale 2^-bits instead, and all-zero digits
+    e = torch.where(colmax < torch.finfo(sd_dtype).tiny, 0, e)
     # 2^(e - bits) via numpy's ldexp, which is exact (torch.exp2 on the
     # CPU can miss a power of two by one ulp)
     np_dt = torch.empty((), dtype=sd_dtype).numpy().dtype
@@ -270,37 +291,55 @@ def build_rotated_null(null: NullModel, rotate_dtype=None) -> RotatedNull:
     """Scan constants of the null model, on the null's device and dtype.
     rotate_dtype: None (exact), a bf16 tier ('bf16', 'bf16x2', 'bf16x3',
     'bf16x2c', 'bf16x3c') or an int8 tier ('int8x2' / 'int8x3' /
-    'int8x4')."""
+    'int8x4'). The exact tier rotates by the projected U (project_design);
+    the others quantize the folded W'' (fold_design), and take designs of
+    up to DESIGN_QMAX columns."""
     from mixmogam_tpu_torch.ops.eigen import orthonormal_basis
 
     phi, U, delta = null.phi, null.U, null.delta
     sd = 1.0 / torch.sqrt(phi + delta)
-    Ur = planes = w_scale = parts = X0 = X0p = None
-    if rotate_dtype is None:
-        Ur, X0, X0p = project_design(U, null.X0)
-    elif bf16_parts_count(rotate_dtype):
-        parts, _ = quantize_rotation(U * sd[None, :], rotate_dtype)
-    else:
-        planes, w_scale = quantize_rotation(U * sd[None, :], rotate_dtype,
-                                            sd_dtype=sd.dtype)
     y_star = (null.y @ U) * sd
     X0_star = (null.X0.T @ U).T * sd[:, None]
+    n, q = X0_star.shape
+    if rotate_dtype is not None and q > DESIGN_QMAX:
+        raise ValueError(f"the {rotate_dtype} tier takes null designs of up "
+                         f"to {DESIGN_QMAX} columns; got {q}")
     Q0 = orthonormal_basis(X0_star)
     y_res = y_star - Q0 @ (Q0.T @ y_star)
     rss0 = y_res @ y_res
-    n, q = X0_star.shape
+    Ur = planes = w_scale = parts = None
+    if rotate_dtype is None:
+        Ur, X0, X0p = project_design(U, null.X0)
+    else:
+        X0, X0p = design_basis(null.X0, U.device, U.dtype)
+        W = fold_design(U, sd, null.X0)
+        if bf16_parts_count(rotate_dtype):
+            parts, _ = quantize_rotation(W, rotate_dtype)
+        else:
+            planes, w_scale = quantize_rotation(W, rotate_dtype,
+                                                sd_dtype=sd.dtype)
     return RotatedNull(sd=sd, Q0=Q0, y_res=y_res, rss0=rss0,
                        dof=torch.tensor(n - q - 1, dtype=sd.dtype,
                                         device=sd.device),
                        U=Ur, planes=planes, w_scale=w_scale, parts=parts,
-                       X0=X0, X0p=X0p)
+                       X0=X0, X0p=X0p, folded=rotate_dtype is not None)
+
+
+def design_basis(X0: torch.Tensor, device, dtype):
+    """(X0, X0p) in dtype on device, with X0p = X0 (X0^T X0)^-1 solved in
+    float64: the two factors of P_X0 = X0 X0p^T, the projection onto the
+    null design's columns in sample space (project_design, outside_design)."""
+    X = X0.to(device=device, dtype=torch.float64)
+    if X.ndim == 1:
+        X = X[:, None]
+    Xp = torch.linalg.solve(X.T @ X, X.T).T
+    return X.to(dtype), Xp.to(dtype)
 
 
 def project_design(U: torch.Tensor, X0: torch.Tensor, block: int = 4_096):
     """((I - P_X0) U, X0, X0p) in U's dtype on U's device, with P_X0 =
-    X0 (X0^T X0)^-1 X0^T the projection onto the null design's columns in
-    sample space and X0p = X0 (X0^T X0)^-1; the product runs in float64, a
-    block of U's columns at a time.
+    X0 X0p^T and X0p = X0 (X0^T X0)^-1 (design_basis); the product runs in
+    float64, a block of U's columns at a time.
 
     A SNP row g and g - P_X0 g give the same F, beta and var_perc: the scan
     projects col(X0) out after whitening. Rotating by the projected U keeps
@@ -309,15 +348,42 @@ def project_design(U: torch.Tensor, X0: torch.Tensor, block: int = 4_096):
     would otherwise weigh 1/delta times the rest of the row, and a float32
     scan would lose the residual sum xx = ss - |Q0^T x|^2 to cancellation
     and mask the row."""
-    X = X0.to(device=U.device, dtype=torch.float64)
-    if X.ndim == 1:
-        X = X[:, None]
-    Xp = torch.linalg.solve(X.T @ X, X.T).T
+    X, Xp = design_basis(X0, U.device, torch.float64)
     Up = torch.empty_like(U)
     for j in range(0, U.shape[1], block):
         Ub = U[:, j:j + block].double()
         Up[:, j:j + block] = Ub - X @ (Xp.T @ Ub)
     return Up, X.to(U.dtype), Xp.to(U.dtype)
+
+
+def fold_design(U: torch.Tensor, sd: torch.Tensor, X0: torch.Tensor,
+                block: int = 4_096) -> torch.Tensor:
+    """W'' = W (I - Q0 Q0^T) with W = U * sd, in float64 on U's device, a
+    block of W's columns at a time; Q0 is the orthonormal basis of the
+    whitened design W^T X0, taken in float64 too.
+
+    A rotated row x = g W enters the scan through xy = x . y_res and
+    xx = |(I - Q0 Q0^T) x|^2 only, and y_res is orthogonal to Q0: rotating
+    by W'' gives both unchanged, with rows already orthogonal to Q0. The
+    int8 / bf16 kernels then need no Q0 (RotatedNull.scan_q0), whatever the
+    design's width, and their float32 row sum ss is xx itself: no
+    cancellation where K is singular along X0 and delta small (VanRaden's
+    K along the intercept, whitened by 1/sqrt(delta)). There W'' is W with
+    that column zeroed, up to rounding. A row inside col(X0) becomes
+    rounding noise: outside_design masks it."""
+    from mixmogam_tpu_torch.ops.eigen import orthonormal_basis
+
+    Ud, sdd = U.double(), sd.double()
+    X = X0.to(device=U.device, dtype=torch.float64)
+    if X.ndim == 1:
+        X = X[:, None]
+    Q = orthonormal_basis((X.T @ Ud).T * sdd[:, None])
+    WQ = (Ud * sdd[None, :]) @ Q
+    W = torch.empty_like(Ud)
+    for j in range(0, W.shape[1], block):
+        W[:, j:j + block] = (Ud[:, j:j + block] * sdd[None, j:j + block]
+                             - WQ @ Q[j:j + block].T)
+    return W
 
 
 def outside_design(G_tile: torch.Tensor, X0: torch.Tensor,

@@ -1,9 +1,10 @@
 """PyTorch port, the facade: mixmogam_tpu_torch.api.run_gwas (device="cpu",
 float64) against mixmogam_tpu.api.run_gwas from the same files. Limits:
 max |dp| <= 1e-9 at the exact tier and at bf16x3 (the split-W parts are
-bit-equal to the JAX package's: tests/test_torch_bf16.py), max |dlog10 p| <
-1e-4 at int8x3 (tests/test_torch_emmax.py); identical samples, SNPs, CSV
-header and summary keys."""
+bit-equal to the JAX package's split of the same folded W'':
+tests/test_torch_fold.py), max |dlog10 p| < 1e-4 at int8x3
+(tests/test_torch_emmax.py); identical samples, SNPs, CSV header and
+summary keys."""
 
 import json
 import os
@@ -21,6 +22,7 @@ from mixmogam_tpu_torch.data.phenotype import PhenotypeData
 from mixmogam_tpu_torch.data.plink import write_plink
 from mixmogam_tpu_torch.models.emmax import emmax
 from mixmogam_tpu_torch.oracle import kinship as oracle
+from test_torch_fold import fold_jax_tiers
 
 torch.set_num_threads(1)
 N, M = 150, 1500
@@ -112,7 +114,9 @@ def test_emmax_exact_matches_jax(files):
 
 @pytest.mark.parametrize("tier,limit,log10", [("int8x3", 1e-4, True),
                                               ("bf16x3", 1e-9, False)])
-def test_emmax_fast_tiers_match_jax(files, tier, limit, log10):
+def test_emmax_fast_tiers_match_jax(files, tier, limit, log10, monkeypatch):
+    # the JAX reference quantizes the port's folded W'' (test_torch_fold.py)
+    fold_jax_tiers(monkeypatch)
     ref, res = _both(files, tier, precision=tier)
     _same_run(ref, res, limit, log10)
     assert res["scan"]["precision_tier"] == tier

@@ -28,6 +28,7 @@ from mixmogam_tpu_torch.models.resident import (ResidentGenome,
 from mixmogam_tpu_torch.ops import scan
 from mixmogam_tpu_torch.ops.hopper_scan import (
     rotate_scan_bf16_packed, rotate_scan_bf16_packed_plain)
+from test_torch_fold import fold_jax_tiers, jax_folded
 
 torch.set_num_threads(1)
 
@@ -164,9 +165,11 @@ def test_plain_scan_matches_jax_xla_tier_f64(missing):
 
 @pytest.mark.parametrize("missing", [0.0, 0.04])
 @pytest.mark.parametrize("tier", ["bf16", "bf16x3"])
-def test_resident_bf16_matches_jax(tier, missing):
+def test_resident_bf16_matches_jax(tier, missing, monkeypatch):
     """emmax_resident end to end at a bf16 tier; missing genotypes run
-    (the has-missing check refuses int8 tiers only)."""
+    (the has-missing check refuses int8 tiers only). The JAX reference
+    quantizes the port's folded W'' (test_torch_fold.py)."""
+    fold_jax_tiers(monkeypatch)
     G, y = _data(3, missing=missing)
     eig = tuple(np.asarray(a) for a in j_eigen_k(_kinship(
         np.where(G < 0, 0, G).astype(np.int8))))
@@ -243,8 +246,8 @@ def test_precision_names_match_jax():
 def test_convert_carries_jax_bf16_w(tier):
     G, y = _data(7, n=40, m=60)
     null = j_fit(y, np.ones((len(y), 1)), K=_kinship(G))
-    rot_j = jscan.build_rotated_null(
-        null, rotate_dtype=jnp.bfloat16 if tier == "bf16" else tier)
+    # JAX's split of the port's folded W'' (test_torch_fold.py)
+    rot_j = jax_folded(jscan.build_rotated_null(null), tier)
     rot = _carry(rot_j, torch.float64)
     from mixmogam_tpu_torch.ops.reml import fit_null_model
 
@@ -256,7 +259,9 @@ def test_convert_carries_jax_bf16_w(tier):
     np.testing.assert_array_equal(_bits(rot.parts), _bits(own.parts))
 
 
-def test_incore_bf16_routes_and_fractional_refusal():
+def test_incore_bf16_routes_and_fractional_refusal(monkeypatch):
+    # the JAX reference quantizes the port's folded W'' (test_torch_fold.py)
+    fold_jax_tiers(monkeypatch)
     G, y = _data(8, missing=0.03)
     K = _kinship(np.where(G < 0, 0, G).astype(np.int8))
     eig = tuple(np.asarray(a) for a in j_eigen_k(K))

@@ -13,6 +13,7 @@ from mixmogam_tpu.ops.eigen import eigen_k as j_eigen_k
 from mixmogam_tpu.ops.kinship import kinship as j_kinship
 from mixmogam_tpu.oracle.kinship import scale_k
 from mixmogam_tpu_torch.convert import resident_from_packed
+from test_torch_fold import fold_jax_tiers
 from mixmogam_tpu_torch.models.emmax import emmax
 from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                 emmax_resident)
@@ -73,7 +74,9 @@ def test_resident_missing_imputed_exact_matches_jax():
     assert res["dof"] == ref["dof"]
 
 
-def test_resident_int8x3_rescore_matches_jax():
+def test_resident_int8x3_rescore_matches_jax(monkeypatch):
+    # the JAX reference quantizes the port's folded W'' (test_torch_fold.py)
+    fold_jax_tiers(monkeypatch)
     G, _, y = _data(6)
     eig = _eig(scale_k(j_kinship(G, method="ibs")))
     jrg, rg = _pair(G)
@@ -131,7 +134,9 @@ def test_incore_covariates_match_jax(small_dataset, kinship_small):
 
 
 def test_incore_int8_tier_packs_and_matches_jax(small_dataset,
-                                                kinship_small):
+                                                kinship_small, monkeypatch):
+    # the JAX reference quantizes the port's folded W'' (test_torch_fold.py)
+    fold_jax_tiers(monkeypatch)
     G, y = small_dataset["G_int"], small_dataset["y"]
     eig = _eig(kinship_small)
     ref = j_emmax(G, y, eig_k=eig, precision="int8x3", stream=False)

@@ -103,9 +103,12 @@ def test_k2_vs_plain(cuda, tier, n, q, m):
     got = rotate_scan_int8_packed(packed, *a)
     assert rotate_scan_int8_packed.launches == before + 1
     _close(got, rotate_scan_int8_packed_plain(packed, *a))
-    # the same launch again, on the operand kept with the rotated null
-    assert torch.equal(got, rotate_scan_int8_packed(
-        packed, *a, operand=scan_operand(rot)))
+    # the main path's launch: the kernels' Q0 (no columns for the folded
+    # W''), on the operand kept with the rotated null, as prepared on the spot
+    a0 = a[:4] + (rot.scan_q0,) + a[5:]
+    assert torch.equal(rotate_scan_int8_packed(packed, *a0),
+                       rotate_scan_int8_packed(packed, *a0,
+                                               operand=scan_operand(rot)))
     pad = rotate_scan_int8_packed(rg.packed, *a)
     assert not (pad[3, m:] > 0.5).any()         # zero pad rows masked
 
@@ -119,11 +122,12 @@ def test_k3_vs_plain(cuda, n, q):
     _close(scan_stats(*a), scan_stats_plain(*a))
 
 
-@pytest.mark.parametrize("q", [1, 11, 17, 64, 128])
+@pytest.mark.parametrize("q", [1, 2, 4, 8, 11, 16, 17, 20, 32, 64, 96, 128])
 def test_k3_wide_q_vs_plain(cuda, q):
-    """K3 takes Q0 up to 128 columns (a grown stepwise design): within the
-    kernel tolerances of its plain version, identical masks, bit-equal from
-    launch to launch; 129 columns raise."""
+    """K3 takes Q0 up to 128 columns (a grown stepwise design), every width
+    class of its one kernel: within the kernel tolerances of its plain
+    version, identical masks, bit-equal from launch to launch; 129 columns
+    raise."""
     n = 300
     G, _, _ = simulate_genotypes(n, 1_000, seed=q)
     rot = build_rotated_null(_null(n, q, cuda))
@@ -141,6 +145,41 @@ def test_k3_wide_q_vs_plain(cuda, q):
         wide = torch.zeros((n, 129), device=cuda)
         with pytest.raises(ValueError, match="q <= 128"):
             scan_stats(Xr, rot.sd, rot.y_res, wide, rot.rss0, rot.dof)
+
+
+@pytest.mark.parametrize("q", [1, 20, 128])
+def test_k3_pitches_and_row_blocks(cuda, q):
+    """K3 on rows whose pitch is no multiple of 16 bytes (n = 2,042: 8-byte
+    copies), on a view of n columns of wider rows, on a view that starts 4
+    bytes in (4-byte copies), and over more 128-row blocks than SMs: each
+    against the plain version."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for n, m in ((2_042, 300), (1_000, 128 * (2 * sms + 1) + 37)):
+        rot = build_rotated_null(_null(n, q if q < n else 1, cuda))
+        Xr = torch.randn(m, n + 6, device=cuda)
+        a = (rot.sd, rot.y_res, rot.Q0, rot.rss0, rot.dof)
+        for X in (Xr[:, :n].contiguous(), Xr[:, :n], Xr[:, 3:n + 3]):
+            got = scan_stats(X, *a)
+            _close(got, scan_stats_plain(X, *a))
+            assert torch.equal(got, scan_stats(X.contiguous(), *a))
+
+
+@pytest.mark.parametrize("tier", ["int8x3", "bf16x3"])
+def test_card_fast_tiers_with_20_design_columns(cuda, tier):
+    """An intercept and 19 covariates at a fast tier on the card (the
+    folded W'': K2 / K5 see no Q0 columns) against the card's exact tier:
+    identical masks, max |dp| <= 1e-4."""
+    n = 300
+    G, _, _ = simulate_genotypes(n, 2_000, seed=20)
+    rng = np.random.default_rng(20)
+    X0 = np.column_stack([np.ones(n), rng.normal(size=(n, 19))])
+    y = G[7] * 0.5 + rng.normal(size=n)
+    K = np.corrcoef(G.T.astype(np.float64)) + np.eye(n) * 1e-3
+    ex = emmax(G, y, K=K, X0=X0, device=cuda)
+    got = emmax(G, y, K=K, X0=X0, precision=tier, device=cuda)
+    assert got["dof"] == ex["dof"] == n - 21
+    np.testing.assert_array_equal(got["mask"], ex["mask"])
+    assert np.abs(got["ps"] - ex["ps"]).max() <= 1e-4
 
 
 def test_card_stepwise_vs_cpu_float64(cuda):
@@ -235,9 +274,12 @@ def test_k5_vs_plain(cuda, tier, n, q, m, missing):
     got = rotate_scan_bf16_packed(packed, *a, mu)
     assert rotate_scan_bf16_packed.launches == before + 1
     _close(got, rotate_scan_bf16_packed_plain(packed, *a, mu))
-    # the same launch again, on the operand kept with the rotated null
-    assert torch.equal(got, rotate_scan_bf16_packed(
-        packed, *a, mu, operand=scan_operand(rot)))
+    # the main path's launch: the kernels' Q0 (no columns for the folded
+    # W''), on the operand kept with the rotated null, as prepared on the spot
+    a0 = a[:3] + (rot.scan_q0,) + a[4:]
+    assert torch.equal(rotate_scan_bf16_packed(packed, *a0, mu),
+                       rotate_scan_bf16_packed(packed, *a0, mu,
+                                               operand=scan_operand(rot)))
     pad = rotate_scan_bf16_packed(rg.packed, *a, mu_all)
     assert not (pad[3, m:] > 0.5).any()         # zero pad rows masked
 
@@ -511,15 +553,19 @@ def test_card_run_gwas_vs_cpu_float64(cuda, tmp_path, kw):
     assert a["genotype"].accessions == b["genotype"].accessions
 
 
-def test_card_run_gwas_vanraden_delta_at_its_bound(cuda, tmp_path):
+@pytest.mark.parametrize("precision", ["exact", "int8x3", "bf16x3"])
+def test_card_run_gwas_vanraden_delta_at_its_bound(cuda, tmp_path,
+                                                   precision):
     """The input that showed a float32 fault: n = 256, seed 3, no added
     noise. VanRaden's K has a zero eigenvalue along the intercept and REML
-    puts delta at exp(-10); the exact tier rotates by (I - P_X0) U, so that
-    coordinate no longer dwarfs the rest of each row and the float32 scan
-    keeps every mask and p of the float64 path (before: one mask differed,
-    max |dp| 0.917, 1.363e-3 elsewhere)."""
-    a, b = _facade_card_and_cpu(tmp_path, dict(kinship_method="vanraden"),
-                                noise=False)
+    puts delta at exp(-10); the exact tier rotates by (I - P_X0) U and the
+    fast tiers by W'' = W (I - Q0 Q0^T), so that coordinate no longer dwarfs
+    the rest of each row and the float32 scan keeps every mask and p of the
+    float64 path (before: one mask differed, max |dp| 0.917, about 1e-3
+    elsewhere)."""
+    a, b = _facade_card_and_cpu(
+        tmp_path, dict(kinship_method="vanraden", precision=precision),
+        noise=False)
     assert a["scan"]["delta"] < 1e-4
     same = a["scan"]["mask"] == b["scan"]["mask"]
     dp = np.abs(a["scan"]["ps"] - b["scan"]["ps"])

@@ -21,6 +21,7 @@ from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                 kinship_resident_range)
 from mixmogam_tpu_torch.ops.hopper_kinship import (
     ibs_gram_packed_plain, ibs_gram_tri_packed, ibs_gram_tri_packed_plain)
+from test_torch_fold import fold_jax_tiers
 
 torch.set_num_threads(1)
 
@@ -178,7 +179,9 @@ def test_loco_kinships_match_jax(ploidy):
 
 
 @pytest.mark.parametrize("precision", ["exact", "bf16x3"])
-def test_emmax_loco_matches_jax(precision):
+def test_emmax_loco_matches_jax(precision, monkeypatch):
+    # the JAX reference quantizes the port's folded W'' (test_torch_fold.py)
+    fold_jax_tiers(monkeypatch)
     G, ch, y = _data(8)
     jrg, rg = _pair(G)
     ref = jloco.emmax_loco(jrg, y, chromosomes=ch, precision=precision)

@@ -15,6 +15,7 @@ from mixmogam_tpu.ops.pack2 import unpack_2bit_device as j_unpack
 from mixmogam_tpu.oracle.kinship import ibs_kinship, scale_k
 from mixmogam_tpu_torch.ops import eigen, reml, scan, xreml
 from mixmogam_tpu_torch.ops.pack2 import unpack_2bit_device
+from test_torch_fold import jax_folded
 
 torch.set_num_threads(1)
 
@@ -200,7 +201,9 @@ def test_build_rotated_null_matches_jax(q):
         np.testing.assert_allclose(getattr(rt, f).numpy(),
                                    np.asarray(getattr(rj, f)), rtol=1e-10,
                                    atol=1e-10)
-    rj8 = jscan.build_rotated_null(nj, rotate_dtype="int8x3")
+    # the fast tiers quantize the folded W'' = W (I - Q0 Q0^T): JAX's own
+    # quantize_rotation of it (test_torch_fold.py)
+    rj8 = jax_folded(rj, "int8x3")
     rt8 = scan.build_rotated_null(nt, rotate_dtype="int8x3")
     assert rt8.U is None
     np.testing.assert_array_equal(rt8.planes.numpy(), np.asarray(rj8.W))

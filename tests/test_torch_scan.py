@@ -187,12 +187,16 @@ def test_plain_scan_stats_wide_q_vs_pallas_interpret(q):
 
 
 def test_k2_k5_keep_q_at_most_16():
-    """K2 and K5 take Q0 with q <= 16 (their wgmma epilogue holds a row's
-    q sums in registers; ROADMAP Queue 3): this refusal message stands
-    until they are widened; K3's wrapper takes 128 and refuses 129."""
+    """At the kernel level K2 and K5 take Q0 with q <= 16 (their wgmma
+    epilogue holds a row's q sums in shared slots of that width), and
+    q = 0. The entry points no longer pass them Q0 columns: the design is
+    folded into their W'' (ops/scan.py fold_design), so designs of up to
+    128 columns reach them with q = 0. K3's wrapper takes 128 and refuses
+    129."""
     from mixmogam_tpu_torch.ops import hopper_scan
 
     hopper_scan._check_q0("rotate_scan_int8_packed", torch.zeros(8, 16), 8)
+    hopper_scan._check_q0("rotate_scan_int8_packed", torch.zeros(8, 0), 8)
     with pytest.raises(ValueError, match=r"rotate_scan_bf16_packed: Q0 must "
                                          r"be \(n, q <= 16\); got \(8, 17\)"):
         hopper_scan._check_q0("rotate_scan_bf16_packed", torch.zeros(8, 17),
