@@ -19,7 +19,9 @@ Phases (each prints its own seconds):
     launch on the operand prepared once per rotated null and one that
     prepares it on the spot; K3 at q = 1, 2, 4, 8, 11, 16, 20, 32, 64 and
     128 Q0 columns on the rotated rows of a real tile, each within those
-    tolerances, bit-equal on repeat and timed beside its bound, then at
+    tolerances, bit-equal on repeat and to a launch that prepares its
+    operand on the spot, and timed on the operand prepared once beside its
+    bound, then at
     m = 1 and at n = 2,042 (an 8,168-byte row pitch). K2 and K5 run, as
     on the main path, one launch over all rows in 256-row blocks: they are held and timed on the least
     launch that fills the card (one block an SM: 33,792 rows on an H100),
@@ -80,6 +82,19 @@ Phases (each prints its own seconds):
     rtol 1e-4. Then the card (float32) against the float64 CPU path at
     n = 1,024 x 8,192: the same cofactor path and selected models, step 0's
     scan within max |dp| 1e-5 with identical masks
+  9 multi-trait EMMAX on phase 4's resident genome and eigh: 50 traits
+    drawn from its first 16,384 rows (h2 0.1-0.9), emmax_multi_trait at
+    'exact', 'int8x3' and 'bf16x3' (each tile rotated once, then K3 once a
+    trait: K3 must launch T x tiles times and nothing else); each tier's
+    wall, REML, scan, rate and p-values, and its rotation, design mask and
+    one K3 launch on a tile alone; three traits against emmax_resident at
+    the same tier (identical masks, max |dp| <= 1e-5), each fast tier
+    against exact (max |dp| <= 1e-4). Then at n = 2,048 x 8,192, 8 traits
+    in three missing-phenotype groups, the card against the float64 CPU
+    path (identical masks, max |dp| <= 1e-5). Then run_gwas_multi(batched=
+    True) from phase 6's PLINK fileset and a 4-trait phenotype CSV: equal
+    (max |dp| <= 1e-12) to emmax_multi_trait on its own rows, Y and K, and
+    to its own CSVs
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}. Any
@@ -233,6 +248,30 @@ def _draw_genotypes(n: int, m: int, ploidy: int = 1,
     return G
 
 
+def _draw_traits(G_rows, T: int, seed: int):
+    """(T, n) phenotypes of data/simulate.py's model over the int8 rows
+    G_rows (m, n), all T at once on the card: 10 causal rows a trait with
+    N(0, 1) effects, a polygenic term over every row and noise, with h2
+    spread evenly over 0.1-0.9 (trait 0 to trait T - 1)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    m, n = G_rows.shape
+    Gd = torch.as_tensor(np.ascontiguousarray(G_rows),
+                         device="cuda").float().T          # (n, m)
+    B = np.zeros((m, T), np.float32)
+    for t in range(T):
+        B[rng.choice(m, 10, replace=False), t] = rng.normal(size=10)
+    W = (rng.normal(size=(m, T)) / np.sqrt(m)).astype(np.float32)
+    fixed = (Gd @ torch.as_tensor(B, device="cuda")).double().cpu().numpy()
+    u = (Gd @ torch.as_tensor(W, device="cuda")).double().cpu().numpy()
+    u = (u - u.mean(axis=0)) / u.std(axis=0)
+    h2 = np.linspace(0.1, 0.9, T)
+    e = rng.normal(size=(n, T))
+    return (fixed + np.sqrt(h2) * u + np.sqrt(1.0 - h2) * e).T.copy()
+
+
 def _check_no_jax() -> None:
     """The port runs without JAX and without the JAX package."""
     bad = sorted(m for m in sys.modules
@@ -246,11 +285,12 @@ def main(argv=None) -> int:
     ap.add_argument("--samples", type=int, default=10_240)
     ap.add_argument("--snps", type=int, default=262_144)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--facade-snps", type=int, default=32_768,
-                    help="SNP rows of phases 6 and 7 (LOCO and the facade): "
-                         "the host data layer decodes, gathers and filters "
-                         "the int8 matrix with numpy, seconds for each "
-                         "32,768 rows")
+    ap.add_argument("--facade-snps", type=int, default=8_192,
+                    help="SNP rows of phases 6, 7 and 9's facade (LOCO and "
+                         "the facade): the host data layer decodes, gathers "
+                         "and filters the int8 matrix with numpy, seconds "
+                         "for each 8,192 rows; LOCO's wall hardly depends "
+                         "on it")
     args = ap.parse_args(argv)
 
     # ---- 1. device check ------------------------------------------------
@@ -282,6 +322,10 @@ def main(argv=None) -> int:
                                                   simulate_phenotype)
     from mixmogam_tpu_torch.models.emmax import emmax
     from mixmogam_tpu_torch.models.loco import emmax_loco, loco_kinships
+    from mixmogam_tpu_torch.models.multitrait import (_trait_nulls,
+                                                      emmax_multi_trait,
+                                                      rotate_tile,
+                                                      shared_rotation)
     from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
     from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                     emmax_resident,
@@ -297,10 +341,13 @@ def main(argv=None) -> int:
         ibs_gram_tri_packed_plain)
     from mixmogam_tpu_torch.ops.hopper_scan import (
         rotate_scan_bf16_packed, rotate_scan_bf16_packed_plain,
-        rotate_scan_int8_packed, rotate_scan_int8_packed_plain, scan_operand,
-        scan_stats, scan_stats_plain)
+        k3_operand, prepare_k3_operand, rotate_scan_int8_packed,
+        rotate_scan_int8_packed_plain, scan_operand, scan_stats,
+        scan_stats_plain)
+    from mixmogam_tpu_torch.ops.pack2 import unpack_2bit_device
     from mixmogam_tpu_torch.ops.reml import NullModel, fit_null_model
-    from mixmogam_tpu_torch.ops.scan import build_rotated_null
+    from mixmogam_tpu_torch.ops.scan import (build_rotated_null, design_basis,
+                                             outside_design, project_design)
     from mixmogam_tpu_torch.utils.caching import cached_kinship
 
     _check_no_jax()
@@ -535,12 +582,17 @@ def main(argv=None) -> int:
               torch.linalg.qr(torch.randn(n, q, generator=g, device=dev))[0])
         yq = rot.y_res - Qq @ (Qq.T @ rot.y_res)
         aq = (Xr, rot.sd, yq, Qq, float(yq @ yq), float(n - q - 1))
-        got = scan_stats(*aq)
-        if not torch.equal(got, scan_stats(*aq)):
-            raise AssertionError(f"K3 q={q}: two launches differ")
+        # the operand prepared once, as the scans keep it with their null:
+        # the time is the kernel's alone
+        opq = prepare_k3_operand(*aq[1:])
+        got = scan_stats(*aq, operand=opq)
+        if not (torch.equal(got, scan_stats(*aq, operand=opq))
+                and torch.equal(got, scan_stats(*aq))):
+            raise AssertionError(f"K3 q={q}: two launches differ, or the "
+                                 "operand prepared on the spot gives others")
         errq = _check_stats(f"K3 scan_stats q={q}", got,
                             scan_stats_plain(*aq))
-        msq = _cuda_ms(lambda: scan_stats(*aq))
+        msq = _cuda_ms(lambda: scan_stats(*aq, operand=opq))
         # a row's dot products with y_res and the q columns of Q0, and its
         # sum of squares: 2 n (2 + q) float32 operations
         bq = _bound(2.0 * rows * n * (2 + q), "fp32", Xr, rot.sd, yq, Qq,
@@ -837,211 +889,214 @@ def main(argv=None) -> int:
         loco["exact"] = loco_direct("exact", scan_stats)
         return loco["exact"]
 
-    with tempfile.TemporaryDirectory() as tmp:
-        ts = time.perf_counter()
-        # the first Mf rows, in 5 chromosomes of TAIR10's proportions
-        tair10_mb = np.array([30.43, 19.70, 23.46, 18.59, 26.98])
-        ends = np.round(np.cumsum(tair10_mb) / tair10_mb.sum()
-                        * Mf).astype(int)
-        gd = GenotypeData(G[:Mf], np.repeat(np.arange(1, 6),
-                                            np.diff(np.r_[0, ends])),
-                          np.arange(1, Mf + 1) * 100, acc, ploidy=1)
-        prefix = os.path.join(tmp, "cohort")
-        write_plink(prefix, gd)
-        pheno = os.path.join(tmp, "pheno.csv")
-        PhenotypeData.from_arrays(1, "trait", acc, y).write_to_file(pheno)
-        bed_mb = os.path.getsize(prefix + ".bed") / 1e6
-        print(f"wrote {prefix}.bed/.bim/.fam ({bed_mb:.1f} MB) and the "
-              f"phenotype CSV: {time.perf_counter() - ts:.3f} s (M={Mf})",
-              flush=True)
-        del gd, G
-        files = (prefix + ".bed", pheno)
-        # the facade's LOCO call, held to the direct exact call on its rows;
-        # then the bf16x3 tier on the same rows against that exact call
-        facade("emmax_loco exact", files + (os.path.join(tmp, "loco"),),
-               loco_exact_on,
-               lambda g2: counts(ibs_gram_packed=1,
-                                 ibs_gram_tri_packed=len(loco_ranges(g2)),
-                                 scan_stats=tiles(g2, loco_ranges(g2))),
-               method="emmax_loco")
-        rg, chrom = loco["rg"], loco["chrom"]
-        cuts = np.flatnonzero(np.diff(chrom)) + 1
-        print(f"LOCO chromosome starts {cuts.tolist()} of {rg.M} rows (tile "
-              f"{rg.tile})", flush=True)
-        if len(cuts) != 4 or (cuts % rg.tile == 0).any():
-            raise AssertionError(f"LOCO needs 5 chromosomes with no boundary "
-                                 f"on a tile: {cuts.tolist()}")
-        loco["bf16x3"] = loco_direct("bf16x3", rotate_scan_bf16_packed)
-        dpl = float(np.abs(loco["bf16x3"]["ps"] - loco["exact"]["ps"]).max())
-        deltas = [round(v["delta"], 6)
-                  for v in loco["exact"]["loco"].values()]
-        print(f"LOCO bf16x3 vs exact: max|dp| {dpl:.3e}; deltas {deltas}",
-              flush=True)
-        if dpl > 1e-4:
-            raise AssertionError("LOCO bf16x3 disagrees with exact")
-        # K_loco of the middle chromosome against the direct gram over the
-        # other rows; its neighbours are merged to a side each, so three
-        # kinships are built for the one that is read
-        ts = time.perf_counter()
-        s_c, e_c = int(cuts[1]), int(cuts[2])
-        sides = np.repeat([0, 1, 2], [s_c, e_c - s_c, rg.M - e_c])
-        K_c = loco_kinships(rg, sides)[1]
-        rest = torch.cat([rg.packed[:s_c], rg.packed[e_c:rg.M]])
-        rg_rest = ResidentGenome(rest, rest.shape[0], n, rg.ploidy, rg.tile,
-                                 False)
-        dk = float(np.abs(K_c - scale_k(kinship_resident(rg_rest))).max())
-        print(f"K_loco identity, chromosome 3: max|d| {dk:.3e} "
-              f"({time.perf_counter() - ts:.3f} s)", flush=True)
-        if dk > 1e-12:
-            raise AssertionError("K_loco differs from the direct gram")
-        del rg, rg_rest, rest, K_c
-        loco.clear()
-        torch.cuda.empty_cache()
-        _check_no_jax()
-        _phase("6 LOCO", t0)
+    # phases 6, 7 and 9 read these files: the directory goes when the
+    # script ends (or, after a failed phase, when the interpreter exits)
+    tmpdir = tempfile.TemporaryDirectory()
+    tmp = tmpdir.name
+    ts = time.perf_counter()
+    # the first Mf rows, in 5 chromosomes of TAIR10's proportions
+    tair10_mb = np.array([30.43, 19.70, 23.46, 18.59, 26.98])
+    ends = np.round(np.cumsum(tair10_mb) / tair10_mb.sum()
+                    * Mf).astype(int)
+    gd = GenotypeData(G[:Mf], np.repeat(np.arange(1, 6),
+                                        np.diff(np.r_[0, ends])),
+                      np.arange(1, Mf + 1) * 100, acc, ploidy=1)
+    prefix = os.path.join(tmp, "cohort")
+    write_plink(prefix, gd)
+    pheno = os.path.join(tmp, "pheno.csv")
+    PhenotypeData.from_arrays(1, "trait", acc, y).write_to_file(pheno)
+    bed_mb = os.path.getsize(prefix + ".bed") / 1e6
+    print(f"wrote {prefix}.bed/.bim/.fam ({bed_mb:.1f} MB) and the "
+          f"phenotype CSV: {time.perf_counter() - ts:.3f} s (M={Mf})",
+          flush=True)
+    del gd, G
+    files = (prefix + ".bed", pheno)
+    # the facade's LOCO call, held to the direct exact call on its rows;
+    # then the bf16x3 tier on the same rows against that exact call
+    facade("emmax_loco exact", files + (os.path.join(tmp, "loco"),),
+           loco_exact_on,
+           lambda g2: counts(ibs_gram_packed=1,
+                             ibs_gram_tri_packed=len(loco_ranges(g2)),
+                             scan_stats=tiles(g2, loco_ranges(g2))),
+           method="emmax_loco")
+    rg, chrom = loco["rg"], loco["chrom"]
+    cuts = np.flatnonzero(np.diff(chrom)) + 1
+    print(f"LOCO chromosome starts {cuts.tolist()} of {rg.M} rows (tile "
+          f"{rg.tile})", flush=True)
+    if len(cuts) != 4 or (cuts % rg.tile == 0).any():
+        raise AssertionError(f"LOCO needs 5 chromosomes with no boundary "
+                             f"on a tile: {cuts.tolist()}")
+    loco["bf16x3"] = loco_direct("bf16x3", rotate_scan_bf16_packed)
+    dpl = float(np.abs(loco["bf16x3"]["ps"] - loco["exact"]["ps"]).max())
+    deltas = [round(v["delta"], 6)
+              for v in loco["exact"]["loco"].values()]
+    print(f"LOCO bf16x3 vs exact: max|dp| {dpl:.3e}; deltas {deltas}",
+          flush=True)
+    if dpl > 1e-4:
+        raise AssertionError("LOCO bf16x3 disagrees with exact")
+    # K_loco of the middle chromosome against the direct gram over the
+    # other rows; its neighbours are merged to a side each, so three
+    # kinships are built for the one that is read
+    ts = time.perf_counter()
+    s_c, e_c = int(cuts[1]), int(cuts[2])
+    sides = np.repeat([0, 1, 2], [s_c, e_c - s_c, rg.M - e_c])
+    K_c = loco_kinships(rg, sides)[1]
+    rest = torch.cat([rg.packed[:s_c], rg.packed[e_c:rg.M]])
+    rg_rest = ResidentGenome(rest, rest.shape[0], n, rg.ploidy, rg.tile,
+                             False)
+    dk = float(np.abs(K_c - scale_k(kinship_resident(rg_rest))).max())
+    print(f"K_loco identity, chromosome 3: max|d| {dk:.3e} "
+          f"({time.perf_counter() - ts:.3f} s)", flush=True)
+    if dk > 1e-12:
+        raise AssertionError("K_loco differs from the direct gram")
+    del rg, rg_rest, rest, K_c
+    loco.clear()
+    torch.cuda.empty_cache()
+    _check_no_jax()
+    _phase("6 LOCO", t0)
 
-        # ---- 7. the facade: files -> run_gwas -> ranked CSV ---------------
-        t0 = time.perf_counter()
-        logging.getLogger("mixmogam_tpu_torch.loco").setLevel(logging.WARNING)
+    # ---- 7. the facade: files -> run_gwas -> ranked CSV ---------------
+    t0 = time.perf_counter()
+    logging.getLogger("mixmogam_tpu_torch.loco").setLevel(logging.WARNING)
 
-        def direct_emmax(precision):
-            def fn(g2, y2):
-                K2 = cached_kinship(g2, "ibs")
-                return emmax(g2, y2, K=K2, precision=precision)
-            return fn
+    def direct_emmax(precision):
+        def fn(g2, y2):
+            K2 = cached_kinship(g2, "ibs")
+            return emmax(g2, y2, K=K2, precision=precision)
+        return fn
 
-        facade("emmax exact", files + (os.path.join(tmp, "exact"),),
-               direct_emmax(None),
-               lambda g2: counts(ibs_gram_packed=1, scan_stats=tiles(g2)))
-        facade("emmax int8x3", files + (os.path.join(tmp, "int8x3"),),
-               direct_emmax("int8x3"),
-               lambda g2: counts(ibs_gram_packed=1, rotate_scan_int8_packed=1),
-               precision="int8x3")
-        facade("emmax bf16x3", files + (os.path.join(tmp, "bf16x3"),),
-               direct_emmax("bf16x3"),
-               lambda g2: counts(ibs_gram_packed=1, rotate_scan_bf16_packed=1),
-               precision="bf16x3")
+    facade("emmax exact", files + (os.path.join(tmp, "exact"),),
+           direct_emmax(None),
+           lambda g2: counts(ibs_gram_packed=1, scan_stats=tiles(g2)))
+    facade("emmax int8x3", files + (os.path.join(tmp, "int8x3"),),
+           direct_emmax("int8x3"),
+           lambda g2: counts(ibs_gram_packed=1, rotate_scan_int8_packed=1),
+           precision="int8x3")
+    facade("emmax bf16x3", files + (os.path.join(tmp, "bf16x3"),),
+           direct_emmax("bf16x3"),
+           lambda g2: counts(ibs_gram_packed=1, rotate_scan_bf16_packed=1),
+           precision="bf16x3")
 
-        # missing calls and the VanRaden kinship: float32 matmuls on the
-        # card against the float64 CPU path, from the same files
-        ts = time.perf_counter()
-        nm, Mm = 2_048, 8_192
-        Gm, chm, pom = simulate_genotypes(nm, Mm, ploidy=2, missing_rate=0.02,
-                                          seed=args.seed + 50)
-        ym, _ = simulate_phenotype(Gm, h2=0.5, n_causal=5, seed=args.seed + 50)
-        accm = [f"m{i}" for i in range(nm)]
-        pm = os.path.join(tmp, "missing")
-        write_plink(pm, GenotypeData(Gm, chm, pom, accm, ploidy=2))
-        phm = os.path.join(tmp, "pheno_m.csv")
-        PhenotypeData.from_arrays(1, "trait", accm, ym).write_to_file(phm)
-        for km in ("ibs", "vanraden"):
-            for k in kernels:
-                k.launches = 0
-            kw = dict(data_format="plink", plots=False, kinship_method=km)
-            a = api.run_gwas(pm + ".bed", phm, **kw)
-            if ibs_gram_packed.launches:
-                raise AssertionError(f"{km} with missing calls launched K1")
-            b = api.run_gwas(pm + ".bed", phm, device="cpu", **kw)
-            g2 = a["genotype"]
-            if not (g2.matrix < 0).any() or g2.ploidy != 2:
-                raise AssertionError("the missing-call fileset lost its "
-                                     "missing calls or its ploidy")
-            dK = float(np.abs(cached_kinship(g2, km)
-                              - cached_kinship(g2, km, device="cpu")).max())
-            dp = float(np.abs(a["scan"]["ps"] - b["scan"]["ps"]).max())
-            timings = {k: round(v, 3) for k, v in a["timings"].items()}
-            print(f"run_gwas kinship_method={km}, 2 % missing calls, "
-                  f"n={g2.num_samples} M={g2.num_snps}: card float32 vs CPU "
-                  f"float64 max|dK| {dK:.3e}, max|dp| {dp:.3e}; card "
-                  f"timings_s {json.dumps(timings)}", flush=True)
-            if dK > 1e-5 or dp > 1e-4 or not np.array_equal(
-                    a["scan"]["mask"], b["scan"]["mask"]):
-                raise AssertionError(f"{km}: card and CPU disagree")
-        # LOCO's float kinships (VanRaden over these missing calls) in
-        # float64 on the card: K_loco of the middle chromosome against the
-        # direct kinship over the other chromosomes' rows
-        ch_m = np.asarray(g2.chromosomes)
-        c_mid = np.unique(ch_m)[len(np.unique(ch_m)) // 2]
-        K_v = loco_kinships(ResidentGenome.from_source(g2), ch_m,
-                            method="vanraden", dtype=torch.float64)[c_mid]
-        rest = ResidentGenome.from_source(g2.matrix[ch_m != c_mid],
-                                          ploidy=g2.ploidy)
-        dk = float(np.abs(K_v - scale_k(kinship_resident(
-            rest, method="vanraden", dtype=torch.float64))).max())
-        print(f"VanRaden K_loco identity over missing calls (float64 on the "
-              f"card), chromosome {c_mid}: max|d| {dk:.3e}", flush=True)
-        if dk > 1e-12:
-            raise AssertionError("VanRaden K_loco differs from the direct "
-                                 "kinship")
-        print(f"missing-call and VanRaden runs: "
-              f"{time.perf_counter() - ts:.3f} s", flush=True)
-
-        # VanRaden's K with delta at its lower bound: the float32 scan at each
-        # tier against the float64 CPU path (ROADMAP Queue 3's repaired
-        # faults: exact since PR 7, int8x3 and bf16x3 by the folded W'')
-        ts = time.perf_counter()
-        Gv, chv, pov = simulate_genotypes(256, 3_000, ploidy=1, seed=3)
-        accv = [f"s{i}" for i in range(256)]
-        yv, _ = simulate_phenotype(Gv, h2=0.5, n_causal=4, seed=3)
-        gv, pv = os.path.join(tmp, "v.csv"), os.path.join(tmp, "v_p.csv")
-        GenotypeData(Gv, chv, pov, accv, ploidy=1).write_csv(gv)
-        PhenotypeData.from_arrays(1, "t", accv, yv).write_to_file(pv)
-        kv = dict(kinship_method="vanraden", plots=False)
-        ref_v = api.run_gwas(gv, pv, device="cpu", **kv)["scan"]
-        for tier in ("exact", "int8x3", "bf16x3"):
-            sv = api.run_gwas(gv, pv, precision=tier, **kv)["scan"]
-            diff = sv["mask"] != ref_v["mask"]
-            dpv = np.abs(sv["ps"] - ref_v["ps"])
-            print(f"VanRaden K, delta {ref_v['delta']:.3e} (its bound), "
-                  f"{tier} on the card vs float64 CPU: {int(diff.sum())} "
-                  f"mask(s) differ, max|dp| {dpv.max():.3e}, where the "
-                  f"masks agree {dpv[~diff].max():.3e}", flush=True)
-            if diff.any() or dpv.max() > 1e-4:
-                raise AssertionError(f"the float32 {tier} scan under a "
-                                     "singular K disagrees with float64")
-        print(f"singular-K runs: {time.perf_counter() - ts:.3f} s",
-              flush=True)
-
-        # stepwise through the facade, from phase 6's PLINK fileset
+    # missing calls and the VanRaden kinship: float32 matmuls on the
+    # card against the float64 CPU path, from the same files
+    ts = time.perf_counter()
+    nm, Mm = 2_048, 8_192
+    Gm, chm, pom = simulate_genotypes(nm, Mm, ploidy=2, missing_rate=0.02,
+                                      seed=args.seed + 50)
+    ym, _ = simulate_phenotype(Gm, h2=0.5, n_causal=5, seed=args.seed + 50)
+    accm = [f"m{i}" for i in range(nm)]
+    pm = os.path.join(tmp, "missing")
+    write_plink(pm, GenotypeData(Gm, chm, pom, accm, ploidy=2))
+    phm = os.path.join(tmp, "pheno_m.csv")
+    PhenotypeData.from_arrays(1, "trait", accm, ym).write_to_file(phm)
+    for km in ("ibs", "vanraden"):
         for k in kernels:
             k.launches = 0
-        sw_out = api.run_gwas(files[0], files[1], data_format="plink",
-                              method="emmax_stepwise", num_steps=3,
-                              plots=False, out_prefix=os.path.join(tmp, "sw"))
-        run = {k.__name__: k.launches for k in kernels}
-        for name, cnt in run.items():
-            launches[name] += cnt
-        with open(sw_out["files"]["summary"]) as f:
-            timings = json.load(f)["timings_s"]
-        sel = {k: v["cofactors"] for k, v in
-               sw_out["scan"]["stepwise"]["selected"].items()}
-        print(f"run_gwas emmax_stepwise (3 steps) n={n} "
-              f"M={sw_out['genotype'].num_snps}: timings_s "
-              f"{json.dumps(timings)}; selected {json.dumps(sel)}; "
-              f"launches {run}", flush=True)
-        if run["scan_stats"] <= 0 or sw_out["scan"]["ps"] is not None:
-            raise AssertionError("run_gwas emmax_stepwise: no K3 launch")
+        kw = dict(data_format="plink", plots=False, kinship_method=km)
+        a = api.run_gwas(pm + ".bed", phm, **kw)
+        if ibs_gram_packed.launches:
+            raise AssertionError(f"{km} with missing calls launched K1")
+        b = api.run_gwas(pm + ".bed", phm, device="cpu", **kw)
+        g2 = a["genotype"]
+        if not (g2.matrix < 0).any() or g2.ploidy != 2:
+            raise AssertionError("the missing-call fileset lost its "
+                                 "missing calls or its ploidy")
+        dK = float(np.abs(cached_kinship(g2, km)
+                          - cached_kinship(g2, km, device="cpu")).max())
+        dp = float(np.abs(a["scan"]["ps"] - b["scan"]["ps"]).max())
+        timings = {k: round(v, 3) for k, v in a["timings"].items()}
+        print(f"run_gwas kinship_method={km}, 2 % missing calls, "
+              f"n={g2.num_samples} M={g2.num_snps}: card float32 vs CPU "
+              f"float64 max|dK| {dK:.3e}, max|dp| {dp:.3e}; card "
+              f"timings_s {json.dumps(timings)}", flush=True)
+        if dK > 1e-5 or dp > 1e-4 or not np.array_equal(
+                a["scan"]["mask"], b["scan"]["mask"]):
+            raise AssertionError(f"{km}: card and CPU disagree")
+    # LOCO's float kinships (VanRaden over these missing calls) in
+    # float64 on the card: K_loco of the middle chromosome against the
+    # direct kinship over the other chromosomes' rows
+    ch_m = np.asarray(g2.chromosomes)
+    c_mid = np.unique(ch_m)[len(np.unique(ch_m)) // 2]
+    K_v = loco_kinships(ResidentGenome.from_source(g2), ch_m,
+                        method="vanraden", dtype=torch.float64)[c_mid]
+    rest = ResidentGenome.from_source(g2.matrix[ch_m != c_mid],
+                                      ploidy=g2.ploidy)
+    dk = float(np.abs(K_v - scale_k(kinship_resident(
+        rest, method="vanraden", dtype=torch.float64))).max())
+    print(f"VanRaden K_loco identity over missing calls (float64 on the "
+          f"card), chromosome {c_mid}: max|d| {dk:.3e}", flush=True)
+    if dk > 1e-12:
+        raise AssertionError("VanRaden K_loco differs from the direct "
+                             "kinship")
+    print(f"missing-call and VanRaden runs: "
+          f"{time.perf_counter() - ts:.3f} s", flush=True)
 
-        # LOCO with the VanRaden kinship on the same rows
-        ts = time.perf_counter()
-        gd_f = sw_out["genotype"]
-        rg_f = ResidentGenome.from_source(gd_f)
-        ch_f = np.asarray(gd_f.chromosomes)
-        for k in kernels:
-            k.launches = 0
-        lv = emmax_loco(rg_f, sw_out["y"], chromosomes=ch_f,
-                        method="vanraden")
-        run = {k.__name__: k.launches for k in kernels}
-        for name, cnt in run.items():
-            launches[name] += cnt
-        print(f"emmax_loco vanraden (M={rg_f.M}): "
-              f"{time.perf_counter() - ts:.3f} s; launches {run}; deltas "
-              f"{[round(v['delta'], 6) for v in lv['loco'].values()]}",
-              flush=True)
-        if (run["scan_stats"] <= 0 or not np.isfinite(lv["ps"]).all()
-                or lv["ps"].shape != (rg_f.M,)):
-            raise AssertionError("LOCO vanraden: malformed")
-        del rg_f, sw_out, gd_f
+    # VanRaden's K with delta at its lower bound: the float32 scan at each
+    # tier against the float64 CPU path (ROADMAP Queue 3's repaired
+    # faults: exact by the projected U, int8x3 and bf16x3 by the folded W'')
+    ts = time.perf_counter()
+    Gv, chv, pov = simulate_genotypes(256, 3_000, ploidy=1, seed=3)
+    accv = [f"s{i}" for i in range(256)]
+    yv, _ = simulate_phenotype(Gv, h2=0.5, n_causal=4, seed=3)
+    gv, pv = os.path.join(tmp, "v.csv"), os.path.join(tmp, "v_p.csv")
+    GenotypeData(Gv, chv, pov, accv, ploidy=1).write_csv(gv)
+    PhenotypeData.from_arrays(1, "t", accv, yv).write_to_file(pv)
+    kv = dict(kinship_method="vanraden", plots=False)
+    ref_v = api.run_gwas(gv, pv, device="cpu", **kv)["scan"]
+    for tier in ("exact", "int8x3", "bf16x3"):
+        sv = api.run_gwas(gv, pv, precision=tier, **kv)["scan"]
+        diff = sv["mask"] != ref_v["mask"]
+        dpv = np.abs(sv["ps"] - ref_v["ps"])
+        print(f"VanRaden K, delta {ref_v['delta']:.3e} (its bound), "
+              f"{tier} on the card vs float64 CPU: {int(diff.sum())} "
+              f"mask(s) differ, max|dp| {dpv.max():.3e}, where the "
+              f"masks agree {dpv[~diff].max():.3e}", flush=True)
+        if diff.any() or dpv.max() > 1e-4:
+            raise AssertionError(f"the float32 {tier} scan under a "
+                                 "singular K disagrees with float64")
+    print(f"singular-K runs: {time.perf_counter() - ts:.3f} s",
+          flush=True)
+
+    # stepwise through the facade, from phase 6's PLINK fileset
+    for k in kernels:
+        k.launches = 0
+    sw_out = api.run_gwas(files[0], files[1], data_format="plink",
+                          method="emmax_stepwise", num_steps=3,
+                          plots=False, out_prefix=os.path.join(tmp, "sw"))
+    run = {k.__name__: k.launches for k in kernels}
+    for name, cnt in run.items():
+        launches[name] += cnt
+    with open(sw_out["files"]["summary"]) as f:
+        timings = json.load(f)["timings_s"]
+    sel = {k: v["cofactors"] for k, v in
+           sw_out["scan"]["stepwise"]["selected"].items()}
+    print(f"run_gwas emmax_stepwise (3 steps) n={n} "
+          f"M={sw_out['genotype'].num_snps}: timings_s "
+          f"{json.dumps(timings)}; selected {json.dumps(sel)}; "
+          f"launches {run}", flush=True)
+    if run["scan_stats"] <= 0 or sw_out["scan"]["ps"] is not None:
+        raise AssertionError("run_gwas emmax_stepwise: no K3 launch")
+
+    # LOCO with the VanRaden kinship on the same rows
+    ts = time.perf_counter()
+    gd_f = sw_out["genotype"]
+    rg_f = ResidentGenome.from_source(gd_f)
+    ch_f = np.asarray(gd_f.chromosomes)
+    for k in kernels:
+        k.launches = 0
+    lv = emmax_loco(rg_f, sw_out["y"], chromosomes=ch_f,
+                    method="vanraden")
+    run = {k.__name__: k.launches for k in kernels}
+    for name, cnt in run.items():
+        launches[name] += cnt
+    print(f"emmax_loco vanraden (M={rg_f.M}): "
+          f"{time.perf_counter() - ts:.3f} s; launches {run}; deltas "
+          f"{[round(v['delta'], 6) for v in lv['loco'].values()]}",
+          flush=True)
+    if (run["scan_stats"] <= 0 or not np.isfinite(lv["ps"]).all()
+            or lv["ps"].shape != (rg_f.M,)):
+        raise AssertionError("LOCO vanraden: malformed")
+    del rg_f, sw_out, gd_f
     torch.cuda.empty_cache()
     _check_no_jax()
     _phase("7 facade", t0)
@@ -1083,7 +1138,7 @@ def main(argv=None) -> int:
           f"within rtol {rel:.3e}", flush=True)
     if rel > 1e-4:
         raise AssertionError("the stepwise routes' min_p disagree")
-    del main, sw
+    del sw
     torch.cuda.empty_cache()
     # the card (float32) against the float64 CPU path
     ts = time.perf_counter()
@@ -1105,6 +1160,154 @@ def main(argv=None) -> int:
         raise AssertionError("stepwise: card and CPU disagree")
     _check_no_jax()
     _phase("8 stepwise", t0)
+
+    # ---- 9. multi-trait at full width -------------------------------------
+    t0 = time.perf_counter()
+    rg, (phi, U) = main["rg"], main["eig"]
+    T9 = 50
+    ts = time.perf_counter()
+    Y9 = _draw_traits(rg[0:16_384], T9, seed=args.seed + 90)
+    print(f"draw {T9} traits (h2 0.1-0.9) from the first 16,384 rows: "
+          f"{time.perf_counter() - ts:.3f} s", flush=True)
+    tiles9 = -(-M // rg.tile)
+    U64 = U.double()                    # phase 4's float64 eigenvectors
+    X0_9 = torch.ones((n, 1), dtype=torch.float64, device=dev)
+    Up9 = project_design(U64, X0_9)[0]
+    Gt9 = unpack_2bit_device(rg.packed[:rg.tile], n)
+    X0d, X0p = design_basis(X0_9, dev, torch.float32)
+    mt = {}
+    for tier in ("exact", "int8x3", "bf16x3"):
+        for k in kernels:
+            k.launches = 0
+        ts = time.perf_counter()
+        r = emmax_multi_trait(rg, Y9, eig_k=(phi, U), precision=tier)
+        wall = time.perf_counter() - ts
+        run = {k.__name__: k.launches for k in kernels}
+        for name, cnt in run.items():
+            launches[name] += cnt
+        if run != counts(scan_stats=T9 * tiles9):
+            raise AssertionError(f"multi-trait {tier}: launches {run}, "
+                                 f"expected K3 {T9} x {tiles9} and no other")
+        ps = r["ps"]
+        if (ps.shape != (T9, M) or not np.isfinite(ps).all()
+                or ((ps < 0) | (ps > 1)).any() or r["dof"] != n - 2):
+            raise AssertionError(f"multi-trait {tier}: malformed output")
+        # the shared rotation, the design mask and one trait's K3 launch on
+        # one tile alone (after the counts were read)
+        rot9 = shared_rotation(Up9, None if tier == "exact" else tier,
+                               torch.float32)
+        rot_ms = _cuda_ms(lambda: rotate_tile(Gt9, rot9))
+        mask_ms = _cuda_ms(lambda: outside_design(Gt9.float(), X0d, X0p))
+        Xr9 = rotate_tile(Gt9, rot9)
+        null9 = _trait_nulls(phi.float(), (U64.T @ torch.as_tensor(
+            Y9[:1].T, device=dev)).T, U64.T @ X0_9, r["deltas"][:1],
+            torch.float32)[0]
+        op9 = k3_operand(null9)
+        k3_ms = _cuda_ms(lambda: scan_stats(Xr9, null9.sd, null9.y_res,
+                                            null9.Q0, null9.rss0, null9.dof,
+                                            operand=op9))
+        tm = r["timings_s"]
+        print(f"multi-trait {tier}, T={T9} n={n} M={M}: {wall:.3f} s; REML "
+              f"({T9} fits) {tm['reml']:.3f} s; scan {tm['scan']:.3f} s = "
+              f"{T9 * M / tm['scan']:,.0f} SNP-tests/s; p-values "
+              f"{tm['p_values']:.3f} s; K3 launches {run['scan_stats']}",
+              flush=True)
+        print(f"   a tile alone: rotation {rot_ms:.3f} ms (x {tiles9} = "
+              f"{rot_ms * tiles9 / 1e3 / tm['scan']:.2f} of the scan), "
+              f"design mask {mask_ms:.3f} ms, K3 {k3_ms:.3f} ms a launch (x "
+              f"{T9 * tiles9} = {k3_ms * T9 * tiles9 / 1e3 / tm['scan']:.2f}"
+              f" of the scan)", flush=True)
+        # three traits against the single-trait scan at the same tier
+        for t in (0, T9 // 2, T9 - 1):
+            ts = time.perf_counter()
+            one = emmax_resident(rg, Y9[t], eig_k=(phi, U), precision=tier)
+            nm = int((one["mask"] != r["mask"][t]).sum())
+            dpt = float(np.abs(one["ps"] - r["ps"][t]).max())
+            print(f"   trait {t} (h2 {0.1 + 0.8 * t / (T9 - 1):.2f}, delta "
+                  f"{r['deltas'][t]:.4g}) vs emmax_resident {tier}: {nm} "
+                  f"mask(s) differ, max|dp| {dpt:.3e} "
+                  f"({time.perf_counter() - ts:.3f} s)", flush=True)
+            if nm or dpt > 1e-5:
+                raise AssertionError(f"multi-trait {tier}, trait {t}: "
+                                     "differs from the single-trait scan")
+        mt[tier] = r
+        del rot9, Xr9, null9, op9
+    for tier in ("int8x3", "bf16x3"):
+        nm = int((mt[tier]["mask"] != mt["exact"]["mask"]).sum())
+        dpt = float(np.abs(mt[tier]["ps"] - mt["exact"]["ps"]).max())
+        print(f"multi-trait {tier} vs exact: {nm} mask(s) differ, max|dp| "
+              f"{dpt:.3e}", flush=True)
+        if nm or dpt > 1e-4:
+            raise AssertionError(f"multi-trait {tier} disagrees with exact")
+    del mt, Up9, U64, Gt9, main, rg
+    torch.cuda.empty_cache()
+    # missingness groups on the card against the float64 CPU path
+    ts = time.perf_counter()
+    ns9, ms9 = 2_048, 8_192
+    Gs9, _, _ = simulate_genotypes(ns9, ms9, ploidy=1, seed=args.seed + 91)
+    Ys9 = _draw_traits(Gs9, 8, seed=args.seed + 92)
+    rng9 = np.random.default_rng(args.seed + 93)
+    Ys9[2:4, rng9.permutation(ns9)[:60]] = np.nan
+    Ys9[5, rng9.permutation(ns9)[:25]] = np.nan
+    rgs9 = ResidentGenome.from_source(Gs9)
+    Ks9 = scale_k(kinship_resident(rgs9))
+    before = scan_stats.launches
+    a = emmax_multi_trait(rgs9, Ys9, K=Ks9)
+    k3 = scan_stats.launches - before
+    b = emmax_multi_trait(Gs9, Ys9, K=Ks9, device="cpu")
+    nm = int((a["mask"] != b["mask"]).sum())
+    dps9 = float(np.abs(a["ps"] - b["ps"]).max())
+    print(f"multi-trait with two missing-phenotype patterns (n={ns9}, "
+          f"M={ms9}, T=8, dof {a['dof'].tolist()}): card float32 vs CPU "
+          f"float64 {nm} mask(s) differ, max|dp| {dps9:.3e}; K3 launches "
+          f"{k3} ({time.perf_counter() - ts:.3f} s)", flush=True)
+    if nm or dps9 > 1e-5 or k3 != 8 or not np.array_equal(a["dof"],
+                                                          b["dof"]):
+        raise AssertionError("multi-trait groups: card and CPU disagree")
+    del rgs9, a, b
+    # the facade from phase 6's PLINK fileset and a 4-trait phenotype CSV
+    ts = time.perf_counter()
+    ph9 = PhenotypeData()
+    for t in range(4):
+        ph9.add_phenotype(t + 1, f"trait{t + 1}", acc, Y9[t])
+    pheno9 = os.path.join(tmp, "pheno4.csv")
+    ph9.write_to_file(pheno9)
+    for k in kernels:
+        k.launches = 0
+    out9 = api.run_gwas_multi(files[0], pheno9, batched=True,
+                              data_format="plink", plots=False,
+                              out_prefix=os.path.join(tmp, "multi"))
+    run = {k.__name__: k.launches for k in kernels}
+    for name, cnt in run.items():
+        launches[name] += cnt
+    g9 = out9[1]["genotype"]
+    wall9 = time.perf_counter() - ts
+    ts = time.perf_counter()
+    ref9 = emmax_multi_trait(g9, np.stack([out9[p_]["y"] for p_ in out9]),
+                             K=cached_kinship(g9, "ibs"))
+    dp9 = max(float(np.abs(out9[p_]["scan"]["ps"] - ref9["ps"][t]).max())
+              for t, p_ in enumerate(out9))
+    dcsv9 = 0.0
+    for p_, o in out9.items():
+        on_disk = _read_ranked_csv(o["files"]["pvals"])
+        back = np.array([on_disk[(int(c), int(q_))] for c, q_ in
+                         zip(g9.chromosomes, g9.positions)])
+        dcsv9 = max(dcsv9, float(np.abs(back - o["scan"]["ps"]).max()))
+    print(f"run_gwas_multi batched, 4 traits, n={g9.num_samples} "
+          f"M={g9.num_snps}: {wall9:.3f} s; launches {run}; vs the direct "
+          f"emmax_multi_trait on the same rows, Y and K: max|dp| {dp9:.3e}; "
+          f"CSVs read back: max|dp| {dcsv9:.3e} "
+          f"({time.perf_counter() - ts:.3f} s)", flush=True)
+    if (dp9 > 1e-12 or dcsv9 != 0.0 or sorted(out9) != [1, 2, 3, 4]
+            or run != counts(ibs_gram_packed=1,
+                             scan_stats=4 * tiles(g9))):
+        raise AssertionError("run_gwas_multi batched disagrees with the "
+                             "direct call, its CSVs or its launches")
+    del out9, ref9, g9
+    tmpdir.cleanup()
+    torch.cuda.empty_cache()
+    _check_no_jax()
+    _phase("9 multi-trait", t0)
 
     for k in kernels:
         report[k.__name__]["launches"] = launches[k.__name__]

@@ -29,6 +29,12 @@ Slice 4 adds stepwise MLMM (models.stepwise.emmax_step_wise, method
 K3 at every step, with the per-step REML of ops.xreml; LOCO takes the
 VanRaden kinship and missing genotypes.
 
+Slice 5 adds the shared-eigenbasis multi-trait scan
+(models.multitrait.emmax_multi_trait, api.run_gwas_multi(batched=True)):
+one eigh, a float64 REML a trait, each genotype tile rotated once for all
+traits and kernel K3 launched once a trait on it; traits with missing
+phenotypes are grouped by their pattern.
+
 Modules keep the JAX package's paths and names. The port imports torch,
 numpy and scipy, and nothing of jax or of the JAX package: the few numpy
 modules it shares with that package (the data, results and plotting
@@ -42,7 +48,8 @@ on the CPU run each kernel's plain PyTorch version.
 __version__ = "0.1.0"
 
 __all__ = ["emmax", "emmax_resident", "kinship_resident", "ResidentGenome",
-           "emmax_loco", "loco_kinships", "emmax_step_wise", "kinship",
+           "emmax_loco", "loco_kinships", "emmax_step_wise",
+           "emmax_multi_trait", "kinship",
            "run_gwas",
            "run_gwas_multi", "parse_snp_data", "parse_phenotype_file",
            "calc_ibs_kinship", "calc_ibd_kinship", "save_kinship_to_file",
@@ -72,6 +79,10 @@ def __getattr__(name):
         from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
 
         return emmax_step_wise
+    if name == "emmax_multi_trait":
+        from mixmogam_tpu_torch.models.multitrait import emmax_multi_trait
+
+        return emmax_multi_trait
     if name == "kinship":
         from mixmogam_tpu_torch.ops.kinship import kinship
 

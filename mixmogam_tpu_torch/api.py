@@ -6,7 +6,9 @@ run_gwas runs method='emmax', 'emmax_loco' and 'emmax_stepwise' on the
 port's models layer, on the card unless the caller passes device='cpu'. The
 JAX package's
 other methods are not ported yet: each raises NotImplementedError naming its
-ROADMAP item before any file is read."""
+ROADMAP item before any file is read. run_gwas_multi loops run_gwas over
+the phenotypes, or with batched=True runs one shared-eigenbasis
+multi-trait scan (models/multitrait.py)."""
 
 from __future__ import annotations
 
@@ -30,8 +32,8 @@ from mixmogam_tpu_torch.utils.caching import (
 
 __all__ = [
     "parse_snp_data", "parse_phenotype_file", "calc_ibs_kinship",
-    "calc_ibd_kinship", "emmax", "emmax_loco", "emmax_step_wise", "run_gwas",
-    "run_gwas_multi",
+    "calc_ibd_kinship", "emmax", "emmax_loco", "emmax_step_wise",
+    "emmax_multi_trait", "run_gwas", "run_gwas_multi",
     "save_kinship_to_file", "load_kinship_from_file",
 ]
 
@@ -61,6 +63,10 @@ def __getattr__(name):
         from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
 
         return emmax_step_wise
+    if name == "emmax_multi_trait":
+        from mixmogam_tpu_torch.models.multitrait import emmax_multi_trait
+
+        return emmax_multi_trait
     raise AttributeError(
         f"module 'mixmogam_tpu_torch.api' has no attribute {name!r}")
 
@@ -320,13 +326,21 @@ def run_gwas_multi(genotype_file: str, phenotype_file: str,
     keys on genotype content, so with a cache_dir K is computed once
     across traits that share the sample set.
 
-    batched=True (one shared-eigenbasis multi-trait scan) is not ported
-    yet and raises NotImplementedError."""
+    batched=True runs ONE shared-eigenbasis multi-trait scan instead
+    (models/multitrait.py emmax_multi_trait): the genotypes are
+    coordinated once against the union of phenotyped samples, a trait's
+    missing phenotypes become NaN (its missingness pattern's group), and
+    each genotype tile is rotated once for all traits. Each pid's entry
+    also holds the coordinated genotypes (shared by all pids) and its
+    phenotype row, NaN where missing. It takes the facade
+    kwargs of batched=False that it can honour (method='emmax',
+    transform, plots, ploidy, kinship_file) and emmax_multi_trait's own
+    (device= among them); any other raises ValueError before a file is
+    read."""
     if batched:
-        raise NotImplementedError(
-            "run_gwas_multi(batched=True), the shared-eigenbasis "
-            "multi-trait scan, is not ported yet: ROADMAP Queue 1 item 10 "
-            "(models/multitrait.py); use batched=False")
+        return _run_gwas_batched(genotype_file, phenotype_file, pids,
+                                 out_prefix, data_format, min_mac,
+                                 kinship_method, cache_dir, kw)
     _check_method(kw.get("method", "emmax"))
     phend = parse_phenotype_file(phenotype_file)
     # pids=[] means "no phenotypes", not "all" (an empty filter result
@@ -340,4 +354,107 @@ def run_gwas_multi(genotype_file: str, phenotype_file: str,
                             data_format=data_format, min_mac=min_mac,
                             kinship_method=kinship_method,
                             cache_dir=cache_dir, **kw)
+    return out
+
+
+def _run_gwas_batched(genotype_file, phenotype_file, pids, out_prefix,
+                      data_format, min_mac, kinship_method, cache_dir,
+                      kw) -> Dict[int, Dict]:
+    """run_gwas_multi(batched=True): the JAX package's translation of the
+    facade kwargs, then emmax_multi_trait on the port's layers."""
+    import inspect
+
+    from mixmogam_tpu_torch.models.multitrait import emmax_multi_trait
+    from mixmogam_tpu_torch.ops import resolve_device
+    from mixmogam_tpu_torch.ops.kinship import resolve_compute_dtype
+
+    kw = dict(kw)
+    method = kw.pop("method", "emmax")
+    if method != "emmax":
+        raise ValueError(
+            f"batched=True runs one shared-eigenbasis EMMAX scan; "
+            f"method={method!r} is only available with batched=False")
+    transform = kw.pop("transform", None)
+    # same default as run_gwas: plots render per pid when out_prefix is
+    # set, so batched=True produces the same artifact set as a loop
+    plots = kw.pop("plots", True)
+    ploidy = kw.pop("ploidy", None)
+    kinship_file = kw.pop("kinship_file", None)
+    mt_params = set(inspect.signature(emmax_multi_trait).parameters)
+    unknown = sorted(set(kw) - mt_params)
+    if unknown:
+        raise ValueError(
+            f"kwargs {unknown} are not supported with batched=True "
+            "(the shared-eigenbasis scan accepts "
+            f"{sorted(mt_params - {'G', 'Y', 'K'})}); use batched=False")
+    device = kw["device"] = resolve_device(kw.get("device"))
+    if kw.get("dtype") is not None:
+        resolve_compute_dtype(kw["dtype"], device)  # refuses numpy / str
+    phend = parse_phenotype_file(phenotype_file)
+    pid_list = list(pids if pids is not None else phend.phenotype_ids())
+    if transform:
+        for pid in pid_list:
+            if transform == "most_normal":
+                phend.most_normal_transformation(pid)
+            else:
+                phend.transform(pid, transform)
+    gd = parse_snp_data(genotype_file, data_format=data_format,
+                        ploidy=ploidy)
+    maps = {pid: phend.value_dict(pid) for pid in pid_list}
+    keep = [i for i, a in enumerate(gd.accessions)
+            if any(a in m for m in maps.values())]
+    if not keep:
+        raise ValueError("no sample overlaps any requested phenotype")
+    gd2 = gd.select_samples(keep).filter_monomorphic_snps()
+    if min_mac:
+        gd2 = gd2.filter_mac_snps(min_mac)
+    Y = np.full((len(pid_list), gd2.num_samples), np.nan)
+    for t, pid in enumerate(pid_list):
+        m = maps[pid]
+        for j, a in enumerate(gd2.accessions):
+            if a in m:
+                Y[t, j] = np.mean(m[a])
+    if kinship_file and os.path.exists(kinship_file):
+        from mixmogam_tpu_torch.oracle.kinship import prepare_k
+
+        K, acc = load_kinship_from_file(kinship_file)
+        K = prepare_k(K, acc, gd2.accessions)
+    else:
+        K = cached_kinship(gd2, kinship_method, cache_dir=cache_dir,
+                           device=device)
+    mt = emmax_multi_trait(gd2, Y, K=K, **kw)
+    out = {}
+    dofs = np.broadcast_to(np.asarray(mt["dof"]), (len(pid_list),))
+    # one pass each over the matrix, shared by every pid's Result
+    mafs, macs = gd2.get_mafs(), gd2.get_macs()
+    for t, pid in enumerate(pid_list):
+        result = Result(mt["ps"][t], gd2.chromosomes, gd2.positions,
+                        mafs=mafs, macs=macs,
+                        additional={"betas": mt["betas"][t],
+                                    "f_stats": mt["f_stats"][t]},
+                        score_type="pvals")
+        files = {}
+        if out_prefix:
+            csv = f"{out_prefix}.pid{pid}.pvals.csv"
+            result.write_to_file(csv)
+            files["pvals"] = csv
+            if plots:
+                from mixmogam_tpu_torch.plotting import (manhattan_plot,
+                                                         qq_plot)
+
+                man = f"{out_prefix}.pid{pid}.manhattan.png"
+                qq = f"{out_prefix}.pid{pid}.qq.png"
+                manhattan_plot(result, man,
+                               threshold=bonferroni_threshold(len(result)))
+                qq_plot(mt["ps"][t], qq)
+                files.update(manhattan=man, qq=qq)
+        out[pid] = {
+            "result": result, "files": files, "genotype": gd2, "y": Y[t],
+            "scan": {"ps": mt["ps"][t], "f_stats": mt["f_stats"][t],
+                     "betas": mt["betas"][t], "mask": mt["mask"][t],
+                     "delta": float(mt["deltas"][t]),
+                     "pseudo_heritability":
+                         float(mt["pseudo_heritabilities"][t]),
+                     "dof": int(dofs[t])},
+        }
     return out

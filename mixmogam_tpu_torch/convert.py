@@ -73,6 +73,27 @@ def rotated_null_from_numpy(W, sd, Q0, y_res, rss0, dof, w_scale=None,
         w_scale=None if w_scale is None else _t(w_scale, device, dtype))
 
 
+def trait_nulls_from_numpy(sd, X0s, y_res, rss0, dof, device="cpu",
+                           dtype=torch.float64):
+    """Per-trait RotatedNulls from the fields of the JAX package's
+    multi-trait _trait_nulls: sd (T, n), the whitened designs X0s
+    (T, n, q), y_res (T, n), rss0 (T,) and dof. The JAX epilogue solves
+    with the Cholesky factor of X0s_t' X0s_t; K3 takes an orthonormal Q0,
+    so Q0_t is the orthonormal basis of X0s_t (ops/eigen.py
+    orthonormal_basis): xx = ss - c'A^-1 c = ss - |Q0_t' x|^2."""
+    from mixmogam_tpu_torch.ops.eigen import orthonormal_basis
+    from mixmogam_tpu_torch.ops.scan import RotatedNull
+
+    sd, X0s = np.asarray(sd), np.asarray(X0s)
+    y_res, rss0 = np.asarray(y_res), np.asarray(rss0)
+    return [RotatedNull(sd=_t(sd[t], device, dtype),
+                        Q0=orthonormal_basis(_t(X0s[t], device, dtype)),
+                        y_res=_t(y_res[t], device, dtype),
+                        rss0=_t(rss0[t], device, dtype),
+                        dof=_t(dof, device, dtype))
+            for t in range(sd.shape[0])]
+
+
 def resident_from_packed(host_packed, M, n, ploidy, tile, has_missing,
                          device="cpu"):
     """ResidentGenome from packed host rows (M_pad, ceil(n/4)) uint8."""

@@ -197,6 +197,16 @@ def row_means_packed(packed: torch.Tensor, n: int, tile: int, dtype
     return torch.cat(means)
 
 
+def _tile_from_packed_cols(packed: torch.Tensor, s: int, tile: int, n: int,
+                           cols: torch.Tensor) -> torch.Tensor:
+    """Rows [s, s + tile) of a packed genome unpacked on its device, with
+    the sample columns `cols` (an int64 index on that device) gathered
+    there: a missing-phenotype group of models/multitrait.py scans a
+    column subset of the container, with no host decode. Raw int8 (-1 =
+    missing): impute after the gather, so the means are the subset's."""
+    return unpack_2bit_device(packed[s:s + tile], n).index_select(1, cols)
+
+
 def design_mask_packed(packed: torch.Tensor, rot, n: int, tile: int,
                        impute: bool = False) -> torch.Tensor:
     """(M_pad,) bool on packed's device: ops/scan.py outside_design of

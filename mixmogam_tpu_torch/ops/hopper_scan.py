@@ -106,8 +106,9 @@ class ScanOperand:
 
 def _source_key(*tensors) -> tuple:
     """Which tensors, in which state: address and in-place version of each
-    (None for an absent one)."""
+    (None for an absent one; a Python number stands for itself)."""
     return tuple(None if t is None else (t.data_ptr(), t._version)
+                 if isinstance(t, torch.Tensor) else float(t)
                  for t in tensors)
 
 
@@ -388,42 +389,56 @@ _K3_NPAD = 256                  # n is padded to a multiple (K3's stages)
 _K3_DIRECT = (16, 256)
 
 
-def scan_stats(Xr: torch.Tensor, sd: torch.Tensor, y_res: torch.Tensor,
-               Q0: torch.Tensor, rss0, dof) -> torch.Tensor:
-    """(4, m) scan of pre-rotated rows Xr = G @ U (K3); Q0 (n, 1 <= q <=
-    128), as the TPU kernel's QPAD. Xr may have any row pitch (stride(0)
-    >= n, stride(1) = 1): the kernel takes rows whose pitch or start is no
-    multiple of 16 bytes by narrower copies. A wider Q0 on the card
-    raises."""
-    if Xr.device.type == "cpu":
-        return scan_stats_plain(Xr, sd, y_res, Q0, rss0, dof)
-    if Xr.device.type != "cuda":
-        raise ValueError(f"scan_stats: unsupported device {Xr.device}")
-    _check_cuda_f32("scan_stats", Xr=Xr, sd=sd, y_res=y_res, Q0=Q0)
-    if (Xr.ndim != 2 or Xr.shape[0] == 0 or Xr.stride(1) != 1
-            or Xr.stride(0) < Xr.shape[1]):
-        raise ValueError(f"scan_stats needs an (m > 0, n) Xr with unit "
-                         f"column stride; got {tuple(Xr.shape)} strides "
-                         f"{Xr.stride()}")
-    m, n = Xr.shape
-    if (sd.shape != (n,) or y_res.shape != (n,) or Q0.ndim != 2
-            or Q0.shape[0] != n or not 1 <= Q0.shape[1] <= _K3_QMAX):
-        raise ValueError(f"scan_stats: sd/y_res must be ({n},) and Q0 "
-                         f"({n}, q <= {_K3_QMAX}); got {tuple(sd.shape)}, "
-                         f"{tuple(y_res.shape)}, {tuple(Q0.shape)}")
-    from mixmogam_tpu_torch.ops._build import build, check_launch
+@dataclasses.dataclass
+class K3Operand:
+    """What K3 reads besides the rotated rows, built once per whitened
+    null: Q0 (n_pad, qw), then sd and y_res (n_pad,), in one zero-padded
+    block (Q0 in a stage's column order up to the direct widths), and rss0
+    and dof as host numbers, read once."""
 
+    n: int
+    q: int
+    qw: int                   # K3's width class of Q0
+    n_pad: int
+    buf: torch.Tensor         # (n_pad * (qw + 2),) f32
+    rss0: float
+    dof: float
+    source: tuple = ()        # _source_key(sd, y_res, Q0, rss0, dof)
+
+    @property
+    def q0(self) -> torch.Tensor:
+        return self.buf[:self.n_pad * self.qw]
+
+    @property
+    def sd(self) -> torch.Tensor:
+        return self.buf[self.n_pad * self.qw:self.n_pad * (self.qw + 1)]
+
+    @property
+    def y_res(self) -> torch.Tensor:
+        return self.buf[self.n_pad * (self.qw + 1):]
+
+
+def prepare_k3_operand(sd: torch.Tensor, y_res: torch.Tensor,
+                       Q0: torch.Tensor, rss0, dof) -> K3Operand:
+    """K3's operand from one null's sd, y_res (n,), Q0 (n, 1 <= q <= 128)
+    and rss0, dof: float32 CUDA tensors, checked here."""
+    _check_cuda_f32("scan_stats", sd=sd, y_res=y_res, Q0=Q0)
+    n = sd.shape[0] if sd.ndim == 1 else -1
+    if (n < 1 or y_res.shape != (n,) or Q0.ndim != 2 or Q0.shape[0] != n
+            or not 1 <= Q0.shape[1] <= _K3_QMAX):
+        raise ValueError(f"scan_stats: sd/y_res must be (n,) and Q0 "
+                         f"(n, q <= {_K3_QMAX}); got {tuple(sd.shape)}, "
+                         f"{tuple(y_res.shape)}, {tuple(Q0.shape)}")
     q = Q0.shape[1]
     qw = next(w for w in _K3_WIDTHS if w >= q)
     n_pad = -(-n // _K3_NPAD) * _K3_NPAD
-    # one zero-padded block: Q0 (n_pad, qw), then sd and y_res (n_pad,)
     buf = torch.zeros(n_pad * (qw + 2), dtype=torch.float32,
-                      device=Xr.device)
+                      device=sd.device)
     q0 = buf[:n_pad * qw].view(n_pad, qw)
     if qw <= _K3_DIRECT[0]:
         # the narrow classes read a stage's slice column by column
         kc = _K3_DIRECT[1]
-        qp = torch.zeros((n_pad, qw), dtype=torch.float32, device=Xr.device)
+        qp = torch.zeros((n_pad, qw), dtype=torch.float32, device=sd.device)
         qp[:n, :q] = Q0
         q0.view(n_pad // kc, qw, kc).copy_(
             qp.view(n_pad // kc, kc, qw).transpose(1, 2))
@@ -432,6 +447,61 @@ def scan_stats(Xr: torch.Tensor, sd: torch.Tensor, y_res: torch.Tensor,
     sdp, yp = buf[n_pad * qw:].view(2, n_pad)
     sdp[:n] = sd
     yp[:n] = y_res
+    return K3Operand(n=n, q=q, qw=qw, n_pad=n_pad, buf=buf,
+                     rss0=_as_float(rss0), dof=_as_float(dof),
+                     source=_source_key(sd, y_res, Q0, rss0, dof))
+
+
+def k3_operand(rot) -> K3Operand:
+    """The K3 operand of a RotatedNull (its sd, y_res, Q0, rss0, dof),
+    built at first use and kept with it (built again if those were
+    replaced or written to since): the exact tier, stepwise and each
+    trait of a multi-trait scan launch K3 once per tile on it."""
+    key = _source_key(rot.sd, rot.y_res, rot.Q0, rot.rss0, rot.dof)
+    if rot.k3 is None or rot.k3.source != key:
+        rot.k3 = prepare_k3_operand(rot.sd, rot.y_res, rot.Q0, rot.rss0,
+                                    rot.dof)
+        k3_operand.builds += 1
+    return rot.k3
+
+
+k3_operand.builds = 0
+
+
+def scan_stats(Xr: torch.Tensor, sd: torch.Tensor, y_res: torch.Tensor,
+               Q0: torch.Tensor, rss0, dof,
+               operand: Optional[K3Operand] = None) -> torch.Tensor:
+    """(4, m) scan of pre-rotated rows Xr = G @ U (K3); Q0 (n, 1 <= q <=
+    128), as the TPU kernel's QPAD. Xr may have any row pitch (stride(0)
+    >= n, stride(1) = 1): the kernel takes rows whose pitch or start is no
+    multiple of 16 bytes by narrower copies. A wider Q0 on the card
+    raises. operand: k3_operand(rot) of the RotatedNull the other
+    arguments come from; without it the operand is prepared here, at
+    every call (a zero-filled block and two reads of rss0 and dof to the
+    host)."""
+    if Xr.device.type == "cpu":
+        return scan_stats_plain(Xr, sd, y_res, Q0, rss0, dof)
+    if Xr.device.type != "cuda":
+        raise ValueError(f"scan_stats: unsupported device {Xr.device}")
+    _check_cuda_f32("scan_stats", Xr=Xr)
+    if (Xr.ndim != 2 or Xr.shape[0] == 0 or Xr.stride(1) != 1
+            or Xr.stride(0) < Xr.shape[1]):
+        raise ValueError(f"scan_stats needs an (m > 0, n) Xr with unit "
+                         f"column stride; got {tuple(Xr.shape)} strides "
+                         f"{Xr.stride()}")
+    m, n = Xr.shape
+    if operand is None:
+        operand = prepare_k3_operand(sd, y_res, Q0, rss0, dof)
+    elif operand.source != _source_key(sd, y_res, Q0, rss0, dof):
+        raise ValueError(f"scan_stats: the prepared operand (n={operand.n}, "
+                         f"q={operand.q}) does not belong to these "
+                         f"arguments")
+    if operand.n != n or operand.buf.device != Xr.device:
+        raise ValueError(f"scan_stats: Xr is {tuple(Xr.shape)} on "
+                         f"{Xr.device}; the operand is for n={operand.n} on "
+                         f"{operand.buf.device}")
+    from mixmogam_tpu_torch.ops._build import build, check_launch
+
     out = torch.empty((4, m), dtype=torch.float32, device=Xr.device)
     fn = build("scan_stats").scan_stats
     fn.restype = ctypes.c_int
@@ -440,9 +510,9 @@ def scan_stats(Xr: torch.Tensor, sd: torch.Tensor, y_res: torch.Tensor,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
                    ctypes.c_void_p]
-    rc = fn(Xr.data_ptr(), m, n, Xr.stride(0), sdp.data_ptr(),
-            yp.data_ptr(), q0.data_ptr(), qw, n_pad, _as_float(rss0),
-            _as_float(dof), out.data_ptr(),
+    rc = fn(Xr.data_ptr(), m, n, Xr.stride(0), operand.sd.data_ptr(),
+            operand.y_res.data_ptr(), operand.q0.data_ptr(), operand.qw,
+            operand.n_pad, operand.rss0, operand.dof, out.data_ptr(),
             torch.cuda.current_stream(Xr.device).cuda_stream)
     check_launch(rc, "scan_stats")
     scan_stats.launches += 1

@@ -70,6 +70,10 @@ class RotatedNull:
     #: (ops/hopper_scan.py scan_operand builds it at the first scan)
     operand: Optional[object] = dataclasses.field(default=None, repr=False,
                                                   compare=False)
+    #: kernel K3's prepared sd / y_res / Q0 block and host rss0 / dof on
+    #: the card (ops/hopper_scan.py k3_operand builds it at the first scan)
+    k3: Optional[object] = dataclasses.field(default=None, repr=False,
+                                             compare=False)
 
     @property
     def scan_q0(self) -> torch.Tensor:
@@ -456,9 +460,12 @@ def emmax_scan_prerotated(Xr: torch.Tensor, rot: RotatedNull, keep=None
     themselves where K is the identity), all m rows in one launch of
     scan_stats (kernel K3 on CUDA; no tile padding). keep: (m,) bool from
     outside_design when U was projected; the other rows come out masked."""
-    from mixmogam_tpu_torch.ops.hopper_scan import scan_stats
+    from mixmogam_tpu_torch.ops.hopper_scan import k3_operand, scan_stats
 
-    out = scan_stats(Xr, rot.sd, rot.y_res, rot.Q0, rot.rss0, rot.dof)
+    # K3's operand, prepared once per rotated null and kept with it
+    op = k3_operand(rot) if Xr.device.type == "cuda" else None
+    out = scan_stats(Xr, rot.sd, rot.y_res, rot.Q0, rot.rss0, rot.dof,
+                     operand=op)
     # the rows inside X0's span: every output zeroed, the mask included
     # (a where, not a product: such a row's f may be inf)
     return out if keep is None else torch.where(keep[None, :], out, 0.0)

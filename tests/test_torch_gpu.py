@@ -597,3 +597,52 @@ def test_card_cached_eigen_default_is_the_card(cuda, tmp_path, monkeypatch):
     # a hit factors nothing
     cached_eigen(K, cache_dir=str(tmp_path / "card"))
     assert seen == ["cuda", "cpu"]
+
+
+@pytest.mark.parametrize("precision,bound", [("exact", 1e-5),
+                                             ("int8x3", 1e-4),
+                                             ("bf16x3", 1e-4)])
+def test_card_multi_trait_vs_cpu_float64(cuda, precision, bound):
+    """emmax_multi_trait on the card (float32, no device=) against the
+    float64 CPU path, n = 1,024, T = 4 traits, one of them with missing
+    phenotypes (a second sample subset): identical masks, max |dp| within
+    the tier's bound. Each tile is rotated once and K3 launched once a
+    trait on it: T x tiles launches."""
+    from mixmogam_tpu_torch.models.multitrait import emmax_multi_trait
+    from mixmogam_tpu_torch.oracle.kinship import ibs_kinship, scale_k
+
+    n, m, tile = 1_024, 2_500, 1_024
+    G, _, _ = simulate_genotypes(n, m, seed=12)
+    rng = np.random.default_rng(12)
+    Y = np.stack([G[30 * t] * 0.8 + rng.normal(size=n) for t in range(4)])
+    Y[3, rng.permutation(n)[:40]] = np.nan
+    K = scale_k(ibs_kinship(G.astype(np.float64)))
+    rg = ResidentGenome.from_source(G, tile=tile)
+    before = scan_stats.launches
+    a = emmax_multi_trait(rg, Y, K=K, precision=precision)
+    assert scan_stats.launches - before == 4 * -(-m // tile)
+    b = emmax_multi_trait(G, Y, K=K, precision=precision, device="cpu")
+    assert np.array_equal(a["mask"], b["mask"])
+    assert np.abs(a["ps"] - b["ps"]).max() <= bound
+    np.testing.assert_array_equal(a["dof"], [n - 2] * 3 + [n - 42])
+
+
+@pytest.mark.parametrize("q", [1, 11, 20, 128])
+def test_k3_prepared_operand_is_bit_equal(cuda, q):
+    """K3 on the operand prepared once per rotated null (k3_operand, kept
+    with it) gives the output of the wrapper that prepares it at every
+    call; another null's operand is refused."""
+    from mixmogam_tpu_torch.ops.hopper_scan import k3_operand
+
+    n = 1_002
+    G, _, _ = simulate_genotypes(n, 700, seed=q)
+    rot = build_rotated_null(_null(n, q, cuda))
+    Xr = torch.as_tensor(G, device=cuda).float() @ rot.U
+    a = (Xr, rot.sd, rot.y_res, rot.Q0, rot.rss0, rot.dof)
+    before = k3_operand.builds
+    op = k3_operand(rot)
+    assert k3_operand(rot) is op and k3_operand.builds == before + 1
+    assert torch.equal(scan_stats(*a, operand=op), scan_stats(*a))
+    other = build_rotated_null(_null(n, q, cuda, seed=1))
+    with pytest.raises(ValueError, match="does not belong"):
+        scan_stats(*a, operand=k3_operand(other))
