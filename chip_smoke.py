@@ -95,6 +95,30 @@ Phases (each prints its own seconds):
     True) from phase 6's PLINK fileset and a 4-trait phenotype CSV: equal
     (max |dp| <= 1e-12) to emmax_multi_trait on its own rows, Y and K, and
     to its own CSVs
+ 10 EMMA at BASELINE #2's shape: a binary genome of n = 1,300 x 215,000
+    (--snps when smaller, never below 16,384) -> ResidentGenome ->
+    kinship_resident (K1 once) -> scale_k -> eigh (float64, card) -> emma
+    in float64 on the card: its wall, timings_s split (rotation, grid,
+    refine, F) and SNP-tests/s, and BASELINE #2's parity against
+    emmax_resident at exact (printed, not gated: rank correlation of
+    -log10 p, max |d -log10 p|, hits at p < 1e-5 and their overlap, the
+    spread of log delta). Gates: (a) the
+    card's first 2,048 rows against the float64 CPU path, identical masks,
+    max |dp| <= 1e-8, max |d log delta| <= 1e-6; (b) test='lrt' on those
+    rows, the same; (c) VanRaden's singular K (n = 256, seed 3), the same;
+    (d) dtype=float32 on those rows finishes with finite p (its drift and
+    bracket flips printed)
+ 11 the class tests: linear_model (K3 once a tile and nothing else),
+    anova and kruskal_wallis on phase 4's resident genome, each wall and
+    rate; at n = 2,048 x 8,192, card against the float64 CPU path: anova
+    and kruskal_wallis (diploid, 2 % missing calls: the missing-call KW)
+    with identical validity masks and max |dp| <= 1e-8, emmax_anova at
+    ploidy 2 (max |dp| <= 1e-5, identical masks; its all-heterozygous SNP
+    masked), at ploidy 1 bit-equal to emmax, and at ploidy 2 under
+    VanRaden's singular K (max |dp| <= 1e-4); then run_gwas methods emma,
+    lm, anova and kw from phase 6's PLINK fileset, each equal (max |dp| <=
+    1e-12) to the direct call on its rows, y and K and to its own CSV, emma
+    launching K1 once, lm K3 once a tile
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}. Any
@@ -278,6 +302,279 @@ def _check_no_jax() -> None:
                  if m.split(".")[0] in ("jax", "mixmogam_tpu"))
     if bad:
         raise AssertionError(f"the port imported {bad[:5]}")
+
+
+def _emma_phase(args, dev, kernels, launches) -> None:
+    """Phase 10: EMMA at BASELINE #2's shape (n = 1,300 inbred lines, ploidy
+    1, M = 215,000) in float64 on the card, its split and rate, its parity
+    with EMMAX (printed), and gates (a)-(d) against the float64 CPU path."""
+    import numpy as np
+    import scipy.stats
+    import torch
+
+    from mixmogam_tpu_torch.data.simulate import (simulate_genotypes,
+                                                  simulate_phenotype)
+    from mixmogam_tpu_torch.models.emma import emma
+    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
+                                                    emmax_resident,
+                                                    kinship_resident,
+                                                    scale_k)
+    from mixmogam_tpu_torch.ops.eigen import eigen_k
+    from mixmogam_tpu_torch.oracle.kinship import vanraden_kinship
+
+    n = 1_300
+    # BASELINE #2's 215,000 rows, or --snps in a rehearsal (never below
+    # 16,384)
+    M = 215_000 if args.snps >= 215_000 else max(16_384, args.snps)
+    ts = time.perf_counter()
+    G = _draw_genotypes(n, M, seed=args.seed + 100)
+    y, causal = simulate_phenotype(G[:16_384], h2=0.5, n_causal=5,
+                                   causal_effect=1.0, seed=args.seed + 100)
+    for k in kernels:
+        k.launches = 0
+    rg = ResidentGenome.from_source(G)
+    K = scale_k(kinship_resident(rg))
+    phi, U = eigen_k(torch.as_tensor(K, device=dev), host=False)
+    torch.cuda.synchronize()
+    run = {k.__name__: k.launches for k in kernels}
+    print(f"EMMA genome n={n} M={M} (binary), K1 kinship and float64 eigh "
+          f"on the card: {time.perf_counter() - ts:.3f} s; launches {run}",
+          flush=True)
+    if run["ibs_gram_packed"] != 1:
+        raise AssertionError("phase 10's kinship did not launch K1 once")
+    emma(rg.slice_rows(0, 256), y, eig_k=(phi, U))       # first-call costs
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    e = emma(rg, y, eig_k=(phi, U))
+    wall = time.perf_counter() - ts
+    for name, cnt in run.items():
+        launches[name] += cnt
+    tm = e["timings_s"]
+    print(f"emma float64 on the card, n={n} M={M}: {wall:.3f} s = "
+          f"{M / wall:,.0f} SNP-tests/s; rotation {tm['rotation']:.3f} s, "
+          f"grid {tm['grid']:.3f} s, refine {tm['refine']:.3f} s "
+          f"({tm['refine'] / wall:.2f} of the call), F {tm['f']:.3f} s, "
+          f"p-values {tm['p_values']:.3f} s", flush=True)
+    ps = e["ps"]
+    if ps.shape != (M,) or not np.isfinite(ps).all() or (
+            (ps < 0) | (ps > 1)).any() or not np.isfinite(
+            e["deltas"][e["mask"]]).all():
+        raise AssertionError("emma: malformed output")
+    # BASELINE #2's parity summary against EMMAX at exact (printed)
+    k3 = next(k for k in kernels if k.__name__ == "scan_stats")
+    before = k3.launches
+    ts = time.perf_counter()
+    x = emmax_resident(rg, y, eig_k=(phi, U))
+    scan_k3 = k3.launches - before
+    launches["scan_stats"] += scan_k3
+    lp_e, lp_x = -np.log10(e["ps"]), -np.log10(x["ps"])
+    rho = scipy.stats.spearmanr(lp_e, lp_x).statistic
+    hit_e, hit_x = set(np.flatnonzero(e["ps"] < 1e-5)), set(
+        np.flatnonzero(x["ps"] < 1e-5))
+    ld = np.log(e["deltas"][e["mask"]])
+    print(f"   vs emmax_resident exact ({time.perf_counter() - ts:.3f} s, K3 "
+          f"launches {scan_k3}): Spearman rho of -log10 p {rho:.6f}, max "
+          f"|d -log10 p| {np.abs(lp_e - lp_x).max():.4f}; p < 1e-5: EMMA "
+          f"{len(hit_e)}, EMMAX {len(hit_x)}, both {len(hit_e & hit_x)}; "
+          f"causal in EMMA's top 20: "
+          f"{len(set(np.argsort(e['ps'])[:20]) & set(causal.tolist()))} of "
+          f"{len(causal)}; per-SNP log delta min "
+          f"{ld.min():.4f} / 5 % {np.quantile(ld, 0.05):.4f} / median "
+          f"{np.median(ld):.4f} / 95 % {np.quantile(ld, 0.95):.4f} / max "
+          f"{ld.max():.4f} (EMMAX's null {np.log(x['delta']):.4f})",
+          flush=True)
+    del x
+    # (a) the card against the float64 CPU path on the first 2,048 rows
+    ts = time.perf_counter()
+    m = min(2_048, M)
+    eig_cpu = (phi.cpu(), U.cpu())
+    c = emma(G[:m], y, eig_k=eig_cpu, device="cpu")
+    _emma_gate("(a) float64, card vs CPU", {k: v[:m] for k, v in e.items()
+                                           if k != "timings_s"}, c, 1e-8)
+    # (b) the LRT on the same rows
+    lc = emma(rg.slice_rows(0, m), y, eig_k=(phi, U), test="lrt")
+    lh = emma(G[:m], y, eig_k=eig_cpu, test="lrt", device="cpu")
+    _emma_gate("(b) test='lrt', card vs CPU", lc, lh, 1e-8)
+    # (d) float32 on the card: its drift, not gated
+    f32 = emma(rg.slice_rows(0, m), y, eig_k=(phi, U), dtype=torch.float32)
+    if not np.isfinite(f32["ps"]).all():
+        raise AssertionError("(d) emma float32: non-finite p-values")
+    both = f32["mask"] & c["mask"]
+    flips = int((np.abs(np.log(f32["deltas"][both])
+                        - np.log(c["deltas"][both])) > 0.2).sum())
+    print(f"   (d) float32 on the card vs float64: max|dp| "
+          f"{np.abs(f32['ps'] - c['ps']).max():.3e}, "
+          f"{int((f32['mask'] != c['mask']).sum())} mask(s) differ, {flips} "
+          f"SNP(s) with log delta more than one grid step (0.2) apart "
+          f"(not gated)", flush=True)
+    print(f"   gates (a), (b), (d): {time.perf_counter() - ts:.3f} s",
+          flush=True)
+    # (c) VanRaden's singular K (n = 256, seed 3; delta at its bound)
+    Gv, _, _ = simulate_genotypes(256, 3_000, ploidy=1, seed=3)
+    yv, _ = simulate_phenotype(Gv, h2=0.5, n_causal=4, seed=3)
+    Kv = scale_k(vanraden_kinship(Gv.astype(np.float64), ploidy=1))
+    eigv = eigen_k(Kv)
+    _emma_gate("(c) VanRaden's singular K, card vs CPU",
+               emma(Gv, yv, eig_k=eigv),
+               emma(Gv, yv, eig_k=eigv, device="cpu"), 1e-8)
+    del rg, G, phi, U, e
+    torch.cuda.empty_cache()
+
+
+def _emma_gate(label, card, cpu, p_tol) -> None:
+    """Identical masks, max |dp| <= p_tol, max |d log delta| <= 1e-6 over
+    the unmasked SNPs."""
+    import numpy as np
+
+    nm = int((card["mask"] != cpu["mask"]).sum())
+    dp = float(np.abs(card["ps"] - cpu["ps"]).max())
+    mk = cpu["mask"]
+    dld = float(np.abs(np.log(card["deltas"][mk])
+                       - np.log(cpu["deltas"][mk])).max()) if mk.any() else 0.0
+    j = int(np.argmax(np.abs(card["ps"] - cpu["ps"])))
+    print(f"   {label}: {len(mk)} SNPs, {nm} mask(s) differ, max|dp| "
+          f"{dp:.3e}, max|d log delta| {dld:.3e} (largest |dp| at SNP {j}: "
+          f"log delta {np.log(card['deltas'][j]):.9f} on the card, "
+          f"{np.log(cpu['deltas'][j]):.9f} on the CPU)", flush=True)
+    if nm or dp > p_tol or dld > 1e-6:
+        raise AssertionError(f"emma {label}: outside the gate")
+
+
+def _class_phase(args, dev, kernels, launches, main, facade, files, tmp,
+                 counts, tiles) -> None:
+    """Phase 11: linear_model, anova and kruskal_wallis on phase 4's
+    resident genome; the class tests and emmax_anova on the card against
+    the float64 CPU path at n = 2,048 x 8,192; run_gwas methods emma, lm,
+    anova and kw from phase 6's PLINK fileset."""
+    import numpy as np
+    import torch
+
+    from mixmogam_tpu_torch.data.simulate import (simulate_genotypes,
+                                                  simulate_phenotype)
+    from mixmogam_tpu_torch.models.emma import emma
+    from mixmogam_tpu_torch.models.emmax import emmax, emmax_anova
+    from mixmogam_tpu_torch.models.linear import (_class_sums_packed, anova,
+                                                  kruskal_wallis,
+                                                  linear_model)
+    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
+                                                    kinship_resident,
+                                                    scale_k, subdivide_tile)
+    from mixmogam_tpu_torch.oracle.kinship import vanraden_kinship
+    from mixmogam_tpu_torch.utils.caching import cached_kinship
+
+    rg, y = main["rg"], main["y"]
+    full_tiles = -(-rg.M // rg.tile)
+    walls = {}
+    for fn, want in ((linear_model, counts(scan_stats=full_tiles)),
+                     (anova, counts()), (kruskal_wallis, counts())):
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        r = fn(rg, y)
+        wall = time.perf_counter() - ts
+        run = {k.__name__: k.launches for k in kernels}
+        for name, cnt in run.items():
+            launches[name] += cnt
+        ps = r["ps"]
+        print(f"{fn.__name__} on the resident genome, n={rg.n} M={rg.M}: "
+              f"{wall:.3f} s = {rg.M / wall:,.0f} SNP-tests/s; launches "
+              f"{run}; min p {ps.min():.3e}", flush=True)
+        if run != want:
+            raise AssertionError(f"{fn.__name__}: launches {run}, expected "
+                                 f"{want}")
+        if ps.shape != (rg.M,) or not np.isfinite(ps).all() or (
+                (ps < 0) | (ps > 1)).any():
+            raise AssertionError(f"{fn.__name__}: malformed p-values")
+        walls[fn.__name__] = wall
+    # the class sums alone (anova's [1, y, y^2] and KW's [1, ranks]: the
+    # indicator products over the packed rows), against each whole call
+    for name, cols in (("anova", 3), ("kruskal_wallis", 2)):
+        W = torch.ones((rg.n, cols), dtype=torch.float64, device=dev)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        _class_sums_packed(rg.packed, W, rg.n, rg.M, subdivide_tile(rg.tile),
+                           rg.ploidy + 1)
+        torch.cuda.synchronize()
+        alone = time.perf_counter() - ts
+        print(f"   {name}'s class sums alone ({cols} weight columns): "
+              f"{alone:.3f} s = {alone / walls[name]:.2f} of its call",
+              flush=True)
+
+    # the card against the float64 CPU path, n = 2,048 x 8,192
+    ts = time.perf_counter()
+    nd, Md = 2_048, 8_192
+    Gd, _, _ = simulate_genotypes(nd, Md, ploidy=2, missing_rate=0.02,
+                                  seed=args.seed + 110)
+    Gd[0] = 1                              # every sample heterozygous
+    yd, _ = simulate_phenotype(np.where(Gd < 0, 0, Gd), h2=0.5, n_causal=5,
+                               seed=args.seed + 110)
+    for fn in (anova, kruskal_wallis):
+        a, b = fn(Gd, yd), fn(Gd, yd, device="cpu")
+        nm = int(((a["ps"] < 1) != (b["ps"] < 1)).sum())
+        dp = float(np.abs(a["ps"] - b["ps"]).max())
+        print(f"   {fn.__name__} (diploid, 2 % missing calls), card vs CPU "
+              f"float64: {nm} validity mask(s) differ, max|dp| {dp:.3e}",
+              flush=True)
+        if nm or dp > 1e-8:
+            raise AssertionError(f"{fn.__name__}: card and CPU disagree")
+    Kd = scale_k(kinship_resident(ResidentGenome.from_source(Gd),
+                                  dtype=torch.float64))
+    a = emmax_anova(Gd, yd, K=Kd)
+    b = emmax_anova(Gd, yd, K=Kd, device="cpu")
+    _pair_gate("emmax_anova ploidy 2 (2 % missing calls)", a, b, 1e-5)
+    if a["dof1"][0] != 0 or a["mask"][0] or b["dof1"][0] != 0:
+        raise AssertionError("the all-heterozygous SNP's I1 was not masked")
+    print("   the all-heterozygous SNP: d1 = 0, masked, on the card and the "
+          "CPU", flush=True)
+    Gb, _, _ = simulate_genotypes(nd, Md, ploidy=1, seed=args.seed + 111)
+    yb, _ = simulate_phenotype(Gb, h2=0.5, n_causal=5, seed=args.seed + 111)
+    Kb = scale_k(kinship_resident(ResidentGenome.from_source(Gb)))
+    a = emmax_anova(Gb, yb, K=Kb)
+    b = emmax(Gb, yb, K=Kb, tile=4096)
+    same = all(np.array_equal(a[k], b[k]) for k in ("ps", "f_stats", "mask"))
+    print(f"   emmax_anova ploidy 1 vs emmax: bit-equal {same}", flush=True)
+    if not same:
+        raise AssertionError("emmax_anova at ploidy 1 differs from emmax")
+    Gv, _, _ = simulate_genotypes(256, 3_000, ploidy=2, seed=3)
+    yv, _ = simulate_phenotype(Gv, h2=0.5, n_causal=4, seed=3)
+    Kv = scale_k(vanraden_kinship(Gv.astype(np.float64), ploidy=2))
+    a = emmax_anova(Gv, yv, K=Kv)
+    b = emmax_anova(Gv, yv, K=Kv, device="cpu")
+    _pair_gate(f"emmax_anova ploidy 2, VanRaden's K (delta "
+               f"{b['delta']:.3e})", a, b, 1e-4)
+    print(f"   card vs CPU checks: {time.perf_counter() - ts:.3f} s",
+          flush=True)
+
+    # run_gwas from phase 6's PLINK fileset, each held to its direct call
+    def direct(fn, **kw):
+        return lambda g2, y2: fn(g2, y2, **kw)
+
+    out = facade("emma", files + (os.path.join(tmp, "emma"),),
+                 lambda g2, y2: emma(g2, y2, K=cached_kinship(g2, "ibs"),
+                                     tile=16_384),
+                 lambda g2: counts(ibs_gram_packed=1), method="emma")
+    print(f"   emma timings_s "
+          f"{json.dumps({k: round(v, 3) for k, v in out['scan']['timings_s'].items()})}",
+          flush=True)
+    facade("lm", files + (os.path.join(tmp, "lm"),),
+           direct(linear_model, tile=16_384),
+           lambda g2: counts(scan_stats=tiles(g2)), method="lm")
+    facade("anova", files + (os.path.join(tmp, "anova"),), direct(anova),
+           lambda g2: counts(), method="anova")
+    facade("kw", files + (os.path.join(tmp, "kw"),), direct(kruskal_wallis),
+           lambda g2: counts(), method="kw")
+
+
+def _pair_gate(label, card, cpu, p_tol) -> None:
+    import numpy as np
+
+    nm = int((card["mask"] != cpu["mask"]).sum())
+    dp = float(np.abs(card["ps"] - cpu["ps"]).max())
+    print(f"   {label}, card float32 vs CPU float64: {nm} mask(s) differ, "
+          f"max|dp| {dp:.3e}", flush=True)
+    if nm or dp > p_tol:
+        raise AssertionError(f"{label}: card and CPU disagree")
 
 
 def main(argv=None) -> int:
@@ -814,7 +1111,8 @@ def main(argv=None) -> int:
               f"timings_s {json.dumps(timings)}", flush=True)
         route = ("in-core (the genome packed once, for the kinship)"
                  if packs == 1 and kw.get("method") != "emmax_loco"
-                 else f"resident (the genome packed {packs} time(s))")
+                 else f"resident (the genome packed {packs} time(s))"
+                 if packs else "in-core (no packing, no kinship)")
         print(f"   route: {route}; launches {run}", flush=True)
         if packs == 2:
             ts = time.perf_counter()
@@ -1239,7 +1537,7 @@ def main(argv=None) -> int:
               f"{dpt:.3e}", flush=True)
         if nm or dpt > 1e-4:
             raise AssertionError(f"multi-trait {tier} disagrees with exact")
-    del mt, Up9, U64, Gt9, main, rg
+    del mt, Up9, U64, Gt9, rg
     torch.cuda.empty_cache()
     # missingness groups on the card against the float64 CPU path
     ts = time.perf_counter()
@@ -1304,10 +1602,25 @@ def main(argv=None) -> int:
         raise AssertionError("run_gwas_multi batched disagrees with the "
                              "direct call, its CSVs or its launches")
     del out9, ref9, g9
-    tmpdir.cleanup()
     torch.cuda.empty_cache()
     _check_no_jax()
     _phase("9 multi-trait", t0)
+
+    # ---- 10. EMMA at BASELINE #2's shape ----------------------------------
+    t0 = time.perf_counter()
+    _emma_phase(args, dev, kernels, launches)
+    _check_no_jax()
+    _phase("10 EMMA", t0)
+
+    # ---- 11. the class tests ----------------------------------------------
+    t0 = time.perf_counter()
+    _class_phase(args, dev, kernels, launches, main, facade, files, tmp,
+                 counts, tiles)
+    del main
+    tmpdir.cleanup()
+    torch.cuda.empty_cache()
+    _check_no_jax()
+    _phase("11 class tests", t0)
 
     for k in kernels:
         report[k.__name__]["launches"] = launches[k.__name__]

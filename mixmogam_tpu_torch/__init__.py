@@ -35,6 +35,13 @@ one eigh, a float64 REML a trait, each genotype tile rotated once for all
 traits and kernel K3 launched once a trait on it; traits with missing
 phenotypes are grouped by their pattern.
 
+Slice 6 adds EMMA, the exact per-SNP REML (models.emma.emma, float64 by
+default on the card as on the CPU: one rotation a tile, then a batched grid
+and a bisection per SNP), and the fixed-effects tests of models.linear
+(linear_model through kernel K3 with identity whitening, anova,
+kruskal_wallis) and models.emmax.emmax_anova: run_gwas methods 'emma',
+'lm', 'anova' and 'kw'.
+
 Modules keep the JAX package's paths and names. The port imports torch,
 numpy and scipy, and nothing of jax or of the JAX package: the few numpy
 modules it shares with that package (the data, results and plotting
@@ -49,7 +56,8 @@ __version__ = "0.1.0"
 
 __all__ = ["emmax", "emmax_resident", "kinship_resident", "ResidentGenome",
            "emmax_loco", "loco_kinships", "emmax_step_wise",
-           "emmax_multi_trait", "kinship",
+           "emmax_multi_trait", "emma", "emmax_anova", "linear_model",
+           "anova", "kruskal_wallis", "kinship",
            "run_gwas",
            "run_gwas_multi", "parse_snp_data", "parse_phenotype_file",
            "calc_ibs_kinship", "calc_ibd_kinship", "save_kinship_to_file",
@@ -83,6 +91,11 @@ def __getattr__(name):
         from mixmogam_tpu_torch.models.multitrait import emmax_multi_trait
 
         return emmax_multi_trait
+    if name in {"emma", "emmax_anova", "linear_model", "anova",
+                "kruskal_wallis"}:
+        from mixmogam_tpu_torch import api
+
+        return getattr(api, name)
     if name == "kinship":
         from mixmogam_tpu_torch.ops.kinship import kinship
 

@@ -2,11 +2,11 @@
 SURVEY.md L7: convenience functions gluing parse -> coordinate -> kinship ->
 scan -> results/plots).
 
-run_gwas runs method='emmax', 'emmax_loco' and 'emmax_stepwise' on the
-port's models layer, on the card unless the caller passes device='cpu'. The
-JAX package's
-other methods are not ported yet: each raises NotImplementedError naming its
-ROADMAP item before any file is read. run_gwas_multi loops run_gwas over
+run_gwas runs method='emmax', 'emmax_loco', 'emmax_stepwise', 'emma' (the
+exact per-SNP REML, float64 by default) and the fixed-effects tests 'lm',
+'anova' and 'kw' on the port's models layer, on the card unless the caller
+passes device='cpu'. 'emmax_gxe' is not ported yet: it raises
+NotImplementedError naming its ROADMAP item before any file is read. run_gwas_multi loops run_gwas over
 the phenotypes, or with batched=True runs one shared-eigenbasis
 multi-trait scan (models/multitrait.py)."""
 
@@ -33,51 +33,56 @@ from mixmogam_tpu_torch.utils.caching import (
 __all__ = [
     "parse_snp_data", "parse_phenotype_file", "calc_ibs_kinship",
     "calc_ibd_kinship", "emmax", "emmax_loco", "emmax_step_wise",
-    "emmax_multi_trait", "run_gwas", "run_gwas_multi",
+    "emmax_multi_trait", "emma", "emmax_anova", "linear_model", "anova",
+    "kruskal_wallis", "run_gwas", "run_gwas_multi",
     "save_kinship_to_file", "load_kinship_from_file",
 ]
 
 #: run_gwas methods of the JAX package that the port does not have yet, with
 #: the ROADMAP item that brings each
 _NOT_PORTED = {
-    "emma": "ROADMAP Queue 1 item 11 (models/emma.py)",
-    "lm": "ROADMAP Queue 1 item 12 (models/linear.py)",
-    "anova": "ROADMAP Queue 1 item 12 (models/linear.py)",
-    "kw": "ROADMAP Queue 1 item 12 (models/linear.py)",
     "emmax_gxe": "ROADMAP Queue 1 item 13 (models/gxe.py)",
 }
-_METHODS = ("emmax", "emmax_loco", "emmax_stepwise")
+_METHODS = ("emmax", "emmax_loco", "emmax_stepwise", "emma", "lm", "anova",
+            "kw")
+#: the entry point of each lazily exported scan: (module, function)
+_ENTRY = {
+    "emmax": ("emmax", "emmax"), "emmax_anova": ("emmax", "emmax_anova"),
+    "emmax_loco": ("loco", "emmax_loco"),
+    "emmax_step_wise": ("stepwise", "emmax_step_wise"),
+    "emmax_multi_trait": ("multitrait", "emmax_multi_trait"),
+    "emma": ("emma", "emma"), "linear_model": ("linear", "linear_model"),
+    "anova": ("linear", "anova"),
+    "kruskal_wallis": ("linear", "kruskal_wallis"),
+}
 
 
 def __getattr__(name):
     # the scan entry points, without importing torch with the facade
-    if name == "emmax":
-        from mixmogam_tpu_torch.models.emmax import emmax
+    if name in _ENTRY:
+        import importlib
 
-        return emmax
-    if name == "emmax_loco":
-        from mixmogam_tpu_torch.models.loco import emmax_loco
-
-        return emmax_loco
-    if name == "emmax_step_wise":
-        from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
-
-        return emmax_step_wise
-    if name == "emmax_multi_trait":
-        from mixmogam_tpu_torch.models.multitrait import emmax_multi_trait
-
-        return emmax_multi_trait
+        mod, fn = _ENTRY[name]
+        return getattr(importlib.import_module(
+            f"mixmogam_tpu_torch.models.{mod}"), fn)
     raise AttributeError(
         f"module 'mixmogam_tpu_torch.api' has no attribute {name!r}")
 
 
-def _check_method(method: str) -> None:
+def _check_method(method: str, covariate_pids=None) -> None:
     if method in _NOT_PORTED:
         raise NotImplementedError(
             f"method={method!r} is not ported yet: {_NOT_PORTED[method]}; "
             f"the port's run_gwas has {_METHODS}")
     if method not in _METHODS:
         raise ValueError(f"unknown method {method!r}")
+    if covariate_pids and method in ("anova", "kw"):
+        # the class tests have no covariate design: refuse rather than run
+        # an unadjusted scan
+        raise ValueError(
+            f"covariate_pids is not supported by method {method!r} "
+            "(anova/kw are covariate-free class tests); use emmax/emma/lm/"
+            "emmax_stepwise")
 
 
 def parse_phenotype_file(path: str, delimiter: str = ",") -> PhenotypeData:
@@ -135,14 +140,18 @@ def run_gwas(genotype_file: str, phenotype_file: str, pid: int = 1,
     method: 'emmax' | 'emmax_loco' (LOCO builds per-chromosome kinships
             itself) | 'emmax_stepwise' (num_steps forward steps; the
             result's scan is {'stepwise': ..., 'ps': None}: no ranked CSV
-            and no plots). 'emma', 'lm', 'anova', 'kw' and 'emmax_gxe'
-            raise NotImplementedError (env_pid is emmax_gxe's and stays in
-            the signature for it).
+            and no plots) | 'emma' (per-SNP REML, float64 unless dtype is
+            given) | 'lm' (OLS) | 'anova' | 'kw' (Kruskal-Wallis; these
+            two take no covariate_pids and, like 'lm', no kinship).
+            'emmax_gxe' raises NotImplementedError (env_pid is emmax_gxe's
+            and stays in the signature for it).
     device: where the kinship and the scan run: the card by default (the
             call raises without one, before any file is read), 'cpu' on
             request.
     dtype:  a torch dtype for the scan (None: float32 on the card, float64
-            on the CPU); numpy dtypes and strings are refused.
+            on the CPU, for emmax, emmax_stepwise, emmax_loco and lm;
+            float64 for emma, anova and kw); numpy dtypes and strings are
+            refused.
     transform: None | 'log' | 'sqrt' | 'box_cox' | 'exp' | 'arcsin_sqrt'
                | 'most_normal'.
     model_kw['X0'] (a user-supplied fixed-effects design) must have its
@@ -159,17 +168,18 @@ def run_gwas(genotype_file: str, phenotype_file: str, pid: int = 1,
     from mixmogam_tpu_torch.ops.kinship import resolve_compute_dtype
     from mixmogam_tpu_torch.utils.profiling import RunMetrics, device_trace
 
-    _check_method(method)
+    _check_method(method, covariate_pids)
     device = resolve_device(device)
     if dtype is not None:
         resolve_compute_dtype(dtype, device)      # refuses numpy / strings
     cfg = config or DEFAULT
     # REML defaults from config (mirror the reference's numeric defaults;
     # explicit model_kw wins)
-    for k, v in (("ngrids", cfg.reml.ngrids), ("llim", cfg.reml.llim),
-                 ("ulim", cfg.reml.ulim), ("esp", cfg.reml.esp)):
-        model_kw.setdefault(k, v)
-    if method == "emmax":
+    if method not in ("lm", "anova", "kw"):
+        for k, v in (("ngrids", cfg.reml.ngrids), ("llim", cfg.reml.llim),
+                     ("ulim", cfg.reml.ulim), ("esp", cfg.reml.esp)):
+            model_kw.setdefault(k, v)
+    if method in ("emmax", "emma", "lm"):
         model_kw.setdefault("tile", cfg.tiles.scan_snp_tile)
 
     rm = RunMetrics(run_name=f"{method}_pid{pid}")
@@ -227,7 +237,7 @@ def run_gwas(genotype_file: str, phenotype_file: str, pid: int = 1,
             gd2 = gd2.filter_mac_snps(min_mac)
 
     K = None
-    if method in ("emmax", "emmax_stepwise"):
+    if method in ("emmax", "emmax_stepwise", "emma"):
         with rm.phase("kinship"):
             if kinship_file and os.path.exists(kinship_file):
                 from mixmogam_tpu_torch.oracle.kinship import prepare_k
@@ -244,6 +254,18 @@ def run_gwas(genotype_file: str, phenotype_file: str, pid: int = 1,
             from mixmogam_tpu_torch.models.emmax import emmax
 
             scan = emmax(gd2, y, K=K, dtype=dtype, device=device, **model_kw)
+        elif method == "emma":
+            from mixmogam_tpu_torch.models.emma import emma
+
+            if dtype is not None:
+                model_kw["dtype"] = dtype
+            scan = emma(gd2, y, K=K, device=device, **model_kw)
+        elif method in ("lm", "anova", "kw"):
+            from mixmogam_tpu_torch.models import linear
+
+            fn = {"lm": linear.linear_model, "anova": linear.anova,
+                  "kw": linear.kruskal_wallis}[method]
+            scan = fn(gd2, y, dtype=dtype, device=device, **model_kw)
         elif method == "emmax_stepwise":
             from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
 
@@ -341,7 +363,7 @@ def run_gwas_multi(genotype_file: str, phenotype_file: str,
         return _run_gwas_batched(genotype_file, phenotype_file, pids,
                                  out_prefix, data_format, min_mac,
                                  kinship_method, cache_dir, kw)
-    _check_method(kw.get("method", "emmax"))
+    _check_method(kw.get("method", "emmax"), kw.get("covariate_pids"))
     phend = parse_phenotype_file(phenotype_file)
     # pids=[] means "no phenotypes", not "all" (an empty filter result
     # must not fan out a full GWAS per phenotype in the file)

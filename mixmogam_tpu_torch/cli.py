@@ -38,8 +38,8 @@ def _add_run(sub):
                    choices=["emmax", "emma", "lm", "anova", "kw",
                             "emmax_stepwise", "emmax_loco",
                             "emmax_gxe"],
-                   help="emmax and emmax_loco are ported; the others are "
-                        "refused with their ROADMAP item")
+                   help="emmax_gxe is refused with its ROADMAP item; the "
+                        "others run")
     p.add_argument("--env-pid", type=int, default=None,
                    help="phenotype column holding the per-sample "
                         "environment (for --method emmax_gxe)")
@@ -126,7 +126,8 @@ def _add_simulate(sub):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="mixmogam-tpu-torch",
-        description="Mixed-model GWAS (EMMAX, LOCO EMMAX) on PyTorch/CUDA: "
+        description="Mixed-model GWAS (EMMAX, LOCO EMMAX, stepwise MLMM, "
+                    "EMMA, OLS / ANOVA / Kruskal-Wallis) on PyTorch/CUDA: "
                     "the port of mixmogam-tpu")
     sub = ap.add_subparsers(dest="cmd", required=True)
     _add_run(sub)

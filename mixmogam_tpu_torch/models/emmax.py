@@ -1,5 +1,5 @@
-"""EMMAX entry point (counterpart of mixmogam_tpu/models/emmax.py:
-_as_dosage, _as_design, emmax).
+"""EMMAX entry points (counterpart of mixmogam_tpu/models/emmax.py:
+_as_dosage, _as_design, emmax, _anova_pair_f, emmax_anova).
 
 Ported routes: the resident route (a ResidentGenome, or a big int8
 source auto-packed onto the card) and the in-core route (the whole
@@ -207,3 +207,122 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
         var_perc=h[2].copy() if with_betas else None,
         with_betas=with_betas, dof=int(rot.dof),
         tier_name="exact" if precision is not None else None)
+
+
+def _anova_pair_f(A_tile: torch.Tensor, B_tile: torch.Tensor, rot, W,
+                  keep_a: torch.Tensor, keep_b: torch.Tensor):
+    """(f, d1, dof2, mask) of the joint F-test of two genotype-class
+    indicator columns a tile: whitened by W, residualized against Q0 and
+    Gram-Schmidt'ed against each other. keep_a / keep_b: outside_design of
+    the unrotated indicators; an indicator inside col(X0) (I1 of a SNP
+    where every sample is heterozygous: the intercept) counts as no
+    column, whatever rounding leaves of it after the projected W."""
+    dt = rot.sd.dtype
+    fi = torch.finfo(dt)
+    eps = 100.0 * fi.eps
+    Q0 = rot.Q0
+    Aw = A_tile.to(dt) @ W
+    Bw = B_tile.to(dt) @ W
+    Ar = Aw - (Aw @ Q0) @ Q0.T
+    Br = Bw - (Bw @ Q0) @ Q0.T
+    aa = (Ar * Ar).sum(dim=1)
+    maska = keep_a & (aa > eps * torch.clamp((Aw * Aw).sum(dim=1),
+                                             min=fi.tiny))
+    aa_s = torch.where(maska, aa, 1.0)
+    ab = (Ar * Br).sum(dim=1)
+    Br2 = Br - torch.where(maska, ab / aa_s, 0.0)[:, None] * Ar
+    bb = (Br2 * Br2).sum(dim=1)
+    maskb = keep_b & (bb > eps * torch.clamp((Bw * Bw).sum(dim=1),
+                                             min=fi.tiny))
+    bb_s = torch.where(maskb, bb, 1.0)
+    ay = Ar @ rot.y_res
+    by = Br2 @ rot.y_res
+    expl = (torch.where(maska, ay * ay / aa_s, 0.0)
+            + torch.where(maskb, by * by / bb_s, 0.0))
+    d1 = maska.to(dt) + maskb.to(dt)
+    mask = d1 > 0
+    expl = torch.minimum(expl, rot.rss0)
+    dof2 = rot.dof + 1.0 - d1                                   # n - q - d1
+    rss1 = torch.clamp(rot.rss0 - expl, min=fi.tiny)
+    f = torch.where(mask, (expl / torch.clamp(d1, min=1.0))
+                    / (rss1 / torch.clamp(dof2, min=1.0)), 0.0)
+    return f, d1, dof2, mask
+
+
+def emmax_anova(G, y, K=None, X0=None, eig_k=None, ngrids: int = 100,
+                llim: float = -10.0, ulim: float = 10.0, esp: float = 1e-6,
+                host_eigh: Optional[bool] = None, dtype=None,
+                tile: int = 4096, mesh=None, device=None, **kw) -> dict:
+    """EMMAX with the SNP coded as genotype classes, with the JAX
+    package's arguments and return dict. Binary genotypes: emmax() itself,
+    every kwarg (precision= among them) forwarded. Diploid: the joint
+    F-test of the indicator columns [g = 1] and [g >= 1.5] (d1 = the
+    classes present - 1), dominance not assumed additive, with the exact
+    tier's null on `device` (the card by default, 'cpu' on request) in its
+    dtype (float32 on the card, float64 on the CPU): the indicators are
+    whitened by W = U' sd with the projected U' = (I - P_X0) U of
+    build_rotated_null, and an indicator inside col(X0) is masked from its
+    unrotated values (ops/scan.py::outside_design)."""
+    from mixmogam_tpu_torch.models.resident import _default_dtype
+    from mixmogam_tpu_torch.ops import assert_fp32_matmuls, resolve_device
+    from mixmogam_tpu_torch.ops.reml import (esp_to_refine_iters,
+                                             fit_null_model)
+    from mixmogam_tpu_torch.ops.scan import build_rotated_null, outside_design
+    from mixmogam_tpu_torch.ops.stats import f_sf_host
+
+    if hasattr(G, "matrix"):
+        ploidy = G.ploidy
+        G_int = G.matrix
+    else:
+        G_int = np.asarray(G)
+        mx = (np.nanmax(G_int, initial=0)
+              if np.issubdtype(G_int.dtype, np.floating)
+              else G_int.max(initial=0))
+        ploidy = 2 if mx > 1 else 1
+    if ploidy == 1:
+        return emmax(G_int, y, K=K, X0=X0, eig_k=eig_k, ngrids=ngrids,
+                     llim=llim, ulim=ulim, esp=esp, host_eigh=host_eigh,
+                     dtype=dtype, tile=tile, mesh=mesh, device=device, **kw)
+    if kw:
+        # the diploid test has no precision tiers or with_betas: refuse
+        # rather than drop them
+        raise TypeError(
+            f"emmax_anova diploid path does not accept {sorted(kw)}; "
+            "supported kwargs: K/X0/eig_k/ngrids/llim/ulim/esp/"
+            "host_eigh/dtype/tile/mesh/device")
+    if mesh is not None:
+        raise NotImplementedError("mesh= (the SNP-sharded indicator scan) is "
+                                  "not ported yet: ROADMAP Queue 1 item 16")
+    device = resolve_device(device)
+    if dtype is None:
+        dtype = _default_dtype(device)
+    y = np.asarray(y, dtype=np.float64).ravel()
+    n = y.shape[0]
+    X0 = _as_design(np.ones((n, 1)) if X0 is None else X0, n)
+    null = fit_null_model(y, X0, K=K, eig_k=eig_k, ngrids=ngrids, llim=llim,
+                          ulim=ulim, refine_iters=esp_to_refine_iters(
+                              esp, ngrids, llim, ulim),
+                          host_eigh=host_eigh, device=device, dtype=dtype)
+    rot = build_rotated_null(null)
+    W = rot.U * rot.sd[None, :]
+    if dtype == torch.float32:
+        assert_fp32_matmuls()
+    # the indicators of the mean-imputed dosages (a missing call falls in
+    # the class nearest its SNP's mean)
+    Gf = _as_dosage(G_int, np.float64)
+    M = Gf.shape[0]
+    outs = []
+    for s in range(0, M, tile):
+        g = torch.from_numpy(Gf[s:s + tile]).to(device)
+        A = ((g - 1.0).abs() < 0.5).to(dtype)
+        B = (g >= 1.5).to(dtype)
+        outs.append(torch.stack([v.to(dtype) for v in _anova_pair_f(
+            A, B, rot, W, outside_design(A, rot.X0, rot.X0p),
+            outside_design(B, rot.X0, rot.X0p))]))
+    h = torch.cat(outs, dim=1).cpu().double().numpy()
+    fs, d1s, d2s, masks = h[0], h[1], h[2], h[3] > 0.5
+    ps = np.where(masks, f_sf_host(fs, np.maximum(d1s, 1.0),
+                                   np.maximum(d2s, 1.0)), 1.0)
+    return {"ps": ps, "f_stats": fs, "dof1": d1s, "dof2": d2s,
+            "mask": masks, "delta": float(null.delta),
+            "pseudo_heritability": float(null.pseudo_heritability)}

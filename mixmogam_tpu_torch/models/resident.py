@@ -48,6 +48,18 @@ def resident_budget_bytes(device) -> int:
     return int(total * RESIDENT_MEMORY_FRACTION)
 
 
+def subdivide_tile(tile: int, target: int = 2048) -> int:
+    """Largest divisor of `tile` <= target reached by halving (a copy of
+    the JAX package's function). Packed rows fix the outer tile; the class
+    tests (models/linear.py), which hold several (rows, n) float
+    intermediates a step, view the packed rows at this finer granularity
+    to bound device memory."""
+    sub = tile
+    while sub > target and sub % 2 == 0:
+        sub //= 2
+    return sub
+
+
 class ResidentGenome:
     """(M, n) int8 dosages held 2-bit packed on a device.
 

@@ -135,8 +135,8 @@ def test_refused_options_exit_with_argparses_error(capsys, extra):
 
 @pytest.mark.parametrize("argv", [
     ["predict", "no_such.csv", "no_such_pheno.csv"],
-    ["run", "no_such.csv", "no_such_pheno.csv", "--method", "emma",
-     "--device", "cpu"],
+    ["run", "no_such.csv", "no_such_pheno.csv", "--method", "emmax_gxe",
+     "--env-pid", "2", "--device", "cpu"],
     ["run", "no_such.csv", "no_such_pheno.csv", "--method",
      "emmax_gxe", "--device", "cpu"]])
 def test_unported_commands_raise_with_their_roadmap_item(argv):

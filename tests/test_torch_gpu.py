@@ -646,3 +646,67 @@ def test_k3_prepared_operand_is_bit_equal(cuda, q):
     other = build_rotated_null(_null(n, q, cuda, seed=1))
     with pytest.raises(ValueError, match="does not belong"):
         scan_stats(*a, operand=k3_operand(other))
+
+
+def test_card_emma_vs_cpu_float64(cuda):
+    """emma in float64 on the card (no device=) against the float64 CPU
+    path, on one eigenbasis: identical masks, max |dp| <= 1e-8, max |d log
+    delta| <= 1e-6 over the unmasked SNPs (phase 10's gates (a), (b)); a
+    resident genome with missing calls and test='lrt' alike."""
+    from mixmogam_tpu_torch.models.emma import emma
+    from mixmogam_tpu_torch.oracle.kinship import ibs_kinship, scale_k
+
+    n, m = 300, 1_500
+    G, _, _ = simulate_genotypes(n, m, seed=14, missing_rate=0.02)
+    y = G[40].clip(0) * 0.7 + np.random.default_rng(14).normal(size=n)
+    K = scale_k(ibs_kinship(np.where(G < 0, 0, G).astype(np.float64)))
+    w, v = np.linalg.eigh(K)
+    eig = (w[::-1].copy(), v[:, ::-1].copy())
+    rg = ResidentGenome.from_source(G, tile=1_024)
+    for test in ("f", "lrt"):
+        a = emma(rg, y, eig_k=eig, test=test)
+        b = emma(G, y, eig_k=eig, test=test, device="cpu")
+        assert np.array_equal(a["mask"], b["mask"])
+        assert np.abs(a["ps"] - b["ps"]).max() <= 1e-8
+        mk = b["mask"]
+        assert np.abs(np.log(a["deltas"][mk])
+                      - np.log(b["deltas"][mk])).max() <= 1e-6
+        tm = a["timings_s"]         # device seconds, read from CUDA events
+        assert set(tm) == {"eigh", "rotation", "grid", "refine", "f",
+                           "p_values"} and min(tm.values()) >= 0.0
+
+
+def test_card_class_tests_vs_cpu_float64(cuda):
+    """linear_model (K3 once a tile), anova and kruskal_wallis (missing
+    calls) on the card against the float64 CPU path; emmax_anova at ploidy 2
+    (its all-heterozygous SNP masked) and at ploidy 1 (emmax itself)."""
+    from mixmogam_tpu_torch.models.emmax import emmax_anova
+    from mixmogam_tpu_torch.models.linear import (anova, kruskal_wallis,
+                                                  linear_model)
+    from mixmogam_tpu_torch.oracle.kinship import ibs_kinship, scale_k
+
+    n, m = 512, 2_100
+    G, _, _ = simulate_genotypes(n, m, ploidy=2, seed=15, missing_rate=0.02)
+    G[0] = 1
+    y = G[50].clip(0) * 0.5 + np.random.default_rng(15).normal(size=n)
+    for fn in (anova, kruskal_wallis):
+        a, b = fn(G, y), fn(G, y, device="cpu")
+        assert np.array_equal(a["ps"] < 1, b["ps"] < 1)
+        assert np.abs(a["ps"] - b["ps"]).max() <= 1e-8
+    rg = ResidentGenome.from_source(G, tile=1_024)
+    before = scan_stats.launches
+    a = linear_model(rg, y)
+    assert scan_stats.launches - before == 3
+    b = linear_model(G, y, device="cpu")
+    assert np.array_equal(a["mask"], b["mask"])
+    assert np.abs(a["ps"] - b["ps"]).max() <= 1e-5
+    K = scale_k(ibs_kinship(np.where(G < 0, 0, G).astype(np.float64),
+                            ploidy=2))
+    a = emmax_anova(G, y, K=K)
+    b = emmax_anova(G, y, K=K, device="cpu")
+    assert np.array_equal(a["mask"], b["mask"]) and not a["mask"][0]
+    assert np.abs(a["ps"] - b["ps"]).max() <= 1e-5
+    Gb, _, _ = simulate_genotypes(n, 1_000, seed=16)
+    Kb = scale_k(ibs_kinship(Gb.astype(np.float64)))
+    a = emmax_anova(Gb, y, K=Kb)
+    assert np.array_equal(a["ps"], emmax(Gb, y, K=Kb, tile=4096)["ps"])
