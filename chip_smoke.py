@@ -119,6 +119,23 @@ Phases (each prints its own seconds):
     lm, anova and kw from phase 6's PLINK fileset, each equal (max |dp| <=
     1e-12) to the direct call on its rows, y and K and to its own CSV, emma
     launching K1 once, lm K3 once a tile
+12 gBLUP and GxE: emmax_gxe on phase 4's resident genome with two
+    environments (N(0, 1) and 0/1; an interaction planted at SNP 100) at
+    'exact', 'int8x3' and 'bf16x3': each wall, its scan's rotations and
+    statistics apart (CUDA events), E M / scan GxE-tests/s and the host
+    p-values' seconds; no kernel launch (the rotations are library
+    products, the statistics plain torch); each fast tier against exact
+    with identical masks, max |dp| <= 1e-4 on the three p fields. The card
+    against the float64 CPU path at n = 2,048 x 8,192 (identical masks,
+    max |dp| <= 1e-5), and under VanRaden's singular K at the three tiers
+    (<= 1e-4). gblup on phase 4's eigh, reliability() and gblup_cv (5
+    folds, an eigh a fold) on its K, each timed; on 2,048 samples the card
+    against the CPU (u_hat and reliability within 1e-8 of their scale).
+    Then from phase 6's PLINK fileset and a CSV of the trait and the
+    environment: run_gwas method='emmax_gxe' (K1 once) equal (max |dp| <=
+    1e-12) to the direct call on its rows, y, environment and K and to its
+    own CSV; the CLI's predict at --folds 0 and 5 (K1 once each), its CSV
+    equal (<= 1e-12) to the direct gblup / gblup_cv call
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}. Any
@@ -575,6 +592,211 @@ def _pair_gate(label, card, cpu, p_tol) -> None:
           f"max|dp| {dp:.3e}", flush=True)
     if nm or dp > p_tol:
         raise AssertionError(f"{label}: card and CPU disagree")
+
+
+def _gxe_drift(a, b) -> tuple:
+    """(masks that differ over mask and mask_inter, max |dp| over the three
+    p fields) of two emmax_gxe results."""
+    import numpy as np
+
+    nm = sum(int((a[k] != b[k]).sum()) for k in ("mask", "mask_inter"))
+    return nm, max(float(np.abs(a[k] - b[k]).max())
+                   for k in ("marginal_ps", "inter_ps", "joint_ps"))
+
+
+def _gxe_gblup_phase(args, kernels, launches, main, facade, files, acc,
+                     tmp, counts) -> None:
+    """Phase 12: the GxE scan on phase 4's resident genome (E = 2) at
+    exact, int8x3 and bf16x3; the card against the float64 CPU path and
+    under VanRaden's singular K; gBLUP on phase 4's K and eigh; run_gwas
+    emmax_gxe and the CLI's predict from phase 6's PLINK fileset."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from mixmogam_tpu_torch import cli
+    from mixmogam_tpu_torch.data.parsers import parse_snp_data
+    from mixmogam_tpu_torch.data.phenotype import PhenotypeData
+    from mixmogam_tpu_torch.data.simulate import (simulate_genotypes,
+                                                  simulate_phenotype)
+    from mixmogam_tpu_torch.models.gblup import (_joint_kinship, gblup,
+                                                 gblup_cv)
+    from mixmogam_tpu_torch.models.gxe import emmax_gxe
+    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
+                                                    kinship_resident,
+                                                    scale_k)
+    from mixmogam_tpu_torch.oracle.kinship import vanraden_kinship
+    from mixmogam_tpu_torch.utils.caching import cached_kinship
+
+    # (a) GxE at full width: a N(0, 1) and a 0/1 environment, an
+    # interaction planted at SNP 100 with the first
+    rg, (phi, U), y, K = main["rg"], main["eig"], main["y"], main["K"]
+    n, M = rg.n, rg.M
+    rng = np.random.default_rng(args.seed + 120)
+    env = np.column_stack([rng.normal(size=n), (rng.random(n) < 0.5) * 1.0])
+    x = rg[100:101][0].astype(np.float64)
+    y12 = y + 0.5 * (x - x.mean()) * env[:, 0]
+    gx = {}
+    for tier in ("exact", "int8x3", "bf16x3"):
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        r = emmax_gxe(rg, y12, env, eig_k=(phi, U), precision=tier)
+        wall = time.perf_counter() - ts
+        run = {k.__name__: k.launches for k in kernels}
+        tm = r["timings_s"]
+        scan = tm["load"] + tm["rotation"] + tm["statistics"]
+        print(f"emmax_gxe {tier}, E=2 n={n} M={M}: {wall:.3f} s; scan "
+              f"{scan:.3f} s = {2 * M / scan:,.0f} GxE-tests/s (rotations "
+              f"{tm['rotation']:.3f} s, statistics {tm['statistics']:.3f} "
+              f"s, tiles' unpack {tm['load']:.3f} s, device time); nulls "
+              f"{tm['nulls']:.3f} s; host p-values {tm['p_values']:.3f} s; "
+              f"deltas {np.round(r['deltas'], 5).tolist()}; launches {run}",
+              flush=True)
+        if run != counts():
+            raise AssertionError(f"emmax_gxe {tier}: kernel launches {run}")
+        for k in ("marginal_ps", "inter_ps", "joint_ps"):
+            ps = r[k]
+            if ps.shape != (2, M) or not np.isfinite(ps).all() or (
+                    (ps < 0) | (ps > 1)).any():
+                raise AssertionError(f"emmax_gxe {tier}: {k} malformed")
+        if int(np.argmin(r["inter_ps"][0])) != 100:
+            raise AssertionError(f"emmax_gxe {tier}: the planted "
+                                 "interaction is not the top hit")
+        gx[tier] = r
+    for tier in ("int8x3", "bf16x3"):
+        nm, dp = _gxe_drift(gx[tier], gx["exact"])
+        print(f"   emmax_gxe {tier} vs exact: {nm} mask(s) differ, max|dp| "
+              f"{dp:.3e}", flush=True)
+        if nm or dp > 1e-4:
+            raise AssertionError(f"emmax_gxe {tier} disagrees with exact")
+    del gx
+    torch.cuda.empty_cache()
+
+    # (b) the card (float32) against the float64 CPU path
+    ts = time.perf_counter()
+    Gb, _, _ = simulate_genotypes(2_048, 8_192, ploidy=1,
+                                  seed=args.seed + 121)
+    yb, _ = simulate_phenotype(Gb, h2=0.5, n_causal=5, seed=args.seed + 121)
+    rb = np.random.default_rng(args.seed + 121)
+    eb = np.column_stack([rb.normal(size=2_048),
+                          (rb.random(2_048) < 0.5) * 1.0])
+    Kb = scale_k(kinship_resident(ResidentGenome.from_source(Gb)))
+    nm, dp = _gxe_drift(emmax_gxe(Gb, yb, eb, K=Kb),
+                        emmax_gxe(Gb, yb, eb, K=Kb, device="cpu"))
+    print(f"   emmax_gxe exact, card f32 vs CPU f64 (n=2048, M=8192, E=2): "
+          f"{nm} mask(s) differ, max|dp| {dp:.3e} "
+          f"({time.perf_counter() - ts:.3f} s)", flush=True)
+    if nm or dp > 1e-5:
+        raise AssertionError("emmax_gxe: card and CPU disagree")
+
+    # (c) VanRaden's singular K with delta at its bound
+    Gv, _, _ = simulate_genotypes(256, 3_000, ploidy=1, seed=3)
+    yv, _ = simulate_phenotype(Gv, h2=0.5, n_causal=4, seed=3)
+    Kv = scale_k(vanraden_kinship(Gv.astype(np.float64), ploidy=1))
+    rv = np.random.default_rng(3)
+    ev = np.column_stack([rv.normal(size=256), (rv.random(256) < 0.5) * 1.0])
+    ref_v = emmax_gxe(Gv, yv, ev, K=Kv, device="cpu")
+    for tier in ("exact", "int8x3", "bf16x3"):
+        nm, dp = _gxe_drift(emmax_gxe(Gv, yv, ev, K=Kv, precision=tier),
+                            ref_v)
+        print(f"   emmax_gxe VanRaden K, deltas "
+              f"{np.round(ref_v['deltas'], 8).tolist()} (the bound), {tier} "
+              f"on the card vs CPU f64: {nm} mask(s) differ, max|dp| "
+              f"{dp:.3e}", flush=True)
+        if nm or dp > 1e-4:
+            raise AssertionError(f"emmax_gxe {tier} under a singular K "
+                                 "disagrees with float64")
+
+    # (d) gBLUP on phase 4's K and eigh, in float64 on the card
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    m = gblup(y, eig_k=(phi, U))
+    t_fit = time.perf_counter() - ts
+    ts = time.perf_counter()
+    rel = m.reliability()
+    t_rel = time.perf_counter() - ts
+    ts = time.perf_counter()
+    cv = gblup_cv(None, y, n_folds=5, seed=args.seed, K_all=K)
+    t_cv = time.perf_counter() - ts
+    print(f"gblup n={n}: fit {t_fit:.3f} s (h2 "
+          f"{m.pseudo_heritability:.4f}); reliability() {t_rel:.3f} s (mean "
+          f"{rel.mean():.4f}); gblup_cv 5 folds (an eigh of "
+          f"{n - n // 5} a fold) {t_cv:.3f} s, r {cv['r']:.4f}, mse "
+          f"{cv['mse']:.4f}", flush=True)
+    if (not np.isfinite(m.u_hat).all() or not ((rel >= 0) & (rel <= 1)).all()
+            or not np.isfinite(cv["y_hat"]).all() or not cv["r"] > 0):
+        raise AssertionError("gblup at full width: malformed output")
+    ts = time.perf_counter()
+    K2, y2 = K[:2_048, :2_048], y[:2_048]
+    a, b = gblup(y2, K=K2), gblup(y2, K=K2, device="cpu")
+    du = float(np.abs(a.u_hat - b.u_hat).max() / np.abs(b.u_hat).max())
+    rb_ = b.reliability()
+    dr = float(np.abs(a.reliability() - rb_).max() / np.abs(rb_).max())
+    print(f"   gblup on 2,048 samples, card vs CPU f64: u_hat {du:.3e}, "
+          f"reliability {dr:.3e} of their scale "
+          f"({time.perf_counter() - ts:.3f} s)", flush=True)
+    if du > 1e-8 or dr > 1e-8:
+        raise AssertionError("gblup: card and CPU disagree")
+
+    # (e) run_gwas emmax_gxe from phase 6's PLINK fileset and a phenotype
+    # CSV holding the trait and the environment
+    ph = PhenotypeData.from_arrays(1, "trait", acc, y)
+    ph.add_phenotype(2, "env", acc, env[:, 0])
+    pheno = os.path.join(tmp, "pheno_gxe.csv")
+    ph.write_to_file(pheno)
+    env_of = dict(zip(acc, env[:, 0]))
+
+    def direct_gxe(g2, y2):
+        r = emmax_gxe(g2, y2, np.array([env_of[a_] for a_ in g2.accessions]),
+                      K=cached_kinship(g2, "ibs"))
+        r["ps"] = r["inter_ps"]
+        return r
+
+    facade("emmax_gxe", (files[0], pheno, os.path.join(tmp, "gxe")),
+           direct_gxe, lambda g2: counts(ibs_gram_packed=1),
+           method="emmax_gxe", env_pid=2)
+
+    # (f) the CLI's predict from the same files (the card: no --device),
+    # its CSV held to the direct gblup / gblup_cv call
+    gd2, yp, _ = parse_snp_data(files[0], data_format="plink"
+                                ).coordinate_with_phenotype(
+        PhenotypeData.parse_phenotype_file(pheno), 1)
+    for folds in ("0", "5"):
+        out = os.path.join(tmp, f"predict{folds}.csv")
+        for k in kernels:
+            k.launches = 0
+        ts = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            rc = cli.main(["predict", files[0], pheno, "--data-format",
+                           "plink", "--folds", folds, "-o", out])
+        wall = time.perf_counter() - ts
+        run = {k.__name__: k.launches for k in kernels}
+        for name, cnt in run.items():
+            launches[name] += cnt
+        summary = json.loads(buf.getvalue())
+        ref = (gblup(yp, K=_joint_kinship(gd2, "ibs")).u_hat if folds == "0"
+               else gblup_cv(gd2, yp, n_folds=5, seed=0)["y_hat"])
+        with open(out) as f:
+            head = f.readline().strip()
+            rows = [line.strip().split(",") for line in f]
+        got = np.array([float(r_[2]) for r_ in rows])
+        dv = float(np.abs(got - ref).max())
+        fit = {k: v for k, v in summary.items()
+               if k in ("r", "mse", "h2", "delta")}
+        print(f"cli predict --folds {folds} (n={summary['n']}, "
+              f"m={summary['m']}): {wall:.3f} s; {json.dumps(fit)}; "
+              f"launches {run}; CSV vs the direct call max|d| {dv:.3e}",
+              flush=True)
+        if (rc != 0 or run != counts(ibs_gram_packed=1) or dv > 1e-12
+                or [r_[0] for r_ in rows] != list(gd2.accessions)
+                or head.split(",")[2] != ("genetic_value" if folds == "0"
+                                          else "y_hat_cv")):
+            raise AssertionError(f"cli predict --folds {folds} disagrees "
+                                 "with the direct call or its launches")
 
 
 def main(argv=None) -> int:
@@ -1050,8 +1272,8 @@ def main(argv=None) -> int:
         del wide
     # G and y stay for phase 6's files; the resident genome and eigh(K)
     # for phase 8
-    main = dict(rg=rg, eig=(phi, U), y=y)
-    del K, null, res, ex
+    main = dict(rg=rg, eig=(phi, U), y=y, K=K)
+    del null, res, ex
     torch.cuda.empty_cache()
     _phase("4 main path", t0)
 
@@ -1616,11 +1838,19 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _class_phase(args, dev, kernels, launches, main, facade, files, tmp,
                  counts, tiles)
+    torch.cuda.empty_cache()
+    _check_no_jax()
+    _phase("11 class tests", t0)
+
+    # ---- 12. gBLUP and GxE --------------------------------------------------
+    t0 = time.perf_counter()
+    _gxe_gblup_phase(args, kernels, launches, main, facade, files, acc, tmp,
+                     counts)
     del main
     tmpdir.cleanup()
     torch.cuda.empty_cache()
     _check_no_jax()
-    _phase("11 class tests", t0)
+    _phase("12 gBLUP and GxE", t0)
 
     for k in kernels:
         report[k.__name__]["launches"] = launches[k.__name__]

@@ -42,6 +42,13 @@ and a bisection per SNP), and the fixed-effects tests of models.linear
 kruskal_wallis) and models.emmax.emmax_anova: run_gwas methods 'emma',
 'lm', 'anova' and 'kw'.
 
+Slice 7 adds gBLUP genomic prediction (models.gblup: gblup, gblup_predict,
+gblup_cv, in float64 on the card; the CLI's predict) and the GxE
+interaction scan (models.gxe.emmax_gxe: E + 1 library rotations a tile by
+the projected eigenbasis, then the statistics in plain torch; run_gwas
+method 'emmax_gxe'). The facade now refuses no method and no command of
+the JAX package's.
+
 Modules keep the JAX package's paths and names. The port imports torch,
 numpy and scipy, and nothing of jax or of the JAX package: the few numpy
 modules it shares with that package (the data, results and plotting
@@ -57,7 +64,8 @@ __version__ = "0.1.0"
 __all__ = ["emmax", "emmax_resident", "kinship_resident", "ResidentGenome",
            "emmax_loco", "loco_kinships", "emmax_step_wise",
            "emmax_multi_trait", "emma", "emmax_anova", "linear_model",
-           "anova", "kruskal_wallis", "kinship",
+           "anova", "kruskal_wallis", "emmax_gxe", "gblup", "gblup_predict",
+           "gblup_cv", "kinship",
            "run_gwas",
            "run_gwas_multi", "parse_snp_data", "parse_phenotype_file",
            "calc_ibs_kinship", "calc_ibd_kinship", "save_kinship_to_file",
@@ -92,7 +100,8 @@ def __getattr__(name):
 
         return emmax_multi_trait
     if name in {"emma", "emmax_anova", "linear_model", "anova",
-                "kruskal_wallis"}:
+                "kruskal_wallis", "emmax_gxe", "gblup", "gblup_predict",
+                "gblup_cv"}:
         from mixmogam_tpu_torch import api
 
         return getattr(api, name)

@@ -2,13 +2,13 @@
 SURVEY.md L7: convenience functions gluing parse -> coordinate -> kinship ->
 scan -> results/plots).
 
-run_gwas runs method='emmax', 'emmax_loco', 'emmax_stepwise', 'emma' (the
-exact per-SNP REML, float64 by default) and the fixed-effects tests 'lm',
-'anova' and 'kw' on the port's models layer, on the card unless the caller
-passes device='cpu'. 'emmax_gxe' is not ported yet: it raises
-NotImplementedError naming its ROADMAP item before any file is read. run_gwas_multi loops run_gwas over
-the phenotypes, or with batched=True runs one shared-eigenbasis
-multi-trait scan (models/multitrait.py)."""
+run_gwas runs every method of the JAX package's: 'emmax', 'emmax_loco',
+'emmax_stepwise', 'emma' (the exact per-SNP REML, float64 by default), the
+fixed-effects tests 'lm', 'anova' and 'kw', and the GxE interaction scan
+'emmax_gxe', on the port's models layer, on the card unless the caller
+passes device='cpu'. run_gwas_multi loops run_gwas over the phenotypes, or
+with batched=True runs one shared-eigenbasis multi-trait scan
+(models/multitrait.py)."""
 
 from __future__ import annotations
 
@@ -34,17 +34,13 @@ __all__ = [
     "parse_snp_data", "parse_phenotype_file", "calc_ibs_kinship",
     "calc_ibd_kinship", "emmax", "emmax_loco", "emmax_step_wise",
     "emmax_multi_trait", "emma", "emmax_anova", "linear_model", "anova",
-    "kruskal_wallis", "run_gwas", "run_gwas_multi",
-    "save_kinship_to_file", "load_kinship_from_file",
+    "kruskal_wallis", "emmax_gxe", "gblup", "gblup_predict", "gblup_cv",
+    "run_gwas", "run_gwas_multi", "save_kinship_to_file",
+    "load_kinship_from_file",
 ]
 
-#: run_gwas methods of the JAX package that the port does not have yet, with
-#: the ROADMAP item that brings each
-_NOT_PORTED = {
-    "emmax_gxe": "ROADMAP Queue 1 item 13 (models/gxe.py)",
-}
 _METHODS = ("emmax", "emmax_loco", "emmax_stepwise", "emma", "lm", "anova",
-            "kw")
+            "kw", "emmax_gxe")
 #: the entry point of each lazily exported scan: (module, function)
 _ENTRY = {
     "emmax": ("emmax", "emmax"), "emmax_anova": ("emmax", "emmax_anova"),
@@ -54,6 +50,9 @@ _ENTRY = {
     "emma": ("emma", "emma"), "linear_model": ("linear", "linear_model"),
     "anova": ("linear", "anova"),
     "kruskal_wallis": ("linear", "kruskal_wallis"),
+    "emmax_gxe": ("gxe", "emmax_gxe"), "gblup": ("gblup", "gblup"),
+    "gblup_predict": ("gblup", "gblup_predict"),
+    "gblup_cv": ("gblup", "gblup_cv"),
 }
 
 
@@ -69,13 +68,12 @@ def __getattr__(name):
         f"module 'mixmogam_tpu_torch.api' has no attribute {name!r}")
 
 
-def _check_method(method: str, covariate_pids=None) -> None:
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"method={method!r} is not ported yet: {_NOT_PORTED[method]}; "
-            f"the port's run_gwas has {_METHODS}")
+def _check_method(method: str, covariate_pids=None, env_pid=None) -> None:
     if method not in _METHODS:
         raise ValueError(f"unknown method {method!r}")
+    if method == "emmax_gxe" and env_pid is None:
+        raise ValueError("method='emmax_gxe' needs env_pid (the phenotype "
+                         "column holding the per-sample environment)")
     if covariate_pids and method in ("anova", "kw"):
         # the class tests have no covariate design: refuse rather than run
         # an unadjusted scan
@@ -142,14 +140,16 @@ def run_gwas(genotype_file: str, phenotype_file: str, pid: int = 1,
             result's scan is {'stepwise': ..., 'ps': None}: no ranked CSV
             and no plots) | 'emma' (per-SNP REML, float64 unless dtype is
             given) | 'lm' (OLS) | 'anova' | 'kw' (Kruskal-Wallis; these
-            two take no covariate_pids and, like 'lm', no kinship).
-            'emmax_gxe' raises NotImplementedError (env_pid is emmax_gxe's
-            and stays in the signature for it).
+            two take no covariate_pids and, like 'lm', no kinship) |
+            'emmax_gxe' (the GxE scan against the environment in phenotype
+            column env_pid, which it requires; the ranked output is its
+            interaction p-values, scan['inter_ps']).
     device: where the kinship and the scan run: the card by default (the
             call raises without one, before any file is read), 'cpu' on
             request.
     dtype:  a torch dtype for the scan (None: float32 on the card, float64
-            on the CPU, for emmax, emmax_stepwise, emmax_loco and lm;
+            on the CPU, for emmax, emmax_stepwise, emmax_loco, lm and
+            emmax_gxe;
             float64 for emma, anova and kw); numpy dtypes and strings are
             refused.
     transform: None | 'log' | 'sqrt' | 'box_cox' | 'exp' | 'arcsin_sqrt'
@@ -157,10 +157,10 @@ def run_gwas(genotype_file: str, phenotype_file: str, pid: int = 1,
     model_kw['X0'] (a user-supplied fixed-effects design) must have its
     rows in the COORDINATED sample order — the genotype/phenotype
     intersection order established by coordinate_with_phenotype (the
-    order of the emitted result's samples). When covariate_pids drop
-    further samples, X0 rows are subset by position; only the row COUNT is
-    verifiable, so a same-sized design in a different sample order would
-    be silently misaligned.
+    order of the emitted result's samples). When covariate_pids or env_pid
+    drop further samples, X0 rows are subset by position; only the row
+    COUNT is verifiable, so a same-sized design in a different sample
+    order would be silently misaligned.
     Returns {'result': Result, 'scan': scan dict, 'files': {...}}.
     """
     from mixmogam_tpu_torch.config import DEFAULT
@@ -168,7 +168,7 @@ def run_gwas(genotype_file: str, phenotype_file: str, pid: int = 1,
     from mixmogam_tpu_torch.ops.kinship import resolve_compute_dtype
     from mixmogam_tpu_torch.utils.profiling import RunMetrics, device_trace
 
-    _check_method(method, covariate_pids)
+    _check_method(method, covariate_pids, env_pid)
     device = resolve_device(device)
     if dtype is not None:
         resolve_compute_dtype(dtype, device)      # refuses numpy / strings
@@ -198,13 +198,16 @@ def run_gwas(genotype_file: str, phenotype_file: str, pid: int = 1,
 
     with rm.phase("coordinate"):
         gd2, y, sample_ids = gd.coordinate_with_phenotype(phend, pid)
-        if covariate_pids:
-            cov_maps = [phend.value_dict(c) for c in covariate_pids]
-            # ONE coordinated sample drop across all covariates —
-            # subsetting after X0 is built would leave a stale-row design
-            # in model_kw
+        cov_maps = [phend.value_dict(c) for c in covariate_pids or ()]
+        env_map = (phend.value_dict(env_pid) if method == "emmax_gxe"
+                   else None)
+        # ONE coordinated sample drop across the covariates AND the
+        # environment — subsetting after X0 is built would leave a
+        # stale-row design in model_kw
+        req_maps = cov_maps + ([env_map] if env_map is not None else [])
+        if req_maps:
             keep = [i for i, a in enumerate(sample_ids)
-                    if all(a in m for m in cov_maps)]
+                    if all(a in m for m in req_maps)]
             if len(keep) < len(sample_ids):
                 gd2 = gd2.select_samples(keep).filter_monomorphic_snps()
                 y = y[keep]
@@ -216,6 +219,7 @@ def run_gwas(genotype_file: str, phenotype_file: str, pid: int = 1,
                     # see the docstring)
                     model_kw["X0"] = np.asarray(model_kw["X0"])[keep]
                 sample_ids = [sample_ids[i] for i in keep]
+        if cov_maps:
             cov_cols = [np.array([np.mean(m[a])
                                   for a in sample_ids])[:, None]
                         for m in cov_maps]
@@ -233,11 +237,14 @@ def run_gwas(genotype_file: str, phenotype_file: str, pid: int = 1,
             else:
                 model_kw["X0"] = np.hstack(
                     [np.ones((len(sample_ids), 1))] + cov_cols)
+        env = None
+        if env_map is not None:
+            env = np.array([np.mean(env_map[a]) for a in sample_ids])
         if min_mac:
             gd2 = gd2.filter_mac_snps(min_mac)
 
     K = None
-    if method in ("emmax", "emmax_stepwise", "emma"):
+    if method in ("emmax", "emmax_stepwise", "emma", "emmax_gxe"):
         with rm.phase("kinship"):
             if kinship_file and os.path.exists(kinship_file):
                 from mixmogam_tpu_torch.oracle.kinship import prepare_k
@@ -273,6 +280,14 @@ def run_gwas(genotype_file: str, phenotype_file: str, pid: int = 1,
                                  dtype=dtype, save_scans=False,
                                  device=device, **model_kw)
             scan = {"stepwise": sw, "ps": None}
+        elif method == "emmax_gxe":
+            from mixmogam_tpu_torch.models.gxe import emmax_gxe
+
+            model_kw.pop("esp", None)      # fixed-iteration bisection
+            scan = emmax_gxe(gd2, y, env, K=K, dtype=dtype, device=device,
+                             **model_kw)
+            # the ranked output: the interaction tests (the scan's point)
+            scan["ps"] = scan["inter_ps"]
         else:
             # LOCO builds its own per-chromosome kinships (a global K
             # would be wasted work and scale_k breaks gram additivity)
@@ -363,7 +378,8 @@ def run_gwas_multi(genotype_file: str, phenotype_file: str,
         return _run_gwas_batched(genotype_file, phenotype_file, pids,
                                  out_prefix, data_format, min_mac,
                                  kinship_method, cache_dir, kw)
-    _check_method(kw.get("method", "emmax"), kw.get("covariate_pids"))
+    _check_method(kw.get("method", "emmax"), kw.get("covariate_pids"),
+                  kw.get("env_pid"))
     phend = parse_phenotype_file(phenotype_file)
     # pids=[] means "no phenotypes", not "all" (an empty filter result
     # must not fan out a full GWAS per phenotype in the file)

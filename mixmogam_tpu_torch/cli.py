@@ -2,13 +2,14 @@
 
     mixmogam-tpu-torch run      genotype.csv phenotype.csv --method emmax ...
     mixmogam-tpu-torch kinship  genotype.csv -o K.npz --method ibs
+    mixmogam-tpu-torch predict  genotype.csv phenotype.csv --folds 5 -o p.csv
     mixmogam-tpu-torch simulate -n 500 -m 10000 -o prefix
     mixmogam-tpu-torch info
 
-run and kinship compute on the card unless --device cpu is given; without
-a card and without --device they fail. Methods, tiers and commands of the
-JAX package's CLI that the port does not have yet are offered and refused
-with the ROADMAP item that brings them.
+run, kinship and predict compute on the card unless --device cpu is given;
+without a card and without --device they fail. The options of the JAX
+package's CLI that the port does not have yet are offered and refused with
+the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -38,8 +39,8 @@ def _add_run(sub):
                    choices=["emmax", "emma", "lm", "anova", "kw",
                             "emmax_stepwise", "emmax_loco",
                             "emmax_gxe"],
-                   help="emmax_gxe is refused with its ROADMAP item; the "
-                        "others run")
+                   help="emmax_gxe (the GxE interaction scan) needs "
+                        "--env-pid")
     p.add_argument("--env-pid", type=int, default=None,
                    help="phenotype column holding the per-sample "
                         "environment (for --method emmax_gxe)")
@@ -108,9 +109,22 @@ def _add_kinship(sub):
 def _add_predict(sub):
     p = sub.add_parser(
         "predict",
-        help="gBLUP genomic prediction (not ported yet: refused)")
+        help="gBLUP genomic prediction (cross-validated accuracy, or "
+             "per-sample breeding values)")
     p.add_argument("genotype")
     p.add_argument("phenotype")
+    p.add_argument("--pid", type=int, default=1)
+    p.add_argument("--data-format", default="binary",
+                   choices=["binary", "nucleotides", "plink", "vcf"])
+    p.add_argument("--kinship-method", default="ibs",
+                   choices=["ibs", "vanraden"])
+    p.add_argument("--folds", type=int, default=5,
+                   help="cross-validation folds (0 = no CV; fit on all "
+                        "samples and write breeding values only)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("-o", "--out", default=None,
+                   help="write per-sample predictions CSV here")
+    _add_device(p)
 
 
 def _add_simulate(sub):
@@ -127,8 +141,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="mixmogam-tpu-torch",
         description="Mixed-model GWAS (EMMAX, LOCO EMMAX, stepwise MLMM, "
-                    "EMMA, OLS / ANOVA / Kruskal-Wallis) on PyTorch/CUDA: "
-                    "the port of mixmogam-tpu")
+                    "EMMA, GxE, OLS / ANOVA / Kruskal-Wallis) and gBLUP on "
+                    "PyTorch/CUDA: the port of mixmogam-tpu")
     sub = ap.add_subparsers(dest="cmd", required=True)
     _add_run(sub)
     _add_kinship(sub)
@@ -150,9 +164,35 @@ def main(argv=None) -> int:
         return 0
 
     if args.cmd == "predict":
-        raise NotImplementedError(
-            "predict (gBLUP genomic prediction) is not ported yet: ROADMAP "
-            "Queue 1 item 13 (models/gblup.py)")
+        from mixmogam_tpu_torch.api import parse_snp_data
+        from mixmogam_tpu_torch.data.phenotype import PhenotypeData
+        from mixmogam_tpu_torch.models.gblup import (_joint_kinship, gblup,
+                                                     gblup_cv)
+        from mixmogam_tpu_torch.ops import resolve_device
+
+        device = resolve_device(args.device)     # before the files are read
+        gd = parse_snp_data(args.genotype, data_format=args.data_format)
+        phend = PhenotypeData.parse_phenotype_file(args.phenotype)
+        gd2, y, _ = gd.coordinate_with_phenotype(phend, args.pid)
+        summary = {"n": len(y), "m": gd2.num_snps}
+        if args.folds:
+            cv = gblup_cv(gd2, y, n_folds=args.folds, seed=args.seed,
+                          kinship_method=args.kinship_method, device=device)
+            summary.update(r=cv["r"], r_folds=cv["r_folds"], mse=cv["mse"])
+            y_col, y_hat = "y_hat_cv", cv["y_hat"]
+        else:
+            m = gblup(y, K=_joint_kinship(gd2, args.kinship_method,
+                                          device=device), device=device)
+            summary.update(h2=m.pseudo_heritability, delta=m.delta)
+            y_col, y_hat = "genetic_value", m.u_hat
+        if args.out:
+            with open(args.out, "w") as f:
+                f.write(f"ecotype_id,y,{y_col}\n")
+                for acc, yv, gv in zip(gd2.accessions, y, y_hat):
+                    f.write(f"{acc},{yv},{gv}\n")
+            summary["file"] = args.out
+        print(json.dumps(summary, indent=2))
+        return 0
 
     if args.cmd == "run":
         import numpy as np

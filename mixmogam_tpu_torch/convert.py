@@ -77,7 +77,10 @@ def trait_nulls_from_numpy(sd, X0s, y_res, rss0, dof, device="cpu",
                            dtype=torch.float64):
     """Per-trait RotatedNulls from the fields of the JAX package's
     multi-trait _trait_nulls: sd (T, n), the whitened designs X0s
-    (T, n, q), y_res (T, n), rss0 (T,) and dof. The JAX epilogue solves
+    (T, n, q), y_res (T, n), rss0 (T,) and dof. GxE's per-environment nulls
+    (sds, Q0s, y_ress, rss0s of the JAX emmax_gxe) come over the same way:
+    their Q0 is already orthonormal, and passed as X0s it comes back as
+    itself up to rounding. The JAX epilogue solves
     with the Cholesky factor of X0s_t' X0s_t; K3 takes an orthonormal Q0,
     so Q0_t is the orthonormal basis of X0s_t (ops/eigen.py
     orthonormal_basis): xx = ss - c'A^-1 c = ss - |Q0_t' x|^2."""
@@ -92,6 +95,23 @@ def trait_nulls_from_numpy(sd, X0s, y_res, rss0, dof, device="cpu",
                         rss0=_t(rss0[t], device, dtype),
                         dof=_t(dof, device, dtype))
             for t in range(sd.shape[0])]
+
+
+def gblup_model_from_fields(model, device="cpu"):
+    """The port's GblupModel from a fitted (JAX) gBLUP model's fields:
+    beta, u_hat and fitted as float64 host arrays, the internals that
+    predict() and reliability() read as float64 tensors on `device`."""
+    from mixmogam_tpu_torch.models.gblup import GblupModel
+
+    host = {k: np.array(getattr(model, k), dtype=np.float64)
+            for k in ("beta", "u_hat", "fitted")}
+    dev = {k: _t(getattr(model, k), device, torch.float64)
+           for k in ("_hinv_r", "_X0", "_phi", "_U")}
+    return GblupModel(delta=float(model.delta),
+                      sigma_g2=float(model.sigma_g2),
+                      sigma_e2=float(model.sigma_e2),
+                      pseudo_heritability=float(model.pseudo_heritability),
+                      **host, **dev)
 
 
 def resident_from_packed(host_packed, M, n, ploidy, tile, has_missing,

@@ -1,5 +1,6 @@
 """The helpers of mixmogam_tpu/models/streaming.py that the port has:
-_impute_tile, _host_float_tile, finalize_scan, _exact_rescore, and
+_impute_tile, _host_float_tile, finalize_scan, _exact_rescore (its row
+reader source_rows is the GxE rescore's too), and
 rotate_streamed_to_device (G_rot = impute(G) @ U built on the device tile
 by tile from a host source: stepwise's 'rotate once, scan many'). The
 streamed scan itself (host -> device tiles with checkpoint/resume) waits
@@ -150,6 +151,17 @@ def finalize_scan(matrix_source, null, dtype, f_stats, mask,
     return out
 
 
+def source_rows(matrix_source, idx, dtype, device) -> torch.Tensor:
+    """Rows idx of a host source (a ResidentGenome answers from its host
+    copy of the packed rows), mean-imputed, in dtype on device: the exact
+    rescores' input."""
+    rows = np.asarray(matrix_source[idx])
+    if rows.dtype == np.int8:
+        return _impute_tile(torch.as_tensor(rows, device=device), dtype)
+    return torch.as_tensor(_host_float_tile(rows, np.float64),
+                           device=device).to(dtype)
+
+
 def _exact_rescore(matrix_source, idx, null, dtype, tile: int = 16_384):
     """Re-test SNP rows `idx` at the exact tier. Rows come from the host
     source (a ResidentGenome answers from its host copy of the packed
@@ -163,12 +175,7 @@ def _exact_rescore(matrix_source, idx, null, dtype, tile: int = 16_384):
     dev = null.U.device
     outs = []
     for s in range(0, len(idx), tile):
-        rows = np.asarray(matrix_source[idx[s:s + tile]])
-        if rows.dtype == np.int8:
-            rows_d = _impute_tile(torch.as_tensor(rows, device=dev), dtype)
-        else:
-            rows_d = torch.as_tensor(_host_float_tile(rows, np.float64),
-                                     device=dev).to(dtype)
+        rows_d = source_rows(matrix_source, idx[s:s + tile], dtype, dev)
         outs.append(stats_dict(emmax_scan_stats(rows_d, rot_ex)))
     if not outs:
         return idx, {"f_stats": np.zeros(0), "betas": np.zeros(0),

@@ -268,17 +268,16 @@ def test_emmax_stepwise_matches_jax(files):
 @pytest.mark.parametrize("method", ["emma", "lm", "anova", "kw",
                                     "emmax_gxe"])
 def test_unported_methods_raise_before_parsing(method):
-    """emmax_gxe, the one method still to port, is refused before a file
-    is read (the paths do not exist); emma, lm, anova and kw, ported since,
-    pass the method check and reach the file read."""
-    expect = ((NotImplementedError, "ROADMAP Queue 1 item 13")
-              if method == "emmax_gxe" else (FileNotFoundError, "no_such"))
-    with pytest.raises(expect[0], match=expect[1]):
+    """Every method of the JAX package's run_gwas is ported: emma, lm,
+    anova, kw and emmax_gxe (given its env_pid) pass the method check and
+    reach the file read (the paths do not exist)."""
+    kw = {"env_pid": 2} if method == "emmax_gxe" else {}
+    with pytest.raises(FileNotFoundError, match="no_such"):
         api.run_gwas("no_such.csv", "no_such_pheno.csv", method=method,
-                     device="cpu")
-    with pytest.raises(expect[0], match=expect[1]):
+                     device="cpu", **kw)
+    with pytest.raises(FileNotFoundError, match="no_such"):
         api.run_gwas_multi("no_such.csv", "no_such_pheno.csv",
-                           method=method, device="cpu")
+                           method=method, device="cpu", **kw)
 
 
 def test_other_refusals_come_before_parsing():
@@ -381,7 +380,6 @@ def test_lazy_facade():
 
     assert mixmogam_tpu_torch.emma is api.emma is emma
     assert mixmogam_tpu_torch.kruskal_wallis is kruskal_wallis
-    with pytest.raises(AttributeError):
-        mixmogam_tpu_torch.emmax_gxe
-    with pytest.raises(AttributeError):
-        api.emmax_gxe
+    from mixmogam_tpu_torch.models.gxe import emmax_gxe
+
+    assert mixmogam_tpu_torch.emmax_gxe is api.emmax_gxe is emmax_gxe

@@ -134,14 +134,21 @@ def test_refused_options_exit_with_argparses_error(capsys, extra):
 
 
 @pytest.mark.parametrize("argv", [
-    ["predict", "no_such.csv", "no_such_pheno.csv"],
+    ["predict", "no_such.csv", "no_such_pheno.csv", "--device", "cpu"],
     ["run", "no_such.csv", "no_such_pheno.csv", "--method", "emmax_gxe",
      "--env-pid", "2", "--device", "cpu"],
     ["run", "no_such.csv", "no_such_pheno.csv", "--method",
      "emmax_gxe", "--device", "cpu"]])
 def test_unported_commands_raise_with_their_roadmap_item(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        cli.main(argv)
+    """predict and run --method emmax_gxe are ported: both reach the file
+    read (the paths do not exist), and emmax_gxe without --env-pid is
+    refused before it."""
+    if "--env-pid" in argv or argv[0] == "predict":
+        with pytest.raises(FileNotFoundError, match="no_such"):
+            cli.main(argv)
+    else:
+        with pytest.raises(ValueError, match="env_pid"):
+            cli.main(argv)
 
 
 def test_default_device_is_the_card_or_an_error(sim):

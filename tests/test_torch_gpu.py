@@ -710,3 +710,54 @@ def test_card_class_tests_vs_cpu_float64(cuda):
     Kb = scale_k(ibs_kinship(Gb.astype(np.float64)))
     a = emmax_anova(Gb, y, K=Kb)
     assert np.array_equal(a["ps"], emmax(Gb, y, K=Kb, tile=4096)["ps"])
+
+
+@pytest.mark.parametrize("precision,bound", [("exact", 1e-5),
+                                             ("int8x3", 1e-4),
+                                             ("bf16x3", 1e-4)])
+def test_card_gxe_vs_cpu_float64(cuda, precision, bound):
+    """emmax_gxe on the card (float32, no device=) against the float64 CPU
+    path, n = 1,024, a N(0, 1) and a 0/1 environment: identical masks, max
+    |dp| within the tier's bound on the three p fields, from a resident
+    genome and from a host array; no scan kernel launches (the rotations
+    are library products, the statistics plain torch)."""
+    from mixmogam_tpu_torch.models.gxe import emmax_gxe
+    from mixmogam_tpu_torch.oracle.kinship import ibs_kinship, scale_k
+
+    n, m = 1_024, 2_500
+    G, _, _ = simulate_genotypes(n, m, seed=17)
+    rng = np.random.default_rng(17)
+    env = np.column_stack([rng.normal(size=n), (rng.random(n) < 0.4) * 1.0])
+    y = G[30] * 0.6 + G[70] * env[:, 0] + rng.normal(size=n)
+    K = scale_k(ibs_kinship(G.astype(np.float64)))
+    b = emmax_gxe(G, y, env, K=K, precision=precision, device="cpu")
+    kernels = (scan_stats, rotate_scan_int8_packed, rotate_scan_bf16_packed)
+    before = [k.launches for k in kernels]
+    for src in (ResidentGenome.from_source(G, tile=1_024), G):
+        a = emmax_gxe(src, y, env, K=K, precision=precision)
+        for k in ("mask", "mask_inter"):
+            assert np.array_equal(a[k], b[k])
+        for k in ("marginal_ps", "inter_ps", "joint_ps"):
+            assert np.abs(a[k] - b[k]).max() <= bound, k
+        assert int(np.argmin(a["inter_ps"][0])) == 70
+        assert {"rotation", "statistics", "p_values"} <= set(a["timings_s"])
+    assert [k.launches for k in kernels] == before
+
+
+def test_card_gblup_vs_cpu_float64(cuda):
+    """gblup, reliability() and gblup_cv in float64 on the card (no
+    device=) against the CPU: within 1e-8 of their scale."""
+    from mixmogam_tpu_torch.models.gblup import _joint_kinship, gblup, gblup_cv
+
+    n, m = 800, 3_000
+    G, _, _ = simulate_genotypes(n, m, seed=18)
+    rng = np.random.default_rng(18)
+    y = G[:200].T @ rng.normal(scale=0.1, size=200) + rng.normal(size=n)
+    K = _joint_kinship(G, "ibs")
+    assert np.abs(K - _joint_kinship(G, "ibs", device="cpu")).max() == 0.0
+    a, b = gblup(y, K=K), gblup(y, K=K, device="cpu")
+    assert a._U.device.type == "cuda"
+    for got, ref in ((a.u_hat, b.u_hat), (a.reliability(), b.reliability()),
+                     (gblup_cv(None, y, K_all=K)["y_hat"],
+                      gblup_cv(None, y, K_all=K, device="cpu")["y_hat"])):
+        assert np.abs(got - ref).max() <= 1e-8 * np.abs(ref).max()
