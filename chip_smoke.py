@@ -136,6 +136,20 @@ Phases (each prints its own seconds):
     1e-12) to the direct call on its rows, y, environment and K and to its
     own CSV; the CLI's predict at --folds 0 and 5 (K1 once each), its CSV
     equal (<= 1e-12) to the direct gblup / gblup_cv call
+13 the permutation test and the two-SNP scan on phase 4's resident genome
+    and eigh: emmax_perm_test with P = 128 at 'exact', 'int8x3' and
+    'bf16x3', each wall, its scan's rotations, P-column products and
+    max-F epilogue apart (CUDA events), P M / scan perm-scan-tests/s and
+    no kernel launch; each fast tier's max F per permutation within rtol
+    1e-4 of exact's and its threshold within 1e-4 relative; the card
+    against the float64 CPU path at n = 2,048 x 8,192 (P = 16) and under
+    VanRaden's singular K at the three tiers, to the same limits. Then
+    emmax_two_snps on phase 4's top 32 exact hits: its wall and split, K3
+    launched once a focal SNP a tile (32 x 32 at M = 262,144) and nothing
+    else, every focal SNP's own cond_p 1; the card against the float64 CPU
+    path at n = 2,048 x 8,192 with 8 focal SNPs, with and without the
+    per-focal REML (identical masks, max |dp| <= 1e-5), and under the
+    singular K (<= 1e-4)
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}. Any
@@ -799,6 +813,168 @@ def _gxe_gblup_phase(args, kernels, launches, main, facade, files, acc,
                                  "with the direct call or its launches")
 
 
+def _perm_gate(label, got, ref, dof) -> None:
+    """Every permutation's max F (back from its min p, both sorted) within
+    rtol 1e-4 and the threshold within 1e-4 relative."""
+    import numpy as np
+    import scipy.stats
+
+    fa, fb = (scipy.stats.f.isf(r["min_ps"], 1, dof) for r in (got, ref))
+    df = float(np.abs(fa / fb - 1.0).max())
+    dt = abs(got["threshold"] / ref["threshold"] - 1.0)
+    print(f"   {label}: max F rtol {df:.3e}, threshold {dt:.3e} relative",
+          flush=True)
+    if df > 1e-4 or dt > 1e-4:
+        raise AssertionError(f"{label}: disagree")
+
+
+def _two_snp_gate(label, got, ref, p_tol) -> None:
+    """Identical masks (the p = 1 positions) and max |dp| <= p_tol on
+    cond_ps and inter_ps."""
+    import numpy as np
+
+    nm = sum(int(((got[k] == 1.0) != (ref[k] == 1.0)).sum())
+             for k in ("cond_ps", "inter_ps"))
+    dp = max(float(np.abs(got[k] - ref[k]).max())
+             for k in ("cond_ps", "inter_ps"))
+    print(f"   {label}: {nm} mask(s) differ, max|dp| {dp:.3e}", flush=True)
+    if nm or dp > p_tol:
+        raise AssertionError(f"{label}: disagree")
+
+
+def _perm_two_snp_phase(args, kernels, launches, main, counts) -> None:
+    """Phase 13: the permutation test (P = 128, three tiers) and the two-SNP
+    scan (the top 32 hits of phase 4's exact scan) on phase 4's resident
+    genome and eigh; each against the float64 CPU path at n = 2,048 and
+    under VanRaden's singular K."""
+    import numpy as np
+    import torch
+
+    from mixmogam_tpu_torch.data.simulate import (simulate_genotypes,
+                                                  simulate_phenotype)
+    from mixmogam_tpu_torch.models.permutation import emmax_perm_test
+    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
+                                                    kinship_resident,
+                                                    scale_k, subdivide_tile)
+    from mixmogam_tpu_torch.models.twosnp import emmax_two_snps
+    from mixmogam_tpu_torch.oracle.kinship import vanraden_kinship
+
+    rg, (phi, U), y = main["rg"], main["eig"], main["y"]
+    n, M = rg.n, rg.M
+
+    def run(fn, *a, **kw):
+        """fn's result, wall and kernel launches (added to the script's)."""
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        r = fn(*a, **kw)
+        wall = time.perf_counter() - ts
+        cnt = {k.__name__: k.launches for k in kernels}
+        for name, c in cnt.items():
+            launches[name] += c
+        return r, wall, cnt
+
+    # (a) the permutation test, P = 128, at full width and each tier
+    P = 128
+    perm = {}
+    for tier in ("exact", "int8x3", "bf16x3"):
+        r, wall, cnt = run(emmax_perm_test, rg, y, eig_k=(phi, U),
+                           num_perm=P, precision=tier)
+        tm = r["timings_s"]
+        scan = tm["load"] + tm["rotation"] + tm["product"] + tm["epilogue"]
+        print(f"emmax_perm_test {tier}, P={P} n={n} M={M}: {wall:.3f} s; "
+              f"scan {scan:.3f} s = {P * M / scan:,.0f} perm-scan-tests/s "
+              f"(rotations {tm['rotation']:.3f} s, P-column products "
+              f"{tm['product']:.3f} s, max-F epilogue {tm['epilogue']:.3f} "
+              f"s = {tm['epilogue'] / scan:.3f} of the scan, tiles' unpack "
+              f"{tm['load']:.3f} s, device time); null {tm['null']:.3f} s; "
+              f"p-values {tm['p_values']:.3f} s; threshold "
+              f"{r['threshold']:.4e}; launches {cnt}", flush=True)
+        if cnt != counts():
+            raise AssertionError(f"emmax_perm_test {tier}: launches {cnt}")
+        if r["min_ps"].shape != (P,) or not np.isfinite(r["min_ps"]).all() \
+                or not 0.0 < r["threshold"] < 0.05:
+            raise AssertionError(f"emmax_perm_test {tier}: malformed")
+        perm[tier] = r
+    for tier in ("int8x3", "bf16x3"):
+        _perm_gate(f"emmax_perm_test {tier} vs exact", perm[tier],
+                   perm["exact"], n - 2)
+    del perm
+    torch.cuda.empty_cache()
+
+    # the card (float32) against the float64 CPU path at n = 2,048
+    ts = time.perf_counter()
+    Gb, _, _ = simulate_genotypes(2_048, 8_192, ploidy=1,
+                                  seed=args.seed + 130)
+    yb, _ = simulate_phenotype(Gb, h2=0.5, n_causal=5, seed=args.seed + 130)
+    yb = yb + 0.8 * Gb[100] * Gb[200]
+    Kb = scale_k(kinship_resident(ResidentGenome.from_source(Gb)))
+    _perm_gate("emmax_perm_test exact, card f32 vs CPU f64 (n=2048, "
+               "M=8192, P=16)", emmax_perm_test(Gb, yb, K=Kb, num_perm=16),
+               emmax_perm_test(Gb, yb, K=Kb, num_perm=16, device="cpu"),
+               2_046)
+    # VanRaden's singular K with delta at its bound, every tier
+    Gv, _, _ = simulate_genotypes(256, 3_000, ploidy=1, seed=3)
+    yv, _ = simulate_phenotype(Gv, h2=0.5, n_causal=4, seed=3)
+    Kv = scale_k(vanraden_kinship(Gv.astype(np.float64), ploidy=1))
+    rgv = ResidentGenome.from_source(Gv, tile=1_024)
+    ref_v = emmax_perm_test(Gv, yv, K=Kv, num_perm=16, device="cpu")
+    for tier in ("exact", "int8x3", "bf16x3"):
+        _perm_gate(f"emmax_perm_test VanRaden K, delta {ref_v['delta']:.4e} "
+                   f"(the bound), {tier} on the card vs CPU f64",
+                   emmax_perm_test(rgv, yv, K=Kv, num_perm=16,
+                                   precision=tier), ref_v, 254)
+    print(f"   ({time.perf_counter() - ts:.3f} s)", flush=True)
+
+    # (b) the two-SNP scan on phase 4's top 32 hits: K3 once a focal SNP a
+    # tile, and no other kernel
+    r, wall, cnt = run(emmax_two_snps, rg, y, eig_k=(phi, U),
+                       from_result={"ps": main["ps"]}, top_k=32)
+    tiles = -(-M // subdivide_tile(rg.tile, 8_192))
+    tm = r["timings_s"]
+    scan = sum(tm[k] for k in ("load", "rotation", "conditional",
+                               "interaction"))
+    A = len(r["focal_idx"])
+    print(f"emmax_two_snps, A={A} focal SNPs (phase 4's top hits) n={n} "
+          f"M={M}: {wall:.3f} s; scan {scan:.3f} s = {A * M / scan:,.0f} "
+          f"SNP-pairs/s (rotations {tm['rotation']:.3f} s, K3 conditional "
+          f"scans with their masks {tm['conditional']:.3f} s, pairwise "
+          f"statistics {tm['interaction']:.3f} s, tiles' unpack "
+          f"{tm['load']:.3f} s, device time); eigh + nulls "
+          f"{tm['null']:.3f} s; host p-values {tm['p_values']:.3f} s; "
+          f"launches {cnt} ({A} x {tiles} tiles)", flush=True)
+    if cnt != counts(scan_stats=A * tiles) or A != 32:
+        raise AssertionError(f"emmax_two_snps: launches {cnt}")
+    for k in ("cond_ps", "inter_ps"):
+        ps = r[k]
+        if ps.shape != (A, M) or not np.isfinite(ps).all() or (
+                (ps < 0) | (ps > 1)).any():
+            raise AssertionError(f"emmax_two_snps: {k} malformed")
+    own = r["cond_ps"][np.arange(A), r["focal_idx"]]
+    if not (own == 1.0).all():
+        raise AssertionError("emmax_two_snps: a focal SNP's own cond_p "
+                             "is not 1")
+    del r
+    torch.cuda.empty_cache()
+
+    # the card against the float64 CPU path at n = 2,048, 8 focal SNPs
+    # (with the per-focal REML too), and under the singular K
+    ts = time.perf_counter()
+    focal = [100, 200, 300, 1_000, 2_000, 4_000, 6_000, 8_000]
+    for refit in (False, True):
+        kw = dict(K=Kb, focal_idx=focal, refit_delta_per_focal=refit)
+        _two_snp_gate(f"emmax_two_snps, card f32 vs CPU f64 (n=2048, "
+                      f"M=8192, A=8, refit_delta_per_focal={refit})",
+                      emmax_two_snps(Gb, yb, **kw),
+                      emmax_two_snps(Gb, yb, device="cpu", **kw), 1e-5)
+    kw = dict(K=Kv, focal_idx=[0, 1_000, 2_999])
+    _two_snp_gate("emmax_two_snps VanRaden K (the bound), card f32 vs CPU "
+                  "f64", emmax_two_snps(rgv, yv, **kw),
+                  emmax_two_snps(Gv, yv, device="cpu", **kw), 1e-4)
+    print(f"   ({time.perf_counter() - ts:.3f} s)", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--samples", type=int, default=10_240)
@@ -1272,7 +1448,7 @@ def main(argv=None) -> int:
         del wide
     # G and y stay for phase 6's files; the resident genome and eigh(K)
     # for phase 8
-    main = dict(rg=rg, eig=(phi, U), y=y, K=K)
+    main = dict(rg=rg, eig=(phi, U), y=y, K=K, ps=ex["ps"])
     del null, res, ex
     torch.cuda.empty_cache()
     _phase("4 main path", t0)
@@ -1846,11 +2022,18 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _gxe_gblup_phase(args, kernels, launches, main, facade, files, acc, tmp,
                      counts)
-    del main
     tmpdir.cleanup()
     torch.cuda.empty_cache()
     _check_no_jax()
     _phase("12 gBLUP and GxE", t0)
+
+    # ---- 13. the permutation test and the two-SNP scan --------------------
+    t0 = time.perf_counter()
+    _perm_two_snp_phase(args, kernels, launches, main, counts)
+    del main
+    torch.cuda.empty_cache()
+    _check_no_jax()
+    _phase("13 permutation and two-SNP", t0)
 
     for k in kernels:
         report[k.__name__]["launches"] = launches[k.__name__]

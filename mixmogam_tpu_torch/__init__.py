@@ -49,6 +49,14 @@ the projected eigenbasis, then the statistics in plain torch; run_gwas
 method 'emmax_gxe'). The facade now refuses no method and no command of
 the JAX package's.
 
+Slice 8 adds the permutation test (models.permutation.emmax_perm_test: one
+float64 REML, P permuted residuals, a tile rotated once and one
+(m, n) x (n, P) product with a running max F) and the two-SNP scan
+(models.twosnp.emmax_two_snps: each tile rotated once, kernel K3 once a
+focal SNP for the conditional scan, the interaction as GxE's with the
+focal SNP as the environment). The port now has every model of the JAX
+package.
+
 Modules keep the JAX package's paths and names. The port imports torch,
 numpy and scipy, and nothing of jax or of the JAX package: the few numpy
 modules it shares with that package (the data, results and plotting
@@ -65,7 +73,7 @@ __all__ = ["emmax", "emmax_resident", "kinship_resident", "ResidentGenome",
            "emmax_loco", "loco_kinships", "emmax_step_wise",
            "emmax_multi_trait", "emma", "emmax_anova", "linear_model",
            "anova", "kruskal_wallis", "emmax_gxe", "gblup", "gblup_predict",
-           "gblup_cv", "kinship",
+           "gblup_cv", "emmax_perm_test", "emmax_two_snps", "kinship",
            "run_gwas",
            "run_gwas_multi", "parse_snp_data", "parse_phenotype_file",
            "calc_ibs_kinship", "calc_ibd_kinship", "save_kinship_to_file",
@@ -101,7 +109,7 @@ def __getattr__(name):
         return emmax_multi_trait
     if name in {"emma", "emmax_anova", "linear_model", "anova",
                 "kruskal_wallis", "emmax_gxe", "gblup", "gblup_predict",
-                "gblup_cv"}:
+                "gblup_cv", "emmax_perm_test", "emmax_two_snps"}:
         from mixmogam_tpu_torch import api
 
         return getattr(api, name)

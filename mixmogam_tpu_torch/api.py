@@ -35,7 +35,7 @@ __all__ = [
     "calc_ibd_kinship", "emmax", "emmax_loco", "emmax_step_wise",
     "emmax_multi_trait", "emma", "emmax_anova", "linear_model", "anova",
     "kruskal_wallis", "emmax_gxe", "gblup", "gblup_predict", "gblup_cv",
-    "run_gwas", "run_gwas_multi", "save_kinship_to_file",
+    "emmax_perm_test", "emmax_two_snps", "run_gwas", "run_gwas_multi", "save_kinship_to_file",
     "load_kinship_from_file",
 ]
 
@@ -53,6 +53,8 @@ _ENTRY = {
     "emmax_gxe": ("gxe", "emmax_gxe"), "gblup": ("gblup", "gblup"),
     "gblup_predict": ("gblup", "gblup_predict"),
     "gblup_cv": ("gblup", "gblup_cv"),
+    "emmax_perm_test": ("permutation", "emmax_perm_test"),
+    "emmax_two_snps": ("twosnp", "emmax_two_snps"),
 }
 
 

@@ -1,0 +1,213 @@
+"""Two-SNP / epistasis scans (counterpart of mixmogam_tpu/models/twosnp.py:
+emmax_two_snps, _pairwise_interaction; reference:
+linear_models.emmax_two_snps).
+
+For a focal SNP set A (top hits of a prior scan, or given rows) each pair
+(a, b), b over all M SNPs, gets:
+  cond_ps   g_b tested with g_a as a cofactor        ([X0, g_a] vs + g_b)
+  inter_ps  g_a * g_b tested on top of [X0, g_a, g_b]   (1 dof)
+delta is fit once on the global null [X0] (EMMAX), or per focal SNP on
+[X0, g_a] with refit_delta_per_focal=True; each focal SNP's whitened null
+is built in float64 at its delta (models/stepwise.py::_rot_null_from_delta).
+
+The scan runs tile-outer, focal-inner (the JAX package loops focal-outer
+over a rotated copy of the whole genome; the results do not depend on the
+order). Each tile is rotated once, R = tile U' with U' = (I - P_X0) U
+(ops/scan.py::project_design), an exact float32 GEMM (TF32 off); then for
+each focal SNP:
+- the conditional scan: kernel K3 on R with g_a's null
+  (ops/scan.py::emmax_scan_prerotated; the JAX package's
+  emmax_scan_all(pre_rotated=True), whose Pallas form is
+  pallas_scan_stats): one launch a focal SNP a tile;
+- the interaction: the products rotated, (tile o g_a) U' = tile (g_a o U')
+  (one more GEMM, g_a on the tile's side: no (n, n) matrix stored a focal
+  SNP), then the pairwise Gram-Schmidt in the whitened basis of g_a's null.
+  That is GxE's interaction test with g_a in the place of the environment:
+  models/gxe.py::_gxe_stats_whitened (its inter_f and mask_inter).
+
+x U' and x U differ by a vector that whitening puts in col(Q0_a), and so
+do (x o g_a) U' and (x o g_a) U: the statistics are those of the JAX
+package in exact arithmetic, while no 1/sqrt(delta)-weighted coordinate of
+a K singular along X0 reaches float32 sums. The degenerate rows are masked
+from the dosages (models/gxe.py::_sample_space_keep with e = g_a): x inside
+col([X0, g_a]) (the focal SNP itself: its cond_p is 1), x o g_a inside
+col([X0, g_a, x]).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+__all__ = ["emmax_two_snps"]
+
+
+def _focal_set(focal_idx, from_result, top_k: int, M: int) -> np.ndarray:
+    """The focal SNP rows: focal_idx, or the top_k smallest p-values of
+    from_result (a p array, a dict with 'ps', or a results.Result scored as
+    'pvals' or 'neg_log_pvals'), with the JAX package's refusals."""
+    if focal_idx is None:
+        if from_result is None:
+            raise ValueError(
+                "emmax_two_snps needs an explicit focal set: pass "
+                "focal_idx=[...] (SNP row indices) or "
+                "from_result=<prior scan> to use its top_k hits")
+        ps = from_result
+        if isinstance(ps, dict):
+            ps = ps["ps"]
+        elif hasattr(ps, "scores"):  # results.Result
+            if ps.score_type == "pvals":
+                ps = ps.scores
+            elif ps.score_type == "neg_log_pvals":
+                ps = np.power(10.0, -np.asarray(ps.scores))
+            else:
+                raise ValueError(
+                    f"from_result Result has score_type "
+                    f"{ps.score_type!r}; cannot rank hits — pass "
+                    "p-values (score_type 'pvals'/'neg_log_pvals') or "
+                    "an explicit focal_idx")
+        ps = np.asarray(ps, dtype=np.float64).ravel()
+        if ps.shape[0] != M:
+            raise ValueError(
+                f"from_result has {ps.shape[0]} p-values but G has {M} "
+                "SNPs — the prior scan must cover the same SNP set")
+        focal_idx = np.argsort(ps, kind="stable")[:min(top_k, M)]
+    focal_idx = np.asarray(list(focal_idx), dtype=np.int64)
+    if focal_idx.size == 0:
+        raise ValueError("focal_idx is empty")
+    if focal_idx.min() < 0 or focal_idx.max() >= M:
+        raise ValueError(f"focal_idx out of range [0, {M})")
+    return focal_idx
+
+
+def emmax_two_snps(G, y, K=None, focal_idx: Optional[Sequence[int]] = None,
+                   X0: Optional[np.ndarray] = None, eig_k=None,
+                   ngrids: int = 100, llim: float = -10.0, ulim: float = 10.0,
+                   dtype=None, tile: int = 8192,
+                   refit_delta_per_focal: bool = False,
+                   from_result=None, top_k: int = 32, mesh=None,
+                   device=None) -> Dict[str, np.ndarray]:
+    """Pairwise scan of each focal SNP against all M partners, with the
+    JAX package's arguments and return dict (see the module docstring).
+
+    G: a ResidentGenome (unpacked a tile at a time on its own device), or a
+    GenotypeData or (M, n) array (int8 with -1 missing, or float dosages
+    with NaN missing; mean-imputed) read a tile at a time onto `device`:
+    the card by default (without one the call raises), 'cpu' on request.
+    The focal set is explicit: focal_idx (SNP rows), or from_result (a
+    prior scan's p array, a dict with 'ps', or a results.Result) for its
+    top_k hits; neither raises. K (n, n) or eig_k = (phi, U). dtype:
+    float32 on the card, float64 on the CPU by default. tile: SNP rows a
+    tile.
+
+    Returns cond_ps and inter_ps (A, M), focal_idx, the global null's delta
+    and pseudo_heritability, and timings_s: seconds of the eigh and the
+    nulls, the tiles' loading, the rotations (the tile's and the products'),
+    the K3 conditional scans (with the sample-space masks), the pairwise
+    statistics and the host p-values (device time from CUDA events on the
+    card). p-values finalize in float64 on the host."""
+    from mixmogam_tpu_torch.models.emma import _StageClock
+    from mixmogam_tpu_torch.models.emmax import _as_design
+    from mixmogam_tpu_torch.models.gxe import (_gxe_stats_whitened,
+                                               _sample_space_keep,
+                                               _source_tiles)
+    from mixmogam_tpu_torch.models.multitrait import (rotate_tile,
+                                                      shared_rotation)
+    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
+                                                    _default_dtype)
+    from mixmogam_tpu_torch.models.source import resolve_source
+    from mixmogam_tpu_torch.models.stepwise import _rot_null_from_delta
+    from mixmogam_tpu_torch.models.streaming import source_rows
+    from mixmogam_tpu_torch.ops import resolve_device
+    from mixmogam_tpu_torch.ops.eigen import eigen_k_on
+    from mixmogam_tpu_torch.ops.reml import fit_null_model
+    from mixmogam_tpu_torch.ops.scan import (design_basis,
+                                             emmax_scan_prerotated,
+                                             project_design)
+    from mixmogam_tpu_torch.ops.stats import f_sf_host
+    from mixmogam_tpu_torch.ops.xreml import explicit_reml
+
+    if mesh is not None:
+        raise NotImplementedError("mesh= (the SNP-sharded two-SNP scan) is "
+                                  "not ported yet: ROADMAP Queue 1 item 16")
+    y = np.asarray(y, dtype=np.float64).ravel()
+    n = y.shape[0]
+    rg = G if isinstance(G, ResidentGenome) else None
+    device = rg.device if rg is not None else resolve_device(device)
+    if dtype is None:
+        dtype = _default_dtype(device)
+    G_src = None if rg is not None else resolve_source(G)
+    source = rg if rg is not None else G_src
+    if source.shape[1] != n:
+        raise ValueError(f"y has {n} samples but G holds {source.shape[1]}")
+    M = source.shape[0]
+    focal_idx = _focal_set(focal_idx, from_result, top_k, M)
+    X0 = _as_design(np.ones((n, 1)) if X0 is None else X0, n)
+
+    # ---- one eigh, the global null and a whitened null a focal SNP ----
+    clock = _StageClock(device)
+    if eig_k is None:
+        if K is None:
+            raise ValueError("need K or eig_k")
+        eig_k = eigen_k_on(np.asarray(K, np.float64), device)
+    null = fit_null_model(y, X0, eig_k=eig_k, ngrids=ngrids, llim=llim,
+                          ulim=ulim, device=device, dtype=torch.float64)
+    phi64, U64 = null.phi, null.U
+    X0_64 = torch.as_tensor(X0, device=device)
+    y_rot = U64.T @ torch.as_tensor(y, device=device)
+    X_rot = U64.T @ X0_64
+    ga64 = source_rows(source, focal_idx, torch.float64, device)   # (A, n)
+    ga_rot = ga64 @ U64
+    phi_dt = phi64.to(dtype)
+    nulls, designs = [], []
+    for i in range(len(focal_idx)):
+        Xa_rot = torch.cat([X_rot, ga_rot[i][:, None]], dim=1)
+        delta = (explicit_reml(phi64, y_rot, Xa_rot, ngrids=ngrids,
+                               llim=llim, ulim=ulim)["delta"]
+                 if refit_delta_per_focal else null.delta)
+        nulls.append(_rot_null_from_delta(phi_dt, float(delta), y_rot,
+                                          Xa_rot, dtype))
+        designs.append(design_basis(
+            torch.cat([X0_64, ga64[i][:, None]], dim=1), device, dtype))
+    rot = shared_rotation(project_design(U64, X0_64)[0], None, dtype)
+    ga = ga64.to(dtype)
+    del U64, ga_rot
+    clock.lap("null")
+
+    # ---- the scan: each tile rotated once, then focal by focal ----
+    outs = []
+    clock.lap()
+    for Gt in _source_tiles(rg, G_src, None, dtype, device, tile):
+        clock.lap("load")
+        Gf = Gt.to(dtype)
+        R = rotate_tile(Gt, rot)
+        clock.lap("rotation")
+        rows = []
+        for null_a, g_a, design in zip(nulls, ga, designs):
+            keep_b, keep_p = _sample_space_keep(Gf, g_a, *design)
+            cond = emmax_scan_prerotated(R, null_a, keep_b)
+            clock.lap("conditional")
+            P = rotate_tile(Gf * g_a, rot)
+            clock.lap("rotation")
+            st = _gxe_stats_whitened(R * null_a.sd, P * null_a.sd, null_a,
+                                     keep_b, keep_p)
+            rows.append(torch.stack([cond[0], cond[3], st[1], st[4]]))
+            clock.lap("interaction")
+        outs.append(torch.stack(rows))
+    del rot
+    timings = clock.seconds()
+    h = torch.cat(outs, dim=2).cpu().double().numpy()         # (A, 4, M)
+    del outs
+    ts = time.perf_counter()
+    dof = n - X0.shape[1] - 2
+    cond_ps = np.where(h[:, 1] > 0.5, f_sf_host(h[:, 0], 1.0, dof), 1.0)
+    inter_ps = np.where(h[:, 3] > 0.5, f_sf_host(h[:, 2], 1.0, dof - 1.0),
+                        1.0)
+    timings["p_values"] = time.perf_counter() - ts
+    return {"cond_ps": cond_ps, "inter_ps": inter_ps,
+            "focal_idx": focal_idx, "delta": float(null.delta),
+            "pseudo_heritability": float(null.pseudo_heritability),
+            "timings_s": timings}

@@ -761,3 +761,90 @@ def test_card_gblup_vs_cpu_float64(cuda):
                      (gblup_cv(None, y, K_all=K)["y_hat"],
                       gblup_cv(None, y, K_all=K, device="cpu")["y_hat"])):
         assert np.abs(got - ref).max() <= 1e-8 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("precision", ["exact", "int8x3", "bf16x3"])
+def test_card_perm_test_vs_cpu_float64(cuda, precision):
+    """emmax_perm_test on the card (float32, no device=) from a resident
+    genome at each tier, and from a host array at exact, against the
+    float64 CPU path: every permutation's max F within rtol 1e-4, the
+    threshold within 1e-4 relative; no scan kernel launches (the products
+    are library GEMMs, the max-F epilogue plain torch)."""
+    from scipy.stats import f as f_dist
+
+    from mixmogam_tpu_torch.models.permutation import emmax_perm_test
+    from mixmogam_tpu_torch.oracle.kinship import ibs_kinship, scale_k
+
+    n, m = 1_024, 2_500
+    G, _, _ = simulate_genotypes(n, m, seed=19)
+    y = G[40] * 0.5 + np.random.default_rng(19).normal(size=n)
+    K = scale_k(ibs_kinship(G.astype(np.float64)))
+    b = emmax_perm_test(G, y, K=K, num_perm=32, device="cpu")
+    kernels = (scan_stats, rotate_scan_int8_packed, rotate_scan_bf16_packed)
+    before = [k.launches for k in kernels]
+    srcs = [ResidentGenome.from_source(G, tile=1_024)]
+    if precision == "exact":
+        srcs.append(G)
+    for src in srcs:
+        a = emmax_perm_test(src, y, K=K, num_perm=32,
+                            precision=None if src is G else precision)
+        fa, fb = (f_dist.isf(r["min_ps"], 1, n - 2) for r in (a, b))
+        assert np.abs(fa / fb - 1).max() <= 1e-4
+        assert abs(a["threshold"] / b["threshold"] - 1) <= 1e-4
+        assert {"rotation", "product", "epilogue"} <= set(a["timings_s"])
+    assert [k.launches for k in kernels] == before
+
+
+def test_card_two_snps_vs_cpu_float64(cuda):
+    """emmax_two_snps on the card (float32, no device=) against the float64
+    CPU path, n = 1,024, 4 focal SNPs, with and without the per-focal
+    REML: identical masks, max |dp| <= 1e-5; K3 launches once a focal SNP a
+    tile, and no other scan kernel."""
+    from mixmogam_tpu_torch.models.twosnp import emmax_two_snps
+    from mixmogam_tpu_torch.oracle.kinship import ibs_kinship, scale_k
+
+    n, m, tile = 1_024, 2_500, 1_024
+    G, _, _ = simulate_genotypes(n, m, seed=20)
+    y = 2.0 * (G[10] * G[16]) + np.random.default_rng(20).normal(size=n)
+    K = scale_k(ibs_kinship(G.astype(np.float64)))
+    focal = [10, 16, 900, 2_000]
+    for refit in (False, True):
+        b = emmax_two_snps(G, y, K=K, focal_idx=focal, tile=tile,
+                           refit_delta_per_focal=refit, device="cpu")
+        for src in (ResidentGenome.from_source(G, tile=tile), G):
+            before = [k.launches for k in (scan_stats,
+                                           rotate_scan_int8_packed,
+                                           rotate_scan_bf16_packed)]
+            a = emmax_two_snps(src, y, K=K, focal_idx=focal, tile=tile,
+                               refit_delta_per_focal=refit)
+            assert scan_stats.launches - before[0] == 4 * -(-m // tile)
+            assert rotate_scan_int8_packed.launches == before[1]
+            assert rotate_scan_bf16_packed.launches == before[2]
+            for k in ("cond_ps", "inter_ps"):
+                assert np.array_equal(a[k] == 1.0, b[k] == 1.0)
+                assert np.abs(a[k] - b[k]).max() <= 1e-5
+            assert [a["cond_ps"][i, f] for i, f in enumerate(focal)] == [
+                1.0] * 4
+            assert int(np.argmin(a["inter_ps"][0])) == 16
+
+
+def test_card_is_the_default_for_perm_and_two_snps(cuda):
+    """Without device= both entry points run on the card: K3 launches for
+    the two-SNP scan; the permutation test's result equals an explicit
+    device='cuda' call."""
+    from mixmogam_tpu_torch.models.permutation import emmax_perm_test
+    from mixmogam_tpu_torch.models.twosnp import emmax_two_snps
+    from mixmogam_tpu_torch.ops import resolve_device
+
+    assert resolve_device(None).type == "cuda"
+    rng = np.random.default_rng(21)
+    G = rng.integers(0, 2, (600, 200)).astype(np.int8)
+    y = G[5] + rng.normal(size=200)
+    K = np.corrcoef(G.T.astype(np.float64)) + np.eye(200)
+    a = emmax_perm_test(G, y, K=K, num_perm=8)
+    c = emmax_perm_test(G, y, K=K, num_perm=8, device="cuda")
+    assert np.array_equal(a["min_ps"], c["min_ps"])
+    before = scan_stats.launches
+    r = emmax_two_snps(G, y, K=K, focal_idx=[5, 9])
+    assert scan_stats.launches == before + 2
+    assert r["cond_ps"][0, 5] == 1.0
