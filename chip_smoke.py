@@ -150,6 +150,28 @@ Phases (each prints its own seconds):
     path at n = 2,048 x 8,192 with 8 focal SNPs, with and without the
     per-focal REML (identical masks, max |dp| <= 1e-5), and under the
     singular K (<= 1e-4)
+14 the spectrum REML, the class facade and the examples: (a)
+    projected_spectrum on the card (cuSOLVER, float64) against host LAPACK
+    at n = 2,048 (max |dxi| <= 1e-9 max xi, projectors within 1e-9);
+    fit_null_model's REML and ML, explicit and spectrum, on the card
+    against the float64 numpy/scipy oracle at n = 2,048 (|d log delta| <=
+    1e-10, |d ll| <= 1e-12 |ll|; a float32 eigh's reading printed beside);
+    fit_null_model(method='spectrum') against 'explicit', both on the
+    card, on phase 4's K (|d log delta| <= 1e-6, |d h2| <= 1e-9), the
+    projected eigh and reml_from_spectrum timed alone; (b) h2_profile_ci
+    on the card against the CPU in float64 at n = 2,048 (both ends <= 1e-8),
+    then on phase 4's null with its wall; (c) LinearMixedModel(y) (no
+    device=: the card) with phase 4's K: get_expedited_REMLE against
+    fit_null_model with the facade's 18 bisection steps on phase 4's eigh
+    (a pass-through check, |d log delta| <= 1e-9), emmax_f_test on
+    phase 4's resident genome at exact, int8x3 and bf16x3, each equal to the
+    direct emmax on the same eig_k (max |dp| <= 1e-12), its K3 / K2 / K5
+    launches counted into the kernels line; get_estimates (betas <= 1e-8
+    relative) and lm_step_wise (3 steps, the same cofactors) on the card
+    against the CPU in float64 at n = 2,048; (d) python -m
+    mixmogam_tpu_torch.examples: every ported scenario at its default size
+    in a temporary directory, each wall printed; any scenario that raises
+    fails the phase
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}. Any
@@ -973,6 +995,212 @@ def _perm_two_snp_phase(args, kernels, launches, main, counts) -> None:
                   "f64", emmax_two_snps(rgv, yv, **kw),
                   emmax_two_snps(Gv, yv, device="cpu", **kw), 1e-4)
     print(f"   ({time.perf_counter() - ts:.3f} s)", flush=True)
+
+
+def _spectrum_compat_phase(args, kernels, launches, main) -> None:
+    """Phase 14: the spectrum REML (projected_spectrum, fit_null_model
+    method='spectrum', h2_profile_ci), the class facade (compat.py) on
+    phase 4's K and resident genome, and the examples run on the card."""
+    import numpy as np
+    import torch
+
+    from mixmogam_tpu_torch import oracle
+    from mixmogam_tpu_torch.compat import LinearMixedModel, lm_step_wise
+    from mixmogam_tpu_torch.data.simulate import (simulate_genotypes,
+                                                  simulate_phenotype)
+    from mixmogam_tpu_torch.examples import EXAMPLES
+    from mixmogam_tpu_torch.models.emmax import emmax
+    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
+                                                    kinship_resident,
+                                                    scale_k)
+    from mixmogam_tpu_torch.ops.eigen import projected_spectrum
+    from mixmogam_tpu_torch.ops.reml import (NullModel, esp_to_refine_iters,
+                                             fit_null_model, h2_profile_ci,
+                                             reml_from_spectrum)
+
+    dev = torch.device("cuda")
+    rg, (phi, U), y, K = main["rg"], main["eig"], main["y"], main["K"]
+    n = rg.n
+    ones = np.ones((n, 1))
+
+    def wall(fn, *a, **kw):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        r = fn(*a, **kw)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - ts
+
+    # n = 2,048 fixtures for the card-vs-CPU gates
+    Gb, _, _ = simulate_genotypes(2_048, 8_192, ploidy=1,
+                                  seed=args.seed + 140)
+    yb, _ = simulate_phenotype(Gb, h2=0.5, n_causal=5, seed=args.seed + 140)
+    Kb = scale_k(kinship_resident(ResidentGenome.from_source(Gb)))
+    Xb = np.column_stack([np.ones(2_048), np.random.default_rng(
+        args.seed + 140).normal(size=2_048)])
+
+    # (a) the projected eigh on the card against host LAPACK at n = 2,048
+    (xa, Va), ta = wall(projected_spectrum, Kb, Xb)
+    (xh, Vh), th = wall(projected_spectrum, Kb, Xb, host=True, device="cpu")
+    dxi = float((xa.cpu() - xh).abs().max())
+    dP = float(((Va @ Va.T).cpu() - Vh @ Vh.T).abs().max())
+    print(f"projected_spectrum n=2048 q=2: card (cuSOLVER f64) {ta:.3f} s, "
+          f"host LAPACK {th:.3f} s; max|dxi| {dxi:.3e} "
+          f"({dxi / float(xh.abs().max()):.3e} of max xi), projectors "
+          f"max|d| {dP:.3e}", flush=True)
+    if dxi > 1e-9 * float(xh.abs().max()) or dP > 1e-9:
+        raise AssertionError("projected_spectrum: card and host disagree")
+    del Va, Vh
+    # the card's REML and ML, both methods, against the float64 numpy /
+    # scipy oracle (its own LAPACK eighs, brentq to 1e-12) at n = 2,048.
+    # The gates (|d log delta| <= 1e-10, |d ll| <= 1e-12 |ll|) are meant
+    # to be ones a float32 eigh fails: its reading on the card is printed
+    # beside them
+    ts = time.perf_counter()
+    eR, eK = oracle.eigen_R(Kb, Xb), oracle.eigen_K(Kb)
+    ref = {False: oracle.reml(yb, Xb, eig_R=eR, esp=1e-12),
+           True: oracle.ml(yb, Xb, Kb, eig_K=eK, eig_R=eR, esp=1e-12)}
+    print(f"float64 oracle REML and ML n=2048 (host): "
+          f"{time.perf_counter() - ts:.3f} s", flush=True)
+    del eR, eK
+
+    def off(fit, o):
+        return (abs(float(fit.log_delta) - o["log_delta"]),
+                abs(float(fit.ll) - o["ll"]) / abs(o["ll"]))
+
+    for ml in (False, True):
+        for method in ("explicit", "spectrum"):
+            d_ld, d_ll = off(fit_null_model(yb, Xb, K=Kb, ml=ml,
+                                            method=method,
+                                            dtype=torch.float64), ref[ml])
+            print(f"   fit_null_model {'ML' if ml else 'REML'} {method} "
+                  f"(card f64) vs oracle: |d log delta| {d_ld:.3e}, "
+                  f"|d ll| {d_ll:.3e} relative (h2 "
+                  f"{ref[ml]['pseudo_heritability']:.6f})", flush=True)
+            if d_ld > 1e-10 or d_ll > 1e-12:
+                raise AssertionError(f"fit_null_model ml={ml} {method} "
+                                     "differs from the float64 oracle")
+    d_ld, d_ll = off(fit_null_model(yb, Xb, K=Kb, dtype=torch.float64,
+                                    eigh_dtype=np.float32), ref[False])
+    print(f"   (a float32 eigh on the card, REML: |d log delta| "
+          f"{d_ld:.3e}, |d ll| {d_ll:.3e} relative)", flush=True)
+    # spectrum against explicit, both on the card, on phase 4's K
+    Kd = torch.as_tensor(K, device=dev)
+    (xi, V), t_eigh = wall(projected_spectrum, Kd, ones)
+    eta2 = (V.T @ torch.as_tensor(y, device=dev)) ** 2
+    del V
+    _, t_opt = wall(reml_from_spectrum, eta2, xi)
+    del xi, eta2
+    spec, t_spec = wall(fit_null_model, y, ones, K=Kd, eig_k=(phi, U),
+                        method="spectrum", dtype=torch.float64)
+    expl, t_expl = wall(fit_null_model, y, ones, eig_k=(phi, U),
+                        dtype=torch.float64)
+    d_ld = abs(float(spec.log_delta) - float(expl.log_delta))
+    d_h2 = abs(float(spec.pseudo_heritability)
+               - float(expl.pseudo_heritability))
+    print(f"n={n}: the projected eigh alone {t_eigh:.3f} s; "
+          f"reml_from_spectrum alone {t_opt:.3f} s; fit_null_model "
+          f"spectrum {t_spec:.3f} s, explicit {t_expl:.3f} s; "
+          f"|d log delta| {d_ld:.3e}, |d h2| {d_h2:.3e} (h2 "
+          f"{float(expl.pseudo_heritability):.6f})", flush=True)
+    if d_ld > 1e-6 or d_h2 > 1e-9:
+        raise AssertionError("spectrum and explicit REML disagree")
+    del spec, Kd
+    torch.cuda.empty_cache()
+
+    # (b) h2_profile_ci on the card against the CPU in float64
+    nb = fit_null_model(yb, Xb, K=Kb, dtype=torch.float64)
+    cb = NullModel(**{k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                      for k, v in vars(nb).items()})
+    ci_a, t_ci_a = wall(h2_profile_ci, nb)
+    ci_b, t_ci_b = wall(h2_profile_ci, cb)
+    d_ci = max(abs(ci_a[0] - ci_b[0]), abs(ci_a[1] - ci_b[1]))
+    ci, t_ci = wall(h2_profile_ci, expl)
+    print(f"h2_profile_ci n=2048: card {t_ci_a:.3f} s, CPU {t_ci_b:.3f} s, "
+          f"ends max|d| {d_ci:.3e}; n={n} (phase 4's null): "
+          f"[{ci[0]:.4f}, {ci[1]:.4f}] in {t_ci:.3f} s", flush=True)
+    if d_ci > 1e-8 or not ci[0] <= float(expl.pseudo_heritability) <= ci[1]:
+        raise AssertionError("h2_profile_ci: card and CPU disagree")
+
+    # (c) the class facade on phase 4's K and resident genome
+    lmm = LinearMixedModel(y)               # no device=: the card
+    if lmm.device.type != "cuda":
+        raise AssertionError(f"LinearMixedModel on {lmm.device}")
+    lmm.add_random_effect(K)
+    reml, t_reml = wall(lmm.get_expedited_REMLE)
+    # a pass-through check: the facade's esp = 1e-6 gives 18 bisection
+    # steps, so fit_null_model called with those on phase 4's eigh must
+    # give the same log delta (the REML itself is held to the oracle in (a))
+    fit4 = fit_null_model(y, ones, eig_k=(phi, U), dtype=torch.float64,
+                          refine_iters=esp_to_refine_iters(1e-6))
+    d_ld = abs(reml["log_delta"] - float(fit4.log_delta))
+    print(f"LinearMixedModel(y).add_random_effect(K) n={n}: "
+          f"get_expedited_REMLE (eigh + REML) {t_reml:.3f} s; |d log "
+          f"delta| vs fit_null_model on phase 4's eigh with the facade's "
+          f"18 steps (pass-through) {d_ld:.3e}", flush=True)
+    if d_ld > 1e-9:
+        raise AssertionError("compat REML differs from fit_null_model")
+    for tier, kname in (("exact", "scan_stats"),
+                        ("int8x3", "rotate_scan_int8_packed"),
+                        ("bf16x3", "rotate_scan_bf16_packed")):
+        lmm.emmax_f_test(rg, precision=tier)       # warm
+        for k in kernels:
+            k.launches = 0
+        res, t_c = wall(lmm.emmax_f_test, rg, precision=tier)
+        cnt = {k.__name__: k.launches for k in kernels}
+        for name, c in cnt.items():
+            launches[name] += c
+        ref, t_d = wall(emmax, rg, y, eig_k=lmm._eig_k, X0=lmm.X,
+                        precision=tier)
+        dp = float(np.abs(res["ps"] - ref["ps"]).max())
+        print(f"   emmax_f_test {tier}: {t_c:.3f} s (direct emmax "
+              f"{t_d:.3f} s), max|dp| vs direct {dp:.3e}, launches {cnt}",
+              flush=True)
+        if dp > 1e-12 or cnt[kname] <= 0 or (
+                tier != "exact" and cnt["scan_stats"]):
+            raise AssertionError(f"compat emmax_f_test {tier} off")
+    del lmm, res, ref
+    torch.cuda.empty_cache()
+    # get_estimates and lm_step_wise, card against CPU float64, n = 2,048
+    est = {}
+    for d in (None, "cpu"):
+        m = LinearMixedModel(yb, device=d)
+        m.add_random_effect(Kb)
+        m.add_factor(Xb[:, 1])
+        m.add_factor(Gb[100])
+        est[d], t = wall(m.get_estimates)
+        print(f"   get_estimates on {m.device}: {t:.3f} s", flush=True)
+    d_b = float(np.abs(est[None]["betas"] - est["cpu"]["betas"]).max()
+                / np.abs(est["cpu"]["betas"]).max())
+    sw = {d: wall(lm_step_wise, Gb, yb, max_steps=3, device=d)
+          for d in (None, "cpu")}
+    cof = {d: [s["cofactors"] for s in r[0]["steps"]]
+           for d, r in sw.items()}
+    print(f"get_estimates n=2048 card vs CPU f64: betas max|d| {d_b:.3e} "
+          f"relative; lm_step_wise 3 steps: card {sw[None][1]:.3f} s, CPU "
+          f"{sw['cpu'][1]:.3f} s, the largest model's cofactors "
+          f"{max(cof[None], key=len)} (CPU {max(cof['cpu'], key=len)})",
+          flush=True)
+    if d_b > 1e-8 or cof[None] != cof["cpu"]:
+        raise AssertionError("compat card vs CPU disagree")
+
+    # (d) every ported scenario of the examples on the card, default size
+    ts = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ex_") as out:
+        r = subprocess.run(
+            [sys.executable, "-m", "mixmogam_tpu_torch.examples", "--out",
+             out], capture_output=True, text=True, timeout=900,
+            env={**os.environ, "MIXMOGAM_LOGLEVEL": "WARNING"})
+    for line in r.stdout.splitlines():
+        if line.startswith("[example]"):
+            print("   " + line, flush=True)
+    print(f"python -m mixmogam_tpu_torch.examples (every ported scenario, "
+          f"default size): {time.perf_counter() - ts:.3f} s, exit "
+          f"{r.returncode}", flush=True)
+    ran = sum(line.startswith("[example]") for line in r.stdout.splitlines())
+    if r.returncode != 0 or ran != len(EXAMPLES):
+        print(r.stdout[-3000:], r.stderr[-3000:], file=sys.stderr)
+        raise AssertionError(f"the examples failed ({ran} of "
+                             f"{len(EXAMPLES)} ran)")
 
 
 def main(argv=None) -> int:
@@ -2030,10 +2258,17 @@ def main(argv=None) -> int:
     # ---- 13. the permutation test and the two-SNP scan --------------------
     t0 = time.perf_counter()
     _perm_two_snp_phase(args, kernels, launches, main, counts)
-    del main
     torch.cuda.empty_cache()
     _check_no_jax()
     _phase("13 permutation and two-SNP", t0)
+
+    # ---- 14. the spectrum REML, the class facade and the examples --------
+    t0 = time.perf_counter()
+    _spectrum_compat_phase(args, kernels, launches, main)
+    del main
+    torch.cuda.empty_cache()
+    _check_no_jax()
+    _phase("14 spectrum REML, compat and the examples", t0)
 
     for k in kernels:
         report[k.__name__]["launches"] = launches[k.__name__]

@@ -57,6 +57,17 @@ focal SNP for the conditional scan, the interaction as GxE's with the
 focal SNP as the environment). The port now has every model of the JAX
 package.
 
+Slice 9 adds the rest of the null-model layer and the reference's class
+API: ops.eigen.projected_spectrum (the eigh of S(K+I)S in float64 on the
+card), ops.reml.reml_from_spectrum (the grid and bisection over its
+spectrum, batched over leading dimensions), fit_null_model(method=
+'spectrum') and h2_profile_ci (the profile-likelihood interval of h2, on
+the objective the null recorded in NullModel.ml); compat.py (LinearModel,
+LinearMixedModel, lm_step_wise, SNPsDataSet: the reference's stateful
+classes over the port's models, K and its eigenbasis kept on the card);
+the float64 oracle (oracle/lmm.py, glm.py, stepwise.py); and examples.py,
+the scenarios of examples/examples.py run on the port.
+
 Modules keep the JAX package's paths and names. The port imports torch,
 numpy and scipy, and nothing of jax or of the JAX package: the few numpy
 modules it shares with that package (the data, results and plotting
@@ -78,6 +89,7 @@ __all__ = ["emmax", "emmax_resident", "kinship_resident", "ResidentGenome",
            "run_gwas_multi", "parse_snp_data", "parse_phenotype_file",
            "calc_ibs_kinship", "calc_ibd_kinship", "save_kinship_to_file",
            "load_kinship_from_file", "GenotypeData", "PhenotypeData",
+           "LinearModel", "LinearMixedModel", "lm_step_wise",
            "__version__"]
 
 _API = {"run_gwas", "run_gwas_multi", "parse_snp_data",
@@ -121,6 +133,10 @@ def __getattr__(name):
         from mixmogam_tpu_torch import api
 
         return getattr(api, name)
+    if name in {"LinearModel", "LinearMixedModel", "lm_step_wise"}:
+        from mixmogam_tpu_torch import compat
+
+        return getattr(compat, name)
     if name in {"GenotypeData", "PhenotypeData"}:
         from mixmogam_tpu_torch import data
 

@@ -3,7 +3,8 @@
 The JAX package's NullModel / RotatedNull / ResidentGenome hold jax
 arrays; pass their fields through np.asarray and these constructors build
 the port's counterparts on `device`, so that both packages can be fed the
-same null model, the same int8 digit planes and the same packed rows. Its
+same null model, the same int8 digit planes and the same packed rows (and
+the class facade, the same LinearMixedModel state). Its
 host objects (GenotypeData / DosageData, PhenotypeData, Result,
 GwasConfig) are carried across from their numpy and Python fields, read
 by attribute: nothing of the JAX package is imported here.
@@ -23,8 +24,9 @@ def _t(a, device, dtype=None):
 
 def null_from_numpy(phi, U, delta, log_delta, ll, sigma_g2, sigma_e2,
                     pseudo_heritability, y, X0, device="cpu",
-                    dtype=torch.float64):
-    """NullModel from the fields of a fitted (JAX) null model."""
+                    dtype=torch.float64, ml=False):
+    """NullModel from the fields of a fitted (JAX) null model; ml: the
+    objective it was fitted with (the JAX NullModel's _ml attribute)."""
     from mixmogam_tpu_torch.ops.reml import NullModel
 
     X0 = np.asarray(X0)
@@ -37,7 +39,26 @@ def null_from_numpy(phi, U, delta, log_delta, ll, sigma_g2, sigma_e2,
         ll=_t(ll, device, dtype), sigma_g2=_t(sigma_g2, device, dtype),
         sigma_e2=_t(sigma_e2, device, dtype),
         pseudo_heritability=_t(pseudo_heritability, device, dtype),
-        y=_t(y, device, dtype).reshape(-1), X0=_t(X0, device, dtype))
+        y=_t(y, device, dtype).reshape(-1), X0=_t(X0, device, dtype),
+        ml=bool(ml))
+
+
+def linear_mixed_model_from_fields(Y, X, K=None, eig_k=None,
+                                   device=None):
+    """The port's compat.LinearMixedModel in the state read by attribute
+    from a JAX LinearMixedModel (Y, X, K, _eig_k): Y and X as float64
+    host arrays, K and its (phi, U) as float64 tensors on `device` (the
+    card unless 'cpu' is asked for, as LinearMixedModel's own). The REML
+    cache starts empty."""
+    from mixmogam_tpu_torch.compat import LinearMixedModel
+
+    lmm = LinearMixedModel(np.asarray(Y, dtype=np.float64), device=device)
+    lmm.X = np.array(X, dtype=np.float64)
+    if K is not None:
+        lmm.add_random_effect(np.array(K, dtype=np.float64))
+    if eig_k is not None:
+        lmm._eig_k = tuple(_t(a, lmm.device, torch.float64) for a in eig_k)
+    return lmm
 
 
 def rotated_null_from_numpy(W, sd, Q0, y_res, rss0, dof, w_scale=None,

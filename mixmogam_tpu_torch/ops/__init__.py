@@ -6,7 +6,10 @@ the JAX package's ``jax_default_matmul_precision='highest'`` pin
 would silently turn the exact scan tier into a ~1e-3-grade tier.
 Importing builds and loads no kernel: that happens at first CUDA use
 (ops._build). resolve_device is the entry points' device rule: the card
-unless the caller asks for the CPU.
+unless the caller asks for the CPU. The JAX package's ops exports
+(eigen_k, projected_spectrum, reml_from_spectrum, NullModel,
+fit_null_model, h2_profile_ci, emmax_scan_stats, RotatedNull,
+build_rotated_null) load from their modules at first use.
 """
 
 import torch
@@ -48,3 +51,25 @@ def resolve_device(device=None) -> torch.device:
             "False) and this call runs on the card by default; pass "
             'device="cpu" to run it on the CPU')
     return torch.device("cuda")
+
+
+#: the JAX package's ops exports (mixmogam_tpu/ops/__init__.py), loaded at
+#: first use: the modules behind them import this package for
+#: resolve_device
+_EXPORTS = {"eigen_k": "eigen", "projected_spectrum": "eigen",
+            "reml_from_spectrum": "reml", "NullModel": "reml",
+            "fit_null_model": "reml", "h2_profile_ci": "reml",
+            "emmax_scan_stats": "scan", "RotatedNull": "scan",
+            "build_rotated_null": "scan"}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        import importlib
+
+        return getattr(importlib.import_module(
+            f"mixmogam_tpu_torch.ops.{_EXPORTS[name]}"), name)
+    raise AttributeError(
+        f"module 'mixmogam_tpu_torch.ops' has no attribute {name!r}")

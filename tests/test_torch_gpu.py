@@ -47,7 +47,8 @@ def _null(n, q, dev, seed=0):
         descending=True).values, U=U, delta=one, log_delta=0 * one, ll=one,
         sigma_g2=one, sigma_e2=one, pseudo_heritability=one / 2,
         y=torch.randn(n, generator=g), X0=X0)
-    return NullModel(**{k: v.to(dev) for k, v in vars(null).items()})
+    return NullModel(**{k: v.to(dev) if isinstance(v, torch.Tensor) else v
+                        for k, v in vars(null).items()})
 
 
 def _close(got, ref):
@@ -848,3 +849,106 @@ def test_card_is_the_default_for_perm_and_two_snps(cuda):
     r = emmax_two_snps(G, y, K=K, focal_idx=[5, 9])
     assert scan_stats.launches == before + 2
     assert r["cond_ps"][0, 5] == 1.0
+
+
+def _reml_fixture(n, seed, q=1):
+    from mixmogam_tpu_torch.data.simulate import simulate_phenotype
+    from mixmogam_tpu_torch.oracle.kinship import ibs_kinship, scale_k
+
+    G, _, _ = simulate_genotypes(n, 2_000, seed=seed)
+    y, _ = simulate_phenotype(G, h2=0.5, n_causal=10, seed=seed)
+    X0 = np.column_stack([np.ones(n), np.random.default_rng(seed).normal(
+        size=(n, q - 1))])
+    return G, y, X0, scale_k(ibs_kinship(G.astype(np.float64)))
+
+
+def test_card_projected_spectrum_vs_host(cuda):
+    """projected_spectrum on the card (cuSOLVER, float64, no device=)
+    against host LAPACK: max |dxi| <= 1e-9 max xi, the projectors V V'
+    within 1e-9."""
+    from mixmogam_tpu_torch.ops.eigen import projected_spectrum
+
+    _, _, X0, K = _reml_fixture(1_024, 30, q=3)
+    a = projected_spectrum(K, X0)
+    b = projected_spectrum(K, X0, host=True, device="cpu")
+    assert a[0].device.type == "cuda" and a[0].dtype == torch.float64
+    xa, xb = a[0].cpu(), b[0]
+    assert (xa - xb).abs().max() <= 1e-9 * xb.abs().max()
+    Pa = (a[1] @ a[1].T).cpu()
+    assert (Pa - b[1] @ b[1].T).abs().max() <= 1e-9
+
+
+@pytest.mark.parametrize("ml", [False, True])
+def test_card_spectrum_vs_explicit(cuda, ml):
+    """fit_null_model(method='spectrum') against 'explicit', both on the
+    card in float64 (|d log delta| <= 1e-6, |d h2| <= 1e-9), and against
+    the spectrum path on the CPU (1e-9)."""
+    from mixmogam_tpu_torch.ops.reml import fit_null_model
+
+    _, y, X0, K = _reml_fixture(1_024, 31, q=2)
+    kw = dict(K=K, ml=ml, dtype=torch.float64)
+    a = fit_null_model(y, X0, method="spectrum", **kw)
+    b = fit_null_model(y, X0, method="explicit", **kw)
+    c = fit_null_model(y, X0, method="spectrum", device="cpu", **kw)
+    assert a.delta.device.type == "cuda" and a.ml is ml
+    assert abs(float(a.log_delta) - float(b.log_delta)) <= 1e-6
+    assert abs(float(a.pseudo_heritability)
+               - float(b.pseudo_heritability)) <= 1e-9
+    assert abs(float(a.log_delta) - float(c.log_delta)) <= 1e-9
+
+
+def test_card_h2_profile_ci_vs_cpu(cuda):
+    """h2_profile_ci of a null on the card against the same null's fields on
+    the CPU in float64: both ends within 1e-8, REML and ML."""
+    from mixmogam_tpu_torch.ops.reml import NullModel, fit_null_model
+    from mixmogam_tpu_torch.ops.reml import h2_profile_ci
+
+    _, y, X0, K = _reml_fixture(1_024, 32)
+    for ml in (False, True):
+        a = fit_null_model(y, X0, K=K, ml=ml, dtype=torch.float64)
+        b = NullModel(**{k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                         for k, v in vars(a).items()})
+        ca, cb = h2_profile_ci(a), h2_profile_ci(b)
+        assert max(abs(ca[0] - cb[0]), abs(ca[1] - cb[1])) <= 1e-8
+
+
+def test_card_compat_vs_cpu(cuda):
+    """The class facade on the card (no device=): its REML equals
+    fit_null_model on its eigenbasis; emmax_f_test on a resident genome at
+    exact, int8x3 and bf16x3 equals the direct emmax on the same eig_k and
+    launches the tier's kernel; get_estimates within 1e-8 relative of the
+    CPU's float64; lm_step_wise selects the CPU's cofactors."""
+    from mixmogam_tpu_torch.compat import LinearMixedModel, lm_step_wise
+    from mixmogam_tpu_torch.ops.reml import (esp_to_refine_iters,
+                                             fit_null_model)
+
+    G, y, _, K = _reml_fixture(1_024, 33)
+    lmm = LinearMixedModel(y)
+    assert lmm.device.type == "cuda"
+    lmm.add_random_effect(K)
+    lmm.add_factor(G[7])
+    r = lmm.get_expedited_REMLE()
+    # the facade's esp=1e-6 is 18 bisection steps, as in emmax's null fit
+    null = fit_null_model(y, lmm.X, eig_k=lmm._eig_k, dtype=torch.float64,
+                          refine_iters=esp_to_refine_iters(1e-6))
+    assert abs(r["log_delta"] - float(null.log_delta)) <= 1e-9
+    rg = ResidentGenome.from_source(G, tile=1_024)
+    for tier, k in (("exact", scan_stats),
+                    ("int8x3", rotate_scan_int8_packed),
+                    ("bf16x3", rotate_scan_bf16_packed)):
+        before = k.launches
+        a = lmm.emmax_f_test(rg, precision=tier)
+        assert k.launches > before
+        b = emmax(rg, y, eig_k=lmm._eig_k, X0=lmm.X, precision=tier)
+        assert np.abs(a["ps"] - b["ps"]).max() <= 1e-12
+    cpu = LinearMixedModel(y, device="cpu")
+    cpu.add_random_effect(K)
+    cpu.add_factor(G[7])
+    ea, eb = lmm.get_estimates(), cpu.get_estimates()
+    for key in ("betas", "beta_ses"):
+        assert np.abs(ea[key] - eb[key]).max() <= 1e-8 * np.abs(
+            eb[key]).max()
+    sa = lm_step_wise(G, y, max_steps=3)
+    sb = lm_step_wise(G, y, max_steps=3, device="cpu")
+    assert [s["cofactors"] for s in sa["steps"]] == [
+        s["cofactors"] for s in sb["steps"]]

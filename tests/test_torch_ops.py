@@ -176,9 +176,19 @@ def test_fit_null_model_matches_jax(q):
 
 
 def test_fit_null_model_spectrum_not_ported():
+    """method='spectrum' was refused until the spectrum REML was ported;
+    it now fits, equal to the JAX package's spectrum path, and only an
+    unknown method is refused (tests/test_torch_spectrum.py has the rest)."""
     _, K, y, X0 = _problem()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        reml.fit_null_model(y, X0, K=K, method="spectrum", device="cpu")
+    nj = jreml.fit_null_model(y, X0, K=K, method="spectrum")
+    nt = reml.fit_null_model(y, X0, K=K, method="spectrum", device="cpu")
+    for f in ("delta", "ll", "pseudo_heritability", "sigma_g2",
+              "log_delta"):
+        np.testing.assert_allclose(float(getattr(nt, f)),
+                                   float(getattr(nj, f)), rtol=1e-9,
+                                   atol=1e-9)
+    with pytest.raises(ValueError, match="unknown method"):
+        reml.fit_null_model(y, X0, K=K, method="grid", device="cpu")
 
 
 @pytest.mark.parametrize("q", [1, 3])
