@@ -171,7 +171,30 @@ Phases (each prints its own seconds):
     against the CPU in float64 at n = 2,048; (d) python -m
     mixmogam_tpu_torch.examples: every ported scenario at its default size
     in a temporary directory, each wall printed; any scenario that raises
-    fails the phase
+    fails the phase, and so does streaming_at_scale without its part (a)
+ 15 the streamed scan (models/streaming.py::emmax_streamed): (a) an int8
+    host source of n x 4M rows (BASELINE #3's 10,240 x 1,048,576; the
+    first M rows are phase 4's genome, the rest drawn on the card, timed
+    apart), emmax(stream=True, tile=32,768) on phase 4's eigh at exact,
+    int8x3 and bf16x3, each launching its kernel (K3, K2, K5) once a tile
+    and held to emmax_resident on the same rows (max |dp| <= 1e-6, equal
+    masks), with its wall, SNP-tests/s, H2D bytes and rate, the seconds
+    waited on the prep thread and the card's busy share of the loop, and
+    each kernel alone on a 32,768-row tile; (b) a streamed exact scan with
+    checkpoint_dir in a subprocess over a lazy source drawn from a seed
+    (n x 131,072, 4,096-row tiles), SIGKILLed once 3 tile files exist and
+    resumed here: at least 3 tiles restored, equal to an uninterrupted run
+    (max |dp| <= 1e-12), and again after the manifest is cut to half its
+    bytes; (c) float32 dosages in [0, 2] with 1 % NaN, n x 5M/4 (13.4 GB at
+    full size): emmax with no stream= must stream by itself, rows
+    [0, 65,536) equal to emmax(stream=False) on them (max |dp| <= 1e-6),
+    and precision='bf16x3' raises naming item 17; (d) emmax_multi_trait,
+    T = 8, on (c)'s source: streamed (every tile read from the host), K3 T
+    times a tile, rows [0, 65,536) equal to the in-core multi-trait scan
+    (max |dp| <= 1e-6), trait 0 within phase 9's 1e-5 of (c)'s single-trait
+    p; (e) the CLI's run --stream on --checkpoint-dir on phase 6's PLINK
+    fileset: its CSV equal to run_gwas emmax (max |dp| <= 1e-6), and a
+    second identical run restores every tile and scans none
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}. Any
@@ -296,12 +319,13 @@ def _read_ranked_csv(path):
 
 
 def _draw_genotypes(n: int, m: int, ploidy: int = 1,
-                    missing_rate: float = 0.0, seed: int = 0):
+                    missing_rate: float = 0.0, seed: int = 0, out=None):
     """(m, n) int8 host genotypes (-1 = missing) of data/simulate.py's
     model (Balding-Nichols: 3 populations, Fst 0.1, ancestral frequencies
-    uniform on 0.05-0.5). The per-SNP frequencies come from numpy; the
-    (m, n) uniform draws are made on the card, which numpy makes in half a
-    minute for 262,144 x 10,240 on the host."""
+    uniform on 0.05-0.5), written into `out` when given. The per-SNP
+    frequencies come from numpy; the (m, n) uniform draws are made on the
+    card, which numpy makes in half a minute for 262,144 x 10,240 on the
+    host."""
     import numpy as np
     import torch
 
@@ -312,7 +336,7 @@ def _draw_genotypes(n: int, m: int, ploidy: int = 1,
         device="cuda")
     pop = torch.as_tensor(rng.integers(0, 3, size=n), device="cuda")
     g = torch.Generator(device="cuda").manual_seed(seed)
-    G = np.empty((m, n), dtype=np.int8)
+    G = np.empty((m, n), dtype=np.int8) if out is None else out
     for s in range(0, m, 16_384):
         f = freqs[:, s:s + 16_384][pop].T               # (rows, n)
         acc = torch.zeros(f.shape, dtype=torch.int8, device="cuda")
@@ -1197,10 +1221,355 @@ def _spectrum_compat_phase(args, kernels, launches, main) -> None:
           f"default size): {time.perf_counter() - ts:.3f} s, exit "
           f"{r.returncode}", flush=True)
     ran = sum(line.startswith("[example]") for line in r.stdout.splitlines())
-    if r.returncode != 0 or ran != len(EXAMPLES):
+    # streaming_at_scale's part (a): the streamed scan with checkpoints
+    streamed = "streamed scan min p" in r.stdout
+    print(f"   streaming_at_scale part (a) ran: {streamed}", flush=True)
+    if r.returncode != 0 or ran != len(EXAMPLES) or not streamed:
         print(r.stdout[-3000:], r.stderr[-3000:], file=sys.stderr)
         raise AssertionError(f"the examples failed ({ran} of "
                              f"{len(EXAMPLES)} ran)")
+
+
+class _SeededRows:
+    """A lazy (M, n) int8 source of binary genotypes: rows [s, e) are drawn
+    on access, 256 rows a block, each block from its own generator seeded
+    by (seed, block), so any process reads the same genome and none holds
+    a copy of it (phase 15(b)'s subprocess)."""
+
+    BLOCK = 256
+
+    def __init__(self, M: int, n: int, seed: int):
+        import numpy as np
+
+        self.shape = (M, n)
+        self.dtype = np.dtype(np.int8)
+        self.seed = seed
+
+    def __getitem__(self, key):
+        import numpy as np
+
+        s, e, step = key.indices(self.shape[0])
+        if step != 1:
+            raise IndexError("step-1 row slices only")
+        b0, b1, B = s // self.BLOCK, -(-e // self.BLOCK), self.BLOCK
+        rows = np.concatenate([
+            np.random.default_rng([self.seed, b]).integers(
+                0, 2, (B, self.shape[1]), dtype=np.int8)
+            for b in range(b0, max(b1, b0 + 1))])
+        return rows[s - b0 * B:e - b0 * B]
+
+
+_KILL_WORKER = """
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, {root!r})
+from chip_smoke import _SeededRows
+from mixmogam_tpu_torch.models.streaming import emmax_streamed
+z = np.load({npz!r})
+eig = (torch.as_tensor(z["phi"], device="cuda"),
+       torch.as_tensor(z["U"], device="cuda"))
+emmax_streamed(_SeededRows({M}, {n}, {seed}), z["y"], eig_k=eig,
+               tile={tile}, checkpoint_dir={ck!r})
+"""
+
+
+def _stream_phase(args, kernels, launches, main, G, files, tmp) -> None:
+    """Phase 15: the streamed scan (emmax_streamed) at BASELINE #3's shape,
+    kill and resume, imputed dosages past the in-core budget, the streamed
+    multi-trait route and the CLI's --stream on / --checkpoint-dir."""
+    import contextlib
+    import glob
+    import io
+    import signal
+
+    import numpy as np
+    import torch
+
+    from mixmogam_tpu_torch import cli
+    from mixmogam_tpu_torch.api import run_gwas
+    from mixmogam_tpu_torch.models import source as source_mod
+    from mixmogam_tpu_torch.models.emmax import emmax
+    from mixmogam_tpu_torch.models.multitrait import emmax_multi_trait
+    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
+                                                    emmax_resident)
+    from mixmogam_tpu_torch.models.streaming import emmax_streamed
+    from mixmogam_tpu_torch.ops.hopper_scan import (k3_operand,
+                                                    rotate_scan_bf16_packed,
+                                                    rotate_scan_int8_packed,
+                                                    scan_operand, scan_stats)
+    from mixmogam_tpu_torch.ops.pack2 import unpack_2bit_device
+    from mixmogam_tpu_torch.ops.reml import fit_null_model
+    from mixmogam_tpu_torch.ops.scan import build_rotated_null
+
+    dev = torch.device("cuda")
+    (phi, U), y = main["eig"], main["y"]
+    M, n = G.shape
+    eig = (phi, U)
+
+    def run(fn, *a, **kw):
+        """fn(*a, **kw) with the kernels' counts from 0: (result, counts,
+        seconds); the counts join the kernels line."""
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - ts
+        cnt = {k.__name__: k.launches for k in kernels}
+        for name, c in cnt.items():
+            launches[name] += c
+        return out, cnt, dt
+
+    # (a) BASELINE #3's shape: n x 4M, int8, phase 4's genome first
+    tile_a = 32_768
+    Mb = 4 * M
+    ts = time.perf_counter()
+    Gb = np.empty((Mb, n), dtype=np.int8)
+    Gb[:M] = G
+    for k in range(1, 4):
+        _draw_genotypes(n, M, seed=args.seed + 150 + k, out=Gb[k * M:])
+    print(f"(a) the source (not the system): {Mb} x {n} int8 on the host "
+          f"({Gb.nbytes / 1e9:.2f} GB), rows past {M} drawn on the card: "
+          f"{time.perf_counter() - ts:.3f} s", flush=True)
+    # the two host-side rates that could bound the pipeline, alone
+    rows = min(tile_a, Mb)
+    pin = torch.empty((rows, n), dtype=torch.int8, pin_memory=True)
+    gpu = torch.empty((rows, n), dtype=torch.int8, device=dev)
+    ts = time.perf_counter()
+    for r in range(3):
+        np.copyto(pin.numpy(), Gb[r * rows:(r + 1) * rows])
+    cp_s = (time.perf_counter() - ts) / 3
+    h2d_ms = _cuda_ms(lambda: gpu.copy_(pin, non_blocking=True))
+    print(f"   alone, a {rows}-row tile ({pin.numel() / 1e6:.1f} MB): host "
+          f"copy into a pinned buffer {cp_s * 1e3:.3f} ms = "
+          f"{pin.numel() / cp_s / 1e9:.2f} GB/s; its H2D copy "
+          f"{h2d_ms:.3f} ms = {pin.numel() / h2d_ms / 1e6:.2f} GB/s",
+          flush=True)
+    del pin, gpu
+    kname = {"exact": "scan_stats", "int8x3": "rotate_scan_int8_packed",
+             "bf16x3": "rotate_scan_bf16_packed"}
+    streamed = {}
+    n_tiles = -(-Mb // tile_a)
+    for tier in ("exact", "int8x3", "bf16x3"):
+        st, cnt, dt = run(emmax, Gb, y, eig_k=eig, stream=True, tile=tile_a,
+                          precision=tier)
+        ss = st["stream_stats"]
+        print(f"   emmax stream=True {tier}, M={Mb}: {dt:.3f} s = "
+              f"{Mb / dt:,.0f} SNP-tests/s (the scan loop {ss['scan_s']:.3f}"
+              f" s = {Mb / ss['scan_s']:,.0f}); H2D {ss['h2d_bytes']:,} B = "
+              f"{ss['h2d_bytes'] / ss['scan_s'] / 1e9:.2f} GB/s over the "
+              f"loop; waited on the prep thread {ss['prep_wait_s']:.3f} s; "
+              f"the card busy {ss['busy_s']:.3f} s = "
+              f"{ss['busy_s'] / ss['scan_s']:.3f} of the loop; launches "
+              f"{cnt}", flush=True)
+        want = {k: (n_tiles if k == kname[tier] else 0) for k in cnt}
+        if cnt != want or ss["tiles"] != n_tiles or ss["restored"]:
+            raise AssertionError(f"streamed {tier}: launches {cnt}, "
+                                 f"tabled {want}")
+        streamed[tier] = (st["ps"], st["mask"])
+        del st
+    ts = time.perf_counter()
+    rgb = ResidentGenome.from_source(Gb, tile=tile_a)
+    torch.cuda.synchronize()
+    print(f"   the same rows packed resident (tile {tile_a}): "
+          f"{time.perf_counter() - ts:.3f} s", flush=True)
+    null = fit_null_model(y, np.ones((n, 1)), eig_k=eig, device=dev,
+                          dtype=torch.float32)
+    for tier in ("exact", "int8x3", "bf16x3"):
+        ts = time.perf_counter()
+        ref = emmax_resident(rgb, y, eig_k=eig, precision=tier)
+        dt = time.perf_counter() - ts
+        ps, mask = streamed[tier]
+        nm = int((mask != ref["mask"]).sum())
+        dp = float(np.abs(ps - ref["ps"]).max())
+        # the tier's kernel alone on one 32,768-row tile (a timing: not
+        # counted)
+        rot = build_rotated_null(null, None if tier == "exact" else tier)
+        p = rgb.packed[:rows]
+        if tier == "exact":
+            Xr = unpack_2bit_device(p, n).float() @ rot.U
+            op = k3_operand(rot)
+            ms = _cuda_ms(lambda: scan_stats(Xr, rot.sd, rot.y_res, rot.Q0,
+                                             rot.rss0, rot.dof, operand=op))
+            del Xr
+        else:
+            fn = (rotate_scan_int8_packed if tier == "int8x3"
+                  else rotate_scan_bf16_packed)
+            W = ((rot.planes, rot.w_scale) if tier == "int8x3"
+                 else (rot.parts,))
+            op = scan_operand(rot)
+            r0, d0 = float(rot.rss0), float(rot.dof)
+            ms = _cuda_ms(lambda: fn(p, n, *W, rot.y_res, rot.scan_q0, r0,
+                                     d0, operand=op))
+        print(f"   {tier}: streamed vs emmax_resident ({dt:.3f} s): {nm} "
+              f"mask(s) differ, max|dp| {dp:.3e}; {kname[tier]} alone on "
+              f"a {rows}-row tile: {ms:.3f} ms", flush=True)
+        if nm or dp > 1e-6:
+            raise AssertionError(f"streamed {tier} disagrees with resident")
+        del ref, rot
+    del rgb, streamed, Gb
+    torch.cuda.empty_cache()
+
+    # (b) kill and resume: a lazy source drawn from a seed, n samples
+    Mk, tile_k = 32 * 4_096, 4_096
+    src = _SeededRows(Mk, n, args.seed + 160)
+    ck = os.path.join(tmp, "kill_ck")
+    npz = os.path.join(tmp, "eig.npz")
+    np.savez(npz, phi=phi.cpu().numpy(), U=U.cpu().numpy(), y=y)
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _KILL_WORKER.format(
+            root=root, npz=npz, M=Mk, n=n, seed=args.seed + 160,
+            tile=tile_k, ck=ck)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.time() + 300
+        while len(glob.glob(os.path.join(ck, "tile_*[0-9].npz"))) < 3:
+            if proc.poll() is not None or time.time() > deadline:
+                raise AssertionError(f"(b) no 3 tile files before the "
+                                     f"worker's end or the deadline: "
+                                     f"{proc.communicate()[1][-2000:]}")
+            time.sleep(0.02)
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    os.remove(npz)
+    on_disk = len(glob.glob(os.path.join(ck, "tile_*[0-9].npz")))
+    resumed, cnt, dt_r = run(emmax_streamed, src, y, eig_k=eig,
+                             tile=tile_k, checkpoint_dir=ck)
+    clean, _, dt_c = run(emmax_streamed, src, y, eig_k=eig, tile=tile_k)
+    (mpath,) = glob.glob(os.path.join(ck, "manifest_*.json"))
+    with open(mpath, "r+b") as f:
+        f.truncate(os.path.getsize(mpath) // 2)
+    cut, _, _ = run(emmax_streamed, src, y, eig_k=eig, tile=tile_k,
+                    checkpoint_dir=ck)
+    rs, cs = resumed["stream_stats"], cut["stream_stats"]
+    d_r = float(np.abs(resumed["ps"] - clean["ps"]).max())
+    d_c = float(np.abs(cut["ps"] - clean["ps"]).max())
+    print(f"(b) SIGKILL with {on_disk} of {rs['tiles']} tile files on disk "
+          f"(n={n}, M={Mk}, {tile_k}-row tiles drawn from a seed on "
+          f"access): the resume restored {rs['restored']} and scanned "
+          f"{rs['scanned']} ({dt_r:.3f} s; uninterrupted {dt_c:.3f} s), max"
+          f"|dp| vs uninterrupted {d_r:.3e}; the manifest cut to half its "
+          f"bytes: restored {cs['restored']} from the tile files, max|dp| "
+          f"{d_c:.3e}; K3 launches on the resume {cnt['scan_stats']}",
+          flush=True)
+    if (not 3 <= rs["restored"] < rs["tiles"] or d_r > 1e-12 or d_c > 1e-12
+            or cs["restored"] != cs["tiles"]
+            or cnt["scan_stats"] != rs["scanned"]):
+        raise AssertionError("(b) kill and resume off")
+    del resumed, clean, cut
+
+    # (c) imputed dosages past the in-core budget: float32 in [0, 2], 1 %
+    # NaN, drawn on the card
+    Mc = 5 * M // 4
+    ts = time.perf_counter()
+    Gf = np.empty((Mc, n), dtype=np.float32)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 170)
+    for s in range(0, Mc, 16_384):
+        x = 2.0 * torch.rand((min(16_384, Mc - s), n), generator=g,
+                             device=dev)
+        x[torch.rand(x.shape, generator=g, device=dev) < 0.01] = np.nan
+        Gf[s:s + x.shape[0]] = x.cpu().numpy()
+    del x
+    print(f"(c) the source (not the system): {Mc} x {n} float32 dosages, 1 "
+          f"% NaN ({Gf.nbytes / 1e9:.2f} GB): {time.perf_counter() - ts:.3f}"
+          f" s", flush=True)
+    st, cnt, dt = run(emmax, Gf, y, eig_k=eig)
+    ss = st.get("stream_stats")
+    if ss is None:
+        raise AssertionError("(c) emmax did not route to the streamed scan")
+    head = 65_536
+    ref, _, dt_i = run(emmax, Gf[:head], y, eig_k=eig, stream=False)
+    nm = int((st["mask"][:head] != ref["mask"]).sum())
+    dp = float(np.abs(st["ps"][:head] - ref["ps"]).max())
+    print(f"   emmax (stream=None: routed to the streamed scan), M={Mc}: "
+          f"{dt:.3f} s = {Mc / dt:,.0f} SNP-tests/s; {ss['tiles']} tiles; "
+          f"H2D {ss['h2d_bytes']:,} B = "
+          f"{ss['h2d_bytes'] / ss['scan_s'] / 1e9:.2f} GB/s; waited on the "
+          f"prep thread {ss['prep_wait_s']:.3f} s of {ss['scan_s']:.3f}; "
+          f"busy {ss['busy_s'] / ss['scan_s']:.3f}; launches {cnt}; rows "
+          f"[0, {head}) vs emmax stream=False ({dt_i:.3f} s): {nm} mask(s) "
+          f"differ, max|dp| {dp:.3e}", flush=True)
+    if nm or dp > 1e-6 or cnt["scan_stats"] != ss["tiles"]:
+        raise AssertionError("(c) imputed dosages off")
+    try:
+        emmax(Gf, y, eig_k=eig, precision="bf16x3")
+    except NotImplementedError as exc:
+        if "item 17" not in str(exc):
+            raise
+        print(f"   precision='bf16x3' on these dosages raises: "
+              f"{str(exc)[:90]}...", flush=True)
+    else:
+        raise AssertionError("(c) bf16x3 on fractional dosages ran")
+
+    # (d) multi-trait, T = 8, on (c)'s source: trait 0 is (c)'s phenotype
+    T = 8
+    Y = np.vstack([y[None], _draw_traits(G[:16_384], T - 1,
+                                         args.seed + 180)])
+    reads = []
+    host_tile = source_mod.host_tile
+    source_mod.host_tile = lambda *a: reads.append(a[1]) or host_tile(*a)
+    try:
+        mt, cnt, dt = run(emmax_multi_trait, Gf, Y, eig_k=eig)
+    finally:
+        source_mod.host_tile = host_tile
+    tiles_d = -(-Mc // 16_384)
+    mi, _, dt_i = run(emmax_multi_trait, Gf[:head], Y, eig_k=eig,
+                      stream_budget_bytes=1 << 62)
+    d_in = float(np.abs(mt["ps"][:, :head] - mi["ps"]).max())
+    nm = int((mt["mask"][:, :head] != mi["mask"]).sum())
+    d_one = float(np.abs(mt["ps"][0] - st["ps"]).max())
+    print(f"(d) emmax_multi_trait T={T} on (c)'s source: {dt:.3f} s = "
+          f"{T * Mc / dt:,.0f} SNP-trait tests/s; timings_s "
+          f"{json.dumps({k: round(v, 3) for k, v in mt['timings_s'].items()})}"
+          f"; {len(reads)} tiles read from the host (streamed); launches "
+          f"{cnt}; rows [0, {head}) vs the in-core multi-trait scan "
+          f"({dt_i:.3f} s): {nm} mask(s) differ, max|dp| {d_in:.3e}; trait 0"
+          f" vs (c)'s single-trait streamed scan: max|dp| {d_one:.3e}",
+          flush=True)
+    if (len(reads) != tiles_d or cnt["scan_stats"] != T * tiles_d or nm
+            or d_in > 1e-6 or d_one > 1e-5):
+        raise AssertionError("(d) the streamed multi-trait scan off")
+    del Gf, st, ref, mt, mi
+    torch.cuda.empty_cache()
+
+    # (e) the CLI on phase 6's PLINK fileset: --stream on --checkpoint-dir
+    ck = os.path.join(tmp, "cli_ck")
+    prefix = os.path.join(tmp, "cli_stream")
+    argv = ["run", files[0], files[1], "--data-format", "plink", "-o",
+            prefix, "--no-plots", "--stream", "on", "--checkpoint-dir", ck]
+    said = []
+    for _ in range(2):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc, cnt, dt = run(cli.main, argv)
+        said.append((rc, cnt, dt, buf.getvalue()))
+    ref = run_gwas(files[0], files[1], data_format="plink", plots=False)
+    g2 = ref["genotype"]
+    want = {(int(c), int(p)): v for c, p, v in zip(
+        g2.chromosomes, g2.positions, ref["scan"]["ps"])}
+    got = _read_ranked_csv(prefix + ".pvals.csv")
+    dp = max(abs(got[k] - v) for k, v in want.items())
+    tiles_e = -(-g2.num_snps // 16_384)
+    for i, (rc, cnt, dt, out) in enumerate(said):
+        print(f"(e) cli run --stream on --checkpoint-dir, run {i + 1}: exit "
+              f"{rc}, {dt:.3f} s, launches {cnt}: "
+              f"{out.strip().splitlines()[-1]}", flush=True)
+    print(f"   the CSV vs run_gwas emmax on the same fileset: max|dp| "
+          f"{dp:.3e} over {len(want)} SNPs", flush=True)
+    if (any(r[0] != 0 for r in said) or sorted(got) != sorted(want)
+            or dp > 1e-6
+            or f"{tiles_e} scanned, 0 restored" not in said[0][3]
+            or f"0 scanned, {tiles_e} restored" not in said[1][3]
+            or said[0][1]["scan_stats"] != tiles_e
+            or said[1][1]["scan_stats"] != 0):
+        raise AssertionError("(e) the CLI's streamed run off")
 
 
 def main(argv=None) -> int:
@@ -1833,7 +2202,7 @@ def main(argv=None) -> int:
     print(f"wrote {prefix}.bed/.bim/.fam ({bed_mb:.1f} MB) and the "
           f"phenotype CSV: {time.perf_counter() - ts:.3f} s (M={Mf})",
           flush=True)
-    del gd, G
+    del gd                  # G stays: phase 15's source starts with it
     files = (prefix + ".bed", pheno)
     # the facade's LOCO call, held to the direct exact call on its rows;
     # then the bf16x3 tier on the same rows against that exact call
@@ -2250,7 +2619,6 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _gxe_gblup_phase(args, kernels, launches, main, facade, files, acc, tmp,
                      counts)
-    tmpdir.cleanup()
     torch.cuda.empty_cache()
     _check_no_jax()
     _phase("12 gBLUP and GxE", t0)
@@ -2265,10 +2633,18 @@ def main(argv=None) -> int:
     # ---- 14. the spectrum REML, the class facade and the examples --------
     t0 = time.perf_counter()
     _spectrum_compat_phase(args, kernels, launches, main)
-    del main
     torch.cuda.empty_cache()
     _check_no_jax()
     _phase("14 spectrum REML, compat and the examples", t0)
+
+    # ---- 15. the streamed scan --------------------------------------------
+    t0 = time.perf_counter()
+    _stream_phase(args, kernels, launches, main, G, files, tmp)
+    tmpdir.cleanup()
+    del main
+    torch.cuda.empty_cache()
+    _check_no_jax()
+    _phase("15 the streamed scan", t0)
 
     for k in kernels:
         report[k.__name__]["launches"] = launches[k.__name__]

@@ -68,6 +68,14 @@ classes over the port's models, K and its eigenbasis kept on the card);
 the float64 oracle (oracle/lmm.py, glm.py, stepwise.py); and examples.py,
 the scenarios of examples/examples.py run on the port.
 
+Slice 10 adds the streamed scan (models.streaming.emmax_streamed: tiles
+read from a host source in a prep thread into pinned buffers, copied to the
+card on a side stream, scanned by kernel K3 (exact) or packed there for K2 /
+K5; a tile-granular checkpoint and resume), which emmax (stream=,
+checkpoint_dir=, or a source over the in-core budget that does not fit
+packed), emmax_multi_trait (such a source, exact tier), the CLI's --stream
+on / --checkpoint-dir and the streaming_at_scale example reach.
+
 Modules keep the JAX package's paths and names. The port imports torch,
 numpy and scipy, and nothing of jax or of the JAX package: the few numpy
 modules it shares with that package (the data, results and plotting
@@ -85,7 +93,7 @@ __all__ = ["emmax", "emmax_resident", "kinship_resident", "ResidentGenome",
            "emmax_multi_trait", "emma", "emmax_anova", "linear_model",
            "anova", "kruskal_wallis", "emmax_gxe", "gblup", "gblup_predict",
            "gblup_cv", "emmax_perm_test", "emmax_two_snps", "kinship",
-           "run_gwas",
+           "emmax_streamed", "run_gwas",
            "run_gwas_multi", "parse_snp_data", "parse_phenotype_file",
            "calc_ibs_kinship", "calc_ibd_kinship", "save_kinship_to_file",
            "load_kinship_from_file", "GenotypeData", "PhenotypeData",
@@ -111,6 +119,10 @@ def __getattr__(name):
         from mixmogam_tpu_torch.models import loco
 
         return getattr(loco, name)
+    if name == "emmax_streamed":
+        from mixmogam_tpu_torch.models.streaming import emmax_streamed
+
+        return emmax_streamed
     if name == "emmax_step_wise":
         from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
 

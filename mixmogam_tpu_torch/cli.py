@@ -7,9 +7,11 @@
     mixmogam-tpu-torch info
 
 run, kinship and predict compute on the card unless --device cpu is given;
-without a card and without --device they fail. The options of the JAX
-package's CLI that the port does not have yet are offered and refused with
-the ROADMAP item that brings them.
+without a card and without --device they fail. run --stream on streams the
+SNP tiles from the host (models/streaming.py::emmax_streamed) and
+--checkpoint-dir resumes such a scan tile by tile; both need --method
+emmax. The options of the JAX package's CLI that the port does not have
+yet are offered and refused with the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -84,11 +86,12 @@ def _add_run(sub):
                         "SNPs (+ anything near Bonferroni) at the exact "
                         "tier so reported hits carry exact-grade p-values")
     p.add_argument("--stream", default=None, choices=["auto", "on", "off"],
-                   help="stream SNP tiles from host (not ported: 'on' is "
-                        "refused)")
+                   help="stream SNP tiles from host (default auto: when "
+                        "the scan would exceed the device budget; emmax "
+                        "only)")
     p.add_argument("--checkpoint-dir", default=None,
                    help="tile-granular resume directory for streamed "
-                        "emmax scans (not ported: refused)")
+                        "emmax scans (implies --stream on)")
     p.add_argument("--resident", default=None, choices=["auto", "on", "off"],
                    help="hold the genome 2-bit packed in device memory "
                         "(default auto: promotes int8 genomes that "
@@ -215,9 +218,15 @@ def main(argv=None) -> int:
             if args.method != "emmax":
                 ap.error("--rescore-top requires --method emmax")
             tier_kw["rescore_top"] = args.rescore_top
-        if args.stream == "on" or args.checkpoint_dir:
-            ap.error("--stream on / --checkpoint-dir: streamed scans are "
-                     "not ported yet (ROADMAP slice 3 item 15)")
+        if args.stream in ("on", "off"):
+            if args.method != "emmax":
+                ap.error("--stream requires --method emmax")
+            tier_kw["stream"] = args.stream == "on"
+        if args.checkpoint_dir:
+            if args.method != "emmax":
+                ap.error("--checkpoint-dir requires --method emmax")
+            tier_kw["checkpoint_dir"] = args.checkpoint_dir
+            tier_kw.setdefault("stream", True)
         if args.resident in ("on", "off"):
             if args.method != "emmax":
                 ap.error("--resident requires --method emmax")
@@ -240,6 +249,10 @@ def main(argv=None) -> int:
         ps = out["scan"]["ps"]
         print(f"scanned {len(ps)} SNPs; min p = {np.min(ps):.3e}; "
               f"files: {json.dumps(out['files'])}")
+        st = out["scan"].get("stream_stats")
+        if st is not None:
+            print(f"streamed {st['tiles']} tiles: {st['scanned']} scanned, "
+                  f"{st['restored']} restored from the checkpoint")
         return 0
 
     if args.cmd == "kinship":

@@ -1,14 +1,15 @@
 """EMMAX entry points (counterpart of mixmogam_tpu/models/emmax.py:
 _as_dosage, _as_design, emmax, _anova_pair_f, emmax_anova).
 
-Ported routes: the resident route (a ResidentGenome, or a big int8
-source auto-packed onto the card) and the in-core route (the whole
-genome on the scan's device, exact tier). An int8 or bf16 tier on in-core
-integer dosages packs them and takes the resident route, where kernel K2
-(int8) or K5 (bf16, which also takes missing genotypes) reads packed
-rows. Fractional dosages at a bf16 tier wait for a float-tile loader
-(ROADMAP Queue 1); streaming (stream=True, checkpoint_dir=) and meshes
-wait for ROADMAP slice 3.
+Routes: the resident route (a ResidentGenome, or a big int8 source
+auto-packed onto the card), the streamed route (models/streaming.py::
+emmax_streamed: a source over the in-core budget that does not fit packed,
+or stream=True; checkpoint_dir= resumes it) and the in-core route (the
+whole genome on the scan's device, exact tier). An int8 or bf16 tier on
+in-core integer dosages packs them and takes the resident route, where
+kernel K2 (int8) or K5 (bf16, which also takes missing genotypes) reads
+packed rows. Fractional dosages at a bf16 tier wait for a float-tile loader
+(ROADMAP Queue 1 item 17); meshes wait for item 16.
 """
 
 from __future__ import annotations
@@ -68,6 +69,11 @@ def incore_budget_bytes(device) -> Optional[int]:
     return int(total * INCORE_MEMORY_FRACTION)
 
 
+_RESIDENT_NO_RESUME = ("checkpoint_dir applies to streamed mode; the "
+                       "resident route has no resume (its scan is device "
+                       "compute over the packed genome)")
+
+
 def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
           ngrids: int = 100, llim: float = -10.0, ulim: float = 10.0,
           esp: float = 1e-6, with_betas: bool = True, dtype=None,
@@ -89,7 +95,15 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
     defaults to float32 on the card and float64 on the CPU. precision:
     'exact', 'bf16' / 'bf16x2' / 'bf16x3' (and the 'c' spellings) or
     'int8x2' / 'int8x3' / 'int8x4'; 'auto' and 'fast' resolve to
-    'exact'."""
+    'exact'.
+
+    Routing: a ResidentGenome (or resident=True) takes the resident route.
+    With stream=None a source over the in-core budget (stream_budget_bytes,
+    by default incore_budget_bytes of the device; none on the CPU) is packed
+    resident if it is int8 and fits resident_budget_bytes, else streamed
+    from the host (emmax_streamed, tile=max(tile, 8192)); stream=True
+    streams at any size, stream=False never. checkpoint_dir needs the
+    streamed route."""
     from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                     _default_dtype,
                                                     emmax_resident,
@@ -106,13 +120,14 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
                                              normalize_rotate_tier,
                                              resolve_precision)
 
+    G_src = resolve_source(G)
+    rg_given = isinstance(G_src, ResidentGenome)
+    if stream is True and (resident is True or rg_given):
+        raise ValueError("stream=True and resident=True are mutually "
+                         "exclusive (a resident genome never streams)")
     if mesh is not None:
         raise NotImplementedError("mesh= (sharded scans) is not ported "
                                   "yet: ROADMAP slice 3 item 16")
-    if stream or checkpoint_dir is not None:
-        raise NotImplementedError("streamed scans (stream=True, "
-                                  "checkpoint_dir=) are not ported yet: "
-                                  "ROADMAP slice 3 item 15")
     if matmul_precision:
         raise NotImplementedError("the 'high' matmul tier is not ported "
                                   "yet: ROADMAP Queue 2")
@@ -121,8 +136,9 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
               rotate_in_bf16=rotate_in_bf16, rescore_top=rescore_top)
     y = np.asarray(y, dtype=np.float64).ravel()
     n = y.shape[0]
-    G_src = resolve_source(G)
-    if isinstance(G_src, ResidentGenome):
+    if rg_given:
+        if checkpoint_dir is not None:
+            raise ValueError(_RESIDENT_NO_RESUME)
         return emmax_resident(G_src, y, K=K, X0=X0, eig_k=eig_k,
                               dtype=dtype, **kw)
     device = resolve_device(device)
@@ -134,16 +150,27 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
     over_incore = (budget is not None
                    and should_stream(G_src, n, itemsize, budget))
     int8_src = np.dtype(G_src.dtype) == np.int8
-    if resident is not False and (resident is True or (
-            over_incore and int8_src and G_src.shape[0] * ((n + 3) // 4)
-            <= resident_budget_bytes(device))):
+    if resident is True or (
+            resident is None and stream is not True and over_incore
+            and int8_src and G_src.shape[0] * ((n + 3) // 4)
+            <= resident_budget_bytes(device)):
+        if checkpoint_dir is not None:
+            raise ValueError(_RESIDENT_NO_RESUME)
         rg = ResidentGenome.from_source(G_src, device=device)
         return emmax_resident(rg, y, K=K, X0=X0, eig_k=eig_k, dtype=dtype,
                               **kw)
-    if over_incore:
-        raise NotImplementedError(
-            "this source exceeds the card's in-core budget and does not "
-            "fit 2-bit packed; streaming is ROADMAP slice 3 item 15")
+    if stream is None:
+        stream = over_incore
+    if stream:
+        from mixmogam_tpu_torch.models.streaming import emmax_streamed
+
+        return emmax_streamed(
+            G_src, y, K=K, X0=X0, eig_k=eig_k, tile=max(tile, 8192),
+            checkpoint_dir=checkpoint_dir, dtype=dtype, host_eigh=host_eigh,
+            device=device, **kw)
+    if checkpoint_dir is not None:
+        raise ValueError("checkpoint_dir requires streamed mode "
+                         "(stream=True or a source over the budget)")
 
     rb = rotate_in_bf16
     if precision is not None:

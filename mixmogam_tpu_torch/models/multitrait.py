@@ -163,11 +163,13 @@ def emmax_multi_trait(G, Y, K=None, X0: Optional[np.ndarray] = None,
     G: a ResidentGenome (scanned on its own device), or a GenotypeData or
     (M, n) array (int8 with -1 missing, or float dosages with NaN missing)
     on `device`: the card by default (without one the call raises), 'cpu'
-    on request. Fully observed int8 goes up as int8; an int8 source over
-    the card's in-core budget is packed resident (as models/emmax.py
-    does). Y: (T, n), a row a trait; NaN phenotypes group the traits by
-    their missingness pattern, each group on its own sample subset with its
-    K sub-block and its own eigh. dtype: float32 on the card, float64 on
+    on request. Fully observed int8 goes up as int8; a source over the
+    card's in-core budget (stream_budget_bytes) is packed resident if it is
+    int8 and fits packed, as models/emmax.py does, else streamed from the
+    host a tile at a time, at the exact tier only. Y: (T, n), a row a
+    trait; NaN phenotypes group the traits by their missingness pattern,
+    each group on its own sample subset with its K sub-block and its own
+    eigh. dtype: float32 on the card, float64 on
     the CPU by default. precision: 'exact' (or 'auto', which resolves to
     it), 'int8x2' / 'int8x3' / 'int8x4' (fully observed integer dosages
     only) or 'bf16' / 'bf16x2' / 'bf16x3' for the shared rotation; 'fast'
@@ -212,6 +214,7 @@ def emmax_multi_trait(G, Y, K=None, X0: Optional[np.ndarray] = None,
         rd = normalize_rotate_tier(rb)
     G_src = resolve_source(G)
     M = G_src.shape[0]
+    streamed = False
     if rg is None:
         itemsize = torch.empty((), dtype=dtype).element_size()
         budget = (incore_budget_bytes(device) if stream_budget_bytes is None
@@ -221,10 +224,11 @@ def emmax_multi_trait(G, Y, K=None, X0: Optional[np.ndarray] = None,
                     and M * ((n + 3) // 4) <= resident_budget_bytes(device)):
                 rg = ResidentGenome.from_source(G_src, device=device)
             else:
-                raise NotImplementedError(
-                    "this source exceeds the card's in-core budget and does "
-                    "not fit 2-bit packed; the streamed multi-trait scan is "
-                    "ROADMAP slice 3 item 15")
+                streamed = True
+    if streamed and rd is not None:
+        raise ValueError("precision tiers on the multi-trait path need an "
+                         "in-core or resident source; a streamed source "
+                         "scans at the exact tier")
     G8 = None
     if rd is not None and rd.startswith("int8"):
         if rg is not None:
@@ -302,6 +306,9 @@ def emmax_multi_trait(G, Y, K=None, X0: Optional[np.ndarray] = None,
             cols = torch.as_tensor(np.asarray(_keep_cols), dtype=torch.int64,
                                    device=device)
         G_dev = None
+    elif streamed:
+        tile = tile or max(64, min(16_384, tile_budget // max(n, 1)))
+        G_dev = None
     else:
         tile = tile or max(64, min(16_384, tile_budget // max(n, 1)))
         if G8 is not None:
@@ -324,9 +331,8 @@ def emmax_multi_trait(G, Y, K=None, X0: Optional[np.ndarray] = None,
         h = out.cpu().double().numpy()
         fs[:, s:e], betas[:, s:e], masks[:, s:e] = h[0], h[1], h[2] > 0.5
 
-    for s in range(0, M, tile):
-        e = min(s + tile, M)
-        Gt = _tile_of(rg, G_dev, s, e, cols, dtype)
+    for s, e, Gt in _tiles_of(rg, G_dev, G_src if streamed else None, M,
+                              tile, cols, dtype, device):
         keep = outside_design(Gt.to(dtype), X0d, X0p)
         f, b, mk = _scan_tile_multitrait(rotate_tile(Gt, rot), nulls, keep)
         pending.append((s, e, torch.stack((f, b, mk.to(f.dtype)))))
@@ -345,19 +351,36 @@ def emmax_multi_trait(G, Y, K=None, X0: Optional[np.ndarray] = None,
             "precision_tier": tier_name, "timings_s": timings}
 
 
-def _tile_of(rg, G_dev, s: int, e: int, cols, dtype) -> torch.Tensor:
-    """Rows [s, e) as the scan takes them: int8 where fully observed, else
-    mean-imputed in dtype (over the gathered columns of a missingness
-    group, so the means are the subset's)."""
+def _tiles_of(rg, G_dev, G_host, M: int, tile: int, cols, dtype, device):
+    """(s, e, rows [s, e)) tile by tile, the rows as the scan takes them:
+    int8 where fully observed, else mean-imputed in dtype. Three sources: a
+    ResidentGenome (unpacked on its device; over the gathered columns of a
+    missingness group, so the means are the subset's), the in-core G_dev,
+    or a host source G_host streamed a tile at a time (models/source.py:
+    host_tile in prefetch_iter's thread, then ship_tile)."""
     from mixmogam_tpu_torch.models.resident import _tile_from_packed_cols
+    from mixmogam_tpu_torch.models.source import (host_tile, prefetch_iter,
+                                                  ship_tile)
     from mixmogam_tpu_torch.models.streaming import _impute_tile
     from mixmogam_tpu_torch.ops.pack2 import unpack_2bit_device
 
-    if rg is None:
-        return G_dev[s:e]
-    Gt = (unpack_2bit_device(rg.packed[s:e], rg.n) if cols is None
-          else _tile_from_packed_cols(rg.packed, s, e - s, rg.n, cols))
-    return _impute_tile(Gt, dtype) if rg.has_missing else Gt
+    starts = range(0, M, tile)
+    if G_host is not None:
+        n = G_host.shape[1]
+        np_dt = torch.empty((), dtype=dtype).numpy().dtype
+        for s, chunk in prefetch_iter(starts, lambda s: host_tile(
+                G_host, s, min(s + tile, M), min(s + tile, M) - s, n,
+                np_dt)):
+            yield s, s + chunk.shape[0], ship_tile(chunk, dtype, device)
+        return
+    for s in starts:
+        e = min(s + tile, M)
+        if rg is None:
+            yield s, e, G_dev[s:e]
+            continue
+        Gt = (unpack_2bit_device(rg.packed[s:e], rg.n) if cols is None
+              else _tile_from_packed_cols(rg.packed, s, e - s, rg.n, cols))
+        yield s, e, _impute_tile(Gt, dtype) if rg.has_missing else Gt
 
 
 def _multi_trait_grouped(G, Y, K=None, X0=None, ngrids: int = 100,

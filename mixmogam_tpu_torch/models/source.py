@@ -1,5 +1,10 @@
 """Host genotype-source plumbing (counterpart of
-mixmogam_tpu/models/source.py: resolve_source, should_stream)."""
+mixmogam_tpu/models/source.py: resolve_source, should_stream,
+prefetch_iter, fetch_tile).
+
+The host side of a streamed tile (host_tile: read, pad, impute a float
+source) runs in prefetch_iter's worker thread and touches numpy only; the
+device side (ship_tile) runs on the calling thread."""
 
 from __future__ import annotations
 
@@ -43,3 +48,67 @@ def as_int8_dosage(G):
     out = obs.astype(np.int8)
     out[miss] = -1
     return out
+
+
+def prefetch_iter(keys, prep, lookahead: int = 2):
+    """Yield (key, prep(key)) in order with prep running `lookahead` items
+    ahead in ONE worker thread, so host-side tile prep (a memmap read,
+    padding, a float source's imputation: numpy, which releases the GIL)
+    overlaps the consumer's work. A prep exception is raised at the yield
+    of its key; the futures still queued are drained when the executor's
+    context exits."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    keys = list(keys)
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        futs = {k: ex.submit(prep, k) for k in keys[:lookahead]}
+        for i, k in enumerate(keys):
+            for k_next in keys[i + lookahead:i + lookahead + 1]:
+                futs[k_next] = ex.submit(prep, k_next)
+            yield k, futs.pop(k).result()
+
+
+def host_tile(G_src, s: int, e: int, tile: int, n: int, dtype
+              ) -> np.ndarray:
+    """Rows [s, e) of a host source as the (tile, n) host array a streamed
+    tile starts from: int8 as read (-1 = missing; imputed on the device by
+    ship_tile), a float source mean-imputed per SNP on the host in the
+    numpy dtype `dtype` (NaN = missing). Rows past e are zero padding."""
+    from mixmogam_tpu_torch.models.streaming import _host_float_tile
+
+    if np.dtype(G_src.dtype) == np.int8:
+        chunk = np.ascontiguousarray(np.asarray(G_src[s:e], dtype=np.int8))
+    else:
+        chunk = _host_float_tile(G_src[s:e], np.dtype(dtype))
+    if e - s < tile:
+        chunk = np.vstack([chunk, np.zeros((tile - (e - s), n),
+                                           chunk.dtype)])
+    return chunk
+
+
+def ship_tile(chunk: np.ndarray, dtype, device):
+    """A host_tile array on `device` as float rows in the torch dtype
+    `dtype`: an int8 tile goes up as int8 and is mean-imputed there
+    (streaming._impute_tile), a float tile goes up imputed."""
+    import torch
+
+    from mixmogam_tpu_torch.models.streaming import _impute_tile
+
+    t = torch.from_numpy(chunk).to(device)
+    return _impute_tile(t, dtype) if t.dtype == torch.int8 else t.to(dtype)
+
+
+def fetch_tile(G_src, s: int, e: int, tile: int, n: int, dtype,
+               pack: bool = False, device=None):
+    """One (tile, n) float tile on `device` (the card unless asked for the
+    CPU) from a host source, in the torch dtype `dtype`: host_tile, then
+    ship_tile. `pack` is the JAX signature's 2-bit transfer switch and
+    changes nothing: the port ships int8 and packs on the card where a
+    kernel reads packed rows."""
+    import torch
+
+    from mixmogam_tpu_torch.ops import resolve_device
+
+    np_dt = torch.empty((), dtype=dtype).numpy().dtype
+    return ship_tile(host_tile(G_src, s, e, tile, n, np_dt), dtype,
+                     resolve_device(device))

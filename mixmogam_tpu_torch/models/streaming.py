@@ -1,12 +1,30 @@
-"""The helpers of mixmogam_tpu/models/streaming.py that the port has:
-_impute_tile, _host_float_tile, finalize_scan, _exact_rescore (its row
-reader source_rows is the GxE rescore's too), and
-rotate_streamed_to_device (G_rot = impute(G) @ U built on the device tile
-by tile from a host source: stepwise's 'rotate once, scan many'). The
-streamed scan itself (host -> device tiles with checkpoint/resume) waits
-for ROADMAP slice 3."""
+"""Streamed EMMAX over a host genotype source, with tile-granular checkpoint
+and resume (counterpart of mixmogam_tpu/models/streaming.py:
+emmax_streamed, _impute_tile, _host_float_tile, finalize_scan,
+_exact_rescore, rotate_streamed_to_device).
+
+emmax_streamed reads the source tile by tile in a prep thread
+(models/source.py::prefetch_iter) into a ring of pinned host buffers,
+copies each tile to the card on a side CUDA stream, and scans it there:
+the exact tier through the fp32 GEMM by the projected U and kernel K3, the
+int8 / bf16 tiers by packing the tile on the card and one launch of K2 /
+K5. Each tile's statistics can land in a checkpoint directory with a
+manifest, and a killed run resumes from the completed tiles.
+
+Also here: rotate_streamed_to_device (G_rot = impute(G) @ U built on the
+device tile by tile from a host source: stepwise's 'rotate once, scan
+many') and the exact rescore's row reader source_rows (GxE's too).
+"""
 
 from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import os
+import time
+import zipfile
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -31,35 +49,55 @@ def _impute_tile(t_i8: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return torch.where(miss, mu, t)
 
 
-def _host_float_tile(chunk: np.ndarray, dtype) -> np.ndarray:
-    """Float-source tile: NaN = missing, per-SNP mean imputed on the host.
-    np.array COPY: imputing a view in place would overwrite the caller's
-    NaNs."""
-    C = np.array(chunk, dtype=np.float64)
-    miss = np.isnan(C)
-    if miss.any():
-        mu = np.nanmean(C, axis=1)
-        mu = np.where(np.isnan(mu), 0.0, mu)
-        idx = np.where(miss)
-        C[idx] = mu[idx[0]]
-    return C.astype(dtype)
+#: rows a block of _host_float_tile: 64 x 10,240 float64 values (5 MB) stay
+#: in the CPU's cache through the block's passes
+_IMPUTE_ROWS = 64
+
+
+def _host_float_tile(chunk: np.ndarray, dtype, out=None) -> np.ndarray:
+    """Float-source tile: NaN = missing, per-SNP mean imputed on the host
+    (the mean in float64, 0 for an all-missing row), in the numpy dtype
+    `dtype`, or cast into `out` when given. Works on a float64 COPY, a
+    block of _IMPUTE_ROWS rows at a time:
+    imputing a view in place would overwrite the caller's NaNs. The mean is
+    nanmean's own arithmetic (the float64 row summed with zeros for NaN,
+    over the count): the JAX package's values, bit for bit."""
+    chunk = np.asarray(chunk)
+    m, n = chunk.shape
+    if out is None:
+        out = np.empty((m, n), dtype)
+    rows = _IMPUTE_ROWS
+    C = np.empty((min(rows, m), n))
+    miss = np.empty(C.shape, dtype=bool)
+    for r in range(0, m, rows):
+        e = min(r + rows, m)
+        c, mb = C[:e - r], miss[:e - r]
+        np.copyto(c, chunk[r:e])
+        np.isnan(c, out=mb)
+        cnt = n - np.count_nonzero(mb, axis=1)
+        if (cnt < n).any():
+            c[mb] = 0.0
+            with np.errstate(invalid="ignore", divide="ignore"):
+                mu = c.sum(axis=1) / cnt
+            np.copyto(c, np.where(np.isnan(mu), 0.0, mu)[:, None], where=mb)
+        np.copyto(out[r:e], c, casting="same_kind")
+    return out
 
 
 def host_tiles(G_src, dtype, device, tile: int = 16_384):
     """Float tiles (m, n) in dtype on device over the rows of a host
     source, in order: an int8 source (-1 missing) goes up as int8 and is
     mean-imputed on the device (_impute_tile); a float source (NaN
-    missing, fractional dosages) is imputed per tile on the host."""
-    int8_source = np.dtype(getattr(G_src, "dtype", np.int8)) == np.int8
-    np_dt = np.float64 if dtype == torch.float64 else np.float32
-    for s in range(0, G_src.shape[0], tile):
-        if int8_source:
-            t = torch.from_numpy(np.ascontiguousarray(
-                np.asarray(G_src[s:s + tile], dtype=np.int8))).to(device)
-            yield _impute_tile(t, dtype)
-        else:
-            yield torch.from_numpy(_host_float_tile(
-                G_src[s:s + tile], np_dt)).to(device)
+    missing, fractional dosages) is imputed per tile on the host
+    (models/source.py: host_tile, then ship_tile)."""
+    from mixmogam_tpu_torch.models.source import host_tile, ship_tile
+
+    M, n = G_src.shape
+    np_dt = torch.empty((), dtype=dtype).numpy().dtype
+    for s in range(0, M, tile):
+        e = min(s + tile, M)
+        yield ship_tile(host_tile(G_src, s, e, e - s, n, np_dt), dtype,
+                        device)
 
 
 def rotate_tiles(tiles, M: int, n: int, U, dtype, device, design=None):
@@ -182,3 +220,418 @@ def _exact_rescore(matrix_source, idx, null, dtype, tile: int = 16_384):
                      "var_perc": np.zeros(0),
                      "mask": np.zeros(0, dtype=bool)}
     return idx, {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+
+
+def _run_key(src, M: int, n: int, tile: int, delta: float, q: int, rd,
+             dtype, y: np.ndarray, X0: np.ndarray) -> str:
+    """The checkpoint run key: sha256 of the shapes, the tile, delta, q,
+    the tier and the compute dtype (the port's torch name, so that a JAX
+    run's directory is never taken for a port run's), of y and X0, and of
+    a sample of source rows {0, M - 1, every M // 32} (the genotypes can
+    change under the same model; hashing the whole source would read it
+    twice); first 12 hex digits, the JAX package's key layout."""
+    h = hashlib.sha256(f"{M}:{n}:{tile}:{delta:.10g}:{q}:{rd}:None:"
+                       f"{dtype}".encode())
+    h.update(np.ascontiguousarray(y).tobytes())
+    h.update(np.ascontiguousarray(np.asarray(X0, np.float64)).tobytes())
+    for r in sorted({0, M - 1, *range(0, M, max(M // 32, 1))}):
+        h.update(np.ascontiguousarray(np.asarray(src[r:r + 1])).tobytes())
+    return h.hexdigest()[:12]
+
+
+class _Checkpoint:
+    """manifest_<key>.json ({'done', 'n_tiles', 'delta'}) and one
+    tile_<key>_<t>.npz a completed tile (f_stats, betas, var_perc, mask),
+    the JAX package's files. Every write is a tmp file and os.replace, so a
+    kill mid-write leaves the previous file whole. A manifest that cannot
+    be read (truncated by a writer without that rule) restarts from the
+    tile files alone."""
+
+    def __init__(self, directory: str, key: str, n_tiles: int,
+                 delta: float):
+        os.makedirs(directory, exist_ok=True)
+        self.dir, self.key = directory, key
+        self.n_tiles, self.delta = n_tiles, delta
+        self.mpath = os.path.join(directory, f"manifest_{key}.json")
+        self.done = set()
+        if os.path.exists(self.mpath):
+            try:
+                with open(self.mpath) as f:
+                    self.done = {int(t) for t in json.load(f)["done"]}
+            except (json.JSONDecodeError, KeyError, TypeError, ValueError):
+                self.done = {t for t in range(n_tiles)
+                             if os.path.exists(self.tile_path(t))}
+
+    def tile_path(self, t: int) -> str:
+        return os.path.join(self.dir, f"tile_{self.key}_{t}.npz")
+
+    def restore(self, t: int) -> Optional[Dict[str, np.ndarray]]:
+        """Tile t's arrays, or None when it is not done or its file is
+        missing or unreadable (it is then scanned again)."""
+        if t not in self.done:
+            return None
+        try:
+            with np.load(self.tile_path(t)) as z:
+                return {k: z[k] for k in ("f_stats", "betas", "var_perc",
+                                          "mask")}
+        except (OSError, KeyError, ValueError, zipfile.BadZipFile):
+            return None
+
+    def store(self, t: int, arrays: Dict[str, np.ndarray]) -> None:
+        path = self.tile_path(t)
+        np.savez(path + ".tmp.npz", **arrays)
+        os.replace(path + ".tmp.npz", path)
+        self.done.add(t)
+        with open(self.mpath + ".tmp", "w") as f:
+            json.dump({"done": sorted(self.done), "n_tiles": self.n_tiles,
+                       "delta": self.delta}, f)
+        os.replace(self.mpath + ".tmp", self.mpath)
+
+
+def _check_fast_tile(chunk: np.ndarray, t: int, rd: str) -> bool:
+    """An int8 tile at an int8 / bf16 tier: dosages 0..2 (-1 missing), the
+    codes a packed row holds. Returns whether the tile has missing calls,
+    which an int8 tier refuses (the digit planes take integer genotypes;
+    mean-imputed fractions would be rounded)."""
+    lo, hi = int(chunk.min(initial=0)), int(chunk.max(initial=0))
+    if lo < -1 or hi > 2:
+        raise ValueError(f"tier {rd!r} packs dosages 0..2 (-1 missing); "
+                         f"tile {t} holds values in [{lo}, {hi}]")
+    if lo < 0 and rd.startswith("int8"):
+        raise ValueError(
+            f"tier {rd!r} requires a fully-observed genotype source (tile "
+            f"{t} has missing dosages; mean-imputed fractions would be "
+            "rounded by the digit-plane cast). Use the exact/bf16 tiers.")
+    return lo < 0
+
+
+def _fast_tile_of_floats(raw: np.ndarray, t: int, rd: str) -> np.ndarray:
+    """A float source's tile at an int8 / bf16 tier as int8 dosages (NaN ->
+    -1): the packed kernels read integer genotypes only."""
+    from mixmogam_tpu_torch.models.source import as_int8_dosage
+
+    G8 = as_int8_dosage(np.asarray(raw))
+    if G8 is None and rd.startswith("int8"):
+        raise ValueError(f"tier {rd!r} requires integer dosages (tile {t} "
+                         "has fractional values). Use the exact tier.")
+    if G8 is None:
+        raise NotImplementedError(
+            f"tier {rd!r} on fractional dosages (tile {t}) needs the "
+            "float-tile bf16 loader, which is not ported yet (ROADMAP "
+            "Queue 1 item 17); use the exact tier")
+    return G8
+
+
+class _PinnedRing:
+    """`slots` pinned host buffers and their device twins, for the copy of
+    a tile to the card on a side stream. Slot b's host buffer is handed to
+    the prep thread through `free` (a queue of slot numbers); the thread
+    fills it with numpy only. Slot b returns to `free` once its copy event
+    has completed: that is when the host buffer may be written again. The
+    copy into the device buffer waits on the event that marks the end of
+    the compute that last read it."""
+
+    def __init__(self, slots: int, rows: int, n: int, np_dtype, device):
+        import queue
+
+        tdt = torch.from_numpy(np.zeros(0, np_dtype)).dtype
+        self.host = [torch.empty((rows, n), dtype=tdt, pin_memory=True)
+                     for _ in range(slots)]
+        self.host_np = [h.numpy() for h in self.host]
+        self.dev = [torch.empty((rows, n), dtype=tdt, device=device)
+                    for _ in range(slots)]
+        self.copied = [torch.cuda.Event() for _ in range(slots)]
+        self.used = [None] * slots
+        self.copy_stream = torch.cuda.Stream(device)
+        self.free = queue.Queue()
+        for b in range(slots):
+            self.free.put(b)
+        self.held = []          # slots whose copy is in flight, oldest first
+        self.closed = False
+
+    def take(self):
+        """(prep thread) a free slot number; None once the ring is
+        closed."""
+        return None if self.closed else self.free.get()
+
+    def upload(self, b: int, m: int) -> torch.Tensor:
+        """Copy rows [0, m) of slot b to the card on the side stream; the
+        current (compute) stream waits for that copy. Returns the device
+        rows."""
+        comp = torch.cuda.current_stream(self.dev[b].device)
+        if self.used[b] is not None:
+            self.copy_stream.wait_event(self.used[b])
+        with torch.cuda.stream(self.copy_stream):
+            self.dev[b][:m].copy_(self.host[b][:m], non_blocking=True)
+            self.copied[b].record(self.copy_stream)
+        comp.wait_event(self.copied[b])
+        self.held.append(b)
+        return self.dev[b][:m]
+
+    def computed(self, b: int) -> None:
+        """Mark the end of the compute that read slot b's device rows."""
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.dev[b].device))
+        self.used[b] = ev
+
+    def recycle(self) -> None:
+        """Return every slot whose copy has completed to the prep thread,
+        and while none is free, wait for the oldest copy: the thread then
+        always has a slot to fill or a filled one waiting."""
+        while self.held and (self.copied[self.held[0]].query()
+                             or self.free.empty()):
+            b = self.held.pop(0)
+            self.copied[b].synchronize()
+            self.free.put(b)
+
+    def close(self) -> None:
+        """Stop handing out slots: a prep thread waiting for one gets None,
+        and the preps queued behind it return at once, so the executor that
+        runs them can shut down after a failure on either side."""
+        self.closed = True
+        for _ in range(len(self.host) + 1):
+            self.free.put(None)
+
+
+def emmax_streamed(matrix_source, y, K=None, X0: Optional[np.ndarray] = None,
+                   eig_k=None, tile: int = 32_768, inflight: int = 4,
+                   checkpoint_dir: Optional[str] = None,
+                   ngrids: int = 100, llim: float = -10.0, ulim: float = 10.0,
+                   esp: float = 1e-6, rotate_in_bf16=False,
+                   precision: Optional[str] = None, dtype=None,
+                   host_eigh: Optional[bool] = None, with_betas: bool = True,
+                   rescore_top: int = 0, pack_transfer=None, device=None
+                   ) -> Dict[str, np.ndarray]:
+    """EMMAX over a host genotype source, tile by tile, with the JAX
+    package's arguments and return dict.
+
+    matrix_source: (M, n), sliceable by [start:stop] (numpy, np.memmap, or
+    any object with shape, dtype and row slices). An int8 source (-1 =
+    missing) goes up as int8 and is mean-imputed on the device; a float
+    source (NaN = missing, fractional dosages) is imputed per tile on the
+    host. device: the card by default (without one the call raises), 'cpu'
+    on request. dtype (a torch dtype): float32 on the card, float64 on the
+    CPU by default. host_eigh: None takes the card's float64 eigh on the
+    card and host LAPACK on the CPU; True asks for host LAPACK.
+
+    Tiers (precision=, or the legacy rotate_in_bf16): 'exact' imputes each
+    tile and rotates it by the projected U' = (I - P_X0) U (a full-fp32
+    GEMM, TF32 off), masks the rows inside col(X0) and runs kernel K3 once a
+    tile. 'int8x2/3/4' and 'bf16' / 'bf16x2' / 'bf16x3' pack each tile on
+    the card and launch K2 / K5 once a tile on the folded W'' (the resident
+    route's emmax_scan_packed); an int8 tier refuses a tile with missing
+    calls, a bf16 tier imputes them in K5, and a float source must hold
+    integer dosages (fractional ones at a bf16 tier wait for ROADMAP item
+    17). 'auto' and 'fast' resolve to 'exact' ('fast' with rescore_top =
+    1024, which rescores only after a fast tier); 'high' raises.
+    pack_transfer is accepted and changes nothing: the port ships int8 and
+    packs on the card.
+
+    The pipeline: a prep thread (models/source.py::prefetch_iter) reads and
+    checks each tile with numpy and fills one of `inflight` pinned host
+    buffers; the main thread copies it to the card on a side CUDA stream
+    and queues the tile's scan on the current stream behind that copy; at
+    most `inflight` tiles' (4, rows) outputs wait on the card before their
+    copy to the host. Tiles are not padded: the last one scans its own
+    rows.
+
+    checkpoint_dir: each completed tile's statistics land there with a
+    manifest (_Checkpoint), keyed on the model, tier, dtype and a sample of
+    the source; a run with the same key restores the completed tiles and
+    scans only the others.
+
+    Returns emmax()'s dict plus 'stream_stats': tiles, scanned, restored,
+    h2d_bytes (the bytes copied to the card), prep_wait_s (host seconds the
+    main thread waited on the prep thread), busy_s (the card's seconds in
+    the tiles' work, from CUDA events) and scan_s (the scan loop's host
+    seconds); h2d_bytes and busy_s are None on the CPU."""
+    from mixmogam_tpu_torch.models.emmax import _as_design
+    from mixmogam_tpu_torch.models.resident import (_default_dtype,
+                                                    emmax_scan_packed)
+    from mixmogam_tpu_torch.models.source import prefetch_iter
+    from mixmogam_tpu_torch.ops import resolve_device
+    from mixmogam_tpu_torch.ops.pack2 import pack_2bit_device
+    from mixmogam_tpu_torch.ops.reml import (esp_to_refine_iters,
+                                             fit_null_model)
+    from mixmogam_tpu_torch.ops.scan import (build_rotated_null,
+                                             emmax_scan_stats,
+                                             normalize_rotate_tier,
+                                             resolve_precision)
+
+    device = resolve_device(device)
+    y = np.asarray(y, dtype=np.float64).ravel()
+    n = y.shape[0]
+    M = matrix_source.shape[0]
+    if matrix_source.shape[1] != n:
+        raise ValueError(
+            f"matrix_source is (M={M}, {matrix_source.shape[1]}) but y has "
+            f"{n} samples; expected an (M, n_samples) SNP-major source")
+    if tile < 1 or inflight < 1:
+        raise ValueError(f"tile ({tile}) and inflight ({inflight}) must be "
+                         "positive")
+    if str(precision) == "fast" and not rescore_top:
+        rescore_top = 1024
+    if dtype is None:
+        dtype = _default_dtype(device)
+    X0 = _as_design(np.ones((n, 1)) if X0 is None else X0, n)
+    q = X0.shape[1]
+    tier_name = None
+    if precision is not None:
+        if rotate_in_bf16:
+            raise ValueError("pass either precision= or the legacy "
+                             "rotate_in_bf16 kwarg, not both")
+        rotate_in_bf16, tier_name = resolve_precision(precision)
+    rd = normalize_rotate_tier(rotate_in_bf16)
+    null = fit_null_model(y, X0, K=K, eig_k=eig_k, ngrids=ngrids, llim=llim,
+                          ulim=ulim, refine_iters=esp_to_refine_iters(
+                              esp, ngrids, llim, ulim),
+                          host_eigh=host_eigh,
+                          eigh_dtype=(np.float32 if str(precision) == "fast"
+                                      else None),
+                          device=device, dtype=dtype)
+    rot = build_rotated_null(null, rotate_dtype=rd)
+    if rd is not None:
+        # K2 / K5 take rss0 and dof as host numbers: read them once here,
+        # not at each tile's launch (a read from the card waits for its
+        # queue, which would stall the pipeline every tile)
+        rot = dataclasses.replace(rot, rss0=float(rot.rss0),
+                                  dof=float(rot.dof))
+    dof = n - q - 1
+
+    n_tiles = -(-M // tile)
+    ck = (_Checkpoint(checkpoint_dir,
+                      _run_key(matrix_source, M, n, tile, float(null.delta),
+                               q, rd, dtype, y, X0),
+                      n_tiles, float(null.delta))
+          if checkpoint_dir else None)
+    f_stats = np.zeros(M)
+    betas = np.zeros(M)
+    var_perc = np.zeros(M)
+    mask = np.zeros(M, dtype=bool)
+    outs = {"f_stats": f_stats, "betas": betas, "var_perc": var_perc,
+            "mask": mask}
+
+    def place(t, arrays):
+        s, e = t * tile, min((t + 1) * tile, M)
+        for k, v in arrays.items():
+            outs[k][s:e] = v
+
+    todo = []
+    for t in range(n_tiles):
+        got = ck.restore(t) if ck is not None else None
+        if got is None:
+            todo.append(t)
+        else:
+            place(t, got)
+
+    # ---- the host side: the prep thread reads, checks, imputes ----
+    int8_source = np.dtype(getattr(matrix_source, "dtype",
+                                   np.int8)) == np.int8
+    np_dt = torch.empty((), dtype=dtype).numpy().dtype
+    buf_dt = np.int8 if (int8_source or rd is not None) else np_dt
+    cuda = device.type == "cuda"
+    ring = (_PinnedRing(inflight, min(tile, M), n, buf_dt, device)
+            if cuda and todo else None)
+
+    def read(t):
+        s, e = t * tile, min((t + 1) * tile, M)
+        raw = matrix_source[s:e]
+        if rd is None and not int8_source:
+            # the exact tier on a float source: imputed on the host, straight
+            # into the pinned buffer on the card's path
+            if ring is None:
+                return None, _host_float_tile(raw, np_dt), None
+            b = ring.take()
+            if b is not None:
+                _host_float_tile(raw, np_dt, out=ring.host_np[b][:e - s])
+            return b, None, None
+        chunk = (np.asarray(raw, dtype=np.int8) if int8_source
+                 else _fast_tile_of_floats(raw, t, rd))
+        missing = _check_fast_tile(chunk, t, rd) if rd is not None else None
+        if ring is None:
+            return None, np.array(chunk), missing
+        b = ring.take()
+        if b is not None:
+            np.copyto(ring.host_np[b][:e - s], chunk)
+        return b, None, missing
+
+    def prep(t):
+        # runs in prefetch_iter's thread: numpy and pinned host memory only
+        if ring is None:
+            return read(t)
+        if ring.closed:
+            return None, None, None
+        try:
+            return read(t)
+        except BaseException:
+            ring.close()               # the preps queued behind this one
+            raise
+
+    def scan(td, missing):
+        if rd is None:
+            Gt = _impute_tile(td, dtype) if td.dtype == torch.int8 else td
+            return emmax_scan_stats(Gt.to(dtype), rot)
+        packed = pack_2bit_device(td)
+        return emmax_scan_packed(packed, rot, n, packed.shape[0],
+                                 impute=bool(missing))
+
+    def drain(t, out):
+        h = out.cpu().double().numpy()
+        arrays = {"f_stats": h[0], "betas": h[1], "var_perc": h[2],
+                  "mask": h[3] > 0.5}
+        place(t, arrays)
+        if ck is not None:
+            ck.store(t, arrays)
+
+    # ---- the device side: copy on a side stream, scan, d2h ----
+    stats = {"tiles": n_tiles, "scanned": len(todo),
+             "restored": n_tiles - len(todo),
+             "h2d_bytes": 0 if cuda else None,
+             "prep_wait_s": 0.0, "busy_s": None if not cuda else 0.0}
+    marks = []
+    pending = []
+    it = prefetch_iter(todo, prep, lookahead=inflight)
+    ts = time.perf_counter()
+    try:
+        while True:
+            tw = time.perf_counter()
+            try:
+                t, (b, chunk, missing) = next(it)
+            except StopIteration:
+                break
+            stats["prep_wait_s"] += time.perf_counter() - tw
+            m = min((t + 1) * tile, M) - t * tile
+            if ring is None:
+                td = torch.from_numpy(chunk).to(device)
+            else:
+                td = ring.upload(b, m)
+            if cuda:
+                stats["h2d_bytes"] += td.numel() * td.element_size()
+                ev0, ev1 = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(2))
+                ev0.record()
+            out = scan(td, missing)
+            if cuda:
+                ev1.record()
+                marks.append((ev0, ev1))
+                ring.computed(b)
+                ring.recycle()
+            pending.append((t, out))
+            if len(pending) >= inflight:
+                drain(*pending.pop(0))
+        for item in pending:
+            drain(*item)
+    finally:
+        if ring is not None:
+            ring.close()
+        it.close()
+    if cuda and marks:
+        torch.cuda.synchronize(device)
+        stats["busy_s"] = sum(a.elapsed_time(b) for a, b in marks) / 1e3
+    stats["scan_s"] = time.perf_counter() - ts
+    res = finalize_scan(matrix_source, null, dtype, f_stats, mask,
+                        betas=betas, var_perc=var_perc,
+                        with_betas=with_betas, rescore_top=rescore_top,
+                        rd=rd, tier_name=tier_name, dof=dof)
+    res["stream_stats"] = stats
+    return res

@@ -158,9 +158,7 @@ def test_emmax_routes_resident_genome_and_facade():
     np.testing.assert_array_equal(np.asarray(rg), G)
 
 
-@pytest.mark.parametrize("kw", [dict(stream=True), dict(mesh=object()),
-                                dict(checkpoint_dir="ckpt"),
-                                dict(stream_budget_bytes=0),
+@pytest.mark.parametrize("kw", [dict(mesh=object()),
                                 dict(precision="high"),
                                 dict(matmul_precision="high")])
 def test_unported_options_raise(kw, small_dataset, kinship_small):
@@ -173,6 +171,7 @@ def _entry_points():
     """name -> call(device kwargs) for every entry point that picks a
     device for array input."""
     from mixmogam_tpu_torch.models.loco import emmax_loco, loco_kinships
+    from mixmogam_tpu_torch.models.streaming import emmax_streamed
     from mixmogam_tpu_torch.ops.reml import fit_null_model
 
     G, imp, y = _data(seed=4, n=40, m=120)
@@ -185,11 +184,13 @@ def _entry_points():
         "loco_kinships": lambda **d: loco_kinships(G, ch, **d),
         "fit_null_model": lambda **d: fit_null_model(
             y, np.ones((40, 1)), K=K, **d),
+        "emmax_streamed": lambda **d: emmax_streamed(G, y, K=K, **d),
     }
 
 
 @pytest.mark.parametrize("name", ["emmax", "from_source", "emmax_loco",
-                                  "loco_kinships", "fit_null_model"])
+                                  "loco_kinships", "fit_null_model",
+                                  "emmax_streamed"])
 def test_default_device_is_the_card_or_an_error(name, monkeypatch):
     """Without a card and without device= every entry point raises and
     names device="cpu"; it never carries on on the CPU by itself. Asked

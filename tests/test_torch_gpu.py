@@ -952,3 +952,109 @@ def test_card_compat_vs_cpu(cuda):
     sb = lm_step_wise(G, y, max_steps=3, device="cpu")
     assert [s["cofactors"] for s in sa["steps"]] == [
         s["cofactors"] for s in sb["steps"]]
+
+
+# ---- the streamed scan ----------------------------------------------------
+
+def _stream_fixture(n=512, m=2_500, missing=0.0, seed=41):
+    from mixmogam_tpu_torch.data.simulate import simulate_phenotype
+    from mixmogam_tpu_torch.oracle.kinship import ibs_kinship, scale_k
+
+    G, _, _ = simulate_genotypes(n, m, ploidy=1, missing_rate=missing,
+                                 seed=seed)
+    y, _ = simulate_phenotype(np.where(G < 0, 0, G).astype(np.int8), h2=0.5,
+                              n_causal=4, seed=seed)
+    Gf = np.where(G < 0, 0, G).astype(np.float64)
+    return G, y, scale_k(ibs_kinship(Gf))
+
+
+@pytest.mark.parametrize("precision,missing,kname", [
+    ("exact", 0.02, "scan_stats"), ("int8x3", 0.0, "rotate_scan_int8"),
+    ("bf16x3", 0.02, "rotate_scan_bf16")])
+def test_card_streamed_vs_resident(cuda, precision, missing, kname):
+    """emmax_streamed on the card (no device=) at each tier: one launch of
+    the tier's kernel a tile (K3 on the exact tier; K2 / K5 on the tile's
+    packed rows), equal to the resident route at the same tier (max |dp|
+    <= 1e-6, same masks); the pinned copies counted in h2d_bytes."""
+    from mixmogam_tpu_torch.models.streaming import emmax_streamed
+
+    G, y, K = _stream_fixture(missing=missing)
+    k = {"scan_stats": scan_stats, "rotate_scan_int8": rotate_scan_int8_packed,
+         "rotate_scan_bf16": rotate_scan_bf16_packed}[kname]
+    before = k.launches
+    got = emmax_streamed(G, y, K=K, tile=1_024, precision=precision)
+    st = got["stream_stats"]
+    assert k.launches - before == st["tiles"] == 3
+    assert st["h2d_bytes"] == G.nbytes and st["busy_s"] > 0
+    rg = ResidentGenome.from_source(G, tile=1_024)
+    ref = emmax(rg, y, K=K, precision=precision)
+    np.testing.assert_array_equal(got["mask"], ref["mask"])
+    assert np.abs(got["ps"] - ref["ps"]).max() <= 1e-6
+
+
+@pytest.mark.parametrize("precision", ["exact", "bf16x3"])
+def test_card_pinned_ring_reuse_gives_the_same_bits(cuda, precision):
+    """inflight=1 (one pinned buffer reused by every tile) and inflight=4,
+    on an int8 and a float source: the same bits."""
+    from mixmogam_tpu_torch.models.streaming import emmax_streamed
+
+    G, y, K = _stream_fixture(missing=0.02, m=4_100)
+    Gf = G.astype(np.float32)
+    Gf[G < 0] = np.nan
+    for src in (G, Gf):
+        a = emmax_streamed(src, y, K=K, tile=512, inflight=1,
+                           precision=precision)
+        b = emmax_streamed(src, y, K=K, tile=512, inflight=4,
+                           precision=precision)
+        np.testing.assert_array_equal(a["ps"], b["ps"])
+        np.testing.assert_array_equal(a["betas"], b["betas"])
+
+
+def test_card_kill_and_resume(cuda, tmp_path):
+    """A streamed scan on the card in a subprocess, SIGKILLed once two tile
+    files exist, resumes in this process equal to an uninterrupted run
+    (max |dp| <= 1e-12)."""
+    import glob
+    import os
+    import signal
+    import subprocess
+    import sys
+    import time
+
+    from mixmogam_tpu_torch.models.streaming import emmax_streamed
+
+    G, y, K = _stream_fixture(m=6_000)
+    ck, dpath = str(tmp_path / "ck"), str(tmp_path / "d.npz")
+    np.savez(dpath, G=G, y=y, K=K)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    worker = (
+        "import sys, time\nimport numpy as np\n"
+        f"sys.path.insert(0, {repo!r})\n"
+        "from mixmogam_tpu_torch.models.streaming import emmax_streamed\n"
+        f"z = np.load({dpath!r})\n"
+        "class Slow:\n"
+        "    shape, dtype = z['G'].shape, z['G'].dtype\n"
+        "    def __getitem__(self, k):\n"
+        "        if k.stop - k.start > 1:\n"
+        "            time.sleep(0.3)\n"
+        "        return z['G'][k]\n"
+        f"emmax_streamed(Slow(), z['y'], K=z['K'], tile=500, "
+        f"checkpoint_dir={ck!r}, inflight=1)\n")
+    proc = subprocess.Popen([sys.executable, "-c", worker],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        deadline = time.time() + 120
+        while len(glob.glob(os.path.join(ck, "tile_*[0-9].npz"))) < 2:
+            assert proc.poll() is None and time.time() < deadline, \
+                proc.communicate()
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    resumed = emmax_streamed(G, y, K=K, tile=500, checkpoint_dir=ck)
+    assert 2 <= resumed["stream_stats"]["restored"] < 12
+    clean = emmax_streamed(G, y, K=K, tile=500)
+    assert np.abs(resumed["ps"] - clean["ps"]).max() <= 1e-12

@@ -301,7 +301,8 @@ def test_a_tile_is_rotated_once_and_scanned_once_a_trait(data, monkeypatch):
     (dict(precision="fast"), ValueError, "no rescore pass"),
     (dict(precision="high"), NotImplementedError, "TF32"),
     (dict(mesh=object()), NotImplementedError, "item 16"),
-    (dict(stream_budget_bytes=1), NotImplementedError, "item 15"),
+    (dict(stream_budget_bytes=1, precision="int8x3"), ValueError,
+     "in-core or resident"),
     (dict(precision="int8x3", fractional=True), ValueError,
      "exact integer dosages"),
     (dict(precision="int8x3", missing=True), ValueError,
