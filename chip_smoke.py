@@ -7,7 +7,8 @@ Phases (each prints its own seconds):
   1 device check: fails without CUDA; prints the card's name and power
     limit as nvidia-smi reports them
   2 build the five CUDA kernels from mixmogam_tpu_torch/csrc, one nvcc
-    each, all started together
+    each, all started together, and beside them the host library
+    (native.py: g++ over csrc/host/fast_parse.cpp and fast_vcf.cpp)
   3 each kernel against its plain PyTorch version on the card, at the
     main path's shapes (n samples, one 16,384-row tile): K1 and K4 (over
     a row range that starts mid-tile) bit-equal for ploidy 1 and 2, and
@@ -195,6 +196,28 @@ Phases (each prints its own seconds):
     p; (e) the CLI's run --stream on --checkpoint-dir on phase 6's PLINK
     fileset: its CSV equal to run_gwas emmax (max |dp| <= 1e-6), and a
     second identical run restores every tile and scans none
+ 16 the host data plane (native.py's C++ parsers, ResidentGenome's packed
+    cache) at n samples, the rows cut so that writing the files (numpy,
+    timed apart) fits the phase: (a) a dosage CSV of 65,536 rows (1.3 GB
+    at full width): parse_snp_data on the native route, its GB/s, equal
+    to the source rows; (b) a VCF of 32,768 rows and a VCF.gz of 16,384
+    (haploid GT calls): read_vcf on the native route equal to the source,
+    read_vcf_packed -> ResidentGenome on the card torch.equal to
+    from_source of the same rows, each with its GB/s; read_vcf of the
+    first 4,096 rows on the Python route equal to the source; (c) phase
+    6's --facade-snps genome also as a dosage CSV and a VCF.gz: run_gwas
+    emmax at 'exact' and 'int8x3' from the CSV and at 'bf16x3' from the
+    VCF.gz, each equal (max |dp| <= 1e-12, the same masks) to the same
+    call from phase 6's PLINK fileset, K1 once and K3 / K2 / K5; the exact
+    call again on the Python route (parse_snp_data's seconds on both
+    routes, both parses equal to the source); (d) from_source(G,
+    cache_path=) on phase 4's genome cold, warm and validated, with
+    trust_cache=True and with G=None, each wall printed, each packed
+    genome torch.equal to phase 4's, packs growing only on the cold call;
+    emmax_resident int8x3 on the cached genome equal to phase 4's (max
+    |dp| 0.0); the same shape with one row changed packs again. The phase
+    fails when native.available() is false, and prints the compiler's
+    message
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}. Any
@@ -1572,6 +1595,296 @@ def _stream_phase(args, kernels, launches, main, G, files, tmp) -> None:
         raise AssertionError("(e) the CLI's streamed run off")
 
 
+def _tair10_chromosomes(m: int):
+    """Chromosome codes 1-5 for m rows in proportion to the Arabidopsis
+    TAIR10 chromosome lengths (the facade genome of phases 6 and 16)."""
+    import numpy as np
+
+    tair10_mb = np.array([30.43, 19.70, 23.46, 18.59, 26.98])
+    ends = np.round(np.cumsum(tair10_mb) / tair10_mb.sum() * m).astype(int)
+    return np.repeat(np.arange(1, 6), np.diff(np.r_[0, ends]))
+
+
+def _write_genotype_text(f, G, prefixes, sep: bytes, codes: bytes,
+                         chunk: int = 4_096) -> int:
+    """Write the rows `prefix call<sep>call...<newline>` of the int8 rows G
+    to the binary file f, one byte a call: codes[g + 1] for g = -1
+    (missing), 0, 1, 2. Vectorised with numpy a chunk of rows at a time;
+    returns the bytes written."""
+    import numpy as np
+
+    lut = np.frombuffer(codes, dtype=np.uint8)
+    n = G.shape[1]
+    total = 0
+    for s in range(0, G.shape[0], chunk):
+        g = np.asarray(G[s:s + chunk])
+        body = np.empty((g.shape[0], 2 * n), dtype=np.uint8)
+        body[:, 0::2] = lut[g.astype(np.int16) + 1]
+        body[:, 1::2] = sep[0]
+        body[:, -1] = ord("\n")
+        flat = memoryview(body.reshape(-1))
+        data = b"".join(part for i in range(g.shape[0]) for part in (
+            prefixes[s + i], flat[2 * n * i:2 * n * (i + 1)]))
+        f.write(data)
+        total += len(data)
+    return total
+
+
+def _host_data_phase(args, kernels, launches, main, G, files, tmp,
+                     acc) -> None:
+    """Phase 16: the host data plane (native.py's C++ parsers and the
+    packed cache) at full width: a dosage CSV, a VCF and a VCF.gz parsed
+    natively and held to their source rows and to the Python route,
+    run_gwas from CSV and VCF held to the same call from the PLINK
+    fileset, and ResidentGenome.from_source's cache on phase 4's genome."""
+    import gzip
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from mixmogam_tpu_torch import api, native
+    from mixmogam_tpu_torch.data import vcf as vcf_mod
+    from mixmogam_tpu_torch.data.parsers import parse_snp_data
+    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
+                                                    emmax_resident)
+
+    if not native.available():
+        raise AssertionError(
+            "the host library did not build or load here, so the data "
+            "layer would run its Python route:\n" + native.BUILD_LOG)
+    print(f"host library: {native.get_lib()._name}", flush=True)
+    M, n = G.shape
+    if int(G[:min(M, 65_536)].max()) > 1:
+        raise AssertionError("phase 16 writes haploid calls: the genome "
+                             "must be binary")
+    Mf = min(args.facade_snps, M)
+    Ma, Mv, Mz, Mp = (min(r, M) for r in (65_536, 32_768, 16_384, 4_096))
+    # the facade genome's layout for the first Mf rows, chromosome 5 after
+    chrom = np.r_[_tair10_chromosomes(Mf),
+                  np.full(Ma - Mf, 5)].astype(np.int32)
+    pos = (np.arange(Ma, dtype=np.int64) + 1) * 100
+
+    def python_route():
+        return mock.patch.object(native, "get_lib", lambda: None)
+
+    def same_rows(label, gd, rows):
+        if not (np.array_equal(gd.matrix, G[:rows])
+                and np.array_equal(gd.chromosomes, chrom[:rows])
+                and np.array_equal(gd.positions, pos[:rows])
+                and gd.accessions == acc and gd.ploidy == 1):
+            raise AssertionError(f"{label}: not the source's rows")
+
+    def write_csv(path, rows):
+        with open(path, "wb") as f:
+            f.write(("Chromosome,Position," + ",".join(acc)
+                     + "\n").encode())
+            _write_genotype_text(f, G[:rows], [
+                f"{c},{p},".encode() for c, p in zip(chrom, pos[:rows])],
+                b",", b"-012")
+        return os.path.getsize(path)
+
+    def write_vcf(path, rows):
+        opener = ((lambda: gzip.open(path, "wb", compresslevel=1))
+                  if path.endswith(".gz") else (lambda: open(path, "wb")))
+        with opener() as f:
+            f.write(("##fileformat=VCFv4.2\n##FORMAT=<ID=GT,Number=1,"
+                     'Type=String,Description="Genotype">\n#CHROM\tPOS\tID'
+                     "\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
+                     + "\t".join(acc) + "\n").encode())
+            text = _write_genotype_text(f, G[:rows], [
+                f"{c}\t{p}\trs{p}\tA\tC\t.\t.\t.\tGT\t".encode()
+                for c, p in zip(chrom, pos[:rows])], b"\t", b".01")
+        return text, os.path.getsize(path)
+
+    def timed(fn, *a, **kw):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - ts
+
+    # (a) a dosage CSV at full width
+    big = os.path.join(tmp, "big.csv")
+    size, dt = timed(write_csv, big, Ma)
+    print(f"(a) wrote a dosage CSV of {Ma} x {n} ({size / 1e9:.3f} GB) with "
+          f"numpy: {dt:.3f} s (set-up, not the system)", flush=True)
+    gd, dt = timed(parse_snp_data, big)
+    lib_s = timed(native.parse_dosage_csv, big)[1]
+    print(f"   parse_snp_data, native route: {dt:.3f} s = "
+          f"{size / dt / 1e9:.3f} GB/s; native.parse_dosage_csv alone "
+          f"{lib_s:.3f} s", flush=True)
+    same_rows("(a) the native CSV parse", gd, Ma)
+    del gd
+    os.remove(big)
+    fcsv = os.path.join(tmp, "facade.csv")
+    fsize = write_csv(fcsv, Mf)
+    gd_nat, t_nat = timed(parse_snp_data, fcsv)
+    same_rows("(a) the native CSV parse of the facade rows", gd_nat, Mf)
+
+    # (b) VCF, plain and gzip
+    for path, rows in ((os.path.join(tmp, "big.vcf"), Mv),
+                       (os.path.join(tmp, "big.vcf.gz"), Mz)):
+        (text, size), dt = timed(write_vcf, path, rows)
+        kind = "VCF.gz" if path.endswith(".gz") else "VCF"
+        print(f"(b) wrote a {kind} of {rows} x {n} ({text / 1e9:.3f} GB of "
+              f"text, {size / 1e9:.3f} GB on disk) with numpy: {dt:.3f} s "
+              f"(set-up)", flush=True)
+        gd, dt = timed(vcf_mod.read_vcf, path)
+        lib_s = timed(native.parse_vcf, path, n)[1]
+        print(f"   read_vcf, native route: {dt:.3f} s = "
+              f"{text / dt / 1e9:.3f} GB/s of text ({size / dt / 1e9:.3f} "
+              f"GB/s of file); native.parse_vcf alone {lib_s:.3f} s",
+              flush=True)
+        same_rows(f"(b) read_vcf {kind}", gd, rows)
+        del gd
+        (rgv, meta), dt = timed(vcf_mod.read_vcf_packed, path)
+        ref = ResidentGenome.from_source(G[:rows])
+        print(f"   read_vcf_packed -> ResidentGenome on the card: {dt:.3f} "
+              f"s = {text / dt / 1e9:.3f} GB/s of text", flush=True)
+        if not (torch.equal(rgv.packed, ref.packed) and rgv.M == rows
+                and rgv.n == n and rgv.ploidy == 1 and not rgv.has_missing
+                and np.array_equal(meta["chromosomes"], chrom[:rows])
+                and np.array_equal(meta["positions"], pos[:rows])
+                and meta["accessions"] == acc):
+            raise AssertionError(f"(b) read_vcf_packed {kind} is not "
+                                 "from_source of the same rows")
+        del rgv, ref
+        os.remove(path)
+    small = os.path.join(tmp, "first.vcf")
+    write_vcf(small, Mp)
+    with python_route():
+        gd, dt = timed(vcf_mod.read_vcf, small)
+    same_rows("(b) read_vcf, Python route", gd, Mp)
+    t_nat_v = timed(vcf_mod.read_vcf, small)[1]
+    print(f"   read_vcf of the first {Mp} rows: Python route {dt:.3f} s, "
+          f"native {t_nat_v:.3f} s; both equal to the source", flush=True)
+    os.remove(small)
+    del gd
+
+    # (c) the facade from CSV and from VCF, held to the PLINK fileset
+    fvcf = os.path.join(tmp, "facade.vcf.gz")
+    write_vcf(fvcf, Mf)
+
+    def gwas(label, path, fmt, **kw):
+        for k in kernels:
+            k.launches = 0
+        out, dt = timed(api.run_gwas, path, files[1], data_format=fmt,
+                        plots=False, **kw)
+        cnt = {k.__name__: k.launches for k in kernels}
+        for name, c in cnt.items():
+            launches[name] += c
+        tm = {k: round(v, 3) for k, v in out["timings"].items()}
+        print(f"(c) run_gwas {label}: {dt:.3f} s; timings_s "
+              f"{json.dumps(tm)}; launches {cnt}", flush=True)
+        return out["scan"], cnt
+
+    def held(label, got, ref):
+        dp = float(np.abs(got["ps"] - ref["ps"]).max())
+        same = np.array_equal(got["mask"], ref["mask"])
+        print(f"   {label} vs the PLINK call: max|dp| {dp:.3e}, masks "
+              f"{'equal' if same else 'differ'}", flush=True)
+        if dp > 1e-12 or not same:
+            raise AssertionError(f"(c) {label} disagrees with PLINK")
+
+    seen = {}
+    parse = api.parse_snp_data
+
+    def timed_parse(*a, **kw):
+        seen["gd"], seen["s"] = timed(parse, *a, **kw)
+        return seen["gd"]
+
+    for tier, path, fmt, kernel in (
+            ("exact", fcsv, "binary", "scan_stats"),
+            ("int8x3", fcsv, "binary", "rotate_scan_int8_packed"),
+            ("bf16x3", fvcf, "vcf", "rotate_scan_bf16_packed")):
+        # the genome is binary: PLINK's fileset reads as diploid unless
+        # told, the CSV and VCF infer ploidy 1; every call is told 1
+        kw = {"ploidy": 1} if tier == "exact" else {"precision": tier,
+                                                    "ploidy": 1}
+        ref, _ = gwas(f"{tier} from the PLINK fileset", files[0], "plink",
+                      **kw)
+        kind = "VCF.gz" if fmt == "vcf" else "CSV"
+        got, cnt = gwas(f"{tier} from the {kind}", path, fmt, **kw)
+        held(f"{tier} from the {kind}", got, ref)
+        if cnt["ibs_gram_packed"] != 1 or cnt[kernel] <= 0:
+            raise AssertionError(f"(c) {tier} from the {kind}: launches "
+                                 f"{cnt}")
+        if tier == "exact":
+            with python_route(), mock.patch.object(api, "parse_snp_data",
+                                                   timed_parse):
+                py, _ = gwas("exact from the CSV, Python route", path, fmt,
+                             **kw)
+            held("exact from the CSV, Python route", py, ref)
+            same_rows("(c) the Python CSV parse", seen["gd"], Mf)
+            print(f"   parse_snp_data of the {Mf}-row CSV ({fsize / 1e6:.1f}"
+                  f" MB): Python route {seen['s']:.3f} s, native "
+                  f"{t_nat:.3f} s; both equal to the source", flush=True)
+    os.remove(fcsv)
+    os.remove(fvcf)
+    del gd_nat, seen
+
+    # (d) the packed cache on phase 4's genome
+    rg0, y = main["rg"], main["y"]
+    cp = os.path.join(tmp, "genome.packed")
+    for label, src, kw in (
+            ("cold (hash, pack, write)", G, {}),
+            ("warm, validated (hash, read, upload)", G, {}),
+            ("warm, trust_cache=True (read, upload)", G,
+             {"trust_cache": True}),
+            ("G=None (read, upload)", None, {})):
+        packs = ResidentGenome.packs
+        rgc, dt = timed(ResidentGenome.from_source, src, cache_path=cp, **kw)
+        grew = ResidentGenome.packs - packs
+        print(f"(d) from_source {label}: {dt:.3f} s; packs +{grew}",
+              flush=True)
+        if not (torch.equal(rgc.packed, rg0.packed)
+                and (rgc.M, rgc.n, rgc.ploidy, rgc.has_missing)
+                == (rg0.M, rg0.n, rg0.ploidy, rg0.has_missing)
+                and grew == (1 if label.startswith("cold") else 0)):
+            raise AssertionError(f"(d) {label}: not phase 4's packed rows, "
+                                 f"or packs +{grew}")
+    print(f"   cache files: {os.path.getsize(cp) / 1e6:.1f} MB packed, "
+          f"{M} x {n}", flush=True)
+    for k in kernels:
+        k.launches = 0
+    r = emmax_resident(rgc, y, eig_k=main["eig"], precision="int8x3")
+    cnt = {k.__name__: k.launches for k in kernels}
+    for name, c in cnt.items():
+        launches[name] += c
+    dp = float(np.abs(r["ps"] - main["ps_int8x3"]).max())
+    print(f"   emmax_resident int8x3 on the cached genome vs phase 4's: "
+          f"max|dp| {dp:.3e}; launches {cnt}", flush=True)
+    if dp != 0.0 or cnt["rotate_scan_int8_packed"] <= 0:
+        raise AssertionError("(d) the cached genome's int8x3 scan differs")
+    del rgc, r
+    # the same shape with other content: one row's first 8 calls flipped
+    with open(cp + ".json") as f:
+        hash0 = json.load(f)["src_hash"]
+    j = M // 2
+    row = G[j].copy()
+    G[j, :8] = 1 - G[j, :8]
+    try:
+        packs = ResidentGenome.packs
+        rgx, dt = timed(ResidentGenome.from_source, G, cache_path=cp)
+        want = G[j].copy()
+    finally:
+        G[j] = row
+    with open(cp + ".json") as f:
+        hash1 = json.load(f)["src_hash"]
+    print(f"(d) same shape, other content: {dt:.3f} s; packs "
+          f"+{ResidentGenome.packs - packs}; src_hash {hash0} -> {hash1}",
+          flush=True)
+    if (ResidentGenome.packs - packs != 1 or hash1 == hash0
+            or not np.array_equal(rgx[j:j + 1][0], want)
+            or torch.equal(rgx.packed, rg0.packed)):
+        raise AssertionError("(d) a cache of other content was reused")
+    del rgx
+    os.remove(cp)
+    os.remove(cp + ".json")
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--samples", type=int, default=10_240)
@@ -1648,8 +1961,27 @@ def main(argv=None) -> int:
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    built = _build.build_all(("ibs_gram", "ibs_gram_tri", "rotate_scan_int8",
-                              "rotate_scan_bf16", "scan_stats"))
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mixmogam_tpu_torch import native
+
+    def build_host():
+        ts = time.perf_counter()
+        native.get_lib()
+        return time.perf_counter() - ts
+
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        host = ex.submit(build_host)     # g++ beside the five nvcc
+        built = _build.build_all(("ibs_gram", "ibs_gram_tri",
+                                  "rotate_scan_int8", "rotate_scan_bf16",
+                                  "scan_stats"))
+        host_s = host.result()
+    if native.available():
+        print(f"built the host library (csrc/host/*.cpp, g++) in "
+              f"{host_s:.3f} s", flush=True)
+    else:
+        print(f"the host library did not build ({host_s:.3f} s):\n"
+              f"{native.BUILD_LOG}", file=sys.stderr, flush=True)
     for name, sec in built.items():
         print(f"built {name}.cu in {sec:.3f} s", flush=True)
         for line in _build.BUILD_LOG.get(name, "").splitlines():
@@ -2045,7 +2377,8 @@ def main(argv=None) -> int:
         del wide
     # G and y stay for phase 6's files; the resident genome and eigh(K)
     # for phase 8
-    main = dict(rg=rg, eig=(phi, U), y=y, K=K, ps=ex["ps"])
+    main = dict(rg=rg, eig=(phi, U), y=y, K=K, ps=ex["ps"],
+                ps_int8x3=res["int8x3"]["ps"])
     del null, res, ex
     torch.cuda.empty_cache()
     _phase("4 main path", t0)
@@ -2188,11 +2521,7 @@ def main(argv=None) -> int:
     tmp = tmpdir.name
     ts = time.perf_counter()
     # the first Mf rows, in 5 chromosomes of TAIR10's proportions
-    tair10_mb = np.array([30.43, 19.70, 23.46, 18.59, 26.98])
-    ends = np.round(np.cumsum(tair10_mb) / tair10_mb.sum()
-                    * Mf).astype(int)
-    gd = GenotypeData(G[:Mf], np.repeat(np.arange(1, 6),
-                                        np.diff(np.r_[0, ends])),
+    gd = GenotypeData(G[:Mf], _tair10_chromosomes(Mf),
                       np.arange(1, Mf + 1) * 100, acc, ploidy=1)
     prefix = os.path.join(tmp, "cohort")
     write_plink(prefix, gd)
@@ -2640,11 +2969,18 @@ def main(argv=None) -> int:
     # ---- 15. the streamed scan --------------------------------------------
     t0 = time.perf_counter()
     _stream_phase(args, kernels, launches, main, G, files, tmp)
+    torch.cuda.empty_cache()
+    _check_no_jax()
+    _phase("15 the streamed scan", t0)
+
+    # ---- 16. the host data plane --------------------------------------------
+    t0 = time.perf_counter()
+    _host_data_phase(args, kernels, launches, main, G, files, tmp, acc)
     tmpdir.cleanup()
     del main
     torch.cuda.empty_cache()
     _check_no_jax()
-    _phase("15 the streamed scan", t0)
+    _phase("16 the host data plane", t0)
 
     for k in kernels:
         report[k.__name__]["launches"] = launches[k.__name__]

@@ -76,6 +76,12 @@ checkpoint_dir=, or a source over the in-core budget that does not fit
 packed), emmax_multi_trait (such a source, exact tier), the CLI's --stream
 on / --checkpoint-dir and the streaming_at_scale example reach.
 
+Slice 11 adds the host data plane: native.py (g++ builds csrc/host/*.cpp,
+copies of the JAX package's C++ parsers and packer, at first use), through
+which the dosage-CSV and VCF readers, read_vcf_packed and data/pack2.py go,
+each keeping its Python route; and ResidentGenome.from_source's packed
+cache (cache_path=, trust_cache=), in the JAX package's file format.
+
 Modules keep the JAX package's paths and names. The port imports torch,
 numpy and scipy, and nothing of jax or of the JAX package: the few numpy
 modules it shares with that package (the data, results and plotting

@@ -1,6 +1,8 @@
-"""Genotype file parsing (copy of mixmogam_tpu/data/parsers.py's Python
-parse paths; the C++ dosage-CSV accelerator is not ported yet. Reference: dataParsers.py + hdf5_data.py,
-SURVEY.md §2.1 L2).
+"""Genotype file parsing (counterpart of mixmogam_tpu/data/parsers.py: a
+dosage CSV's body goes through the C++ threaded parser of the port's host
+library, native.py, and takes the Python route below when the library is
+unavailable or the body is irregular. Reference: dataParsers.py +
+hdf5_data.py, SURVEY.md §2.1 L2).
 
 Formats:
 - 'binary'/'dosage' CSV: header 'Chromosome,Position,acc1,...'; rows of
@@ -26,9 +28,16 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from mixmogam_tpu_torch import native
 from mixmogam_tpu_torch.data.genotype import GenotypeData, MISSING
 
 _MISSING_TOKENS = {"", "NA", "N", "NaN", "nan", "-", "?"}
+
+
+def _try_native_dosage(path: str):
+    """The C++ threaded parser's (matrix, chromosomes, positions, n), or
+    None -> the Python route."""
+    return native.parse_dosage_csv(path)
 
 
 def parse_snp_data(path: str, data_format: str = "binary",
@@ -89,6 +98,18 @@ def _read_header(f, delimiter: str) -> List[str]:
 
 def _parse_dosage_csv(path: str, delimiter: str,
                       ploidy: Optional[int]) -> GenotypeData:
+    if delimiter == ",":
+        nat = _try_native_dosage(path)
+        if nat is not None:
+            matrix, chroms_a, poss_a, n = nat
+            with open(path) as f:
+                accessions = _read_header(f, delimiter)
+            if len(accessions) == n:
+                if ploidy is None:
+                    ploidy = 2 if matrix.max(initial=0) > 1 else 1
+                return GenotypeData(matrix=matrix, chromosomes=chroms_a,
+                                    positions=poss_a,
+                                    accessions=accessions, ploidy=ploidy)
     chroms: List[int] = []
     poss: List[int] = []
     rows: List[np.ndarray] = []

@@ -1,5 +1,8 @@
-"""VCF genotype input/output (counterpart of mixmogam_tpu/data/vcf.py: its
-pure-Python parse paths; the C++ streaming parser is not ported yet).
+"""VCF genotype input/output (counterpart of mixmogam_tpu/data/vcf.py). GT
+records go through the C++ streaming parser of the port's host library
+(native.py; plain text, gzip and bgzip through zlib) and take the
+pure-Python route below when the library is unavailable or a record is
+irregular: both give the same containers.
 
 The reference reads only its own CSV/HDF5 formats (dataParsers.py per
 SURVEY.md §2.1); modern cohorts ship as VCF, so this closes the same gap
@@ -11,6 +14,8 @@ compressed files; GT hard calls by default, plus:
 - ``read_vcf_packed`` — memory-bounded cohort-scale parse straight into
   the 2-bit device-resident container: rows pack chunk-by-chunk, the
   (M, n) int8 matrix is never materialized.
+- ``read_vcf(field='DS')`` reads through the Python route only, as in
+  the JAX package.
 
 Conventions:
 - Dosage counts ALT alleles (the VCF/PLINK "--keep-allele-order"
@@ -38,6 +43,7 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
+from mixmogam_tpu_torch import native
 from mixmogam_tpu_torch.data.genotype import GenotypeData, MISSING
 
 _MISSING_GT = {".", "./.", ".|."}
@@ -80,11 +86,68 @@ def _parse_gt(tok: str) -> Optional[Tuple[int, ...]]:
     return tuple(out) if out else None
 
 
+def _vcf_header_samples(path: str):
+    """Sample IDs from the #CHROM header, or None when the header is
+    malformed or absent (the Python route then raises the descriptive
+    error)."""
+    try:
+        with _open_text(path) as f:
+            for line in f:
+                if line.startswith("##"):
+                    continue
+                if line.startswith("#CHROM"):
+                    # rstrip \r too: a CRLF VCF must not leave a trailing
+                    # \r on the last sample ID
+                    parts = line.rstrip("\r\n").split("\t")
+                    if len(parts) < 10 or parts[8] != "FORMAT":
+                        return None
+                    return parts[9:]
+                break
+    except (OSError, UnicodeDecodeError, EOFError):
+        return None
+    return None
+
+
+def _chrom_names(names16: np.ndarray) -> List[str]:
+    """The native parser's NUL-padded (m, 16) CHROM tokens as strings."""
+    return [bytes(r).rstrip(b"\0").decode() for r in names16]
+
+
+def _read_vcf_native(path: str):
+    """(GenotypeData, chrom_map) through the C++ streaming parser, or None
+    -> the pure-Python route (library unavailable, or any structural
+    irregularity: the Python reader then raises where an error is due)."""
+    samples = _vcf_header_samples(path)
+    if not samples:
+        return None
+    out = native.parse_vcf(path, len(samples))
+    if out is None:
+        return None
+    mat, poss, codes, names, alleles, arity = out
+    # chromosome codes from _resolve_chrom_map, the Python route's own
+    name_strs = _chrom_names(names)
+    if name_strs:
+        mapping = _resolve_chrom_map(name_strs)
+        chrom_out = np.asarray([mapping[nm] for nm in name_strs],
+                               dtype=np.int32)
+    else:
+        mapping = {}
+        chrom_out = np.asarray(codes, dtype=np.int32).copy()
+    gd = GenotypeData(
+        matrix=mat, chromosomes=chrom_out, positions=poss,
+        accessions=samples, ploidy=int(arity),
+        alleles=alleles if len(alleles) else None)
+    return gd, mapping
+
+
 def read_vcf(path: str, return_chrom_map: bool = False,
              field: str = "GT", ploidy: Optional[int] = None
              ) -> Union[GenotypeData, Tuple[GenotypeData, Dict[str, int]]]:
     """Parse a VCF (.vcf or .vcf.gz) into a GenotypeData of hard-call
-    ALT dosages. See the module docstring for coding conventions.
+    ALT dosages. See the module docstring for coding conventions. GT
+    files go through the C++ streaming parser (native.py) when it is
+    available; anything irregular takes the pure-Python route below
+    (the same containers).
 
     field='DS' reads the imputed ALT-dosage FORMAT field instead into a
     float DosageData (NaN missing; records without DS are skipped;
@@ -100,6 +163,10 @@ def read_vcf(path: str, return_chrom_map: bool = False,
     if field != "GT":
         raise ValueError(f"unsupported FORMAT field {field!r}; "
                          "supported: 'GT' (hard calls), 'DS' (dosages)")
+    nat = _read_vcf_native(path)
+    if nat is not None:
+        gd, mapping = nat
+        return (gd, mapping) if return_chrom_map else gd
     samples: List[str] = []
     chrom_names: List[str] = []
     poss_parts: List[np.ndarray] = []
@@ -293,7 +360,10 @@ def read_vcf_packed(path: str, tile: int = 16_384,
     device-resident container: GT rows are uploaded and packed
     chunk-by-chunk on `device` (the card by default, 'cpu' on request), so
     the (M, n) int8 matrix is NEVER materialized: the host holds one
-    parse chunk plus, at the end, its copy of the packed rows.
+    parse chunk plus, at the end, its copy of the packed rows. The chunks
+    come from the C++ streaming parser (native.iter_vcf), or from the
+    pure-Python iterator when the library is unavailable or a record is
+    irregular.
 
     Returns (ResidentGenome, meta) where meta carries 'chromosomes'
     (int32 codes), 'positions', 'accessions', 'alleles', 'chrom_map'.
@@ -306,45 +376,69 @@ def read_vcf_packed(path: str, tile: int = 16_384,
     from mixmogam_tpu_torch.ops.pack2 import pack_2bit_device
 
     device = resolve_device(device)
-    samples: List[str] = []
-    packed_parts, poss_parts, allele_parts = [], [], []
-    chrom_names: List[str] = []
-    arity, has_missing = 1, False
-    for smp, mat, pos_c, names_c, all_c, arity_c in _iter_vcf_python(
-            path, chunk_rows=chunk_rows):
-        samples = smp
-        if mat.shape[0] == 0:
-            continue
-        arity = max(arity, int(arity_c))
-        if arity > 2 or (mat.size and mat.max(initial=0) > 2):
-            raise ValueError(
-                "read_vcf_packed stores diploid/haploid dosages "
-                "0..2 in the 2-bit container; this VCF is "
-                f"polyploid (arity {arity}). Use read_vcf().")
-        has_missing |= bool((mat < 0).any())
-        packed_parts.append(pack_2bit_device(
-            torch.from_numpy(np.ascontiguousarray(mat)).to(device)))
-        poss_parts.append(np.asarray(pos_c, dtype=np.int64))
-        chrom_names.extend(names_c)
-        allele_parts.append(np.asarray(all_c, dtype=str))
+
+    def consume(chunks):
+        acc = {"packed": [], "poss": [], "names": [], "alleles": [],
+               "arity": 1, "missing": False, "samples": []}
+        for smp, mat, pos_c, names_c, all_c, arity_c in chunks:
+            acc["samples"] = smp
+            if mat.shape[0] == 0:
+                continue
+            acc["arity"] = max(acc["arity"], int(arity_c))
+            if acc["arity"] > 2 or (mat.size and mat.max(initial=0) > 2):
+                raise ValueError(
+                    "read_vcf_packed stores diploid/haploid dosages "
+                    "0..2 in the 2-bit container; this VCF is "
+                    f"polyploid (arity {acc['arity']}). Use read_vcf().")
+            acc["missing"] |= bool((mat < 0).any())
+            acc["packed"].append(pack_2bit_device(
+                torch.from_numpy(np.ascontiguousarray(mat)).to(device)))
+            acc["poss"].append(np.asarray(pos_c, dtype=np.int64))
+            acc["names"].extend(names_c)
+            acc["alleles"].append(np.asarray(all_c, dtype=str))
+        return acc
+
+    acc = None
+    samples = _vcf_header_samples(path)
+    if samples and native.available():
+        def native_chunks():
+            for mat, pos_c, _codes, names16, all_c, arity_c in \
+                    native.iter_vcf(path, len(samples),
+                                    chunk_rows=chunk_rows):
+                yield (samples, mat, pos_c, _chrom_names(names16), all_c,
+                       arity_c)
+        try:
+            acc = consume(native_chunks())
+        except RuntimeError:
+            acc = None       # the native header disagrees with Python's
+        except ValueError as err:
+            if "malformed VCF" not in str(err):
+                raise        # the polyploid refusal is not a fallback
+            acc = None       # an irregular record: the Python route
+            #                  parses it or raises the descriptive error
+    if acc is None:
+        acc = consume(_iter_vcf_python(path, chunk_rows=chunk_rows))
+    # a body with no record gives the native route no chunk
+    samples = acc["samples"] or samples or []
     n = len(samples)
-    M = sum(p.shape[0] for p in packed_parts)
+    M = sum(p.shape[0] for p in acc["packed"])
     M_pad = -(-max(M, 1) // tile) * tile
     packed = torch.zeros((M_pad, (n + 3) // 4), dtype=torch.uint8,
                          device=device)
     w = 0
-    for p in packed_parts:
+    for p in acc["packed"]:
         packed[w:w + p.shape[0]] = p
         w += p.shape[0]
-    rg = ResidentGenome(packed, M, n, arity, tile, has_missing)
+    rg = ResidentGenome(packed, M, n, acc["arity"], tile, acc["missing"])
+    chrom_names = acc["names"]
     mapping = _resolve_chrom_map(chrom_names)
     meta = {
         "chromosomes": np.asarray([mapping[c] for c in chrom_names],
                                   dtype=np.int32),
-        "positions": (np.concatenate(poss_parts) if poss_parts
+        "positions": (np.concatenate(acc["poss"]) if acc["poss"]
                       else np.zeros(0, dtype=np.int64)),
         "accessions": list(samples),
-        "alleles": (np.concatenate(allele_parts)
+        "alleles": (np.concatenate(acc["alleles"])
                     if chrom_names else None),
         "chrom_map": mapping,
     }

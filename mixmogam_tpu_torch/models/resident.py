@@ -22,11 +22,15 @@ scan then run on the device with no host traffic:
 
 from __future__ import annotations
 
+import hashlib
+import json
+import os
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from mixmogam_tpu_torch.data.pack2 import unpack_2bit
 from mixmogam_tpu_torch.oracle.kinship import scale_k  # noqa: F401
 from mixmogam_tpu_torch.ops.pack2 import (pack_2bit_device,
                                          unpack_2bit_device)
@@ -66,7 +70,7 @@ class ResidentGenome:
     Quacks like a read-only SNP-major matrix source: `.shape`, `.dtype`
     (int8), and slicing / integer-array row indexing return HOST int8
     rows (-1 for missing), decoded from the host copy of the packed rows
-    (no read-back from the card)."""
+    by data/pack2.py (no read-back from the card)."""
 
     # from_source calls so far, counted like the kernel wrappers' .launches
     packs = 0
@@ -93,8 +97,6 @@ class ResidentGenome:
         The JAX package's key for the same rows: the LOCO eigen caches of
         both packages agree."""
         if self._content_key is None:
-            import hashlib
-
             h = hashlib.sha256()
             h.update(f"{self.M}:{self.n}:{self.tile}:".encode())
             h.update(np.ascontiguousarray(self.host_packed).tobytes())
@@ -134,8 +136,7 @@ class ResidentGenome:
             if idx.ndim != 1:
                 raise IndexError("ResidentGenome supports 1-D row indexing")
             rows = self.host_packed[idx]
-        return unpack_2bit_device(
-            torch.from_numpy(np.ascontiguousarray(rows)), self.n).numpy()
+        return unpack_2bit(rows, self.n)
 
     def slice_rows(self, s: int, e: int) -> "ResidentGenome":
         """Row range [s, e) as a container over views of this one's
@@ -151,24 +152,69 @@ class ResidentGenome:
 
     @classmethod
     def from_source(cls, G, tile: int = 16_384, chunk: int = 65_536,
-                    ploidy: Optional[int] = None,
-                    device=None) -> "ResidentGenome":
+                    ploidy: Optional[int] = None, device=None,
+                    cache_path: Optional[str] = None,
+                    trust_cache: bool = False) -> "ResidentGenome":
         """Pack an int8 host source (ndarray / memmap / h5py /
         GenotypeData) chunk by chunk on `device` (the card by default,
         'cpu' on request; pack_2bit_device) and
         keep a host copy of the packed rows (one read-back). Rows are
         zero-padded to a tile multiple: dosage-0 pad rows are degenerate
-        in the scan (masked) and add nothing to any kinship term."""
+        in the scan (masked) and add nothing to any kinship term.
+
+        cache_path: keep the host packed rows in an .npy at that path and
+        a .json sidecar {M, n, ploidy, tile, has_missing, src_hash}, the
+        JAX package's format (a cache either package writes loads in the
+        other). src_hash is the first 16 hex digits of a sha256 of the
+        source's int8 rows, folded into the pack pass. The cache is reused
+        only when it matches the request: the same tile and source shape,
+        the same explicit ploidy, and the same content (one read of the
+        source to hash it) unless trust_cache=True. Otherwise the source
+        is packed again and the cache rewritten. A hit uploads the cached
+        rows once and does not count in ResidentGenome.packs. G=None loads
+        the cache as it is, and raises with the reason when it is missing
+        or does not match.
+
+        The JAX package's upload=False (host-side rows for the mesh
+        flows) belongs to the port of parallel/, ROADMAP item 16."""
         from mixmogam_tpu_torch.models.source import resolve_source
         from mixmogam_tpu_torch.ops import resolve_device
 
         device = resolve_device(device)
-        ResidentGenome.packs += 1
-        mat = resolve_source(G)
-        if np.dtype(mat.dtype) != np.int8:
+        mat = None if G is None else resolve_source(G)
+        if mat is not None and np.dtype(mat.dtype) != np.int8:
             raise TypeError(
                 "ResidentGenome stores int8 dosages 0..2 (+ -1 missing); "
                 f"got dtype {mat.dtype}")
+        src_hash = None
+        meta_path = cache_path + ".json" if cache_path else None
+        if cache_path and os.path.exists(cache_path) \
+                and os.path.exists(meta_path):
+            with open(meta_path) as f:
+                meta = json.load(f)
+            ok = (meta["tile"] == tile
+                  and (mat is None
+                       or tuple(mat.shape) == (meta["M"], meta["n"]))
+                  and (ploidy is None or ploidy == meta["ploidy"]))
+            if ok and mat is not None and not trust_cache:
+                src_hash = _source_hash(mat, chunk)
+                ok = meta.get("src_hash") == src_hash
+            if ok:
+                hp = np.load(cache_path)
+                return cls(torch.from_numpy(hp).to(device), meta["M"],
+                           meta["n"], meta["ploidy"], tile,
+                           meta["has_missing"], host_packed=hp)
+            if mat is None:
+                raise ValueError(
+                    f"packed cache at {cache_path} does not match the "
+                    f"request (meta={meta}, tile={tile}, "
+                    f"ploidy={ploidy}) and no source was given to "
+                    "repack from")
+        if mat is None:
+            raise ValueError(
+                f"packed cache at {cache_path!r} is missing or has no "
+                ".json sidecar, and no source was given to repack from")
+        ResidentGenome.packs += 1
         if ploidy is None:
             ploidy = getattr(G, "ploidy", None)
         M, n = mat.shape
@@ -177,10 +223,15 @@ class ResidentGenome:
                              device=device)
         has_missing = False
         vmax = 0
+        # the content hash rides the pack pass (no second source read),
+        # unless the cache's validation computed it already
+        h = hashlib.sha256() if cache_path and src_hash is None else None
         for s in range(0, M, chunk):
             e = min(s + chunk, M)
-            c = torch.from_numpy(np.ascontiguousarray(
-                np.asarray(mat[s:e], dtype=np.int8))).to(device)
+            c = np.ascontiguousarray(np.asarray(mat[s:e], dtype=np.int8))
+            if h is not None:
+                h.update(c)
+            c = torch.from_numpy(c).to(device)
             lo, hi = (int(v) for v in torch.aminmax(c))
             if lo < -1 or hi > 2:
                 raise ValueError("ResidentGenome stores dosages 0..2 (+ -1 "
@@ -191,7 +242,32 @@ class ResidentGenome:
             packed[s:e] = pack_2bit_device(c)
         if ploidy is None:
             ploidy = 2 if vmax > 1 else 1
-        return cls(packed, M, n, ploidy, tile, has_missing)
+        rg = cls(packed, M, n, ploidy, tile, has_missing)
+        if cache_path:
+            # the sidecar goes first and comes back last: rows written
+            # halfway never sit beside a sidecar that would vouch for them
+            if os.path.exists(meta_path):
+                os.remove(meta_path)
+            tmp = f"{cache_path}.{os.getpid()}.tmp"
+            with open(tmp, "wb") as f:
+                np.save(f, rg.host_packed)
+            os.replace(tmp, cache_path)
+            with open(tmp, "w") as f:
+                json.dump({"M": M, "n": n, "ploidy": int(ploidy),
+                           "tile": tile, "has_missing": has_missing,
+                           "src_hash": src_hash or h.hexdigest()[:16]}, f)
+            os.replace(tmp, meta_path)
+        return rg
+
+
+def _source_hash(mat, chunk: int) -> str:
+    """First 16 hex digits of the sha256 of the source's int8 rows, read
+    `chunk` rows at a time: the packed cache's src_hash."""
+    h = hashlib.sha256()
+    for s in range(0, mat.shape[0], chunk):
+        h.update(np.ascontiguousarray(
+            np.asarray(mat[s:s + chunk], dtype=np.int8)))
+    return h.hexdigest()[:16]
 
 
 def row_means_packed(packed: torch.Tensor, n: int, tile: int, dtype

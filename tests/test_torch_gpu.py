@@ -1058,3 +1058,41 @@ def test_card_kill_and_resume(cuda, tmp_path):
     assert 2 <= resumed["stream_stats"]["restored"] < 12
     clean = emmax_streamed(G, y, K=K, tile=500)
     assert np.abs(resumed["ps"] - clean["ps"]).max() <= 1e-12
+
+
+def test_card_packed_cache_round_trip(cuda, tmp_path):
+    """from_source's cache on the card: cold packs once and writes; warm,
+    trust_cache and G=None upload the cached rows, torch.equal to the
+    uncached genome, packs unchanged."""
+    G, _, _ = simulate_genotypes(123, 700, ploidy=2, missing_rate=0.03,
+                                 seed=31)
+    ref = ResidentGenome.from_source(G, tile=256)
+    cp = str(tmp_path / "g.packed")
+    ResidentGenome.from_source(G, tile=256, cache_path=cp)
+    before = ResidentGenome.packs
+    for src, kw in ((G, {}), (G, {"trust_cache": True}), (None, {})):
+        rg = ResidentGenome.from_source(src, tile=256, cache_path=cp, **kw)
+        assert rg.device.type == "cuda" and torch.equal(rg.packed,
+                                                        ref.packed)
+        assert (rg.M, rg.n, rg.ploidy, rg.has_missing) == (
+            ref.M, ref.n, ref.ploidy, ref.has_missing)
+    assert ResidentGenome.packs == before
+
+
+def test_card_read_vcf_packed_native(cuda, tmp_path):
+    """read_vcf_packed on the card through the host library equals
+    from_source of the same rows."""
+    from mixmogam_tpu_torch import native
+    from mixmogam_tpu_torch.data.genotype import GenotypeData
+    from mixmogam_tpu_torch.data.vcf import read_vcf_packed, write_vcf
+
+    assert native.available(), native.BUILD_LOG
+    G, ch, po = simulate_genotypes(77, 500, ploidy=2, missing_rate=0.02,
+                                   seed=32)
+    p = str(tmp_path / "g.vcf.gz")
+    write_vcf(GenotypeData(G, ch, po, [f"s{i}" for i in range(77)],
+                           ploidy=2), p)
+    rg, meta = read_vcf_packed(p, tile=128, chunk_rows=97)
+    ref = ResidentGenome.from_source(G, tile=128)
+    assert rg.device.type == "cuda" and torch.equal(rg.packed, ref.packed)
+    np.testing.assert_array_equal(meta["positions"], po)

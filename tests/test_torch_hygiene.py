@@ -62,6 +62,46 @@ def test_no_library_int8_gemm_in_the_port(path):
     assert calls and all(fn.lineno <= ln <= fn.end_lineno for ln in calls)
 
 
+def _strings(path):
+    """The string constants of a module other than its docstrings."""
+    tree = ast.parse(path.read_text())
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.FunctionDef, ast.ClassDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)}
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs]
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_path_into_the_jax_packages_native_dir(path):
+    """The port builds its host library from its own csrc/host/ copies:
+    no code string names the JAX package's native/ directory or its
+    library."""
+    bad = [s for s in _strings(path) if _names_native(s)]
+    assert not bad, f"{path.relative_to(ROOT)} names {bad}"
+
+
+def _names_native(s):
+    import re
+
+    return (s == "native" or re.search(r"(^|/)native/", s) is not None
+            or "libfastparse.so" in s)
+
+
+def test_string_scan_catches_a_path(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text('"""native/ in a docstring."""\n'
+                 'import os\n'
+                 'a = os.path.join(ROOT, "native")\n'
+                 'b = "../native/fast_parse.cpp"\n'
+                 'c = "csrc/host/fast_parse.cpp"\n')
+    assert sorted(s for s in _strings(f) if _names_native(s)) == [
+        "../native/fast_parse.cpp", "native"]
+
+
 def test_ast_scan_catches_forbidden_forms(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import jax.numpy as jnp\nfrom mixmogam_tpu import ops\n"
@@ -91,6 +131,8 @@ def test_importing_the_port_builds_nothing():
         "for m in mods: importlib.import_module(m)\n"
         "from mixmogam_tpu_torch.ops import _build\n"
         "assert _build._libs == {} and _build.BUILD_LOG == {}\n"
+        "from mixmogam_tpu_torch import native\n"
+        "assert native._lib is None and not native._tried\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'mixmogam_tpu' not in sys.modules, 'JAX package imported'\n"
         "assert 'triton' not in sys.modules\n"
@@ -152,13 +194,16 @@ def test_the_facade_needs_no_h5py_or_matplotlib(tmp_path, fmt):
 
 def test_every_kernel_source_is_packaged():
     """An installed copy builds its kernels from csrc/: every file there
-    (the .cu sources and the .cuh headers they include) matches a pattern
-    of pyproject.toml's package-data and of MANIFEST.in."""
+    (the .cu sources, the .cuh headers they include, and the host
+    library's csrc/host/*.cpp) matches a pattern of pyproject.toml's
+    package-data and of MANIFEST.in."""
     import fnmatch
     import tomllib
 
-    files = sorted(f.name for f in (PORT / "csrc").iterdir() if f.is_file())
+    files = sorted(f.relative_to(PORT / "csrc").as_posix()
+                   for f in (PORT / "csrc").rglob("*") if f.is_file())
     assert any(f.endswith(".cuh") for f in files)
+    assert "host/fast_parse.cpp" in files and "host/fast_vcf.cpp" in files
     pats = tomllib.loads((ROOT / "pyproject.toml").read_text())["tool"][
         "setuptools"]["package-data"]["mixmogam_tpu_torch"]
     line = [ln.split() for ln in (ROOT / "MANIFEST.in").read_text()
@@ -167,7 +212,8 @@ def test_every_kernel_source_is_packaged():
     assert len(line) == 1
     for f in files:
         assert any(fnmatch.fnmatch(f"csrc/{f}", p_) for p_ in pats), f
-        assert any(fnmatch.fnmatch(f, p_) for p_ in line[0][2:]), f
+        assert any(fnmatch.fnmatch(f.split("/")[-1], p_)
+                   for p_ in line[0][2:]), f
     # and each header a source includes is there
     for cu in (PORT / "csrc").glob("*.cu*"):
         for ln in cu.read_text().splitlines():
