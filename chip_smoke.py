@@ -126,7 +126,9 @@ Phases (each prints its own seconds):
     statistics apart (CUDA events), E M / scan GxE-tests/s and the host
     p-values' seconds; no kernel launch (the rotations are library
     products, the statistics plain torch); each fast tier against exact
-    with identical masks, max |dp| <= 1e-4 on the three p fields. The card
+    with identical masks, max |dp| <= 1e-4 on the three p fields, and
+    every interaction with exact p <= 0.05 / M below the tier's rescore
+    cut (ops/scan.py::rescore_p_cut; the largest such p printed). The card
     against the float64 CPU path at n = 2,048 x 8,192 (identical masks,
     max |dp| <= 1e-5), and under VanRaden's singular K at the three tiers
     (<= 1e-4). gblup on phase 4's eigh, reliability() and gblup_cv (5
@@ -188,8 +190,12 @@ Phases (each prints its own seconds):
     (max |dp| <= 1e-12), and again after the manifest is cut to half its
     bytes; (c) float32 dosages in [0, 2] with 1 % NaN, n x 5M/4 (13.4 GB at
     full size): emmax with no stream= must stream by itself, rows
-    [0, 65,536) equal to emmax(stream=False) on them (max |dp| <= 1e-6),
-    and precision='bf16x3' raises naming item 17; (d) emmax_multi_trait,
+    [0, 65,536) equal to emmax(stream=False) on them (max |dp| <= 1e-6);
+    then precision='bf16x3' streams them through the float route (K3 once
+    a tile, no K5): its wall, rate and stream_stats, rows [0, 65,536)
+    equal to the in-core float route on them (max |dp| <= 1e-6, equal
+    masks), the whole within FRACTIONAL_P_DRIFT['bf16x3'] of the streamed
+    exact scan with equal masks; (d) emmax_multi_trait,
     T = 8, on (c)'s source: streamed (every tile read from the host), K3 T
     times a tile, rows [0, 65,536) equal to the in-core multi-trait scan
     (max |dp| <= 1e-6), trait 0 within phase 9's 1e-5 of (c)'s single-trait
@@ -204,7 +210,7 @@ Phases (each prints its own seconds):
     (haploid GT calls): read_vcf on the native route equal to the source,
     read_vcf_packed -> ResidentGenome on the card torch.equal to
     from_source of the same rows, each with its GB/s; read_vcf of the
-    first 4,096 rows on the Python route equal to the source; (c) phase
+    first 1,024 rows on the Python route equal to the source; (c) phase
     6's --facade-snps genome also as a dosage CSV and a VCF.gz: run_gwas
     emmax at 'exact' and 'int8x3' from the CSV and at 'bf16x3' from the
     VCF.gz, each equal (max |dp| <= 1e-12, the same masks) to the same
@@ -218,6 +224,30 @@ Phases (each prints its own seconds):
     |dp| 0.0); the same shape with one row changed packs again. The phase
     fails when native.available() is false, and prints the compiler's
     message
+ 17 imputed (fractional) dosages: the imputed form of phase 4's genome
+    drawn on the card (g * 0.97 + 0.01 + U(-0.01, 0.01), 1 % NaN, float32):
+    (a) emmax in core (stream=False) at M = 131,072 (5.4 GB) on phase 4's
+    eigh at exact, bf16x3, bf16x2 and bf16, each wall and rate, K3 once a
+    tile and nothing else, the bf16 rotation and the mask + K3 of one
+    16,384-row tile timed alone; each bf16 tier against exact with equal
+    masks and max |dp| <= FRACTIONAL_P_DRIFT; bf16x3 with rescore_top
+    rescores every SNP with exact p <= 0.05 / M (to exact's p, 1e-12),
+    its count printed; (b) at n = 2,048 x 2,048 the card against the
+    float64 CPU path at the three bf16 tiers on one host eigh (equal masks,
+    max |dp| <= 1e-5), and the bf16x3 products' float32 sums against the
+    float64 products of the same bf16 operands (max |d| / sum |g w| <=
+    n 2^-24);
+    (d) emmax_loco on the first 16,384 rows in 5 TAIR10-proportioned
+    chromosomes at exact and bf16x3 (IBS) and exact (VanRaden): each wall,
+    each chromosome's log lines (gram+fetch, algebra+eigh, fit+scan), K3
+    once a chromosome tile and nothing else; bf16x3 within
+    FRACTIONAL_P_DRIFT of exact with equal masks; the host route's
+    loco_kinships on phase 6's integer genome (chromosomes 3-5 merged)
+    cast to float32 against the resident route's (K1 / K4): max |dK| <=
+    1e-6; (e) a DS VCF of the first 512 imputed rows in 2 chromosomes (the
+    Python route parses DS): run_gwas
+    emmax_loco and emmax bf16x3 from it, each equal to the direct call on
+    its rows, y and K (max |dp| <= 1e-12)
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}. Any
@@ -710,6 +740,7 @@ def _gxe_gblup_phase(args, kernels, launches, main, facade, files, acc,
     from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                     kinship_resident,
                                                     scale_k)
+    from mixmogam_tpu_torch.ops.scan import rescore_p_cut
     from mixmogam_tpu_torch.oracle.kinship import vanraden_kinship
     from mixmogam_tpu_torch.utils.caching import cached_kinship
 
@@ -750,11 +781,24 @@ def _gxe_gblup_phase(args, kernels, launches, main, facade, files, acc,
             raise AssertionError(f"emmax_gxe {tier}: the planted "
                                  "interaction is not the top hit")
         gx[tier] = r
+    hit = gx["exact"]["inter_ps"] <= 0.05 / M
     for tier in ("int8x3", "bf16x3"):
         nm, dp = _gxe_drift(gx[tier], gx["exact"])
+        # the rescore's contract: every interaction with exact p <= alpha/M
+        # lies below the tier's cut (ops/scan.py::rescore_p_cut)
+        cut = rescore_p_cut(M, tier)
+        fast = gx[tier]["inter_ps"]
+        worst = float(fast[hit].max()) if hit.any() else 0.0
+        d_i = np.abs(fast - gx["exact"]["inter_ps"])
+        at = np.unravel_index(int(np.argmax(d_i)), d_i.shape)
         print(f"   emmax_gxe {tier} vs exact: {nm} mask(s) differ, max|dp| "
-              f"{dp:.3e}", flush=True)
-        if nm or dp > 1e-4:
+              f"{dp:.3e}; interactions: max|dp| {float(d_i[at]):.3e} at "
+              f"exact p {float(gx['exact']['inter_ps'][at]):.3e}; "
+              f"{int(hit.sum())} with exact p <= 0.05/M "
+              f"(per environment {hit.sum(axis=1).tolist()}), their largest "
+              f"{tier} p {worst:.3e} vs the rescore cut {cut:.3e}: "
+              f"{'below' if worst <= cut else 'ABOVE'}", flush=True)
+        if nm or dp > 1e-4 or worst > cut:
             raise AssertionError(f"emmax_gxe {tier} disagrees with exact")
     del gx
     torch.cuda.empty_cache()
@@ -1323,7 +1367,8 @@ def _stream_phase(args, kernels, launches, main, G, files, tmp) -> None:
                                                     scan_operand, scan_stats)
     from mixmogam_tpu_torch.ops.pack2 import unpack_2bit_device
     from mixmogam_tpu_torch.ops.reml import fit_null_model
-    from mixmogam_tpu_torch.ops.scan import build_rotated_null
+    from mixmogam_tpu_torch.ops.scan import (FRACTIONAL_P_DRIFT,
+                                             build_rotated_null)
 
     dev = torch.device("cuda")
     (phi, U), y = main["eig"], main["y"]
@@ -1521,15 +1566,31 @@ def _stream_phase(args, kernels, launches, main, G, files, tmp) -> None:
           f"differ, max|dp| {dp:.3e}", flush=True)
     if nm or dp > 1e-6 or cnt["scan_stats"] != ss["tiles"]:
         raise AssertionError("(c) imputed dosages off")
-    try:
-        emmax(Gf, y, eig_k=eig, precision="bf16x3")
-    except NotImplementedError as exc:
-        if "item 17" not in str(exc):
-            raise
-        print(f"   precision='bf16x3' on these dosages raises: "
-              f"{str(exc)[:90]}...", flush=True)
-    else:
-        raise AssertionError("(c) bf16x3 on fractional dosages ran")
+    # the bf16x3 tier on these dosages: streamed through the float route
+    # (the bf16 products by the parts of U', then K3 a tile), held to the
+    # in-core float route on rows [0, 65,536) and to the exact tier
+    sb, cnt, dt = run(emmax, Gf, y, eig_k=eig, precision="bf16x3")
+    ss = sb.get("stream_stats") or {}
+    rb, _, dt_i = run(emmax, Gf[:head], y, eig_k=eig, stream=False,
+                      precision="bf16x3")
+    nm = int((sb["mask"][:head] != rb["mask"]).sum())
+    dp = float(np.abs(sb["ps"][:head] - rb["ps"]).max())
+    nx = int((sb["mask"] != st["mask"]).sum())
+    dx = float(np.abs(sb["ps"] - st["ps"]).max())
+    sst = {k: (round(v, 3) if isinstance(v, float) else v)
+           for k, v in ss.items()}
+    print(f"   emmax bf16x3 (streamed by itself), M={Mc}: {dt:.3f} s = "
+          f"{Mc / dt:,.0f} SNP-tests/s; stream_stats {json.dumps(sst)}"
+          f"; launches {cnt}; rows [0, {head}) vs the in-core float route "
+          f"({dt_i:.3f} s): {nm} mask(s) differ, max|dp| {dp:.3e}; vs the "
+          f"streamed exact scan: {nx} mask(s) differ, max|dp| {dx:.3e} "
+          f"(FRACTIONAL_P_DRIFT {FRACTIONAL_P_DRIFT['bf16x3']:g})",
+          flush=True)
+    if (not ss or cnt["scan_stats"] != ss["tiles"]
+            or cnt["rotate_scan_bf16_packed"] or nm or dp > 1e-6 or nx
+            or dx > FRACTIONAL_P_DRIFT["bf16x3"]):
+        raise AssertionError("(c) bf16x3 on imputed dosages off")
+    del sb, rb
 
     # (d) multi-trait, T = 8, on (c)'s source: trait 0 is (c)'s phenotype
     T = 8
@@ -1659,7 +1720,7 @@ def _host_data_phase(args, kernels, launches, main, G, files, tmp,
         raise AssertionError("phase 16 writes haploid calls: the genome "
                              "must be binary")
     Mf = min(args.facade_snps, M)
-    Ma, Mv, Mz, Mp = (min(r, M) for r in (65_536, 32_768, 16_384, 4_096))
+    Ma, Mv, Mz, Mp = (min(r, M) for r in (65_536, 32_768, 16_384, 1_024))
     # the facade genome's layout for the first Mf rows, chromosome 5 after
     chrom = np.r_[_tair10_chromosomes(Mf),
                   np.full(Ma - Mf, 5)].astype(np.int32)
@@ -1882,6 +1943,293 @@ def _host_data_phase(args, kernels, launches, main, G, files, tmp,
     del rgx
     os.remove(cp)
     os.remove(cp + ".json")
+    torch.cuda.empty_cache()
+
+
+def _imputed_rows(G_rows, seed: int, out=None):
+    """The imputed form of int8 genotype rows, drawn on the card from a
+    seed: g * 0.97 + 0.01 + U(-0.01, 0.01), 1 % NaN, float32 on the host
+    (written into `out` when given)."""
+    import numpy as np
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    m, n = G_rows.shape
+    out = np.empty((m, n), dtype=np.float32) if out is None else out
+    for s in range(0, m, 16_384):
+        x = torch.as_tensor(np.ascontiguousarray(G_rows[s:s + 16_384]),
+                            device="cuda").float()
+        x = x * 0.97 + 0.01 + (torch.rand(x.shape, generator=g,
+                                          device="cuda") * 0.02 - 0.01)
+        x[torch.rand(x.shape, generator=g, device="cuda") < 0.01] = np.nan
+        out[s:s + x.shape[0]] = x.cpu().numpy()
+    return out
+
+
+def _write_ds_vcf(path: str, Gf, chrom, acc) -> None:
+    """A VCF whose only FORMAT field is DS: each dosage with 3 decimals,
+    '.' for NaN."""
+    import numpy as np
+
+    with open(path, "w") as f:
+        f.write("##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\t"
+                "FILTER\tINFO\tFORMAT\t" + "\t".join(acc) + "\n")
+        for j, row in enumerate(Gf):
+            toks = np.char.mod("%.3f", row)
+            toks[np.isnan(row)] = "."
+            f.write(f"{chrom[j]}\t{100 * (j + 1)}\t.\tA\tC\t.\t.\t.\tDS\t"
+                    + "\t".join(toks.tolist()) + "\n")
+
+
+class _LogLines(logging.Handler):
+    """The messages a logger emits while attached (LOCO's per-chromosome
+    lines), to be printed on stdout beside the call they belong to."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def _fractional_phase(args, kernels, launches, main, G, tmp, acc) -> None:
+    """Phase 17: imputed (fractional) dosages at full width: the bf16
+    tiers' float route in core against exact and against the float64 CPU
+    path, LOCO's host route, and run_gwas from a DS VCF."""
+    import numpy as np
+    import torch
+
+    from mixmogam_tpu_torch import api
+    from mixmogam_tpu_torch.data.simulate import (simulate_genotypes,
+                                                  simulate_phenotype)
+    from mixmogam_tpu_torch.models import loco as loco_mod
+    from mixmogam_tpu_torch.models.emmax import emmax
+    from mixmogam_tpu_torch.models.loco import emmax_loco, loco_kinships
+    from mixmogam_tpu_torch.models.resident import scale_k
+    from mixmogam_tpu_torch.ops.eigen import eigen_k_on
+    from mixmogam_tpu_torch.ops.hopper_scan import scan_stats
+    from mixmogam_tpu_torch.ops.kinship import kinship
+    from mixmogam_tpu_torch.ops.reml import fit_null_model
+    from mixmogam_tpu_torch.ops.rotate import (float_rotation, rotate_tile,
+                                               scan_float_rows)
+    from mixmogam_tpu_torch.ops.scan import (FRACTIONAL_P_DRIFT,
+                                             apply_rotation,
+                                             build_rotated_null,
+                                             rescore_p_cut)
+    from mixmogam_tpu_torch.utils.caching import cached_kinship
+
+    dev = torch.device("cuda")
+    (phi, U), y = main["eig"], main["y"]
+    n = G.shape[1]
+
+    def run(fn, *a, **kw):
+        """fn(*a, **kw) with the kernels' counts from 0: (result, counts,
+        seconds); the counts join the kernels line."""
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - ts
+        cnt = {k.__name__: k.launches for k in kernels}
+        for name, c in cnt.items():
+            launches[name] += c
+        return out, cnt, dt
+
+    def k3_only(cnt, want):
+        return cnt == {k.__name__: (want if k is scan_stats else 0)
+                       for k in kernels}
+
+    # (a) in core at M = 131,072: exact and the three bf16 tiers
+    Ma, tile = min(131_072, G.shape[0]), 16_384
+    ts = time.perf_counter()
+    Gf = _imputed_rows(G[:Ma], args.seed + 190)
+    print(f"(a) the source (not the system): {Ma} x {n} imputed float32 "
+          f"dosages of phase 4's genome, 1 % NaN ({Gf.nbytes / 1e9:.2f} GB),"
+          f" drawn on the card: {time.perf_counter() - ts:.3f} s",
+          flush=True)
+    tiles_a = -(-Ma // tile)
+    ex, cnt, dt = run(emmax, Gf, y, eig_k=(phi, U), stream=False)
+    print(f"   emmax exact, stream=False, M={Ma}: {dt:.3f} s = "
+          f"{Ma / dt:,.0f} SNP-tests/s; launches {cnt}", flush=True)
+    if not k3_only(cnt, tiles_a):
+        raise AssertionError(f"(a) exact: launches {cnt}")
+    null = fit_null_model(y, np.ones((n, 1)), eig_k=(phi, U), device=dev,
+                          dtype=torch.float32)
+    rot = build_rotated_null(null)
+    Gt = torch.as_tensor(np.nan_to_num(Gf[:tile], nan=0.5), device=dev)
+    for tier in ("bf16x3", "bf16x2", "bf16"):
+        r, cnt, dt = run(emmax, Gf, y, eig_k=(phi, U), stream=False,
+                         precision=tier)
+        nm = int((r["mask"] != ex["mask"]).sum())
+        dp = float(np.abs(r["ps"] - ex["ps"]).max())
+        srot = float_rotation(U, np.ones((n, 1)), tier, torch.float32, dev)
+        rot_ms = _cuda_ms(lambda: rotate_tile(Gt, srot))
+        k3_ms = _cuda_ms(lambda: scan_float_rows(Gt, srot, rot)) - rot_ms
+        del srot
+        print(f"   emmax {tier}, stream=False, M={Ma}: {dt:.3f} s = "
+              f"{Ma / dt:,.0f} SNP-tests/s; a {tile}-row tile alone: the "
+              f"bf16 rotation {rot_ms:.3f} ms, the mask and K3 "
+              f"{k3_ms:.3f} ms (x {tiles_a} tiles: {rot_ms * tiles_a:.1f} "
+              f"+ {k3_ms * tiles_a:.1f} ms); launches {cnt}; vs exact: "
+              f"{nm} mask(s) differ, max|dp| {dp:.3e} (FRACTIONAL_P_DRIFT "
+              f"{FRACTIONAL_P_DRIFT[tier]:g})", flush=True)
+        if (not k3_only(cnt, tiles_a) or nm
+                or dp > FRACTIONAL_P_DRIFT[tier]):
+            raise AssertionError(f"(a) {tier} off")
+        del r
+    r, cnt, dt = run(emmax, Gf, y, eig_k=(phi, U), stream=False,
+                     precision="bf16x3", rescore_top=1_024)
+    hits = np.flatnonzero(ex["ps"] <= 0.05 / Ma)
+    idx = r["rescored_idx"]
+    missed = np.setdiff1d(hits, idx)
+    dr = float(np.abs(r["ps"][idx] - ex["ps"][idx]).max())
+    cut = rescore_p_cut(Ma, "bf16x3", fractional=True)
+    print(f"   bf16x3 with rescore_top=1,024: {dt:.3f} s; rescored "
+          f"{len(idx)} SNPs (the cut {cut:.4g}); {len(hits)} SNPs with "
+          f"exact p <= 0.05/M, {len(missed)} of "
+          f"them not rescored; rescored vs exact max|dp| {dr:.3e}; "
+          f"launches {cnt}", flush=True)
+    if len(missed) or dr > 1e-12 or len(hits) == 0:
+        raise AssertionError("(a) the rescore is not threshold-complete")
+    del r, Gt, ex
+    torch.cuda.empty_cache()
+
+    # (b) the same route at n = 2,048 against the float64 CPU path, and
+    # the bf16 products' float32 sums against their float64 values
+    nb, Mb = 2_048, 2_048
+    Gb, _, _ = simulate_genotypes(nb, Mb, ploidy=1, seed=args.seed + 191)
+    yb, _ = simulate_phenotype(Gb, h2=0.5, n_causal=5, seed=args.seed + 191)
+    Gbf = _imputed_rows(Gb, args.seed + 192)
+    imp = np.where(np.isnan(Gbf), np.nanmean(Gbf, axis=1, keepdims=True),
+                   Gbf).astype(np.float64)
+    # one float64 eigenbasis (host LAPACK) for both sides
+    eigb = eigen_k_on(scale_k(kinship(Gbf, ploidy=1)), "cpu")
+    for tier in ("bf16x3", "bf16x2", "bf16"):
+        a, cnt, _ = run(emmax, Gbf, yb, eig_k=eigb, precision=tier,
+                        stream=False)
+        b = emmax(Gbf, yb, eig_k=eigb, precision=tier, stream=False,
+                  device="cpu")
+        nm = int((a["mask"] != b["mask"]).sum())
+        dp = float(np.abs(a["ps"] - b["ps"]).max())
+        print(f"(b) emmax {tier}, card f32 vs CPU f64 (n={nb}, M={Mb}): {nm} "
+              f"mask(s) differ, max|dp| {dp:.3e}; launches {cnt}",
+              flush=True)
+        if nm or dp > 1e-5 or not k3_only(cnt, 1):
+            raise AssertionError(f"(b) {tier} card vs CPU off")
+    srot = float_rotation(eigb[1], np.ones((nb, 1)), "bf16x3",
+                          torch.float32, dev)
+    Gt = torch.as_tensor(imp[:1_024], dtype=torch.float32, device=dev)
+    got = rotate_tile(Gt, srot).double().cpu()
+    parts = srot.W.cpu()
+    ref = apply_rotation(Gt.cpu().double(), parts, None, torch.float64)
+    mag = apply_rotation(Gt.cpu().double().abs(), parts.abs(), None,
+                         torch.float64)
+    ratio = float(((got - ref).abs() / mag.clamp_min(1e-300)).max())
+    print(f"   the bf16x3 products' float32 sums (1,024 x {nb} rows) vs "
+          f"the float64 products of the same bf16 operands: max |d| / "
+          f"sum|g w| {ratio:.3e} (float32 rounding allows n u = "
+          f"{nb * 2.0 ** -24:.3e}; a bf16 partial sum would give ~4e-3)",
+          flush=True)
+    if ratio > nb * 2.0 ** -24:
+        raise AssertionError("(b) the bf16 products do not sum in float32")
+    del srot, Gt, got, ref, mag, parts, imp
+
+    # (d) LOCO on the fractional source in 5 chromosomes, cut to 16,384 rows
+    # for the phase's time (three calls of five eighs and grams each)
+    Md = min(16_384, Ma)
+    chrom = _tair10_chromosomes(Md)
+    ranges = loco_mod._chrom_ranges(chrom)
+    tiles_d = sum(-(-(e - s) // tile) for _, s, e in ranges)
+    # the per-chromosome lines: an earlier phase may have raised the
+    # logger's level, so it is set here for these calls and put back
+    log = logging.getLogger("mixmogam_tpu_torch.loco")
+    level = log.level
+    log.setLevel(logging.INFO)
+    out = {}
+    for label, kw in (("exact IBS", {}), ("bf16x3 IBS",
+                                          dict(precision="bf16x3")),
+                      ("exact VanRaden", dict(method="vanraden"))):
+        h = _LogLines()
+        log.addHandler(h)
+        try:
+            r, cnt, dt = run(emmax_loco, Gf[:Md], y, chromosomes=chrom, **kw)
+        finally:
+            log.removeHandler(h)
+        print(f"(d) emmax_loco {label}, fractional M={Md} (5 chromosomes): "
+              f"{dt:.3f} s = {Md / dt:,.0f} SNP-tests/s; launches {cnt}",
+              flush=True)
+        for line in h.lines:
+            print(f"   {line}", flush=True)
+        ps = r["ps"]
+        if (not k3_only(cnt, tiles_d) or ps.shape != (Md,)
+                or not np.isfinite(ps).all()):
+            raise AssertionError(f"(d) LOCO {label} off")
+        out[label] = r
+    log.setLevel(level)
+    dl = float(np.abs(out["bf16x3 IBS"]["ps"] - out["exact IBS"]["ps"]).max())
+    nm = int((out["bf16x3 IBS"]["mask"] != out["exact IBS"]["mask"]).sum())
+    print(f"   LOCO bf16x3 vs exact: {nm} mask(s) differ, max|dp| {dl:.3e}",
+          flush=True)
+    if nm or dl > FRACTIONAL_P_DRIFT["bf16x3"]:
+        raise AssertionError("(d) LOCO bf16x3 disagrees with exact")
+    del out
+    # the float route's kinships on phase 6's integer genome, cast to
+    # float32, against the resident route's (K1 / K4); chromosomes 3-5
+    # merged into one (each kinship costs a d2h and host algebra of n^2)
+    Mf = min(args.facade_snps, G.shape[0])
+    chf = np.minimum(_tair10_chromosomes(Mf), 3)
+    ts = time.perf_counter()
+    host = loco_mod._HostRows(G[:Mf].astype(np.float32), None, "ibs", dev)
+    rf = loco_mod._chrom_ranges(chf)
+    kf = loco_mod._recombine(*host.total(rf), rf, host.kinship, True)
+    t_f = time.perf_counter() - ts
+    kr, cnt, t_r = run(loco_kinships, G[:Mf], chf)
+    dk = max(float(np.abs(kf[c] - kr[c]).max()) for c in kr)
+    print(f"   loco_kinships on phase 6's genome (M={Mf}): the float route "
+          f"(float32 matmuls) {t_f:.3f} s vs the resident route "
+          f"{t_r:.3f} s (launches {cnt}): max|dK| {dk:.3e}", flush=True)
+    if dk > 1e-6 or cnt["ibs_gram_packed"] != 1:
+        raise AssertionError("(d) the float route's kinships disagree")
+    del kf, kr, host
+
+    # (e) the facade from a DS VCF of imputed dosages
+    Me = min(512, Ma)
+    che = np.repeat([1, 2], [Me // 2, Me - Me // 2])
+    vcf = os.path.join(tmp, "imputed.vcf")
+    ts = time.perf_counter()
+    _write_ds_vcf(vcf, Gf[:Me], che, acc)
+    pheno = os.path.join(tmp, "pheno17.csv")
+    with open(pheno, "w") as f:
+        f.write("ecotype_id,trait\n")
+        f.writelines(f"{a},{float(v)!r}\n" for a, v in zip(acc, y))
+    print(f"(e) wrote a DS VCF of {Me} x {n} imputed dosages "
+          f"({os.path.getsize(vcf) / 1e6:.1f} MB): "
+          f"{time.perf_counter() - ts:.3f} s", flush=True)
+    for kw in (dict(method="emmax_loco"),
+               dict(method="emmax", precision="bf16x3")):
+        res, cnt, dt = run(api.run_gwas, vcf, pheno, data_format="vcf_ds",
+                           plots=False, **kw)
+        g2, y2 = res["genotype"], res["y"]
+        if kw["method"] == "emmax_loco":
+            ref = emmax_loco(g2, y2)
+        else:
+            ref = emmax(g2, y2, K=cached_kinship(g2, "ibs", device=dev),
+                        precision="bf16x3")
+        dp = float(np.abs(res["scan"]["ps"] - ref["ps"]).max())
+        tm = {k: round(v, 3) for k, v in res["timings"].items()}
+        print(f"   run_gwas {kw} from the DS VCF: {dt:.3f} s (timings_s "
+              f"{json.dumps(tm)}); M={g2.num_snps} {type(g2).__name__} "
+              f"{g2.matrix.dtype}; "
+              f"launches {cnt}; vs the direct call on its rows: max|dp| "
+              f"{dp:.3e}", flush=True)
+        if (dp > 1e-12 or cnt["scan_stats"] <= 0
+                or np.array_equal(g2.matrix, np.round(g2.matrix))):
+            raise AssertionError(f"(e) run_gwas {kw} off")
+    os.remove(vcf)
+    del Gf
     torch.cuda.empty_cache()
 
 
@@ -2976,11 +3324,18 @@ def main(argv=None) -> int:
     # ---- 16. the host data plane --------------------------------------------
     t0 = time.perf_counter()
     _host_data_phase(args, kernels, launches, main, G, files, tmp, acc)
+    torch.cuda.empty_cache()
+    _check_no_jax()
+    _phase("16 the host data plane", t0)
+
+    # ---- 17. imputed (fractional) dosages -----------------------------------
+    t0 = time.perf_counter()
+    _fractional_phase(args, kernels, launches, main, G, tmp, acc)
     tmpdir.cleanup()
     del main
     torch.cuda.empty_cache()
     _check_no_jax()
-    _phase("16 the host data plane", t0)
+    _phase("17 imputed dosages", t0)
 
     for k in kernels:
         report[k.__name__]["launches"] = launches[k.__name__]

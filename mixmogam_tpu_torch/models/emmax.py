@@ -5,11 +5,12 @@ Routes: the resident route (a ResidentGenome, or a big int8 source
 auto-packed onto the card), the streamed route (models/streaming.py::
 emmax_streamed: a source over the in-core budget that does not fit packed,
 or stream=True; checkpoint_dir= resumes it) and the in-core route (the
-whole genome on the scan's device, exact tier). An int8 or bf16 tier on
-in-core integer dosages packs them and takes the resident route, where
-kernel K2 (int8) or K5 (bf16, which also takes missing genotypes) reads
-packed rows. Fractional dosages at a bf16 tier wait for a float-tile loader
-(ROADMAP Queue 1 item 17); meshes wait for item 16.
+whole genome on the scan's device). An int8 or bf16 tier on in-core
+integer dosages packs them and takes the resident route, where kernel K2
+(int8) or K5 (bf16, which also takes missing genotypes) reads packed rows.
+Fractional dosages at a bf16 tier stay in core as float rows and take the
+float route (ops/rotate.py: a bf16 rotation by the parts of U', then
+kernel K3); at an int8 tier they raise. Meshes wait for ROADMAP item 16.
 """
 
 from __future__ import annotations
@@ -83,7 +84,7 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
           stream_budget_bytes: Optional[int] = None,
           checkpoint_dir: Optional[str] = None, rescore_top: int = 0,
           resident: Optional[bool] = None, mesh=None,
-          device=None) -> dict:
+          rescore_cut_M: Optional[int] = None, device=None) -> dict:
     """EMMAX scan with the JAX package's emmax() arguments and return
     dict. G: GenotypeData, (M, n) dosages or a ResidentGenome; y: (n,);
     K: (n, n) kinship or eig_k=(phi, U); X0: (n, q) null design.
@@ -95,7 +96,10 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
     defaults to float32 on the card and float64 on the CPU. precision:
     'exact', 'bf16' / 'bf16x2' / 'bf16x3' (and the 'c' spellings) or
     'int8x2' / 'int8x3' / 'int8x4'; 'auto' and 'fast' resolve to
-    'exact'.
+    'exact'. The int8 tiers take integer dosages only; the bf16 tiers
+    take fractional ones too (the float route). rescore_top: a fast tier's
+    threshold-complete exact rescore (finalize_scan); rescore_cut_M: the
+    study's SNP count for its cut when G is part of the study (LOCO).
 
     Routing: a ResidentGenome (or resident=True) takes the resident route.
     With stream=None a source over the in-core budget (stream_budget_bytes,
@@ -111,10 +115,14 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
     from mixmogam_tpu_torch.models.source import (as_int8_dosage,
                                                   resolve_source,
                                                   should_stream)
-    from mixmogam_tpu_torch.models.streaming import finalize_scan
+    from mixmogam_tpu_torch.models.streaming import (_host_float_tile,
+                                                     finalize_scan)
     from mixmogam_tpu_torch.ops import resolve_device
     from mixmogam_tpu_torch.ops.reml import (esp_to_refine_iters,
                                              fit_null_model)
+    from mixmogam_tpu_torch.ops.rotate import (float_route_eig,
+                                               float_rotation,
+                                               scan_float_rows)
     from mixmogam_tpu_torch.ops.scan import (build_rotated_null,
                                              emmax_scan_stats,
                                              normalize_rotate_tier,
@@ -130,10 +138,11 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
                                   "yet: ROADMAP slice 3 item 16")
     if matmul_precision:
         raise NotImplementedError("the 'high' matmul tier is not ported "
-                                  "yet: ROADMAP Queue 2")
+                                  "yet: ROADMAP Queue 1 item 4")
     kw = dict(ngrids=ngrids, llim=llim, ulim=ulim, esp=esp,
               with_betas=with_betas, precision=precision,
-              rotate_in_bf16=rotate_in_bf16, rescore_top=rescore_top)
+              rotate_in_bf16=rotate_in_bf16, rescore_top=rescore_top,
+              rescore_cut_M=rescore_cut_M)
     y = np.asarray(y, dtype=np.float64).ravel()
     n = y.shape[0]
     if rg_given:
@@ -172,17 +181,18 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
         raise ValueError("checkpoint_dir requires streamed mode "
                          "(stream=True or a source over the budget)")
 
-    rb = rotate_in_bf16
+    rb, tier_name = rotate_in_bf16, None
     if precision is not None:
         if rotate_in_bf16:
             raise ValueError("pass either precision= or the legacy "
                              "rotate_in_bf16 kwarg, not both")
-        rb, _ = resolve_precision(precision)
+        rb, tier_name = resolve_precision(precision)
     rd = normalize_rotate_tier(rb)
     if rd is not None:
-        # int8 and bf16 tiers run on packed rows (kernels K2 / K5): pack
-        # the integer dosages (-1 / NaN missing; K5 imputes per row) and
-        # take the resident route
+        # int8 and bf16 tiers on integer dosages run on packed rows
+        # (kernels K2 / K5): pack them (-1 / NaN missing; K5 imputes per
+        # row) and take the resident route; fractional dosages at a bf16
+        # tier take the float route below
         G8 = as_int8_dosage(G)
         if rd.startswith("int8") and (G8 is None
                                       or (np.asarray(G8) < 0).any()):
@@ -192,24 +202,28 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
                 "genotypes; mean-imputed fractional dosages would be "
                 "silently altered). Use the exact tier for imputed "
                 "dosages.")
-        if G8 is None:
-            raise NotImplementedError(
-                f"tier {precision or rotate_in_bf16!r} on fractional "
-                "dosages needs the float-tile bf16 loader, which is "
-                "not ported yet (ROADMAP Queue 1 item 17); use the "
-                "exact tier")
-        rg = ResidentGenome.from_source(G8, tile=tile, device=device)
-        return emmax_resident(rg, y, K=K, X0=X0, eig_k=eig_k, dtype=dtype,
-                              **kw)
+        if G8 is not None:
+            rg = ResidentGenome.from_source(G8, tile=tile, device=device)
+            return emmax_resident(rg, y, K=K, X0=X0, eig_k=eig_k,
+                                  dtype=dtype, **kw)
     G_raw = G.matrix if hasattr(G, "matrix") else np.asarray(G)
     if (isinstance(G_raw, np.ndarray) and G_raw.dtype == np.int8
             and not (G_raw < 0).any()):
         Gf = G_raw
+    elif (isinstance(G_raw, np.ndarray)
+          and np.issubdtype(G_raw.dtype, np.floating)):
+        # float dosages (NaN missing): mean-imputed a block of rows at a
+        # time straight into the compute dtype (no float64 copy of G)
+        Gf = _host_float_tile(G_raw, torch.empty((), dtype=dtype).numpy()
+                              .dtype)
     else:
         Gf = _as_dosage(G, np.float64)
     if X0 is None:
         X0 = np.ones((n, 1))
     X0 = _as_design(X0, n)
+    if rd is not None:
+        # the float route cuts its parts from this eigenbasis in float64
+        eig_k = float_route_eig(K, eig_k, device, host_eigh)
     null = fit_null_model(y, X0, K=K, eig_k=eig_k, ngrids=ngrids,
                           llim=llim, ulim=ulim,
                           refine_iters=esp_to_refine_iters(
@@ -219,21 +233,33 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
                                       else None),
                           device=device, dtype=dtype)
     rot = build_rotated_null(null)
+    if rd is None:
+        def scan(t):
+            return emmax_scan_stats(t, rot)
+    else:
+        # the float route: each tile cast to bf16 and rotated by the bf16
+        # parts of the exact tier's U', then K3 (ops/rotate.py)
+        srot = float_rotation(eig_k[1], X0, rd, dtype, device)
+
+        def scan(t):
+            return scan_float_rows(t, srot, rot)
     # fully observed int8 dosages go to the device as int8; float dosages
     # in the compute dtype (the footprint should_stream assumed)
     G_dev = torch.from_numpy(np.ascontiguousarray(Gf))
     if G_dev.dtype != torch.int8:
         G_dev = G_dev.to(dtype)
     G_dev = G_dev.to(device)
-    outs = [emmax_scan_stats(G_dev[s:s + tile].to(dtype), rot)
+    outs = [scan(G_dev[s:s + tile].to(dtype))
             for s in range(0, G_dev.shape[0], tile)]
     h = torch.cat(outs, dim=1).cpu().double().numpy()
     return finalize_scan(
         Gf, null, dtype, h[0].copy(), h[3] > 0.5,
         betas=h[1].copy() if with_betas else None,
         var_perc=h[2].copy() if with_betas else None,
-        with_betas=with_betas, dof=int(rot.dof),
-        tier_name="exact" if precision is not None else None)
+        with_betas=with_betas, rescore_top=rescore_top, rd=rd,
+        dof=int(rot.dof), rescore_cut_M=rescore_cut_M,
+        fractional=rd is not None,
+        tier_name=tier_name)
 
 
 def _anova_pair_f(A_tile: torch.Tensor, B_tile: torch.Tensor, rot, W,

@@ -29,7 +29,7 @@ unrotated values (_sample_space_keep, the rule of ops/scan.py::
 outside_design), as models/emmax.py::_anova_pair_f masks its indicators.
 
 The rotations are the JAX package's XLA dots, not Pallas kernels; here they
-are library products by tier (models/multitrait.py::rotate_tile): a
+are library products by tier (ops/rotate.py::rotate_tile): a
 float32 GEMM with TF32 off ('exact'), int8 digit-plane products with int32
 sums ('int8xK'), bf16 parts with float32 outputs ('bf16', 'bf16xK'). The
 statistics are plain torch.
@@ -146,7 +146,7 @@ def _tile_stats(Gt: torch.Tensor, rot_g, rot_e, nulls, env_dt, designs,
     environments in the scan's dtype; designs: each environment's
     ([X0, e], its pseudo-inverse transposed). lap: the stage clock's lap,
     called after the rotations ('rotation') and the statistics."""
-    from mixmogam_tpu_torch.models.multitrait import rotate_tile
+    from mixmogam_tpu_torch.ops.rotate import rotate_tile
 
     Gf = Gt.to(env_dt.dtype)
     R = rotate_tile(Gt, rot_g)
@@ -215,7 +215,7 @@ def emmax_gxe(G, y, env, K=None, X0: Optional[np.ndarray] = None,
     on the host."""
     from mixmogam_tpu_torch.models.emma import _StageClock
     from mixmogam_tpu_torch.models.emmax import _as_design
-    from mixmogam_tpu_torch.models.multitrait import shared_rotation
+    from mixmogam_tpu_torch.ops.rotate import shared_rotation
     from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                     _default_dtype)
     from mixmogam_tpu_torch.models.source import (as_int8_dosage,

@@ -22,11 +22,18 @@ view of the packed rows), at the user's precision tier.
 
 Sources: a ResidentGenome scans on its own device; an int8 array or a
 GenotypeData (or a float array of integer dosages, NaN missing) is packed
-into a ResidentGenome on `device`; fractional dosages raise
-NotImplementedError (ROADMAP Queue 1 item 5). mesh= waits for slice 3.
+into a ResidentGenome on `device`. Fractional dosages (imputed, NaN
+missing) take the JAX package's host route: each kinship is built by
+ops/kinship.py::kinship on `device` (float matmuls: float32 with TF32 off
+on the card), with the SNP count (IBS) or _vanraden_den (VanRaden) as its
+denominator, and each chromosome's float rows are scanned by the in-core
+emmax, at the exact tier or a bf16 tier (the float route, ops/rotate.py).
+The ploidy is resolved once from the whole matrix. mesh= waits for ROADMAP
+item 16.
 
-_chrom_ranges and the eigen-cache helpers are numpy-only copies of the
-JAX functions, pinned to the originals by tests/test_torch_loco.py.
+_chrom_ranges, _vanraden_den and the eigen-cache helpers are numpy-only
+copies of the JAX functions, pinned to the originals by
+tests/test_torch_loco.py and tests/test_torch_fractional.py.
 """
 
 from __future__ import annotations
@@ -123,9 +130,22 @@ def _eigen_cache_save(path: str, phi: np.ndarray, U: np.ndarray) -> None:
     os.replace(tmp, path)
 
 
+def _vanraden_den(rows: np.ndarray, ploidy: int) -> float:
+    """ploidy * sum_j p_j (1 - p_j) with the kernel's imputation rule
+    (ops.kinship._impute_chunk: per-SNP mean over observed)."""
+    from mixmogam_tpu_torch.ops.kinship import _impute_chunk
+
+    den = 0.0
+    for s in range(0, rows.shape[0], 8192):
+        C = _impute_chunk(rows[s:s + 8192], "float64")
+        p = C.mean(axis=1) / ploidy
+        den += float(ploidy * np.sum(p * (1.0 - p)))
+    return den
+
+
 def _as_resident(G, device, ploidy: Optional[int]):
     """A ResidentGenome as it is; an integer-dosage source packed onto
-    `device` (float sources with fractional dosages raise)."""
+    `device`; None for fractional dosages (the host route)."""
     from mixmogam_tpu_torch.models.resident import ResidentGenome
     from mixmogam_tpu_torch.models.source import as_int8_dosage
 
@@ -133,10 +153,7 @@ def _as_resident(G, device, ploidy: Optional[int]):
         return G
     G8 = as_int8_dosage(G)
     if G8 is None:
-        raise NotImplementedError(
-            "LOCO over fractional dosages needs the float kinship "
-            "accumulation, which is not ported yet (ROADMAP Queue 1 item "
-            "5); pass integer dosages")
+        return None
     if ploidy is None:
         ploidy = getattr(G, "ploidy", None)
     return ResidentGenome.from_source(G8, ploidy=ploidy, device=device)
@@ -149,6 +166,66 @@ def _loco_resident(G, device, ploidy: Optional[int], method: str):
 
     check_kinship_method(method)
     return _as_resident(G, device, ploidy)
+
+
+class _HostRows:
+    """The host route's fractional source: its float matrix, the ploidy
+    resolved once from the whole matrix (a chromosome with no dosage above
+    1 stays diploid), and each chromosome's kinship with its denominator,
+    built by ops/kinship.py::kinship on `device`."""
+
+    def __init__(self, G, ploidy: Optional[int], method: str, device,
+                 dtype=None):
+        from mixmogam_tpu_torch.models.source import resolve_source
+        from mixmogam_tpu_torch.ops import resolve_device
+        from mixmogam_tpu_torch.ops.kinship import check_kinship_method
+
+        self.mat = resolve_source(G)
+        if ploidy is None:
+            ploidy = getattr(G, "ploidy", None)
+        if ploidy is None:
+            mx = max((np.nanmax(np.asarray(self.mat[s:s + 8192]),
+                                initial=0.0)
+                      for s in range(0, self.mat.shape[0], 8192)),
+                     default=0.0)
+            ploidy = 2 if mx > 1 else 1
+        self.ploidy = ploidy
+        self.method = check_kinship_method(method)
+        self.device = resolve_device(device)
+        self.dtype = dtype
+
+    def rows(self, s: int, e: int) -> np.ndarray:
+        return np.asarray(self.mat[s:e])
+
+    def kinship(self, s: int, e: int) -> Tuple[np.ndarray, float]:
+        """(K, den) of rows [s, e): den is the SNP count (IBS) or
+        _vanraden_den (VanRaden)."""
+        from mixmogam_tpu_torch.ops.kinship import kinship
+
+        rows = self.rows(s, e)
+        K = kinship(rows, method=self.method, ploidy=self.ploidy,
+                    device=self.device, dtype=self.dtype)
+        den = (_vanraden_den(rows, self.ploidy)
+               if self.method == "vanraden" else float(e - s))
+        return K, den
+
+    def den_total(self, ranges) -> float:
+        """The whole genome's denominator: the SNP count (IBS), or the sum
+        of the chromosomes' _vanraden_den (VanRaden), as the JAX package
+        recombines them."""
+        if self.method != "vanraden":
+            return float(self.mat.shape[0])
+        return sum(_vanraden_den(self.rows(s, e), self.ploidy)
+                   for _, s, e in ranges)
+
+    def total(self, ranges) -> Tuple[np.ndarray, float]:
+        """(K_total, den_total): the whole genome's kinship and its
+        denominator."""
+        from mixmogam_tpu_torch.ops.kinship import kinship
+
+        K = kinship(self.mat, method=self.method, ploidy=self.ploidy,
+                    device=self.device, dtype=self.dtype)
+        return K, self.den_total(ranges)
 
 
 def _check_chromosomes(G, chromosomes):
@@ -176,9 +253,10 @@ def loco_kinships(G, chromosomes=None, method: str = "ibs",
     float64 host arrays.
 
     G: ResidentGenome, GenotypeData (chromosomes taken from it when not
-    given) or an (M, n) integer-dosage array + explicit per-SNP
-    chromosomes, packed onto `device` (the card by default, 'cpu' on
-    request). K_total: reuse an already-built
+    given) or an (M, n) dosage array + explicit per-SNP chromosomes:
+    integer dosages are packed onto `device` (the card by default, 'cpu'
+    on request), fractional ones take the host route (float kinships on
+    `device`, ploidy from the whole matrix). K_total: reuse an already-built
     whole-genome kinship of the same method (un-scaled); None builds it.
     scale: scale_k-normalize each LOCO matrix (the facade convention
     before REML). dtype: the float kinships' matmul dtype (VanRaden,
@@ -186,24 +264,42 @@ def loco_kinships(G, chromosomes=None, method: str = "ibs",
     default."""
     from mixmogam_tpu_torch.models.resident import (kinship_den,
                                                     kinship_resident,
-                                                    kinship_resident_range,
-                                                    scale_k)
+                                                    kinship_resident_range)
 
     chromosomes, ranges = _check_chromosomes(G, chromosomes)
     rg = _loco_resident(G, device, ploidy, method)
+    if rg is None:
+        host = _HostRows(G, ploidy, method, device, dtype)
+        if K_total is None:
+            K_total, den_tot = host.total(ranges)
+        else:
+            den_tot = host.den_total(ranges)
+        return _recombine(K_total, den_tot, ranges, host.kinship, scale)
     pl = rg.ploidy if ploidy is None else ploidy
     if K_total is None:
         K_total, den_tot = kinship_resident(rg, method=method, ploidy=pl,
                                             dtype=dtype, return_den=True)
     else:
         den_tot = kinship_den(rg, method=method, ploidy=pl, dtype=dtype)
+
+    def range_kinship(s, e):
+        return kinship_resident_range(rg, s, e, method=method, ploidy=pl,
+                                      dtype=dtype, return_den=True)
+    return _recombine(K_total, den_tot, ranges, range_kinship, scale)
+
+
+def _recombine(K_total, den_tot: float, ranges, range_kinship,
+               scale: bool) -> Dict[object, np.ndarray]:
+    """{chrom: K_loco} = (num_total - num(c)) / (den_total - den(c)) in
+    float64, with num = K x den; range_kinship(s, e) -> (K_c, den_c)."""
+    from mixmogam_tpu_torch.models.resident import scale_k
+
     num_tot = np.asarray(K_total, dtype=np.float64) * den_tot
     out: Dict[object, np.ndarray] = {}
     for c, s, e in ranges:
-        K_c, den_c = kinship_resident_range(rg, s, e, method=method,
-                                            ploidy=pl, dtype=dtype,
-                                            return_den=True)
-        Kl = (num_tot - K_c * den_c) / (den_tot - den_c)
+        K_c, den_c = range_kinship(s, e)
+        Kl = (num_tot - np.asarray(K_c, np.float64) * den_c) \
+            / (den_tot - den_c)
         out[c] = scale_k(Kl) if scale else Kl
     return out
 
@@ -234,11 +330,15 @@ def emmax_loco(G, y, chromosomes=None, method: str = "ibs",
 
     device: where an array or GenotypeData source is packed and scanned:
     the card by default (without one the call raises), 'cpu' on request;
-    a ResidentGenome scans on its own device.
-    **kw goes to each chromosome's emmax_resident (e.g. rescore_top); the
-    rescore cut counts the whole genome's SNPs, as in the JAX package."""
+    a ResidentGenome scans on its own device. Fractional dosages take the
+    host route: float kinships on `device` and each chromosome's float
+    rows scanned by the in-core emmax (the exact tier, or a bf16 tier's
+    float route; int8 tiers raise).
+    **kw goes to each chromosome's emmax_resident or emmax (e.g.
+    rescore_top); the rescore cut counts the whole genome's SNPs."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from mixmogam_tpu_torch.models.emmax import emmax
     from mixmogam_tpu_torch.models.resident import emmax_resident
 
     if mesh is not None:
@@ -249,7 +349,20 @@ def emmax_loco(G, y, chromosomes=None, method: str = "ibs",
     M = len(chromosomes)
     rg = (_loco_resident(G, device, ploidy, method) if kinships is None
           else _as_resident(G, device, ploidy))
-    dev = rg.device
+    host = None
+    if rg is None:
+        from mixmogam_tpu_torch.ops.scan import (normalize_rotate_tier,
+                                                 resolve_precision)
+
+        rd = (None if precision is None
+              else normalize_rotate_tier(resolve_precision(precision)[0]))
+        if rd is not None and rd.startswith("int8"):
+            raise ValueError(
+                f"tier {precision!r} requires integer dosages (the digit-"
+                "plane products take int8 genotypes); these are "
+                "fractional. Use the exact or a bf16 tier.")
+        host = _HostRows(G, ploidy, method, device, dtype)
+    dev = rg.device if rg is not None else host.device
     factor_dtype = np.float32 if str(precision) == "fast" else None
     ftag = "f32" if factor_dtype is np.float32 else "f64"
     lazy = kinships is None
@@ -286,14 +399,28 @@ def emmax_loco(G, y, chromosomes=None, method: str = "ibs",
         # null fit + scan
         from mixmogam_tpu_torch.models import resident as res_mod
 
-        pl = rg.ploidy if ploidy is None else ploidy
+        if host is not None:
+            pl = host.ploidy
+            range_kinship = host.kinship
+
+            def total_kinship():
+                return host.total(ranges)
+        else:
+            pl = rg.ploidy if ploidy is None else ploidy
+
+            def range_kinship(s_c, e_c):
+                return res_mod.kinship_resident_range(
+                    rg, s_c, e_c, method=method, ploidy=pl, return_den=True)
+
+            def total_kinship():
+                return res_mod.kinship_resident(rg, method=method, ploidy=pl,
+                                                return_den=True)
         tot: Dict[str, object] = {}
 
         def _ensure_tot():
             # the total gram on first need: skipped on a full cache hit
             if "num" not in tot:
-                K_tot, den_tot = res_mod.kinship_resident(
-                    rg, method=method, ploidy=pl, return_den=True)
+                K_tot, den_tot = total_kinship()
                 tot["num"] = np.asarray(K_tot, np.float64) * den_tot
                 tot["den"] = den_tot
             return tot["num"], tot["den"]
@@ -310,8 +437,7 @@ def emmax_loco(G, y, chromosomes=None, method: str = "ibs",
                     return hit
             num_tot, den_tot = _ensure_tot()
             t0 = _time.time()
-            K_c, den_c = res_mod.kinship_resident_range(
-                rg, s_c, e_c, method=method, ploidy=pl, return_den=True)
+            K_c, den_c = range_kinship(s_c, e_c)
             t1 = _time.time()
             Kl = (num_tot - K_c * den_c) / (den_tot - den_c)
             eig = eigen_k_on(res_mod.scale_k(Kl), dev,
@@ -340,11 +466,13 @@ def emmax_loco(G, y, chromosomes=None, method: str = "ibs",
             t_w = _time.time()
             eig = futs.pop(i).result() if pipeline_eigh else prep(i)
             t_fit = _time.time()
-            res = emmax_resident(rg.slice_rows(s, e), y, X0=X0, eig_k=eig,
-                                 ngrids=ngrids, llim=llim, ulim=ulim,
-                                 esp=esp, with_betas=with_betas,
-                                 precision=precision, dtype=dtype,
-                                 rescore_cut_M=M, **kw)
+            fit_kw = dict(X0=X0, eig_k=eig, ngrids=ngrids, llim=llim,
+                          ulim=ulim, esp=esp, with_betas=with_betas,
+                          precision=precision, dtype=dtype,
+                          rescore_cut_M=M, **kw)
+            res = (emmax_resident(rg.slice_rows(s, e), y, **fit_kw)
+                   if host is None else
+                   emmax(host.rows(s, e), y, device=dev, **fit_kw))
             del eig            # free this chromosome's U before the next
             _log.info("loco chrom %s: waited-on-eigh %.1fs, "
                       "fit+scan %.1fs", c, t_fit - t_w,

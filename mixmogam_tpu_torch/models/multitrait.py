@@ -21,110 +21,26 @@ reaches K3's float32 sums. Rows inside col(X0) are masked
 (ops/scan.py::outside_design), once per tile for all traits.
 
 The shared product is an XLA dot in the JAX package, outside any Pallas
-kernel; here it is a library product, by tier:
-- 'exact': G @ U', a float32 GEMM with TF32 off;
-- 'int8x2/3/4': the digit planes of U' (ops/scan.py::quantize_rotation),
-  one int8 GEMM with int32 sums a plane on the int8 tile, recombined in
-  base 256 in the compute dtype in the JAX package's order;
-- 'bf16' / 'bf16x2' / 'bf16x3': the split parts of U', one bf16 GEMM a
-  part with a float32 output, summed in float32.
-On the CPU every tier takes ops/scan.py::apply_rotation (exact float64
-products of the digit planes and parts).
+kernel; here it is a library product by tier (ops/rotate.py::rotate_tile:
+a float32 GEMM, int8 digit planes or bf16 parts with float32 outputs).
 """
 
 from __future__ import annotations
 
-import dataclasses
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from mixmogam_tpu_torch.ops.rotate import (SharedRotation,  # noqa: F401
+                                           rotate_tile, shared_rotation)
+
 __all__ = ["emmax_multi_trait"]
 
 #: tiles whose (T, 4, rows) statistics wait on the card before their copy
 #: to the host: the copy of one tile overlaps the next tile's work
 _PENDING = 2
-#: torch._int_mm takes more than 16 rows, and a contraction and an output
-#: width that are multiples of 8
-_INT_MM_ROWS, _INT_MM_ALIGN = 17, 8
-
-
-@dataclasses.dataclass
-class SharedRotation:
-    """The rotation all traits' scans share, on the scan's device: U' in
-    the compute dtype ('exact'), its int8 digit planes with their column
-    scale ('int8xK') or its bf16 parts ('bf16', 'bf16xK'). On the card the
-    int8 planes are kept transposed and zero-padded to a multiple of 8,
-    (K, n8, n8), so that each plane is a column-major operand."""
-
-    tier: Optional[str]          # None: exact
-    W: torch.Tensor              # U' (n, n), planes or parts (K, n, n)
-    w_scale: Optional[torch.Tensor]
-    dt: torch.dtype
-    planes_t: Optional[torch.Tensor] = None   # int8 tiers on the card
-    w_scale_pad: Optional[torch.Tensor] = None
-
-
-def shared_rotation(Up: torch.Tensor, rotate_dtype, dt) -> SharedRotation:
-    """The SharedRotation of U' (float64, the scan's device) at the tier
-    `rotate_dtype` (normalize_rotate_tier's name, None for exact)."""
-    from mixmogam_tpu_torch.ops.scan import quantize_rotation
-
-    if rotate_dtype is None:
-        return SharedRotation(None, Up.to(dt), None, dt)
-    W, ws = quantize_rotation(Up, rotate_dtype, sd_dtype=dt)
-    rot = SharedRotation(rotate_dtype, W, ws, dt)
-    if ws is not None and Up.device.type == "cuda":
-        K, n = W.shape[0], W.shape[1]
-        n8 = -(-n // _INT_MM_ALIGN) * _INT_MM_ALIGN
-        rot.planes_t = torch.zeros((K, n8, n8), dtype=torch.int8,
-                                   device=Up.device)
-        rot.planes_t[:, :n, :n] = W.transpose(1, 2)
-        rot.w_scale_pad = torch.zeros(n8, dtype=dt, device=Up.device)
-        rot.w_scale_pad[:n] = ws
-    return rot
-
-
-def rotate_tile(G_tile: torch.Tensor, rot: SharedRotation) -> torch.Tensor:
-    """(m, n) Xr = G_tile @ W in rot's dtype, shared by every trait.
-    G_tile: int8 dosages (the int8 tiers need them, fully observed) or
-    mean-imputed float rows. On the CPU: ops/scan.py apply_rotation."""
-    from mixmogam_tpu_torch.ops import assert_fp32_matmuls
-    from mixmogam_tpu_torch.ops.scan import apply_rotation
-
-    if G_tile.device.type == "cpu":
-        return apply_rotation(G_tile, rot.W, rot.w_scale, rot.dt)
-    if rot.tier is None:
-        assert_fp32_matmuls()
-        return G_tile.to(rot.dt) @ rot.W
-    if rot.w_scale is None:
-        # bf16 parts: float32 products (a bf16 output would round each
-        # product to 8 bits), summed in float32 as the JAX package does
-        Gb = G_tile.to(torch.bfloat16)
-        Xs = torch.mm(Gb, rot.W[0], out_dtype=torch.float32)
-        for part in rot.W[1:]:
-            Xs += torch.mm(Gb, part, out_dtype=torch.float32)
-        return Xs.to(rot.dt)
-    if G_tile.dtype != torch.int8:
-        raise ValueError("the int8 digit-plane tiers take int8 dosages")
-    m, n = G_tile.shape
-    n8 = rot.planes_t.shape[1]
-    if m < _INT_MM_ROWS or n8 != n:
-        Gp = torch.zeros((max(m, _INT_MM_ROWS), n8), dtype=torch.int8,
-                         device=G_tile.device)
-        Gp[:m, :n] = G_tile
-    else:
-        Gp = G_tile.contiguous()
-    # the JAX package's recombine: A_i in dt times 256^i (exact: |A_i| <
-    # 2^24), summed low digit first, then the column scale
-    Xs = torch._int_mm(Gp, rot.planes_t[0].t()).to(rot.dt)
-    for i in range(1, rot.planes_t.shape[0]):
-        Xs.add_(torch._int_mm(Gp, rot.planes_t[i].t()).to(rot.dt),
-                alpha=256.0 ** i)
-    Xs.mul_(rot.w_scale_pad[None, :])
-    return Xs[:m, :n]
 
 
 def _scan_tile_multitrait(G_rot_tile: torch.Tensor, nulls, keep=None):

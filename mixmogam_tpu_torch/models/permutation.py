@@ -23,7 +23,7 @@ With the identity K (no K, no eig_k: the linear-model permutation test)
 U' is I - P_X0, applied as its rank-q form.
 
 The rotation is an XLA dot in the JAX package, outside any Pallas kernel;
-here it is a library product by tier (models/multitrait.py::rotate_tile),
+here it is a library product by tier (ops/rotate.py::rotate_tile),
 and so is the P-column product (a float32 GEMM with TF32 off). The max-F
 epilogue is plain torch, as the JAX package fuses it in XLA.
 """
@@ -95,8 +95,8 @@ def emmax_perm_test(G, y, K=None, num_perm: int = 100,
     from mixmogam_tpu_torch.models.emma import _StageClock
     from mixmogam_tpu_torch.models.emmax import _as_design
     from mixmogam_tpu_torch.models.gxe import _source_tiles
-    from mixmogam_tpu_torch.models.multitrait import (rotate_tile,
-                                                      shared_rotation)
+    from mixmogam_tpu_torch.ops.rotate import (rotate_tile,
+                                               shared_rotation)
     from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                     _default_dtype)
     from mixmogam_tpu_torch.models.source import resolve_source

@@ -28,11 +28,17 @@ def should_stream(G_src, n: int, itemsize: int, budget_bytes: int) -> bool:
     return G_src.shape[0] * n * (itemsize + g_item) > budget_bytes
 
 
+#: rows a block of as_int8_dosage's float check: imputed dosages show a
+#: fraction in the first block, so a fractional source costs one block
+_CHECK_ROWS = 4_096
+
+
 def as_int8_dosage(G):
     """An (M, n) source as int8 dosages 0..127 with -1 for missing, or
     None when some observed dosage is fractional, negative or above 127.
     int8 matrices (GenotypeData's included) pass through; float matrices
-    (NaN = missing) are checked and converted."""
+    (NaN = missing) are checked and converted a block of rows at a time,
+    and the check stops at the first block that fails."""
     mat = resolve_source(G)
     if np.dtype(mat.dtype) == np.int8:
         return mat
@@ -40,14 +46,20 @@ def as_int8_dosage(G):
     if not np.issubdtype(A.dtype, np.floating):
         return A.astype(np.int8) if (
             A.size == 0 or (A.min() >= 0 and A.max() <= 127)) else None
-    miss = np.isnan(A)
-    obs = np.where(miss, 0.0, A)
-    if A.size and (obs.min() < 0 or obs.max() > 127
-                   or not np.array_equal(obs, np.round(obs))):
-        return None
-    out = obs.astype(np.int8)
-    out[miss] = -1
-    return out
+    if A.ndim != 2:
+        A = A.reshape(1, -1) if A.ndim < 2 else A
+    out = np.empty(A.shape, dtype=np.int8)
+    for s in range(0, A.shape[0], _CHECK_ROWS):
+        B = A[s:s + _CHECK_ROWS]
+        miss = np.isnan(B)
+        obs = np.where(miss, 0.0, B)
+        if obs.size and (obs.min() < 0 or obs.max() > 127
+                         or not np.array_equal(obs, np.round(obs))):
+            return None
+        o = out[s:s + _CHECK_ROWS]
+        o[...] = obs
+        o[miss] = -1
+    return out.reshape(np.shape(mat))
 
 
 def prefetch_iter(keys, prep, lookahead: int = 2):

@@ -8,8 +8,10 @@ emmax_streamed reads the source tile by tile in a prep thread
 copies each tile to the card on a side CUDA stream, and scans it there:
 the exact tier through the fp32 GEMM by the projected U and kernel K3, the
 int8 / bf16 tiers by packing the tile on the card and one launch of K2 /
-K5. Each tile's statistics can land in a checkpoint directory with a
-manifest, and a killed run resumes from the completed tiles.
+K5, and a fractional tile at a bf16 tier through the float route
+(ops/rotate.py: bf16 products, then K3). Each tile's statistics can land
+in a checkpoint directory with a manifest, and a killed run resumes from
+the completed tiles.
 
 Also here: rotate_streamed_to_device (G_rot = impute(G) @ U built on the
 device tile by tile from a host source: stepwise's 'rotate once, scan
@@ -148,13 +150,15 @@ def rotate_streamed_to_device(G_src, U, dtype=None, tile: int = 16_384,
 def finalize_scan(matrix_source, null, dtype, f_stats, mask,
                   betas=None, var_perc=None, with_betas: bool = True,
                   rescore_top: int = 0, rd=None, tier_name=None,
-                  dof: int = 0, rescore_cut_M=None):
+                  dof: int = 0, rescore_cut_M=None, fractional=False):
     """p-value finalize + threshold-complete exact rescore + output dict,
     shared by the in-core and resident paths. f_stats/mask (and betas/
     var_perc when given) are float64/bool host arrays, patched in place by
     the rescore pass, which engages only on an int8 or bf16 tier (rd set).
     rescore_cut_M: the study's SNP count for the rescore cut when these
-    rows are part of it (LOCO); default the row count."""
+    rows are part of it (LOCO); default the row count. fractional: the
+    bf16 tier scanned fractional dosages (the float route), whose drift
+    sets the cut (ops/scan.py::FRACTIONAL_P_DRIFT)."""
     from mixmogam_tpu_torch.ops.scan import (select_rescore_idx,
                                              tier_drift_name)
     from mixmogam_tpu_torch.ops.stats import f_sf_host as _fsf
@@ -164,7 +168,7 @@ def finalize_scan(matrix_source, null, dtype, f_stats, mask,
     rescored = np.zeros(0, dtype=np.int64)
     if rescore_top and rd is not None:
         idx = select_rescore_idx(ps, rescore_top, tier_drift_name(rd),
-                                 M_cut=rescore_cut_M)
+                                 M_cut=rescore_cut_M, fractional=fractional)
         idx, d_ex = _exact_rescore(matrix_source, idx, null, dtype)
         f_stats[idx] = d_ex["f_stats"]
         mask[idx] = d_ex["mask"]
@@ -305,21 +309,21 @@ def _check_fast_tile(chunk: np.ndarray, t: int, rd: str) -> bool:
     return lo < 0
 
 
-def _fast_tile_of_floats(raw: np.ndarray, t: int, rd: str) -> np.ndarray:
+def _fast_tile_of_floats(raw: np.ndarray, t: int, rd: str):
     """A float source's tile at an int8 / bf16 tier as int8 dosages (NaN ->
-    -1): the packed kernels read integer genotypes only."""
+    -1), which the packed kernels read, or None for a fractional tile at a
+    bf16 tier (it takes the float route); an int8 tier refuses fractions."""
     from mixmogam_tpu_torch.models.source import as_int8_dosage
 
     G8 = as_int8_dosage(np.asarray(raw))
     if G8 is None and rd.startswith("int8"):
         raise ValueError(f"tier {rd!r} requires integer dosages (tile {t} "
                          "has fractional values). Use the exact tier.")
-    if G8 is None:
-        raise NotImplementedError(
-            f"tier {rd!r} on fractional dosages (tile {t}) needs the "
-            "float-tile bf16 loader, which is not ported yet (ROADMAP "
-            "Queue 1 item 17); use the exact tier")
     return G8
+
+
+#: the prep thread's mark of a tile that takes the float route
+_FLOAT_TILE = "float"
 
 
 class _PinnedRing:
@@ -400,7 +404,8 @@ def emmax_streamed(matrix_source, y, K=None, X0: Optional[np.ndarray] = None,
                    esp: float = 1e-6, rotate_in_bf16=False,
                    precision: Optional[str] = None, dtype=None,
                    host_eigh: Optional[bool] = None, with_betas: bool = True,
-                   rescore_top: int = 0, pack_transfer=None, device=None
+                   rescore_top: int = 0, pack_transfer=None,
+                   rescore_cut_M: Optional[int] = None, device=None
                    ) -> Dict[str, np.ndarray]:
     """EMMAX over a host genotype source, tile by tile, with the JAX
     package's arguments and return dict.
@@ -420,10 +425,15 @@ def emmax_streamed(matrix_source, y, K=None, X0: Optional[np.ndarray] = None,
     tile. 'int8x2/3/4' and 'bf16' / 'bf16x2' / 'bf16x3' pack each tile on
     the card and launch K2 / K5 once a tile on the folded W'' (the resident
     route's emmax_scan_packed); an int8 tier refuses a tile with missing
-    calls, a bf16 tier imputes them in K5, and a float source must hold
-    integer dosages (fractional ones at a bf16 tier wait for ROADMAP item
-    17). 'auto' and 'fast' resolve to 'exact' ('fast' with rescore_top =
-    1024, which rescores only after a fast tier); 'high' raises.
+    calls or fractional dosages, a bf16 tier imputes missing calls in K5.
+    A float source at a bf16 tier travels as float rows: a tile of integer
+    dosages is packed on the card for K5, a fractional tile takes the
+    float route (ops/rotate.py: a bf16 rotation by the parts of the exact
+    tier's U', then K3), and the rescore cut takes the float route's drift
+    (ops/scan.py::FRACTIONAL_P_DRIFT). 'auto' and 'fast' resolve to
+    'exact' ('fast' with rescore_top = 1024, which rescores only after a
+    fast tier); 'high' raises. rescore_cut_M: the study's SNP count for the
+    rescore cut when the source is part of it (LOCO).
     pack_transfer is accepted and changes nothing: the port ships int8 and
     packs on the card.
 
@@ -453,6 +463,9 @@ def emmax_streamed(matrix_source, y, K=None, X0: Optional[np.ndarray] = None,
     from mixmogam_tpu_torch.ops.pack2 import pack_2bit_device
     from mixmogam_tpu_torch.ops.reml import (esp_to_refine_iters,
                                              fit_null_model)
+    from mixmogam_tpu_torch.ops.rotate import (float_route_eig,
+                                               float_rotation,
+                                               scan_float_rows)
     from mixmogam_tpu_torch.ops.scan import (build_rotated_null,
                                              emmax_scan_stats,
                                              normalize_rotate_tier,
@@ -482,6 +495,15 @@ def emmax_streamed(matrix_source, y, K=None, X0: Optional[np.ndarray] = None,
                              "rotate_in_bf16 kwarg, not both")
         rotate_in_bf16, tier_name = resolve_precision(precision)
     rd = normalize_rotate_tier(rotate_in_bf16)
+    # a float source at a bf16 tier: each tile of integer dosages goes to
+    # K5 packed, each fractional tile takes the float route (ops/rotate.py),
+    # which cuts its parts from the null's eigenbasis in float64
+    int8_source = np.dtype(getattr(matrix_source, "dtype",
+                                   np.int8)) == np.int8
+    float_tiles = (not int8_source and rd is not None
+                   and rd.startswith("bf16"))
+    if float_tiles:
+        eig_k = float_route_eig(K, eig_k, device, host_eigh)
     null = fit_null_model(y, X0, K=K, eig_k=eig_k, ngrids=ngrids, llim=llim,
                           ulim=ulim, refine_iters=esp_to_refine_iters(
                               esp, ngrids, llim, ulim),
@@ -525,10 +547,11 @@ def emmax_streamed(matrix_source, y, K=None, X0: Optional[np.ndarray] = None,
             place(t, got)
 
     # ---- the host side: the prep thread reads, checks, imputes ----
-    int8_source = np.dtype(getattr(matrix_source, "dtype",
-                                   np.int8)) == np.int8
     np_dt = torch.empty((), dtype=dtype).numpy().dtype
-    buf_dt = np.int8 if (int8_source or rd is not None) else np_dt
+    # a float source's tiles travel as float rows in the compute dtype at a
+    # bf16 tier too: K5's tiles are cast to int8 on the card
+    buf_dt = (np.int8 if int8_source or (rd is not None and not float_tiles)
+              else np_dt)
     cuda = device.type == "cuda"
     ring = (_PinnedRing(inflight, min(tile, M), n, buf_dt, device)
             if cuda and todo else None)
@@ -536,17 +559,23 @@ def emmax_streamed(matrix_source, y, K=None, X0: Optional[np.ndarray] = None,
     def read(t):
         s, e = t * tile, min((t + 1) * tile, M)
         raw = matrix_source[s:e]
-        if rd is None and not int8_source:
-            # the exact tier on a float source: imputed on the host, straight
-            # into the pinned buffer on the card's path
+        chunk = None
+        if rd is not None and not int8_source:
+            chunk = _fast_tile_of_floats(raw, t, rd)
+        if (rd is None and not int8_source) or (float_tiles
+                                                and chunk is None):
+            # imputed on the host, straight into the pinned buffer on the
+            # card's path: the exact tier, or a fractional tile at a bf16
+            # tier
+            kind = None if rd is None else _FLOAT_TILE
             if ring is None:
-                return None, _host_float_tile(raw, np_dt), None
+                return None, _host_float_tile(raw, np_dt), kind
             b = ring.take()
             if b is not None:
                 _host_float_tile(raw, np_dt, out=ring.host_np[b][:e - s])
-            return b, None, None
-        chunk = (np.asarray(raw, dtype=np.int8) if int8_source
-                 else _fast_tile_of_floats(raw, t, rd))
+            return b, None, kind
+        if int8_source:
+            chunk = np.asarray(raw, dtype=np.int8)
         missing = _check_fast_tile(chunk, t, rd) if rd is not None else None
         if ring is None:
             return None, np.array(chunk), missing
@@ -567,11 +596,21 @@ def emmax_streamed(matrix_source, y, K=None, X0: Optional[np.ndarray] = None,
             ring.close()               # the preps queued behind this one
             raise
 
+    float_route = {}
+
     def scan(td, missing):
         if rd is None:
             Gt = _impute_tile(td, dtype) if td.dtype == torch.int8 else td
             return emmax_scan_stats(Gt.to(dtype), rot)
-        packed = pack_2bit_device(td)
+        if missing == _FLOAT_TILE:
+            if not float_route:
+                # the float route's rotation, built at its first tile
+                float_route.update(
+                    rot=build_rotated_null(null),
+                    srot=float_rotation(eig_k[1], X0, rd, dtype, device))
+            return scan_float_rows(td.to(dtype), float_route["srot"],
+                                   float_route["rot"])
+        packed = pack_2bit_device(td.to(torch.int8))
         return emmax_scan_packed(packed, rot, n, packed.shape[0],
                                  impute=bool(missing))
 
@@ -632,6 +671,7 @@ def emmax_streamed(matrix_source, y, K=None, X0: Optional[np.ndarray] = None,
     res = finalize_scan(matrix_source, null, dtype, f_stats, mask,
                         betas=betas, var_perc=var_perc,
                         with_betas=with_betas, rescore_top=rescore_top,
-                        rd=rd, tier_name=tier_name, dof=dof)
+                        rd=rd, tier_name=tier_name, dof=dof,
+                        rescore_cut_M=rescore_cut_M, fractional=float_tiles)
     res["stream_stats"] = stats
     return res

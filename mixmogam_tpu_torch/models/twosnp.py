@@ -114,8 +114,8 @@ def emmax_two_snps(G, y, K=None, focal_idx: Optional[Sequence[int]] = None,
     from mixmogam_tpu_torch.models.gxe import (_gxe_stats_whitened,
                                                _sample_space_keep,
                                                _source_tiles)
-    from mixmogam_tpu_torch.models.multitrait import (rotate_tile,
-                                                      shared_rotation)
+    from mixmogam_tpu_torch.ops.rotate import (rotate_tile,
+                                               shared_rotation)
     from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                     _default_dtype)
     from mixmogam_tpu_torch.models.source import resolve_source

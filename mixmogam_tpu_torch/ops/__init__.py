@@ -19,6 +19,9 @@ def _pin_matmul_precision() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    # the bf16 tiers' library products (ops/rotate.py) sum in float32:
+    # cuBLAS may not split their reduction into bf16 partial sums
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     if (torch.backends.cuda.matmul.allow_tf32
             or torch.backends.cudnn.allow_tf32
             or torch.get_float32_matmul_precision() != "highest"):
@@ -30,14 +33,20 @@ _pin_matmul_precision()
 
 
 def assert_fp32_matmuls() -> None:
-    """Raise if something re-enabled TF32 after import (called by the
-    exact-tier scan before its float32 rotation GEMMs)."""
+    """Raise if something re-enabled TF32 or cuBLAS's reduced-precision
+    bf16 reduction after import (called before the float32 rotation GEMMs
+    and the bf16 parts' products)."""
     if (torch.backends.cuda.matmul.allow_tf32
             or torch.get_float32_matmul_precision() != "highest"):
         raise RuntimeError(
             "TF32 matmuls were re-enabled (torch.backends.cuda.matmul."
             "allow_tf32 / set_float32_matmul_precision); the exact tier "
             "needs full fp32 GEMMs")
+    if torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction:
+        raise RuntimeError(
+            "torch.backends.cuda.matmul.allow_bf16_reduced_precision_"
+            "reduction was re-enabled; the bf16 tiers' products need "
+            "float32 sums")
 
 
 def resolve_device(device=None) -> torch.device:

@@ -85,7 +85,13 @@ def _ibs_diploid_update(K_acc, C, W0, W2, m_eff: float):
 def _impute_chunk(chunk: np.ndarray, dtype) -> np.ndarray:
     """(m, n) chunk -> float (numpy dtype), per-SNP mean imputed (signed
     integer: < 0 = missing; float: NaN = missing — the normative rule
-    shared with the oracle)."""
+    shared with the oracle). A float chunk takes the streamed scan's
+    blocked imputation (models/streaming.py::_host_float_tile: nanmean's
+    arithmetic, the same values, without a float64 copy of the chunk)."""
+    if np.issubdtype(chunk.dtype, np.floating):
+        from mixmogam_tpu_torch.models.streaming import _host_float_tile
+
+        return _host_float_tile(chunk, np.dtype(dtype))
     if np.issubdtype(chunk.dtype, np.integer):
         miss = chunk < 0
         C = chunk.astype(np.float64)

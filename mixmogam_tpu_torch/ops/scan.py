@@ -161,6 +161,20 @@ TIER_P_DRIFT = {
 }
 
 
+#: the port's absolute p-value drift bound of the bf16 tiers on fractional
+#: dosages (the float route, ops/rotate.py). TIER_P_DRIFT's bf16 values
+#: hold for integer dosages, which bf16 holds exactly; a fractional dosage
+#: rounds to bf16's 8 significant bits before any product, and that
+#: rounding bounds every tier alike. Sized from the drift measured against
+#: the exact tier (tests/test_torch_fractional.py, chip_smoke.py phase 17).
+#: Feeds the rescore cut of the float route.
+FRACTIONAL_P_DRIFT = {
+    "bf16": 3e-2,
+    "bf16x2": 2e-2, "bf16x2c": 2e-2,
+    "bf16x3": 2e-2, "bf16x3c": 2e-2,
+}
+
+
 def tier_drift_name(rd, matmul_precision=None) -> str:
     """normalize_rotate_tier's result (+ matmul_precision) -> the
     TIER_P_DRIFT key of the active scan tier."""
@@ -170,25 +184,31 @@ def tier_drift_name(rd, matmul_precision=None) -> str:
 
 
 def rescore_p_cut(M: int, tier, alpha: float = 0.05,
-                  safety: float = 8.0) -> float:
+                  safety: float = 8.0, fractional: bool = False) -> float:
     """Fast-tier p cut below which every SNP is exactly re-scored:
-    alpha/M + safety * drift (unknown tiers take the worst drift)."""
-    drift = TIER_P_DRIFT.get(str(tier), max(TIER_P_DRIFT.values()))
+    alpha/M + safety * drift (unknown tiers take the worst drift).
+    fractional: the bf16 tier ran on fractional dosages (the float route),
+    whose drift is FRACTIONAL_P_DRIFT's."""
+    table = FRACTIONAL_P_DRIFT if fractional else TIER_P_DRIFT
+    drift = table.get(str(tier), max(table.values()))
     return alpha / max(M, 1) + safety * drift
 
 
 def select_rescore_idx(ps, rescore_top: int, tier,
                        alpha: float = 0.05, safety: float = 8.0,
-                       M_cut: Optional[int] = None):
+                       M_cut: Optional[int] = None,
+                       fractional: bool = False):
     """{all SNPs with p <= rescore_p_cut} ∪ {top rescore_top by p},
     uncapped (the JAX package's threshold-complete rescore contract).
     M_cut: the SNP count of the Bonferroni cut when ps covers only part of
-    the study (a LOCO chromosome); default len(ps)."""
+    the study (a LOCO chromosome); default len(ps). fractional: see
+    rescore_p_cut."""
     ps = np.asarray(ps)
     M = ps.shape[0] if M_cut is None else int(M_cut)
     k = min(int(rescore_top), ps.shape[0])
     cand = np.argsort(ps, kind="stable")[:k]
-    near = np.flatnonzero(ps <= rescore_p_cut(M, tier, alpha, safety))
+    near = np.flatnonzero(ps <= rescore_p_cut(M, tier, alpha, safety,
+                                              fractional))
     return np.union1d(cand, near)
 
 

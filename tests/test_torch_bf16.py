@@ -273,9 +273,19 @@ def test_incore_bf16_routes_and_fractional_refusal(monkeypatch):
     np.testing.assert_array_equal(
         emmax(Gf, y, eig_k=eig, precision="bf16x3",
               device="cpu")["ps"], res["ps"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        emmax(np.where(G < 0, 0.5, G).astype(np.float64), y, eig_k=eig,
-              precision="bf16x3", device="cpu")
+    # fractional dosages take the float route (bf16 products by the parts
+    # of U', then K3): p within 1e-6 of the JAX package's bf16x3 and the
+    # same masks, but for the all-missing row, now a constant 0.5: it lies
+    # inside col(X0), and the port masks it (ops/scan.py::outside_design)
+    Gh = np.where(G < 0, 0.5, G).astype(np.float64)
+    frac = emmax(Gh, y, eig_k=eig, precision="bf16x3", device="cpu")
+    ref = j_emmax(Gh, y, eig_k=eig, precision="bf16x3", stream=False)
+    assert frac["precision_tier"] == "bf16x3"
+    assert not frac["mask"][7] and frac["ps"][7] == 1.0
+    rest = np.flatnonzero(np.arange(Gh.shape[0]) != 7)
+    np.testing.assert_array_equal(frac["mask"][rest], ref["mask"][rest])
+    np.testing.assert_allclose(frac["ps"][rest], ref["ps"][rest], rtol=0,
+                               atol=1e-6)
 
 
 def test_k5_wrapper_routes_cpu_to_plain_and_refuses_other_devices():

@@ -1096,3 +1096,70 @@ def test_card_read_vcf_packed_native(cuda, tmp_path):
     ref = ResidentGenome.from_source(G, tile=128)
     assert rg.device.type == "cuda" and torch.equal(rg.packed, ref.packed)
     np.testing.assert_array_equal(meta["positions"], po)
+
+
+def _fractional(n, m, seed):
+    """Imputed dosages (g * 0.97 + 0.01 + U(-0.01, 0.01), 1 % NaN) of a
+    diploid genome, a phenotype and the IBS kinship of the imputed rows."""
+    from mixmogam_tpu_torch.data.simulate import simulate_phenotype
+    from mixmogam_tpu_torch.oracle.kinship import ibs_kinship, scale_k
+
+    G, _, _ = simulate_genotypes(n, m, ploidy=2, seed=seed)
+    rng = np.random.default_rng(seed)
+    Gf = (G * 0.97 + 0.01 + rng.uniform(-0.01, 0.01, G.shape)).astype(
+        np.float32)
+    Gf[rng.random(G.shape) < 0.01] = np.nan
+    y, _ = simulate_phenotype(G, h2=0.5, n_causal=4, seed=seed)
+    imp = np.where(np.isnan(Gf), np.nanmean(Gf, axis=1, keepdims=True), Gf)
+    return G, Gf, y, scale_k(ibs_kinship(imp.astype(np.float64)))
+
+
+@pytest.mark.parametrize("tier", ["bf16x3", "bf16x2", "bf16"])
+def test_card_float_route_vs_cpu_float64(cuda, tier):
+    """emmax on fractional dosages at a bf16 tier on the card (no device=):
+    the float route, K3 once a tile and no K5, against the port's float64
+    CPU path at n = 512 (identical masks, max |dp| <= 1e-5); emmax_streamed
+    on the same source equal to the in-core call (max |dp| <= 1e-6)."""
+    from mixmogam_tpu_torch.models.streaming import emmax_streamed
+
+    _, Gf, y, K = _fractional(512, 3_000, 31)
+    k3, k5 = scan_stats.launches, rotate_scan_bf16_packed.launches
+    a = emmax(Gf, y, K=K, precision=tier, stream=False, tile=1_024)
+    assert scan_stats.launches - k3 == 3
+    assert rotate_scan_bf16_packed.launches == k5
+    b = emmax(Gf, y, K=K, precision=tier, stream=False, device="cpu")
+    np.testing.assert_array_equal(a["mask"], b["mask"])
+    assert np.abs(a["ps"] - b["ps"]).max() <= 1e-5
+    s = emmax_streamed(Gf, y, K=K, precision=tier, tile=1_024)
+    assert s["stream_stats"]["h2d_bytes"] == Gf.nbytes
+    np.testing.assert_array_equal(s["mask"], a["mask"])
+    assert np.abs(s["ps"] - a["ps"]).max() <= 1e-6
+    assert rotate_scan_bf16_packed.launches == k5
+
+
+def test_card_loco_float_route_vs_resident(cuda):
+    """LOCO's host route on the card: on integer dosages cast to float32
+    its kinships (float32 matmuls) equal the resident route's (K1 / K4)
+    within 1e-6; on fractional dosages emmax_loco at exact and bf16x3
+    against the float64 CPU path (identical masks, max |dp| <= 1e-5), K3
+    once a chromosome and no K1, K4 or K5."""
+    from mixmogam_tpu_torch.models import loco
+
+    G, Gf, y, _ = _fractional(384, 1_500, 32)
+    ch = np.repeat([1, 2, 3], 500)
+    ranges = loco._chrom_ranges(ch)
+    host = loco._HostRows(G.astype(np.float32), None, "ibs", cuda)
+    kf = loco._recombine(*host.total(ranges), ranges, host.kinship, True)
+    kr = loco.loco_kinships(G, ch)
+    assert max(np.abs(kf[c] - kr[c]).max() for c in kr) <= 1e-6
+    for tier in ("exact", "bf16x3"):
+        before = {k: k.launches for k in (scan_stats, ibs_gram_packed,
+                                          ibs_gram_tri_packed,
+                                          rotate_scan_bf16_packed)}
+        a = emmax_loco(Gf, y, ch, precision=tier)
+        assert {k: k.launches - v for k, v in before.items()} == {
+            scan_stats: 3, ibs_gram_packed: 0, ibs_gram_tri_packed: 0,
+            rotate_scan_bf16_packed: 0}
+        b = emmax_loco(Gf, y, ch, precision=tier, device="cpu")
+        np.testing.assert_array_equal(a["mask"], b["mask"])
+        assert np.abs(a["ps"] - b["ps"]).max() <= 1e-5

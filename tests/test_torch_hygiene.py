@@ -36,11 +36,11 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-#: the one function of the port that calls torch._int_mm: the multi-trait
-#: scan's shared int8 rotation, an XLA dot outside any Pallas kernel in the
-#: JAX package (models/multitrait.py); every Pallas kernel's int8 product
-#: is a hand-written kernel (K1, K4, K2)
-_INT_MM_CALLER = ("mixmogam_tpu_torch/models/multitrait.py", "rotate_tile")
+#: the one function of the port that calls torch._int_mm: the shared int8
+#: rotation of the multi-trait, GxE, permutation and two-SNP scans, an XLA
+#: dot outside any Pallas kernel in the JAX package; every Pallas kernel's
+#: int8 product is a hand-written kernel (K1, K4, K2)
+_INT_MM_CALLER = ("mixmogam_tpu_torch/ops/rotate.py", "rotate_tile")
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),

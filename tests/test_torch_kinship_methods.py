@@ -229,9 +229,12 @@ def test_refusals_and_defaults():
 
 
 def test_loco_still_refuses_these_kinships():
-    """LOCO takes VanRaden ('ibd' too) and missing genotypes now
-    (tests/test_torch_loco.py holds them to the JAX package); what it
-    still refuses: fractional dosages and an unknown kinship method."""
+    """LOCO takes VanRaden ('ibd' too), missing genotypes and fractional
+    dosages now (tests/test_torch_loco.py and test_torch_fractional.py
+    hold them to the JAX package; the fractional kinships are checked here
+    against the JAX package's float64 ones at 1e-10); what it still
+    refuses: an unknown kinship method."""
+    from mixmogam_tpu.models import loco as jloco
     from mixmogam_tpu_torch.models import loco
 
     G = _genome(m=300, missing=0.03)
@@ -244,7 +247,10 @@ def test_loco_still_refuses_these_kinships():
     res = loco.emmax_loco(np.abs(G), y, ch, method="ibd", device="cpu")
     assert np.isfinite(res["ps"]).all()
     frac = np.where(G < 0, 0.5, G).astype(float)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loco.loco_kinships(frac, ch, device="cpu")
+    kf = loco.loco_kinships(frac, ch, device="cpu")
+    ref = jloco.loco_kinships(frac, ch, dtype=jnp.float64)
+    assert set(kf) == set(ref) == {1, 2, 3}
+    for c in ref:
+        assert np.abs(kf[c] - ref[c]).max() <= 1e-10
     with pytest.raises(ValueError, match="unknown kinship method"):
         loco.emmax_loco(np.abs(G), y, ch, method="nope", device="cpu")

@@ -308,14 +308,19 @@ def test_refusals(kw, exc):
 
 
 def test_missing_genotypes_raise_until_ported():
-    """Missing calls are ported (the tests below hold them to JAX);
-    fractional dosages still wait for the float kinship accumulation."""
+    """Missing calls are ported (the tests below hold them to JAX), and so
+    are fractional dosages: they take the host route (float kinships, the
+    in-core scan of each chromosome's rows), held here to the JAX
+    package's emmax_loco on its float64 kinships at 1e-10 in p."""
     G, ch, y = _data(16, missing=0.03)
     res = loco.emmax_loco(G, y, chromosomes=ch, device="cpu")
     assert np.isfinite(res["ps"]).all() and res["ps"].shape == (300,)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loco.emmax_loco(np.where(G < 0, 0.5, G).astype(float), y,
-                        chromosomes=ch, device="cpu")
+    frac = np.where(G < 0, 0.5, G).astype(float)
+    got = loco.emmax_loco(frac, y, chromosomes=ch, device="cpu")
+    ks = jloco.loco_kinships(frac, ch, ploidy=2, dtype=jnp.float64)
+    ref = jloco.emmax_loco(frac, y, chromosomes=ch, kinships=ks)
+    np.testing.assert_array_equal(got["mask"], ref["mask"])
+    np.testing.assert_allclose(got["ps"], ref["ps"], rtol=0, atol=1e-10)
 
 
 _FLOAT_KINSHIPS = [("vanraden", 2, 0.0), ("vanraden", 1, 0.0),
