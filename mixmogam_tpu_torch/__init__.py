@@ -82,6 +82,14 @@ which the dosage-CSV and VCF readers, read_vcf_packed and data/pack2.py go,
 each keeping its Python route; and ResidentGenome.from_source's packed
 cache (cache_path=, trust_cache=), in the JAX package's file format.
 
+Slice 12 adds the data-parallel core of parallel/ over torch.distributed:
+make_mesh (a rank's view of the ('snp', 'sample') mesh), initialize_multihost
+and the per-rank SnpShard, distributed_kinship (each rank's partial gram,
+kernel K1 on its packed rows, one all-reduce) and distributed_emmax (the
+null fitted on rank 0 and broadcast once, each rank's rows scanned by the
+single-device routes, one all-gather), which emmax(mesh=) reaches for an
+in-core source.
+
 Modules keep the JAX package's paths and names. The port imports torch,
 numpy and scipy, and nothing of jax or of the JAX package: the few numpy
 modules it shares with that package (the data, results and plotting

@@ -78,9 +78,11 @@ def _add_run(sub):
                         "int8x3=exact-grade digit planes (int dosages); "
                         "int8x2=fast digit planes; int8x4; "
                         "bf16x3=exact-grade split-W; bf16x2=split-W "
-                        "2-pass; bf16=1-pass; auto and fast resolve to "
-                        "exact on this port (fast adds an exact rescore "
-                        "of the top 1024 hits); high is not ported")
+                        "2-pass; bf16=1-pass; auto: int8x3 on the card for fully "
+                        "observed integer dosages, else exact; fast: "
+                        "int8x2 (else bf16) on the card with an exact "
+                        "rescore of the top 1024 hits; both exact on the "
+                        "CPU; high is not ported")
     p.add_argument("--rescore-top", type=int, default=0,
                    help="with a fast --precision tier: re-test the top-K "
                         "SNPs (+ anything near Bonferroni) at the exact "

@@ -17,8 +17,8 @@ saying so, where it is not. Each scenario's wall is printed as
 "[example] <name>: <seconds> s".
 
 One scenario of the JAX examples waits for the port's later items:
-mesh_campaign (mesh-sharded entry points) waits for ROADMAP item 16,
-parallel/; it is not in EXAMPLES.
+mesh_campaign (mesh-sharded entry points) waits for ROADMAP Queue 1 item
+16e (its entry points' mesh= for 16c); it is not in EXAMPLES.
 """
 
 from __future__ import annotations

@@ -166,7 +166,7 @@ def emma(G, y, K=None, X0: Optional[np.ndarray] = None,
 
     if mesh is not None:
         raise NotImplementedError("mesh= (the SNP-sharded EMMA scan) is not "
-                                  "ported yet: ROADMAP Queue 1 item 16")
+                                  "ported yet: ROADMAP Queue 1 item 16c")
     if test not in ("f", "lrt"):
         raise ValueError(f"test must be 'f' or 'lrt'; got {test!r}")
     refine_iters = esp_to_refine_iters(esp, ngrids, llim, ulim)

@@ -10,7 +10,10 @@ integer dosages packs them and takes the resident route, where kernel K2
 (int8) or K5 (bf16, which also takes missing genotypes) reads packed rows.
 Fractional dosages at a bf16 tier stay in core as float rows and take the
 float route (ops/rotate.py: a bf16 rotation by the parts of U', then
-kernel K3); at an int8 tier they raise. Meshes wait for ROADMAP item 16.
+kernel K3); at an int8 tier they raise. mesh= sends an in-core source to
+parallel/distributed.py::distributed_emmax (each rank scans its own rows
+by the routes above); the resident sharded route waits for ROADMAP Queue 1
+item 16b.
 """
 
 from __future__ import annotations
@@ -54,6 +57,50 @@ def _as_design(X0, n: int) -> np.ndarray:
     return X0
 
 
+def _incore_rows(G, dtype) -> np.ndarray:
+    """The in-core route's host rows: fully observed int8 dosages as they
+    are, float dosages (NaN missing) mean-imputed a block of rows at a
+    time straight into the compute dtype (no float64 copy of G), anything
+    else (int8 with -1 missing) mean-imputed in float64."""
+    from mixmogam_tpu_torch.models.streaming import _host_float_tile
+
+    G_raw = G.matrix if hasattr(G, "matrix") else np.asarray(G)
+    if (isinstance(G_raw, np.ndarray) and G_raw.dtype == np.int8
+            and not (G_raw < 0).any()):
+        return G_raw
+    if (isinstance(G_raw, np.ndarray)
+            and np.issubdtype(G_raw.dtype, np.floating)):
+        return _host_float_tile(G_raw,
+                                torch.empty((), dtype=dtype).numpy().dtype)
+    return _as_dosage(G, np.float64)
+
+
+def _scan_incore(Gf: np.ndarray, rot, srot, tile: int, device, dtype
+                 ) -> torch.Tensor:
+    """(4, m) [f, beta, var_perc, mask] of the host rows Gf on `device`, a
+    tile at a time: the exact tier (fp32 GEMM by U', then K3), or with
+    srot the float route (ops/rotate.py: the bf16 parts of U', then K3).
+    Fully observed int8 rows go to the device as int8, float rows in the
+    compute dtype (the footprint should_stream assumed)."""
+    from mixmogam_tpu_torch.ops.rotate import scan_float_rows
+    from mixmogam_tpu_torch.ops.scan import emmax_scan_stats
+
+    if Gf.shape[0] == 0:
+        return torch.zeros((4, 0), dtype=dtype, device=device)
+    if srot is None:
+        def scan(t):
+            return emmax_scan_stats(t, rot)
+    else:
+        def scan(t):
+            return scan_float_rows(t, srot, rot)
+    G_dev = torch.from_numpy(np.ascontiguousarray(Gf))
+    if G_dev.dtype != torch.int8:
+        G_dev = G_dev.to(dtype)
+    G_dev = G_dev.to(device)
+    return torch.cat([scan(G_dev[s:s + tile].to(dtype))
+                      for s in range(0, G_dev.shape[0], tile)], dim=1)
+
+
 #: share of the card's memory the in-core route may fill. The JAX
 #: package's fixed 4 GiB (STREAM_BUDGET_BYTES, sized for a 16 GB TPU) is
 #: re-derived from the card's own memory: should_stream counts G plus its
@@ -95,8 +142,11 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
     host LAPACK on the CPU; True asks for host LAPACK. dtype (a torch dtype)
     defaults to float32 on the card and float64 on the CPU. precision:
     'exact', 'bf16' / 'bf16x2' / 'bf16x3' (and the 'c' spellings) or
-    'int8x2' / 'int8x3' / 'int8x4'; 'auto' and 'fast' resolve to
-    'exact'. The int8 tiers take integer dosages only; the bf16 tiers
+    'int8x2' / 'int8x3' / 'int8x4'; 'auto' and 'fast' by ops/scan.py::
+    resolve_precision (on the CPU both exact; on the card 'auto' is exact
+    while the card's int8x3 drift entry exceeds AUTO_MAX_DRIFT, 'fast' is
+    int8x2 for integer dosages, else bf16, with rescore_top = 1024). The
+    int8 tiers take integer dosages only; the bf16 tiers
     take fractional ones too (the float route). rescore_top: a fast tier's
     threshold-complete exact rescore (finalize_scan); rescore_cut_M: the
     study's SNP count for its cut when G is part of the study (LOCO).
@@ -107,7 +157,12 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
     resident if it is int8 and fits resident_budget_bytes, else streamed
     from the host (emmax_streamed, tile=max(tile, 8192)); stream=True
     streams at any size, stream=False never. checkpoint_dir needs the
-    streamed route."""
+    streamed route. mesh: a parallel.Mesh (make_mesh()) sends an in-core
+    source to parallel/distributed.py::distributed_emmax (the JAX package's
+    refusals first: 'fast', stream=True, checkpoint_dir / rescore_top,
+    matmul_precision); a ResidentGenome, resident=True or an int8 source
+    over the in-core budget that fits packed raise (ROADMAP Queue 1 item
+    16b)."""
     from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                     _default_dtype,
                                                     emmax_resident,
@@ -115,17 +170,14 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
     from mixmogam_tpu_torch.models.source import (as_int8_dosage,
                                                   resolve_source,
                                                   should_stream)
-    from mixmogam_tpu_torch.models.streaming import (_host_float_tile,
-                                                     finalize_scan)
+    from mixmogam_tpu_torch.models.streaming import finalize_scan
     from mixmogam_tpu_torch.ops import resolve_device
     from mixmogam_tpu_torch.ops.reml import (esp_to_refine_iters,
                                              fit_null_model)
-    from mixmogam_tpu_torch.ops.rotate import (float_route_eig,
-                                               float_rotation,
-                                               scan_float_rows)
+    from mixmogam_tpu_torch.ops.rotate import float_route_eig, float_rotation
     from mixmogam_tpu_torch.ops.scan import (build_rotated_null,
-                                             emmax_scan_stats,
                                              normalize_rotate_tier,
+                                             probe_for_source,
                                              resolve_precision)
 
     G_src = resolve_source(G)
@@ -134,8 +186,17 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
         raise ValueError("stream=True and resident=True are mutually "
                          "exclusive (a resident genome never streams)")
     if mesh is not None:
-        raise NotImplementedError("mesh= (sharded scans) is not ported "
-                                  "yet: ROADMAP slice 3 item 16")
+        return _emmax_on_mesh(
+            G, G_src, y, K=K, X0=X0, eig_k=eig_k, ngrids=ngrids, llim=llim,
+            ulim=ulim, esp=esp, with_betas=with_betas, dtype=dtype,
+            tile=tile, host_eigh=host_eigh, rotate_in_bf16=rotate_in_bf16,
+            matmul_precision=matmul_precision, precision=precision,
+            stream=stream, stream_budget_bytes=stream_budget_bytes,
+            checkpoint_dir=checkpoint_dir, rescore_top=rescore_top,
+            resident=resident, mesh=mesh, device=device)
+    if str(precision) == "fast" and not rescore_top:
+        # 'fast' pairs its tier with the threshold-complete exact rescore
+        rescore_top = 1024
     if matmul_precision:
         raise NotImplementedError("the 'high' matmul tier is not ported "
                                   "yet: ROADMAP Queue 1 item 4")
@@ -186,7 +247,8 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
         if rotate_in_bf16:
             raise ValueError("pass either precision= or the legacy "
                              "rotate_in_bf16 kwarg, not both")
-        rb, tier_name = resolve_precision(precision)
+        rb, tier_name = resolve_precision(
+            precision, G=probe_for_source(None, G_src), device=device)
     rd = normalize_rotate_tier(rb)
     if rd is not None:
         # int8 and bf16 tiers on integer dosages run on packed rows
@@ -206,18 +268,7 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
             rg = ResidentGenome.from_source(G8, tile=tile, device=device)
             return emmax_resident(rg, y, K=K, X0=X0, eig_k=eig_k,
                                   dtype=dtype, **kw)
-    G_raw = G.matrix if hasattr(G, "matrix") else np.asarray(G)
-    if (isinstance(G_raw, np.ndarray) and G_raw.dtype == np.int8
-            and not (G_raw < 0).any()):
-        Gf = G_raw
-    elif (isinstance(G_raw, np.ndarray)
-          and np.issubdtype(G_raw.dtype, np.floating)):
-        # float dosages (NaN missing): mean-imputed a block of rows at a
-        # time straight into the compute dtype (no float64 copy of G)
-        Gf = _host_float_tile(G_raw, torch.empty((), dtype=dtype).numpy()
-                              .dtype)
-    else:
-        Gf = _as_dosage(G, np.float64)
+    Gf = _incore_rows(G, dtype)
     if X0 is None:
         X0 = np.ones((n, 1))
     X0 = _as_design(X0, n)
@@ -233,25 +284,12 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
                                       else None),
                           device=device, dtype=dtype)
     rot = build_rotated_null(null)
-    if rd is None:
-        def scan(t):
-            return emmax_scan_stats(t, rot)
-    else:
-        # the float route: each tile cast to bf16 and rotated by the bf16
-        # parts of the exact tier's U', then K3 (ops/rotate.py)
-        srot = float_rotation(eig_k[1], X0, rd, dtype, device)
-
-        def scan(t):
-            return scan_float_rows(t, srot, rot)
-    # fully observed int8 dosages go to the device as int8; float dosages
-    # in the compute dtype (the footprint should_stream assumed)
-    G_dev = torch.from_numpy(np.ascontiguousarray(Gf))
-    if G_dev.dtype != torch.int8:
-        G_dev = G_dev.to(dtype)
-    G_dev = G_dev.to(device)
-    outs = [scan(G_dev[s:s + tile].to(dtype))
-            for s in range(0, G_dev.shape[0], tile)]
-    h = torch.cat(outs, dim=1).cpu().double().numpy()
+    # the float route: each tile cast to bf16 and rotated by the bf16 parts
+    # of the exact tier's U', then K3 (ops/rotate.py)
+    srot = (None if rd is None
+            else float_rotation(eig_k[1], X0, rd, dtype, device))
+    h = _scan_incore(Gf, rot, srot, tile, device,
+                     dtype).cpu().double().numpy()
     return finalize_scan(
         Gf, null, dtype, h[0].copy(), h[3] > 0.5,
         betas=h[1].copy() if with_betas else None,
@@ -260,6 +298,81 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
         dof=int(rot.dof), rescore_cut_M=rescore_cut_M,
         fractional=rd is not None,
         tier_name=tier_name)
+
+
+def _emmax_on_mesh(G, G_src, y, K, X0, eig_k, ngrids, llim, ulim, esp,
+                   with_betas, dtype, tile, host_eigh, rotate_in_bf16,
+                   matmul_precision, precision, stream, stream_budget_bytes,
+                   checkpoint_dir, rescore_top, resident, mesh, device
+                   ) -> dict:
+    """emmax(mesh=): the JAX package's refusals in its order, then an
+    in-core source to parallel/distributed.py::distributed_emmax. A
+    ResidentGenome, resident=True, or an int8 source over the in-core
+    budget that fits packed (the JAX package's upload=False route) wait
+    for ROADMAP Queue 1 item 16b."""
+    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
+                                                    _default_dtype,
+                                                    resident_budget_bytes)
+    from mixmogam_tpu_torch.models.source import should_stream
+    from mixmogam_tpu_torch.ops.scan import (probe_for_source,
+                                             resolve_precision)
+    from mixmogam_tpu_torch.parallel.distributed import distributed_emmax
+    from mixmogam_tpu_torch.parallel.mesh import Mesh
+    from mixmogam_tpu_torch.parallel.multihost import SnpShard
+
+    if not isinstance(mesh, Mesh):
+        raise TypeError("mesh must be a mixmogam_tpu_torch.parallel.Mesh "
+                        f"(make_mesh()); got {type(mesh).__name__}")
+    if isinstance(G, SnpShard):
+        raise TypeError("emmax(mesh=) takes the whole matrix on every rank; "
+                        "pass a rank's SnpShard to distributed_emmax")
+    if str(precision) == "fast":
+        raise ValueError(
+            "'fast' pairs a tier with the single-device rescore pass; pick "
+            "an explicit tier for mesh scans")
+    if stream is True:
+        raise ValueError("stream=True is a single-device feature; the mesh "
+                         "path shards in-core rows")
+    if checkpoint_dir is not None or rescore_top:
+        raise ValueError("checkpoint_dir/rescore_top are single-device "
+                         "features; drop mesh= or rescore the gathered "
+                         "result")
+    if matmul_precision:
+        raise ValueError("matmul_precision is not supported on the mesh "
+                         "path; use a precision= tier name")
+    resident_16b = NotImplementedError(
+        "mesh= over a resident (2-bit packed) genome, the sharded resident "
+        "scan, is not ported yet: ROADMAP Queue 1 item 16b")
+    if isinstance(G_src, ResidentGenome) or resident is True:
+        raise resident_16b
+    device = mesh.device if device is None else torch.device(device)
+    if dtype is None:
+        dtype = _default_dtype(device)
+    n = np.asarray(y).size
+    if resident is not False:
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        budget = (incore_budget_bytes(device) if stream_budget_bytes is None
+                  else stream_budget_bytes)
+        if (budget is not None and should_stream(G_src, n, itemsize, budget)
+                and np.dtype(G_src.dtype) == np.int8
+                and G_src.shape[0] * ((n + 3) // 4)
+                <= resident_budget_bytes(device)):
+            raise resident_16b
+    rb = rotate_in_bf16
+    if precision is not None:
+        if rotate_in_bf16:
+            raise ValueError("pass either precision= or the legacy "
+                             "rotate_in_bf16 kwarg, not both")
+        rb, _ = resolve_precision(
+            precision, G=probe_for_source(None, G_src), device=device)
+    res = distributed_emmax(G, y, K=K, X0=X0, mesh=mesh, eig_k=eig_k,
+                            ngrids=ngrids, llim=llim, ulim=ulim, esp=esp,
+                            dtype=dtype, rotate_in_bf16=rb,
+                            host_eigh=host_eigh, device=device, tile=tile)
+    if not with_betas:
+        res.pop("betas", None)
+        res.pop("var_perc", None)
+    return res
 
 
 def _anova_pair_f(A_tile: torch.Tensor, B_tile: torch.Tensor, rot, W,
@@ -345,7 +458,7 @@ def emmax_anova(G, y, K=None, X0=None, eig_k=None, ngrids: int = 100,
             "host_eigh/dtype/tile/mesh/device")
     if mesh is not None:
         raise NotImplementedError("mesh= (the SNP-sharded indicator scan) is "
-                                  "not ported yet: ROADMAP Queue 1 item 16")
+                                  "not ported yet: ROADMAP Queue 1 item 16c")
     device = resolve_device(device)
     if dtype is None:
         dtype = _default_dtype(device)

@@ -201,10 +201,12 @@ def emmax_gxe(G, y, env, K=None, X0: Optional[np.ndarray] = None,
     null design. K (n, n) or eig_k = (phi, U). dtype: float32 on the card,
     float64 on the CPU by default. precision: None / 'exact', 'int8x2' /
     'int8x3' / 'int8x4' (fully observed integer dosages only), 'bf16' /
-    'bf16x2' / 'bf16x3', 'auto' and 'fast' (both resolve to 'exact'; 'fast'
-    sets rescore_top = 1024), for both rotations. rescore_top: re-test that
-    many leading interaction hits per environment (and every one under the
-    tier's p cut, ops/scan.py::select_rescore_idx) at the exact tier.
+    'bf16x2' / 'bf16x3', 'auto' and 'fast' (ops/scan.py::resolve_precision:
+    on the CPU both exact; 'fast' sets rescore_top = 1024), for both
+    rotations. rescore_top: re-test that many leading interaction hits per
+    environment (and every one under the tier's p cut, ops/scan.py::
+    select_rescore_idx with GxE's own drift, GXE_P_DRIFT) at the exact
+    tier.
 
     Returns marginal_ps, inter_ps, joint_ps, f_inter, mask, mask_inter
     ((M,), or (E, M) for (n, E) input), deltas and pseudo_heritabilities
@@ -224,8 +226,9 @@ def emmax_gxe(G, y, env, K=None, X0: Optional[np.ndarray] = None,
     from mixmogam_tpu_torch.models.streaming import source_rows
     from mixmogam_tpu_torch.ops import resolve_device
     from mixmogam_tpu_torch.ops.eigen import eigen_k_on
-    from mixmogam_tpu_torch.ops.scan import (design_basis,
+    from mixmogam_tpu_torch.ops.scan import (GXE_P_DRIFT, design_basis,
                                              normalize_rotate_tier,
+                                             probe_for_source,
                                              project_design,
                                              resolve_precision,
                                              select_rescore_idx,
@@ -234,7 +237,7 @@ def emmax_gxe(G, y, env, K=None, X0: Optional[np.ndarray] = None,
 
     if mesh is not None:
         raise NotImplementedError("mesh= (the SNP-sharded GxE scan) is not "
-                                  "ported yet: ROADMAP Queue 1 item 16")
+                                  "ported yet: ROADMAP Queue 1 item 16c")
     y = np.asarray(y, dtype=np.float64).ravel()
     n = y.shape[0]
     env = np.asarray(env, dtype=np.float64)
@@ -267,10 +270,11 @@ def emmax_gxe(G, y, env, K=None, X0: Optional[np.ndarray] = None,
                 "full column rank")
     # ---- the tier (the same contract as emmax) ----
     rd, tier_name = None, "exact"
-    if precision is not None:
-        rb, tier_name = resolve_precision(precision)     # 'high' raises
-        rd = normalize_rotate_tier(rb)
     G_src = None if rg is not None else resolve_source(G)
+    if precision is not None:
+        rb, tier_name = resolve_precision(                # 'high' raises
+            precision, G=probe_for_source(rg, G_src), device=device)
+        rd = normalize_rotate_tier(rb)
     G8 = None
     if rd is not None and rd.startswith("int8"):
         if rg is not None:
@@ -359,7 +363,7 @@ def emmax_gxe(G, y, env, K=None, X0: Optional[np.ndarray] = None,
                 for e in range(E)]
         for e in range(E):
             idx = select_rescore_idx(inter_ps[e], rescore_top,
-                                     tier_drift_name(rd))
+                                     tier_drift_name(rd), table=GXE_P_DRIFT)
             for s0 in range(0, len(idx), _RESCORE_ROWS):
                 sub = idx[s0:s0 + _RESCORE_ROWS]
                 st = _tile_stats(

@@ -35,7 +35,7 @@ def _mesh_refused(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError("mesh= (the SNP-sharded fixed-effects "
                                   "tests) is not ported yet: ROADMAP Queue 1 "
-                                  "item 16")
+                                  "item 16c")
 
 
 def _identity_rot(y: np.ndarray, X0: np.ndarray, dtype, device):

@@ -29,7 +29,7 @@ on the card), with the SNP count (IBS) or _vanraden_den (VanRaden) as its
 denominator, and each chromosome's float rows are scanned by the in-core
 emmax, at the exact tier or a bf16 tier (the float route, ops/rotate.py).
 The ploidy is resolved once from the whole matrix. mesh= waits for ROADMAP
-item 16.
+Queue 1 item 16c.
 
 _chrom_ranges, _vanraden_den and the eigen-cache helpers are numpy-only
 copies of the JAX functions, pinned to the originals by
@@ -343,7 +343,7 @@ def emmax_loco(G, y, chromosomes=None, method: str = "ibs",
 
     if mesh is not None:
         raise NotImplementedError("mesh= (sharded LOCO scans) is not "
-                                  "ported yet: ROADMAP slice 3 item 16")
+                                  "ported yet: ROADMAP Queue 1 item 16c")
     chromosomes, ranges = _check_chromosomes(G, chromosomes)
     y = np.asarray(y, dtype=np.float64).ravel()
     M = len(chromosomes)
@@ -351,11 +351,15 @@ def emmax_loco(G, y, chromosomes=None, method: str = "ibs",
           else _as_resident(G, device, ploidy))
     host = None
     if rg is None:
+        from mixmogam_tpu_torch.ops import resolve_device
         from mixmogam_tpu_torch.ops.scan import (normalize_rotate_tier,
                                                  resolve_precision)
 
+        # the host route's source is fractional: no probe ('auto' is
+        # exact, 'fast' bf16 on the card)
         rd = (None if precision is None
-              else normalize_rotate_tier(resolve_precision(precision)[0]))
+              else normalize_rotate_tier(resolve_precision(
+                  precision, device=resolve_device(device))[0]))
         if rd is not None and rd.startswith("int8"):
             raise ValueError(
                 f"tier {precision!r} requires integer dosages (the digit-"

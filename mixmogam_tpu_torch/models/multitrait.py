@@ -86,9 +86,10 @@ def emmax_multi_trait(G, Y, K=None, X0: Optional[np.ndarray] = None,
     trait; NaN phenotypes group the traits by their missingness pattern,
     each group on its own sample subset with its K sub-block and its own
     eigh. dtype: float32 on the card, float64 on
-    the CPU by default. precision: 'exact' (or 'auto', which resolves to
-    it), 'int8x2' / 'int8x3' / 'int8x4' (fully observed integer dosages
-    only) or 'bf16' / 'bf16x2' / 'bf16x3' for the shared rotation; 'fast'
+    the CPU by default. precision: 'exact', 'auto' (ops/scan.py::
+    resolve_precision: on the CPU exact), 'int8x2' / 'int8x3' / 'int8x4'
+    (fully observed integer dosages only) or 'bf16' / 'bf16x2' / 'bf16x3'
+    for the shared rotation; 'fast'
     raises (no rescore pass). tile: SNP rows a tile (None: the resident
     genome's tile, else as many rows as keep one rotated tile under
     tile_budget values, at most 16,384).
@@ -107,12 +108,13 @@ def emmax_multi_trait(G, Y, K=None, X0: Optional[np.ndarray] = None,
                                                   should_stream)
     from mixmogam_tpu_torch.ops import resolve_device
     from mixmogam_tpu_torch.ops.scan import (normalize_rotate_tier,
+                                             probe_for_source,
                                              resolve_precision)
 
     if mesh is not None:
         raise NotImplementedError("mesh= (the SNP-sharded multi-trait scan) "
                                   "is not ported yet: ROADMAP Queue 1 item "
-                                  "16")
+                                  "16c")
     Y = np.atleast_2d(np.asarray(Y, dtype=np.float64))
     T, n = Y.shape
     rg = G if isinstance(G, ResidentGenome) else None
@@ -126,8 +128,7 @@ def emmax_multi_trait(G, Y, K=None, X0: Optional[np.ndarray] = None,
             "multi-trait has no rescore pass; pick an explicit tier "
             "('int8x3' / 'bf16x3' are fp32-grade) or leave exact")
     if precision is not None:
-        rb, tier_name = resolve_precision(precision)   # 'high' raises
-        rd = normalize_rotate_tier(rb)
+        resolve_precision(precision)      # unknown names and 'high' raise
     G_src = resolve_source(G)
     M = G_src.shape[0]
     streamed = False
@@ -141,6 +142,12 @@ def emmax_multi_trait(G, Y, K=None, X0: Optional[np.ndarray] = None,
                 rg = ResidentGenome.from_source(G_src, device=device)
             else:
                 streamed = True
+    if precision is not None:
+        # 'auto' / 'fast' look at the dosages: the container's flag, the
+        # in-core matrix; a streamed source never takes an int8 tier
+        probe = None if streamed else probe_for_source(rg, G_src)
+        rb, tier_name = resolve_precision(precision, G=probe, device=device)
+        rd = normalize_rotate_tier(rb)
     if streamed and rd is not None:
         raise ValueError("precision tiers on the multi-trait path need an "
                          "in-core or resident source; a streamed source "

@@ -84,8 +84,10 @@ def emmax_perm_test(G, y, K=None, num_perm: int = 100,
     tile: SNP rows a tile. precision (a ResidentGenome only; a host source
     runs exact and takes only 'exact' / 'auto'): 'exact', 'int8x2' /
     'int8x3' / 'int8x4' (fully observed dosages only), 'bf16' / 'bf16x2' /
-    'bf16x3', 'auto' and 'fast' (both resolve to 'exact'), for the
-    rotation; 'high' raises.
+    'bf16x3', 'auto' and 'fast' (ops/scan.py::resolve_precision: on the
+    card int8x3 / int8x2 for a fully observed container, exact / bf16 for
+    one with missing calls; on the CPU both exact), for the rotation;
+    'high' raises.
 
     Returns min_ps (sorted), threshold, alpha, num_perm, delta, and
     timings_s: seconds of the null (eigh, REML, the permuted residuals and
@@ -105,14 +107,15 @@ def emmax_perm_test(G, y, K=None, num_perm: int = 100,
     from mixmogam_tpu_torch.ops.reml import fit_null_model
     from mixmogam_tpu_torch.ops.scan import (design_basis,
                                              normalize_rotate_tier,
-                                             outside_design, project_design,
+                                             outside_design,
+                                             probe_for_source, project_design,
                                              resolve_precision)
     from mixmogam_tpu_torch.ops.stats import f_sf_host
 
     if mesh is not None:
         raise NotImplementedError("mesh= (the SNP-sharded permutation "
                                   "sweep) is not ported yet: ROADMAP Queue 1 "
-                                  "item 16")
+                                  "item 16c")
     y = np.asarray(y, dtype=np.float64).ravel()
     n = y.shape[0]
     rg = G if isinstance(G, ResidentGenome) else None
@@ -128,7 +131,8 @@ def emmax_perm_test(G, y, K=None, num_perm: int = 100,
     rd = None
     if rg is not None:
         if precision is not None:
-            rd = normalize_rotate_tier(resolve_precision(precision)[0])
+            rd = normalize_rotate_tier(resolve_precision(
+                precision, G=probe_for_source(rg), device=device)[0])
             if rd is not None and rd.startswith("int8") and rg.has_missing:
                 raise ValueError(
                     "int8 digit-plane tiers need fully-observed dosages; "

@@ -176,7 +176,8 @@ class ResidentGenome:
         or does not match.
 
         The JAX package's upload=False (host-side rows for the mesh
-        flows) belongs to the port of parallel/, ROADMAP item 16."""
+        flows) belongs to the sharded resident scan, ROADMAP Queue 1 item
+        16b."""
         from mixmogam_tpu_torch.models.source import resolve_source
         from mixmogam_tpu_torch.ops import resolve_device
 
@@ -385,6 +386,7 @@ def emmax_resident(rg: ResidentGenome, y, K=None, X0=None, eig_k=None,
                                              fit_null_model)
     from mixmogam_tpu_torch.ops.scan import (build_rotated_null,
                                              normalize_rotate_tier,
+                                             probe_for_source,
                                              resolve_precision)
 
     y = np.asarray(y, dtype=np.float64).ravel()
@@ -405,7 +407,8 @@ def emmax_resident(rg: ResidentGenome, y, K=None, X0=None, eig_k=None,
         if rotate_in_bf16:
             raise ValueError("pass either precision= or the legacy "
                              "rotate_in_bf16 kwarg, not both")
-        rotate_in_bf16, tier_name = resolve_precision(precision)
+        rotate_in_bf16, tier_name = resolve_precision(
+            precision, G=probe_for_source(rg), device=device)
     rd = normalize_rotate_tier(rotate_in_bf16)
     if rd is not None and rd.startswith("int8") and rg.has_missing:
         raise ValueError(
@@ -483,6 +486,19 @@ def kinship_den(rg: ResidentGenome, method: str = "ibs",
                      for C in _float_tiles(rg, dtype)))
 
 
+def ibs_counts_resident(rg: ResidentGenome, ploidy: Optional[int] = None
+                        ) -> torch.Tensor:
+    """The int32 (n, n) IBS sharing counts of a fully observed
+    ResidentGenome by kernel K1 (its plain version on the CPU), before
+    the division by M (binary) or 2M (diploid) that kinship_resident
+    makes: the partial gram a rank of distributed_kinship sums with the
+    others'."""
+    from mixmogam_tpu_torch.ops.hopper_kinship import ibs_gram_packed
+
+    return ibs_gram_packed(rg.packed, rg.n, rg.M,
+                           rg.ploidy if ploidy is None else ploidy)
+
+
 def kinship_resident(rg: ResidentGenome, method: str = "ibs",
                      ploidy: Optional[int] = None, dtype=None,
                      return_den: bool = False):
@@ -499,7 +515,6 @@ def kinship_resident(rg: ResidentGenome, method: str = "ibs",
     return_den=True also returns the normalization denominator (VanRaden:
     ploidy * sum p(1-p); IBS: the SNP count) — what LOCO's
     gram-subtraction identity needs."""
-    from mixmogam_tpu_torch.ops.hopper_kinship import ibs_gram_packed
     from mixmogam_tpu_torch.ops.kinship import (_check_matmul_precision,
                                                 _ibs_binary_update,
                                                 _ibs_diploid_update,
@@ -513,7 +528,7 @@ def kinship_resident(rg: ResidentGenome, method: str = "ibs",
     ploidy = rg.ploidy if ploidy is None else ploidy
     M, n = rg.M, rg.n
     if method == "ibs" and not rg.has_missing:
-        S = ibs_gram_packed(rg.packed, n, M, ploidy)
+        S = ibs_counts_resident(rg, ploidy)
         Kh = finish_on_device(S, float(M) if ploidy == 1 else 2.0 * M)
         return (Kh, float(M)) if return_den else Kh
 

@@ -133,7 +133,7 @@ def emmax_step_wise(G, y, K=None, max_steps: int = 10,
 
     if mesh is not None:
         raise NotImplementedError("mesh= (the sharded stepwise campaign) is "
-                                  "not ported yet: ROADMAP Queue 1 item 16")
+                                  "not ported yet: ROADMAP Queue 1 item 16c")
     refine_iters = esp_to_refine_iters(esp, ngrids, llim, ulim)
     y = np.asarray(y, dtype=np.float64).ravel()
     n = y.shape[0]

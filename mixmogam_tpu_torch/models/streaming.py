@@ -430,10 +430,12 @@ def emmax_streamed(matrix_source, y, K=None, X0: Optional[np.ndarray] = None,
     dosages is packed on the card for K5, a fractional tile takes the
     float route (ops/rotate.py: a bf16 rotation by the parts of the exact
     tier's U', then K3), and the rescore cut takes the float route's drift
-    (ops/scan.py::FRACTIONAL_P_DRIFT). 'auto' and 'fast' resolve to
-    'exact' ('fast' with rescore_top = 1024, which rescores only after a
-    fast tier); 'high' raises. rescore_cut_M: the study's SNP count for the
-    rescore cut when the source is part of it (LOCO).
+    (ops/scan.py::FRACTIONAL_P_DRIFT). 'auto' and 'fast' resolve by
+    ops/scan.py::resolve_precision (on the card a fully observed int8
+    source takes int8x3 / int8x2 and any other source exact / bf16; on the
+    CPU both are exact), 'fast' with rescore_top = 1024; 'high' raises.
+    rescore_cut_M: the study's SNP count for the rescore cut when the
+    source is part of it (LOCO).
     pack_transfer is accepted and changes nothing: the port ships int8 and
     packs on the card.
 
@@ -493,7 +495,21 @@ def emmax_streamed(matrix_source, y, K=None, X0: Optional[np.ndarray] = None,
         if rotate_in_bf16:
             raise ValueError("pass either precision= or the legacy "
                              "rotate_in_bf16 kwarg, not both")
-        rotate_in_bf16, tier_name = resolve_precision(precision)
+        probe = None
+        if (str(precision) in ("auto", "fast")
+                and np.dtype(getattr(matrix_source, "dtype",
+                                     np.float64)) == np.int8):
+            # an int8 source takes an int8 tier only when the WHOLE source
+            # is fully observed: one chunked pass for the missing sentinel.
+            # A float source never does (its integrality would cost a
+            # second pass over the data); precision='int8x*' is checked
+            # per tile
+            missing = any((np.asarray(matrix_source[s0:s0 + 65_536])
+                           < 0).any() for s0 in range(0, M, 65_536))
+            probe = (np.full((1, 1), np.nan) if missing
+                     else np.zeros((1, 1), dtype=np.int8))
+        rotate_in_bf16, tier_name = resolve_precision(precision, G=probe,
+                                                      device=device)
     rd = normalize_rotate_tier(rotate_in_bf16)
     # a float source at a bf16 tier: each tile of integer dosages goes to
     # K5 packed, each fractional tile takes the float route (ops/rotate.py),

@@ -132,7 +132,7 @@ def emmax_two_snps(G, y, K=None, focal_idx: Optional[Sequence[int]] = None,
 
     if mesh is not None:
         raise NotImplementedError("mesh= (the SNP-sharded two-SNP scan) is "
-                                  "not ported yet: ROADMAP Queue 1 item 16")
+                                  "not ported yet: ROADMAP Queue 1 item 16c")
     y = np.asarray(y, dtype=np.float64).ravel()
     n = y.shape[0]
     rg = G if isinstance(G, ResidentGenome) else None

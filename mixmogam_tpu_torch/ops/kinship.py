@@ -197,6 +197,17 @@ def kinship(data, method: str = "ibs", ploidy: Optional[int] = None,
         rg = ResidentGenome.from_source(mat, ploidy=ploidy, device=device)
         return kinship_resident(rg, method="ibs", ploidy=ploidy)
 
+    return finish_on_device(ibs_float_partial(mat, ploidy, chunk, dtype,
+                                              device), float(M))
+
+
+def ibs_float_partial(mat, ploidy: int, chunk: int, dtype: torch.dtype,
+                      device) -> torch.Tensor:
+    """The IBS sharing sums of the rows of mat, before the division by
+    their count: per-chunk host mean imputation, then the float updates in
+    dtype on device. An accumulator a rank of distributed_kinship sums
+    with the others'."""
+    M, n = mat.shape
     K = torch.zeros((n, n), dtype=dtype, device=device)
     _check_matmul_precision(K)
     for s in range(0, M, chunk):
@@ -207,11 +218,14 @@ def kinship(data, method: str = "ibs", ploidy: Optional[int] = None,
             _ibs_binary_update(K, C, float(e - s))
         else:
             _ibs_diploid_update(K, C, *_soft_onehots(C), float(e - s))
-    return finish_on_device(K, float(M))
+    return K
 
 
-def _vanraden(mat, ploidy: int, chunk: int, dtype: torch.dtype,
-              device) -> np.ndarray:
+def vanraden_partial(mat, ploidy: int, chunk: int, dtype: torch.dtype,
+                     device):
+    """(W'W, ploidy * sum p(1 - p)) of the rows of mat: VanRaden's
+    numerator in dtype on device and its denominator, before the
+    division."""
     M, n = mat.shape
     K = torch.zeros((n, n), dtype=dtype, device=device)
     _check_matmul_precision(K)
@@ -223,4 +237,10 @@ def _vanraden(mat, ploidy: int, chunk: int, dtype: torch.dtype,
         denom += float(ploidy * np.sum(p * (1.0 - p)))
         W = C - (ploidy * p)[:, None]
         _vanraden_update(K, torch.from_numpy(W).to(device))
-    return finish_on_device(K, denom)
+    return K, denom
+
+
+def _vanraden(mat, ploidy: int, chunk: int, dtype: torch.dtype,
+              device) -> np.ndarray:
+    return finish_on_device(*vanraden_partial(mat, ploidy, chunk, dtype,
+                                              device))

@@ -12,11 +12,17 @@ kernel K3 whitens and runs the epilogue), the int8 digit-plane tiers
 'bf16' / 'bf16x2' / 'bf16x3' (kernel K5 on the packed rows; the 'c'
 concat spellings are an XLA layout choice and take the same K5 path).
 'high' would mean TF32 on the card, which the port pins off
-(ops/__init__.py); it raises (ROADMAP Queue 1). On CUDA, 'auto' and
-'fast' resolve to 'exact', as resolve_precision does off-TPU in the JAX
-package. TIER_P_DRIFT, tier_drift_name, rescore_p_cut and
-select_rescore_idx are numpy-only copies of the JAX functions, pinned
-to the originals by tests/test_torch_ops.py and tests/test_torch_bf16.py.
+(ops/__init__.py); it raises (ROADMAP Queue 1). 'auto' and 'fast' follow
+the JAX package's rule with "the device is CUDA" in place of "the backend
+is a TPU": on the card, integer dosages take int8x3 ('auto', while the
+card's own TIER_P_DRIFT entry for int8x3 stays within AUTO_MAX_DRIFT,
+which the measured entry does not: exact) or int8x2 ('fast'), other
+dosages exact ('auto') or bf16 ('fast'); on the CPU both resolve to
+'exact'. TIER_P_DRIFT and GXE_P_DRIFT are the card's own drift against
+the exact tier (chip_smoke.py phases 4 and 12).
+is_integer_dosage, probe_for_source, tier_drift_name, rescore_p_cut and
+select_rescore_idx are numpy-only copies of the JAX functions, pinned to
+the originals by tests/test_torch_ops.py and tests/test_torch_bf16.py.
 """
 
 from __future__ import annotations
@@ -30,8 +36,8 @@ import torch
 from mixmogam_tpu_torch.ops.reml import NullModel
 
 _HIGH_NOT_PORTED = ("the 'high' tier (a TF32 rotation GEMM on the card) is "
-                    "not ported: the port pins TF32 off (ROADMAP Queue 1); "
-                    "use 'exact', 'bf16x3' or 'int8x3'")
+                    "not ported: the port pins TF32 off (ROADMAP Queue 1 "
+                    "item 4); use 'exact', 'bf16x3' or 'int8x3'")
 
 
 @dataclasses.dataclass
@@ -129,14 +135,57 @@ PRECISION_TIERS = {
 }
 
 
-def resolve_precision(precision: str):
+def is_integer_dosage(G) -> bool:
+    """True when every dosage is an exact small integer (int8-safe): the
+    int8 digit-plane tiers are exact for this matrix. Negative integers
+    (the missing sentinel), NaN and fractions give False."""
+    G = np.asarray(G)
+    if np.issubdtype(G.dtype, np.integer):
+        return bool(G.min(initial=0) >= 0 and G.max(initial=0) <= 127)
+    if not np.issubdtype(G.dtype, np.floating):
+        return False
+    if G.size and (np.isnan(G).any() or np.abs(G).max() > 127):
+        return False
+    return bool(np.array_equal(G, np.round(G)))
+
+
+def probe_for_source(rg=None, Gf=None):
+    """The dosage probe resolve_precision's 'auto' / 'fast' rule inspects:
+    a ResidentGenome answers from its has_missing flag (no decode), an
+    in-core matrix is probed itself."""
+    if rg is not None:
+        return (np.full((1, 1), np.nan) if rg.has_missing
+                else np.zeros((1, 1), dtype=np.int8))
+    return Gf
+
+
+#: 'auto' takes int8x3 only while the card's int8x3 drift entry is at most
+#: this: the accuracy the exact tier itself is held to on the card (its
+#: float32 scan against the float64 CPU path, PERF.md section 2). The
+#: card's entry is 2e-5 (TIER_P_DRIFT), so 'auto' resolves to exact there
+AUTO_MAX_DRIFT = 1e-5
+
+
+def resolve_precision(precision: str, G=None, device=None):
     """Resolve a unified `precision` name -> (rotate tier, resolved name).
-    'auto' and 'fast' resolve to 'exact': their int8 routing was measured
-    on the TPU only (ROADMAP H100 cell 1(a) decides it for the card).
-    'high' raises NotImplementedError: on the card it would be TF32."""
+
+    'auto' and 'fast' follow the JAX package's rule with "device is CUDA"
+    in place of its TPU test. On the card, 'auto' gives int8x3 when the
+    dosages G (probe_for_source) are exact small integers and the card's
+    int8x3 entry of TIER_P_DRIFT is at most AUTO_MAX_DRIFT, else 'exact';
+    'fast' gives int8x2 for integer dosages and bf16 otherwise (callers
+    pair it with rescore_top). On the CPU, or with no device, both give
+    'exact', as in the JAX package off the TPU. 'high' raises
+    NotImplementedError: on the card it would be TF32."""
     p = str(precision)
     if p in ("auto", "fast"):
-        p = "exact"
+        on_card = device is not None and torch.device(device).type == "cuda"
+        int_ok = on_card and G is not None and is_integer_dosage(G)
+        if p == "auto":
+            p = ("int8x3" if int_ok
+                 and TIER_P_DRIFT["int8x3"] <= AUTO_MAX_DRIFT else "exact")
+        else:
+            p = "int8x2" if int_ok else ("bf16" if on_card else "exact")
     if p == "high":
         raise NotImplementedError(_HIGH_NOT_PORTED)
     if p not in PRECISION_TIERS:
@@ -146,18 +195,42 @@ def resolve_precision(precision: str):
     return PRECISION_TIERS[p], p
 
 
-#: absolute p-value drift bound per tier, as measured for the JAX
-#: package (its TPU runs); the card's own values come from ROADMAP
-#: cell 1(a). Feeds the rescore cut.
+#: absolute p-value drift bound per tier against the exact tier, on the
+#: card: NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py phase 4: every
+#: tier against exact on phase 4's genome, n = 10,240 x 262,144, under
+#: designs of 1, 20 and 128 columns and VanRaden's singular K with delta at
+#: its bound; largest max |dp| int8x2 5.081e-4, int8x3 6.204e-6, int8x4
+#: 6.375e-6, bf16 8.235e-3, bf16x2 1.088e-5, bf16x3 6.631e-6). Each entry
+#: is the smallest one-significant-digit value at least twice its tier's
+#: largest. int8x3 / int8x4 / bf16x3 drift alike: what is left is the
+#: float32 exact tier's own rounding, not the tier's. The 'c' spellings
+#: run their tier's kernel. 'high' has no entry: it is refused here and
+#: gets one when it is ported. Feeds the rescore cut.
 TIER_P_DRIFT = {
     "exact": 0.0,
-    "high": 2e-5,
-    "bf16": 6e-3,
-    "bf16x2": 1e-5, "bf16x2c": 1e-5,
-    "bf16x3": 1e-6, "bf16x3c": 1e-6,
-    "int8x2": 5e-4,
-    "int8x3": 1.5e-6,
-    "int8x4": 1e-6,
+    "bf16": 2e-2,
+    "bf16x2": 3e-5, "bf16x2c": 3e-5,
+    "bf16x3": 2e-5, "bf16x3c": 2e-5,
+    "int8x2": 2e-3,
+    "int8x3": 2e-5,
+    "int8x4": 2e-5,
+}
+
+
+#: the same for emmax_gxe's p-values (the largest max |dp| over its
+#: marginal, interaction and joint tests), on the card: NVIDIA H100 80GB
+#: HBM3, 700.00 W (chip_smoke.py phase 12: E = 2 on phase 4's genome;
+#: int8x2 1.575e-3, int8x3 4.472e-5, int8x4 7.314e-6, bf16 7.936e-3,
+#: bf16x2 1.082e-4, bf16x3 7.692e-6), by the same rule. Feeds GxE's
+#: rescore cut.
+GXE_P_DRIFT = {
+    "exact": 0.0,
+    "bf16": 2e-2,
+    "bf16x2": 3e-4, "bf16x2c": 3e-4,
+    "bf16x3": 2e-5, "bf16x3c": 2e-5,
+    "int8x2": 4e-3,
+    "int8x3": 9e-5,
+    "int8x4": 2e-5,
 }
 
 
@@ -184,12 +257,15 @@ def tier_drift_name(rd, matmul_precision=None) -> str:
 
 
 def rescore_p_cut(M: int, tier, alpha: float = 0.05,
-                  safety: float = 8.0, fractional: bool = False) -> float:
+                  safety: float = 8.0, fractional: bool = False,
+                  table=None) -> float:
     """Fast-tier p cut below which every SNP is exactly re-scored:
     alpha/M + safety * drift (unknown tiers take the worst drift).
     fractional: the bf16 tier ran on fractional dosages (the float route),
-    whose drift is FRACTIONAL_P_DRIFT's."""
-    table = FRACTIONAL_P_DRIFT if fractional else TIER_P_DRIFT
+    whose drift is FRACTIONAL_P_DRIFT's. table: another drift table
+    (GXE_P_DRIFT); default TIER_P_DRIFT."""
+    if table is None:
+        table = FRACTIONAL_P_DRIFT if fractional else TIER_P_DRIFT
     drift = table.get(str(tier), max(table.values()))
     return alpha / max(M, 1) + safety * drift
 
@@ -197,18 +273,18 @@ def rescore_p_cut(M: int, tier, alpha: float = 0.05,
 def select_rescore_idx(ps, rescore_top: int, tier,
                        alpha: float = 0.05, safety: float = 8.0,
                        M_cut: Optional[int] = None,
-                       fractional: bool = False):
+                       fractional: bool = False, table=None):
     """{all SNPs with p <= rescore_p_cut} ∪ {top rescore_top by p},
     uncapped (the JAX package's threshold-complete rescore contract).
     M_cut: the SNP count of the Bonferroni cut when ps covers only part of
-    the study (a LOCO chromosome); default len(ps). fractional: see
+    the study (a LOCO chromosome); default len(ps). fractional, table: see
     rescore_p_cut."""
     ps = np.asarray(ps)
     M = ps.shape[0] if M_cut is None else int(M_cut)
     k = min(int(rescore_top), ps.shape[0])
     cand = np.argsort(ps, kind="stable")[:k]
     near = np.flatnonzero(ps <= rescore_p_cut(M, tier, alpha, safety,
-                                              fractional))
+                                              fractional, table))
     return np.union1d(cand, near)
 
 

@@ -1,0 +1,272 @@
+"""SNP data-parallel kinship and EMMAX over torch.distributed (counterpart
+of mixmogam_tpu/parallel/distributed.py: distributed_kinship,
+distributed_emmax).
+
+The JAX package's design, with its collectives written out:
+- genotype rows shard by rank: each rank takes its tile-aligned range
+  (multihost.host_snp_range) of the full matrix, or is given only those
+  rows (multihost.SnpShard);
+- kinship: each rank's partial gram, then ONE all-reduce of the (n, n)
+  partial (int64 for the integer counts of kernel K1, float64 otherwise)
+  and one division by the global denominator in float64;
+- EMMAX: rank 0 fits the null and builds the rotated null at the tier and
+  broadcasts it once (nulls replicate, genotypes shard); each rank scans
+  its rows through the port's single-device scan functions, with no
+  communication, and the (4, m_rank) statistics meet in ONE all-gather;
+  p-values finalize in float64 on the host.
+
+Routes are decided for the whole mesh (one small all-reduce of each
+rank's facts: the largest dosage, missing calls, fractional dosages), so
+every rank takes the same route, raises the same refusal, and the result
+equals the single-device call's. distributed_train_step (the JAX
+package's training-step dry run) waits for ROADMAP Queue 1 item 16e.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from mixmogam_tpu_torch.parallel.mesh import (Mesh, all_reduce,
+                                              broadcast_from_rank0,
+                                              gather_rows, make_mesh)
+from mixmogam_tpu_torch.parallel.multihost import SnpShard, host_snp_range
+
+
+def _mesh_device(mesh: Optional[Mesh], device) -> Tuple[Mesh, torch.device]:
+    """The mesh (default make_mesh(), whose device is the rank's card) and
+    the device the rank computes on (default the mesh's)."""
+    if mesh is None:
+        mesh = make_mesh(devices=device)
+    return mesh, (mesh.device if device is None else torch.device(device))
+
+
+def _local_rows(G, mesh: Mesh) -> Tuple[np.ndarray, int]:
+    """(this rank's rows, the global row count M): a SnpShard's own rows,
+    else rows host_snp_range gives the rank of the full matrix."""
+    from mixmogam_tpu_torch.models.resident import ResidentGenome
+    from mixmogam_tpu_torch.models.source import resolve_source
+
+    if isinstance(G, SnpShard):
+        lo, hi = host_snp_range(G.M, mesh.shape[0], mesh.rank)
+        if (G.lo, G.hi) != (lo, hi):
+            raise ValueError(f"rank {mesh.rank}'s shard holds rows "
+                             f"[{G.lo}, {G.hi}); host_snp_range gives it "
+                             f"[{lo}, {hi})")
+        return G.rows, G.M
+    src = resolve_source(G)
+    if isinstance(src, ResidentGenome):
+        raise NotImplementedError(
+            "a ResidentGenome on a mesh (its packed rows sharded per rank) "
+            "is not ported yet: ROADMAP Queue 1 item 16b")
+    M = src.shape[0]
+    lo, hi = host_snp_range(M, mesh.shape[0], mesh.rank)
+    rows = src[lo:hi]
+    # an in-memory matrix's rows are a view; a memmap's (or a lazy
+    # source's) are read into memory here
+    return (rows if type(rows) is np.ndarray else np.array(rows)), M
+
+
+def _mesh_facts(rows: np.ndarray, mesh: Mesh, device) -> np.ndarray:
+    """[largest observed dosage, any missing call, any non-int8 source]
+    over every rank's rows: one all-reduce (MAX) of three float64s."""
+    if rows.dtype == np.int8:
+        mx = float(rows.max(initial=0))
+        missing = bool((rows < 0).any())
+    else:
+        mx = float(np.nanmax(rows, initial=0.0)) if rows.size else 0.0
+        missing = bool(np.isnan(rows).any())
+    facts = torch.tensor([mx, float(missing), float(rows.dtype != np.int8)],
+                         dtype=torch.float64, device=device)
+    return all_reduce(facts, mesh, dist.ReduceOp.MAX).cpu().numpy()
+
+
+def distributed_kinship(G, mesh: Optional[Mesh] = None, method: str = "ibs",
+                        device=None) -> np.ndarray:
+    """Kinship over SNP-sharded rows: each rank's partial gram, one
+    all-reduce of the (n, n) partial, one float64 division by the global
+    denominator. G: the full (M, n) matrix on every rank (each takes its
+    host_snp_range rows) or this rank's SnpShard. Routes as ops/kinship.py's
+    kinship: a fully observed int8 binary source goes through kernel K1 on
+    the rank's rows packed on its device (integer counts, summed in
+    int64); missing calls and float dosages take the per-chunk imputation
+    and the float updates (float32 with TF32 off on the card, float64 on
+    the CPU), summed in float64; 'vanraden' sums its numerator and
+    denominator across ranks. method='ibs' takes binary dosages only, as in
+    the JAX package. Every rank returns the (n, n) float64 numpy array.
+    device: the rank's (default the mesh's: its card)."""
+    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
+                                                    ibs_counts_resident)
+    from mixmogam_tpu_torch.ops.kinship import (check_kinship_method,
+                                                finish_on_device,
+                                                ibs_float_partial,
+                                                resolve_compute_dtype,
+                                                vanraden_partial)
+
+    method = check_kinship_method(method)
+    mesh, device = _mesh_device(mesh, device)
+    rows, M = _local_rows(G, mesh)
+    n = rows.shape[1]
+    mx, missing, not_int8 = _mesh_facts(rows, mesh, device)
+    dtype = resolve_compute_dtype(None, device)
+    if method == "ibs":
+        if mx > 1:
+            raise ValueError(
+                "distributed_kinship(method='ibs') implements the BINARY "
+                "allele-sharing formula; for diploid dosages use "
+                "method='vanraden' here or ops.kinship.kinship (diploid "
+                "IBS) on one device")
+        if not (missing or not_int8):
+            # integer counts of kernel K1 over the rank's packed rows
+            S = (ibs_counts_resident(ResidentGenome.from_source(
+                rows, ploidy=1, device=device)).to(torch.int64)
+                if rows.shape[0] else
+                torch.zeros((n, n), dtype=torch.int64, device=device))
+            return finish_on_device(all_reduce(S, mesh), float(M))
+        part = ibs_float_partial(rows, 1, _KINSHIP_CHUNK, dtype,
+                                 device).double()
+        return finish_on_device(all_reduce(part, mesh), float(M))
+    ploidy = 2 if mx > 1 else 1
+    num, den = vanraden_partial(rows, ploidy, _KINSHIP_CHUNK, dtype,
+                                device)
+    # the numerator and its denominator in one all-reduce
+    flat = torch.cat([num.double().reshape(-1),
+                      torch.tensor([den], dtype=torch.float64,
+                                   device=device)])
+    flat = all_reduce(flat, mesh)
+    return finish_on_device(flat[:-1].reshape(n, n), float(flat[-1]))
+
+
+#: rows a chunk of the float kinships' host imputation (kinship()'s default)
+_KINSHIP_CHUNK = 2048
+
+#: RotatedNull fields that are caches of a device's prepared operands
+_ROT_CACHES = ("operand", "k3")
+
+
+def distributed_emmax(G, y, K=None, X0: Optional[np.ndarray] = None,
+                      mesh: Optional[Mesh] = None, eig_k=None,
+                      ngrids: int = 100, llim: float = -10.0,
+                      ulim: float = 10.0, esp: float = 1e-6, dtype=None,
+                      rotate_in_bf16=False, host_eigh: Optional[bool] = True,
+                      device=None, tile: int = 16_384
+                      ) -> Dict[str, np.ndarray]:
+    """EMMAX over SNP-sharded rows, with the JAX package's distributed_emmax
+    arguments and return keys (ps, f_stats, mask, betas, var_perc,
+    pseudo_heritability, delta, dof, sigma_g2, sigma_e2, ll_null), equal to
+    the port's single-device emmax at the same tier.
+
+    G: the full (M, n) matrix on every rank, or this rank's SnpShard. Rank
+    0 fits the null (K or eig_k needed there only) and builds the rotated
+    null at the tier (rotate_in_bf16: False | True | 'x2' | 'x3' | 'x2c' |
+    'x3c' | 'int8x2' | 'int8x3' | 'int8x4'), then broadcasts it once. Each
+    rank scans its rows through the single-device routes of models/emmax.py
+    and models/resident.py: the exact tier as fp32 GEMM by the projected
+    U' = (I - P_X0) U then kernel K3; the int8 / bf16 tiers on integer
+    dosages packed on the rank's device, then K2 / K5 (and the mask of the
+    rows inside col(X0)); fractional dosages at a bf16 tier the float route
+    (ops/rotate.py, then K3). An int8 tier on missing or fractional dosages
+    raises, on every rank. Then one all-gather of the (4, m_rank)
+    statistics, and float64 host p-values. dtype: a torch dtype, float32 on
+    the card and float64 on the CPU by default; device: the rank's
+    (default the mesh's: its card)."""
+    from mixmogam_tpu_torch.models.emmax import (_as_design, _incore_rows,
+                                                 _scan_incore)
+    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
+                                                    _default_dtype,
+                                                    emmax_scan_packed)
+    from mixmogam_tpu_torch.models.source import as_int8_dosage
+    from mixmogam_tpu_torch.ops.reml import (esp_to_refine_iters,
+                                             fit_null_model)
+    from mixmogam_tpu_torch.ops.rotate import (SharedRotation,
+                                               float_route_eig,
+                                               float_rotation)
+    from mixmogam_tpu_torch.ops.scan import (RotatedNull, build_rotated_null,
+                                             normalize_rotate_tier)
+    from mixmogam_tpu_torch.ops.stats import f_sf_host
+
+    mesh, device = _mesh_device(mesh, device)
+    if dtype is None:
+        dtype = _default_dtype(device)
+    y = np.asarray(y, dtype=np.float64).ravel()
+    n = y.shape[0]
+    X0 = _as_design(np.ones((n, 1)) if X0 is None else X0, n)
+    rows, M = _local_rows(G, mesh)
+    rd = normalize_rotate_tier(rotate_in_bf16)
+    # the route, for the whole mesh: packed rows where every rank's rows
+    # are integer dosages, the float route where some rank's are fractional
+    G8 = as_int8_dosage(rows) if rd is not None else None
+    fractional, missing = all_reduce(torch.tensor(
+        [float(G8 is None), float(G8 is not None and (G8 < 0).any())],
+        dtype=torch.float64, device=device), mesh,
+        dist.ReduceOp.MAX).tolist()
+    if rd is not None and rd.startswith("int8") and (fractional or missing):
+        raise ValueError(
+            f"rotate_in_bf16={rotate_in_bf16!r} requires integer dosages, "
+            "fully observed (digit-plane matmuls round genotypes to int8)")
+    packed = rd is not None and not fractional
+
+    # ---- the null: fitted on rank 0, replicated by one broadcast ----
+    payload = None
+    if mesh.rank == 0:
+        if rd is not None and not packed:
+            # the float route cuts its parts from this eigenbasis in float64
+            eig_k = float_route_eig(K, eig_k, device, host_eigh)
+        null = fit_null_model(y, X0, K=K, eig_k=eig_k, ngrids=ngrids,
+                              llim=llim, ulim=ulim,
+                              refine_iters=esp_to_refine_iters(
+                                  esp, ngrids, llim, ulim),
+                              host_eigh=host_eigh, device=device,
+                              dtype=dtype)
+        rot = build_rotated_null(null, rotate_dtype=rd if packed else None)
+        payload = {f.name: getattr(rot, f.name)
+                   for f in dataclasses.fields(rot)
+                   if f.name not in _ROT_CACHES}
+        payload["srot"] = (None if rd is None or packed else
+                           float_rotation(eig_k[1], X0, rd, dtype,
+                                          device).W)
+        for k in ("pseudo_heritability", "delta", "sigma_g2", "sigma_e2",
+                  "ll"):
+            payload["null_" + k] = float(getattr(null, k))
+    payload = broadcast_from_rank0(payload, mesh)
+    rot = RotatedNull(**{f.name: payload[f.name]
+                         for f in dataclasses.fields(RotatedNull)
+                         if f.name not in _ROT_CACHES})
+    srot = (None if payload["srot"] is None
+            else SharedRotation(rd, payload["srot"], None, dtype))
+
+    # ---- this rank's rows, no communication ----
+    if rows.shape[0] == 0:
+        out = torch.zeros((4, 0), dtype=dtype, device=device)
+    elif packed:
+        rg = ResidentGenome.from_source(G8, tile=tile, device=device)
+        out = emmax_scan_packed(rg.packed, rot, n, rg.tile,
+                                impute=rg.has_missing)[:, :rg.M]
+    else:
+        out = _scan_incore(_incore_rows(rows, dtype), rot, srot, tile,
+                           device, dtype)
+    h = gather_rows(out, mesh).cpu().double().numpy()
+    if h.shape[1] != M:
+        raise RuntimeError(f"the gathered statistics hold {h.shape[1]} "
+                           f"rows of {M}")
+    f_stats, mask = h[0].copy(), h[3] > 0.5
+    dof = int(rot.dof)
+    ps = np.where(mask, f_sf_host(f_stats, 1.0, dof), 1.0)
+    return {"ps": ps, "f_stats": f_stats, "mask": mask,
+            "betas": h[1].copy(), "var_perc": h[2].copy(),
+            "pseudo_heritability": payload["null_pseudo_heritability"],
+            "delta": payload["null_delta"], "dof": dof,
+            "sigma_g2": payload["null_sigma_g2"],
+            "sigma_e2": payload["null_sigma_e2"],
+            "ll_null": payload["null_ll"]}
+
+
+def distributed_train_step(*args, **kwargs):
+    """The JAX package's training-step dry run over the mesh: not ported
+    yet (ROADMAP Queue 1 item 16e)."""
+    raise NotImplementedError("distributed_train_step is not ported yet: "
+                              "ROADMAP Queue 1 item 16e")

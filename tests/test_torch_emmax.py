@@ -158,10 +158,17 @@ def test_emmax_routes_resident_genome_and_facade():
     np.testing.assert_array_equal(np.asarray(rg), G)
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()),
+@pytest.mark.parametrize("kw", [dict(mesh="cpu", resident=True),
                                 dict(precision="high"),
                                 dict(matmul_precision="high")])
 def test_unported_options_raise(kw, small_dataset, kinship_small):
+    """What is still unported raises, naming its ROADMAP item: a mesh over
+    a resident genome (the sharded resident scan, item 16b; the in-core
+    mesh route is tests/test_torch_parallel.py's), 'high' (item 4)."""
+    if "mesh" in kw:
+        from mixmogam_tpu_torch.parallel import make_mesh
+
+        kw = dict(kw, mesh=make_mesh(devices=kw["mesh"]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         emmax(small_dataset["G"], small_dataset["y"], K=kinship_small, **kw,
               device="cpu")

@@ -183,6 +183,82 @@ def test_card_fast_tiers_with_20_design_columns(cuda, tier):
     assert np.abs(got["ps"] - ex["ps"]).max() <= 1e-4
 
 
+@pytest.mark.parametrize("tier", ["int8x2", "int8x3", "int8x4", "bf16",
+                                  "bf16x2", "bf16x3"])
+def test_card_tier_drift_within_its_entry(cuda, tier):
+    """Each tier against the card's exact tier on a small fixture:
+    identical masks, max |dp| within the tier's entry of the card's own
+    drift table (ops/scan.py::TIER_P_DRIFT, chip_smoke.py phase 4)."""
+    from mixmogam_tpu_torch.ops.scan import TIER_P_DRIFT
+
+    n = 300
+    G, _, _ = simulate_genotypes(n, 2_000, seed=21)
+    rng = np.random.default_rng(21)
+    y = G[7] * 0.5 + rng.normal(size=n)
+    K = np.corrcoef(G.T.astype(np.float64)) + np.eye(n) * 1e-3
+    ex = emmax(G, y, K=K, precision="exact", device=cuda)
+    got = emmax(G, y, K=K, precision=tier, device=cuda)
+    np.testing.assert_array_equal(got["mask"], ex["mask"])
+    assert np.abs(got["ps"] - ex["ps"]).max() <= TIER_P_DRIFT[tier]
+
+
+def test_card_auto_and_fast_resolve_by_the_cards_table(cuda):
+    """On the card 'auto' takes int8x3 for integer dosages exactly when
+    the card's int8x3 entry is within AUTO_MAX_DRIFT; 'fast' takes int8x2
+    with its exact rescore; fractional dosages take exact / bf16."""
+    from mixmogam_tpu_torch.ops.scan import AUTO_MAX_DRIFT, TIER_P_DRIFT
+
+    n = 200
+    G, _, _ = simulate_genotypes(n, 1_000, seed=22)
+    y = G[3] * 0.5 + np.random.default_rng(22).normal(size=n)
+    K = np.corrcoef(G.T.astype(np.float64)) + np.eye(n) * 1e-3
+    auto = emmax(G, y, K=K, precision="auto", device=cuda)
+    assert auto["precision_tier"] == (
+        "int8x3" if TIER_P_DRIFT["int8x3"] <= AUTO_MAX_DRIFT else "exact")
+    fast = emmax(G, y, K=K, precision="fast", device=cuda)
+    assert fast["precision_tier"] == "int8x2"
+    assert len(fast["rescored_idx"]) >= 1024 or len(
+        fast["rescored_idx"]) == G.shape[0]
+    frac = G * 0.97
+    assert emmax(frac, y, K=K, precision="auto",
+                 device=cuda)["precision_tier"] == "exact"
+    assert emmax(frac, y, K=K, precision="fast",
+                 device=cuda)["precision_tier"] == "bf16"
+
+
+def test_card_world_of_one_distributed_emmax(cuda, tmp_path):
+    """A world of one over NCCL (a file store): distributed_kinship equal
+    to kinship_resident bit for bit, distributed_emmax at exact / int8x3 /
+    bf16x3 equal to emmax_resident (masks, max |dp| <= 1e-12)."""
+    import torch.distributed as dist
+
+    from mixmogam_tpu_torch.models.resident import (emmax_resident,
+                                                    kinship_resident)
+    from mixmogam_tpu_torch.parallel import (distributed_emmax,
+                                             distributed_kinship, make_mesh)
+
+    n = 256
+    G, _, _ = simulate_genotypes(n, 3_000, seed=23)
+    y = G[11] * 0.5 + np.random.default_rng(23).normal(size=n)
+    rg = ResidentGenome.from_source(G, tile=1_024, device=cuda)
+    K = kinship_resident(rg)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        assert mesh.backend == "nccl" and mesh.device.type == "cuda"
+        np.testing.assert_array_equal(distributed_kinship(G, mesh), K)
+        for tier, rb in (("exact", False), ("int8x3", "int8x3"),
+                         ("bf16x3", "bf16x3")):
+            got = distributed_emmax(G, y, K=K, mesh=mesh, rotate_in_bf16=rb,
+                                    host_eigh=None, tile=1_024)
+            ref = emmax_resident(rg, y, K=K, precision=tier)
+            np.testing.assert_array_equal(got["mask"], ref["mask"])
+            assert np.abs(got["ps"] - ref["ps"]).max() <= 1e-12
+    finally:
+        dist.destroy_process_group()
+
+
 def test_card_stepwise_vs_cpu_float64(cuda):
     """emmax_step_wise on the card (float32, no device=) against the float64
     CPU path: the same cofactor path and selected models, step 0's scan

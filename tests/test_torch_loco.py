@@ -276,10 +276,12 @@ def test_explicit_kinships_cached_by_content(tmp_path, monkeypatch):
     np.testing.assert_allclose(r2["ps"], r1["ps"], atol=1e-12)
 
 
-def test_rescore_cut_counts_the_whole_genome():
+def test_rescore_cut_counts_the_whole_genome(monkeypatch):
     from mixmogam_tpu.ops import scan as jscan
     from mixmogam_tpu_torch.ops import scan
 
+    # the JAX cut, on the port's own drift table (the card's values)
+    monkeypatch.setattr(jscan, "TIER_P_DRIFT", dict(scan.TIER_P_DRIFT))
     ps = np.random.default_rng(0).uniform(size=120) ** 6
     got = scan.select_rescore_idx(ps, 5, "bf16x2", M_cut=1_000_000)
     want = np.union1d(np.argsort(ps, kind="stable")[:5], np.flatnonzero(

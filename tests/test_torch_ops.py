@@ -140,16 +140,27 @@ def test_explicit_reml_copy(q, ml):
         assert abs(got - dll_at(ld)) <= 1e-10 * max(1.0, abs(dll_at(ld)))
 
 
-def test_numpy_helper_copies():
+def test_numpy_helper_copies(monkeypatch):
+    """The drift table holds the card's own values (chip_smoke.py phase 4)
+    for the JAX package's tiers but 'high', which the port refuses; the
+    rescore cut and selection are the JAX functions' copies, held to them
+    with the JAX table pointed at the port's values."""
     rng = np.random.default_rng(4)
-    assert scan.TIER_P_DRIFT == jscan.TIER_P_DRIFT
+    assert set(scan.TIER_P_DRIFT) == set(jscan.TIER_P_DRIFT) - {"high"}
+    assert set(scan.GXE_P_DRIFT) == set(scan.TIER_P_DRIFT)
+    monkeypatch.setattr(jscan, "TIER_P_DRIFT", dict(scan.TIER_P_DRIFT))
     ps = rng.uniform(size=500) ** 4
-    for tier in ("int8x2", "int8x3", "exact", "nope"):
-        assert (scan.rescore_p_cut(500, tier)
-                == jscan.rescore_p_cut(500, tier))
+    for tier in ("int8x2", "int8x3", "bf16x3", "exact", "nope"):
+        cut = scan.rescore_p_cut(500, tier)
+        drift = scan.TIER_P_DRIFT.get(tier, max(scan.TIER_P_DRIFT.values()))
+        assert cut == 0.05 / 500 + 8.0 * drift
+        assert cut == jscan.rescore_p_cut(500, tier)
         np.testing.assert_array_equal(
             scan.select_rescore_idx(ps, 16, tier),
             jscan.select_rescore_idx(ps, 16, tier))
+        assert scan.rescore_p_cut(500, tier, table=scan.GXE_P_DRIFT) == (
+            0.05 / 500 + 8.0 * scan.GXE_P_DRIFT.get(
+                tier, max(scan.GXE_P_DRIFT.values())))
 
 
 def test_eigen_k_host_matches_jax():
@@ -239,6 +250,10 @@ def test_tier_names():
         scan.normalize_rotate_tier("int8x5")
     assert scan.resolve_precision("auto") == (False, "exact")
     assert scan.resolve_precision("fast") == (False, "exact")
+    G = np.zeros((4, 8), dtype=np.int8)
+    for p in ("auto", "fast"):
+        assert scan.resolve_precision(p, G=G, device="cpu") == (False,
+                                                                 "exact")
     assert scan.resolve_precision("int8x2") == ("int8x2", "int8x2")
     assert scan.resolve_precision("bf16") == (True, "bf16")
     assert scan.resolve_precision("bf16x3") == ("bf16x3", "bf16x3")
@@ -259,3 +274,76 @@ def test_impute_tile_matches_jax():
     np.testing.assert_allclose(ours, np.asarray(j_impute(jnp.asarray(G),
                                                          jnp.float64)),
                                rtol=0, atol=1e-15)
+
+
+_CUDA = torch.device("cuda")
+
+
+def _dosages(kind):
+    rng = np.random.default_rng(5)
+    G = rng.integers(0, 3, (6, 10)).astype(np.int8)
+    if kind == "integer":
+        return G
+    if kind == "integer_float":
+        return G.astype(np.float64)
+    if kind == "missing":
+        G[2, 3] = -1
+        return G
+    if kind == "nan":
+        Gf = G.astype(np.float64)
+        Gf[1, 1] = np.nan
+        return Gf
+    return G * 0.97                                       # fractional
+
+
+@pytest.mark.parametrize("kind, auto, fast", [
+    ("integer", "int8x3", "int8x2"), ("integer_float", "int8x3", "int8x2"),
+    ("missing", "exact", "bf16"), ("nan", "exact", "bf16"),
+    ("fractional", "exact", "bf16"), (None, "exact", "bf16")])
+def test_auto_and_fast_on_the_card(kind, auto, fast, monkeypatch):
+    """The JAX package's rule with "the device is CUDA" for "on TPU", with
+    the card's int8x3 entry within the gate (the gate itself: the next
+    test); no card is needed to resolve a name."""
+    monkeypatch.setitem(scan.TIER_P_DRIFT, "int8x3", scan.AUTO_MAX_DRIFT)
+    G = None if kind is None else _dosages(kind)
+    assert scan.resolve_precision("auto", G=G, device=_CUDA)[1] == auto
+    assert scan.resolve_precision("fast", G=G, device=_CUDA)[1] == fast
+    assert scan.resolve_precision("auto", G=G, device="cuda:0")[1] == auto
+
+
+@pytest.mark.parametrize("entry, auto", [(5e-6, "int8x3"), (1e-5, "int8x3"),
+                                         (2e-5, "exact")])
+def test_auto_takes_int8x3_only_within_the_exact_tiers_gate(
+        monkeypatch, entry, auto):
+    """'auto' picks int8x3 on the card only while the card's int8x3 drift
+    entry is within AUTO_MAX_DRIFT (1e-5: the exact tier's own gate on the
+    card); 'fast' pairs with the rescore and does not look at it."""
+    assert scan.AUTO_MAX_DRIFT == 1e-5
+    monkeypatch.setitem(scan.TIER_P_DRIFT, "int8x3", entry)
+    G = _dosages("integer")
+    assert scan.resolve_precision("auto", G=G, device=_CUDA)[1] == auto
+    assert scan.resolve_precision("fast", G=G, device=_CUDA)[1] == "int8x2"
+
+
+@pytest.mark.parametrize("kind", ["integer", "integer_float", "missing",
+                                  "nan", "fractional"])
+def test_is_integer_dosage_is_the_jax_packages(kind):
+    G = _dosages(kind)
+    assert scan.is_integer_dosage(G) == jscan.is_integer_dosage(G)
+    assert scan.is_integer_dosage(G.astype(np.int16) * 100) == \
+        jscan.is_integer_dosage(G.astype(np.int16) * 100)
+
+
+@pytest.mark.parametrize("has_missing", [False, True])
+def test_probe_for_source_is_the_jax_packages(has_missing):
+    class _RG:
+        pass
+
+    rg = _RG()
+    rg.has_missing = has_missing
+    got, ref = scan.probe_for_source(rg), jscan.probe_for_source(rg)
+    np.testing.assert_array_equal(got, ref)
+    assert got.dtype == ref.dtype
+    G = _dosages("integer")
+    assert scan.probe_for_source(None, G) is G
+    assert jscan.probe_for_source(None, G) is G

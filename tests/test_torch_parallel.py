@@ -1,0 +1,553 @@
+"""PyTorch port, parallel/'s data-parallel core (mixmogam_tpu_torch/
+parallel: make_mesh, multihost, distributed_kinship, distributed_emmax and
+emmax(mesh=)), on gloo worlds of 2 and 3 ranks on the CPU.
+
+One module fixture runs both worlds once: each rank is a subprocess that
+pins torch to one thread, joins its group through a file:// store under
+the test's directory (no port to clash under xdist), runs every case and
+writes its results there. The fixture joins them with its own deadline
+and fails with the ranks' stderr. The world of 3 splits the rows
+unevenly, and leaves a rank with no rows on the 300-row genome.
+
+Limits: kinship within 1e-12 of the port's single-device kinship and
+1e-10 of the JAX package's distributed_kinship on the conftest's 8-device
+mesh; EMMAX (float64, the tiers' plain versions) within 1e-10 in p of the
+port's single-device emmax and of the JAX package's distributed_emmax
+under x64 (its fast tiers pointed at the folded W'', test_torch_fold.
+fold_jax_tiers), identical masks, also under VanRaden's singular K."""
+
+import os
+import pickle
+import subprocess
+import sys
+import time
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from mixmogam_tpu.parallel import distributed as jdist
+from mixmogam_tpu.parallel import mesh as jmesh
+from mixmogam_tpu.parallel import multihost as jmultihost
+from mixmogam_tpu.ops import scan as jscan
+from mixmogam_tpu.oracle.kinship import vanraden_kinship
+from mixmogam_tpu_torch.data.simulate import (simulate_genotypes,
+                                              simulate_phenotype)
+from mixmogam_tpu_torch.models.emmax import emmax
+from mixmogam_tpu_torch.models.resident import ResidentGenome, scale_k
+from mixmogam_tpu_torch.ops.kinship import kinship
+from mixmogam_tpu_torch.parallel import (distributed_emmax,
+                                         distributed_kinship,
+                                         distributed_train_step,
+                                         make_global_snp_array, make_mesh)
+from mixmogam_tpu_torch.parallel import mesh as tmesh
+from mixmogam_tpu_torch.parallel import multihost as tmultihost
+from test_torch_fold import fold_jax_tiers
+
+torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORLDS = (2, 3)
+TIERS = ("exact", "int8x3", "bf16x3")
+_RB = {"exact": False, "int8x3": "int8x3", "bf16x3": "bf16x3"}
+
+
+def _data():
+    """main: n = 120 binary lines, M = 700; miss: 300 rows, 4 % missing
+    calls; dip: diploid dosages; frac: main's imputed fractions with NaN;
+    sing: the n = 256 VanRaden singular-K fixture of test_torch_fold.py
+    (seed 3; delta at its bound), its kinship from all 3,000 rows and its
+    scan cut to the first 2,000."""
+    G, _, _ = simulate_genotypes(120, 700, ploidy=1, seed=31)
+    y, _ = simulate_phenotype(G, h2=0.6, n_causal=4, seed=31)
+    rng = np.random.default_rng(31)
+    miss = G[:300].copy()
+    miss[rng.random(miss.shape) < 0.04] = -1
+    dip, _, _ = simulate_genotypes(120, 400, ploidy=2, seed=32)
+    frac = G * 0.97 + rng.uniform(0.0, 0.02, G.shape)
+    frac[rng.random(G.shape) < 0.01] = np.nan
+    Gs, _, _ = simulate_genotypes(256, 3_000, ploidy=1, seed=3)
+    ys, _ = simulate_phenotype(Gs, h2=0.5, n_causal=4, seed=3)
+    K = scale_k(kinship(G, device="cpu"))
+    Ks = scale_k(vanraden_kinship(Gs.astype(np.float64), ploidy=1))
+    Gs = Gs[:2_000]
+    return dict(G=G, y=y, K=K, miss=miss, dip=dip, frac=frac, Gs=Gs, ys=ys,
+                Ks=Ks)
+
+
+_WORKER = r'''
+import pickle, sys
+import numpy as np
+sys.path.insert(0, {repo!r})
+import torch
+torch.set_num_threads(1)
+import torch.distributed as dist
+from mixmogam_tpu_torch.models.emmax import emmax
+from mixmogam_tpu_torch.parallel import (distributed_emmax,
+    distributed_kinship, initialize_multihost, make_global_snp_array,
+    make_mesh)
+from mixmogam_tpu_torch.parallel.mesh import broadcast_from_rank0
+from mixmogam_tpu_torch.parallel.multihost import host_snp_range
+
+rank, world = {rank}, {world}
+initialize_multihost("file://" + {store!r}, world, rank, device="cpu")
+mesh = make_mesh(devices="cpu")
+z = dict(np.load({data!r}))
+res = {{"mesh": (mesh.shape, mesh.backend, mesh.rank, mesh.world)}}
+# rank 0's tensors, a column-major one among them, and a scalar and a None
+sent = broadcast_from_rank0(
+    {{"t": torch.arange(12.0).reshape(3, 4).T, "s": 2.5, "n": None}}
+    if rank == 0 else None, mesh)
+res["bcast"] = (sent["t"].stride(), sent["t"].numpy(), sent["s"], sent["n"])
+
+
+def run(name, fn):
+    try:
+        res[name] = ("ok", fn())
+    except Exception as e:
+        res[name] = ("raised", type(e).__name__, str(e))
+
+
+run("kin_ibs", lambda: distributed_kinship(z["G"], mesh))
+run("kin_missing", lambda: distributed_kinship(z["miss"], mesh))
+run("kin_vanraden", lambda: distributed_kinship(z["G"], mesh,
+                                                method="vanraden"))
+run("kin_vanraden_dip", lambda: distributed_kinship(z["dip"], mesh,
+                                                    method="vanraden"))
+run("kin_diploid_ibs", lambda: distributed_kinship(z["dip"], mesh))
+M = z["G"].shape[0]
+lo, hi = host_snp_range(M, world, rank)
+run("kin_shard", lambda: distributed_kinship(
+    make_global_snp_array(z["G"][lo:hi], M, mesh), mesh))
+for tier, rb in {rb!r}.items():
+    run("emmax_main_" + tier, lambda: distributed_emmax(
+        z["G"], z["y"], K=z["K"], mesh=mesh, rotate_in_bf16=rb))
+    run("emmax_sing_" + tier, lambda: distributed_emmax(
+        z["Gs"], z["ys"], K=z["Ks"], mesh=mesh, rotate_in_bf16=rb))
+    run("emmax_missing_" + tier, lambda: distributed_emmax(
+        z["miss"], z["y"], K=z["K"], mesh=mesh, rotate_in_bf16=rb))
+run("emmax_shard", lambda: distributed_emmax(
+    make_global_snp_array(z["G"][lo:hi], M, mesh), z["y"], K=z["K"],
+    mesh=mesh, rotate_in_bf16="int8x3"))
+run("emmax_frac_bf16x3", lambda: distributed_emmax(
+    z["frac"], z["y"], K=z["K"], mesh=mesh, rotate_in_bf16="bf16x3"))
+run("emmax_frac_int8x3", lambda: distributed_emmax(
+    z["frac"], z["y"], K=z["K"], mesh=mesh, rotate_in_bf16="int8x3"))
+run("emmax_route", lambda: emmax(z["G"], z["y"], K=z["K"], mesh=mesh,
+                                 precision="bf16x3", with_betas=False))
+run("emmax_sing_f32", lambda: distributed_emmax(
+    z["Gs"], z["ys"], K=z["Ks"], mesh=mesh, dtype=torch.float32))
+with open({out!r}, "wb") as f:
+    pickle.dump(res, f)
+dist.destroy_process_group()
+'''
+
+
+@pytest.fixture(scope="module")
+def data():
+    return _data()
+
+
+@pytest.fixture(scope="module")
+def worlds(data, tmp_path_factory):
+    """{world: [rank 0's results, rank 1's, ...]} of one run of every case
+    on each world."""
+    d = tmp_path_factory.mktemp("gloo")
+    dpath = str(d / "data.npz")
+    np.savez(dpath, **data)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+               OPENBLAS_NUM_THREADS="1")
+    procs = []
+    for world in WORLDS:
+        store = str(d / f"store_{world}")
+        for rank in range(world):
+            out = str(d / f"out_{world}_{rank}.pkl")
+            err = open(d / f"err_{world}_{rank}.txt", "w")
+            src = _WORKER.format(repo=REPO, rank=rank, world=world,
+                                 store=store, data=dpath, out=out, rb=_RB)
+            procs.append((world, rank, out, err, subprocess.Popen(
+                [sys.executable, "-c", src], stdout=err,
+                stderr=subprocess.STDOUT, env=env)))
+    deadline = time.time() + 600
+    try:
+        for *_, p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for *_, err, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+            err.close()
+    bad = [(w, r, p.returncode, open(e.name).read()[-3000:])
+           for w, r, _, e, p in procs if p.returncode != 0]
+    if bad:
+        pytest.fail(f"gloo ranks failed (world, rank, rc, output): {bad}")
+    out = {w: [] for w in WORLDS}
+    for w, _, path, _, _ in procs:
+        with open(path, "rb") as f:
+            out[w].append(pickle.load(f))
+    return out
+
+
+def _ok(res, name):
+    assert res[name][0] == "ok", res[name]
+    return res[name][1]
+
+
+# ---- the worlds ran as asked ----------------------------------------------
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_each_rank_sees_its_mesh(worlds, world):
+    got = [r["mesh"] for r in worlds[world]]
+    assert got == [((world, 1), "gloo", i, world) for i in range(world)]
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_the_broadcast_keeps_rank_0s_layout(worlds, world):
+    """broadcast_from_rank0 gives every rank rank 0's values with rank 0's
+    strides (a column-major U stays column-major: the exact tier's GEMM
+    then rounds alike on every rank), and its scalars and Nones."""
+    want = np.arange(12.0).reshape(3, 4).T
+    for res in worlds[world]:
+        stride, t, sc, none = res["bcast"]
+        assert stride == (1, 4) and sc == 2.5 and none is None
+        np.testing.assert_array_equal(t, want)
+
+
+_KIN = ("kin_ibs", "kin_missing", "kin_vanraden", "kin_vanraden_dip",
+        "kin_shard")
+#: (fixture, tier) of the scans that run (int8x3 refuses missing calls)
+_SCANS = [(f, t) for f in ("main", "sing", "missing") for t in TIERS
+          if (f, t) != ("missing", "int8x3")]
+_EMX = tuple(f"emmax_{f}_{t}" for f, t in _SCANS) + (
+    "emmax_shard", "emmax_frac_bf16x3", "emmax_route", "emmax_sing_f32")
+
+
+@pytest.mark.parametrize("case", _KIN + _EMX)
+@pytest.mark.parametrize("world", WORLDS)
+def test_every_rank_returns_the_same_result(worlds, world, case):
+    first = _ok(worlds[world][0], case)
+    for res in worlds[world][1:]:
+        other = _ok(res, case)
+        if isinstance(first, dict):
+            assert first.keys() == other.keys()
+            for k in first:
+                np.testing.assert_array_equal(other[k], first[k])
+        else:
+            np.testing.assert_array_equal(other, first)
+
+
+# ---- distributed_kinship ----------------------------------------------------
+
+def _kin_source(data, case):
+    return {"kin_ibs": (data["G"], "ibs"),
+            "kin_missing": (data["miss"], "ibs"),
+            "kin_vanraden": (data["G"], "vanraden"),
+            "kin_vanraden_dip": (data["dip"], "vanraden"),
+            "kin_shard": (data["G"], "ibs")}[case]
+
+
+@pytest.mark.parametrize("case", _KIN)
+@pytest.mark.parametrize("world", WORLDS)
+def test_kinship_matches_the_single_device_port(worlds, data, world, case):
+    G, method = _kin_source(data, case)
+    ref = kinship(G, method=method, device="cpu")
+    got = _ok(worlds[world][0], case)
+    assert got.dtype == np.float64 and got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("case", _KIN)
+@pytest.mark.parametrize("world", WORLDS)
+def test_kinship_matches_jax(worlds, data, world, case):
+    G, method = _kin_source(data, case)
+    mesh = jmesh.make_mesh((8, 1), devices=jax.devices()[:8])
+    if G.dtype == np.int8 and not (G < 0).any():
+        G = G.astype(np.float64)     # JAX's gram would sum in int8
+    ref = jdist.distributed_kinship(G, mesh=mesh, method=method)
+    np.testing.assert_allclose(_ok(worlds[world][0], case), ref, rtol=0,
+                               atol=1e-10)
+
+
+def test_integer_kinship_is_bit_equal_across_worlds(worlds, data):
+    """K1's integer counts summed in int64: the same bits on every world
+    and on one device."""
+    ref = kinship(data["G"], device="cpu")
+    for w in WORLDS:
+        np.testing.assert_array_equal(_ok(worlds[w][0], "kin_ibs"), ref)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_diploid_ibs_is_refused_on_every_rank(worlds, world):
+    for res in worlds[world]:
+        kind, name, msg = res["kin_diploid_ibs"]
+        assert (kind, name) == ("raised", "ValueError")
+        assert "BINARY" in msg
+
+
+# ---- distributed_emmax ------------------------------------------------------
+
+def _emx_inputs(data, fixture):
+    if fixture == "sing":
+        return data["Gs"], data["ys"], data["Ks"]
+    G = data["miss"] if fixture == "missing" else data["G"]
+    return G, data["y"], data["K"]
+
+
+def _close(got, ref, tol=1e-10):
+    np.testing.assert_array_equal(got["mask"], ref["mask"])
+    np.testing.assert_allclose(got["ps"], ref["ps"], rtol=0, atol=tol)
+    np.testing.assert_allclose(got["f_stats"], ref["f_stats"], rtol=1e-9,
+                               atol=1e-9)
+
+
+@pytest.mark.parametrize("fixture, tier", _SCANS)
+@pytest.mark.parametrize("world", WORLDS)
+def test_emmax_matches_the_single_device_port(worlds, data, world, fixture,
+                                              tier):
+    G, y, K = _emx_inputs(data, fixture)
+    got = _ok(worlds[world][0], f"emmax_{fixture}_{tier}")
+    ref = emmax(G, y, K=K, precision=tier, device="cpu")
+    _close(got, ref)
+    np.testing.assert_allclose(got["betas"], ref["betas"], rtol=1e-9,
+                               atol=1e-10)
+    for k in ("delta", "pseudo_heritability", "dof", "ll_null"):
+        assert got[k] == pytest.approx(ref[k], rel=1e-12, abs=1e-12)
+
+
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("fixture", ["main", "sing"])
+@pytest.mark.parametrize("world", WORLDS)
+def test_emmax_matches_jax(worlds, data, world, fixture, tier, monkeypatch):
+    G, y, K = _emx_inputs(data, fixture)
+    fold_jax_tiers(monkeypatch)
+    monkeypatch.setattr(jdist, "build_rotated_null",
+                        jscan.build_rotated_null)
+    mesh = jmesh.make_mesh((8, 1), devices=jax.devices()[:8])
+    ref = jdist.distributed_emmax(G.astype(np.float64), y, K=K, mesh=mesh,
+                                  rotate_in_bf16=_RB[tier])
+    got = _ok(worlds[world][0], f"emmax_{fixture}_{tier}")
+    assert sorted(got) == sorted(ref)
+    _close(got, ref)
+
+
+def test_the_singular_fixture_has_delta_at_its_bound(worlds):
+    got = _ok(worlds[2][0], "emmax_sing_exact")
+    assert got["delta"] == pytest.approx(np.exp(-10.0), rel=1e-6)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_float32_under_the_singular_kinship(worlds, data, world):
+    """The float32 scan of the singular fixture (the projected U') on the
+    mesh: equal to one device's float32 call, and within 1e-6 of float64
+    with the same masks."""
+    got = _ok(worlds[world][0], "emmax_sing_f32")
+    ref = emmax(data["Gs"], data["ys"], K=data["Ks"], dtype=torch.float32,
+                device="cpu")
+    _close(got, ref, tol=1e-12)
+    f64 = _ok(worlds[world][0], "emmax_sing_exact")
+    np.testing.assert_array_equal(got["mask"], f64["mask"])
+    assert np.abs(got["ps"] - f64["ps"]).max() <= 1e-6
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_a_shard_scans_as_the_full_matrix(worlds, world):
+    res = worlds[world][0]
+    _close(_ok(res, "emmax_shard"), _ok(res, "emmax_main_int8x3"), tol=0)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_fractional_dosages_take_the_float_route(worlds, data, world):
+    ref = emmax(data["frac"], data["y"], K=data["K"], precision="bf16x3",
+                device="cpu")
+    _close(_ok(worlds[world][0], "emmax_frac_bf16x3"), ref)
+
+
+@pytest.mark.parametrize("case", ["emmax_frac_int8x3", "emmax_missing_int8x3"])
+@pytest.mark.parametrize("world", WORLDS)
+def test_int8_refusals_on_every_rank(worlds, world, case):
+    for res in worlds[world]:
+        kind, name, msg = res[case]
+        assert (kind, name) == ("raised", "ValueError")
+        assert "integer dosages" in msg
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_emmax_mesh_route_is_distributed_emmax(worlds, world):
+    res = worlds[world][0]
+    got, ref = _ok(res, "emmax_route"), _ok(res, "emmax_main_bf16x3")
+    assert "betas" not in got and "var_perc" not in got
+    _close(got, ref, tol=0)
+
+
+# ---- refusals, copies, defaults (one process) ------------------------------
+
+_CPU_MESH = make_mesh(devices="cpu")
+
+
+@pytest.mark.parametrize("kw, exc, match", [
+    (dict(precision="fast"), ValueError, "'fast'"),
+    (dict(precision="fast", rescore_top=8), ValueError, "'fast'"),
+    (dict(stream=True), ValueError, "stream=True"),
+    (dict(checkpoint_dir="ck"), ValueError, "checkpoint_dir"),
+    (dict(rescore_top=8), ValueError, "rescore_top"),
+    (dict(matmul_precision="high"), ValueError, "matmul_precision"),
+    (dict(precision="high"), NotImplementedError, "item 4"),
+    (dict(resident=True), NotImplementedError, "item 16b"),
+])
+def test_emmax_mesh_refusals(data, kw, exc, match):
+    with pytest.raises(exc, match=match):
+        emmax(data["G"], data["y"], K=data["K"], mesh=_CPU_MESH,
+              device="cpu", **kw)
+
+
+def test_an_int8_source_over_the_budget_waits_for_16b(data, monkeypatch):
+    """An int8 source over the in-core budget that fits packed (the JAX
+    package's upload=False route); the CPU has no packed budget, so it is
+    given one here."""
+    from mixmogam_tpu_torch.models import resident
+
+    monkeypatch.setattr(resident, "resident_budget_bytes", lambda d: 1 << 40)
+    with pytest.raises(NotImplementedError, match="item 16b"):
+        emmax(data["G"], data["y"], K=data["K"], mesh=_CPU_MESH,
+              stream_budget_bytes=1, device="cpu")
+
+
+def test_a_resident_genome_on_a_mesh_waits_for_16b(data):
+    rg = ResidentGenome.from_source(data["G"], device="cpu")
+    with pytest.raises(NotImplementedError, match="item 16b"):
+        emmax(rg, data["y"], K=data["K"], mesh=_CPU_MESH)
+    with pytest.raises(NotImplementedError, match="item 16b"):
+        distributed_emmax(rg, data["y"], K=data["K"], mesh=_CPU_MESH)
+
+
+def test_a_float_source_over_the_budget_stays_in_core(data):
+    """Only an int8 source that would fit packed waits for 16b; a float
+    source over the in-core budget scans SNP-sharded in core, as in the
+    JAX package."""
+    Gf = data["G"].astype(np.float64)
+    got = emmax(Gf, data["y"], K=data["K"], mesh=_CPU_MESH,
+                stream_budget_bytes=1, device="cpu")
+    _close(got, emmax(Gf, data["y"], K=data["K"], device="cpu"))
+
+
+@pytest.mark.parametrize("bad", [object(), "mesh"])
+def test_emmax_takes_only_a_mesh(data, bad):
+    with pytest.raises(TypeError, match="make_mesh"):
+        emmax(data["G"], data["y"], K=data["K"], mesh=bad, device="cpu")
+
+
+def test_emmax_mesh_takes_no_shard(data):
+    shard = make_global_snp_array(data["G"], data["G"].shape[0], _CPU_MESH)
+    with pytest.raises(TypeError, match="SnpShard"):
+        emmax(shard, data["y"], K=data["K"], mesh=_CPU_MESH, device="cpu")
+
+
+def test_the_sample_axis_waits_for_16d():
+    with pytest.raises(NotImplementedError, match="item 16d"):
+        make_mesh((1, 2), devices="cpu")
+    with pytest.raises(ValueError, match="ranks"):
+        make_mesh((2, 1), devices="cpu")
+
+
+def test_train_step_waits_for_16e():
+    with pytest.raises(NotImplementedError, match="item 16e"):
+        distributed_train_step()
+
+
+def test_a_shard_must_be_the_ranks_range(data):
+    with pytest.raises(ValueError, match="host_snp_range"):
+        make_global_snp_array(data["G"][:10], 700, _CPU_MESH)
+
+
+@pytest.mark.parametrize("args", [(1000, 8, 3), (1000, 8, 7), (7, 4, 0),
+                                  (7, 4, 3), (100_001, 3, 2), (0, 2, 1)])
+def test_host_snp_range_is_the_jax_packages(args):
+    assert (tmultihost.host_snp_range(*args)
+            == jmultihost.host_snp_range(*args))
+
+
+@pytest.mark.parametrize("shape, mult, axis", [((101, 3), 8, 0),
+                                               ((96, 5), 8, 0),
+                                               ((4, 13), 4, 1)])
+def test_pad_to_multiple_is_the_jax_packages(shape, mult, axis):
+    x = np.arange(np.prod(shape), dtype=np.float64).reshape(shape)
+    got, size = tmesh.pad_to_multiple(x, mult, axis)
+    ref, rsize = jmesh.pad_to_multiple(x, mult, axis)
+    assert size == rsize
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")
+@pytest.mark.parametrize("call", ["make_mesh", "distributed_kinship",
+                                  "distributed_emmax"])
+def test_entry_points_need_a_card_unless_asked(data, call):
+    fn = {"make_mesh": lambda: make_mesh(),
+          "distributed_kinship": lambda: distributed_kinship(data["G"]),
+          "distributed_emmax": lambda: distributed_emmax(
+              data["G"], data["y"], K=data["K"])}[call]
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        fn()
+
+
+def test_one_process_starts_no_group(monkeypatch):
+    """initialize_multihost does nothing for a single process, asked or
+    from the environment."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    tmultihost.initialize_multihost(num_processes=1)
+    tmultihost.initialize_multihost()
+    assert not torch.distributed.is_initialized()
+
+
+def test_a_world_of_one_has_no_collectives(data):
+    """Without a process group the mesh is a world of one, and the
+    distributed calls equal the single-device ones bit for bit."""
+    assert _CPU_MESH.world == 1 and not _CPU_MESH.distributed
+    np.testing.assert_array_equal(
+        distributed_kinship(data["G"], _CPU_MESH),
+        kinship(data["G"], device="cpu"))
+    got = distributed_emmax(data["G"], data["y"], K=data["K"],
+                            mesh=_CPU_MESH, rotate_in_bf16="int8x3")
+    _close(got, emmax(data["G"], data["y"], K=data["K"], precision="int8x3",
+                      device="cpu"), tol=0)
+
+
+def _other_entries():
+    """name -> call(G, y, K, mesh) of every other entry point with mesh=."""
+    from mixmogam_tpu_torch import api
+    from mixmogam_tpu_torch.models.loco import emmax_loco
+    from mixmogam_tpu_torch.models.multitrait import emmax_multi_trait
+    from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
+
+    return {
+        "emmax_loco": lambda G, y, K, m: emmax_loco(
+            G, y, chromosomes=np.repeat([1, 2], [400, 300]), mesh=m,
+            device="cpu"),
+        "emmax_step_wise": lambda G, y, K, m: emmax_step_wise(
+            G, y, K=K, mesh=m, device="cpu"),
+        "emmax_multi_trait": lambda G, y, K, m: emmax_multi_trait(
+            G, np.stack([y, y]), K=K, mesh=m, device="cpu"),
+        "emma": lambda G, y, K, m: api.emma(G, y, K=K, mesh=m, device="cpu"),
+        "linear_model": lambda G, y, K, m: api.linear_model(
+            G, y, mesh=m, device="cpu"),
+        "anova": lambda G, y, K, m: api.anova(G, y, mesh=m, device="cpu"),
+        "kruskal_wallis": lambda G, y, K, m: api.kruskal_wallis(
+            G, y, mesh=m, device="cpu"),
+        "emmax_gxe": lambda G, y, K, m: api.emmax_gxe(
+            G, y, np.arange(y.size) % 2 * 1.0, K=K, mesh=m, device="cpu"),
+        "emmax_perm_test": lambda G, y, K, m: api.emmax_perm_test(
+            G, y, K=K, mesh=m, device="cpu"),
+        "emmax_two_snps": lambda G, y, K, m: api.emmax_two_snps(
+            G, y, K=K, focal_idx=[1], mesh=m, device="cpu"),
+        "emmax_anova": lambda G, y, K, m: api.emmax_anova(
+            G.astype(np.int8) * 2, y, K=K, mesh=m, device="cpu"),
+    }
+
+
+@pytest.mark.parametrize("entry", sorted(_other_entries()))
+def test_the_other_entry_points_mesh_waits_for_16c(data, entry):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 16c"):
+        _other_entries()[entry](data["G"], data["y"], data["K"], _CPU_MESH)

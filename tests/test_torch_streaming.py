@@ -258,7 +258,10 @@ _WORKER = """
 import sys, time
 import numpy as np
 sys.path.insert(0, {repo!r})
+import torch
 from mixmogam_tpu_torch.models.streaming import emmax_streamed
+
+torch.set_num_threads(1)
 
 z = np.load({data!r})
 
@@ -282,20 +285,39 @@ print("DONE", flush=True)
 
 def test_a_sigkilled_scan_resumes(data, tmp_path):
     """SIGKILL a streamed scan in a subprocess once two tiles are on disk,
-    resume in this process: equal to an uninterrupted run."""
+    resume in this process: equal to an uninterrupted run. The worker runs
+    one thread (as this process does), and its clock starts at its START
+    line: on a loaded host its imports alone took most of a minute."""
     G, y, K = data["G_miss"], data["y"], data["K"]
     ck, dpath = str(tmp_path / "ck"), str(tmp_path / "d.npz")
     np.savez(dpath, G=G, y=y, K=K)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.Popen(
-        [sys.executable, "-c", _WORKER.format(repo=REPO, data=dpath, ck=ck)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    env.update(OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+               OPENBLAS_NUM_THREADS="1")
+    out_path, err_path = tmp_path / "worker.out", tmp_path / "worker.err"
+    with open(out_path, "w") as out, open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c",
+             _WORKER.format(repo=REPO, data=dpath, ck=ck)],
+            stdout=out, stderr=err, text=True, env=env)
+
+    def fail(why):
+        proc.kill()
+        proc.wait(timeout=30)
+        pytest.fail(f"{why}: stdout {out_path.read_text()!r}, stderr "
+                    f"{err_path.read_text()!r}")
+
     try:
-        deadline = time.time() + 60
+        deadline = time.time() + 300
+        while "START" not in out_path.read_text():
+            if proc.poll() is not None or time.time() > deadline:
+                fail("the worker did not reach its scan")
+            time.sleep(0.05)
+        deadline = time.time() + 120
         while len(glob.glob(os.path.join(ck, "tile_*[0-9].npz"))) < 2:
             if proc.poll() is not None or time.time() > deadline:
-                pytest.fail("no two tile files before the deadline or the "
-                            f"worker's end: {proc.communicate()}")
+                fail("no two tile files before the deadline or the "
+                     "worker's end")
             time.sleep(0.05)
         proc.send_signal(signal.SIGKILL)
         proc.wait(timeout=30)
