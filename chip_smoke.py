@@ -262,10 +262,24 @@ Phases (each prints its own seconds):
     distributed_kinship bit-equal to kinship_resident, distributed_emmax
     at exact, int8x3 and bf16x3 equal to emmax_resident (identical masks,
     max |dp| <= 1e-12; whether bit-equal printed), K1, K3, K2 and K5 each
-    launched by the distributed calls; (b) two gloo ranks sharing the card,
+    launched by the distributed calls; (c) in the same group, the sharded
+    resident scan: from_source(upload=False) of phase 4's genome (its
+    wall; torch.cuda.memory_allocated() unchanged across it), emmax(mesh=)
+    over that host-only container at exact, int8x3 and bf16x3, first call
+    and again, each bit-equal to emmax_resident, the shard uploads (1, then
+    0); distributed_kinship over it bit-equal to kinship_resident;
+    emmax_loco(mesh=) on phase 6's genome bit-equal to phase 6's direct
+    exact call; each wall beside the single-device one, and K1-K5 each
+    launched by those calls; (b) two gloo ranks sharing the card,
     subprocesses, on the first 32,768 rows, held to the single-device
-    calls by the same gates; which gloo collectives take CUDA tensors in
-    this torch printed; the walls
+    calls by the same gates: distributed_emmax and distributed_emmax_
+    resident (each rank's shard of a host-only container) at the three
+    tiers, and emmax_loco(mesh=) on n = 2,048 x 8,192 rows packed at a
+    2,048-row tile in 3 chromosomes, one on each rank and one across
+    both, bounds on the tile; the same rows with bounds off it (3,000 and
+    5,500, the middle chromosome tiled from the ranks' boundary on rank
+    1) held to identical masks and max |dp| <= LOCO_OFF_TILE_TOL; which
+    gloo collectives take CUDA tensors in this torch printed; the walls
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}. Any
@@ -2376,12 +2390,15 @@ import numpy as np
 sys.path.insert(0, {repo!r})
 import torch
 import torch.distributed as dist
+from mixmogam_tpu_torch.models.loco import emmax_loco
+from mixmogam_tpu_torch.models.resident import ResidentGenome
 from mixmogam_tpu_torch.ops.hopper_kinship import (ibs_gram_packed,
                                                    ibs_gram_tri_packed)
 from mixmogam_tpu_torch.ops.hopper_scan import (rotate_scan_bf16_packed,
                                                 rotate_scan_int8_packed,
                                                 scan_stats)
 from mixmogam_tpu_torch.parallel import (distributed_emmax,
+                                         distributed_emmax_resident,
                                          distributed_kinship, make_mesh)
 from mixmogam_tpu_torch.parallel.multihost import host_snp_range
 
@@ -2414,16 +2431,40 @@ walls, out = {{}}, {{}}
 ts = time.perf_counter()
 out["K"] = distributed_kinship(G, mesh)
 walls["kinship"] = time.perf_counter() - ts
+ts = time.perf_counter()
+rgh = ResidentGenome.from_source(G, upload=False)
+walls["pack on the host"] = time.perf_counter() - ts
 for tier, rb in {rb!r}.items():
-    ts = time.perf_counter()
-    r = distributed_emmax(G, y, eig_k=(phi, U), mesh=mesh,
-                          rotate_in_bf16=rb)
-    walls[tier] = time.perf_counter() - ts
-    for k in ("ps", "mask", "f_stats", "betas"):
-        out[tier + "_" + k] = r[k]
+    for name, fn, src in (("", distributed_emmax, G),
+                          ("res_", distributed_emmax_resident, rgh)):
+        ts = time.perf_counter()
+        r = fn(src, y, eig_k=(phi, U), mesh=mesh, rotate_in_bf16=rb)
+        walls[name + tier] = time.perf_counter() - ts
+        for k in ("ps", "mask", "f_stats", "betas"):
+            out[name + tier + "_" + k] = r[k]
+# LOCO on n = 2,048: the rows packed on the host at a 2,048-row tile
+Gl = np.load({d!r} + "/Gl.npy")
+rgl = ResidentGenome.from_source(Gl, tile=2_048, upload=False)
+ts = time.perf_counter()
+r = emmax_loco(rgl, np.load({d!r} + "/yl.npy"),
+               chromosomes=np.load({d!r} + "/chl.npy"), mesh=mesh)
+walls["emmax_loco"] = time.perf_counter() - ts
+for k in ("ps", "mask", "f_stats", "betas"):
+    out["loco_" + k] = r[k]
+# the same rows at chromosome bounds off the tile, one chromosome across
+# the ranks' boundary: its tiles start at that boundary on rank 1
+ts = time.perf_counter()
+r = emmax_loco(rgl, np.load({d!r} + "/yl.npy"),
+               chromosomes=np.load({d!r} + "/chl_off.npy"), mesh=mesh)
+walls["emmax_loco, bounds off the tile"] = time.perf_counter() - ts
+for k in ("ps", "mask", "f_stats", "betas"):
+    out["loco_off_" + k] = r[k]
 print(json.dumps({{"rank": rank, "device": str(mesh.device),
                    "backend": mesh.backend,
                    "rows": host_snp_range(G.shape[0], world, rank),
+                   "resident rows": host_snp_range(
+                       rgh.M, world, rank, tile=rgh.tile),
+                   "shard uploads": ResidentGenome.uploads,
                    "walls_s": {{k: round(v, 3) for k, v in walls.items()}},
                    "launches": {{k.__name__: k.launches for k in kernels}},
                    "gloo_on_cuda_tensors": probe}}), flush=True)
@@ -2433,10 +2474,15 @@ dist.destroy_process_group()
 """
 
 _P18_TIERS = {"exact": False, "int8x3": "int8x3", "bf16x3": "bf16x3"}
+#: phase 18 (b): max |dp| of emmax_loco(mesh=) against one device's call at
+#: chromosome bounds off the tile, where a chromosome split across ranks is
+#: tiled from the rank boundary and the exact tier's float32 GEMMs sum in
+#: other shapes (phase 13 (b)'s bound for float32 against float64 p-values)
+LOCO_OFF_TILE_TOL = 1e-5
 
 
-def _p18_gate(label, got, ref) -> None:
-    """Identical masks and max |dp| <= 1e-12; says whether bit-equal."""
+def _p18_gate(label, got, ref, tol=1e-12) -> None:
+    """Identical masks and max |dp| <= tol; says whether bit-equal."""
     import numpy as np
 
     nm = int((got["mask"] != ref["mask"]).sum())
@@ -2446,21 +2492,105 @@ def _p18_gate(label, got, ref) -> None:
     print(f"   {label}: {nm} mask(s) differ, max|dp| {dp:.3e}, "
           f"{'bit-equal' if same else 'not bit-equal'} (ps, mask, f_stats, "
           f"betas)", flush=True)
-    if nm or dp > 1e-12:
+    if nm or dp > tol:
         raise AssertionError(f"{label}: the distributed call disagrees")
 
 
-def _parallel_phase(args, kernels, main, G, tmp) -> None:
+def _resident_mesh_phase(kernels, launches, main, G, mesh, Kr) -> None:
+    """Phase 18 (c), in (a)'s world of one over NCCL: the sharded resident
+    scan over a host-only container of phase 4's genome and
+    emmax_loco(mesh=) on phase 6's rows, each held bit-equal to its
+    single-device call, K1-K5 each launched."""
+    import numpy as np
+    import torch
+
+    from mixmogam_tpu_torch.models.emmax import emmax
+    from mixmogam_tpu_torch.models.loco import emmax_loco
+    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
+                                                    emmax_resident)
+    from mixmogam_tpu_torch.parallel import distributed_kinship
+
+    rg, (phi, U), y = main["rg"], main["eig"], main["y"]
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    ts = time.perf_counter()
+    rgh = ResidentGenome.from_source(G, upload=False)
+    pack = time.perf_counter() - ts
+    mem1 = torch.cuda.memory_allocated()
+    print(f"(c) from_source(upload=False), n={rgh.n} M={rgh.M}: {pack:.3f} "
+          f"s on the host ({rgh.nbytes_packed / 1e6:.1f} MB packed); "
+          f"memory_allocated {mem0} -> {mem1} bytes", flush=True)
+    if mem1 != mem0 or not rgh.on_host:
+        raise AssertionError("(c) upload=False took device memory")
+    if not np.array_equal(rgh.host_packed, rg.host_packed):
+        raise AssertionError("(c) the host packing differs from the card's")
+    for k in kernels:
+        k.launches = 0
+    walls, res, ups = [], {}, []
+    for tier in _P18_TIERS:
+        for again in ("first", "again"):
+            u0 = ResidentGenome.uploads
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            res[tier] = emmax(rgh, y, eig_k=(phi, U), mesh=mesh,
+                              precision=tier)
+            walls.append(f"emmax(mesh=) {tier} {again} "
+                         f"{time.perf_counter() - ts:.3f}")
+            ups.append(ResidentGenome.uploads - u0)
+    ts = time.perf_counter()
+    Kh = distributed_kinship(rgh, mesh)
+    walls.append(f"distributed_kinship {time.perf_counter() - ts:.3f}")
+    lo = main["loco6"]
+    ts = time.perf_counter()
+    rl = emmax_loco(lo["G"], lo["y"], chromosomes=lo["chrom"], mesh=mesh)
+    torch.cuda.synchronize()
+    walls.append(f"emmax_loco(mesh=) exact {time.perf_counter() - ts:.3f}")
+    run = {k.__name__: k.launches for k in kernels}
+    print(f"(c) {'; '.join(walls)} s; shard uploads a call {ups}; "
+          f"launches {run}", flush=True)
+    for name, cnt in run.items():
+        launches[name] += cnt
+        if cnt <= 0:
+            raise AssertionError(f"(c) the resident mesh path never "
+                                 f"launched {name}")
+    if ups != [1, 0, 0, 0, 0, 0]:
+        raise AssertionError(f"(c) shard uploads {ups}, not 1 then none")
+    # the single-device calls, after the counts were read
+    for tier in _P18_TIERS:
+        ts = time.perf_counter()
+        ref = emmax_resident(rg, y, eig_k=(phi, U), precision=tier)
+        _p18_gate(f"(c) emmax(host-only container, mesh=) {tier} vs "
+                  f"emmax_resident ({time.perf_counter() - ts:.3f} s)",
+                  res[tier], ref)
+    print(f"   distributed_kinship(container) vs kinship_resident: "
+          f"{'bit-equal' if np.array_equal(Kh, Kr) else 'NOT equal'}",
+          flush=True)
+    if not np.array_equal(Kh, Kr):
+        raise AssertionError("(c) the container's kinship is not bit-equal")
+    _p18_gate(f"(c) emmax_loco(mesh=) vs phase 6's emmax_loco exact "
+              f"({lo['wall']:.3f} s), M={lo['G'].num_snps}, "
+              f"{len(set(lo['chrom'].tolist()))} chromosomes",
+              rl, lo["exact"])
+    if rl["loco"] != lo["exact"]["loco"]:
+        raise AssertionError("(c) LOCO's per-chromosome nulls differ")
+    del rgh, res, rl
+    main.pop("loco6")
+
+
+def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
     """Phase 18: parallel/'s data-parallel core on the card. (a) A world of
     one over NCCL (a file store) at full width: distributed_kinship against
     kinship_resident (bit-equal), distributed_emmax at exact / int8x3 /
-    bf16x3 against emmax_resident, K1 / K3 / K2 / K5 launched; (b) two
-    gloo ranks sharing the card, subprocesses, on the first 32,768 rows,
-    held to the single-device calls by the same gates."""
+    bf16x3 against emmax_resident, K1 / K3 / K2 / K5 launched; (c) in that
+    group, the sharded resident scan and emmax_loco(mesh=)
+    (_resident_mesh_phase); (b) two gloo ranks sharing the card,
+    subprocesses, on the first 32,768 rows, held to the single-device calls
+    by the same gates."""
     import numpy as np
     import torch
     import torch.distributed as dist
 
+    from mixmogam_tpu_torch.models.loco import emmax_loco
     from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                     emmax_resident,
                                                     kinship_resident)
@@ -2506,6 +2636,8 @@ def _parallel_phase(args, kernels, main, G, tmp) -> None:
             if run[name] <= 0:
                 raise AssertionError(f"(a) the distributed path never "
                                      f"launched {name}")
+        for name, cnt in run.items():
+            launches[name] += cnt
         # the single-device calls, after the counts were read
         ts = time.perf_counter()
         Kr = kinship_resident(rg)
@@ -2516,19 +2648,29 @@ def _parallel_phase(args, kernels, main, G, tmp) -> None:
               flush=True)
         if not np.array_equal(Kd, Kr):
             raise AssertionError("(a) the integer kinship is not bit-equal")
-        del Kd, Kr
+        del Kd
         for tier in _P18_TIERS:
             ts = time.perf_counter()
             ref = emmax_resident(rg, y, eig_k=(phi, U), precision=tier)
             _p18_gate(f"distributed_emmax {tier} vs emmax_resident "
                       f"({time.perf_counter() - ts:.3f} s)", dists[tier], ref)
         del dists, ref
+        _resident_mesh_phase(kernels, launches, main, G, mesh, Kr)
+        del Kr
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
 
-    # (b) two gloo ranks sharing the card, on the first 32,768 rows
+    # (b) two gloo ranks sharing the card, on the first 32,768 rows; LOCO
+    # on n = 2,048 x 8,192 rows, its chromosomes on rank 0, across both
+    # ranks and on rank 1 (a 2,048-row tile: [0, 4,096) on rank 0), bounds
+    # on the tile (bit-equal) and off it (chl_off: [3,000, 5,500) across
+    # the ranks, tiled from 4,096 on rank 1, so the exact tier's GEMMs take
+    # other shapes than one device's: held to LOCO_OFF_TILE_TOL)
     Mb = min(32_768, M)
+    nl, Ml = min(2_048, n), min(8_192, M)
+    chl = np.repeat([1, 2, 3], [Ml // 4, Ml // 2, Ml - 3 * (Ml // 4)])
+    chl_off = np.repeat([1, 2, 3], [3_000, 2_500, Ml - 5_500])
     d = os.path.join(tmp, "p18")
     os.makedirs(d, exist_ok=True)
     ts = time.perf_counter()
@@ -2536,6 +2678,11 @@ def _parallel_phase(args, kernels, main, G, tmp) -> None:
     np.save(os.path.join(d, "y.npy"), y)
     np.save(os.path.join(d, "phi.npy"), phi.double().cpu().numpy())
     np.save(os.path.join(d, "U.npy"), U.double().cpu().numpy())
+    Gl = np.ascontiguousarray(G[:Ml, :nl])
+    np.save(os.path.join(d, "Gl.npy"), Gl)
+    np.save(os.path.join(d, "yl.npy"), y[:nl])
+    np.save(os.path.join(d, "chl.npy"), chl)
+    np.save(os.path.join(d, "chl_off.npy"), chl_off)
     print(f"(b) the ranks' inputs written (not the system): "
           f"{time.perf_counter() - ts:.3f} s", flush=True)
     src = _P18_RANK.format(repo=os.path.dirname(os.path.abspath(__file__)),
@@ -2574,9 +2721,27 @@ def _parallel_phase(args, kernels, main, G, tmp) -> None:
         raise AssertionError("(b) the integer kinship is not bit-equal")
     for tier in _P18_TIERS:
         ref = emmax_resident(rgb, y, eig_k=(phi, U), precision=tier)
-        _p18_gate(f"(b) distributed_emmax {tier} vs emmax_resident",
-                  {k: z[f"{tier}_{k}"] for k in ("ps", "mask", "f_stats",
-                                                  "betas")}, ref)
+        for name in ("", "res_"):
+            _p18_gate(f"(b) distributed_emmax{'_resident' if name else ''} "
+                      f"{tier} vs emmax_resident",
+                      {k: z[f"{name}{tier}_{k}"]
+                       for k in ("ps", "mask", "f_stats", "betas")}, ref)
+    ts = time.perf_counter()
+    ref = emmax_loco(ResidentGenome.from_source(Gl, tile=2_048), y[:nl],
+                     chromosomes=chl)
+    _p18_gate(f"(b) emmax_loco(mesh=) vs emmax_loco, n={nl} M={Ml} "
+              f"({time.perf_counter() - ts:.3f} s)",
+              {k: z[f"loco_{k}"] for k in ("ps", "mask", "f_stats",
+                                           "betas")}, ref)
+    ts = time.perf_counter()
+    ref = emmax_loco(ResidentGenome.from_source(Gl, tile=2_048), y[:nl],
+                     chromosomes=chl_off)
+    _p18_gate(f"(b) emmax_loco(mesh=) vs emmax_loco, bounds off the tile "
+              f"{np.flatnonzero(np.diff(chl_off)) + 1} "
+              f"({time.perf_counter() - ts:.3f} s)",
+              {k: z[f"loco_off_{k}"] for k in ("ps", "mask", "f_stats",
+                                               "betas")}, ref,
+              tol=LOCO_OFF_TILE_TOL)
     del rgb, z
     torch.cuda.empty_cache()
 
@@ -3197,7 +3362,12 @@ def main(argv=None) -> int:
     def loco_exact_on(g2, y2):
         loco.update(rg=ResidentGenome.from_source(g2), y=y2,
                     chrom=np.asarray(g2.chromosomes))
+        ts = time.perf_counter()
         loco["exact"] = loco_direct("exact", scan_stats)
+        # phase 18 (c) holds emmax_loco(mesh=) on these rows to this call
+        main["loco6"] = dict(G=g2, y=y2, chrom=loco["chrom"],
+                             exact=loco["exact"],
+                             wall=time.perf_counter() - ts)
         return loco["exact"]
 
     # phases 6, 7 and 9 read these files: the directory goes when the
@@ -3675,7 +3845,7 @@ def main(argv=None) -> int:
 
     # ---- 18. the data-parallel core (parallel/) ----------------------------
     t0 = time.perf_counter()
-    _parallel_phase(args, kernels, main, G, tmp)
+    _parallel_phase(args, kernels, launches, main, G, tmp)
     tmpdir.cleanup()
     del main
     torch.cuda.empty_cache()

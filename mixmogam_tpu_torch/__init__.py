@@ -90,6 +90,14 @@ null fitted on rank 0 and broadcast once, each rank's rows scanned by the
 single-device routes, one all-gather), which emmax(mesh=) reaches for an
 in-core source.
 
+Slice 13 adds the sharded resident scan: ResidentGenome.from_source(
+upload=False) (packed on the host, nothing on a device), shard_packed_rows
+(each rank's packed rows uploaded once, kept with the container),
+distributed_emmax_resident (kernels K3, K2, K5 on a rank's shard) and
+distributed_kinship over a container (K1 on the shard), which emmax(mesh=)
+reaches for a packed genome, and emmax_loco(mesh=) (the kinships and eighs
+on rank 0, each chromosome scanned on the shards).
+
 Modules keep the JAX package's paths and names. The port imports torch,
 numpy and scipy, and nothing of jax or of the JAX package: the few numpy
 modules it shares with that package (the data, results and plotting

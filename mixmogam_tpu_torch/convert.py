@@ -136,13 +136,16 @@ def gblup_model_from_fields(model, device="cpu"):
 
 
 def resident_from_packed(host_packed, M, n, ploidy, tile, has_missing,
-                         device="cpu"):
-    """ResidentGenome from packed host rows (M_pad, ceil(n/4)) uint8."""
+                         device="cpu", upload: bool = True):
+    """ResidentGenome from packed host rows (M_pad, ceil(n/4)) uint8 (a
+    JAX container's host_packed, or its packed when it was built with
+    upload=False: both are numpy then). upload=False gives a host-only
+    container, as from_source(upload=False) does."""
     from mixmogam_tpu_torch.models.resident import ResidentGenome
 
     hp = np.array(host_packed, dtype=np.uint8, order="C")
-    return ResidentGenome(torch.from_numpy(hp).to(device), M, n, ploidy,
-                          tile, has_missing, host_packed=hp)
+    return ResidentGenome(torch.from_numpy(hp).to(device) if upload else hp,
+                          M, n, ploidy, tile, has_missing, host_packed=hp)
 
 
 def genotype_from_fields(gd):

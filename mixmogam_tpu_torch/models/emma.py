@@ -155,10 +155,10 @@ def emma(G, y, K=None, X0: Optional[np.ndarray] = None,
     test: 'f' (REML deltas, F-test) or 'lrt' (ML deltas, likelihood ratio
     against the null ML fit)."""
     from mixmogam_tpu_torch.models.emmax import _as_design
-    from mixmogam_tpu_torch.models.resident import ResidentGenome, _float_tiles
+    from mixmogam_tpu_torch.models.resident import (_float_tiles,
+                                                    resident_and_device)
     from mixmogam_tpu_torch.models.source import resolve_source
     from mixmogam_tpu_torch.models.streaming import host_tiles
-    from mixmogam_tpu_torch.ops import resolve_device
     from mixmogam_tpu_torch.ops.eigen import eigen_k_on
     from mixmogam_tpu_torch.ops.reml import (esp_to_refine_iters,
                                              fit_null_model)
@@ -172,8 +172,7 @@ def emma(G, y, K=None, X0: Optional[np.ndarray] = None,
     refine_iters = esp_to_refine_iters(esp, ngrids, llim, ulim)
     y = np.asarray(y, dtype=np.float64).ravel()
     n = y.shape[0]
-    rg = G if isinstance(G, ResidentGenome) else None
-    device = rg.device if rg is not None else resolve_device(device)
+    rg, device = resident_and_device(G, device)
     if rg is not None and rg.n != n:
         raise ValueError(f"y has {n} samples but the resident genome holds "
                          f"{rg.n}")

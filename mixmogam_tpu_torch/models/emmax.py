@@ -12,8 +12,10 @@ Fractional dosages at a bf16 tier stay in core as float rows and take the
 float route (ops/rotate.py: a bf16 rotation by the parts of U', then
 kernel K3); at an int8 tier they raise. mesh= sends an in-core source to
 parallel/distributed.py::distributed_emmax (each rank scans its own rows
-by the routes above); the resident sharded route waits for ROADMAP Queue 1
-item 16b.
+by the routes above), and a ResidentGenome, resident=True or an int8
+source over the in-core budget that fits packed (packed on the host,
+ResidentGenome.from_source(upload=False)) to distributed_emmax_resident
+(each rank scans its shard of the packed rows).
 """
 
 from __future__ import annotations
@@ -157,12 +159,14 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
     resident if it is int8 and fits resident_budget_bytes, else streamed
     from the host (emmax_streamed, tile=max(tile, 8192)); stream=True
     streams at any size, stream=False never. checkpoint_dir needs the
-    streamed route. mesh: a parallel.Mesh (make_mesh()) sends an in-core
-    source to parallel/distributed.py::distributed_emmax (the JAX package's
-    refusals first: 'fast', stream=True, checkpoint_dir / rescore_top,
-    matmul_precision); a ResidentGenome, resident=True or an int8 source
-    over the in-core budget that fits packed raise (ROADMAP Queue 1 item
-    16b)."""
+    streamed route. mesh: a parallel.Mesh (make_mesh()) routes the scan
+    through parallel/distributed.py (the JAX package's refusals first:
+    'fast', stream=True, checkpoint_dir / rescore_top, matmul_precision):
+    a ResidentGenome, resident=True or an int8 source over the in-core
+    budget that fits packed (packed on the host, upload=False) to
+    distributed_emmax_resident, any other source to distributed_emmax. A
+    host-only ResidentGenome (from_source(upload=False)) without mesh=
+    scans on `device`, its rows uploaded there once."""
     from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                     _default_dtype,
                                                     emmax_resident,
@@ -209,8 +213,8 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
     if rg_given:
         if checkpoint_dir is not None:
             raise ValueError(_RESIDENT_NO_RESUME)
-        return emmax_resident(G_src, y, K=K, X0=X0, eig_k=eig_k,
-                              dtype=dtype, **kw)
+        return emmax_resident(G_src.on_device(device), y, K=K, X0=X0,
+                              eig_k=eig_k, dtype=dtype, **kw)
     device = resolve_device(device)
     if dtype is None:
         dtype = _default_dtype(device)
@@ -305,18 +309,19 @@ def _emmax_on_mesh(G, G_src, y, K, X0, eig_k, ngrids, llim, ulim, esp,
                    matmul_precision, precision, stream, stream_budget_bytes,
                    checkpoint_dir, rescore_top, resident, mesh, device
                    ) -> dict:
-    """emmax(mesh=): the JAX package's refusals in its order, then an
-    in-core source to parallel/distributed.py::distributed_emmax. A
-    ResidentGenome, resident=True, or an int8 source over the in-core
-    budget that fits packed (the JAX package's upload=False route) wait
-    for ROADMAP Queue 1 item 16b."""
+    """emmax(mesh=): the JAX package's refusals in its order, then its
+    routes. A ResidentGenome, resident=True (the source packed on the
+    host), or an int8 source over the in-core budget that fits packed
+    (models/source.py::pack_for_mesh) go to parallel/distributed.py::
+    distributed_emmax_resident; any other source to distributed_emmax."""
     from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                     _default_dtype,
                                                     resident_budget_bytes)
-    from mixmogam_tpu_torch.models.source import should_stream
+    from mixmogam_tpu_torch.models.source import pack_for_mesh, should_stream
     from mixmogam_tpu_torch.ops.scan import (probe_for_source,
                                              resolve_precision)
-    from mixmogam_tpu_torch.parallel.distributed import distributed_emmax
+    from mixmogam_tpu_torch.parallel.distributed import (
+        distributed_emmax, distributed_emmax_resident)
     from mixmogam_tpu_torch.parallel.mesh import Mesh
     from mixmogam_tpu_torch.parallel.multihost import SnpShard
 
@@ -332,7 +337,7 @@ def _emmax_on_mesh(G, G_src, y, K, X0, eig_k, ngrids, llim, ulim, esp,
             "an explicit tier for mesh scans")
     if stream is True:
         raise ValueError("stream=True is a single-device feature; the mesh "
-                         "path shards in-core rows")
+                         "path shards in-core or packed rows")
     if checkpoint_dir is not None or rescore_top:
         raise ValueError("checkpoint_dir/rescore_top are single-device "
                          "features; drop mesh= or rescore the gathered "
@@ -340,16 +345,14 @@ def _emmax_on_mesh(G, G_src, y, K, X0, eig_k, ngrids, llim, ulim, esp,
     if matmul_precision:
         raise ValueError("matmul_precision is not supported on the mesh "
                          "path; use a precision= tier name")
-    resident_16b = NotImplementedError(
-        "mesh= over a resident (2-bit packed) genome, the sharded resident "
-        "scan, is not ported yet: ROADMAP Queue 1 item 16b")
-    if isinstance(G_src, ResidentGenome) or resident is True:
-        raise resident_16b
     device = mesh.device if device is None else torch.device(device)
     if dtype is None:
         dtype = _default_dtype(device)
     n = np.asarray(y).size
-    if resident is not False:
+    rg = G_src if isinstance(G_src, ResidentGenome) else None
+    if rg is None and resident is True:
+        rg = ResidentGenome.from_source(G_src, upload=False)
+    elif rg is None and resident is not False:
         itemsize = torch.empty((), dtype=dtype).element_size()
         budget = (incore_budget_bytes(device) if stream_budget_bytes is None
                   else stream_budget_bytes)
@@ -357,18 +360,19 @@ def _emmax_on_mesh(G, G_src, y, K, X0, eig_k, ngrids, llim, ulim, esp,
                 and np.dtype(G_src.dtype) == np.int8
                 and G_src.shape[0] * ((n + 3) // 4)
                 <= resident_budget_bytes(device)):
-            raise resident_16b
+            rg = pack_for_mesh(G_src, n, "emmax", device)
     rb = rotate_in_bf16
     if precision is not None:
         if rotate_in_bf16:
             raise ValueError("pass either precision= or the legacy "
                              "rotate_in_bf16 kwarg, not both")
         rb, _ = resolve_precision(
-            precision, G=probe_for_source(None, G_src), device=device)
-    res = distributed_emmax(G, y, K=K, X0=X0, mesh=mesh, eig_k=eig_k,
-                            ngrids=ngrids, llim=llim, ulim=ulim, esp=esp,
-                            dtype=dtype, rotate_in_bf16=rb,
-                            host_eigh=host_eigh, device=device, tile=tile)
+            precision, G=probe_for_source(rg, G_src), device=device)
+    kw = dict(K=K, X0=X0, mesh=mesh, eig_k=eig_k, ngrids=ngrids, llim=llim,
+              ulim=ulim, esp=esp, dtype=dtype, rotate_in_bf16=rb,
+              host_eigh=host_eigh, device=device)
+    res = (distributed_emmax_resident(rg, y, **kw) if rg is not None
+           else distributed_emmax(G, y, tile=tile, **kw))
     if not with_betas:
         res.pop("betas", None)
         res.pop("var_perc", None)

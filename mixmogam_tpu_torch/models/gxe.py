@@ -218,13 +218,12 @@ def emmax_gxe(G, y, env, K=None, X0: Optional[np.ndarray] = None,
     from mixmogam_tpu_torch.models.emma import _StageClock
     from mixmogam_tpu_torch.models.emmax import _as_design
     from mixmogam_tpu_torch.ops.rotate import shared_rotation
-    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
-                                                    _default_dtype)
+    from mixmogam_tpu_torch.models.resident import (_default_dtype,
+                                                    resident_and_device)
     from mixmogam_tpu_torch.models.source import (as_int8_dosage,
                                                   resolve_source)
     from mixmogam_tpu_torch.models.stepwise import _rot_null_from_delta
     from mixmogam_tpu_torch.models.streaming import source_rows
-    from mixmogam_tpu_torch.ops import resolve_device
     from mixmogam_tpu_torch.ops.eigen import eigen_k_on
     from mixmogam_tpu_torch.ops.scan import (GXE_P_DRIFT, design_basis,
                                              normalize_rotate_tier,
@@ -252,8 +251,7 @@ def emmax_gxe(G, y, env, K=None, X0: Optional[np.ndarray] = None,
         raise ValueError("env contains non-finite values; GxE needs "
                          "complete environment columns (drop or impute "
                          "samples first — run_gwas's env_pid path drops)")
-    rg = G if isinstance(G, ResidentGenome) else None
-    device = rg.device if rg is not None else resolve_device(device)
+    rg, device = resident_and_device(G, device)
     if dtype is None:
         dtype = _default_dtype(device)
     if rg is not None and rg.n != n:

@@ -69,12 +69,11 @@ def linear_model(G, y, X0: Optional[np.ndarray] = None, dtype=None,
     on the card. dtype: float32 on the card (K3's type), float64 on the
     CPU by default."""
     from mixmogam_tpu_torch.models.emmax import _as_design
-    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
-                                                    _default_dtype,
-                                                    _float_tiles)
+    from mixmogam_tpu_torch.models.resident import (_default_dtype,
+                                                    _float_tiles,
+                                                    resident_and_device)
     from mixmogam_tpu_torch.models.source import resolve_source
     from mixmogam_tpu_torch.models.streaming import host_tiles
-    from mixmogam_tpu_torch.ops import resolve_device
     from mixmogam_tpu_torch.ops.scan import (emmax_scan_prerotated,
                                              outside_design)
     from mixmogam_tpu_torch.ops.stats import f_sf_host
@@ -82,8 +81,7 @@ def linear_model(G, y, X0: Optional[np.ndarray] = None, dtype=None,
     _mesh_refused(mesh)
     y = np.asarray(y, dtype=np.float64).ravel()
     n = y.shape[0]
-    rg = G if isinstance(G, ResidentGenome) else None
-    device = rg.device if rg is not None else resolve_device(device)
+    rg, device = resident_and_device(G, device)
     if rg is not None and rg.n != n:
         raise ValueError(f"y has {n} samples but the resident genome holds "
                          f"{rg.n}")
@@ -156,6 +154,7 @@ def _class_source(G, y: np.ndarray, ploidy, device):
         if G.n != y.shape[0]:
             raise ValueError(f"y has {y.shape[0]} samples but the resident "
                              f"genome holds {G.n}")
+        G = G.on_device(device)
         return G, None, G.ploidy if ploidy is None else ploidy, G.device
     device = resolve_device(device)
     if hasattr(G, "matrix"):

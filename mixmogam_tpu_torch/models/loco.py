@@ -28,8 +28,14 @@ ops/kinship.py::kinship on `device` (float matmuls: float32 with TF32 off
 on the card), with the SNP count (IBS) or _vanraden_den (VanRaden) as its
 denominator, and each chromosome's float rows are scanned by the in-core
 emmax, at the exact tier or a bf16 tier (the float route, ops/rotate.py).
-The ploidy is resolved once from the whole matrix. mesh= waits for ROADMAP
-Queue 1 item 16c.
+The ploidy is resolved once from the whole matrix.
+
+mesh= (the exact tier): every rank packs an integer-dosage source on the
+host once (ResidentGenome.from_source(upload=False)); rank 0 alone builds
+each chromosome's kinship and eigh as above, and each chromosome is
+scanned by parallel/distributed.py: its rows of each rank's shard of the
+packed rows (distributed_emmax_resident; the shards uploaded once for the
+campaign), or a fractional source's rows by distributed_emmax.
 
 _chrom_ranges, _vanraden_den and the eigen-cache helpers are numpy-only
 copies of the JAX functions, pinned to the originals by
@@ -143,29 +149,35 @@ def _vanraden_den(rows: np.ndarray, ploidy: int) -> float:
     return den
 
 
-def _as_resident(G, device, ploidy: Optional[int]):
-    """A ResidentGenome as it is; an integer-dosage source packed onto
-    `device`; None for fractional dosages (the host route)."""
+def _as_resident(G, device, ploidy: Optional[int], upload: bool = True):
+    """A ResidentGenome (its rows on `device` when it has none:
+    ResidentGenome.on_device); an integer-dosage source packed onto
+    `device`; None for fractional dosages (the host route). upload=False:
+    a ResidentGenome as it is, an integer-dosage source packed on the
+    host (the mesh route)."""
     from mixmogam_tpu_torch.models.resident import ResidentGenome
     from mixmogam_tpu_torch.models.source import as_int8_dosage
 
     if isinstance(G, ResidentGenome):
-        return G
+        return G.on_device(device) if upload else G
     G8 = as_int8_dosage(G)
     if G8 is None:
         return None
     if ploidy is None:
         ploidy = getattr(G, "ploidy", None)
-    return ResidentGenome.from_source(G8, ploidy=ploidy, device=device)
+    return ResidentGenome.from_source(G8, ploidy=ploidy,
+                                      device=device if upload else None,
+                                      upload=upload)
 
 
-def _loco_resident(G, device, ploidy: Optional[int], method: str):
+def _loco_resident(G, device, ploidy: Optional[int], method: str,
+                   upload: bool = True):
     """_as_resident for a LOCO whose kinships are built here: an unknown
     kinship method is refused before the genome is packed."""
     from mixmogam_tpu_torch.ops.kinship import check_kinship_method
 
     check_kinship_method(method)
-    return _as_resident(G, device, ploidy)
+    return _as_resident(G, device, ploidy, upload)
 
 
 class _HostRows:
@@ -330,25 +342,44 @@ def emmax_loco(G, y, chromosomes=None, method: str = "ibs",
 
     device: where an array or GenotypeData source is packed and scanned:
     the card by default (without one the call raises), 'cpu' on request;
-    a ResidentGenome scans on its own device. Fractional dosages take the
-    host route: float kinships on `device` and each chromosome's float
-    rows scanned by the in-core emmax (the exact tier, or a bf16 tier's
-    float route; int8 tiers raise).
+    a ResidentGenome scans on its own device (a host-only one on
+    `device`). Fractional dosages take the host route: float kinships on
+    `device` and each chromosome's float rows scanned by the in-core emmax
+    (the exact tier, or a bf16 tier's float route; int8 tiers raise).
     **kw goes to each chromosome's emmax_resident or emmax (e.g.
-    rescore_top); the rescore cut counts the whole genome's SNPs."""
+    rescore_top); the rescore cut counts the whole genome's SNPs.
+
+    mesh: a parallel.Mesh (make_mesh()); every rank calls with the same
+    arguments. The exact tier only (precision None or 'exact'), no **kw.
+    Rank 0 builds each chromosome's kinship and eigh as above (on
+    `device`, default the mesh's; kinships, cache_dir and pipeline_eigh
+    as above); a ResidentGenome or an integer-dosage source (packed on the
+    host once, upload=False) is scanned chromosome by chromosome through
+    parallel/distributed.py::distributed_emmax_resident, each rank its
+    shard's rows of the chromosome; a fractional source's rows through
+    distributed_emmax. Every rank returns the same dict. Device memory:
+    each rank's shard is memoized on a caller's container (it lives as
+    long as the container); rank 0's kinships read the whole packed
+    genome on its device, an upload that a world of one memoizes on the
+    container (its shard is a view of it) and a larger world holds for
+    this call only."""
     from concurrent.futures import ThreadPoolExecutor
 
     from mixmogam_tpu_torch.models.emmax import emmax
-    from mixmogam_tpu_torch.models.resident import emmax_resident
+    from mixmogam_tpu_torch.models.resident import device_key, emmax_resident
 
     if mesh is not None:
-        raise NotImplementedError("mesh= (sharded LOCO scans) is not "
-                                  "ported yet: ROADMAP Queue 1 item 16c")
+        _check_loco_mesh(mesh, precision, kw)
     chromosomes, ranges = _check_chromosomes(G, chromosomes)
     y = np.asarray(y, dtype=np.float64).ravel()
     M = len(chromosomes)
-    rg = (_loco_resident(G, device, ploidy, method) if kinships is None
-          else _as_resident(G, device, ploidy))
+    if mesh is not None:
+        import torch
+
+        device = mesh.device if device is None else torch.device(device)
+    upload = mesh is None
+    rg = (_loco_resident(G, device, ploidy, method, upload)
+          if kinships is None else _as_resident(G, device, ploidy, upload))
     host = None
     if rg is None:
         from mixmogam_tpu_torch.ops import resolve_device
@@ -366,12 +397,23 @@ def emmax_loco(G, y, chromosomes=None, method: str = "ibs",
                 "plane products take int8 genotypes); these are "
                 "fractional. Use the exact or a bf16 tier.")
         host = _HostRows(G, ploidy, method, device, dtype)
-    dev = rg.device if rg is not None else host.device
+    dev = (device if mesh is not None
+           else rg.device if rg is not None else host.device)
     factor_dtype = np.float32 if str(precision) == "fast" else None
     ftag = "f32" if factor_dtype is np.float32 else "f64"
     lazy = kinships is None
+    # rank 0 alone builds the kinships and eighs, from the container's
+    # rows on its device: a world of one's upload is memoized on the
+    # container (its shard is then a view of it); a larger world's rank 0
+    # holds the whole genome for this call only
+    builds = mesh is None or mesh.rank == 0
+    rg_k = rg
+    if rg is not None and builds and lazy:
+        rg_k = (rg._upload(device_key(dev))
+                if mesh is not None and mesh.world > 1 and rg.on_host
+                else rg.on_device(dev))
     src_key = (_source_content_key(G)
-               if cache_dir is not None and lazy else None)
+               if cache_dir is not None and lazy and builds else None)
 
     def _save(cpath, eig):
         if cpath is not None:
@@ -414,11 +456,12 @@ def emmax_loco(G, y, chromosomes=None, method: str = "ibs",
 
             def range_kinship(s_c, e_c):
                 return res_mod.kinship_resident_range(
-                    rg, s_c, e_c, method=method, ploidy=pl, return_den=True)
+                    rg_k, s_c, e_c, method=method, ploidy=pl,
+                    return_den=True)
 
             def total_kinship():
-                return res_mod.kinship_resident(rg, method=method, ploidy=pl,
-                                                return_den=True)
+                return res_mod.kinship_resident(rg_k, method=method,
+                                                ploidy=pl, return_den=True)
         tot: Dict[str, object] = {}
 
         def _ensure_tot():
@@ -461,22 +504,30 @@ def emmax_loco(G, y, chromosomes=None, method: str = "ibs",
         futs = {}
 
         def submit(i: int) -> None:
-            if pipeline_eigh and i < len(ranges):
+            if builds and pipeline_eigh and i < len(ranges):
                 futs[i] = ex.submit(prep, i)
 
         submit(0)
         for i, (c, s, e) in enumerate(ranges):
             submit(i + 1)  # c+1's gram + eigh run under c's fit + scan
             t_w = _time.time()
-            eig = futs.pop(i).result() if pipeline_eigh else prep(i)
+            eig = (None if not builds
+                   else futs.pop(i).result() if pipeline_eigh else prep(i))
             t_fit = _time.time()
-            fit_kw = dict(X0=X0, eig_k=eig, ngrids=ngrids, llim=llim,
-                          ulim=ulim, esp=esp, with_betas=with_betas,
-                          precision=precision, dtype=dtype,
-                          rescore_cut_M=M, **kw)
-            res = (emmax_resident(rg.slice_rows(s, e), y, **fit_kw)
-                   if host is None else
-                   emmax(host.rows(s, e), y, device=dev, **fit_kw))
+            if mesh is not None:
+                res = _loco_scan_on_mesh(rg, host, s, e, y, eig, X0, mesh,
+                                         ngrids, llim, ulim, esp, dtype, dev)
+                if not with_betas:
+                    res.pop("betas")
+                    res.pop("var_perc")
+            else:
+                fit_kw = dict(X0=X0, eig_k=eig, ngrids=ngrids, llim=llim,
+                              ulim=ulim, esp=esp, with_betas=with_betas,
+                              precision=precision, dtype=dtype,
+                              rescore_cut_M=M, **kw)
+                res = (emmax_resident(rg.slice_rows(s, e), y, **fit_kw)
+                       if host is None else
+                       emmax(host.rows(s, e), y, device=dev, **fit_kw))
             del eig            # free this chromosome's U before the next
             _log.info("loco chrom %s: waited-on-eigh %.1fs, "
                       "fit+scan %.1fs", c, t_fit - t_w,
@@ -496,3 +547,36 @@ def emmax_loco(G, y, chromosomes=None, method: str = "ibs",
     merged["loco"] = loco_info
     merged["dof"] = res["dof"]
     return merged
+
+
+def _check_loco_mesh(mesh, precision, kw) -> None:
+    """emmax_loco(mesh=)'s refusals, made on every rank before any
+    collective: a mesh that is not a Mesh, a tier other than exact, and
+    the single-device **kw (the JAX package's messages)."""
+    from mixmogam_tpu_torch.parallel.mesh import Mesh
+
+    if not isinstance(mesh, Mesh):
+        raise TypeError("mesh must be a mixmogam_tpu_torch.parallel.Mesh "
+                        f"(make_mesh()); got {type(mesh).__name__}")
+    if precision not in (None, "exact"):
+        raise ValueError("mesh-distributed LOCO runs the exact tier; pass "
+                         "precision=None/'exact'")
+    if kw:
+        raise TypeError(
+            f"mesh-distributed LOCO does not accept {sorted(kw)}")
+
+
+def _loco_scan_on_mesh(rg, host, s: int, e: int, y, eig, X0, mesh, ngrids,
+                       llim, ulim, esp, dtype, device) -> dict:
+    """Chromosome [s, e)'s exact scan on the mesh under rank 0's eig (None
+    on the other ranks): each rank's shard rows of [s, e) of the packed
+    container, or the host route's rows [s, e) sharded by
+    distributed_emmax."""
+    from mixmogam_tpu_torch.parallel.distributed import (
+        distributed_emmax, distributed_emmax_resident)
+
+    kw = dict(eig_k=eig, X0=X0, mesh=mesh, ngrids=ngrids, llim=llim,
+              ulim=ulim, esp=esp, dtype=dtype, device=device)
+    if host is None:
+        return distributed_emmax_resident(rg, y, _rows=(s, e), **kw)
+    return distributed_emmax(host.rows(s, e), y, **kw)

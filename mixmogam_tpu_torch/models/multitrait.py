@@ -102,11 +102,11 @@ def emmax_multi_trait(G, Y, K=None, X0: Optional[np.ndarray] = None,
                                                  incore_budget_bytes)
     from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                     _default_dtype,
+                                                    resident_and_device,
                                                     resident_budget_bytes)
     from mixmogam_tpu_torch.models.source import (as_int8_dosage,
                                                   resolve_source,
                                                   should_stream)
-    from mixmogam_tpu_torch.ops import resolve_device
     from mixmogam_tpu_torch.ops.scan import (normalize_rotate_tier,
                                              probe_for_source,
                                              resolve_precision)
@@ -117,8 +117,7 @@ def emmax_multi_trait(G, Y, K=None, X0: Optional[np.ndarray] = None,
                                   "16c")
     Y = np.atleast_2d(np.asarray(Y, dtype=np.float64))
     T, n = Y.shape
-    rg = G if isinstance(G, ResidentGenome) else None
-    device = rg.device if rg is not None else resolve_device(device)
+    rg, device = resident_and_device(G, device)
     if dtype is None:
         dtype = _default_dtype(device)
     # ---- refusals before any eigh or REML fit ----

@@ -99,10 +99,9 @@ def emmax_perm_test(G, y, K=None, num_perm: int = 100,
     from mixmogam_tpu_torch.models.gxe import _source_tiles
     from mixmogam_tpu_torch.ops.rotate import (rotate_tile,
                                                shared_rotation)
-    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
-                                                    _default_dtype)
+    from mixmogam_tpu_torch.models.resident import (_default_dtype,
+                                                    resident_and_device)
     from mixmogam_tpu_torch.models.source import resolve_source
-    from mixmogam_tpu_torch.ops import resolve_device
     from mixmogam_tpu_torch.ops.eigen import orthonormal_basis
     from mixmogam_tpu_torch.ops.reml import fit_null_model
     from mixmogam_tpu_torch.ops.scan import (design_basis,
@@ -118,8 +117,7 @@ def emmax_perm_test(G, y, K=None, num_perm: int = 100,
                                   "item 16c")
     y = np.asarray(y, dtype=np.float64).ravel()
     n = y.shape[0]
-    rg = G if isinstance(G, ResidentGenome) else None
-    device = rg.device if rg is not None else resolve_device(device)
+    rg, device = resident_and_device(G, device)
     if dtype is None:
         dtype = _default_dtype(device)
     if rg is not None and rg.n != n:

@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from mixmogam_tpu_torch.data.pack2 import unpack_2bit
+from mixmogam_tpu_torch.data.pack2 import pack_2bit, unpack_2bit
 from mixmogam_tpu_torch.oracle.kinship import scale_k  # noqa: F401
 from mixmogam_tpu_torch.ops.pack2 import (pack_2bit_device,
                                          unpack_2bit_device)
@@ -64,8 +64,18 @@ def subdivide_tile(tile: int, target: int = 2048) -> int:
     return sub
 
 
+def device_key(device) -> torch.device:
+    """`device` with its index: a bare 'cuda' names the current card, so
+    memos keyed on a device find the same entry either way."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 class ResidentGenome:
-    """(M, n) int8 dosages held 2-bit packed on a device.
+    """(M, n) int8 dosages held 2-bit packed on a device (or on the host
+    only: from_source(upload=False), for the mesh routes).
 
     Quacks like a read-only SNP-major matrix source: `.shape`, `.dtype`
     (int8), and slicing / integer-array row indexing return HOST int8
@@ -74,22 +84,66 @@ class ResidentGenome:
 
     # from_source calls so far, counted like the kernel wrappers' .launches
     packs = 0
+    # copies of a host-only container's rows to a device so far (on_device,
+    # parallel/distributed.py::shard_packed_rows), counted the same way
+    uploads = 0
 
-    def __init__(self, packed: torch.Tensor, M: int, n: int, ploidy: int,
+    def __init__(self, packed, M: int, n: int, ploidy: int,
                  tile: int, has_missing: bool,
                  host_packed: Optional[np.ndarray] = None):
-        """packed: (rows >= M, ceil(n/4)) uint8 rows on the device; rows
-        past M are zero padding. host_packed: the same rows on the host,
-        read back from `packed` when not given."""
+        """packed: (rows >= M, ceil(n/4)) uint8 rows on the device, or a
+        numpy array for a host-only container (from_source(upload=False));
+        rows past M are zero padding. host_packed: the same rows on the
+        host, read back from `packed` when not given."""
         self.packed = packed
-        self.host_packed = (packed.cpu().numpy() if host_packed is None
-                            else host_packed)
+        if host_packed is None:
+            host_packed = (packed if isinstance(packed, np.ndarray)
+                           else packed.cpu().numpy())
+        self.host_packed = host_packed
         self.M = int(M)
         self.n = int(n)
         self.ploidy = int(ploidy)
         self.tile = int(tile)
         self.has_missing = bool(has_missing)
         self._content_key: Optional[str] = None
+        # device -> this container's rows uploaded there (on_device), and
+        # shard_packed_rows' shards: both hold device memory for as long
+        # as the container lives
+        self._uploads: dict = {}
+        self._shards: dict = {}
+
+    @property
+    def on_host(self) -> bool:
+        """True for a host-only container: its rows are on no device."""
+        return isinstance(self.packed, np.ndarray)
+
+    def on_device(self, device=None) -> "ResidentGenome":
+        """The container a single-device entry point scans: this one when
+        its rows are on a device (which it scans on, whatever `device`
+        says); for a host-only container, its rows uploaded once to
+        resolve_device(device) (the card unless 'cpu' is asked for; it
+        raises without a card) and memoized here per device, so the
+        upload holds device memory for as long as this container lives."""
+        from mixmogam_tpu_torch.ops import resolve_device
+
+        if not self.on_host:
+            return self
+        dev = device_key(resolve_device(device))
+        rg = self._uploads.get(dev)
+        if rg is None:
+            rg = self._uploads[dev] = self._upload(dev)
+        return rg
+
+    def _upload(self, dev) -> "ResidentGenome":
+        """This container's host rows copied to `dev` (counted in
+        uploads), not memoized: the copy lives as long as its caller
+        holds it."""
+        ResidentGenome.uploads += 1
+        rg = ResidentGenome(torch.from_numpy(self.host_packed).to(dev),
+                            self.M, self.n, self.ploidy, self.tile,
+                            self.has_missing, host_packed=self.host_packed)
+        rg._content_key = self._content_key
+        return rg
 
     def content_key(self) -> str:
         """Stable content identity: sha256 of 'M:n:tile:' and the host
@@ -104,8 +158,9 @@ class ResidentGenome:
         return self._content_key
 
     @property
-    def device(self) -> torch.device:
-        return self.packed.device
+    def device(self) -> Optional[torch.device]:
+        """The rows' device; None for a host-only container."""
+        return None if self.on_host else self.packed.device
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -117,7 +172,7 @@ class ResidentGenome:
 
     @property
     def nbytes_packed(self) -> int:
-        return int(self.packed.shape[0]) * int(self.packed.shape[1])
+        return int(self.host_packed.nbytes)
 
     def __array__(self, dtype=None, copy=None) -> np.ndarray:
         out = self[0:self.M]
@@ -154,7 +209,8 @@ class ResidentGenome:
     def from_source(cls, G, tile: int = 16_384, chunk: int = 65_536,
                     ploidy: Optional[int] = None, device=None,
                     cache_path: Optional[str] = None,
-                    trust_cache: bool = False) -> "ResidentGenome":
+                    trust_cache: bool = False,
+                    upload: bool = True) -> "ResidentGenome":
         """Pack an int8 host source (ndarray / memmap / h5py /
         GenotypeData) chunk by chunk on `device` (the card by default,
         'cpu' on request; pack_2bit_device) and
@@ -175,13 +231,21 @@ class ResidentGenome:
         the cache as it is, and raises with the reason when it is missing
         or does not match.
 
-        The JAX package's upload=False (host-side rows for the mesh
-        flows) belongs to the sharded resident scan, ROADMAP Queue 1 item
-        16b."""
+        upload=False packs on the host (data/pack2.py, the host library's
+        packer, bit-equal to pack_2bit_device) and allocates nothing on
+        any device: a host-only container, whose `packed` is the numpy
+        array, for the mesh routes (parallel/distributed.py::
+        shard_packed_rows uploads each rank's rows only). A single-device
+        entry point uploads its rows once, to the device it resolves
+        (ResidentGenome.on_device). device= then has no meaning and
+        raises."""
         from mixmogam_tpu_torch.models.source import resolve_source
         from mixmogam_tpu_torch.ops import resolve_device
 
-        device = resolve_device(device)
+        if not upload and device is not None:
+            raise ValueError("upload=False keeps the packed rows on the "
+                             f"host; device={device!r} has no meaning")
+        device = resolve_device(device) if upload else None
         mat = None if G is None else resolve_source(G)
         if mat is not None and np.dtype(mat.dtype) != np.int8:
             raise TypeError(
@@ -202,8 +266,8 @@ class ResidentGenome:
                 ok = meta.get("src_hash") == src_hash
             if ok:
                 hp = np.load(cache_path)
-                return cls(torch.from_numpy(hp).to(device), meta["M"],
-                           meta["n"], meta["ploidy"], tile,
+                return cls(torch.from_numpy(hp).to(device) if upload else hp,
+                           meta["M"], meta["n"], meta["ploidy"], tile,
                            meta["has_missing"], host_packed=hp)
             if mat is None:
                 raise ValueError(
@@ -220,8 +284,9 @@ class ResidentGenome:
             ploidy = getattr(G, "ploidy", None)
         M, n = mat.shape
         M_pad = -(-M // tile) * tile
-        packed = torch.zeros((M_pad, (n + 3) // 4), dtype=torch.uint8,
-                             device=device)
+        shape = (M_pad, (n + 3) // 4)
+        packed = (torch.zeros(shape, dtype=torch.uint8, device=device)
+                  if upload else np.zeros(shape, dtype=np.uint8))
         has_missing = False
         vmax = 0
         # the content hash rides the pack pass (no second source read),
@@ -232,15 +297,18 @@ class ResidentGenome:
             c = np.ascontiguousarray(np.asarray(mat[s:e], dtype=np.int8))
             if h is not None:
                 h.update(c)
-            c = torch.from_numpy(c).to(device)
-            lo, hi = (int(v) for v in torch.aminmax(c))
+            if upload:
+                c = torch.from_numpy(c).to(device)
+                lo, hi = (int(v) for v in torch.aminmax(c))
+            else:
+                lo, hi = int(c.min(initial=0)), int(c.max(initial=0))
             if lo < -1 or hi > 2:
                 raise ValueError("ResidentGenome stores dosages 0..2 (+ -1 "
                                  "= missing); the source holds other "
                                  "values")
             has_missing |= lo < 0
             vmax = max(vmax, hi)
-            packed[s:e] = pack_2bit_device(c)
+            packed[s:e] = pack_2bit_device(c) if upload else pack_2bit(c)
         if ploidy is None:
             ploidy = 2 if vmax > 1 else 1
         rg = cls(packed, M, n, ploidy, tile, has_missing)
@@ -361,6 +429,19 @@ def emmax_scan_packed(packed: torch.Tensor, rot, n: int, tile: int,
     return torch.where(keep[None, :], out, 0.0)
 
 
+def resident_and_device(G, device):
+    """(rg, device) of a single-device entry point: a ResidentGenome's
+    container on a device and that device (ResidentGenome.on_device: a
+    host-only container is uploaded once to resolve_device(device)); any
+    other source: (None, resolve_device(device))."""
+    from mixmogam_tpu_torch.ops import resolve_device
+
+    if isinstance(G, ResidentGenome):
+        rg = G.on_device(device)
+        return rg, rg.device
+    return None, resolve_device(device)
+
+
 def _default_dtype(device) -> torch.dtype:
     """Compute dtype when the caller gives none: float32 on the card (the
     kernels' working type), float64 on the CPU (the reference path)."""
@@ -389,6 +470,7 @@ def emmax_resident(rg: ResidentGenome, y, K=None, X0=None, eig_k=None,
                                              probe_for_source,
                                              resolve_precision)
 
+    rg = rg.on_device()
     y = np.asarray(y, dtype=np.float64).ravel()
     n = y.shape[0]
     if n != rg.n:
@@ -455,6 +537,7 @@ def rotate_resident_to_device(rg: ResidentGenome, U=None, dtype=None,
     models/streaming.py::rotate_tiles."""
     from mixmogam_tpu_torch.models.streaming import rotate_tiles
 
+    rg = rg.on_device()
     if dtype is None:
         dtype = _default_dtype(rg.device)
     return rotate_tiles(_float_tiles(rg, dtype), rg.M, rg.n, U, dtype,
@@ -480,6 +563,7 @@ def kinship_den(rg: ResidentGenome, method: str = "ibs",
 
     if check_kinship_method(method) == "ibs":
         return float(rg.M)
+    rg = rg.on_device()
     ploidy = rg.ploidy if ploidy is None else ploidy
     dtype = resolve_compute_dtype(dtype, rg.device)
     return float(sum(_vanraden_freqs(C, ploidy)[1]
@@ -495,6 +579,7 @@ def ibs_counts_resident(rg: ResidentGenome, ploidy: Optional[int] = None
     others'."""
     from mixmogam_tpu_torch.ops.hopper_kinship import ibs_gram_packed
 
+    rg = rg.on_device()
     return ibs_gram_packed(rg.packed, rg.n, rg.M,
                            rg.ploidy if ploidy is None else ploidy)
 
@@ -525,6 +610,7 @@ def kinship_resident(rg: ResidentGenome, method: str = "ibs",
                                                 resolve_compute_dtype)
 
     method = check_kinship_method(method)
+    rg = rg.on_device()
     ploidy = rg.ploidy if ploidy is None else ploidy
     M, n = rg.M, rg.n
     if method == "ibs" and not rg.has_missing:
@@ -571,6 +657,7 @@ def kinship_resident_range(rg: ResidentGenome, s: int, e: int,
     if not (0 <= s < e <= rg.M):
         raise ValueError(f"invalid row range [{s}, {e}) for M={rg.M}")
     method = check_kinship_method(method)
+    rg = rg.on_device()
     ploidy = rg.ploidy if ploidy is None else ploidy
     if method == "ibs" and not rg.has_missing:
         m = e - s

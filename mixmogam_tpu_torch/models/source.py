@@ -1,6 +1,6 @@
 """Host genotype-source plumbing (counterpart of
 mixmogam_tpu/models/source.py: resolve_source, should_stream,
-prefetch_iter, fetch_tile).
+pack_for_mesh, prefetch_iter, fetch_tile).
 
 The host side of a streamed tile (host_tile: read, pad, impute a float
 source) runs in prefetch_iter's worker thread and touches numpy only; the
@@ -26,6 +26,25 @@ def should_stream(G_src, n: int, itemsize: int, budget_bytes: int) -> bool:
     rotated image at the compute dtype's itemsize) exceeds the budget."""
     g_item = 1 if np.dtype(G_src.dtype) == np.int8 else itemsize
     return G_src.shape[0] * n * (itemsize + g_item) > budget_bytes
+
+
+def pack_for_mesh(G_src, n: int, what: str, device=None):
+    """Big-source routing for mesh= paths (mirrors models.emmax): an int8
+    source within the 2-bit resident budget of `device` (the rank's: the
+    card by default; resident_budget_bytes) packs HOST-side (upload=False:
+    the sharded path uploads each rank's shard, never the whole genome to
+    one device); anything else is refused."""
+    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
+                                                    resident_budget_bytes)
+    from mixmogam_tpu_torch.ops import resolve_device
+
+    if (np.dtype(G_src.dtype) == np.int8
+            and G_src.shape[0] * ((n + 3) // 4)
+            <= resident_budget_bytes(resolve_device(device))):
+        return ResidentGenome.from_source(G_src, upload=False)
+    raise ValueError(
+        f"the mesh {what} path shards in-core or packed sources; this "
+        "source exceeds both the in-core and the 2-bit resident budgets")
 
 
 #: rows a block of as_int8_dosage's float check: imputed dosages show a

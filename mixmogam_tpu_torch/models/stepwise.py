@@ -117,12 +117,11 @@ def emmax_step_wise(G, y, K=None, max_steps: int = 10,
     the CPU); over it the scans rotate every step."""
     from mixmogam_tpu_torch.models.emmax import _as_design
     from mixmogam_tpu_torch.models.resident import (
-        ResidentGenome, _default_dtype, _float_tiles, emmax_scan_packed,
+        _default_dtype, _float_tiles, emmax_scan_packed, resident_and_device,
         rotate_resident_to_device)
     from mixmogam_tpu_torch.models.source import as_int8_dosage
     from mixmogam_tpu_torch.models.streaming import (
         _host_float_tile, _impute_tile, host_tiles, rotate_streamed_to_device)
-    from mixmogam_tpu_torch.ops import resolve_device
     from mixmogam_tpu_torch.ops.eigen import eigen_k_on
     from mixmogam_tpu_torch.ops.reml import esp_to_refine_iters
     from mixmogam_tpu_torch.ops.scan import (emmax_scan_prerotated,
@@ -137,13 +136,12 @@ def emmax_step_wise(G, y, K=None, max_steps: int = 10,
     refine_iters = esp_to_refine_iters(esp, ngrids, llim, ulim)
     y = np.asarray(y, dtype=np.float64).ravel()
     n = y.shape[0]
-    rg = G if isinstance(G, ResidentGenome) else None
+    rg, device = resident_and_device(G, device)
     if rg is not None and rg.n != n:
         # the packed scan decodes n columns per row: a mismatched container
         # would scan a truncated sample subset
         raise ValueError(f"y has {n} samples but the resident genome "
                          f"holds {rg.n}")
-    device = rg.device if rg is not None else resolve_device(device)
     if dtype is None:
         dtype = _default_dtype(device)
     src = None

@@ -116,12 +116,11 @@ def emmax_two_snps(G, y, K=None, focal_idx: Optional[Sequence[int]] = None,
                                                _source_tiles)
     from mixmogam_tpu_torch.ops.rotate import (rotate_tile,
                                                shared_rotation)
-    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
-                                                    _default_dtype)
+    from mixmogam_tpu_torch.models.resident import (_default_dtype,
+                                                    resident_and_device)
     from mixmogam_tpu_torch.models.source import resolve_source
     from mixmogam_tpu_torch.models.stepwise import _rot_null_from_delta
     from mixmogam_tpu_torch.models.streaming import source_rows
-    from mixmogam_tpu_torch.ops import resolve_device
     from mixmogam_tpu_torch.ops.eigen import eigen_k_on
     from mixmogam_tpu_torch.ops.reml import fit_null_model
     from mixmogam_tpu_torch.ops.scan import (design_basis,
@@ -135,8 +134,7 @@ def emmax_two_snps(G, y, K=None, focal_idx: Optional[Sequence[int]] = None,
                                   "not ported yet: ROADMAP Queue 1 item 16c")
     y = np.asarray(y, dtype=np.float64).ravel()
     n = y.shape[0]
-    rg = G if isinstance(G, ResidentGenome) else None
-    device = rg.device if rg is not None else resolve_device(device)
+    rg, device = resident_and_device(G, device)
     if dtype is None:
         dtype = _default_dtype(device)
     G_src = None if rg is not None else resolve_source(G)

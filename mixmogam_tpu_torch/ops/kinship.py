@@ -157,8 +157,8 @@ def kinship(data, method: str = "ibs", ploidy: Optional[int] = None,
         if not use_device:
             raise ValueError("a ResidentGenome lives in device memory; "
                              "use_device=False needs a host source")
-        return kinship_resident(data, method=method, ploidy=ploidy,
-                                dtype=dtype)
+        return kinship_resident(data.on_device(device), method=method,
+                                ploidy=ploidy, dtype=dtype)
     if hasattr(data, "matrix") and hasattr(data, "ploidy"):
         mat = data.matrix
         ploidy = data.ploidy if ploidy is None else ploidy

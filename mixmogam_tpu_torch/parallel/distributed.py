@@ -1,11 +1,13 @@
 """SNP data-parallel kinship and EMMAX over torch.distributed (counterpart
 of mixmogam_tpu/parallel/distributed.py: distributed_kinship,
-distributed_emmax).
+distributed_emmax, shard_packed_rows, distributed_emmax_resident).
 
 The JAX package's design, with its collectives written out:
 - genotype rows shard by rank: each rank takes its tile-aligned range
   (multihost.host_snp_range) of the full matrix, or is given only those
-  rows (multihost.SnpShard);
+  rows (multihost.SnpShard); a ResidentGenome's packed rows shard the same
+  way at the container's own tile (shard_packed_rows), uploaded to each
+  rank's device once and kept with the container;
 - kinship: each rank's partial gram, then ONE all-reduce of the (n, n)
   partial (int64 for the integer counts of kernel K1, float64 otherwise)
   and one division by the global denominator in float64;
@@ -15,10 +17,12 @@ The JAX package's design, with its collectives written out:
   communication, and the (4, m_rank) statistics meet in ONE all-gather;
   p-values finalize in float64 on the host.
 
-Routes are decided for the whole mesh (one small all-reduce of each
-rank's facts: the largest dosage, missing calls, fractional dosages), so
-every rank takes the same route, raises the same refusal, and the result
-equals the single-device call's. distributed_train_step (the JAX
+Routes are decided for the whole mesh, so every rank takes the same route,
+raises the same refusal, and the result equals the single-device call's: a
+host source's facts (the largest dosage, missing calls, fractional
+dosages) meet in one small all-reduce; a ResidentGenome's (M, n, tile,
+has_missing, ploidy) are the same on every rank, so its routes need no
+pass over dosages and no collective. distributed_train_step (the JAX
 package's training-step dry run) waits for ROADMAP Queue 1 item 16e.
 """
 
@@ -46,8 +50,9 @@ def _mesh_device(mesh: Optional[Mesh], device) -> Tuple[Mesh, torch.device]:
 
 
 def _local_rows(G, mesh: Mesh) -> Tuple[np.ndarray, int]:
-    """(this rank's rows, the global row count M): a SnpShard's own rows,
-    else rows host_snp_range gives the rank of the full matrix."""
+    """(this rank's rows, the global row count M): a SnpShard's own rows, a
+    ResidentGenome's shard rows (shard_packed_rows' range) unpacked on the
+    host, else rows host_snp_range gives the rank of the full matrix."""
     from mixmogam_tpu_torch.models.resident import ResidentGenome
     from mixmogam_tpu_torch.models.source import resolve_source
 
@@ -59,11 +64,10 @@ def _local_rows(G, mesh: Mesh) -> Tuple[np.ndarray, int]:
                              f"[{lo}, {hi})")
         return G.rows, G.M
     src = resolve_source(G)
-    if isinstance(src, ResidentGenome):
-        raise NotImplementedError(
-            "a ResidentGenome on a mesh (its packed rows sharded per rank) "
-            "is not ported yet: ROADMAP Queue 1 item 16b")
     M = src.shape[0]
+    if isinstance(src, ResidentGenome):
+        lo, hi = host_snp_range(M, mesh.shape[0], mesh.rank, tile=src.tile)
+        return src[lo:hi], M
     lo, hi = host_snp_range(M, mesh.shape[0], mesh.rank)
     rows = src[lo:hi]
     # an in-memory matrix's rows are a view; a memmap's (or a lazy
@@ -85,20 +89,64 @@ def _mesh_facts(rows: np.ndarray, mesh: Mesh, device) -> np.ndarray:
     return all_reduce(facts, mesh, dist.ReduceOp.MAX).cpu().numpy()
 
 
+def shard_packed_rows(rg, mesh: Mesh, device=None):
+    """This rank's packed rows of a ResidentGenome, as a container on the
+    rank's device (default the mesh's). The JAX package places every
+    rank's rows at once; here each rank places its own.
+
+    The rows are host_snp_range(rg.M, world, rank, tile=rg.tile), so every
+    tile of the shard has the shape the single-device scan gives it; the
+    last rank's shard keeps the container's zero pad rows up to its tile.
+    When the container's rows are on the rank's device already (or its
+    single-device upload is: ResidentGenome.on_device), the shard is a
+    view of them and a world of one uploads nothing twice; otherwise the
+    rank's bytes of host_packed go up once (counted in
+    ResidentGenome.uploads).
+
+    Memoized on the container per (process group, rank, world, device):
+    repeated mesh calls over one genome (LOCO's chromosomes, the tiers)
+    reuse one upload. The shard holds device memory for as long as the
+    container lives."""
+    from mixmogam_tpu_torch.models.resident import ResidentGenome, device_key
+
+    tile = rg.tile
+    device = device_key(mesh.device if device is None else device)
+    key = (mesh.group, mesh.rank, mesh.world, device)
+    shard = rg._shards.get(key)
+    if shard is None:
+        lo, hi = host_snp_range(rg.M, mesh.shape[0], mesh.rank, tile=tile)
+        end = max(lo, min(-(-hi // tile) * tile, rg.host_packed.shape[0]))
+        on = rg if not rg.on_host else rg._uploads.get(device)
+        if on is not None and on.device == device:
+            rows = on.packed[lo:end]
+        else:
+            ResidentGenome.uploads += 1
+            rows = torch.from_numpy(rg.host_packed[lo:end]).to(device)
+        shard = ResidentGenome(rows, hi - lo, rg.n, rg.ploidy, tile,
+                               rg.has_missing,
+                               host_packed=rg.host_packed[lo:end])
+        rg._shards[key] = shard
+    return shard
+
+
 def distributed_kinship(G, mesh: Optional[Mesh] = None, method: str = "ibs",
                         device=None) -> np.ndarray:
     """Kinship over SNP-sharded rows: each rank's partial gram, one
     all-reduce of the (n, n) partial, one float64 division by the global
-    denominator. G: the full (M, n) matrix on every rank (each takes its
-    host_snp_range rows) or this rank's SnpShard. Routes as ops/kinship.py's
-    kinship: a fully observed int8 binary source goes through kernel K1 on
-    the rank's rows packed on its device (integer counts, summed in
-    int64); missing calls and float dosages take the per-chunk imputation
-    and the float updates (float32 with TF32 off on the card, float64 on
-    the CPU), summed in float64; 'vanraden' sums its numerator and
-    denominator across ranks. method='ibs' takes binary dosages only, as in
-    the JAX package. Every rank returns the (n, n) float64 numpy array.
-    device: the rank's (default the mesh's: its card)."""
+    denominator. G: the full (M, n) matrix or a ResidentGenome on every
+    rank (each takes its host_snp_range rows), or this rank's SnpShard.
+    Routes as ops/kinship.py's kinship: fully observed binary int8 rows go
+    through kernel K1 (a ResidentGenome's shard as it is packed,
+    shard_packed_rows; an array's rows packed on the rank's device;
+    integer counts, summed in int64); missing calls and float dosages take
+    the per-chunk imputation and the float updates (float32 with TF32 off
+    on the card, float64 on the CPU; a ResidentGenome's shard unpacked on
+    the host), summed in float64; 'vanraden' sums its numerator and
+    denominator across ranks. A ResidentGenome routes on its own
+    has_missing and ploidy, with no collective. method='ibs' takes binary
+    dosages only, as in the JAX package. Every rank returns the (n, n)
+    float64 numpy array. device: the rank's (default the mesh's: its
+    card)."""
     from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                     ibs_counts_resident)
     from mixmogam_tpu_torch.ops.kinship import (check_kinship_method,
@@ -109,12 +157,18 @@ def distributed_kinship(G, mesh: Optional[Mesh] = None, method: str = "ibs",
 
     method = check_kinship_method(method)
     mesh, device = _mesh_device(mesh, device)
-    rows, M = _local_rows(G, mesh)
-    n = rows.shape[1]
-    mx, missing, not_int8 = _mesh_facts(rows, mesh, device)
+    rg = G if isinstance(G, ResidentGenome) else None
+    if rg is not None:
+        rows, M, n = None, rg.M, rg.n
+        ploidy, missing, not_int8 = rg.ploidy, rg.has_missing, False
+    else:
+        rows, M = _local_rows(G, mesh)
+        n = rows.shape[1]
+        mx, missing, not_int8 = _mesh_facts(rows, mesh, device)
+        ploidy = 2 if mx > 1 else 1
     dtype = resolve_compute_dtype(None, device)
     if method == "ibs":
-        if mx > 1:
+        if ploidy > 1:
             raise ValueError(
                 "distributed_kinship(method='ibs') implements the BINARY "
                 "allele-sharing formula; for diploid dosages use "
@@ -122,15 +176,24 @@ def distributed_kinship(G, mesh: Optional[Mesh] = None, method: str = "ibs",
                 "IBS) on one device")
         if not (missing or not_int8):
             # integer counts of kernel K1 over the rank's packed rows
-            S = (ibs_counts_resident(ResidentGenome.from_source(
-                rows, ploidy=1, device=device)).to(torch.int64)
-                if rows.shape[0] else
-                torch.zeros((n, n), dtype=torch.int64, device=device))
+            if rg is not None:
+                shard = shard_packed_rows(rg, mesh, device=device)
+            elif rows.shape[0]:
+                shard = ResidentGenome.from_source(rows, ploidy=1,
+                                                   device=device)
+            else:
+                shard = None
+            S = (ibs_counts_resident(shard, ploidy=1).to(torch.int64)
+                 if shard is not None and shard.M else
+                 torch.zeros((n, n), dtype=torch.int64, device=device))
             return finish_on_device(all_reduce(S, mesh), float(M))
+        if rows is None:
+            rows, _ = _local_rows(rg, mesh)
         part = ibs_float_partial(rows, 1, _KINSHIP_CHUNK, dtype,
                                  device).double()
         return finish_on_device(all_reduce(part, mesh), float(M))
-    ploidy = 2 if mx > 1 else 1
+    if rows is None:
+        rows, _ = _local_rows(rg, mesh)
     num, den = vanraden_partial(rows, ploidy, _KINSHIP_CHUNK, dtype,
                                 device)
     # the numerator and its denominator in one all-reduce
@@ -147,6 +210,74 @@ _KINSHIP_CHUNK = 2048
 #: RotatedNull fields that are caches of a device's prepared operands
 _ROT_CACHES = ("operand", "k3")
 
+#: the null's scalars each rank returns, as NullModel names them
+_NULL_SCALARS = ("pseudo_heritability", "delta", "sigma_g2", "sigma_e2",
+                 "ll")
+
+
+def _replicated_null(mesh: Mesh, device, dtype, y, X0, K, eig_k, rd,
+                     float_route: bool, ngrids, llim, ulim, esp, host_eigh):
+    """(rot, srot, null scalars) on every rank: rank 0 fits the null (K or
+    eig_k needed there only) and builds the rotated null at the tier rd
+    (the packed kernels' operand), or for the float route the exact tier's
+    null and the bf16 parts of U' (srot); then one broadcast."""
+    from mixmogam_tpu_torch.ops.reml import (esp_to_refine_iters,
+                                             fit_null_model)
+    from mixmogam_tpu_torch.ops.rotate import (SharedRotation,
+                                               float_route_eig,
+                                               float_rotation)
+    from mixmogam_tpu_torch.ops.scan import RotatedNull, build_rotated_null
+
+    payload = None
+    if mesh.rank == 0:
+        if float_route:
+            # the float route cuts its parts from this eigenbasis in float64
+            eig_k = float_route_eig(K, eig_k, device, host_eigh)
+        null = fit_null_model(y, X0, K=K, eig_k=eig_k, ngrids=ngrids,
+                              llim=llim, ulim=ulim,
+                              refine_iters=esp_to_refine_iters(
+                                  esp, ngrids, llim, ulim),
+                              host_eigh=host_eigh, device=device,
+                              dtype=dtype)
+        rot = build_rotated_null(null,
+                                 rotate_dtype=None if float_route else rd)
+        payload = {f.name: getattr(rot, f.name)
+                   for f in dataclasses.fields(rot)
+                   if f.name not in _ROT_CACHES}
+        payload["srot"] = (float_rotation(eig_k[1], X0, rd, dtype,
+                                          device).W
+                           if float_route else None)
+        for k in _NULL_SCALARS:
+            payload["null_" + k] = float(getattr(null, k))
+    payload = broadcast_from_rank0(payload, mesh)
+    rot = RotatedNull(**{f.name: payload[f.name]
+                         for f in dataclasses.fields(RotatedNull)
+                         if f.name not in _ROT_CACHES})
+    srot = (None if payload["srot"] is None
+            else SharedRotation(rd, payload["srot"], None, dtype))
+    return rot, srot, {k: payload["null_" + k] for k in _NULL_SCALARS}
+
+
+def _gathered_result(out: torch.Tensor, mesh: Mesh, M: int, rot,
+                     nulls: Dict[str, float]) -> Dict[str, np.ndarray]:
+    """The run's one all-gather of every rank's (4, m_rank) statistics,
+    then float64 host p-values: distributed_emmax's return dict."""
+    from mixmogam_tpu_torch.ops.stats import f_sf_host
+
+    h = gather_rows(out, mesh).cpu().double().numpy()
+    if h.shape[1] != M:
+        raise RuntimeError(f"the gathered statistics hold {h.shape[1]} "
+                           f"rows of {M}")
+    f_stats, mask = h[0].copy(), h[3] > 0.5
+    dof = int(rot.dof)
+    ps = np.where(mask, f_sf_host(f_stats, 1.0, dof), 1.0)
+    return {"ps": ps, "f_stats": f_stats, "mask": mask,
+            "betas": h[1].copy(), "var_perc": h[2].copy(),
+            "pseudo_heritability": nulls["pseudo_heritability"],
+            "delta": nulls["delta"], "dof": dof,
+            "sigma_g2": nulls["sigma_g2"], "sigma_e2": nulls["sigma_e2"],
+            "ll_null": nulls["ll"]}
+
 
 def distributed_emmax(G, y, K=None, X0: Optional[np.ndarray] = None,
                       mesh: Optional[Mesh] = None, eig_k=None,
@@ -160,7 +291,8 @@ def distributed_emmax(G, y, K=None, X0: Optional[np.ndarray] = None,
     pseudo_heritability, delta, dof, sigma_g2, sigma_e2, ll_null), equal to
     the port's single-device emmax at the same tier.
 
-    G: the full (M, n) matrix on every rank, or this rank's SnpShard. Rank
+    G: the full (M, n) matrix on every rank, or this rank's SnpShard; a
+    ResidentGenome goes to distributed_emmax_resident (its own tile). Rank
     0 fits the null (K or eig_k needed there only) and builds the rotated
     null at the tier (rotate_in_bf16: False | True | 'x2' | 'x3' | 'x2c' |
     'x3c' | 'int8x2' | 'int8x3' | 'int8x4'), then broadcasts it once. Each
@@ -180,15 +312,14 @@ def distributed_emmax(G, y, K=None, X0: Optional[np.ndarray] = None,
                                                     _default_dtype,
                                                     emmax_scan_packed)
     from mixmogam_tpu_torch.models.source import as_int8_dosage
-    from mixmogam_tpu_torch.ops.reml import (esp_to_refine_iters,
-                                             fit_null_model)
-    from mixmogam_tpu_torch.ops.rotate import (SharedRotation,
-                                               float_route_eig,
-                                               float_rotation)
-    from mixmogam_tpu_torch.ops.scan import (RotatedNull, build_rotated_null,
-                                             normalize_rotate_tier)
-    from mixmogam_tpu_torch.ops.stats import f_sf_host
+    from mixmogam_tpu_torch.ops.scan import normalize_rotate_tier
 
+    if isinstance(G, ResidentGenome):
+        return distributed_emmax_resident(
+            G, y, K=K, X0=X0, mesh=mesh, eig_k=eig_k, ngrids=ngrids,
+            llim=llim, ulim=ulim, esp=esp, dtype=dtype,
+            rotate_in_bf16=rotate_in_bf16, host_eigh=host_eigh,
+            device=device)
     mesh, device = _mesh_device(mesh, device)
     if dtype is None:
         dtype = _default_dtype(device)
@@ -209,35 +340,9 @@ def distributed_emmax(G, y, K=None, X0: Optional[np.ndarray] = None,
             f"rotate_in_bf16={rotate_in_bf16!r} requires integer dosages, "
             "fully observed (digit-plane matmuls round genotypes to int8)")
     packed = rd is not None and not fractional
-
-    # ---- the null: fitted on rank 0, replicated by one broadcast ----
-    payload = None
-    if mesh.rank == 0:
-        if rd is not None and not packed:
-            # the float route cuts its parts from this eigenbasis in float64
-            eig_k = float_route_eig(K, eig_k, device, host_eigh)
-        null = fit_null_model(y, X0, K=K, eig_k=eig_k, ngrids=ngrids,
-                              llim=llim, ulim=ulim,
-                              refine_iters=esp_to_refine_iters(
-                                  esp, ngrids, llim, ulim),
-                              host_eigh=host_eigh, device=device,
-                              dtype=dtype)
-        rot = build_rotated_null(null, rotate_dtype=rd if packed else None)
-        payload = {f.name: getattr(rot, f.name)
-                   for f in dataclasses.fields(rot)
-                   if f.name not in _ROT_CACHES}
-        payload["srot"] = (None if rd is None or packed else
-                           float_rotation(eig_k[1], X0, rd, dtype,
-                                          device).W)
-        for k in ("pseudo_heritability", "delta", "sigma_g2", "sigma_e2",
-                  "ll"):
-            payload["null_" + k] = float(getattr(null, k))
-    payload = broadcast_from_rank0(payload, mesh)
-    rot = RotatedNull(**{f.name: payload[f.name]
-                         for f in dataclasses.fields(RotatedNull)
-                         if f.name not in _ROT_CACHES})
-    srot = (None if payload["srot"] is None
-            else SharedRotation(rd, payload["srot"], None, dtype))
+    rot, srot, nulls = _replicated_null(
+        mesh, device, dtype, y, X0, K, eig_k, rd,
+        rd is not None and not packed, ngrids, llim, ulim, esp, host_eigh)
 
     # ---- this rank's rows, no communication ----
     if rows.shape[0] == 0:
@@ -249,20 +354,70 @@ def distributed_emmax(G, y, K=None, X0: Optional[np.ndarray] = None,
     else:
         out = _scan_incore(_incore_rows(rows, dtype), rot, srot, tile,
                            device, dtype)
-    h = gather_rows(out, mesh).cpu().double().numpy()
-    if h.shape[1] != M:
-        raise RuntimeError(f"the gathered statistics hold {h.shape[1]} "
-                           f"rows of {M}")
-    f_stats, mask = h[0].copy(), h[3] > 0.5
-    dof = int(rot.dof)
-    ps = np.where(mask, f_sf_host(f_stats, 1.0, dof), 1.0)
-    return {"ps": ps, "f_stats": f_stats, "mask": mask,
-            "betas": h[1].copy(), "var_perc": h[2].copy(),
-            "pseudo_heritability": payload["null_pseudo_heritability"],
-            "delta": payload["null_delta"], "dof": dof,
-            "sigma_g2": payload["null_sigma_g2"],
-            "sigma_e2": payload["null_sigma_e2"],
-            "ll_null": payload["null_ll"]}
+    return _gathered_result(out, mesh, M, rot, nulls)
+
+
+def distributed_emmax_resident(rg, y, K=None, X0: Optional[np.ndarray] = None,
+                               mesh: Optional[Mesh] = None, eig_k=None,
+                               ngrids: int = 100, llim: float = -10.0,
+                               ulim: float = 10.0, esp: float = 1e-6,
+                               dtype=None, rotate_in_bf16=False,
+                               host_eigh: Optional[bool] = True, device=None,
+                               _rows: Optional[Tuple[int, int]] = None
+                               ) -> Dict[str, np.ndarray]:
+    """EMMAX over a ResidentGenome's packed rows sharded by rank, with the
+    JAX package's arguments (and device=, the rank's: default the mesh's,
+    its card) and distributed_emmax's return keys, equal to the port's
+    emmax_resident at the same tier.
+
+    Each rank holds only its shard of the packed rows (shard_packed_rows:
+    uploaded once and memoized on the container; here a host-only
+    container, from_source(upload=False), never goes whole to one device
+    of a larger world; emmax_loco(mesh=)'s rank 0 holds it whole for that
+    call, to build the kinships). Rank 0 fits the null and builds the
+    rotated null at the tier, then one broadcast; each rank runs models/resident.py::emmax_scan_packed over
+    its shard (exact: unpack, fp32 GEMM by U', kernel K3 a tile; int8
+    tiers: kernel K2, then the mask pass; bf16 tiers: kernel K5, imputing
+    per row on missing calls, then the mask pass); one all-gather; float64
+    host p-values. The routes come from the container's own n, tile,
+    has_missing and ploidy: no pass over dosages. An int8 tier on a
+    container with missing calls raises, on every rank, before any
+    collective. _rows: (s, e), scan only the rows of [s, e) each rank's
+    shard holds (LOCO's chromosomes; the result covers [s, e))."""
+    from mixmogam_tpu_torch.models.emmax import _as_design
+    from mixmogam_tpu_torch.models.resident import (_default_dtype,
+                                                    emmax_scan_packed)
+    from mixmogam_tpu_torch.ops.scan import normalize_rotate_tier
+
+    y = np.asarray(y, dtype=np.float64).ravel()
+    n = y.shape[0]
+    if n != rg.n:
+        raise ValueError(f"y has {n} samples, resident genome {rg.n}")
+    rd = normalize_rotate_tier(rotate_in_bf16)
+    if rd is not None and rd.startswith("int8") and rg.has_missing:
+        raise ValueError("int8 tiers need fully-observed dosages")
+    mesh, device = _mesh_device(mesh, device)
+    if dtype is None:
+        dtype = _default_dtype(device)
+    X0 = _as_design(np.ones((n, 1)) if X0 is None else X0, n)
+    s, e = (0, rg.M) if _rows is None else _rows
+    rot, _, nulls = _replicated_null(mesh, device, dtype, y, X0, K, eig_k,
+                                     rd, False, ngrids, llim, ulim, esp,
+                                     host_eigh)
+
+    # ---- this rank's shard, no communication ----
+    shard = shard_packed_rows(rg, mesh, device=device)
+    lo = host_snp_range(rg.M, mesh.shape[0], mesh.rank, tile=rg.tile)[0]
+    if _rows is None:
+        rows, m = shard.packed, shard.M          # with the zero pad rows
+    else:
+        a, b = max(s, lo) - lo, min(e, lo + shard.M) - lo
+        m = max(b - a, 0)
+        rows = shard.packed[a:a + m]             # a view, as slice_rows
+    out = (emmax_scan_packed(rows, rot, n, rg.tile,
+                             impute=rg.has_missing)[:, :m]
+           if m else torch.zeros((4, 0), dtype=dtype, device=device))
+    return _gathered_result(out, mesh, e - s, rot, nulls)
 
 
 def distributed_train_step(*args, **kwargs):

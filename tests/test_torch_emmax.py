@@ -158,13 +158,13 @@ def test_emmax_routes_resident_genome_and_facade():
     np.testing.assert_array_equal(np.asarray(rg), G)
 
 
-@pytest.mark.parametrize("kw", [dict(mesh="cpu", resident=True),
+@pytest.mark.parametrize("kw", [dict(mesh="cpu", precision="high"),
                                 dict(precision="high"),
                                 dict(matmul_precision="high")])
 def test_unported_options_raise(kw, small_dataset, kinship_small):
-    """What is still unported raises, naming its ROADMAP item: a mesh over
-    a resident genome (the sharded resident scan, item 16b; the in-core
-    mesh route is tests/test_torch_parallel.py's), 'high' (item 4)."""
+    """What is still unported raises, naming its ROADMAP item: 'high'
+    (item 4), on the mesh route too (the mesh routes are
+    tests/test_torch_parallel.py's)."""
     if "mesh" in kw:
         from mixmogam_tpu_torch.parallel import make_mesh
 

@@ -259,6 +259,52 @@ def test_card_world_of_one_distributed_emmax(cuda, tmp_path):
         dist.destroy_process_group()
 
 
+def test_card_world_of_one_resident_mesh_and_loco(cuda, tmp_path):
+    """A world of one over NCCL over a host-only container
+    (from_source(upload=False), no device memory taken): emmax(mesh=) at
+    exact / int8x3 / bf16x3 bit-equal to emmax_resident, one shard upload
+    and none on the second call; distributed_kinship bit-equal to
+    kinship_resident; emmax_loco(mesh=) bit-equal to the single-device
+    emmax_loco."""
+    import torch.distributed as dist
+
+    from mixmogam_tpu_torch.models.resident import (emmax_resident,
+                                                    kinship_resident)
+    from mixmogam_tpu_torch.parallel import distributed_kinship, make_mesh
+
+    n = 256
+    G, _, _ = simulate_genotypes(n, 3_000, seed=24)
+    y = G[17] * 0.5 + np.random.default_rng(24).normal(size=n)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    host = ResidentGenome.from_source(G, tile=1_024, upload=False)
+    assert torch.cuda.memory_allocated() == before and host.on_host
+    rg = ResidentGenome.from_source(G, tile=1_024, device=cuda)
+    K = kinship_resident(rg)
+    chrom = np.repeat([1, 2, 3], [900, 1_300, 800])
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        for tier in ("exact", "int8x3", "bf16x3"):
+            ref = emmax_resident(rg, y, K=K, precision=tier)
+            for again in (0, 1):
+                u0 = ResidentGenome.uploads
+                got = emmax(host, y, K=K, mesh=mesh, precision=tier)
+                assert ResidentGenome.uploads - u0 == int(
+                    tier == "exact" and not again)
+                for k in ("ps", "mask", "f_stats", "betas"):
+                    np.testing.assert_array_equal(got[k], ref[k])
+        np.testing.assert_array_equal(distributed_kinship(host, mesh), K)
+        got = emmax_loco(G, y, chromosomes=chrom, mesh=mesh)
+        ref = emmax_loco(G, y, chromosomes=chrom)
+        for k in ("ps", "mask", "f_stats", "betas"):
+            np.testing.assert_array_equal(got[k], ref[k])
+        assert got["loco"] == ref["loco"]
+    finally:
+        dist.destroy_process_group()
+
+
 def test_card_stepwise_vs_cpu_float64(cuda):
     """emmax_step_wise on the card (float32, no device=) against the float64
     CPU path: the same cofactor path and selected models, step 0's scan

@@ -296,7 +296,7 @@ def test_rescore_cut_counts_the_whole_genome(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(mesh=object()), NotImplementedError),
+    (dict(mesh=object()), TypeError),
     (dict(precision="high"), NotImplementedError),
     (dict(chromosomes=np.ones(300, int)), ValueError),
     (dict(chromosomes=np.r_[np.ones(150, int), np.full(100, 2),

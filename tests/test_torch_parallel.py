@@ -1,20 +1,29 @@
 """PyTorch port, parallel/'s data-parallel core (mixmogam_tpu_torch/
-parallel: make_mesh, multihost, distributed_kinship, distributed_emmax and
-emmax(mesh=)), on gloo worlds of 2 and 3 ranks on the CPU.
+parallel: make_mesh, multihost, distributed_kinship, distributed_emmax,
+emmax(mesh=)) and its sharded resident scan (shard_packed_rows,
+distributed_emmax_resident and distributed_kinship over a ResidentGenome,
+emmax(mesh=) over one, emmax_loco(mesh=)), on gloo worlds of 2 and 3 ranks
+on the CPU.
 
 One module fixture runs both worlds once: each rank is a subprocess that
 pins torch to one thread, joins its group through a file:// store under
 the test's directory (no port to clash under xdist), runs every case and
 writes its results there. The fixture joins them with its own deadline
 and fails with the ranks' stderr. The world of 3 splits the rows
-unevenly, and leaves a rank with no rows on the 300-row genome.
+unevenly, and leaves a rank with no rows on the 300-row genome (in core,
+and packed at a 256-row tile); LOCO's first chromosome lies on rank 0
+alone. The packed containers are host-only (from_source(upload=False)),
+so each rank uploads its own shard.
 
 Limits: kinship within 1e-12 of the port's single-device kinship and
 1e-10 of the JAX package's distributed_kinship on the conftest's 8-device
 mesh; EMMAX (float64, the tiers' plain versions) within 1e-10 in p of the
 port's single-device emmax and of the JAX package's distributed_emmax
 under x64 (its fast tiers pointed at the folded W'', test_torch_fold.
-fold_jax_tiers), identical masks, also under VanRaden's singular K."""
+fold_jax_tiers), identical masks, also under VanRaden's singular K. The
+resident scan and LOCO: within 1e-10 in p of the port's emmax_resident /
+emmax_loco and of the JAX package's distributed_emmax_resident /
+emmax_loco(mesh=); the integer kinship of a container bit-equal."""
 
 import os
 import pickle
@@ -23,10 +32,14 @@ import sys
 import time
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from mixmogam_tpu.models.loco import emmax_loco as j_emmax_loco
+from mixmogam_tpu.models.loco import loco_kinships as j_loco_kinships
+from mixmogam_tpu.models.resident import ResidentGenome as JResident
 from mixmogam_tpu.parallel import distributed as jdist
 from mixmogam_tpu.parallel import mesh as jmesh
 from mixmogam_tpu.parallel import multihost as jmultihost
@@ -35,7 +48,10 @@ from mixmogam_tpu.oracle.kinship import vanraden_kinship
 from mixmogam_tpu_torch.data.simulate import (simulate_genotypes,
                                               simulate_phenotype)
 from mixmogam_tpu_torch.models.emmax import emmax
-from mixmogam_tpu_torch.models.resident import ResidentGenome, scale_k
+from mixmogam_tpu_torch.models.loco import emmax_loco
+from mixmogam_tpu_torch.models.resident import (ResidentGenome,
+                                                emmax_resident,
+                                                kinship_resident, scale_k)
 from mixmogam_tpu_torch.ops.kinship import kinship
 from mixmogam_tpu_torch.parallel import (distributed_emmax,
                                          distributed_kinship,
@@ -50,6 +66,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLDS = (2, 3)
 TIERS = ("exact", "int8x3", "bf16x3")
 _RB = {"exact": False, "int8x3": "int8x3", "bf16x3": "bf16x3"}
+#: the packed containers' tiles: main's 700 rows split over every rank;
+#: miss's 300 rows leave rank 2 of the world of 3 with none
+_TILE = {"main": 128, "missing": 256}
+#: LOCO's chromosomes on main's 700 rows
+CHROMS = np.repeat([1, 2, 3], [250, 250, 200])
 
 
 def _data():
@@ -83,9 +104,11 @@ import torch
 torch.set_num_threads(1)
 import torch.distributed as dist
 from mixmogam_tpu_torch.models.emmax import emmax
+from mixmogam_tpu_torch.models.loco import emmax_loco
+from mixmogam_tpu_torch.models.resident import ResidentGenome
 from mixmogam_tpu_torch.parallel import (distributed_emmax,
-    distributed_kinship, initialize_multihost, make_global_snp_array,
-    make_mesh)
+    distributed_emmax_resident, distributed_kinship, initialize_multihost,
+    make_global_snp_array, make_mesh)
 from mixmogam_tpu_torch.parallel.mesh import broadcast_from_rank0
 from mixmogam_tpu_torch.parallel.multihost import host_snp_range
 
@@ -137,6 +160,41 @@ run("emmax_route", lambda: emmax(z["G"], z["y"], K=z["K"], mesh=mesh,
                                  precision="bf16x3", with_betas=False))
 run("emmax_sing_f32", lambda: distributed_emmax(
     z["Gs"], z["ys"], K=z["Ks"], mesh=mesh, dtype=torch.float32))
+
+# ---- the sharded resident scan over host-only containers ----
+rgs = {{f: ResidentGenome.from_source(z[g], tile=t, upload=False)
+        for f, g, t in (("main", "G", {tile_main}),
+                        ("missing", "miss", {tile_missing}))}}
+u0 = ResidentGenome.uploads
+for tier, rb in {rb!r}.items():
+    run("res_main_" + tier, lambda: distributed_emmax_resident(
+        rgs["main"], z["y"], K=z["K"], mesh=mesh, rotate_in_bf16=rb))
+res["uploads_first"] = ResidentGenome.uploads - u0
+u0 = ResidentGenome.uploads
+for tier in {rb!r}:
+    run("res_route_" + tier, lambda: emmax(rgs["main"], z["y"], K=z["K"],
+                                           mesh=mesh, precision=tier))
+run("res_as_distributed_emmax", lambda: distributed_emmax(
+    rgs["main"], z["y"], K=z["K"], mesh=mesh, rotate_in_bf16="int8x3"))
+run("kin_res_ibs", lambda: distributed_kinship(rgs["main"], mesh))
+res["uploads_again"] = ResidentGenome.uploads - u0
+res["shard_keys"] = [k[1:] for k in rgs["main"]._shards]
+for tier, rb in {rb!r}.items():
+    run("res_missing_" + tier, lambda: distributed_emmax_resident(
+        rgs["missing"], z["y"], K=z["K"], mesh=mesh, rotate_in_bf16=rb))
+res["shard_rows"] = {{f: [sh.M for sh in rg._shards.values()]
+                      for f, rg in rgs.items()}}
+run("kin_res_vanraden", lambda: distributed_kinship(
+    rgs["main"], mesh, method="vanraden"))
+run("kin_res_missing", lambda: distributed_kinship(rgs["missing"], mesh))
+chroms = np.repeat([1, 2, 3], [250, 250, 200])
+run("loco_resident", lambda: emmax_loco(rgs["main"], z["y"],
+                                        chromosomes=chroms, mesh=mesh))
+res["uploads_kept_after_loco"] = list(rgs["main"]._uploads)
+run("loco_int8", lambda: emmax_loco(z["G"], z["y"], chromosomes=chroms,
+                                    mesh=mesh))
+run("loco_frac", lambda: emmax_loco(z["frac"], z["y"], chromosomes=chroms,
+                                    mesh=mesh))
 with open({out!r}, "wb") as f:
     pickle.dump(res, f)
 dist.destroy_process_group()
@@ -165,7 +223,9 @@ def worlds(data, tmp_path_factory):
             out = str(d / f"out_{world}_{rank}.pkl")
             err = open(d / f"err_{world}_{rank}.txt", "w")
             src = _WORKER.format(repo=REPO, rank=rank, world=world,
-                                 store=store, data=dpath, out=out, rb=_RB)
+                                 store=store, data=dpath, out=out, rb=_RB,
+                                 tile_main=_TILE["main"],
+                                 tile_missing=_TILE["missing"])
             procs.append((world, rank, out, err, subprocess.Popen(
                 [sys.executable, "-c", src], stdout=err,
                 stderr=subprocess.STDOUT, env=env)))
@@ -224,9 +284,17 @@ _SCANS = [(f, t) for f in ("main", "sing", "missing") for t in TIERS
           if (f, t) != ("missing", "int8x3")]
 _EMX = tuple(f"emmax_{f}_{t}" for f, t in _SCANS) + (
     "emmax_shard", "emmax_frac_bf16x3", "emmax_route", "emmax_sing_f32")
+#: the resident scan's cases that run (int8x3 refuses missing calls)
+_RES = [(f, t) for f in ("main", "missing") for t in TIERS
+        if (f, t) != ("missing", "int8x3")]
+_RESIDENT = (tuple(f"res_{f}_{t}" for f, t in _RES)
+             + tuple(f"res_route_{t}" for t in TIERS)
+             + ("res_as_distributed_emmax", "kin_res_ibs", "kin_res_vanraden",
+                "kin_res_missing"))
+_LOCO = ("loco_resident", "loco_int8", "loco_frac")
 
 
-@pytest.mark.parametrize("case", _KIN + _EMX)
+@pytest.mark.parametrize("case", _KIN + _EMX + _RESIDENT + _LOCO)
 @pytest.mark.parametrize("world", WORLDS)
 def test_every_rank_returns_the_same_result(worlds, world, case):
     first = _ok(worlds[world][0], case)
@@ -235,7 +303,10 @@ def test_every_rank_returns_the_same_result(worlds, world, case):
         if isinstance(first, dict):
             assert first.keys() == other.keys()
             for k in first:
-                np.testing.assert_array_equal(other[k], first[k])
+                if k == "loco":
+                    assert other[k] == first[k]
+                else:
+                    np.testing.assert_array_equal(other[k], first[k])
         else:
             np.testing.assert_array_equal(other, first)
 
@@ -383,6 +454,172 @@ def test_emmax_mesh_route_is_distributed_emmax(worlds, world):
     _close(got, ref, tol=0)
 
 
+# ---- the sharded resident scan ---------------------------------------------
+
+def _res_inputs(data, fixture):
+    G = data["miss"] if fixture == "missing" else data["G"]
+    return G, data["y"], data["K"]
+
+
+def _jax_mesh():
+    return jmesh.make_mesh((8, 1), devices=jax.devices()[:8])
+
+
+@pytest.mark.parametrize("fixture, tier", _RES)
+@pytest.mark.parametrize("world", WORLDS)
+def test_resident_matches_the_single_device_port(worlds, data, world,
+                                                 fixture, tier):
+    G, y, K = _res_inputs(data, fixture)
+    rg = ResidentGenome.from_source(G, tile=_TILE[fixture], device="cpu")
+    ref = emmax_resident(rg, y, K=K, precision=tier)
+    got = _ok(worlds[world][0], f"res_{fixture}_{tier}")
+    _close(got, ref)
+    np.testing.assert_allclose(got["betas"], ref["betas"], rtol=1e-9,
+                               atol=1e-10)
+    for k in ("delta", "pseudo_heritability", "dof", "ll_null"):
+        assert got[k] == pytest.approx(ref[k], rel=1e-12, abs=1e-12)
+
+
+@pytest.mark.parametrize("fixture, tier", _RES)
+@pytest.mark.parametrize("world", WORLDS)
+def test_resident_matches_jax(worlds, data, world, fixture, tier,
+                              monkeypatch):
+    G, y, K = _res_inputs(data, fixture)
+    fold_jax_tiers(monkeypatch)
+    monkeypatch.setattr(jdist, "build_rotated_null",
+                        jscan.build_rotated_null)
+    jrg = JResident.from_source(G, tile=_TILE[fixture], upload=False)
+    ref = jdist.distributed_emmax_resident(jrg, y, K=K, mesh=_jax_mesh(),
+                                           rotate_in_bf16=_RB[tier])
+    got = _ok(worlds[world][0], f"res_{fixture}_{tier}")
+    assert sorted(got) == sorted(ref)
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("world", WORLDS)
+def test_emmax_mesh_over_a_container_is_the_resident_scan(worlds, world,
+                                                          tier):
+    """emmax(rg, mesh=) and distributed_emmax(rg) route to
+    distributed_emmax_resident, tier names resolved for the container."""
+    res = worlds[world][0]
+    _close(_ok(res, f"res_route_{tier}"), _ok(res, f"res_main_{tier}"),
+           tol=0)
+    if tier == "int8x3":
+        _close(_ok(res, "res_as_distributed_emmax"),
+               _ok(res, "res_main_int8x3"), tol=0)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_int8_on_a_container_with_missing_calls_is_refused_on_every_rank(
+        worlds, world):
+    for res in worlds[world]:
+        kind, name, msg = res["res_missing_int8x3"]
+        assert (kind, name) == ("raised", "ValueError")
+        assert "fully-observed" in msg
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_each_rank_holds_its_shard(worlds, data, world):
+    """Each rank uploaded its shard once (host_snp_range at the
+    container's tile; rank 2 of the world of 3 holds none of the 300-row
+    genome) and a second round of calls uploaded none."""
+    for rank, res in enumerate(worlds[world]):
+        rows = {f: tmultihost.host_snp_range(data[g].shape[0], world, rank,
+                                             tile=_TILE[f])
+                for f, g in (("main", "G"), ("missing", "miss"))}
+        assert res["shard_rows"] == {f: [hi - lo] for f, (lo, hi)
+                                     in rows.items()}
+        assert res["shard_keys"] == [(rank, world, torch.device("cpu"))]
+        assert (res["uploads_first"], res["uploads_again"]) == (1, 0)
+    if world == 3:
+        assert worlds[3][2]["shard_rows"]["missing"] == [0]
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_loco_keeps_no_whole_upload_on_the_container(worlds, world):
+    """emmax_loco(mesh=) over a caller's host-only container: rank 0 read
+    the whole genome for its kinships from an upload held for that call
+    only, so no rank's container keeps more than its shard."""
+    for res in worlds[world]:
+        _ok(res, "loco_resident")
+        assert res["uploads_kept_after_loco"] == []
+
+
+_KIN_RES = {"kin_res_ibs": ("G", "ibs"), "kin_res_vanraden": ("G", "vanraden"),
+            "kin_res_missing": ("miss", "ibs")}
+
+
+@pytest.mark.parametrize("case", sorted(_KIN_RES))
+@pytest.mark.parametrize("world", WORLDS)
+def test_resident_kinship_matches_one_device_and_jax(worlds, data, world,
+                                                     case):
+    g, method = _KIN_RES[case]
+    got = _ok(worlds[world][0], case)
+    rg = ResidentGenome.from_source(data[g], device="cpu")
+    np.testing.assert_allclose(got, kinship_resident(rg, method=method),
+                               rtol=0, atol=1e-10)
+    G = data[g] if (data[g] < 0).any() else data[g].astype(np.float64)
+    np.testing.assert_allclose(
+        got, jdist.distributed_kinship(G, mesh=_jax_mesh(), method=method),
+        rtol=0, atol=1e-10)
+
+
+def test_resident_integer_kinship_is_bit_equal_across_worlds(worlds, data):
+    """K1's counts over each rank's packed shard, summed in int64: the same
+    bits on every world as kinship_resident on one device."""
+    ref = kinship_resident(ResidentGenome.from_source(data["G"],
+                                                      device="cpu"))
+    for w in WORLDS:
+        np.testing.assert_array_equal(_ok(worlds[w][0], "kin_res_ibs"), ref)
+
+
+def _loco_source(data, case):
+    return {"loco_resident": ResidentGenome.from_source(
+                data["G"], tile=_TILE["main"], device="cpu"),
+            "loco_int8": data["G"], "loco_frac": data["frac"]}[case]
+
+
+def _loco_close(got, ref, tol=1e-10):
+    _close(got, ref, tol)
+    assert got["dof"] == ref["dof"]
+    assert got["loco"].keys() == ref["loco"].keys()
+    for c in ref["loco"]:
+        for k in ("delta", "pseudo_heritability", "ll_null"):
+            assert got["loco"][c][k] == pytest.approx(ref["loco"][c][k],
+                                                      rel=1e-10, abs=1e-12)
+
+
+@pytest.mark.parametrize("case", _LOCO)
+@pytest.mark.parametrize("world", WORLDS)
+def test_loco_mesh_matches_the_single_device_port(worlds, data, world, case):
+    ref = emmax_loco(_loco_source(data, case), data["y"], chromosomes=CHROMS,
+                     device="cpu")
+    got = _ok(worlds[world][0], case)
+    assert sorted(got) == sorted(ref)
+    _loco_close(got, ref)
+    np.testing.assert_allclose(got["betas"], ref["betas"], rtol=1e-9,
+                               atol=1e-10)
+
+
+@pytest.mark.parametrize("case", _LOCO)
+def test_loco_mesh_matches_jax(worlds, data, case):
+    """The JAX package's emmax_loco(mesh=) on its 8 virtual devices (a
+    container scanned whole under each null by its distributed_emmax_
+    resident, an array's rows by its distributed_emmax); fractional
+    dosages with its float64 kinships, as tests/test_torch_fractional.py
+    holds the single-device LOCO."""
+    src = {"loco_resident": JResident.from_source(data["G"],
+                                                  tile=_TILE["main"]),
+           "loco_int8": data["G"], "loco_frac": data["frac"]}[case]
+    ks = (j_loco_kinships(src, CHROMS, ploidy=1, dtype=jnp.float64)
+          if case == "loco_frac" else None)
+    ref = j_emmax_loco(src, data["y"], chromosomes=CHROMS, ploidy=1,
+                       kinships=ks, mesh=_jax_mesh())
+    for w in WORLDS:
+        _loco_close(_ok(worlds[w][0], case), ref)
+
+
 # ---- refusals, copies, defaults (one process) ------------------------------
 
 _CPU_MESH = make_mesh(devices="cpu")
@@ -396,7 +633,8 @@ _CPU_MESH = make_mesh(devices="cpu")
     (dict(rescore_top=8), ValueError, "rescore_top"),
     (dict(matmul_precision="high"), ValueError, "matmul_precision"),
     (dict(precision="high"), NotImplementedError, "item 4"),
-    (dict(resident=True), NotImplementedError, "item 16b"),
+    (dict(precision="int8x3", rotate_in_bf16="bf16x3"), ValueError,
+     "either precision"),
 ])
 def test_emmax_mesh_refusals(data, kw, exc, match):
     with pytest.raises(exc, match=match):
@@ -404,30 +642,57 @@ def test_emmax_mesh_refusals(data, kw, exc, match):
               device="cpu", **kw)
 
 
-def test_an_int8_source_over_the_budget_waits_for_16b(data, monkeypatch):
-    """An int8 source over the in-core budget that fits packed (the JAX
-    package's upload=False route); the CPU has no packed budget, so it is
-    given one here."""
-    from mixmogam_tpu_torch.models import resident
+@pytest.mark.parametrize("tier", TIERS)
+def test_resident_true_packs_on_the_host(data, tier):
+    """resident=True on a mesh packs the source on the host
+    (upload=False) and scans it by distributed_emmax_resident: equal to
+    the single-device resident scan bit for bit on a world of one."""
+    got = emmax(data["G"].astype(np.int8), data["y"], K=data["K"],
+                mesh=_CPU_MESH, resident=True, precision=tier, device="cpu")
+    rg = ResidentGenome.from_source(data["G"], device="cpu")
+    _close(got, emmax_resident(rg, data["y"], K=data["K"], precision=tier),
+           tol=0)
+
+
+def test_an_int8_source_over_the_budget_packs_on_the_host(data,
+                                                          monkeypatch):
+    """An int8 source over the in-core budget that fits packed is packed
+    on the host (models/source.py::pack_for_mesh, upload=False) and takes
+    the resident route, as in the JAX package; the CPU has no packed
+    budget, so it is given one here."""
+    from mixmogam_tpu_torch.models import resident, source
 
     monkeypatch.setattr(resident, "resident_budget_bytes", lambda d: 1 << 40)
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        emmax(data["G"], data["y"], K=data["K"], mesh=_CPU_MESH,
-              stream_budget_bytes=1, device="cpu")
+    made = []
+    pack = source.pack_for_mesh
+    monkeypatch.setattr(source, "pack_for_mesh",
+                        lambda *a, **k: made.append(pack(*a, **k)) or made[-1])
+    got = emmax(data["G"], data["y"], K=data["K"], mesh=_CPU_MESH,
+                stream_budget_bytes=1, precision="int8x3", device="cpu")
+    assert len(made) == 1 and made[0].on_host
+    _close(got, emmax(data["G"], data["y"], K=data["K"], precision="int8x3",
+                      device="cpu"), tol=0)
 
 
-def test_a_resident_genome_on_a_mesh_waits_for_16b(data):
+def test_a_resident_genome_on_a_mesh_scans_its_shards(data):
+    """A ResidentGenome on a mesh, in emmax(mesh=) and distributed_emmax,
+    takes the resident route; on a world of one its shard is a view of the
+    container's rows (no upload)."""
     rg = ResidentGenome.from_source(data["G"], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        emmax(rg, data["y"], K=data["K"], mesh=_CPU_MESH)
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        distributed_emmax(rg, data["y"], K=data["K"], mesh=_CPU_MESH)
+    ref = emmax_resident(rg, data["y"], K=data["K"])
+    u0 = ResidentGenome.uploads
+    _close(emmax(rg, data["y"], K=data["K"], mesh=_CPU_MESH), ref, tol=0)
+    _close(distributed_emmax(rg, data["y"], K=data["K"], mesh=_CPU_MESH),
+           ref, tol=0)
+    assert ResidentGenome.uploads == u0
+    (shard,) = rg._shards.values()
+    assert shard.packed.data_ptr() == rg.packed.data_ptr()
 
 
 def test_a_float_source_over_the_budget_stays_in_core(data):
-    """Only an int8 source that would fit packed waits for 16b; a float
-    source over the in-core budget scans SNP-sharded in core, as in the
-    JAX package."""
+    """Only an int8 source that would fit packed takes the resident route;
+    a float source over the in-core budget scans SNP-sharded in core, as
+    in the JAX package."""
     Gf = data["G"].astype(np.float64)
     got = emmax(Gf, data["y"], K=data["K"], mesh=_CPU_MESH,
                 stream_budget_bytes=1, device="cpu")
@@ -518,14 +783,10 @@ def test_a_world_of_one_has_no_collectives(data):
 def _other_entries():
     """name -> call(G, y, K, mesh) of every other entry point with mesh=."""
     from mixmogam_tpu_torch import api
-    from mixmogam_tpu_torch.models.loco import emmax_loco
     from mixmogam_tpu_torch.models.multitrait import emmax_multi_trait
     from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
 
     return {
-        "emmax_loco": lambda G, y, K, m: emmax_loco(
-            G, y, chromosomes=np.repeat([1, 2], [400, 300]), mesh=m,
-            device="cpu"),
         "emmax_step_wise": lambda G, y, K, m: emmax_step_wise(
             G, y, K=K, mesh=m, device="cpu"),
         "emmax_multi_trait": lambda G, y, K, m: emmax_multi_trait(
@@ -545,6 +806,32 @@ def _other_entries():
         "emmax_anova": lambda G, y, K, m: api.emmax_anova(
             G.astype(np.int8) * 2, y, K=K, mesh=m, device="cpu"),
     }
+
+
+@pytest.mark.parametrize("precision", [None, "exact"])
+def test_emmax_loco_on_a_mesh_of_one(data, precision):
+    """emmax_loco(mesh=) on a world of one with no process group: the
+    single-device LOCO bit for bit (its kinships and eighs, each
+    chromosome's rows of the one shard)."""
+    G, y = data["G"], data["y"]
+    got = emmax_loco(G, y, chromosomes=CHROMS, mesh=_CPU_MESH,
+                     precision=precision, with_betas=False)
+    ref = emmax_loco(G, y, chromosomes=CHROMS, device="cpu",
+                     with_betas=False)
+    assert sorted(got) == sorted(ref)
+    _loco_close(got, ref, tol=0)
+
+
+@pytest.mark.parametrize("kw, exc, match", [
+    (dict(mesh=object()), TypeError, "make_mesh"),
+    (dict(precision="bf16x3"), ValueError, "exact tier"),
+    (dict(precision="int8x3"), ValueError, "exact tier"),
+    (dict(rescore_top=8), TypeError, "rescore_top"),
+])
+def test_emmax_loco_mesh_refusals(data, kw, exc, match):
+    kw = {"mesh": _CPU_MESH, **kw}
+    with pytest.raises(exc, match=match):
+        emmax_loco(data["G"], data["y"], chromosomes=CHROMS, **kw)
 
 
 @pytest.mark.parametrize("entry", sorted(_other_entries()))
