@@ -279,7 +279,21 @@ Phases (each prints its own seconds):
     both, bounds on the tile; the same rows with bounds off it (3,000 and
     5,500, the middle chromosome tiled from the ranks' boundary on rank
     1) held to identical masks and max |dp| <= LOCO_OFF_TILE_TOL; which
-    gloo collectives take CUDA tensors in this torch printed; the walls
+    gloo collectives take CUDA tensors in this torch printed; the walls;
+    then on the same rows the three campaign scans on the two ranks,
+    emmax_step_wise(mesh=) (3 steps), emmax_multi_trait(mesh=) (4 traits)
+    at exact and int8x3 and over each rank's shard of a host-only
+    container, and emma(mesh=), each held to its single-device call by
+    the same gates (stepwise: the same path and selections, min_p and the
+    criteria within rtol 1e-12); (d) in (a)'s group, item 16c's first
+    half at full width, each call bit-equal to the single-device result
+    its phase kept (no single-device call run again) with its wall beside
+    that phase's: emmax_step_wise(mesh=) on phase 4's host genome and
+    eigh (phase 8's stored route, 10 steps; K3 launched as often as
+    there), emmax_multi_trait(mesh=) on phase 9's T = 50 traits at exact
+    and int8x3 over phase 4's resident genome and once at exact over
+    (c)'s host-only container (K3 T x tiles each), and emma(mesh=) on
+    phase 10's n = 1,300 x 215,000 genome
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}. Any
@@ -466,10 +480,11 @@ def _check_no_jax() -> None:
         raise AssertionError(f"the port imported {bad[:5]}")
 
 
-def _emma_phase(args, dev, kernels, launches) -> None:
+def _emma_phase(args, dev, kernels, launches) -> dict:
     """Phase 10: EMMA at BASELINE #2's shape (n = 1,300 inbred lines, ploidy
     1, M = 215,000) in float64 on the card, its split and rate, its parity
-    with EMMAX (printed), and gates (a)-(d) against the float64 CPU path."""
+    with EMMAX (printed), and gates (a)-(d) against the float64 CPU path.
+    Returns the genome, y, eigh and the call's result and wall."""
     import numpy as np
     import scipy.stats
     import torch
@@ -579,8 +594,7 @@ def _emma_phase(args, dev, kernels, launches) -> None:
     _emma_gate("(c) VanRaden's singular K, card vs CPU",
                emma(Gv, yv, eig_k=eigv),
                emma(Gv, yv, eig_k=eigv, device="cpu"), 1e-8)
-    del rg, G, phi, U, e
-    torch.cuda.empty_cache()
+    return dict(rg=rg, y=y, eig=(phi, U), res=e, wall=wall)
 
 
 def _emma_gate(label, card, cpu, p_tol) -> None:
@@ -2385,13 +2399,16 @@ def _fractional_phase(args, kernels, launches, main, G, tmp, acc) -> None:
 
 #: phase 18 (b): one rank of a gloo world on the card, a subprocess
 _P18_RANK = r"""
-import datetime, json, sys, time
+import datetime, json, pickle, sys, time
 import numpy as np
 sys.path.insert(0, {repo!r})
 import torch
 import torch.distributed as dist
+from mixmogam_tpu_torch.models.emma import emma
 from mixmogam_tpu_torch.models.loco import emmax_loco
+from mixmogam_tpu_torch.models.multitrait import emmax_multi_trait
 from mixmogam_tpu_torch.models.resident import ResidentGenome
+from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
 from mixmogam_tpu_torch.ops.hopper_kinship import (ibs_gram_packed,
                                                    ibs_gram_tri_packed)
 from mixmogam_tpu_torch.ops.hopper_scan import (rotate_scan_bf16_packed,
@@ -2459,6 +2476,23 @@ r = emmax_loco(rgl, np.load({d!r} + "/yl.npy"),
 walls["emmax_loco, bounds off the tile"] = time.perf_counter() - ts
 for k in ("ps", "mask", "f_stats", "betas"):
     out["loco_off_" + k] = r[k]
+# the campaign scans (ROADMAP item 16c's first half) on the same rows
+ts = time.perf_counter()
+sw = emmax_step_wise(G, y, eig_k=(phi, U), max_steps=3, mesh=mesh)
+walls["emmax_step_wise"] = time.perf_counter() - ts
+Y4 = np.load({d!r} + "/Y4.npy")
+for name, src, tier in (("mt_exact", G, "exact"), ("mt_int8x3", G, "int8x3"),
+                        ("mt_res_exact", rgh, "exact")):
+    ts = time.perf_counter()
+    r = emmax_multi_trait(src, Y4, eig_k=(phi, U), precision=tier, mesh=mesh)
+    walls["emmax_multi_trait " + name[3:]] = time.perf_counter() - ts
+    for k in ("ps", "mask", "f_stats", "betas"):
+        out[name + "_" + k] = r[k]
+ts = time.perf_counter()
+r = emma(G, y, eig_k=(phi, U), mesh=mesh)
+walls["emma"] = time.perf_counter() - ts
+for k in ("ps", "mask", "f_stats", "betas"):
+    out["emma_" + k] = r[k]
 print(json.dumps({{"rank": rank, "device": str(mesh.device),
                    "backend": mesh.backend,
                    "rows": host_snp_range(G.shape[0], world, rank),
@@ -2470,6 +2504,8 @@ print(json.dumps({{"rank": rank, "device": str(mesh.device),
                    "gloo_on_cuda_tensors": probe}}), flush=True)
 if rank == 0:
     np.savez({d!r} + "/out.npz", **out)
+    with open({d!r} + "/sw.pkl", "wb") as f:
+        pickle.dump(sw, f)
 dist.destroy_process_group()
 """
 
@@ -2496,11 +2532,12 @@ def _p18_gate(label, got, ref, tol=1e-12) -> None:
         raise AssertionError(f"{label}: the distributed call disagrees")
 
 
-def _resident_mesh_phase(kernels, launches, main, G, mesh, Kr) -> None:
+def _resident_mesh_phase(kernels, launches, main, G, mesh, Kr):
     """Phase 18 (c), in (a)'s world of one over NCCL: the sharded resident
     scan over a host-only container of phase 4's genome and
     emmax_loco(mesh=) on phase 6's rows, each held bit-equal to its
-    single-device call, K1-K5 each launched."""
+    single-device call, K1-K5 each launched. Returns the container (its
+    shard kept) for (d)."""
     import numpy as np
     import torch
 
@@ -2573,8 +2610,129 @@ def _resident_mesh_phase(kernels, launches, main, G, mesh, Kr) -> None:
               rl, lo["exact"])
     if rl["loco"] != lo["exact"]["loco"]:
         raise AssertionError("(c) LOCO's per-chromosome nulls differ")
-    del rgh, res, rl
+    del res, rl
     main.pop("loco6")
+    return rgh
+
+
+def _bit_equal(label, got, ref, keys) -> None:
+    """Phase 18 (d)'s gate: every array of `keys` bit-equal to the
+    single-device call's; the masks and max |dp| printed."""
+    import numpy as np
+
+    nm = int((got["mask"] != ref["mask"]).sum())
+    dp = float(np.abs(got["ps"] - ref["ps"]).max())
+    bad = [k for k in keys if not np.array_equal(got[k], ref[k])]
+    print(f"   {label}: {nm} mask(s) differ, max|dp| {dp:.3e}, "
+          f"{'bit-equal' if not bad else f'NOT bit-equal in {bad}'} "
+          f"({', '.join(keys)})", flush=True)
+    if bad:
+        raise AssertionError(f"{label}: not bit-equal to one device")
+
+
+def _same_path(label, got, ref, rtol=0.0) -> None:
+    """Two stepwise results: the same path of cofactors, min_p SNPs and
+    selections, and min_p, the criteria and the cofactor re-tests within
+    rtol (0: bit-equal)."""
+    import numpy as np
+
+    if ([(s["phase"], s["cofactors"], s["min_p_snp"]) for s in got["steps"]]
+            != [(s["phase"], s["cofactors"], s["min_p_snp"])
+                for s in ref["steps"]]
+            or got["selected"] != ref["selected"]):
+        raise AssertionError(f"{label}: another path or selection")
+    worst = 0.0
+    for a, b in zip(got["steps"], ref["steps"]):
+        for k in ("min_p", "bic", "ebic", "mbic", "delta", "cofactor_ps"):
+            x, y = np.asarray(a[k], float), np.asarray(b[k], float)
+            if not np.array_equal(np.isnan(x), np.isnan(y)):
+                worst = np.inf           # a value on one side only
+                continue
+            ok = ~np.isnan(y)            # min_p is NaN past the forward scans
+            d = np.abs(x[ok] - y[ok]) / np.maximum(np.abs(y[ok]), 1e-300)
+            worst = max(worst, float(d.max(initial=0.0)))
+    print(f"   {label}: the same {len(ref['steps'])} steps, path "
+          f"{[s['min_p_snp'] for s in ref['steps'] if s['min_p_snp'] >= 0]}"
+          f" and selections; max relative difference {worst:.3e} (min_p, "
+          f"criteria, delta, cofactor re-tests)", flush=True)
+    if worst > rtol:
+        raise AssertionError(f"{label}: differs from one device")
+
+
+def _campaign_mesh_phase(kernels, launches, main, G, mesh, rgh) -> None:
+    """Phase 18 (d), in (a)'s world of one over NCCL: item 16c's first half
+    at full width, each call bit-equal to the single-device result that
+    phase 8, 9 or 10 kept, its wall beside that phase's, K3's launches
+    equal to the single-device counts."""
+    import torch
+
+    from mixmogam_tpu_torch.models.emma import emma
+    from mixmogam_tpu_torch.models.multitrait import emmax_multi_trait
+    from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
+
+    k3 = next(k for k in kernels if k.__name__ == "scan_stats")
+
+    def timed(fn):
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - ts
+        run = {k.__name__: k.launches for k in kernels}
+        for name, cnt in run.items():
+            launches[name] += cnt
+        return r, wall, run["scan_stats"]
+
+    (phi, U), y = main["eig"], main["y"]
+    sw = main.pop("sw8")
+    r, wall, n3 = timed(lambda: emmax_step_wise(G, y, eig_k=(phi, U),
+                                                max_steps=10, mesh=mesh))
+    print(f"(d) emmax_step_wise(mesh=) on phase 4's host genome, 10 steps "
+          f"({r['timings_s']['route']}): {wall:.3f} s (phase 8's "
+          f"single-device call {sw['wall']:.3f} s); rotation "
+          f"{r['timings_s']['rotate']:.3f} s; K3 launches {n3} (phase 8: "
+          f"{sw['k3']})", flush=True)
+    _same_path("(d) emmax_step_wise(mesh=) vs phase 8's stored call", r,
+               sw["res"])
+    if n3 != sw["k3"]:
+        raise AssertionError("(d) stepwise: K3 launched another count")
+    del r
+    torch.cuda.empty_cache()
+    mt = main["mt9"]            # its traits stay for (b)
+    keys = ("ps", "f_stats", "betas", "mask", "deltas")
+    for tier, src, what in (("exact", main["rg"], "phase 4's resident genome"),
+                            ("int8x3", main["rg"],
+                             "phase 4's resident genome"),
+                            ("exact", rgh, "(c)'s host-only container")):
+        r, wall, n3 = timed(lambda: emmax_multi_trait(
+            src, mt["Y"], eig_k=(phi, U), precision=tier, mesh=mesh))
+        print(f"(d) emmax_multi_trait(mesh=) {tier}, T={mt['Y'].shape[0]}, "
+              f"over {what}: {wall:.3f} s (phase 9's single-device call "
+              f"{mt[tier]['wall']:.3f} s); K3 launches {n3} (phase 9: "
+              f"{mt['k3']})", flush=True)
+        _bit_equal(f"(d) emmax_multi_trait(mesh=) {tier} vs phase 9's", r,
+                   mt[tier], keys)
+        if n3 != mt["k3"]:
+            raise AssertionError("(d) multi-trait: K3 launched another "
+                                 "count")
+        del r
+    del mt["exact"], mt["int8x3"]
+    torch.cuda.empty_cache()
+    em = main.pop("emma10")
+    r, wall, n3 = timed(lambda: emma(em["rg"], em["y"], eig_k=em["eig"],
+                                     mesh=mesh))
+    tm = r["timings_s"]
+    print(f"(d) emma(mesh=) float64, n={em['rg'].n} M={em['rg'].M}: "
+          f"{wall:.3f} s (phase 10's single-device call {em['wall']:.3f} "
+          f"s); rotation {tm['rotation']:.3f} s, grid {tm['grid']:.3f} s, "
+          f"refine {tm['refine']:.3f} s; kernel launches {n3} (EMMA runs "
+          f"none)", flush=True)
+    _bit_equal("(d) emma(mesh=) vs phase 10's", r, em["res"],
+               ("ps", "f_stats", "betas", "mask", "deltas", "lls"))
+    del r, em
+    torch.cuda.empty_cache()
 
 
 def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
@@ -2586,14 +2744,19 @@ def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
     (_resident_mesh_phase); (b) two gloo ranks sharing the card,
     subprocesses, on the first 32,768 rows, held to the single-device calls
     by the same gates."""
+    import pickle
+
     import numpy as np
     import torch
     import torch.distributed as dist
 
+    from mixmogam_tpu_torch.models.emma import emma
     from mixmogam_tpu_torch.models.loco import emmax_loco
+    from mixmogam_tpu_torch.models.multitrait import emmax_multi_trait
     from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                     emmax_resident,
                                                     kinship_resident)
+    from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
     from mixmogam_tpu_torch.parallel import (distributed_emmax,
                                              distributed_kinship, make_mesh)
 
@@ -2655,8 +2818,10 @@ def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
             _p18_gate(f"distributed_emmax {tier} vs emmax_resident "
                       f"({time.perf_counter() - ts:.3f} s)", dists[tier], ref)
         del dists, ref
-        _resident_mesh_phase(kernels, launches, main, G, mesh, Kr)
+        rgh = _resident_mesh_phase(kernels, launches, main, G, mesh, Kr)
         del Kr
+        _campaign_mesh_phase(kernels, launches, main, G, mesh, rgh)
+        del rgh
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -2683,6 +2848,8 @@ def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
     np.save(os.path.join(d, "yl.npy"), y[:nl])
     np.save(os.path.join(d, "chl.npy"), chl)
     np.save(os.path.join(d, "chl_off.npy"), chl_off)
+    Y4 = main.pop("mt9")["Y"][:4]
+    np.save(os.path.join(d, "Y4.npy"), Y4)
     print(f"(b) the ranks' inputs written (not the system): "
           f"{time.perf_counter() - ts:.3f} s", flush=True)
     src = _P18_RANK.format(repo=os.path.dirname(os.path.abspath(__file__)),
@@ -2742,6 +2909,29 @@ def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
               {k: z[f"loco_off_{k}"] for k in ("ps", "mask", "f_stats",
                                                "betas")}, ref,
               tol=LOCO_OFF_TILE_TOL)
+    # the campaign scans against their single-device calls on the same rows
+    ts = time.perf_counter()
+    ref = emmax_step_wise(rgb, y, eig_k=(phi, U), max_steps=3)
+    with open(os.path.join(d, "sw.pkl"), "rb") as f:
+        _same_path(f"(b) emmax_step_wise(mesh=) vs emmax_step_wise "
+                   f"({time.perf_counter() - ts:.3f} s)", pickle.load(f), ref,
+                   rtol=1e-12)
+    for name, src, tier in (("mt_exact", rgb, "exact"),
+                            ("mt_int8x3", rgb, "int8x3"),
+                            ("mt_res_exact", rgb, "exact")):
+        ts = time.perf_counter()
+        ref = emmax_multi_trait(src, Y4, eig_k=(phi, U), precision=tier)
+        _p18_gate(f"(b) emmax_multi_trait(mesh=) {name[3:]} vs "
+                  f"emmax_multi_trait, T=4 ({time.perf_counter() - ts:.3f} "
+                  f"s)", {k: z[f"{name}_{k}"] for k in ("ps", "mask",
+                                                        "f_stats", "betas")},
+                  ref)
+    ts = time.perf_counter()
+    ref = emma(G[:Mb], y, eig_k=(phi, U))
+    _p18_gate(f"(b) emma(mesh=) vs emma, n={n} M={Mb} "
+              f"({time.perf_counter() - ts:.3f} s)",
+              {k: z[f"emma_{k}"] for k in ("ps", "mask", "f_stats",
+                                           "betas")}, ref)
     del rgb, z
     torch.cuda.empty_cache()
 
@@ -3604,6 +3794,9 @@ def main(argv=None) -> int:
         if run["scan_stats"] <= 0:
             raise AssertionError(f"stepwise {route}: K3 never launched")
         sw[route] = r
+        if route == "stored":
+            # phase 18 (d) holds emmax_step_wise(mesh=) to this call
+            main["sw8"] = dict(res=r, wall=wall, k3=run["scan_stats"])
     fa = [s for s in sw["stored"]["steps"] if s["phase"] == "forward"][:3]
     fb = [s for s in sw["over budget"]["steps"]
           if s["phase"] == "forward"][:3]
@@ -3709,6 +3902,11 @@ def main(argv=None) -> int:
                 raise AssertionError(f"multi-trait {tier}, trait {t}: "
                                      "differs from the single-trait scan")
         mt[tier] = r
+        if tier in ("exact", "int8x3"):
+            # phase 18 (d) holds emmax_multi_trait(mesh=) to these calls
+            main.setdefault("mt9", dict(Y=Y9, k3=T9 * tiles9))[tier] = dict(
+                wall=wall, **{k: r[k] for k in ("ps", "f_stats", "betas",
+                                                "mask", "deltas")})
         del rot9, Xr9, null9, op9
     for tier in ("int8x3", "bf16x3"):
         nm = int((mt[tier]["mask"] != mt["exact"]["mask"]).sum())
@@ -3788,7 +3986,8 @@ def main(argv=None) -> int:
 
     # ---- 10. EMMA at BASELINE #2's shape ----------------------------------
     t0 = time.perf_counter()
-    _emma_phase(args, dev, kernels, launches)
+    # phase 18 (d) holds emma(mesh=) to this phase's call
+    main["emma10"] = _emma_phase(args, dev, kernels, launches)
     _check_no_jax()
     _phase("10 EMMA", t0)
 

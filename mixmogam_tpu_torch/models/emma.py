@@ -153,61 +153,97 @@ def emma(G, y, K=None, X0: Optional[np.ndarray] = None,
     changes nothing. K: (n, n) kinship, or eig_k = (phi, U).
     dtype: float64 by default on every device; torch.float32 is accepted.
     test: 'f' (REML deltas, F-test) or 'lrt' (ML deltas, likelihood ratio
-    against the null ML fit)."""
+    against the null ML fit).
+
+    mesh: a parallel.Mesh (make_mesh()) shards the scan by SNP rows, as
+    the JAX package's mesh= does: rank 0 takes eigh(K) (K or eig_k needed
+    there only) and, for test='lrt', the null ML fit, and one broadcast
+    replicates them; each rank scans its rows with no communication (a
+    ResidentGenome's shard, parallel/distributed.py::shard_packed_rows, a
+    host source's rows at `tile`, host_snp_range), and the per-SNP results
+    meet in one all-gather. Every rank returns the whole result; device:
+    the rank's (default the mesh's)."""
     from mixmogam_tpu_torch.models.emmax import _as_design
-    from mixmogam_tpu_torch.models.resident import (_float_tiles,
+    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
+                                                    _float_tiles,
                                                     resident_and_device)
     from mixmogam_tpu_torch.models.source import resolve_source
     from mixmogam_tpu_torch.models.streaming import host_tiles
-    from mixmogam_tpu_torch.ops.eigen import eigen_k_on
     from mixmogam_tpu_torch.ops.reml import (esp_to_refine_iters,
                                              fit_null_model)
+    from mixmogam_tpu_torch.ops.rotate import float_route_eig
     from mixmogam_tpu_torch.ops.stats import chi2_sf_host, f_sf_host
+    from mixmogam_tpu_torch.parallel import distributed as pd
 
     if mesh is not None:
-        raise NotImplementedError("mesh= (the SNP-sharded EMMA scan) is not "
-                                  "ported yet: ROADMAP Queue 1 item 16c")
+        mesh, device = pd.mesh_entry(mesh, G, "emma", device)
     if test not in ("f", "lrt"):
         raise ValueError(f"test must be 'f' or 'lrt'; got {test!r}")
     refine_iters = esp_to_refine_iters(esp, ngrids, llim, ulim)
     y = np.asarray(y, dtype=np.float64).ravel()
     n = y.shape[0]
-    rg, device = resident_and_device(G, device)
+    if mesh is None:
+        rg, device = resident_and_device(G, device)
+    else:
+        # a host-only container stays on the host: each rank takes its shard
+        rg = G if isinstance(G, ResidentGenome) else None
     if rg is not None and rg.n != n:
         raise ValueError(f"y has {n} samples but the resident genome holds "
                          f"{rg.n}")
     X0 = _as_design(np.ones((n, 1)) if X0 is None else X0, n)
     q = X0.shape[1]
+    reml = test != "lrt"
+
+    def null() -> Dict:
+        """The eigenbasis in dtype, y and X0 rotated, and the null ML fit's
+        log likelihood for the LRT."""
+        phi, U = float_route_eig(K, eig_k, device)
+        phi = torch.as_tensor(phi).to(device=device, dtype=dtype)
+        U = torch.as_tensor(U).to(device=device, dtype=dtype)
+        out = {"phi": phi, "U": U,
+               "y_rot": U.T @ torch.as_tensor(y, device=device).to(dtype),
+               "X0_rot": U.T @ torch.as_tensor(X0, device=device).to(dtype),
+               "ll_null": None}
+        if not reml:
+            out["ll_null"] = float(fit_null_model(
+                y, X0, eig_k=(phi, U), ngrids=ngrids, llim=llim, ulim=ulim,
+                ml=True, device=device, dtype=dtype).ll)
+        return out
 
     clock = _StageClock(device)
-    if eig_k is None:
-        if K is None:
-            raise ValueError("need K or eig_k")
-        phi, U = eigen_k_on(np.asarray(K, np.float64), device)
-    else:
-        phi, U = eig_k
-    phi = torch.as_tensor(phi).to(device=device, dtype=dtype)
-    U = torch.as_tensor(U).to(device=device, dtype=dtype)
+    # on a mesh rank 0's, replicated by one broadcast
+    nl = null() if mesh is None else pd.on_rank0(null, mesh)
     clock.lap("eigh")
-    y_rot = U.T @ torch.as_tensor(y, device=device).to(dtype)
-    X0_rot = U.T @ torch.as_tensor(X0, device=device).to(dtype)
-    reml = test != "lrt"
-    if not reml:
-        null = fit_null_model(y, X0, eig_k=(phi, U), ngrids=ngrids,
-                              llim=llim, ulim=ulim, ml=True, device=device,
-                              dtype=dtype)
-        ll_null = float(null.ll)
+    phi, U, y_rot, X0_rot = nl["phi"], nl["U"], nl["y_rot"], nl["X0_rot"]
 
     # mean-imputed float tiles: the packed rows unpacked on their device (cut
-    # at M), or a host source's rows uploaded a tile at a time
-    tiles = (_float_tiles(rg, dtype) if rg is not None
-             else host_tiles(resolve_source(G), dtype, device, tile))
+    # at M), or a host source's rows uploaded a tile at a time; on a mesh
+    # this rank's shard or rows
+    if rg is not None:
+        tiles = _float_tiles(rg if mesh is None else pd.shard_packed_rows(
+            rg, mesh, device=device), dtype)
+    else:
+        src = resolve_source(G)
+        if mesh is not None:
+            lo, hi = pd.rank_range(src.shape[0], mesh, tile)
+            src = src[lo:hi]
+        tiles = host_tiles(src, dtype, device, tile)
     clock.lap()
     outs = [_emma_tile_stats(Gt, U, X0_rot, y_rot, phi, ngrids, llim, ulim,
                              reml, refine_iters, n, q, clock)
             for Gt in tiles]
+    keys = ("f", "delta", "beta", "ll", "mask")
+    if mesh is None:
+        res = {k: torch.cat([o[k] for o in outs]).cpu().numpy()
+               for k in keys}
+    else:
+        # one all-gather of this rank's (5, m_rank) block (no rows: (5, 0))
+        blk = (torch.stack([torch.cat([o[k].to(dtype) for o in outs])
+                            for k in keys]) if outs
+               else torch.zeros((len(keys), 0), dtype=dtype, device=device))
+        h = pd.gathered_rows(blk, mesh, resolve_source(G).shape[0])
+        res = dict(zip(keys, h))
     timings = clock.seconds()
-    res = {k: torch.cat([o[k] for o in outs]).cpu().numpy() for k in outs[0]}
     deltas = res["delta"].astype(np.float64)
     lls = res["ll"].astype(np.float64)
     fstats = res["f"].astype(np.float64)
@@ -217,7 +253,7 @@ def emma(G, y, K=None, X0: Optional[np.ndarray] = None,
            "betas": res["beta"].astype(np.float64), "mask": masks,
            "lls": lls, "pseudo_heritabilities": 1.0 / (1.0 + deltas)}
     if test == "lrt":
-        lrt = np.maximum(2.0 * (lls - ll_null), 0.0)
+        lrt = np.maximum(2.0 * (lls - nl["ll_null"]), 0.0)
         out["ps"] = np.where(masks, chi2_sf_host(lrt, 1.0), 1.0)
         out["lrt_stats"] = lrt
     else:

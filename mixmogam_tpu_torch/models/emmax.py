@@ -321,16 +321,9 @@ def _emmax_on_mesh(G, G_src, y, K, X0, eig_k, ngrids, llim, ulim, esp,
     from mixmogam_tpu_torch.ops.scan import (probe_for_source,
                                              resolve_precision)
     from mixmogam_tpu_torch.parallel.distributed import (
-        distributed_emmax, distributed_emmax_resident)
-    from mixmogam_tpu_torch.parallel.mesh import Mesh
-    from mixmogam_tpu_torch.parallel.multihost import SnpShard
+        distributed_emmax, distributed_emmax_resident, mesh_entry)
 
-    if not isinstance(mesh, Mesh):
-        raise TypeError("mesh must be a mixmogam_tpu_torch.parallel.Mesh "
-                        f"(make_mesh()); got {type(mesh).__name__}")
-    if isinstance(G, SnpShard):
-        raise TypeError("emmax(mesh=) takes the whole matrix on every rank; "
-                        "pass a rank's SnpShard to distributed_emmax")
+    mesh, device = mesh_entry(mesh, G, "emmax", device)
     if str(precision) == "fast":
         raise ValueError(
             "'fast' pairs a tier with the single-device rescore pass; pick "
@@ -345,7 +338,6 @@ def _emmax_on_mesh(G, G_src, y, K, X0, eig_k, ngrids, llim, ulim, esp,
     if matmul_precision:
         raise ValueError("matmul_precision is not supported on the mesh "
                          "path; use a precision= tier name")
-    device = mesh.device if device is None else torch.device(device)
     if dtype is None:
         dtype = _default_dtype(device)
     n = np.asarray(y).size

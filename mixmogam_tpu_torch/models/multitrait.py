@@ -23,6 +23,9 @@ reaches K3's float32 sums. Rows inside col(X0) are masked
 The shared product is an XLA dot in the JAX package, outside any Pallas
 kernel; here it is a library product by tier (ops/rotate.py::rotate_tile:
 a float32 GEMM, int8 digit planes or bf16 parts with float32 outputs).
+
+mesh= (_multi_trait_on_mesh) runs the same null (_mt_null) on rank 0 and
+the same tile loop (_mt_scan) over each rank's rows.
 """
 
 from __future__ import annotations
@@ -94,27 +97,34 @@ def emmax_multi_trait(G, Y, K=None, X0: Optional[np.ndarray] = None,
     genome's tile, else as many rows as keep one rotated tile under
     tile_budget values, at most 16,384).
 
+    mesh: a parallel.Mesh (make_mesh()) shards the scan by SNP rows, as the
+    JAX package's mesh= does (_multi_trait_on_mesh): rank 0 takes the
+    eigh, the T fits and the shared rotation, one broadcast replicates
+    them, each rank scans its rows, one all-gather. device: the rank's
+    (default the mesh's).
+
     Returns ps / f_stats / betas / mask of shape (T, M), per-trait deltas
     and pseudo_heritabilities, 'dof' (an int, or a (T,) array when the
     missingness groups differ), 'precision_tier', and 'timings_s' (host
     seconds of the eigh, the T REML fits, the scan and the p-values)."""
-    from mixmogam_tpu_torch.models.emmax import (_as_design, _as_dosage,
+    from mixmogam_tpu_torch.models.emmax import (_as_design,
                                                  incore_budget_bytes)
     from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                     _default_dtype,
                                                     resident_and_device,
                                                     resident_budget_bytes)
-    from mixmogam_tpu_torch.models.source import (as_int8_dosage,
-                                                  resolve_source,
+    from mixmogam_tpu_torch.models.source import (resolve_source,
                                                   should_stream)
     from mixmogam_tpu_torch.ops.scan import (normalize_rotate_tier,
                                              probe_for_source,
                                              resolve_precision)
 
     if mesh is not None:
-        raise NotImplementedError("mesh= (the SNP-sharded multi-trait scan) "
-                                  "is not ported yet: ROADMAP Queue 1 item "
-                                  "16c")
+        return _multi_trait_on_mesh(
+            G, Y, K=K, X0=X0, eig_k=eig_k, ngrids=ngrids, llim=llim,
+            ulim=ulim, esp=esp, dtype=dtype, tile=tile,
+            tile_budget=tile_budget, stream_budget_bytes=stream_budget_bytes,
+            precision=precision, mesh=mesh, device=device)
     Y = np.atleast_2d(np.asarray(Y, dtype=np.float64))
     T, n = Y.shape
     rg, device = resident_and_device(G, device)
@@ -122,12 +132,7 @@ def emmax_multi_trait(G, Y, K=None, X0: Optional[np.ndarray] = None,
         dtype = _default_dtype(device)
     # ---- refusals before any eigh or REML fit ----
     rd, tier_name = None, "exact"
-    if str(precision) == "fast":
-        raise ValueError(
-            "multi-trait has no rescore pass; pick an explicit tier "
-            "('int8x3' / 'bf16x3' are fp32-grade) or leave exact")
-    if precision is not None:
-        resolve_precision(precision)      # unknown names and 'high' raise
+    _refuse_fast(precision)
     G_src = resolve_source(G)
     M = G_src.shape[0]
     streamed = False
@@ -151,20 +156,7 @@ def emmax_multi_trait(G, Y, K=None, X0: Optional[np.ndarray] = None,
         raise ValueError("precision tiers on the multi-trait path need an "
                          "in-core or resident source; a streamed source "
                          "scans at the exact tier")
-    G8 = None
-    if rd is not None and rd.startswith("int8"):
-        if rg is not None:
-            if rg.has_missing:
-                raise ValueError(
-                    "int8 digit-plane tiers need fully-observed dosages "
-                    "(this container has missing genotypes)")
-        else:
-            G8 = as_int8_dosage(G)
-            if G8 is None or (np.asarray(G8) < 0).any():
-                raise ValueError(
-                    "int8 digit-plane tiers need exact integer dosages, "
-                    "fully observed; these are fractional or missing (mean-"
-                    "imputed). Use the exact tier")
+    G8 = _refuse_int8(rd, rg, G)
     if rg is not None:
         if _keep_cols is not None:
             if len(_keep_cols) != n:
@@ -174,20 +166,121 @@ def emmax_multi_trait(G, Y, K=None, X0: Optional[np.ndarray] = None,
             raise ValueError(f"Y has {n} samples but the resident genome "
                              f"holds {rg.n}")
     if np.isnan(Y).any():
-        return _multi_trait_grouped(
-            rg if rg is not None else G_src, Y, K=K, X0=X0, ngrids=ngrids,
-            llim=llim, ulim=ulim, esp=esp, dtype=dtype, tile=tile,
-            tile_budget=tile_budget, stream_budget_bytes=stream_budget_bytes,
-            precision=precision, device=device)
-    X0 = _as_design(np.ones((n, 1)) if X0 is None else X0, n)
-    q = X0.shape[1]
+        src = rg if rg is not None else G_src
+        kw = dict(ngrids=ngrids, llim=llim, ulim=ulim, esp=esp, dtype=dtype,
+                  tile=tile, tile_budget=tile_budget,
+                  stream_budget_bytes=stream_budget_bytes,
+                  precision=precision, device=device)
 
-    # ---- one eigh, T float64 REML fits where the data live ----
+        def scan_group(Yg, Kg, X0g, keep, idx):
+            # a container gathers the group's columns on the device; an
+            # in-core source is cut to them
+            if rg is not None:
+                return emmax_multi_trait(
+                    rg, Yg, K=Kg, X0=X0g,
+                    _keep_cols=None if keep.all() else idx, **kw)
+            return emmax_multi_trait(
+                np.ascontiguousarray(np.asarray(src)[:, keep]), Yg, K=Kg,
+                X0=X0g, **kw)
+
+        return _multi_trait_grouped(M, Y, K, X0, scan_group)
+    X0 = _as_design(np.ones((n, 1)) if X0 is None else X0, n)
+    nl = _mt_null(Y, X0, K, eig_k, rd, dtype, device, ngrids, llim, ulim,
+                  esp)
+    timings = nl["timings"]
+
+    # ---- the scan: a tile rotated once, then K3 once per trait ----
+    ts = time.perf_counter()
+    cols = None
+    if rg is not None:
+        tile = rg.tile
+        if _keep_cols is not None:
+            cols = torch.as_tensor(np.asarray(_keep_cols), dtype=torch.int64,
+                                   device=device)
+        G_dev = None
+    else:
+        tile = tile or _default_tile(n, tile_budget)
+        G_dev = None if streamed else _incore_tensor(G, G8, dtype, device)
+    fs, betas, masks = _mt_scan(
+        _tiles_of(rg, G_dev, G_src if streamed else None, M, tile, cols,
+                  dtype, device), T, M, nl, dtype)
+    timings["scan"] = time.perf_counter() - ts
+    return _mt_result(fs, betas, masks, nl, n - X0.shape[1] - 1, tier_name,
+                      timings)
+
+
+def _refuse_fast(precision) -> None:
+    """The refusals of a tier name that come before any routing: 'fast'
+    (no rescore pass here), then unknown names and 'high'."""
+    from mixmogam_tpu_torch.ops.scan import resolve_precision
+
+    if str(precision) == "fast":
+        raise ValueError(
+            "multi-trait has no rescore pass; pick an explicit tier "
+            "('int8x3' / 'bf16x3' are fp32-grade) or leave exact")
+    if precision is not None:
+        resolve_precision(precision)      # unknown names and 'high' raise
+
+
+def _refuse_int8(rd, rg, G):
+    """An int8 tier's refusal of missing calls or fractional dosages (a
+    container from its flag, an in-core source from its dosages); returns
+    the in-core source as int8 dosages when the tier takes them."""
+    from mixmogam_tpu_torch.models.source import as_int8_dosage
+
+    if rd is None or not rd.startswith("int8"):
+        return None
+    if rg is not None:
+        if rg.has_missing:
+            raise ValueError(
+                "int8 digit-plane tiers need fully-observed dosages "
+                "(this container has missing genotypes)")
+        return None
+    G8 = as_int8_dosage(G)
+    if G8 is None or (np.asarray(G8) < 0).any():
+        raise ValueError(
+            "int8 digit-plane tiers need exact integer dosages, "
+            "fully observed; these are fractional or missing (mean-"
+            "imputed). Use the exact tier")
+    return G8
+
+
+def _default_tile(n: int, tile_budget: int) -> int:
+    """SNP rows a tile of an in-core or streamed source: one rotated tile
+    under tile_budget values, at most 16,384."""
+    return max(64, min(16_384, tile_budget // max(n, 1)))
+
+
+def _incore_tensor(G, G8, dtype, device) -> torch.Tensor:
+    """The in-core rows on the device: int8 for an int8 tier (G8) or a
+    fully observed int8 source, else mean-imputed in dtype."""
+    from mixmogam_tpu_torch.models.emmax import _as_dosage
+
+    if G8 is not None:
+        Gh = np.asarray(G8)
+    else:
+        G_raw = G.matrix if hasattr(G, "matrix") else np.asarray(G)
+        Gh = (G_raw if (isinstance(G_raw, np.ndarray)
+                        and G_raw.dtype == np.int8
+                        and not (G_raw < 0).any())
+              else _as_dosage(G, np.float64))
+    G_dev = torch.from_numpy(np.ascontiguousarray(Gh))
+    return (G_dev if G_dev.dtype == torch.int8
+            else G_dev.to(dtype)).to(device)
+
+
+def _mt_null(Y, X0, K, eig_k, rd, dtype, device, ngrids, llim, ulim,
+             esp) -> dict:
+    """One eigh, T float64 REML fits where the data live, the traits'
+    RotatedNulls (_trait_nulls) and the shared rotation of U' at the tier
+    rd, with X0's (X0, X0p) in dtype for the design mask: a dict with
+    deltas and h2s (host) and the seconds of the eigh and the fits."""
     from mixmogam_tpu_torch.ops.eigen import eigen_k_on
     from mixmogam_tpu_torch.ops.reml import esp_to_refine_iters
-    from mixmogam_tpu_torch.ops.scan import outside_design, project_design
+    from mixmogam_tpu_torch.ops.scan import project_design
     from mixmogam_tpu_torch.ops.xreml import explicit_reml
 
+    T = Y.shape[0]
     timings = {}
     ts = time.perf_counter()
     if eig_k is None:
@@ -216,34 +309,17 @@ def emmax_multi_trait(G, Y, K=None, X0: Optional[np.ndarray] = None,
     del U64
     rot = shared_rotation(Up, rd, dtype)
     del Up
-    X0d, X0p = X0d.to(dtype), X0p.to(dtype)
-    dof = n - q - 1
+    return {"deltas": deltas, "h2s": h2s, "nulls": nulls, "rot": rot,
+            "X0d": X0d.to(dtype), "X0p": X0p.to(dtype), "timings": timings}
 
-    # ---- the scan: a tile rotated once, then K3 once per trait ----
-    ts = time.perf_counter()
-    cols = None
-    if rg is not None:
-        tile = rg.tile
-        if _keep_cols is not None:
-            cols = torch.as_tensor(np.asarray(_keep_cols), dtype=torch.int64,
-                                   device=device)
-        G_dev = None
-    elif streamed:
-        tile = tile or max(64, min(16_384, tile_budget // max(n, 1)))
-        G_dev = None
-    else:
-        tile = tile or max(64, min(16_384, tile_budget // max(n, 1)))
-        if G8 is not None:
-            Gh = np.asarray(G8)
-        else:
-            G_raw = G.matrix if hasattr(G, "matrix") else np.asarray(G)
-            Gh = (G_raw if (isinstance(G_raw, np.ndarray)
-                            and G_raw.dtype == np.int8
-                            and not (G_raw < 0).any())
-                  else _as_dosage(G, np.float64))
-        G_dev = torch.from_numpy(np.ascontiguousarray(Gh))
-        G_dev = (G_dev if G_dev.dtype == torch.int8
-                 else G_dev.to(dtype)).to(device)
+
+def _mt_scan(tiles, T: int, M: int, nl: dict, dtype):
+    """(f_stats, betas, masks), (T, M) host arrays, of the tiles (s, e,
+    rows) that cover M rows: each tile's design mask and rotation once,
+    then K3 once a trait (_scan_tile_multitrait); a tile's statistics wait
+    on the device while the next ones run (_PENDING)."""
+    from mixmogam_tpu_torch.ops.scan import outside_design
+
     fs = np.empty((T, M))
     betas = np.empty((T, M))
     masks = np.empty((T, M), dtype=bool)
@@ -253,24 +329,151 @@ def emmax_multi_trait(G, Y, K=None, X0: Optional[np.ndarray] = None,
         h = out.cpu().double().numpy()
         fs[:, s:e], betas[:, s:e], masks[:, s:e] = h[0], h[1], h[2] > 0.5
 
-    for s, e, Gt in _tiles_of(rg, G_dev, G_src if streamed else None, M,
-                              tile, cols, dtype, device):
-        keep = outside_design(Gt.to(dtype), X0d, X0p)
-        f, b, mk = _scan_tile_multitrait(rotate_tile(Gt, rot), nulls, keep)
+    for s, e, Gt in tiles:
+        keep = outside_design(Gt.to(dtype), nl["X0d"], nl["X0p"])
+        f, b, mk = _scan_tile_multitrait(rotate_tile(Gt, nl["rot"]),
+                                         nl["nulls"], keep)
         pending.append((s, e, torch.stack((f, b, mk.to(f.dtype)))))
         if len(pending) > _PENDING:
             drain(*pending.pop(0))
     for item in pending:
         drain(*item)
-    timings["scan"] = time.perf_counter() - ts
-    ts = time.perf_counter()
+    return fs, betas, masks
+
+
+def _mt_result(fs, betas, masks, nl: dict, dof: int, tier_name: str,
+               timings: dict) -> Dict[str, np.ndarray]:
+    """The return dict, p-values in float64 on the host."""
     from mixmogam_tpu_torch.ops.stats import f_sf_host
 
+    ts = time.perf_counter()
     ps = np.where(masks, f_sf_host(fs, 1.0, dof), 1.0)
     timings["p_values"] = time.perf_counter() - ts
     return {"ps": ps, "f_stats": fs, "betas": betas, "mask": masks,
-            "deltas": deltas, "pseudo_heritabilities": h2s, "dof": dof,
-            "precision_tier": tier_name, "timings_s": timings}
+            "deltas": nl["deltas"], "pseudo_heritabilities": nl["h2s"],
+            "dof": dof, "precision_tier": tier_name, "timings_s": timings}
+
+
+def _multi_trait_on_mesh(G, Y, K=None, X0=None, eig_k=None,
+                         ngrids: int = 100, llim: float = -10.0,
+                         ulim: float = 10.0, esp: float = 1e-6, dtype=None,
+                         tile=None, tile_budget: int = 1 << 28,
+                         stream_budget_bytes=None, precision=None,
+                         mesh=None, device=None) -> Dict[str, np.ndarray]:
+    """emmax_multi_trait(mesh=): the JAX package's route over torch.
+    distributed. Its refusals come first, on every rank: the mesh
+    (parallel/distributed.py::mesh_entry), 'fast', a source over the
+    in-core budget packed on the host (models/source.py::pack_for_mesh,
+    which refuses a float source or one over the packed budget), then the
+    tier resolved for the source and an int8 tier's refusal of missing or
+    fractional dosages. Then, per missingness group (or once): rank 0 takes
+    the eigh, the T fits and the shared rotation (_mt_null), one broadcast
+    replicates them; each rank scans its rows with no communication (a
+    ResidentGenome's shard, shard_packed_rows, with the group's columns
+    gathered a tile at a time; an in-core source's rank_range rows at the
+    call's tile, cut to the group's columns on the rank only); one
+    all-gather of the (T, 3, m_rank) statistics; float64 host p-values."""
+    from mixmogam_tpu_torch.models.emmax import _as_design, incore_budget_bytes
+    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
+                                                    _default_dtype)
+    from mixmogam_tpu_torch.models.source import (pack_for_mesh,
+                                                  resolve_source,
+                                                  should_stream)
+    from mixmogam_tpu_torch.ops.scan import (normalize_rotate_tier,
+                                             probe_for_source,
+                                             resolve_precision)
+    from mixmogam_tpu_torch.parallel import distributed as pd
+
+    mesh, device = pd.mesh_entry(mesh, G, "emmax_multi_trait", device)
+    Y = np.atleast_2d(np.asarray(Y, dtype=np.float64))
+    T, n = Y.shape
+    if dtype is None:
+        dtype = _default_dtype(device)
+    _refuse_fast(precision)
+    rg = G if isinstance(G, ResidentGenome) else None
+    G_src = resolve_source(G)
+    M = G_src.shape[0]
+    if rg is None:
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        budget = (incore_budget_bytes(device) if stream_budget_bytes is None
+                  else stream_budget_bytes)
+        if budget is not None and should_stream(G_src, n, itemsize, budget):
+            rg = pack_for_mesh(G_src, n, "multi-trait", device)
+    rd, tier_name = None, "exact"
+    if precision is not None:
+        rb, tier_name = resolve_precision(
+            precision, G=probe_for_source(rg, G_src), device=device)
+        rd = normalize_rotate_tier(rb)
+    _refuse_int8(rd, rg, G_src)
+    if rg is not None and rg.n != n:
+        raise ValueError(f"Y has {n} samples but the resident genome holds "
+                         f"{rg.n}")
+    X0 = _as_design(np.ones((n, 1)) if X0 is None else X0, n)
+
+    def scan(Yg, Kg, X0g, keep=None, idx=None, eig=None):
+        """One multi-trait scan of the samples `keep` (None: all)."""
+        ng = Yg.shape[1]
+
+        def null():
+            return _flat_null(_mt_null(Yg, X0g, Kg, eig, rd, dtype, device,
+                                       ngrids, llim, ulim, esp))
+
+        nl = _unflat_null(pd.on_rank0(null, mesh))
+        ts = time.perf_counter()
+        all_cols = keep is None or keep.all()
+        if rg is not None:
+            shard = pd.shard_packed_rows(rg, mesh, device=device)
+            cols = (None if all_cols else torch.as_tensor(
+                idx, dtype=torch.int64, device=device))
+            tiles = _tiles_of(shard, None, None, shard.M, rg.tile, cols,
+                              dtype, device)
+            m = shard.M
+        else:
+            tg = tile or _default_tile(ng, tile_budget)
+            lo, hi = pd.rank_range(M, mesh, tg)
+            rows = np.asarray(G_src[lo:hi])
+            if not all_cols:
+                rows = rows[:, keep]
+            m = rows.shape[0]
+            # an int8 tier takes the rows as int8 (the whole source passed
+            # _refuse_int8 above)
+            G8 = _refuse_int8(rd, None, rows)
+            tiles = _tiles_of(None, _incore_tensor(rows, G8, dtype, device),
+                              None, m, tg, None, dtype, device)
+        fs, betas, masks = _mt_scan(tiles, Yg.shape[0], m, nl, dtype)
+        h = pd.gathered_rows(torch.from_numpy(np.stack(
+            [fs, betas, masks.astype(np.float64)], axis=1)), mesh, M)
+        nl["timings"]["scan"] = time.perf_counter() - ts
+        return _mt_result(h[:, 0].copy(), h[:, 1].copy(), h[:, 2] > 0.5, nl,
+                          ng - X0g.shape[1] - 1, tier_name, nl["timings"])
+
+    if np.isnan(Y).any():
+        return _multi_trait_grouped(M, Y, K, X0, scan)
+    return scan(Y, K, X0, eig=eig_k)
+
+
+def _flat_null(nl: dict) -> dict:
+    """_mt_null's dict as broadcast_from_rank0's payload: each trait's
+    RotatedNull and the SharedRotation field by field."""
+    from mixmogam_tpu_torch.parallel.distributed import fields_of, null_fields
+
+    out = {k: v for k, v in nl.items() if k not in ("nulls", "rot")}
+    out["T"] = len(nl["nulls"])
+    for t, r in enumerate(nl["nulls"]):
+        out.update(null_fields(r, f"null{t}_"))
+    out.update(fields_of(nl["rot"], "rot_"))
+    return out
+
+
+def _unflat_null(p: dict) -> dict:
+    """_flat_null's payload back as _mt_null's dict."""
+    from mixmogam_tpu_torch.parallel.distributed import (from_fields,
+                                                         null_from_fields)
+
+    out = {k: p[k] for k in ("deltas", "h2s", "X0d", "X0p", "timings")}
+    out["nulls"] = [null_from_fields(p, f"null{t}_") for t in range(p["T"])]
+    out["rot"] = from_fields(SharedRotation, p, "rot_")
+    return out
 
 
 def _tiles_of(rg, G_dev, G_host, M: int, tile: int, cols, dtype, device):
@@ -305,24 +508,16 @@ def _tiles_of(rg, G_dev, G_host, M: int, tile: int, cols, dtype, device):
         yield s, e, _impute_tile(Gt, dtype) if rg.has_missing else Gt
 
 
-def _multi_trait_grouped(G, Y, K=None, X0=None, ngrids: int = 100,
-                         llim: float = -10.0, ulim: float = 10.0,
-                         esp: float = 1e-6, dtype=None, tile=None,
-                         tile_budget: int = 1 << 28,
-                         stream_budget_bytes=None, precision=None,
-                         device=None) -> Dict[str, np.ndarray]:
+def _multi_trait_grouped(M: int, Y, K, X0, scan_group
+                         ) -> Dict[str, np.ndarray]:
     """Traits grouped by their missingness pattern: each group is one
     sample subset with its K sub-block, its own eigh and one multi-trait
-    scan. A ResidentGenome's group gathers its sample columns on the
-    device a tile at a time (_keep_cols); an in-core source is cut to the
-    subset's columns. A SNP that is degenerate on a subset comes out
+    scan, scan_group(Y_g, K_g, X0_g, keep, idx) (keep: the group's sample
+    mask, idx: its columns). A SNP that is degenerate on a subset comes out
     masked (p = 1)."""
     from mixmogam_tpu_torch.models.emmax import _as_design
-    from mixmogam_tpu_torch.models.resident import ResidentGenome
 
     T, n = Y.shape
-    rg = G if isinstance(G, ResidentGenome) else None
-    M = G.shape[0]
     X0 = _as_design(np.ones((n, 1)) if X0 is None else X0, n)
     q = X0.shape[1]
     if K is None:
@@ -342,10 +537,6 @@ def _multi_trait_grouped(G, Y, K=None, X0=None, ngrids: int = 100,
     h2s = np.empty(T)
     dofs = np.empty(T, dtype=np.int64)
     timings: Dict[str, float] = {}
-    kw = dict(ngrids=ngrids, llim=llim, ulim=ulim, esp=esp, dtype=dtype,
-              tile=tile, tile_budget=tile_budget,
-              stream_budget_bytes=stream_budget_bytes, precision=precision,
-              device=device)
     for key, tids in groups.items():
         keep = np.frombuffer(key, dtype=bool)
         ns = int(keep.sum())
@@ -354,15 +545,8 @@ def _multi_trait_grouped(G, Y, K=None, X0=None, ngrids: int = 100,
                 f"traits {tids} have only {ns} observed samples "
                 f"(need at least q+3 = {q + 3})")
         idx = np.flatnonzero(keep)
-        Yg, Kg = Y[np.ix_(tids, idx)], K[np.ix_(idx, idx)]
-        if rg is not None:
-            sub = emmax_multi_trait(rg, Yg, K=Kg, X0=X0[keep],
-                                    _keep_cols=None if keep.all() else idx,
-                                    **kw)
-        else:
-            sub = emmax_multi_trait(
-                np.ascontiguousarray(np.asarray(G)[:, keep]), Yg, K=Kg,
-                X0=X0[keep], **kw)
+        sub = scan_group(Y[np.ix_(tids, idx)], K[np.ix_(idx, idx)],
+                         X0[keep], keep, idx)
         for out, k in ((ps, "ps"), (fs, "f_stats"), (betas, "betas"),
                        (masks, "mask"), (deltas, "deltas"),
                        (h2s, "pseudo_heritabilities"), (dofs, "dof")):

@@ -114,11 +114,23 @@ def emmax_step_wise(G, y, K=None, max_steps: int = 10,
     scan's min p exceeds the Bonferroni threshold; by default all
     max_steps run and the criteria choose. rot_budget_bytes: the stored
     rotation's device budget (None: half the card's memory; no limit on
-    the CPU); over it the scans rotate every step."""
+    the CPU); over it the scans rotate every step.
+
+    mesh: a parallel.Mesh (make_mesh()) shards the stored route by SNP
+    rows, as the JAX package's mesh= does. It takes a host source (a
+    ResidentGenome raises) within rot_budget_bytes (over it raises). Rank
+    0 takes eigh(K) and the projected U' (K or eig_k needed there only),
+    one broadcast replicates them, and each rank rotates its own rows
+    (host_snp_range at `tile`) once onto its device. A forward step's
+    fits, cofactor re-tests and rotated null run on rank 0 and one
+    broadcast sends them; each rank scans its rows (kernel K3) and the
+    (f, mask) rows meet in one all-gather, so every rank takes the argmin
+    of the same array and returns the same dict. device: the rank's
+    (default the mesh's)."""
     from mixmogam_tpu_torch.models.emmax import _as_design
     from mixmogam_tpu_torch.models.resident import (
-        _default_dtype, _float_tiles, emmax_scan_packed, resident_and_device,
-        rotate_resident_to_device)
+        ResidentGenome, _default_dtype, _float_tiles, emmax_scan_packed,
+        resident_and_device, rotate_resident_to_device)
     from mixmogam_tpu_torch.models.source import as_int8_dosage
     from mixmogam_tpu_torch.models.streaming import (
         _host_float_tile, _impute_tile, host_tiles, rotate_streamed_to_device)
@@ -129,14 +141,17 @@ def emmax_step_wise(G, y, K=None, max_steps: int = 10,
                                              outside_design, project_design)
     from mixmogam_tpu_torch.ops.stats import f_sf_host
     from mixmogam_tpu_torch.ops.xreml import explicit_reml
+    from mixmogam_tpu_torch.parallel import distributed as pd
 
     if mesh is not None:
-        raise NotImplementedError("mesh= (the sharded stepwise campaign) is "
-                                  "not ported yet: ROADMAP Queue 1 item 16c")
+        mesh, device = pd.mesh_entry(mesh, G, "emmax_step_wise", device)
     refine_iters = esp_to_refine_iters(esp, ngrids, llim, ulim)
     y = np.asarray(y, dtype=np.float64).ravel()
     n = y.shape[0]
-    rg, device = resident_and_device(G, device)
+    if mesh is None:
+        rg, device = resident_and_device(G, device)
+    else:
+        rg = G if isinstance(G, ResidentGenome) else None
     if rg is not None and rg.n != n:
         # the packed scan decodes n columns per row: a mismatched container
         # would scan a truncated sample subset
@@ -155,15 +170,26 @@ def emmax_step_wise(G, y, K=None, max_steps: int = 10,
     budget = (stored_budget_bytes(device) if rot_budget_bytes is None
               else rot_budget_bytes)
     use_stored = budget is None or M * n * itemsize <= budget
+    if mesh is not None:
+        # the JAX package's refusals: its mesh route is the stored route
+        # over a host source
+        if rg is not None:
+            raise ValueError(
+                "mesh-distributed stepwise takes a host source (the "
+                "resident container is single-device; decode or pass the "
+                "raw matrix)")
+        if not use_stored:
+            raise ValueError(
+                "mesh-distributed stepwise stores the rotated genotypes "
+                "sharded across the mesh; raise rot_budget_bytes")
     X0 = _as_design(np.ones((n, 1)) if X0 is None else X0, n)
     X0_64 = torch.as_tensor(X0, dtype=torch.float64, device=device)
     y_64 = torch.as_tensor(y, dtype=torch.float64, device=device)
     identity_k = K is None and eig_k is None
-    if identity_k:
-        phi = torch.ones(n, dtype=dtype, device=device)
-        Up = design = None
-        y_rot, X0_rot = y_64, X0_64
-    else:
+
+    def basis() -> Dict:
+        """phi, the projected U' with its design (X0, X0p), and y and X0
+        rotated in float64."""
         phi, U = (eigen_k_on(np.asarray(K, np.float64), device)
                   if eig_k is None else eig_k)
         phi = torch.as_tensor(phi).to(device=device, dtype=dtype)
@@ -172,13 +198,29 @@ def emmax_step_wise(G, y, K=None, max_steps: int = 10,
         y_rot, X0_rot = U64.T @ y_64, U64.T @ X0_64
         del U64
         Up, X0d, X0p = project_design(U, X0_64)
-        design = (X0d, X0p)
-        del U
+        return {"phi": phi, "Up": Up, "X0d": X0d, "X0p": X0p,
+                "y_rot": y_rot, "X0_rot": X0_rot}
+
+    if identity_k:
+        phi = torch.ones(n, dtype=dtype, device=device)
+        Up = design = None
+        y_rot, X0_rot = y_64, X0_64
+    else:
+        # on a mesh rank 0's, replicated by one broadcast
+        b = basis() if mesh is None else pd.on_rank0(basis, mesh)
+        phi, Up, y_rot, X0_rot = b["phi"], b["Up"], b["y_rot"], b["X0_rot"]
+        design = (b["X0d"], b["X0p"])
+        del b
     phi64 = phi.double()
 
     t0 = time.perf_counter()
     G_rot = keep = None
-    if use_stored:
+    if mesh is not None:
+        # this rank's rows, rotated once onto its device
+        lo, hi = pd.rank_range(M, mesh, tile)
+        G_rot, keep = rotate_streamed_to_device(src[lo:hi], Up, dtype, tile,
+                                                design, device)
+    elif use_stored:
         if rg is not None:
             G_rot, keep = rotate_resident_to_device(rg, Up, dtype, design)
         else:
@@ -279,10 +321,38 @@ def emmax_step_wise(G, y, K=None, max_steps: int = 10,
         return rot, _stats_host(torch.cat([scan(t, rot) for t in tiles],
                                           dim=1), M)
 
-    for _ in range(max_steps):
-        step, r, X_rot = record(cof, "forward")
+    def mesh_step(cof_now: List[int]):
+        """A forward step on the mesh: its record and rotated null on rank
+        0, one broadcast; this rank's rows scanned, one all-gather."""
+        def fit():
+            step, r, X_rot = record(cof_now, "forward")
+            rot = _rot_null_from_delta(phi, float(r["delta"]), y_rot, X_rot,
+                                       dtype)
+            return {"step": step, **pd.null_fields(rot)}
+
+        p = pd.on_rank0(fit, mesh)
         t1 = time.perf_counter()
-        rot, (f_stats, mask) = full_scan(r, X_rot)
+        rot = pd.null_from_fields(p)
+        out = (emmax_scan_prerotated(G_rot, rot, keep)[[0, 3]]
+               if G_rot.shape[0] else
+               torch.zeros((2, 0), dtype=dtype, device=device))
+        h = pd.gathered_rows(out, mesh, M)
+        return p["step"], t1, rot, (h[0], h[1] > 0.5)
+
+    def recorded(cof_now: List[int], phase: str) -> Dict:
+        """A step without a scan: recorded on rank 0 on a mesh."""
+        if mesh is None:
+            return record(cof_now, phase)[0]
+        return pd.on_rank0(lambda: {"step": record(cof_now, phase)[0]},
+                           mesh)["step"]
+
+    for _ in range(max_steps):
+        if mesh is None:
+            step, r, X_rot = record(cof, "forward")
+            t1 = time.perf_counter()
+            rot, (f_stats, mask) = full_scan(r, X_rot)
+        else:
+            step, t1, rot, (f_stats, mask) = mesh_step(cof)
         ps = np.where(mask, f_sf_host(f_stats, 1.0, float(rot.dof)), 1.0)
         scan_s.append(time.perf_counter() - t1)
         if cof:
@@ -305,7 +375,7 @@ def emmax_step_wise(G, y, K=None, max_steps: int = 10,
     if not stopped_early:
         # the model WITH the last added cofactor (after an early stop,
         # `cof` is the step just recorded)
-        step, _, _ = record(cof, "forward")
+        step = recorded(cof, "forward")
         step["min_p"] = np.nan
         step["min_p_snp"] = -1
         steps.append(step)
@@ -313,7 +383,7 @@ def emmax_step_wise(G, y, K=None, max_steps: int = 10,
     while cof:
         worst = int(np.argmax(steps[-1]["cofactor_ps"]))
         cof = [c for i, c in enumerate(cof) if i != worst]
-        step, _, _ = record(cof, "backward")
+        step = recorded(cof, "backward")
         step["min_p"] = np.nan
         step["min_p_snp"] = -1
         steps.append(step)

@@ -24,6 +24,13 @@ dosages) meet in one small all-reduce; a ResidentGenome's (M, n, tile,
 has_missing, ploidy) are the same on every rank, so its routes need no
 pass over dosages and no collective. distributed_train_step (the JAX
 package's training-step dry run) waits for ROADMAP Queue 1 item 16e.
+
+The entry points' own mesh= routes (models/emmax.py, loco.py, stepwise.py,
+multitrait.py, emma.py) are built from the helpers here on the same
+design: mesh_entry (the checks every route makes first), on_rank0 (rank
+0's null on every rank by one broadcast; its exception raised on every
+rank), rank_range / shard_packed_rows (a rank's rows at the call's tile),
+gathered_rows (the one all-gather).
 """
 
 from __future__ import annotations
@@ -226,14 +233,12 @@ def _replicated_null(mesh: Mesh, device, dtype, y, X0, K, eig_k, rd,
     from mixmogam_tpu_torch.ops.rotate import (SharedRotation,
                                                float_route_eig,
                                                float_rotation)
-    from mixmogam_tpu_torch.ops.scan import RotatedNull, build_rotated_null
+    from mixmogam_tpu_torch.ops.scan import build_rotated_null
 
-    payload = None
-    if mesh.rank == 0:
-        if float_route:
-            # the float route cuts its parts from this eigenbasis in float64
-            eig_k = float_route_eig(K, eig_k, device, host_eigh)
-        null = fit_null_model(y, X0, K=K, eig_k=eig_k, ngrids=ngrids,
+    def fit():
+        eig = (float_route_eig(K, eig_k, device, host_eigh) if float_route
+               else eig_k)
+        null = fit_null_model(y, X0, K=K, eig_k=eig, ngrids=ngrids,
                               llim=llim, ulim=ulim,
                               refine_iters=esp_to_refine_iters(
                                   esp, ngrids, llim, ulim),
@@ -241,21 +246,100 @@ def _replicated_null(mesh: Mesh, device, dtype, y, X0, K, eig_k, rd,
                               dtype=dtype)
         rot = build_rotated_null(null,
                                  rotate_dtype=None if float_route else rd)
-        payload = {f.name: getattr(rot, f.name)
-                   for f in dataclasses.fields(rot)
-                   if f.name not in _ROT_CACHES}
-        payload["srot"] = (float_rotation(eig_k[1], X0, rd, dtype,
-                                          device).W
+        payload = null_fields(rot)
+        # the float route cuts its parts from this eigenbasis in float64
+        payload["srot"] = (float_rotation(eig[1], X0, rd, dtype, device).W
                            if float_route else None)
         for k in _NULL_SCALARS:
             payload["null_" + k] = float(getattr(null, k))
-    payload = broadcast_from_rank0(payload, mesh)
-    rot = RotatedNull(**{f.name: payload[f.name]
-                         for f in dataclasses.fields(RotatedNull)
-                         if f.name not in _ROT_CACHES})
+        return payload
+
+    payload = on_rank0(fit, mesh)
+    rot = null_from_fields(payload)
     srot = (None if payload["srot"] is None
             else SharedRotation(rd, payload["srot"], None, dtype))
     return rot, srot, {k: payload["null_" + k] for k in _NULL_SCALARS}
+
+
+def gathered_rows(block: torch.Tensor, mesh: Mesh, M: int) -> np.ndarray:
+    """Every rank's (..., m_rank) block of per-row results (the (4, m_rank)
+    statistics, multi-trait's (T, 3, m_rank), EMMA's (5, m_rank)) in ONE
+    all-gather, as the (..., M) float64 host array, rows in rank order."""
+    h = gather_rows(block, mesh).cpu().double().numpy()
+    if h.shape[-1] != M:
+        raise RuntimeError(f"the gathered statistics hold {h.shape[-1]} "
+                           f"rows of {M}")
+    return h
+
+
+def on_rank0(fn, mesh: Mesh) -> Dict[str, object]:
+    """fn() run on rank 0 (a dict of tensors, Python values and None), on
+    every rank by one broadcast_from_rank0 (rank 0's memory layout kept).
+    An exception fn raises on rank 0 is sent in its place and raised on
+    every rank, so no rank waits on a broadcast that never comes."""
+    payload = None
+    if mesh.rank == 0:
+        try:
+            payload = fn()
+        except Exception as e:          # sent to every rank, raised there
+            if not mesh.distributed:
+                raise
+            payload = {"_raised": e}
+    payload = broadcast_from_rank0(payload, mesh)
+    if "_raised" in payload:
+        raise payload["_raised"]
+    return payload
+
+
+def fields_of(obj, prefix: str, skip=()) -> Dict[str, object]:
+    """A dataclass's fields (less `skip`) as prefixed payload entries."""
+    return {prefix + f.name: getattr(obj, f.name)
+            for f in dataclasses.fields(obj) if f.name not in skip}
+
+
+def from_fields(cls, payload: Dict[str, object], prefix: str, skip=()):
+    """The dataclass `cls` rebuilt from fields_of's entries."""
+    return cls(**{f.name: payload[prefix + f.name]
+                  for f in dataclasses.fields(cls) if f.name not in skip})
+
+
+def null_fields(rot, prefix: str = "") -> Dict[str, object]:
+    """A RotatedNull's fields as payload entries, less its device caches
+    (each rank prepares its own operands at its first scan)."""
+    return fields_of(rot, prefix, _ROT_CACHES)
+
+
+def null_from_fields(payload: Dict[str, object], prefix: str = ""):
+    """The RotatedNull of null_fields' entries."""
+    from mixmogam_tpu_torch.ops.scan import RotatedNull
+
+    return from_fields(RotatedNull, payload, prefix, _ROT_CACHES)
+
+
+def rank_range(M: int, mesh: Mesh, tile: int) -> Tuple[int, int]:
+    """This rank's rows [lo, hi) of an M-row host source at the call's
+    tile (multihost.host_snp_range), so each of its tiles has the shape
+    one device gives the same rows."""
+    return host_snp_range(M, mesh.shape[0], mesh.rank, tile=tile)
+
+
+def mesh_entry(mesh, G, what: str, device=None) -> Tuple[Mesh, torch.device]:
+    """(mesh, the rank's device: `device`, default the mesh's) of an entry
+    point's mesh= route, after the checks that route makes on every rank
+    before anything else: mesh is a Mesh (make_mesh()), its 'sample' axis
+    is 1 (ROADMAP Queue 1 item 16d), and G is the whole source, not a
+    rank's SnpShard (the entry points read their rows from it)."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError("mesh must be a mixmogam_tpu_torch.parallel.Mesh "
+                        f"(make_mesh()); got {type(mesh).__name__}")
+    if mesh.shape[1] != 1:
+        raise NotImplementedError(
+            "a 'sample' axis above 1 (the tensor-parallel scan) is not "
+            "ported yet: ROADMAP Queue 1 item 16d")
+    if isinstance(G, SnpShard):
+        raise TypeError(f"{what}(mesh=) takes the whole matrix on every "
+                        "rank; pass a rank's SnpShard to distributed_emmax")
+    return mesh, (mesh.device if device is None else torch.device(device))
 
 
 def _gathered_result(out: torch.Tensor, mesh: Mesh, M: int, rot,
@@ -264,10 +348,7 @@ def _gathered_result(out: torch.Tensor, mesh: Mesh, M: int, rot,
     then float64 host p-values: distributed_emmax's return dict."""
     from mixmogam_tpu_torch.ops.stats import f_sf_host
 
-    h = gather_rows(out, mesh).cpu().double().numpy()
-    if h.shape[1] != M:
-        raise RuntimeError(f"the gathered statistics hold {h.shape[1]} "
-                           f"rows of {M}")
+    h = gathered_rows(out, mesh, M)
     f_stats, mask = h[0].copy(), h[3] > 0.5
     dof = int(rot.dof)
     ps = np.where(mask, f_sf_host(f_stats, 1.0, dof), 1.0)

@@ -34,9 +34,13 @@ from mixmogam_tpu_torch.models.resident import ResidentGenome
 from mixmogam_tpu_torch.ops import xreml
 from mixmogam_tpu_torch.oracle.kinship import (ibs_kinship, scale_k,
                                                vanraden_kinship)
+from mixmogam_tpu_torch.parallel.mesh import Mesh
 
 jemma = importlib.import_module("mixmogam_tpu.models.emma")
 torch.set_num_threads(1)
+#: a mesh with a 'sample' axis of 2 (the tensor-parallel scan, ROADMAP Queue
+#: 1 item 16d), which make_mesh refuses to build
+SAMPLE_AXIS_MESH = Mesh((1, 2), None, None, 0, 1, torch.device("cpu"))
 N, M = 80, 150
 
 
@@ -298,7 +302,7 @@ def test_emma_eig_k_equals_k(data):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(mesh=object()), NotImplementedError, "item 16"),
+    (dict(mesh=SAMPLE_AXIS_MESH), NotImplementedError, "item 16"),
     (dict(K=None, device="cpu"), ValueError, "need K or eig_k"),
     (dict(test="wald", device="cpu"), ValueError, "test must be"),
 ])

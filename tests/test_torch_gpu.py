@@ -305,6 +305,56 @@ def test_card_world_of_one_resident_mesh_and_loco(cuda, tmp_path):
         dist.destroy_process_group()
 
 
+def test_card_world_of_one_campaign_scans(cuda, tmp_path):
+    """A world of one over NCCL: emmax_step_wise(mesh=) on a host source,
+    emmax_multi_trait(mesh=) (exact and int8x3 in core; exact over a
+    host-only container; NaN phenotypes) and emma(mesh=) over a container,
+    each bit-equal to the single-device call on the same tiles."""
+    import torch.distributed as dist
+
+    from mixmogam_tpu_torch.models.emma import emma
+    from mixmogam_tpu_torch.models.multitrait import emmax_multi_trait
+    from mixmogam_tpu_torch.models.resident import kinship_resident
+    from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
+    from mixmogam_tpu_torch.parallel import make_mesh
+
+    n = 256
+    G, _, _ = simulate_genotypes(n, 3_000, seed=25)
+    rng = np.random.default_rng(25)
+    y = G[29] * 0.5 + rng.normal(size=n)
+    Y = np.stack([y, rng.normal(size=n), G[7] * 0.3 + rng.normal(size=n)])
+    Ym = Y.copy()
+    Ym[1, :9] = np.nan
+    host = ResidentGenome.from_source(G, tile=1_024, upload=False)
+    rg = ResidentGenome.from_source(G, tile=1_024, device=cuda)
+    K = kinship_resident(rg)
+    keys = ("ps", "mask", "f_stats", "betas")
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        got = emmax_step_wise(G, y, K=K, max_steps=3, tile=1_024, mesh=mesh)
+        ref = emmax_step_wise(G, y, K=K, max_steps=3, tile=1_024)
+        assert got["selected"] == ref["selected"]
+        assert ([s["min_p"] for s in got["steps"]]
+                == [s["min_p"] for s in ref["steps"]])
+        for src, YY, tier in ((G, Y, "exact"), (G, Y, "int8x3"),
+                              (host, Y, "exact"), (G, Ym, "exact"),
+                              (host, Ym, "exact")):
+            got = emmax_multi_trait(src, YY, K=K, precision=tier, tile=1_024,
+                                    mesh=mesh)
+            ref = emmax_multi_trait(rg if src is host else G, YY, K=K,
+                                    precision=tier, tile=1_024)
+            for k in keys:
+                np.testing.assert_array_equal(got[k], ref[k])
+        got = emma(host, y, K=K, mesh=mesh)
+        ref = emma(rg, y, K=K)
+        for k in keys:
+            np.testing.assert_array_equal(got[k], ref[k])
+    finally:
+        dist.destroy_process_group()
+
+
 def test_card_stepwise_vs_cpu_float64(cuda):
     """emmax_step_wise on the card (float32, no device=) against the float64
     CPU path: the same cofactor path and selected models, step 0's scan

@@ -34,8 +34,12 @@ from mixmogam_tpu_torch.models.multitrait import emmax_multi_trait
 from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                 _tile_from_packed_cols)
 from mixmogam_tpu_torch.ops.scan import project_design
+from mixmogam_tpu_torch.parallel.mesh import Mesh
 
 torch.set_num_threads(1)
+#: a mesh with a 'sample' axis of 2 (the tensor-parallel scan, ROADMAP Queue
+#: 1 item 16d), which make_mesh refuses to build
+SAMPLE_AXIS_MESH = Mesh((1, 2), None, None, 0, 1, torch.device("cpu"))
 N, M, T = 96, 300, 3
 _FAST = ("int8x3", "bf16x3")
 
@@ -300,7 +304,7 @@ def test_a_tile_is_rotated_once_and_scanned_once_a_trait(data, monkeypatch):
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(precision="fast"), ValueError, "no rescore pass"),
     (dict(precision="high"), NotImplementedError, "TF32"),
-    (dict(mesh=object()), NotImplementedError, "item 16"),
+    (dict(mesh=SAMPLE_AXIS_MESH), NotImplementedError, "item 16"),
     (dict(stream_budget_bytes=1, precision="int8x3"), ValueError,
      "in-core or resident"),
     (dict(precision="int8x3", fractional=True), ValueError,

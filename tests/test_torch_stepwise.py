@@ -19,8 +19,12 @@ from mixmogam_tpu.oracle.kinship import ibs_kinship, scale_k
 from mixmogam_tpu_torch.models import stepwise
 from mixmogam_tpu_torch.models.resident import ResidentGenome
 from mixmogam_tpu_torch.ops.hopper_scan import scan_stats
+from mixmogam_tpu_torch.parallel.mesh import Mesh
 
 torch.set_num_threads(1)
+#: a mesh with a 'sample' axis of 2 (the tensor-parallel scan, ROADMAP Queue
+#: 1 item 16d), which make_mesh refuses to build
+SAMPLE_AXIS_MESH = Mesh((1, 2), None, None, 0, 1, torch.device("cpu"))
 
 N, M, STEPS = 80, 240, 3
 
@@ -169,7 +173,7 @@ def test_errors_and_defaults(data):
         stepwise.emmax_step_wise(rg, data["y"][:-1], K=data["K"][:-1, :-1])
     with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
         stepwise.emmax_step_wise(data["G"], data["y"], K=data["K"],
-                                 mesh=object(), device="cpu")
+                                 mesh=SAMPLE_AXIS_MESH, device="cpu")
     assert stepwise.stored_budget_bytes("cpu") is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='device="cpu"'):
