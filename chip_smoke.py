@@ -293,7 +293,19 @@ Phases (each prints its own seconds):
     there), emmax_multi_trait(mesh=) on phase 9's T = 50 traits at exact
     and int8x3 over phase 4's resident genome and once at exact over
     (c)'s host-only container (K3 T x tiles each), and emma(mesh=) on
-    phase 10's n = 1,300 x 215,000 genome
+    phase 10's n = 1,300 x 215,000 genome; (e) in that group, item 16c's
+    second half at full width, each call bit-equal to the single-device
+    result phase 11, 12 or 13 kept, its wall beside that phase's and K3
+    launched as often as there: linear_model / anova / kruskal_wallis
+    (mesh=) on phase 4's resident genome, emmax_gxe(mesh=) (E = 2) at
+    exact and int8x3, emmax_perm_test(mesh=) (P = 128) at exact and
+    int8x3, emmax_two_snps(mesh=) on phase 4's top 32 hits, and
+    emmax_anova(mesh=) on a diploid genome of n x 32,768 (2 % missing
+    calls) drawn in the phase, held to a single-device call on it; (b)
+    then adds the five on its two gloo ranks (the class tests, GxE and
+    the permutation test over each rank's shard of its host-only
+    container, two-SNP with A = 4 and emmax_anova on the host rows), each
+    within 1e-12 of its single-device call with identical masks
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}. Any
@@ -663,6 +675,9 @@ def _class_phase(args, dev, kernels, launches, main, facade, files, tmp,
                 (ps < 0) | (ps > 1)).any():
             raise AssertionError(f"{fn.__name__}: malformed p-values")
         walls[fn.__name__] = wall
+        # kept for phase 18 (e)'s mesh= calls
+        main.setdefault("cls11", {})[fn.__name__] = dict(
+            res=r, wall=wall, k3=run["scan_stats"])
     # the class sums alone (anova's [1, y, y^2] and KW's [1, ranks]: the
     # indicator products over the packed rows), against each whole call
     for name, cols in (("anova", 3), ("kruskal_wallis", 2)):
@@ -934,6 +949,9 @@ def _gxe_gblup_phase(args, kernels, launches, main, facade, files, acc,
             raise AssertionError(f"emmax_gxe {tier}: the planted "
                                  "interaction is not the top hit")
         gx[tier] = r
+        if tier in ("exact", "int8x3"):        # kept for phase 18 (e)
+            main.setdefault("gxe12", dict(y=y12, env=env))[tier] = dict(
+                res=r, wall=wall)
     hit = gx["exact"]["inter_ps"] <= 0.05 / M
     runs = {"E = 2": {t: _gxe_drift(gx[t], gx["exact"])[::-1]
                       for t in _DRIFT_TIERS}}
@@ -1169,6 +1187,8 @@ def _perm_two_snp_phase(args, kernels, launches, main, counts) -> None:
                 or not 0.0 < r["threshold"] < 0.05:
             raise AssertionError(f"emmax_perm_test {tier}: malformed")
         perm[tier] = r
+        if tier in ("exact", "int8x3"):        # kept for phase 18 (e)
+            main.setdefault("perm13", {})[tier] = dict(res=r, wall=wall)
     for tier in ("int8x3", "bf16x3"):
         _perm_gate(f"emmax_perm_test {tier} vs exact", perm[tier],
                    perm["exact"], n - 2)
@@ -1230,6 +1250,7 @@ def _perm_two_snp_phase(args, kernels, launches, main, counts) -> None:
     if not (own == 1.0).all():
         raise AssertionError("emmax_two_snps: a focal SNP's own cond_p "
                              "is not 1")
+    main["two13"] = dict(res=r, wall=wall, k3=cnt["scan_stats"])
     del r
     torch.cuda.empty_cache()
 
@@ -2405,10 +2426,16 @@ sys.path.insert(0, {repo!r})
 import torch
 import torch.distributed as dist
 from mixmogam_tpu_torch.models.emma import emma
+from mixmogam_tpu_torch.models.emmax import emmax_anova
+from mixmogam_tpu_torch.models.gxe import emmax_gxe
+from mixmogam_tpu_torch.models.linear import (anova, kruskal_wallis,
+                                              linear_model)
 from mixmogam_tpu_torch.models.loco import emmax_loco
 from mixmogam_tpu_torch.models.multitrait import emmax_multi_trait
+from mixmogam_tpu_torch.models.permutation import emmax_perm_test
 from mixmogam_tpu_torch.models.resident import ResidentGenome
 from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
+from mixmogam_tpu_torch.models.twosnp import emmax_two_snps
 from mixmogam_tpu_torch.ops.hopper_kinship import (ibs_gram_packed,
                                                    ibs_gram_tri_packed)
 from mixmogam_tpu_torch.ops.hopper_scan import (rotate_scan_bf16_packed,
@@ -2493,6 +2520,41 @@ r = emma(G, y, eig_k=(phi, U), mesh=mesh)
 walls["emma"] = time.perf_counter() - ts
 for k in ("ps", "mask", "f_stats", "betas"):
     out["emma_" + k] = r[k]
+# the remaining scans (ROADMAP item 16c's second half) on the same rows:
+# each rank's shard of the host-only container, two-SNP's and
+# emmax_anova's rows of the host sources
+for name, fn in (("lm", linear_model), ("anova", anova),
+                 ("kw", kruskal_wallis)):
+    ts = time.perf_counter()
+    r = fn(rgh, y, mesh=mesh)
+    walls[fn.__name__] = time.perf_counter() - ts
+    for k, v in r.items():
+        out[name + "_" + k] = v
+y12, env = np.load({d!r} + "/y12.npy"), np.load({d!r} + "/env.npy")
+for tier in ("exact", "int8x3"):
+    ts = time.perf_counter()
+    r = emmax_gxe(rgh, y12, env, eig_k=(phi, U), precision=tier, mesh=mesh)
+    walls["emmax_gxe " + tier] = time.perf_counter() - ts
+    for k in {gxe_keys!r}:
+        out["gxe_" + tier + "_" + k] = r[k]
+    ts = time.perf_counter()
+    r = emmax_perm_test(rgh, y, eig_k=(phi, U), num_perm=128,
+                        precision=tier, mesh=mesh)
+    walls["emmax_perm_test " + tier] = time.perf_counter() - ts
+    for k in ("min_ps", "threshold"):
+        out["perm_" + tier + "_" + k] = r[k]
+ts = time.perf_counter()
+r = emmax_two_snps(G, y, eig_k=(phi, U),
+                   focal_idx=np.load({d!r} + "/focal.npy"), mesh=mesh)
+walls["emmax_two_snps"] = time.perf_counter() - ts
+for k in ("cond_ps", "inter_ps"):
+    out["two_" + k] = r[k]
+ts = time.perf_counter()
+r = emmax_anova(np.load({d!r} + "/D.npy", mmap_mode="r"), y,
+                eig_k=(phi, U), mesh=mesh)
+walls["emmax_anova"] = time.perf_counter() - ts
+for k in ("ps", "mask", "f_stats", "dof1", "dof2"):
+    out["ea_" + k] = r[k]
 print(json.dumps({{"rank": rank, "device": str(mesh.device),
                    "backend": mesh.backend,
                    "rows": host_snp_range(G.shape[0], world, rank),
@@ -2735,6 +2797,133 @@ def _campaign_mesh_phase(kernels, launches, main, G, mesh, rgh) -> None:
     torch.cuda.empty_cache()
 
 
+#: the GxE results phase 18 holds to one device's
+_GXE_KEYS = ("marginal_ps", "inter_ps", "joint_ps", "mask", "mask_inter")
+
+
+def _equal_arrays(label, got, ref, keys, tol=0.0) -> None:
+    """Phase 18's gate for results other than (ps, mask): each array of
+    `keys` within tol of the single-device call's (masks equal; tol 0:
+    bit-equal), the largest difference and bit-equality printed."""
+    import numpy as np
+
+    worst = max(float(np.abs(np.asarray(got[k], np.float64)
+                             - np.asarray(ref[k], np.float64)).max(
+                                 initial=0.0)) for k in keys)
+    bad = [k for k in keys if not np.array_equal(got[k], ref[k])]
+    print(f"   {label}: max|d| {worst:.3e}, "
+          f"{'bit-equal' if not bad else f'not bit-equal in {bad}'} "
+          f"({', '.join(keys)})", flush=True)
+    if worst > tol or (tol == 0.0 and bad):
+        raise AssertionError(f"{label}: differs from one device")
+
+
+def _remaining_mesh_phase(args, kernels, launches, main, mesh):
+    """Phase 18 (e), in (a)'s world of one over NCCL: item 16c's second
+    half at full width, each call bit-equal to the single-device result
+    that phase 11, 12 or 13 kept (no single-device call run again), its
+    wall beside that phase's, K3's launches equal to that phase's;
+    emmax_anova's diploid test on a genome of n x 32,768 drawn here,
+    held to a single-device call on the same rows. Returns that genome
+    and its single-device result for (b)."""
+    import torch
+
+    from mixmogam_tpu_torch.models.emmax import emmax_anova
+    from mixmogam_tpu_torch.models.gxe import emmax_gxe
+    from mixmogam_tpu_torch.models.linear import (anova, kruskal_wallis,
+                                                  linear_model)
+    from mixmogam_tpu_torch.models.permutation import emmax_perm_test
+    from mixmogam_tpu_torch.models.twosnp import emmax_two_snps
+
+    def timed(fn):
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - ts
+        run = {k.__name__: k.launches for k in kernels}
+        for name, cnt in run.items():
+            launches[name] += cnt
+        return r, wall, run
+
+    def k3_as(label, run, want):
+        if run["scan_stats"] != want or any(
+                c for k, c in run.items() if k != "scan_stats"):
+            raise AssertionError(f"(e) {label}: launches {run}, K3 {want} "
+                                 "expected and no other kernel")
+
+    rg, eig, y = main["rg"], main["eig"], main["y"]
+    n, M = rg.n, rg.M
+    keys = {"linear_model": ("ps", "f_stats", "mask", "betas", "var_perc"),
+            "anova": ("ps", "f_stats", "dof1", "dof2"),
+            "kruskal_wallis": ("ps", "stats")}
+    cls = main.pop("cls11")
+    for fn in (linear_model, anova, kruskal_wallis):
+        kept = cls[fn.__name__]
+        r, wall, run = timed(lambda: fn(rg, y, mesh=mesh))
+        print(f"(e) {fn.__name__}(mesh=) on phase 4's resident genome, "
+              f"n={n} M={M}: {wall:.3f} s (phase 11's single-device call "
+              f"{kept['wall']:.3f} s); launches {run}", flush=True)
+        k3_as(fn.__name__, run, kept["k3"])
+        _equal_arrays(f"(e) {fn.__name__}(mesh=) vs phase 11's", r,
+                      kept["res"], keys[fn.__name__])
+    gx = main["gxe12"]          # its trait and environments stay for (b)
+    for tier in ("exact", "int8x3"):
+        r, wall, run = timed(lambda: emmax_gxe(
+            rg, gx["y"], gx["env"], eig_k=eig, precision=tier, mesh=mesh))
+        print(f"(e) emmax_gxe(mesh=) {tier}, E=2, n={n} M={M}: {wall:.3f} s "
+              f"(phase 12's single-device call {gx[tier]['wall']:.3f} s); "
+              f"launches {run}", flush=True)
+        k3_as("emmax_gxe", run, 0)
+        _equal_arrays(f"(e) emmax_gxe(mesh=) {tier} vs phase 12's", r,
+                      gx[tier]["res"], _GXE_KEYS)
+    del gx["exact"], gx["int8x3"], r
+    perm = main.pop("perm13")
+    for tier in ("exact", "int8x3"):
+        r, wall, run = timed(lambda: emmax_perm_test(
+            rg, y, eig_k=eig, num_perm=128, precision=tier, mesh=mesh))
+        print(f"(e) emmax_perm_test(mesh=) {tier}, P=128, n={n} M={M}: "
+              f"{wall:.3f} s (phase 13's single-device call "
+              f"{perm[tier]['wall']:.3f} s); launches {run}", flush=True)
+        k3_as("emmax_perm_test", run, 0)
+        _equal_arrays(f"(e) emmax_perm_test(mesh=) {tier} vs phase 13's", r,
+                      perm[tier]["res"], ("min_ps", "threshold"))
+    two = main.pop("two13")
+    A = len(two["res"]["focal_idx"])
+    r, wall, run = timed(lambda: emmax_two_snps(
+        rg, y, eig_k=eig, from_result={"ps": main["ps"]}, top_k=A,
+        mesh=mesh))
+    print(f"(e) emmax_two_snps(mesh=), A={A} (phase 4's top hits), n={n} "
+          f"M={M}: {wall:.3f} s (phase 13's single-device call "
+          f"{two['wall']:.3f} s); K3 launches {run['scan_stats']} (phase "
+          f"13: {two['k3']})", flush=True)
+    k3_as("emmax_two_snps", run, two["k3"])
+    _equal_arrays("(e) emmax_two_snps(mesh=) vs phase 13's", r, two["res"],
+                  ("focal_idx", "cond_ps", "inter_ps"))
+    del two, r
+    torch.cuda.empty_cache()
+    # emmax_anova's diploid test on n x 32,768 drawn here, 2 % missing
+    ts = time.perf_counter()
+    D = _draw_genotypes(n, 32_768, ploidy=2, missing_rate=0.02,
+                        seed=args.seed + 180)
+    print(f"(e) a diploid genome n={n} M={D.shape[0]}, 2 % missing calls, "
+          f"drawn (not the system): {time.perf_counter() - ts:.3f} s",
+          flush=True)
+    ref, w1, run1 = timed(lambda: emmax_anova(D, y, eig_k=eig))
+    r, wall, run = timed(lambda: emmax_anova(D, y, eig_k=eig, mesh=mesh))
+    print(f"(e) emmax_anova(mesh=) ploidy 2, n={n} M={D.shape[0]}: "
+          f"{wall:.3f} s (the single-device call {w1:.3f} s); launches "
+          f"{run}", flush=True)
+    k3_as("emmax_anova", run, 0)
+    _equal_arrays("(e) emmax_anova(mesh=) vs the single-device call", r, ref,
+                  ("ps", "mask", "f_stats", "dof1", "dof2"))
+    if r["mask"].sum() < 0.9 * D.shape[0]:
+        raise AssertionError("(e) emmax_anova: most SNPs masked")
+    return D, ref
+
+
 def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
     """Phase 18: parallel/'s data-parallel core on the card. (a) A world of
     one over NCCL (a file store) at full width: distributed_kinship against
@@ -2751,12 +2940,17 @@ def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
     import torch.distributed as dist
 
     from mixmogam_tpu_torch.models.emma import emma
+    from mixmogam_tpu_torch.models.gxe import emmax_gxe
+    from mixmogam_tpu_torch.models.linear import (anova, kruskal_wallis,
+                                                  linear_model)
     from mixmogam_tpu_torch.models.loco import emmax_loco
     from mixmogam_tpu_torch.models.multitrait import emmax_multi_trait
+    from mixmogam_tpu_torch.models.permutation import emmax_perm_test
     from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                     emmax_resident,
                                                     kinship_resident)
     from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
+    from mixmogam_tpu_torch.models.twosnp import emmax_two_snps
     from mixmogam_tpu_torch.parallel import (distributed_emmax,
                                              distributed_kinship, make_mesh)
 
@@ -2822,6 +3016,8 @@ def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
         del Kr
         _campaign_mesh_phase(kernels, launches, main, G, mesh, rgh)
         del rgh
+        D, ea_ref = _remaining_mesh_phase(args, kernels, launches, main,
+                                          mesh)
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -2850,11 +3046,17 @@ def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
     np.save(os.path.join(d, "chl_off.npy"), chl_off)
     Y4 = main.pop("mt9")["Y"][:4]
     np.save(os.path.join(d, "Y4.npy"), Y4)
+    gx = main["gxe12"]
+    np.save(os.path.join(d, "y12.npy"), gx["y"])
+    np.save(os.path.join(d, "env.npy"), gx["env"])
+    focal = np.argsort(main["ps"][:Mb], kind="stable")[:4]
+    np.save(os.path.join(d, "focal.npy"), focal)
+    np.save(os.path.join(d, "D.npy"), D)
     print(f"(b) the ranks' inputs written (not the system): "
           f"{time.perf_counter() - ts:.3f} s", flush=True)
     src = _P18_RANK.format(repo=os.path.dirname(os.path.abspath(__file__)),
                            store=os.path.join(d, "store"), d=d,
-                           rb=_P18_TIERS)
+                           rb=_P18_TIERS, gxe_keys=_GXE_KEYS)
     ts = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, "-c", src, str(r), "2"],
                               stdout=subprocess.PIPE,
@@ -2932,7 +3134,44 @@ def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
               f"({time.perf_counter() - ts:.3f} s)",
               {k: z[f"emma_{k}"] for k in ("ps", "mask", "f_stats",
                                            "betas")}, ref)
-    del rgb, z
+    # the remaining scans against their single-device calls on the rows
+    for name, fn, keys in (
+            ("lm", linear_model, ("ps", "f_stats", "mask", "betas")),
+            ("anova", anova, ("ps", "f_stats", "dof1", "dof2")),
+            ("kw", kruskal_wallis, ("ps", "stats"))):
+        ts = time.perf_counter()
+        ref = fn(rgb, y)
+        _equal_arrays(f"(b) {fn.__name__}(mesh=) vs {fn.__name__} "
+                      f"({time.perf_counter() - ts:.3f} s)",
+                      {k: z[f"{name}_{k}"] for k in keys}, ref, keys,
+                      tol=1e-12)
+    gx = main.pop("gxe12")
+    for tier in ("exact", "int8x3"):
+        ts = time.perf_counter()
+        ref = emmax_gxe(rgb, gx["y"], gx["env"], eig_k=(phi, U),
+                        precision=tier)
+        _equal_arrays(f"(b) emmax_gxe(mesh=) {tier} vs emmax_gxe "
+                      f"({time.perf_counter() - ts:.3f} s)",
+                      {k: z[f"gxe_{tier}_{k}"] for k in _GXE_KEYS}, ref,
+                      _GXE_KEYS, tol=1e-12)
+        ts = time.perf_counter()
+        ref = emmax_perm_test(rgb, y, eig_k=(phi, U), num_perm=128,
+                              precision=tier)
+        _equal_arrays(f"(b) emmax_perm_test(mesh=) {tier} vs "
+                      f"emmax_perm_test ({time.perf_counter() - ts:.3f} s)",
+                      {k: z[f"perm_{tier}_{k}"] for k in ("min_ps",
+                                                         "threshold")},
+                      ref, ("min_ps", "threshold"), tol=1e-12)
+    ts = time.perf_counter()
+    ref = emmax_two_snps(G[:Mb], y, eig_k=(phi, U), focal_idx=focal)
+    _equal_arrays(f"(b) emmax_two_snps(mesh=) vs emmax_two_snps, A=4 "
+                  f"({time.perf_counter() - ts:.3f} s)",
+                  {k: z[f"two_{k}"] for k in ("cond_ps", "inter_ps")}, ref,
+                  ("cond_ps", "inter_ps"), tol=1e-12)
+    keys = ("ps", "mask", "f_stats", "dof1", "dof2")
+    _equal_arrays("(b) emmax_anova(mesh=) vs (e)'s single-device call",
+                  {k: z[f"ea_{k}"] for k in keys}, ea_ref, keys, tol=1e-12)
+    del rgb, z, D
     torch.cuda.empty_cache()
 
 

@@ -18,7 +18,8 @@ saying so, where it is not. Each scenario's wall is printed as
 
 One scenario of the JAX examples waits for the port's later items:
 mesh_campaign (mesh-sharded entry points) waits for ROADMAP Queue 1 item
-16e (its entry points' mesh= for 16c); it is not in EXAMPLES.
+16e (distributed_train_step; its entry points all take mesh=); it is not
+in EXAMPLES.
 """
 
 from __future__ import annotations

@@ -212,7 +212,7 @@ def emma(G, y, K=None, X0: Optional[np.ndarray] = None,
 
     clock = _StageClock(device)
     # on a mesh rank 0's, replicated by one broadcast
-    nl = null() if mesh is None else pd.on_rank0(null, mesh)
+    nl = pd.on_rank0(null, mesh)
     clock.lap("eigh")
     phi, U, y_rot, X0_rot = nl["phi"], nl["U"], nl["y_rot"], nl["X0_rot"]
 

@@ -424,14 +424,26 @@ def emmax_anova(G, y, K=None, X0=None, eig_k=None, ngrids: int = 100,
     dtype (float32 on the card, float64 on the CPU): the indicators are
     whitened by W = U' sd with the projected U' = (I - P_X0) U of
     build_rotated_null, and an indicator inside col(X0) is masked from its
-    unrotated values (ops/scan.py::outside_design)."""
+    unrotated values (ops/scan.py::outside_design).
+
+    mesh: a parallel.Mesh (make_mesh()). Binary genotypes go to
+    emmax(mesh=); the diploid test shards by SNP rows, as the JAX package's
+    mesh= does: rank 0 fits the null and builds its rotated null (K or
+    eig_k needed there only), one broadcast replicates it, each rank tests
+    its rows (rank_range at `tile`) with no communication, and the (4,
+    m_rank) results meet in one all-gather. Every rank returns the whole
+    result; device: the rank's (default the mesh's)."""
     from mixmogam_tpu_torch.models.resident import _default_dtype
     from mixmogam_tpu_torch.ops import assert_fp32_matmuls, resolve_device
     from mixmogam_tpu_torch.ops.reml import (esp_to_refine_iters,
                                              fit_null_model)
     from mixmogam_tpu_torch.ops.scan import build_rotated_null, outside_design
     from mixmogam_tpu_torch.ops.stats import f_sf_host
+    from mixmogam_tpu_torch.parallel import distributed as pd
 
+    if mesh is not None:
+        # the mesh's checks come first; the binary route makes them again
+        mesh, mesh_device = pd.mesh_entry(mesh, G, "emmax_anova", device)
     if hasattr(G, "matrix"):
         ploidy = G.ploidy
         G_int = G.matrix
@@ -452,39 +464,47 @@ def emmax_anova(G, y, K=None, X0=None, eig_k=None, ngrids: int = 100,
             f"emmax_anova diploid path does not accept {sorted(kw)}; "
             "supported kwargs: K/X0/eig_k/ngrids/llim/ulim/esp/"
             "host_eigh/dtype/tile/mesh/device")
-    if mesh is not None:
-        raise NotImplementedError("mesh= (the SNP-sharded indicator scan) is "
-                                  "not ported yet: ROADMAP Queue 1 item 16c")
-    device = resolve_device(device)
+    device = resolve_device(device) if mesh is None else mesh_device
     if dtype is None:
         dtype = _default_dtype(device)
     y = np.asarray(y, dtype=np.float64).ravel()
     n = y.shape[0]
     X0 = _as_design(np.ones((n, 1)) if X0 is None else X0, n)
-    null = fit_null_model(y, X0, K=K, eig_k=eig_k, ngrids=ngrids, llim=llim,
-                          ulim=ulim, refine_iters=esp_to_refine_iters(
-                              esp, ngrids, llim, ulim),
-                          host_eigh=host_eigh, device=device, dtype=dtype)
-    rot = build_rotated_null(null)
+
+    def null():
+        """The exact tier's rotated null and the fit's two scalars."""
+        fit = fit_null_model(y, X0, K=K, eig_k=eig_k, ngrids=ngrids,
+                             llim=llim, ulim=ulim,
+                             refine_iters=esp_to_refine_iters(
+                                 esp, ngrids, llim, ulim),
+                             host_eigh=host_eigh, device=device, dtype=dtype)
+        return dict(pd.null_fields(build_rotated_null(fit)),
+                    delta=float(fit.delta),
+                    h2=float(fit.pseudo_heritability))
+
+    # on a mesh rank 0's, replicated by one broadcast
+    nl = pd.on_rank0(null, mesh)
+    rot = pd.null_from_fields(nl)
     W = rot.U * rot.sd[None, :]
     if dtype == torch.float32:
         assert_fp32_matmuls()
     # the indicators of the mean-imputed dosages (a missing call falls in
-    # the class nearest its SNP's mean)
-    Gf = _as_dosage(G_int, np.float64)
-    M = Gf.shape[0]
+    # the class nearest its SNP's mean); on a mesh this rank's rows
+    _, rows = pd.rank_sources(mesh, tile, device, None, G_int)
+    Gf = _as_dosage(rows, np.float64)
     outs = []
-    for s in range(0, M, tile):
+    for s in range(0, Gf.shape[0], tile):
         g = torch.from_numpy(Gf[s:s + tile]).to(device)
         A = ((g - 1.0).abs() < 0.5).to(dtype)
         B = (g >= 1.5).to(dtype)
         outs.append(torch.stack([v.to(dtype) for v in _anova_pair_f(
             A, B, rot, W, outside_design(A, rot.X0, rot.X0p),
             outside_design(B, rot.X0, rot.X0p))]))
-    h = torch.cat(outs, dim=1).cpu().double().numpy()
+    h = pd.gathered_rows(pd.row_block(outs, (4,), dtype, device), mesh,
+                         G_int.shape[0])
     fs, d1s, d2s, masks = h[0], h[1], h[2], h[3] > 0.5
     ps = np.where(masks, f_sf_host(fs, np.maximum(d1s, 1.0),
                                    np.maximum(d2s, 1.0)), 1.0)
     return {"ps": ps, "f_stats": fs, "dof1": d1s, "dof2": d2s,
-            "mask": masks, "delta": float(null.delta),
-            "pseudo_heritability": float(null.pseudo_heritability)}
+            "mask": masks, "delta": nl["delta"],
+            "pseudo_heritability": nl["h2"]}

@@ -49,6 +49,13 @@ __all__ = ["emmax_gxe"]
 _RESCORE_ROWS = 8192
 
 
+def _scan_rows(E: int) -> int:
+    """Rows a tile of the scan for E environments (the JAX package's
+    _sub_tile target): the (E + 1) rotated (rows, n) blocks of a tile stay
+    near 16,384 rows' worth."""
+    return max(2048, 16_384 // E)
+
+
 def _gxe_stats_whitened(B: torch.Tensor, P: torch.Tensor, rot,
                         keep_b: Optional[torch.Tensor] = None,
                         keep_p: Optional[torch.Tensor] = None
@@ -214,11 +221,23 @@ def emmax_gxe(G, y, env, K=None, X0: Optional[np.ndarray] = None,
     rescored_idx, and timings_s (seconds of the eigh, the nulls, the tiles'
     loading, the rotations, the statistics, the p-values and the rescore;
     device time from CUDA events on the card). p-values finalize in float64
-    on the host."""
+    on the host.
+
+    mesh: a parallel.Mesh (make_mesh()) shards the scan by SNP rows, as the
+    JAX package's mesh= does: rank 0 takes the eigh, the E fits and nulls
+    and the rotations (K or eig_k needed there only), one broadcast
+    replicates them, each rank scans its rows tile by tile at the
+    single-device tile (a ResidentGenome's shard, parallel/distributed.py::
+    shard_packed_rows; a host source's rows) with no communication, and
+    the (E, 5, m_rank) statistics meet in one all-gather. The exact
+    rescore then runs on every rank over the whole source, with the same
+    rows and values everywhere. Every rank returns the whole result;
+    device: the rank's (default the mesh's)."""
     from mixmogam_tpu_torch.models.emma import _StageClock
     from mixmogam_tpu_torch.models.emmax import _as_design
-    from mixmogam_tpu_torch.ops.rotate import shared_rotation
-    from mixmogam_tpu_torch.models.resident import (_default_dtype,
+    from mixmogam_tpu_torch.ops.rotate import SharedRotation, shared_rotation
+    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
+                                                    _default_dtype,
                                                     resident_and_device)
     from mixmogam_tpu_torch.models.source import (as_int8_dosage,
                                                   resolve_source)
@@ -233,10 +252,10 @@ def emmax_gxe(G, y, env, K=None, X0: Optional[np.ndarray] = None,
                                              select_rescore_idx,
                                              tier_drift_name)
     from mixmogam_tpu_torch.ops.xreml import explicit_reml
+    from mixmogam_tpu_torch.parallel import distributed as pd
 
     if mesh is not None:
-        raise NotImplementedError("mesh= (the SNP-sharded GxE scan) is not "
-                                  "ported yet: ROADMAP Queue 1 item 16c")
+        mesh, device = pd.mesh_entry(mesh, G, "emmax_gxe", device)
     y = np.asarray(y, dtype=np.float64).ravel()
     n = y.shape[0]
     env = np.asarray(env, dtype=np.float64)
@@ -251,7 +270,10 @@ def emmax_gxe(G, y, env, K=None, X0: Optional[np.ndarray] = None,
         raise ValueError("env contains non-finite values; GxE needs "
                          "complete environment columns (drop or impute "
                          "samples first — run_gwas's env_pid path drops)")
-    rg, device = resident_and_device(G, device)
+    if mesh is None:
+        rg, device = resident_and_device(G, device)
+    else:
+        rg = G if isinstance(G, ResidentGenome) else None
     if dtype is None:
         dtype = _default_dtype(device)
     if rg is not None and rg.n != n:
@@ -290,59 +312,83 @@ def emmax_gxe(G, y, env, K=None, X0: Optional[np.ndarray] = None,
                     "(mean-imputed). Use precision='exact'/'bf16'.")
     if str(precision) == "fast" and not rescore_top:
         rescore_top = 1024
+    rescore = bool(rescore_top) and rd is not None
 
-    # ---- one eigh, a float64 REML and a whitened null per environment ----
-    clock = _StageClock(device)
-    if eig_k is None:
-        if K is None:
-            raise ValueError("need K or eig_k")
-        phi, U = eigen_k_on(np.asarray(K, np.float64), device)
-    else:
-        phi, U = eig_k
-    phi64 = torch.as_tensor(phi).to(device=device, dtype=torch.float64)
-    U64 = torch.as_tensor(U).to(device=device, dtype=torch.float64)
-    clock.lap("eigh")
-    X0_64 = torch.as_tensor(X0, device=device)
-    env64 = torch.as_tensor(env, device=device)
-    y_rot = U64.T @ torch.as_tensor(y, device=device)
-    X_rot, e_rot = U64.T @ X0_64, U64.T @ env64
-    phi_dt = phi64.to(dtype)
-    nulls, deltas, h2s = [], np.empty(E), np.empty(E)
-    for e in range(E):
-        Xe = torch.cat([X_rot, e_rot[:, e:e + 1]], dim=1)
-        fit = explicit_reml(phi64, y_rot, Xe, ngrids=ngrids, llim=llim,
-                            ulim=ulim)
-        deltas[e] = float(fit["delta"])
-        h2s[e] = float(fit["pseudo_heritability"])
-        nulls.append(_rot_null_from_delta(phi_dt, deltas[e], y_rot, Xe,
-                                          dtype))
+    def null():
+        """One eigh, a float64 REML and a whitened null per environment;
+        the rotations by U' = (I - P_X0) U, shared and e o U' an
+        environment (and at the exact tier for the rescore); each
+        environment's design."""
+        clock = _StageClock(device)
+        if eig_k is None:
+            if K is None:
+                raise ValueError("need K or eig_k")
+            phi, U = eigen_k_on(np.asarray(K, np.float64), device)
+        else:
+            phi, U = eig_k
+        phi64 = torch.as_tensor(phi).to(device=device, dtype=torch.float64)
+        U64 = torch.as_tensor(U).to(device=device, dtype=torch.float64)
+        clock.lap("eigh")
+        X0_64 = torch.as_tensor(X0, device=device)
+        env64 = torch.as_tensor(env, device=device)
+        y_rot = U64.T @ torch.as_tensor(y, device=device)
+        X_rot, e_rot = U64.T @ X0_64, U64.T @ env64
+        phi_dt = phi64.to(dtype)
+        out = {"deltas": np.empty(E), "h2s": np.empty(E)}
+        for e in range(E):
+            Xe = torch.cat([X_rot, e_rot[:, e:e + 1]], dim=1)
+            fit = explicit_reml(phi64, y_rot, Xe, ngrids=ngrids, llim=llim,
+                                ulim=ulim)
+            out["deltas"][e] = float(fit["delta"])
+            out["h2s"][e] = float(fit["pseudo_heritability"])
+            out.update(pd.null_fields(_rot_null_from_delta(
+                phi_dt, out["deltas"][e], y_rot, Xe, dtype), f"null{e}_"))
+            out[f"Xe{e}"], out[f"Xep{e}"] = design_basis(
+                torch.cat([X0_64, env64[:, e:e + 1]], dim=1), device, dtype)
+        Up = project_design(U64, X0_64)[0]
+        del U64
+        tiers = ("", "ex_") if rescore else ("",)
+        for pre, tier in zip(tiers, (rd, None)):
+            out.update(pd.fields_of(shared_rotation(Up, tier, dtype),
+                                    pre + "rot_g_"))
+            for e in range(E):
+                out.update(pd.fields_of(shared_rotation(
+                    env64[:, e:e + 1] * Up, tier, dtype), f"{pre}rot_e{e}_"))
+        out["env_dt"] = env64.T.to(dtype)                     # (E, n)
+        clock.lap("nulls")
+        out["timings"] = clock.seconds()
+        return out
+
+    def rotations(pre):
+        return (pd.from_fields(SharedRotation, nl, pre + "rot_g_"),
+                [pd.from_fields(SharedRotation, nl, f"{pre}rot_e{e}_")
+                 for e in range(E)])
+
+    # ---- on a mesh rank 0's, replicated by one broadcast ----
+    nl = pd.on_rank0(null, mesh)
+    deltas, h2s, env_dt = nl["deltas"], nl["h2s"], nl["env_dt"]
+    nulls = [pd.null_from_fields(nl, f"null{e}_") for e in range(E)]
+    designs = [(nl[f"Xe{e}"], nl[f"Xep{e}"]) for e in range(E)]
+    rot_g, rot_e = rotations("")
     dof = n - X0.shape[1] - 2
-    # ---- the rotations by U' = (I - P_X0) U: shared, and e o U' per env --
-    Up = project_design(U64, X0_64)[0]
-    del U64
-    rot_g = shared_rotation(Up, rd, dtype)
-    rot_e = [shared_rotation(env64[:, e:e + 1] * Up, rd, dtype)
-             for e in range(E)]
-    designs = [design_basis(torch.cat([X0_64, env64[:, e:e + 1]], dim=1),
-                            device, dtype) for e in range(E)]
-    env_dt = env64.T.to(dtype)                              # (E, n)
-    clock.lap("nulls")
+    clock = _StageClock(device)
 
-    # ---- the scan, a tile at a time ----
-    rows = max(2048, 16_384 // E)
+    # ---- the scan, a tile at a time (on a mesh: this rank's rows) ----
+    rows = _scan_rows(E)
+    part, src, src8 = pd.rank_sources(mesh, rows, device, rg, G_src, G8)
     outs = []
     clock.lap()
-    for Gt in _source_tiles(rg, G_src, G8, dtype, device, rows):
+    for Gt in _source_tiles(part, src, src8, dtype, device, rows):
         clock.lap("load")
         outs.append(_tile_stats(Gt, rot_g, rot_e, nulls, env_dt, designs,
                                 clock.lap))
     del rot_g, rot_e
-    timings = clock.seconds()
-    h = torch.cat(outs, dim=2).cpu().double().numpy()
+    timings = dict(nl["timings"], **clock.seconds())
+    M = rg.M if rg is not None else G_src.shape[0]
+    h = pd.gathered_rows(pd.row_block(outs, (E, 5), dtype, device), mesh, M)
     del outs
     f_marg, f_inter, f_joint = h[:, 0].copy(), h[:, 1].copy(), h[:, 2].copy()
     mask_b, mask_p = h[:, 3] > 0.5, h[:, 4] > 0.5
-    M = h.shape[2]
     ts = time.perf_counter()
     marg_ps, inter_ps, joint_ps = np.empty((E, M)), np.empty((E, M)), \
         np.empty((E, M))
@@ -351,14 +397,13 @@ def emmax_gxe(G, y, env, K=None, X0: Optional[np.ndarray] = None,
             f_marg[e], f_inter[e], f_joint[e], mask_b[e], mask_p[e], dof)
     timings["p_values"] = time.perf_counter() - ts
 
-    # ---- the exact rescore of each environment's leading interactions ----
+    # ---- the exact rescore of each environment's leading interactions,
+    # over the whole source (on a mesh: on every rank, the same rows) ----
     rescored = [np.zeros(0, dtype=np.int64)] * E
-    if rescore_top and rd is not None:
+    if rescore:
         ts = time.perf_counter()
         source = rg if rg is not None else G_src
-        ex_g = shared_rotation(Up, None, dtype)
-        ex_e = [shared_rotation(env64[:, e:e + 1] * Up, None, dtype)
-                for e in range(E)]
+        ex_g, ex_e = rotations("ex_")
         for e in range(E):
             idx = select_rescore_idx(inter_ps[e], rescore_top,
                                      tier_drift_name(rd), table=GXE_P_DRIFT)

@@ -31,13 +31,6 @@ import torch
 _CLASS_ROWS = 8_192
 
 
-def _mesh_refused(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("mesh= (the SNP-sharded fixed-effects "
-                                  "tests) is not ported yet: ROADMAP Queue 1 "
-                                  "item 16c")
-
-
 def _identity_rot(y: np.ndarray, X0: np.ndarray, dtype, device):
     """RotatedNull of the identity K: sd = 1, the orthonormal basis Q0 of
     X0, y's residual y_res, rss0 and dof, with the design's (X0, X0p) for
@@ -67,9 +60,18 @@ def linear_model(G, y, X0: Optional[np.ndarray] = None, dtype=None,
     with NaN missing) on `device`: the card by default (without one the
     call raises), 'cpu' on request. Each tile is one launch of kernel K3
     on the card. dtype: float32 on the card (K3's type), float64 on the
-    CPU by default."""
+    CPU by default.
+
+    mesh: a parallel.Mesh (make_mesh()) shards the scan by SNP rows, as
+    the JAX package's mesh= does: every rank builds the identity null (no
+    eigenbasis: cheap and the same everywhere) and scans its rows with K3
+    (a ResidentGenome's shard, parallel/distributed.py::shard_packed_rows;
+    a host source's rows at `tile`), and the (4, m_rank) statistics meet
+    in one all-gather. Every rank returns the whole result; device: the
+    rank's (default the mesh's)."""
     from mixmogam_tpu_torch.models.emmax import _as_design
-    from mixmogam_tpu_torch.models.resident import (_default_dtype,
+    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
+                                                    _default_dtype,
                                                     _float_tiles,
                                                     resident_and_device)
     from mixmogam_tpu_torch.models.source import resolve_source
@@ -77,11 +79,15 @@ def linear_model(G, y, X0: Optional[np.ndarray] = None, dtype=None,
     from mixmogam_tpu_torch.ops.scan import (emmax_scan_prerotated,
                                              outside_design)
     from mixmogam_tpu_torch.ops.stats import f_sf_host
+    from mixmogam_tpu_torch.parallel import distributed as pd
 
-    _mesh_refused(mesh)
     y = np.asarray(y, dtype=np.float64).ravel()
     n = y.shape[0]
-    rg, device = resident_and_device(G, device)
+    if mesh is None:
+        rg, device = resident_and_device(G, device)
+    else:
+        mesh, device = pd.mesh_entry(mesh, G, "linear_model", device)
+        rg = G if isinstance(G, ResidentGenome) else None
     if rg is not None and rg.n != n:
         raise ValueError(f"y has {n} samples but the resident genome holds "
                          f"{rg.n}")
@@ -90,11 +96,16 @@ def linear_model(G, y, X0: Optional[np.ndarray] = None, dtype=None,
     X0 = _as_design(np.ones((n, 1)) if X0 is None else X0, n)
     rot = _identity_rot(y, X0, dtype, device)
     # mean-imputed float tiles: the packed rows unpacked on their device (cut
-    # at M), or a host source's rows uploaded a tile at a time
-    tiles = (_float_tiles(rg, dtype) if rg is not None
-             else host_tiles(resolve_source(G), dtype, device, tile))
-    h = torch.cat([emmax_scan_prerotated(Gt, rot, outside_design(
-        Gt, rot.X0, rot.X0p)) for Gt in tiles], dim=1).cpu().double().numpy()
+    # at M), or a host source's rows uploaded a tile at a time; on a mesh
+    # this rank's shard or rows
+    src = None if rg is not None else resolve_source(G)
+    M = rg.M if rg is not None else src.shape[0]
+    part, src = pd.rank_sources(mesh, tile, device, rg, src)
+    tiles = (_float_tiles(part, dtype) if part is not None
+             else host_tiles(src, dtype, device, tile))
+    h = pd.gathered_rows(pd.row_block(
+        [emmax_scan_prerotated(Gt, rot, outside_design(Gt, rot.X0, rot.X0p))
+         for Gt in tiles], (4,), dtype, device), mesh, M)
     mask = h[3] > 0.5
     dof = n - X0.shape[1] - 1
     out = {"ps": np.where(mask, f_sf_host(h[0], 1.0, dof), 1.0),
@@ -121,6 +132,8 @@ def _class_sums_packed(packed: torch.Tensor, W: torch.Tensor, n: int,
     packed genome on its device, `tile` rows unpacked at a time."""
     from mixmogam_tpu_torch.ops.pack2 import unpack_2bit_device
 
+    if not M:
+        return W.new_zeros((0, n_classes, W.shape[1]))
     return torch.cat([_class_sums(unpack_2bit_device(packed[s:min(s + tile,
                                                                   M)], n),
                                   W, n_classes)
@@ -143,10 +156,11 @@ def _infer_ploidy(G: np.ndarray) -> int:
     return 2 if mx > 1 else 1
 
 
-def _class_source(G, y: np.ndarray, ploidy, device):
+def _class_source(G, y: np.ndarray, ploidy, device, mesh):
     """(rg, host int8 classes, ploidy, device): a ResidentGenome stays
-    packed on its own device; a GenotypeData or array becomes int8
-    classes on the host (_as_classes)."""
+    packed on its own device (on a mesh: as it is, each rank taking its
+    shard); a GenotypeData or array becomes int8 classes on the host
+    (_as_classes), the ploidy inferred from all of them."""
     from mixmogam_tpu_torch.models.resident import ResidentGenome
     from mixmogam_tpu_torch.ops import resolve_device
 
@@ -154,9 +168,12 @@ def _class_source(G, y: np.ndarray, ploidy, device):
         if G.n != y.shape[0]:
             raise ValueError(f"y has {y.shape[0]} samples but the resident "
                              f"genome holds {G.n}")
-        G = G.on_device(device)
-        return G, None, G.ploidy if ploidy is None else ploidy, G.device
-    device = resolve_device(device)
+        if mesh is None:
+            G = G.on_device(device)
+            device = G.device
+        return G, None, G.ploidy if ploidy is None else ploidy, device
+    if mesh is None:
+        device = resolve_device(device)
     if hasattr(G, "matrix"):
         ploidy = G.ploidy if ploidy is None else ploidy
         G = G.matrix
@@ -164,19 +181,27 @@ def _class_source(G, y: np.ndarray, ploidy, device):
     return None, G, _infer_ploidy(G) if ploidy is None else ploidy, device
 
 
-def _class_sums_of(rg, Gc, W: torch.Tensor, C: int) -> np.ndarray:
+def _class_sums_of(rg, Gc, W: torch.Tensor, C: int, mesh) -> np.ndarray:
     """(M, C, c) float64 host class sums of a resident genome or of host
-    int8 classes, over the device W lives on."""
+    int8 classes, over the device W lives on. On a mesh each rank sums its
+    rows (the container's shard, whose tile the 2,048-row subtile divides
+    as it divides one device's rows; the classes' rank_range rows at
+    _CLASS_ROWS) and the sums meet in one all-gather."""
     from mixmogam_tpu_torch.models.resident import subdivide_tile
+    from mixmogam_tpu_torch.parallel.distributed import (gathered_rows,
+                                                         rank_sources)
 
-    if rg is not None:
-        out = _class_sums_packed(rg.packed, W, rg.n, rg.M,
+    M = rg.M if rg is not None else Gc.shape[0]
+    part, rows = rank_sources(mesh, _CLASS_ROWS, W.device, rg, Gc)
+    if part is not None:
+        out = _class_sums_packed(part.packed, W, part.n, part.M,
                                  subdivide_tile(rg.tile), C)
     else:
         out = torch.cat([_class_sums(torch.from_numpy(np.ascontiguousarray(
-            Gc[s:s + _CLASS_ROWS])).to(W.device), W, C)
-            for s in range(0, Gc.shape[0], _CLASS_ROWS)])
-    return out.cpu().double().numpy()
+            rows[s:s + _CLASS_ROWS])).to(W.device), W, C)
+            for s in range(0, rows.shape[0], _CLASS_ROWS)]
+            or [W.new_zeros((0, C, W.shape[1]))])
+    return gathered_rows(out.permute(1, 2, 0), mesh, M).transpose(2, 0, 1)
 
 
 def anova(G, y, ploidy: Optional[int] = None, dtype=None, mesh=None,
@@ -184,15 +209,23 @@ def anova(G, y, ploidy: Optional[int] = None, dtype=None, mesh=None,
     """Per-SNP one-way ANOVA over genotype classes with the JAX package's
     arguments and return dict (ps, f_stats, dof1, dof2). G: a
     ResidentGenome (its own device) or a GenotypeData or array on `device`
-    (the card by default, 'cpu' on request). dtype: float64 by default."""
-    from mixmogam_tpu_torch.ops.stats import f_sf_host
+    (the card by default, 'cpu' on request). dtype: float64 by default.
 
-    _mesh_refused(mesh)
+    mesh: a parallel.Mesh (make_mesh()) shards the class sums by SNP rows,
+    as the JAX package's mesh= does (_class_sums_of): [1, y, y^2] is the
+    same on every rank, each rank sums its rows, one all-gather; every
+    rank returns the whole result. device: the rank's (default the
+    mesh's)."""
+    from mixmogam_tpu_torch.ops.stats import f_sf_host
+    from mixmogam_tpu_torch.parallel.distributed import mesh_entry
+
+    if mesh is not None:
+        mesh, device = mesh_entry(mesh, G, "anova", device)
     y = np.asarray(y, dtype=np.float64).ravel()
-    rg, Gc, ploidy, device = _class_source(G, y, ploidy, device)
+    rg, Gc, ploidy, device = _class_source(G, y, ploidy, device, mesh)
     W = torch.as_tensor(np.column_stack([np.ones_like(y), y, y * y]),
                         device=device).to(dtype or torch.float64)
-    out = _class_sums_of(rg, Gc, W, ploidy + 1)
+    out = _class_sums_of(rg, Gc, W, ploidy + 1, mesh)
     cnt, s1, s2 = out[:, :, 0], out[:, :, 1], out[:, :, 2]
     N = cnt.sum(axis=1)
     T = s1.sum(axis=1)
@@ -251,11 +284,10 @@ def _kw_missing_packed(packed, order, a_idx, b_idx, starts, ends, n: int,
     sorted order there."""
     from mixmogam_tpu_torch.ops.pack2 import unpack_2bit_device
 
-    outs = [_kw_missing_core(
+    return [_kw_missing_core(
         unpack_2bit_device(packed[s:min(s + tile, M)], n).index_select(
             1, order), a_idx, b_idx, starts, ends, n_classes, fdt)
         for s in range(0, M, tile)]
-    return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
 
 
 def _kw_sorted_precompute(y: np.ndarray):
@@ -279,35 +311,48 @@ def kruskal_wallis(G, y, ploidy: Optional[int] = None, dtype=None,
     global rank vector and the class-sum products; missing genotypes: each
     SNP's observed subset ranked on the device (_kw_missing_core). G: a
     ResidentGenome (its own device) or a GenotypeData or array on `device`
-    (the card by default, 'cpu' on request). dtype: float64 by default."""
+    (the card by default, 'cpu' on request). dtype: float64 by default.
+
+    mesh: a parallel.Mesh (make_mesh()) shards either route by SNP rows,
+    as the JAX package's mesh= does: the rank vector, or y's sorted order
+    and tie groups, are the same on every rank; each rank takes its rows
+    (a ResidentGenome's shard; a host source's rows at `tile` on the
+    missing-call route, at the class sums' own rows otherwise), one
+    all-gather. Every rank returns the whole result; device: the rank's
+    (default the mesh's)."""
     import scipy.stats
 
     from mixmogam_tpu_torch.models.resident import subdivide_tile
     from mixmogam_tpu_torch.ops.stats import chi2_sf_host
+    from mixmogam_tpu_torch.parallel import distributed as pd
 
-    _mesh_refused(mesh)
+    if mesh is not None:
+        mesh, device = pd.mesh_entry(mesh, G, "kruskal_wallis", device)
     y = np.asarray(y, dtype=np.float64).ravel()
     n = y.shape[0]
     fdt = dtype or torch.float64
-    rg, Gc, ploidy, device = _class_source(G, y, ploidy, device)
+    rg, Gc, ploidy, device = _class_source(G, y, ploidy, device, mesh)
     C = ploidy + 1
     if rg.has_missing if rg is not None else (Gc < 0).any():
         order, a, b, starts, ends = (
             torch.as_tensor(v, device=device)
             for v in _kw_sorted_precompute(y))
-        if rg is not None:
-            h, k, v = _kw_missing_packed(rg.packed, order, a, b, starts,
-                                         ends, n, rg.M,
-                                         subdivide_tile(rg.tile), C, fdt)
+        M = rg.M if rg is not None else Gc.shape[0]
+        part, rows = pd.rank_sources(mesh, tile, device, rg, Gc)
+        if part is not None:
+            outs = _kw_missing_packed(part.packed, order, a, b, starts, ends,
+                                      n, part.M, subdivide_tile(rg.tile), C,
+                                      fdt)
         else:
-            Gsrt = Gc[:, order.cpu().numpy()]
+            Gsrt = rows[:, order.cpu().numpy()]
             outs = [_kw_missing_core(torch.from_numpy(np.ascontiguousarray(
                 Gsrt[s:s + tile])).to(device), a, b, starts, ends, C, fdt)
                 for s in range(0, Gsrt.shape[0], tile)]
-            h, k, v = (torch.cat([o[i] for o in outs]) for i in range(3))
-        hs = h.cpu().double().numpy()
-        ks = k.cpu().double().numpy()
-        vs = v.cpu().numpy()
+        # [h, classes, valid] a tile, valid as 0 / 1
+        hs, ks, vs = pd.gathered_rows(pd.row_block(
+            [torch.stack([h, k, v.to(fdt)]) for h, k, v in outs], (3,), fdt,
+            device), mesh, M)
+        vs = vs > 0.5
         ps = np.where(vs, chi2_sf_host(hs, np.maximum(ks - 1, 1)), 1.0)
         return {"ps": ps, "stats": np.where(vs, hs, 0.0)}
     ranks = scipy.stats.rankdata(y)
@@ -316,7 +361,7 @@ def kruskal_wallis(G, y, ploidy: Optional[int] = None, dtype=None,
     tie_c = 1.0 - np.sum(t**3 - t) / max(n**3 - n, 1)
     W = torch.as_tensor(np.column_stack([np.ones(n), ranks]),
                         device=device).to(fdt)
-    out = _class_sums_of(rg, Gc, W, C)
+    out = _class_sums_of(rg, Gc, W, C, mesh)
     cnt, rsum = out[:, :, 0], out[:, :, 1]
     with np.errstate(divide="ignore", invalid="ignore"):
         h = 12.0 / (n * (n + 1)) * np.where(

@@ -89,17 +89,31 @@ def emmax_perm_test(G, y, K=None, num_perm: int = 100,
     one with missing calls; on the CPU both exact), for the rotation;
     'high' raises.
 
+    mesh: a parallel.Mesh (make_mesh()) shards the sweep by SNP rows, as
+    the JAX package's mesh= does: rank 0 fits the null, draws the
+    permutations and builds the permuted residuals and the rotation (K or
+    eig_k needed there only), one broadcast replicates them, each rank
+    sweeps its rows (a ResidentGenome's shard, parallel/distributed.py::
+    shard_packed_rows; a host source's rows at `tile`) with no
+    communication, and the (P,) max F meet in ONE max all-reduce (the
+    JAX package's pmax: order-free, so equal to one device's; a rank with
+    no rows adds zeros). Every rank returns the whole result; device: the
+    rank's (default the mesh's).
+
     Returns min_ps (sorted), threshold, alpha, num_perm, delta, and
     timings_s: seconds of the null (eigh, REML, the permuted residuals and
     the rotation's operand), the tiles' loading, the rotations, the
     P-column products, the max-F epilogue and the p-values (device time
     from CUDA events on the card)."""
+    import torch.distributed as dist
+
     from mixmogam_tpu_torch.models.emma import _StageClock
     from mixmogam_tpu_torch.models.emmax import _as_design
     from mixmogam_tpu_torch.models.gxe import _source_tiles
-    from mixmogam_tpu_torch.ops.rotate import (rotate_tile,
+    from mixmogam_tpu_torch.ops.rotate import (SharedRotation, rotate_tile,
                                                shared_rotation)
-    from mixmogam_tpu_torch.models.resident import (_default_dtype,
+    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
+                                                    _default_dtype,
                                                     resident_and_device)
     from mixmogam_tpu_torch.models.source import resolve_source
     from mixmogam_tpu_torch.ops.eigen import orthonormal_basis
@@ -110,14 +124,16 @@ def emmax_perm_test(G, y, K=None, num_perm: int = 100,
                                              probe_for_source, project_design,
                                              resolve_precision)
     from mixmogam_tpu_torch.ops.stats import f_sf_host
+    from mixmogam_tpu_torch.parallel import distributed as pd
+    from mixmogam_tpu_torch.parallel.mesh import all_reduce
 
-    if mesh is not None:
-        raise NotImplementedError("mesh= (the SNP-sharded permutation "
-                                  "sweep) is not ported yet: ROADMAP Queue 1 "
-                                  "item 16c")
     y = np.asarray(y, dtype=np.float64).ravel()
     n = y.shape[0]
-    rg, device = resident_and_device(G, device)
+    if mesh is None:
+        rg, device = resident_and_device(G, device)
+    else:
+        mesh, device = pd.mesh_entry(mesh, G, "emmax_perm_test", device)
+        rg = G if isinstance(G, ResidentGenome) else None
     if dtype is None:
         dtype = _default_dtype(device)
     if rg is not None and rg.n != n:
@@ -141,43 +157,59 @@ def emmax_perm_test(G, y, K=None, num_perm: int = 100,
             "ResidentGenome source (the host-tile path runs exact; "
             "'exact'/'auto' are accepted as no-ops)")
     G_src = None if rg is not None else resolve_source(G)
-
-    # ---- the null: one float64 REML, the permuted residuals in float64 ----
-    clock = _StageClock(device)
-    X0_64 = torch.as_tensor(X0, device=device)
-    identity_k = K is None and eig_k is None
-    if identity_k:
-        sd64 = torch.ones(n, dtype=torch.float64, device=device)
-        delta = 1.0
-        X0_star = X0_64
-    else:
-        null = fit_null_model(y, X0, K=K, eig_k=eig_k, device=device,
-                              dtype=torch.float64)
-        delta = float(null.delta)
-        sd64 = 1.0 / torch.sqrt(null.phi + null.delta)
-        U64 = null.U
-        X0_star = (U64.T @ X0_64) * sd64[:, None]
-    rng = np.random.default_rng(seed)
-    perms = np.stack([rng.permutation(n) for _ in range(num_perm)])
-    Yp = torch.as_tensor(y[perms], device=device)             # (P, n)
-    Ys = (Yp if identity_k else Yp @ U64) * sd64[None, :]
-    Q0_64 = orthonormal_basis(X0_star)
-    Y_res64 = Ys - (Ys @ Q0_64) @ Q0_64.T
-    rss0 = (Y_res64 * Y_res64).sum(dim=1).to(dtype)
-    Y_res, Q0 = Y_res64.to(dtype), Q0_64.to(dtype)
     dof = n - q - 1
-    X0d, X0p = design_basis(X0_64, device, dtype)
-    if not identity_k:
-        # W = U' * sd, whitened on the weight side as the JAX package's W
-        rot = shared_rotation(project_design(U64, X0_64)[0] * sd64[None, :],
-                              rd, dtype)
-        del U64, null
+
+    def null():
+        """One float64 REML, the permuted residuals in float64 and, for a
+        kinship, the rotation W = U' * sd at the tier (whitened on the
+        weight side as the JAX package's W). Neither K nor eig_k: the
+        identity K (on a mesh, as rank 0 is given them)."""
+        identity_k = K is None and eig_k is None
+        X0_64 = torch.as_tensor(X0, device=device)
+        if identity_k:
+            sd64 = torch.ones(n, dtype=torch.float64, device=device)
+            delta = 1.0
+            X0_star = X0_64
+        else:
+            fit = fit_null_model(y, X0, K=K, eig_k=eig_k, device=device,
+                                 dtype=torch.float64)
+            delta = float(fit.delta)
+            sd64 = 1.0 / torch.sqrt(fit.phi + fit.delta)
+            U64 = fit.U
+            X0_star = (U64.T @ X0_64) * sd64[:, None]
+        rng = np.random.default_rng(seed)
+        perms = np.stack([rng.permutation(n) for _ in range(num_perm)])
+        Yp = torch.as_tensor(y[perms], device=device)         # (P, n)
+        Ys = (Yp if identity_k else Yp @ U64) * sd64[None, :]
+        Q0_64 = orthonormal_basis(X0_star)
+        Y_res64 = Ys - (Ys @ Q0_64) @ Q0_64.T
+        X0d, X0p = design_basis(X0_64, device, dtype)
+        out = {"identity_k": identity_k, "delta": delta,
+               "Q0": Q0_64.to(dtype),
+               "Y_res": Y_res64.to(dtype),
+               "rss0": (Y_res64 * Y_res64).sum(dim=1).to(dtype),
+               "X0d": X0d, "X0p": X0p}
+        if not identity_k:
+            out.update(pd.fields_of(shared_rotation(
+                project_design(U64, X0_64)[0] * sd64[None, :], rd, dtype),
+                "rot_"))
+        return out
+
+    # ---- the null: on a mesh rank 0's, replicated by one broadcast ----
+    clock = _StageClock(device)
+    nl = pd.on_rank0(null, mesh)
+    Q0, Y_res, rss0, X0d, X0p = (nl[k] for k in ("Q0", "Y_res", "rss0",
+                                                 "X0d", "X0p"))
+    identity_k = nl["identity_k"]
+    rot = (None if identity_k
+           else pd.from_fields(SharedRotation, nl, "rot_"))
     clock.lap("null")
 
-    # ---- the sweep, a tile at a time ----
+    # ---- the sweep, a tile at a time (on a mesh: this rank's rows) ----
+    part, src = pd.rank_sources(mesh, tile, device, rg, G_src)
     max_f = torch.zeros(num_perm, dtype=dtype, device=device)
     clock.lap()
-    for Gt in _source_tiles(rg, G_src, None, dtype, device, tile):
+    for Gt in _source_tiles(part, src, None, dtype, device, tile):
         clock.lap("load")
         Gf = Gt.to(dtype)
         keep = outside_design(Gf, X0d, X0p)
@@ -186,10 +218,12 @@ def emmax_perm_test(G, y, K=None, num_perm: int = 100,
         clock.lap("rotation")
         max_f = _perm_tile_max_f(Xs, Q0, Y_res, rss0, float(dof), max_f,
                                  keep, clock.lap)
+    if mesh is not None:
+        max_f = all_reduce(max_f, mesh, dist.ReduceOp.MAX)
     timings = clock.seconds()
     ts = time.perf_counter()
     min_ps = f_sf_host(max_f.cpu().double().numpy(), 1.0, dof)
     thr = float(np.quantile(min_ps, alpha))
     timings["p_values"] = time.perf_counter() - ts
     return {"min_ps": np.sort(min_ps), "threshold": thr, "alpha": alpha,
-            "num_perm": num_perm, "delta": delta, "timings_s": timings}
+            "num_perm": num_perm, "delta": nl["delta"], "timings_s": timings}

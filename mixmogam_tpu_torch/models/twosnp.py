@@ -108,15 +108,26 @@ def emmax_two_snps(G, y, K=None, focal_idx: Optional[Sequence[int]] = None,
     nulls, the tiles' loading, the rotations (the tile's and the products'),
     the K3 conditional scans (with the sample-space masks), the pairwise
     statistics and the host p-values (device time from CUDA events on the
-    card). p-values finalize in float64 on the host."""
+    card). p-values finalize in float64 on the host.
+
+    mesh: a parallel.Mesh (make_mesh()) shards the partner SNPs by rows,
+    as the JAX package's mesh= does: every rank holds the whole source and
+    reads the focal rows itself; rank 0 takes the eigh, the global null
+    and a null and a design a focal SNP (K or eig_k needed there only),
+    one broadcast replicates them, each rank scans its rows (a
+    ResidentGenome's shard, parallel/distributed.py::shard_packed_rows; a
+    host source's rows at `tile`) with no communication, and the (A, 4,
+    m_rank) statistics meet in one all-gather. Every rank returns the whole
+    result; device: the rank's (default the mesh's)."""
     from mixmogam_tpu_torch.models.emma import _StageClock
     from mixmogam_tpu_torch.models.emmax import _as_design
     from mixmogam_tpu_torch.models.gxe import (_gxe_stats_whitened,
                                                _sample_space_keep,
                                                _source_tiles)
-    from mixmogam_tpu_torch.ops.rotate import (rotate_tile,
+    from mixmogam_tpu_torch.ops.rotate import (SharedRotation, rotate_tile,
                                                shared_rotation)
-    from mixmogam_tpu_torch.models.resident import (_default_dtype,
+    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
+                                                    _default_dtype,
                                                     resident_and_device)
     from mixmogam_tpu_torch.models.source import resolve_source
     from mixmogam_tpu_torch.models.stepwise import _rot_null_from_delta
@@ -128,13 +139,15 @@ def emmax_two_snps(G, y, K=None, focal_idx: Optional[Sequence[int]] = None,
                                              project_design)
     from mixmogam_tpu_torch.ops.stats import f_sf_host
     from mixmogam_tpu_torch.ops.xreml import explicit_reml
+    from mixmogam_tpu_torch.parallel import distributed as pd
 
-    if mesh is not None:
-        raise NotImplementedError("mesh= (the SNP-sharded two-SNP scan) is "
-                                  "not ported yet: ROADMAP Queue 1 item 16c")
     y = np.asarray(y, dtype=np.float64).ravel()
     n = y.shape[0]
-    rg, device = resident_and_device(G, device)
+    if mesh is None:
+        rg, device = resident_and_device(G, device)
+    else:
+        mesh, device = pd.mesh_entry(mesh, G, "emmax_two_snps", device)
+        rg = G if isinstance(G, ResidentGenome) else None
     if dtype is None:
         dtype = _default_dtype(device)
     G_src = None if rg is not None else resolve_source(G)
@@ -144,41 +157,57 @@ def emmax_two_snps(G, y, K=None, focal_idx: Optional[Sequence[int]] = None,
     M = source.shape[0]
     focal_idx = _focal_set(focal_idx, from_result, top_k, M)
     X0 = _as_design(np.ones((n, 1)) if X0 is None else X0, n)
-
-    # ---- one eigh, the global null and a whitened null a focal SNP ----
-    clock = _StageClock(device)
-    if eig_k is None:
-        if K is None:
-            raise ValueError("need K or eig_k")
-        eig_k = eigen_k_on(np.asarray(K, np.float64), device)
-    null = fit_null_model(y, X0, eig_k=eig_k, ngrids=ngrids, llim=llim,
-                          ulim=ulim, device=device, dtype=torch.float64)
-    phi64, U64 = null.phi, null.U
-    X0_64 = torch.as_tensor(X0, device=device)
-    y_rot = U64.T @ torch.as_tensor(y, device=device)
-    X_rot = U64.T @ X0_64
+    # the focal rows, read from the source (on a mesh by every rank)
     ga64 = source_rows(source, focal_idx, torch.float64, device)   # (A, n)
-    ga_rot = ga64 @ U64
-    phi_dt = phi64.to(dtype)
-    nulls, designs = [], []
-    for i in range(len(focal_idx)):
-        Xa_rot = torch.cat([X_rot, ga_rot[i][:, None]], dim=1)
-        delta = (explicit_reml(phi64, y_rot, Xa_rot, ngrids=ngrids,
-                               llim=llim, ulim=ulim)["delta"]
-                 if refit_delta_per_focal else null.delta)
-        nulls.append(_rot_null_from_delta(phi_dt, float(delta), y_rot,
-                                          Xa_rot, dtype))
-        designs.append(design_basis(
-            torch.cat([X0_64, ga64[i][:, None]], dim=1), device, dtype))
-    rot = shared_rotation(project_design(U64, X0_64)[0], None, dtype)
-    ga = ga64.to(dtype)
-    del U64, ga_rot
-    clock.lap("null")
+    A = len(focal_idx)
 
-    # ---- the scan: each tile rotated once, then focal by focal ----
+    def null():
+        """One eigh, the global null, and a whitened null and a design a
+        focal SNP; the rotation by U' = (I - P_X0) U."""
+        clock = _StageClock(device)
+        eig = (eigen_k_on(np.asarray(K, np.float64), device)
+               if eig_k is None and K is not None else eig_k)
+        if eig is None:
+            raise ValueError("need K or eig_k")
+        fit = fit_null_model(y, X0, eig_k=eig, ngrids=ngrids, llim=llim,
+                             ulim=ulim, device=device, dtype=torch.float64)
+        phi64, U64 = fit.phi, fit.U
+        X0_64 = torch.as_tensor(X0, device=device)
+        y_rot = U64.T @ torch.as_tensor(y, device=device)
+        X_rot = U64.T @ X0_64
+        ga_rot = ga64 @ U64
+        phi_dt = phi64.to(dtype)
+        out = {"delta": float(fit.delta),
+               "h2": float(fit.pseudo_heritability)}
+        for i in range(A):
+            Xa_rot = torch.cat([X_rot, ga_rot[i][:, None]], dim=1)
+            delta = (explicit_reml(phi64, y_rot, Xa_rot, ngrids=ngrids,
+                                   llim=llim, ulim=ulim)["delta"]
+                     if refit_delta_per_focal else fit.delta)
+            out.update(pd.null_fields(_rot_null_from_delta(
+                phi_dt, float(delta), y_rot, Xa_rot, dtype), f"null{i}_"))
+            out[f"Xa{i}"], out[f"Xap{i}"] = design_basis(
+                torch.cat([X0_64, ga64[i][:, None]], dim=1), device, dtype)
+        out.update(pd.fields_of(shared_rotation(
+            project_design(U64, X0_64)[0], None, dtype), "rot_"))
+        clock.lap("null")
+        out["timings"] = clock.seconds()
+        return out
+
+    # ---- on a mesh rank 0's, replicated by one broadcast ----
+    nl = pd.on_rank0(null, mesh)
+    nulls = [pd.null_from_fields(nl, f"null{i}_") for i in range(A)]
+    designs = [(nl[f"Xa{i}"], nl[f"Xap{i}"]) for i in range(A)]
+    rot = pd.from_fields(SharedRotation, nl, "rot_")
+    ga = ga64.to(dtype)
+    clock = _StageClock(device)
+
+    # ---- the scan: each tile rotated once, then focal by focal (on a mesh
+    # this rank's rows) ----
+    part, src = pd.rank_sources(mesh, tile, device, rg, G_src)
     outs = []
     clock.lap()
-    for Gt in _source_tiles(rg, G_src, None, dtype, device, tile):
+    for Gt in _source_tiles(part, src, None, dtype, device, tile):
         clock.lap("load")
         Gf = Gt.to(dtype)
         R = rotate_tile(Gt, rot)
@@ -196,8 +225,9 @@ def emmax_two_snps(G, y, K=None, focal_idx: Optional[Sequence[int]] = None,
             clock.lap("interaction")
         outs.append(torch.stack(rows))
     del rot
-    timings = clock.seconds()
-    h = torch.cat(outs, dim=2).cpu().double().numpy()         # (A, 4, M)
+    timings = dict(nl["timings"], **clock.seconds())
+    h = pd.gathered_rows(pd.row_block(outs, (A, 4), dtype, device), mesh,
+                         M)                                      # (A, 4, M)
     del outs
     ts = time.perf_counter()
     dof = n - X0.shape[1] - 2
@@ -206,6 +236,6 @@ def emmax_two_snps(G, y, K=None, focal_idx: Optional[Sequence[int]] = None,
                         1.0)
     timings["p_values"] = time.perf_counter() - ts
     return {"cond_ps": cond_ps, "inter_ps": inter_ps,
-            "focal_idx": focal_idx, "delta": float(null.delta),
-            "pseudo_heritability": float(null.pseudo_heritability),
+            "focal_idx": focal_idx, "delta": nl["delta"],
+            "pseudo_heritability": nl["h2"],
             "timings_s": timings}

@@ -26,11 +26,14 @@ pass over dosages and no collective. distributed_train_step (the JAX
 package's training-step dry run) waits for ROADMAP Queue 1 item 16e.
 
 The entry points' own mesh= routes (models/emmax.py, loco.py, stepwise.py,
-multitrait.py, emma.py) are built from the helpers here on the same
-design: mesh_entry (the checks every route makes first), on_rank0 (rank
-0's null on every rank by one broadcast; its exception raised on every
-rank), rank_range / shard_packed_rows (a rank's rows at the call's tile),
-gathered_rows (the one all-gather).
+multitrait.py, emma.py, gxe.py, permutation.py, linear.py, twosnp.py) are
+built from the helpers here on the same design: mesh_entry (the checks
+every route makes first), on_rank0 (rank 0's null on every rank by one
+broadcast; its exception raised on every rank), rank_range /
+shard_packed_rows / rank_sources (a rank's rows at the call's tile),
+row_block and gathered_rows (the one all-gather); with mesh None, on_rank0,
+rank_sources and gathered_rows are the single-device call's own steps, so
+one code path serves both.
 """
 
 from __future__ import annotations
@@ -261,22 +264,36 @@ def _replicated_null(mesh: Mesh, device, dtype, y, X0, K, eig_k, rd,
     return rot, srot, {k: payload["null_" + k] for k in _NULL_SCALARS}
 
 
-def gathered_rows(block: torch.Tensor, mesh: Mesh, M: int) -> np.ndarray:
+def gathered_rows(block: torch.Tensor, mesh: Optional[Mesh], M: int
+                  ) -> np.ndarray:
     """Every rank's (..., m_rank) block of per-row results (the (4, m_rank)
     statistics, multi-trait's (T, 3, m_rank), EMMA's (5, m_rank)) in ONE
-    all-gather, as the (..., M) float64 host array, rows in rank order."""
-    h = gather_rows(block, mesh).cpu().double().numpy()
+    all-gather, as the (..., M) float64 host array, rows in rank order.
+    mesh None: one device's block, to the host."""
+    h = (block if mesh is None else gather_rows(block, mesh)
+         ).cpu().double().numpy()
     if h.shape[-1] != M:
         raise RuntimeError(f"the gathered statistics hold {h.shape[-1]} "
                            f"rows of {M}")
     return h
 
 
-def on_rank0(fn, mesh: Mesh) -> Dict[str, object]:
+def row_block(blocks, lead, dtype, device) -> torch.Tensor:
+    """A rank's (*lead, m) block of per-row results: its tiles' blocks
+    joined along the last axis, or (*lead, 0) when it holds no rows."""
+    if not blocks:
+        return torch.zeros(tuple(lead) + (0,), dtype=dtype, device=device)
+    return torch.cat(blocks, dim=-1)
+
+
+def on_rank0(fn, mesh: Optional[Mesh]) -> Dict[str, object]:
     """fn() run on rank 0 (a dict of tensors, Python values and None), on
     every rank by one broadcast_from_rank0 (rank 0's memory layout kept).
     An exception fn raises on rank 0 is sent in its place and raised on
-    every rank, so no rank waits on a broadcast that never comes."""
+    every rank, so no rank waits on a broadcast that never comes. mesh
+    None: fn() on one device."""
+    if mesh is None:
+        return fn()
     payload = None
     if mesh.rank == 0:
         try:
@@ -321,6 +338,22 @@ def rank_range(M: int, mesh: Mesh, tile: int) -> Tuple[int, int]:
     tile (multihost.host_snp_range), so each of its tiles has the shape
     one device gives the same rows."""
     return host_snp_range(M, mesh.shape[0], mesh.rank, tile=tile)
+
+
+def rank_sources(mesh: Optional[Mesh], tile: int, device, rg, *hosts):
+    """(container, *host sources) of the rows a call scans. One device
+    (mesh None): as given. On a mesh: a ResidentGenome's shard on the
+    rank's device (shard_packed_rows, at the container's tile) and no host
+    source; or, without one, each host source (the same M rows in other
+    forms, or None) cut to this rank's rank_range rows at `tile`."""
+    if mesh is None:
+        return (rg,) + hosts
+    if rg is not None:
+        return ((shard_packed_rows(rg, mesh, device=device),)
+                + (None,) * len(hosts))
+    M = next(h for h in hosts if h is not None).shape[0]
+    lo, hi = rank_range(M, mesh, tile)
+    return (None,) + tuple(None if h is None else h[lo:hi] for h in hosts)
 
 
 def mesh_entry(mesh, G, what: str, device=None) -> Tuple[Mesh, torch.device]:

@@ -355,6 +355,67 @@ def test_card_world_of_one_campaign_scans(cuda, tmp_path):
         dist.destroy_process_group()
 
 
+def test_card_world_of_one_remaining_scans(cuda, tmp_path):
+    """A world of one over NCCL: linear_model, anova and kruskal_wallis
+    (over a host-only container and in core), emmax_anova's diploid test,
+    emmax_perm_test (exact and int8x3 over a container, exact in core),
+    emmax_gxe (exact and int8x3, E = 2) and emmax_two_snps, each mesh=
+    call bit-equal to the single-device call on the same tiles."""
+    import torch.distributed as dist
+
+    from mixmogam_tpu_torch.models.gxe import emmax_gxe
+    from mixmogam_tpu_torch.models.emmax import emmax_anova
+    from mixmogam_tpu_torch.models.linear import (anova, kruskal_wallis,
+                                                  linear_model)
+    from mixmogam_tpu_torch.models.permutation import emmax_perm_test
+    from mixmogam_tpu_torch.models.resident import kinship_resident
+    from mixmogam_tpu_torch.models.twosnp import emmax_two_snps
+    from mixmogam_tpu_torch.parallel import make_mesh
+
+    n = 256
+    G, _, _ = simulate_genotypes(n, 3_000, seed=26)
+    D, _, _ = simulate_genotypes(n, 2_000, ploidy=2, missing_rate=0.02,
+                                 seed=27)
+    rng = np.random.default_rng(26)
+    y = G[31] * 0.5 + rng.normal(size=n)
+    env = np.column_stack([rng.normal(size=n), (rng.random(n) < 0.5) * 1.0])
+    host = ResidentGenome.from_source(G, tile=1_024, upload=False)
+    rg = ResidentGenome.from_source(G, tile=1_024, device=cuda)
+    K = kinship_resident(rg)
+
+    def same(got, ref, keys):
+        for k in keys:
+            np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        for fn, keys in ((linear_model, ("ps", "f_stats", "mask", "betas")),
+                         (anova, ("ps", "f_stats", "dof1", "dof2")),
+                         (kruskal_wallis, ("ps", "stats"))):
+            same(fn(host, y, mesh=mesh), fn(rg, y), keys)
+            same(fn(G, y, mesh=mesh), fn(G, y), keys)
+        same(emmax_anova(D, y, K=K, mesh=mesh), emmax_anova(D, y, K=K),
+             ("ps", "f_stats", "mask", "dof1", "dof2"))
+        for src, ref_src, tier in ((host, rg, "exact"), (host, rg, "int8x3"),
+                                   (G, G, None)):
+            same(emmax_perm_test(src, y, K=K, num_perm=16, precision=tier,
+                                 mesh=mesh),
+                 emmax_perm_test(ref_src, y, K=K, num_perm=16,
+                                 precision=tier), ("min_ps", "threshold"))
+        for tier in ("exact", "int8x3"):
+            same(emmax_gxe(G, y, env, K=K, precision=tier, mesh=mesh),
+                 emmax_gxe(G, y, env, K=K, precision=tier),
+                 ("marginal_ps", "inter_ps", "joint_ps", "mask",
+                  "mask_inter"))
+        same(emmax_two_snps(host, y, K=K, focal_idx=[5, 31, 700], mesh=mesh),
+             emmax_two_snps(rg, y, K=K, focal_idx=[5, 31, 700]),
+             ("cond_ps", "inter_ps"))
+    finally:
+        dist.destroy_process_group()
+
+
 def test_card_stepwise_vs_cpu_float64(cuda):
     """emmax_step_wise on the card (float32, no device=) against the float64
     CPU path: the same cofactor path and selected models, step 0's scan

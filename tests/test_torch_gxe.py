@@ -275,7 +275,7 @@ def test_refusals(data):
     with pytest.raises(ValueError, match="int8"):
         gxe.emmax_gxe(G + 0.5, y, env, K=K, precision="int8x3",
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(TypeError, match="make_mesh"):
         gxe.emmax_gxe(G, y, env, K=K, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="TF32"):
         gxe.emmax_gxe(G, y, env, K=K, precision="high", device="cpu")

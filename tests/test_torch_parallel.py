@@ -834,26 +834,25 @@ def test_emmax_loco_mesh_refusals(data, kw, exc, match):
         emmax_loco(data["G"], data["y"], chromosomes=CHROMS, **kw)
 
 
-#: the entry points of item 16c's first half: their mesh= runs (held on
-#: gloo worlds in tests/test_torch_parallel_campaign.py)
-_CAMPAIGNS = ("emma", "emmax_multi_trait", "emmax_step_wise")
-
-
 @pytest.mark.parametrize("entry", sorted(_other_entries()))
-def test_the_other_entry_points_mesh_waits_for_16c(data, entry):
-    """The entry points of 16c's second half refuse mesh=; those of its
-    first half run on a world of one, equal to one device bit for bit."""
+def test_the_other_entry_points_on_a_mesh_of_one(data, entry):
+    """Every other entry point's mesh= (item 16c: the campaign scans, GxE,
+    the permutation test, the class tests, two-SNP and emmax_anova's
+    diploid test) runs on a world of one, equal to one device bit for bit;
+    gloo worlds of 2 and 3 hold them in tests/test_torch_parallel_campaign.py
+    and tests/test_torch_parallel_scans.py."""
     call = _other_entries()[entry]
     args = (data["G"], data["y"], data["K"])
-    if entry not in _CAMPAIGNS:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 16c"):
-            call(*args, _CPU_MESH)
-        return
     got, ref = call(*args, _CPU_MESH), call(*args, None)
     if "selected" in ref:
         assert got["selected"] == ref["selected"]
         assert ([s["min_p"] for s in got["steps"]]
                 == [s["min_p"] for s in ref["steps"]])
         return
-    for k in ("ps", "f_stats", "mask"):
+    keys = [k for k in ("ps", "f_stats", "mask", "stats", "min_ps",
+                        "threshold", "marginal_ps", "inter_ps", "joint_ps",
+                        "mask_inter", "cond_ps", "dof1", "dof2")
+            if k in ref]
+    assert keys
+    for k in keys:
         np.testing.assert_array_equal(got[k], ref[k])

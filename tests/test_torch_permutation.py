@@ -208,7 +208,7 @@ def test_refusals(data):
     rg = ResidentGenome.from_source(G, device="cpu")
     with pytest.raises(NotImplementedError, match="TF32"):
         permutation.emmax_perm_test(rg, y, K=K, precision="high")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(TypeError, match="make_mesh"):
         permutation.emmax_perm_test(G, y, K=K, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="samples"):
         permutation.emmax_perm_test(rg, y[:-2], K=K[:-2, :-2])

@@ -166,7 +166,7 @@ def test_refusals_match_jax(data, kw, match):
 
 def test_other_refusals(data):
     G, y, K = data
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(TypeError, match="make_mesh"):
         twosnp.emmax_two_snps(G, y, K=K, focal_idx=[1], mesh=object(),
                               device="cpu")
     with pytest.raises(ValueError, match="need K or eig_k"):
