@@ -197,35 +197,37 @@ Phases (each prints its own seconds):
     (n x 131,072, 4,096-row tiles), SIGKILLed once 3 tile files exist and
     resumed here: at least 3 tiles restored, equal to an uninterrupted run
     (max |dp| <= 1e-12), and again after the manifest is cut to half its
-    bytes; (c) float32 dosages in [0, 2] with 1 % NaN, n x 5M/4 (13.4 GB at
-    full size): emmax with no stream= must stream by itself, rows
-    [0, 65,536) equal to emmax(stream=False) on them (max |dp| <= 1e-6);
+    bytes; (c) float32 dosages in [0, 2] with 1 % NaN, n x 9M/8 (12.1 GB at
+    full size, past the in-core budget): emmax with no stream= must stream
+    by itself, rows
+    [0, 32,768) equal to emmax(stream=False) on them (max |dp| <= 1e-6);
     then precision='bf16x3' streams them through the float route (K3 once
-    a tile, no K5): its wall, rate and stream_stats, rows [0, 65,536)
+    a tile, no K5): its wall, rate and stream_stats, rows [0, 32,768)
     equal to the in-core float route on them (max |dp| <= 1e-6, equal
     masks), the whole within FRACTIONAL_P_DRIFT['bf16x3'] of the streamed
     exact scan with equal masks; (d) emmax_multi_trait,
     T = 8, on (c)'s source: streamed (every tile read from the host), K3 T
-    times a tile, rows [0, 65,536) equal to the in-core multi-trait scan
+    times a tile, rows [0, 32,768) equal to the in-core multi-trait scan
     (max |dp| <= 1e-6), trait 0 within phase 9's 1e-5 of (c)'s single-trait
     p; (e) the CLI's run --stream on --checkpoint-dir on phase 6's PLINK
     fileset: its CSV equal to run_gwas emmax (max |dp| <= 1e-6), and a
     second identical run restores every tile and scans none
  16 the host data plane (native.py's C++ parsers, ResidentGenome's packed
     cache) at n samples, the rows cut so that writing the files (numpy,
-    timed apart) fits the phase: (a) a dosage CSV of 65,536 rows (1.3 GB
+    timed apart) fits the phase: (a) a dosage CSV of 32,768 rows (0.67 GB
     at full width): parse_snp_data on the native route, its GB/s, equal
-    to the source rows; (b) a VCF of 32,768 rows and a VCF.gz of 16,384
+    to the source rows; (b) a VCF of 16,384 rows and a VCF.gz of 8,192
     (haploid GT calls): read_vcf on the native route equal to the source,
     read_vcf_packed -> ResidentGenome on the card torch.equal to
     from_source of the same rows, each with its GB/s; read_vcf of the
-    first 1,024 rows on the Python route equal to the source; (c) phase
+    first 256 rows on the Python route equal to the source; (c) phase
     6's --facade-snps genome also as a dosage CSV and a VCF.gz: run_gwas
     emmax at 'exact' and 'int8x3' from the CSV and at 'bf16x3' from the
     VCF.gz, each equal (max |dp| <= 1e-12, the same masks) to the same
     call from phase 6's PLINK fileset, K1 once and K3 / K2 / K5; the exact
-    call again on the Python route (parse_snp_data's seconds on both
-    routes, both parses equal to the source); (d) from_source(G,
+    call from the CSV's first 2,048 rows on the native and on the Python
+    route, equal to each other (parse_snp_data's seconds on both routes,
+    both parses equal to the source); (d) from_source(G,
     cache_path=) on phase 4's genome cold, warm and validated, with
     trust_cache=True and with G=None, each wall printed, each packed
     genome torch.equal to phase 4's, packs growing only on the cold call;
@@ -235,7 +237,7 @@ Phases (each prints its own seconds):
     message
  17 imputed (fractional) dosages: the imputed form of phase 4's genome
     drawn on the card (g * 0.97 + 0.01 + U(-0.01, 0.01), 1 % NaN, float32):
-    (a) emmax in core (stream=False) at M = 131,072 (5.4 GB) on phase 4's
+    (a) emmax in core (stream=False) at M = 32,768 (1.3 GB) on phase 4's
     eigh at exact, bf16x3, bf16x2 and bf16, each wall and rate, K3 once a
     tile and nothing else, the bf16 rotation and the mask + K3 of one
     16,384-row tile timed alone; each bf16 tier against exact with equal
@@ -246,8 +248,9 @@ Phases (each prints its own seconds):
     max |dp| <= 1e-5), and the bf16x3 products' float32 sums against the
     float64 products of the same bf16 operands (max |d| / sum |g w| <=
     n 2^-24);
-    (d) emmax_loco on the first 16,384 rows in 5 TAIR10-proportioned
-    chromosomes at exact and bf16x3 (IBS) and exact (VanRaden): each wall,
+    (d) emmax_loco on the first 16,384 rows in 3 chromosomes (TAIR10's
+    proportions, 3-5 merged) at exact and bf16x3 (IBS) and exact
+    (VanRaden): each wall,
     each chromosome's log lines (gram+fetch, algebra+eigh, fit+scan), K3
     once a chromosome tile and nothing else; bf16x3 within
     FRACTIONAL_P_DRIFT of exact with equal masks; the host route's
@@ -305,7 +308,16 @@ Phases (each prints its own seconds):
     then adds the five on its two gloo ranks (the class tests, GxE and
     the permutation test over each rank's shard of its host-only
     container, two-SNP with A = 4 and emmax_anova on the host rows), each
-    within 1e-12 of its single-device call with identical masks
+    within 1e-12 of its single-device call with identical masks; and, on
+    the same two ranks as a (1, 2) 'sample' mesh (item 16d-i) on the first
+    16,384 rows (one tile), distributed_kinship bit-equal to one device,
+    distributed_emmax and distributed_emmax_resident at exact / int8x3 /
+    bf16x3 with the masks of one device's emmax_resident and max |dp|
+    within _tp_tol, emmax(mesh=) at int8x3, each rank's (n / 2, n) block of
+    U' / the planes / the parts, and the int8x3 plane products summed over
+    'sample' bit-equal to one device's whole-row torch._int_mm products;
+    each call's wall, the bytes each rank reduced and its launches printed
+    (K3's added to the kernels line)
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}. Any
@@ -1718,7 +1730,7 @@ def _stream_phase(args, kernels, launches, main, G, files, tmp) -> None:
 
     # (c) imputed dosages past the in-core budget: float32 in [0, 2], 1 %
     # NaN, drawn on the card
-    Mc = 5 * M // 4
+    Mc = 9 * M // 8
     ts = time.perf_counter()
     Gf = np.empty((Mc, n), dtype=np.float32)
     g = torch.Generator(device=dev).manual_seed(args.seed + 170)
@@ -1735,7 +1747,7 @@ def _stream_phase(args, kernels, launches, main, G, files, tmp) -> None:
     ss = st.get("stream_stats")
     if ss is None:
         raise AssertionError("(c) emmax did not route to the streamed scan")
-    head = 65_536
+    head = 32_768
     ref, _, dt_i = run(emmax, Gf[:head], y, eig_k=eig, stream=False)
     nm = int((st["mask"][:head] != ref["mask"]).sum())
     dp = float(np.abs(st["ps"][:head] - ref["ps"]).max())
@@ -1751,7 +1763,7 @@ def _stream_phase(args, kernels, launches, main, G, files, tmp) -> None:
         raise AssertionError("(c) imputed dosages off")
     # the bf16x3 tier on these dosages: streamed through the float route
     # (the bf16 products by the parts of U', then K3 a tile), held to the
-    # in-core float route on rows [0, 65,536) and to the exact tier
+    # in-core float route on rows [0, 32,768) and to the exact tier
     sb, cnt, dt = run(emmax, Gf, y, eig_k=eig, precision="bf16x3")
     ss = sb.get("stream_stats") or {}
     rb, _, dt_i = run(emmax, Gf[:head], y, eig_k=eig, stream=False,
@@ -1903,7 +1915,8 @@ def _host_data_phase(args, kernels, launches, main, G, files, tmp,
         raise AssertionError("phase 16 writes haploid calls: the genome "
                              "must be binary")
     Mf = min(args.facade_snps, M)
-    Ma, Mv, Mz, Mp = (min(r, M) for r in (65_536, 32_768, 16_384, 1_024))
+    Ma, Mv, Mz, Mp = (min(r, M) for r in (32_768, 16_384, 8_192, 256))
+    Mpy = min(2_048, Mf)                 # the Python route's facade rows
     # the facade genome's layout for the first Mf rows, chromosome 5 after
     chrom = np.r_[_tair10_chromosomes(Mf),
                   np.full(Ma - Mf, 5)].astype(np.int32)
@@ -1962,8 +1975,8 @@ def _host_data_phase(args, kernels, launches, main, G, files, tmp,
     del gd
     os.remove(big)
     fcsv = os.path.join(tmp, "facade.csv")
-    fsize = write_csv(fcsv, Mf)
-    gd_nat, t_nat = timed(parse_snp_data, fcsv)
+    write_csv(fcsv, Mf)
+    gd_nat = timed(parse_snp_data, fcsv)[0]
     same_rows("(a) the native CSV parse of the facade rows", gd_nat, Mf)
 
     # (b) VCF, plain and gzip
@@ -2023,13 +2036,13 @@ def _host_data_phase(args, kernels, launches, main, G, files, tmp,
               f"{json.dumps(tm)}; launches {cnt}", flush=True)
         return out["scan"], cnt
 
-    def held(label, got, ref):
+    def held(label, got, ref, what="the PLINK call"):
         dp = float(np.abs(got["ps"] - ref["ps"]).max())
         same = np.array_equal(got["mask"], ref["mask"])
-        print(f"   {label} vs the PLINK call: max|dp| {dp:.3e}, masks "
+        print(f"   {label} vs {what}: max|dp| {dp:.3e}, masks "
               f"{'equal' if same else 'differ'}", flush=True)
         if dp > 1e-12 or not same:
-            raise AssertionError(f"(c) {label} disagrees with PLINK")
+            raise AssertionError(f"(c) {label} disagrees with {what}")
 
     seen = {}
     parse = api.parse_snp_data
@@ -2055,15 +2068,25 @@ def _host_data_phase(args, kernels, launches, main, G, files, tmp,
             raise AssertionError(f"(c) {tier} from the {kind}: launches "
                                  f"{cnt}")
         if tier == "exact":
+            # the Python route on the facade CSV's first Mpy rows, held to
+            # the native route on that file (the kinship is of its rows)
+            head = os.path.join(tmp, "facade_head.csv")
+            hsize = write_csv(head, Mpy)
+            t_nat = timed(parse_snp_data, head)[1]
+            nat, _ = gwas(f"exact from the CSV's first {Mpy} rows", head,
+                          fmt, **kw)
             with python_route(), mock.patch.object(api, "parse_snp_data",
                                                    timed_parse):
-                py, _ = gwas("exact from the CSV, Python route", path, fmt,
-                             **kw)
-            held("exact from the CSV, Python route", py, ref)
-            same_rows("(c) the Python CSV parse", seen["gd"], Mf)
-            print(f"   parse_snp_data of the {Mf}-row CSV ({fsize / 1e6:.1f}"
-                  f" MB): Python route {seen['s']:.3f} s, native "
-                  f"{t_nat:.3f} s; both equal to the source", flush=True)
+                py, _ = gwas(f"exact from the CSV's first {Mpy} rows, "
+                             "Python route", head, fmt, **kw)
+            held("exact from the CSV's first rows, Python route", py, nat,
+                 "the native route's call")
+            same_rows("(c) the Python CSV parse", seen["gd"], Mpy)
+            print(f"   parse_snp_data of the {Mpy}-row CSV "
+                  f"({hsize / 1e6:.1f} MB): Python route {seen['s']:.3f} s,"
+                  f" native {t_nat:.3f} s; both equal to the source",
+                  flush=True)
+            os.remove(head)
     os.remove(fcsv)
     os.remove(fvcf)
     del gd_nat, seen
@@ -2225,8 +2248,8 @@ def _fractional_phase(args, kernels, launches, main, G, tmp, acc) -> None:
         return cnt == {k.__name__: (want if k is scan_stats else 0)
                        for k in kernels}
 
-    # (a) in core at M = 131,072: exact and the three bf16 tiers
-    Ma, tile = min(131_072, G.shape[0]), 16_384
+    # (a) in core at M = 32,768: exact and the three bf16 tiers
+    Ma, tile = min(32_768, G.shape[0]), 16_384
     ts = time.perf_counter()
     Gf = _imputed_rows(G[:Ma], args.seed + 190)
     print(f"(a) the source (not the system): {Ma} x {n} imputed float32 "
@@ -2321,10 +2344,11 @@ def _fractional_phase(args, kernels, launches, main, G, tmp, acc) -> None:
         raise AssertionError("(b) the bf16 products do not sum in float32")
     del srot, Gt, got, ref, mag, parts, imp
 
-    # (d) LOCO on the fractional source in 5 chromosomes, cut to 16,384 rows
-    # for the phase's time (three calls of five eighs and grams each)
+    # (d) LOCO on the fractional source in 3 chromosomes (TAIR10's 3-5
+    # merged), cut to 16,384 rows for the script's clock (three calls of
+    # three eighs and grams each)
     Md = min(16_384, Ma)
-    chrom = _tair10_chromosomes(Md)
+    chrom = np.minimum(_tair10_chromosomes(Md), 3)
     ranges = loco_mod._chrom_ranges(chrom)
     tiles_d = sum(-(-(e - s) // tile) for _, s, e in ranges)
     # the per-chromosome lines: an earlier phase may have raised the
@@ -2343,9 +2367,9 @@ def _fractional_phase(args, kernels, launches, main, G, tmp, acc) -> None:
             r, cnt, dt = run(emmax_loco, Gf[:Md], y, chromosomes=chrom, **kw)
         finally:
             log.removeHandler(h)
-        print(f"(d) emmax_loco {label}, fractional M={Md} (5 chromosomes): "
-              f"{dt:.3f} s = {Md / dt:,.0f} SNP-tests/s; launches {cnt}",
-              flush=True)
+        print(f"(d) emmax_loco {label}, fractional M={Md} ({len(ranges)} "
+              f"chromosomes): {dt:.3f} s = {Md / dt:,.0f} SNP-tests/s; "
+              f"launches {cnt}", flush=True)
         for line in h.lines:
             print(f"   {line}", flush=True)
         ps = r["ps"]
@@ -2419,7 +2443,7 @@ def _fractional_phase(args, kernels, launches, main, G, tmp, acc) -> None:
 
 
 #: phase 18 (b): one rank of a gloo world on the card, a subprocess
-_P18_RANK = r"""
+_P18_HEAD = r"""
 import datetime, json, pickle, sys, time
 import numpy as np
 sys.path.insert(0, {repo!r})
@@ -2441,9 +2465,15 @@ from mixmogam_tpu_torch.ops.hopper_kinship import (ibs_gram_packed,
 from mixmogam_tpu_torch.ops.hopper_scan import (rotate_scan_bf16_packed,
                                                 rotate_scan_int8_packed,
                                                 scan_stats)
+from mixmogam_tpu_torch.models.emmax import emmax
+from mixmogam_tpu_torch.ops.reml import esp_to_refine_iters, fit_null_model
+from mixmogam_tpu_torch.ops.rotate import rotate_tile
+from mixmogam_tpu_torch.ops.scan import build_rotated_null
 from mixmogam_tpu_torch.parallel import (distributed_emmax,
                                          distributed_emmax_resident,
                                          distributed_kinship, make_mesh)
+from mixmogam_tpu_torch.parallel import distributed as pd
+from mixmogam_tpu_torch.parallel.mesh import all_reduce
 from mixmogam_tpu_torch.parallel.multihost import host_snp_range
 
 rank, world = int(sys.argv[1]), int(sys.argv[2])
@@ -2472,6 +2502,10 @@ kernels = (ibs_gram_packed, ibs_gram_tri_packed, rotate_scan_int8_packed,
 for k in kernels:
     k.launches = 0
 walls, out = {{}}, {{}}
+"""
+
+#: phase 18 (b): the rank's scans over its 'snp' mesh of two
+_P18_SCANS = r"""
 ts = time.perf_counter()
 out["K"] = distributed_kinship(G, mesh)
 walls["kinship"] = time.perf_counter() - ts
@@ -2555,14 +2589,91 @@ r = emmax_anova(np.load({d!r} + "/D.npy", mmap_mode="r"), y,
 walls["emmax_anova"] = time.perf_counter() - ts
 for k in ("ps", "mask", "f_stats", "dof1", "dof2"):
     out["ea_" + k] = r[k]
+"""
+
+#: phase 18 (b): the 'sample' tensor-parallel scan on the same ranks as a
+#: (1, 2) mesh (_tp_gates holds it to one device)
+_P18_TP = r"""
+# ---- the 'sample' tensor-parallel scan (ROADMAP item 16d-i): the same two
+# ranks as a (1, 2) mesh, on the first {mt} rows (one tile) ----
+tp_mesh = make_mesh((1, 2))
+Gt = np.ascontiguousarray(G[:{mt}])
+rgt = ResidentGenome.from_source(Gt, upload=False)
+tp_walls, tp_bytes = {{}}, {{}}
+
+
+def timed(name, fn):
+    all_reduce.bytes = 0
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    tp_walls[name] = time.perf_counter() - ts
+    tp_bytes[name] = all_reduce.bytes
+    return r
+
+
+launches_before_tp = {{k.__name__: k.launches for k in kernels}}
+for k in kernels:
+    k.launches = 0
+out["tp_K"] = timed("distributed_kinship",
+                    lambda: distributed_kinship(Gt, tp_mesh))
+for tier, rb in {rb!r}.items():
+    for name, fn, src in (("", distributed_emmax, Gt),
+                          ("res_", distributed_emmax_resident, rgt)):
+        r = timed(fn.__name__ + " " + tier, lambda: fn(
+            src, y, eig_k=(phi, U), mesh=tp_mesh, rotate_in_bf16=rb))
+        for k in ("ps", "mask", "f_stats", "betas"):
+            out["tp_" + name + tier + "_" + k] = r[k]
+r = timed("emmax(mesh=) int8x3", lambda: emmax(
+    Gt, y, eig_k=(phi, U), mesh=tp_mesh, precision="int8x3"))
+for k in ("ps", "mask", "f_stats", "betas"):
+    out["tp_route_" + k] = r[k]
+tp_launches = {{k.__name__: k.launches for k in kernels}}
+# each rank's block of the rotation at each tier; at int8x3 the tile's
+# plane products summed over 'sample' against one device's whole-row
+# torch._int_mm products, from this rank's own single-device null
+X0 = np.ones((Gt.shape[1], 1))
+n_pad, b0, b1 = pd.sample_blocks(Gt.shape[1], tp_mesh)
+w_blocks, planes_equal = {{}}, None
+for tier, rb in {rb!r}.items():
+    tpn, _ = pd._tp_null(tp_mesh, mesh.device, torch.float32, y, X0, None,
+                         (phi, U), rb or None, False, 100, -10.0, 10.0, 1e-6,
+                         True, n_pad, b0, b1)
+    w_blocks[tier] = list(tpn.W.W.shape)
+    if tier == "int8x3":
+        Gb = torch.from_numpy(Gt[:, b0:b1]).to(mesh.device)
+        sums = [all_reduce(rotate_tile(Gb, tpn.W, plane=i), tp_mesh,
+                           axis="sample") for i in range(3)]
+        null = fit_null_model(y, X0, eig_k=(phi, U), refine_iters=
+                              esp_to_refine_iters(1e-6, 100, -10.0, 10.0),
+                              host_eigh=True, device=mesh.device,
+                              dtype=torch.float32)
+        planes = build_rotated_null(null, rotate_dtype="int8x3").planes
+        Gd = torch.from_numpy(Gt).to(mesh.device)
+        planes_equal = [bool(torch.equal(a, torch._int_mm(
+            Gd, p.t().contiguous().t()))) for a, p in zip(sums, planes)]
+        del Gb, sums, planes, Gd
+    del tpn
+"""
+
+_P18_TAIL = r"""
 print(json.dumps({{"rank": rank, "device": str(mesh.device),
                    "backend": mesh.backend,
+                   "tp": {{"mesh": [list(tp_mesh.shape), tp_mesh.snp_index,
+                                    tp_mesh.sample_index],
+                           "walls_s": {{k: round(v, 3)
+                                        for k, v in tp_walls.items()}},
+                           "reduced_bytes": tp_bytes,
+                           "launches": tp_launches,
+                           "w_blocks": w_blocks,
+                           "plane_sums_equal": planes_equal}},
                    "rows": host_snp_range(G.shape[0], world, rank),
                    "resident rows": host_snp_range(
                        rgh.M, world, rank, tile=rgh.tile),
                    "shard uploads": ResidentGenome.uploads,
                    "walls_s": {{k: round(v, 3) for k, v in walls.items()}},
-                   "launches": {{k.__name__: k.launches for k in kernels}},
+                   "launches": launches_before_tp,
                    "gloo_on_cuda_tensors": probe}}), flush=True)
 if rank == 0:
     np.savez({d!r} + "/out.npz", **out)
@@ -2570,6 +2681,7 @@ if rank == 0:
         pickle.dump(sw, f)
 dist.destroy_process_group()
 """
+_P18_RANK = _P18_HEAD + _P18_SCANS + _P18_TP + _P18_TAIL
 
 _P18_TIERS = {"exact": False, "int8x3": "int8x3", "bf16x3": "bf16x3"}
 #: phase 18 (b): max |dp| of emmax_loco(mesh=) against one device's call at
@@ -2890,17 +3002,22 @@ def _remaining_mesh_phase(args, kernels, launches, main, mesh):
         k3_as("emmax_perm_test", run, 0)
         _equal_arrays(f"(e) emmax_perm_test(mesh=) {tier} vs phase 13's", r,
                       perm[tier]["res"], ("min_ps", "threshold"))
+    # the first 8 of phase 13's focal SNPs (its top hits, in p order): each
+    # focal SNP's rows are its own, so they equal phase 13's first 8 rows
     two = main.pop("two13")
     A = len(two["res"]["focal_idx"])
+    Ae = min(8, A)
     r, wall, run = timed(lambda: emmax_two_snps(
-        rg, y, eig_k=eig, from_result={"ps": main["ps"]}, top_k=A,
+        rg, y, eig_k=eig, from_result={"ps": main["ps"]}, top_k=Ae,
         mesh=mesh))
-    print(f"(e) emmax_two_snps(mesh=), A={A} (phase 4's top hits), n={n} "
-          f"M={M}: {wall:.3f} s (phase 13's single-device call "
+    print(f"(e) emmax_two_snps(mesh=), A={Ae} (phase 4's top hits), n={n} "
+          f"M={M}: {wall:.3f} s (phase 13's single-device call at A={A} "
           f"{two['wall']:.3f} s); K3 launches {run['scan_stats']} (phase "
-          f"13: {two['k3']})", flush=True)
-    k3_as("emmax_two_snps", run, two["k3"])
-    _equal_arrays("(e) emmax_two_snps(mesh=) vs phase 13's", r, two["res"],
+          f"13: {two['k3']} at A={A})", flush=True)
+    k3_as("emmax_two_snps", run, two["k3"] * Ae // A)
+    _equal_arrays(f"(e) emmax_two_snps(mesh=) vs phase 13's first {Ae}", r,
+                  {k: two["res"][k][:Ae]
+                   for k in ("focal_idx", "cond_ps", "inter_ps")},
                   ("focal_idx", "cond_ps", "inter_ps"))
     del two, r
     torch.cuda.empty_cache()
@@ -2924,6 +3041,77 @@ def _remaining_mesh_phase(args, kernels, launches, main, mesh):
     return D, ref
 
 
+#: phase 18 (b)'s (1, 2) mesh: max |dp| of the 'sample' route against one
+#: device's emmax_resident. int8x3 and bf16x3 take their TIER_P_DRIFT
+#: entries (the card's drift of the tier against exact). The exact tier's
+#: entry is 0 (it is the reference); its partial products are float32 GEMMs
+#: summed over 'sample', which moves p as float32 sums in other shapes do:
+#: LOCO_OFF_TILE_TOL's bound (phase 13 (b): float32 against float64)
+def _tp_tol(tier: str) -> float:
+    from mixmogam_tpu_torch.ops.scan import TIER_P_DRIFT
+
+    return LOCO_OFF_TILE_TOL if tier == "exact" else TIER_P_DRIFT[tier]
+
+
+def _tp_gates(tps, z, refs, Gt, n, kernels, launches) -> None:
+    """Phase 18 (b)'s 'sample' tensor-parallel scan on a (1, 2) mesh of the
+    two gloo ranks, on the rows Gt (one tile): each rank's walls, bytes
+    reduced and launches (K3's added to the kernels line); each rank holds
+    its (n / 2, n) block of U' / the planes / the parts; the int8x3 plane
+    products summed over 'sample' bit-equal to one device's whole-row
+    torch._int_mm products; distributed_kinship bit-equal to one device;
+    distributed_emmax and distributed_emmax_resident at exact / int8x3 /
+    bf16x3 against one device's emmax_resident on the same rows (masks
+    equal, p within _tp_tol); emmax(mesh=) the same as distributed_emmax."""
+    import numpy as np
+
+    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
+                                                    kinship_resident)
+
+    Mt = Gt.shape[0]
+    for r, tp in enumerate(tps):
+        print(f"   (b) (1, 2) mesh, rank {r} at {tp['mesh']}: walls "
+              f"{tp['walls_s']} s; bytes the rank reduced a call "
+              f"{tp['reduced_bytes']}; launches {tp['launches']}; its "
+              f"blocks of the rotation {tp['w_blocks']}; int8x3 plane sums "
+              f"bit-equal to one device's {tp['plane_sums_equal']}",
+              flush=True)
+        want = {"exact": [n // 2, n], "int8x3": [3, n // 2, n],
+                "bf16x3": [3, n // 2, n]}
+        if tp["w_blocks"] != want:
+            raise AssertionError(f"(b) rank {r} holds {tp['w_blocks']} of "
+                                 f"the rotation, not {want}")
+        if tp["plane_sums_equal"] != [True] * 3:
+            raise AssertionError("(b) the int8x3 plane sums are not "
+                                 "bit-equal to one device's")
+        if tp["launches"]["scan_stats"] <= 0:
+            raise AssertionError("(b) the 'sample' route never launched "
+                                 "scan_stats")
+        for k in kernels:
+            launches[k.__name__] += tp["launches"][k.__name__]
+    ts = time.perf_counter()
+    Kt = kinship_resident(ResidentGenome.from_source(Gt))
+    same = np.array_equal(z["tp_K"], Kt)
+    print(f"   (b) (1, 2) distributed_kinship vs kinship_resident, M={Mt} "
+          f"({time.perf_counter() - ts:.3f} s): "
+          f"{'bit-equal' if same else 'NOT equal'}", flush=True)
+    if not same:
+        raise AssertionError("(b) the (1, 2) integer kinship is not "
+                             "bit-equal")
+    keys = ("ps", "mask", "f_stats", "betas")
+    for tier, ref in refs.items():
+        ref = {k: ref[k][:Mt] for k in keys}
+        for name in ("", "res_"):
+            _p18_gate(f"(b) (1, 2) distributed_emmax"
+                      f"{'_resident' if name else ''} {tier} vs "
+                      f"emmax_resident, n={n} M={Mt} (tol {_tp_tol(tier)})",
+                      {k: z[f"tp_{name}{tier}_{k}"] for k in keys}, ref,
+                      tol=_tp_tol(tier))
+    _p18_gate("(b) (1, 2) emmax(mesh=) int8x3 vs distributed_emmax int8x3",
+              {k: z[f"tp_route_{k}"] for k in keys},
+              {k: z[f"tp_int8x3_{k}"] for k in keys})
+
+
 def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
     """Phase 18: parallel/'s data-parallel core on the card. (a) A world of
     one over NCCL (a file store) at full width: distributed_kinship against
@@ -2932,7 +3120,7 @@ def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
     group, the sharded resident scan and emmax_loco(mesh=)
     (_resident_mesh_phase); (b) two gloo ranks sharing the card,
     subprocesses, on the first 32,768 rows, held to the single-device calls
-    by the same gates."""
+    by the same gates, then as a (1, 2) 'sample' mesh (_tp_gates)."""
     import pickle
 
     import numpy as np
@@ -3054,9 +3242,10 @@ def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
     np.save(os.path.join(d, "D.npy"), D)
     print(f"(b) the ranks' inputs written (not the system): "
           f"{time.perf_counter() - ts:.3f} s", flush=True)
+    Mt = min(16_384, Mb)
     src = _P18_RANK.format(repo=os.path.dirname(os.path.abspath(__file__)),
                            store=os.path.join(d, "store"), d=d,
-                           rb=_P18_TIERS, gxe_keys=_GXE_KEYS)
+                           rb=_P18_TIERS, gxe_keys=_GXE_KEYS, mt=Mt)
     ts = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, "-c", src, str(r), "2"],
                               stdout=subprocess.PIPE,
@@ -3080,6 +3269,8 @@ def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
     print(f"(b) two gloo ranks on one card, n={n} M={Mb}: {wall:.3f} s "
           f"from spawn to exit (two interpreters' start-up included)",
           flush=True)
+    tps = [json.loads(next(ln for ln in reversed(o.splitlines())
+                           if ln.startswith('{"rank"')))["tp"] for o in outs]
     z = np.load(os.path.join(d, "out.npz"))
     rgb = ResidentGenome.from_source(G[:Mb])
     Kb = kinship_resident(rgb)
@@ -3088,13 +3279,16 @@ def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
           flush=True)
     if not np.array_equal(z["K"], Kb):
         raise AssertionError("(b) the integer kinship is not bit-equal")
+    refs = {}
     for tier in _P18_TIERS:
-        ref = emmax_resident(rgb, y, eig_k=(phi, U), precision=tier)
+        ref = refs[tier] = emmax_resident(rgb, y, eig_k=(phi, U),
+                                          precision=tier)
         for name in ("", "res_"):
             _p18_gate(f"(b) distributed_emmax{'_resident' if name else ''} "
                       f"{tier} vs emmax_resident",
                       {k: z[f"{name}{tier}_{k}"]
                        for k in ("ps", "mask", "f_stats", "betas")}, ref)
+    _tp_gates(tps, z, refs, G[:Mt], n, kernels, launches)
     ts = time.perf_counter()
     ref = emmax_loco(ResidentGenome.from_source(Gl, tile=2_048), y[:nl],
                      chromosomes=chl)

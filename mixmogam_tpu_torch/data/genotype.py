@@ -25,6 +25,18 @@ import numpy as np
 MISSING = -1  # int8 sentinel for missing genotype
 
 
+#: bytes a chunk of write_csv's formatting may take, and what one cell
+#: takes there: its U4 copy (16 bytes), before the chunk's str list (the
+#: JAX package's chunk of 64 M cells is a 1 GiB U4 copy and its list)
+CSV_CHUNK_BYTES = 64 << 20
+CSV_BYTES_PER_CELL = 16
+
+
+def csv_chunk_rows(n: int) -> int:
+    """Rows a chunk of write_csv formats at once for n samples."""
+    return max(1, CSV_CHUNK_BYTES // (CSV_BYTES_PER_CELL * max(n, 1)))
+
+
 @dataclasses.dataclass
 class GenotypeData:
     matrix: np.ndarray            # (M, n) int8 dosages, MISSING = -1
@@ -206,12 +218,12 @@ class GenotypeData:
     def write_csv(self, path: str) -> None:
         """Binary/dosage CSV: header 'Chromosome,Position,acc1,...';
         one row per SNP (reference: SNPsDataSet.writeToFile shape)."""
-        # vectorized formatting in ROW CHUNKS: a whole-matrix U4 copy +
-        # str list would be many times the matrix itself
+        # vectorized formatting in ROW CHUNKS of CSV_CHUNK_BYTES: a
+        # whole-matrix U4 copy + str list would be many times the matrix
         with open(path, "w") as f:
             f.write("Chromosome,Position," + ",".join(self.accessions)
                     + "\n")
-            step = max(1, (64 << 20) // max(self.num_samples, 1))
+            step = csv_chunk_rows(self.num_samples)
             for s in range(0, self.num_snps, step):
                 m = self.matrix[s:s + step]
                 S = m.astype("U4")

@@ -551,13 +551,16 @@ def emmax_loco(G, y, chromosomes=None, method: str = "ibs",
 
 def _check_loco_mesh(mesh, precision, kw) -> None:
     """emmax_loco(mesh=)'s refusals, made on every rank before any
-    collective: a mesh that is not a Mesh, a tier other than exact, and
-    the single-device **kw (the JAX package's messages)."""
+    collective: a mesh that is not a Mesh, a 'sample' axis above 1 (ROADMAP
+    Queue 1 item 16d-ii), a tier other than exact, and the single-device
+    **kw (the JAX package's messages)."""
+    from mixmogam_tpu_torch.parallel.distributed import refuse_sample_axis
     from mixmogam_tpu_torch.parallel.mesh import Mesh
 
     if not isinstance(mesh, Mesh):
         raise TypeError("mesh must be a mixmogam_tpu_torch.parallel.Mesh "
                         f"(make_mesh()); got {type(mesh).__name__}")
+    refuse_sample_axis(mesh, "emmax_loco")
     if precision not in (None, "exact"):
         raise ValueError("mesh-distributed LOCO runs the exact tier; pass "
                          "precision=None/'exact'")

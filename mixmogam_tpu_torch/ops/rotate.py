@@ -75,14 +75,49 @@ def shared_rotation(Up: torch.Tensor, rotate_dtype, dt) -> SharedRotation:
     return rot
 
 
-def rotate_tile(G_tile: torch.Tensor, rot: SharedRotation) -> torch.Tensor:
-    """(m, n) Xr = G_tile @ W in rot's dtype.
+def rotation_rows(W_rows: torch.Tensor, w_scale, dt) -> SharedRotation:
+    """The SharedRotation of a block of a rotation's contraction rows, as
+    the tensor-parallel scan holds it (ops/scan.py::apply_rotation_psum):
+    (nb, n) U' rows in dt ('exact'), (K, nb, n) int8 digit planes with
+    their (n,) column scale w_scale, or (K, nb, n) bf16 parts. On the card
+    the planes are kept transposed, (K, n8, nb) with n padded to a
+    multiple of 8, as torch._int_mm's column-major right operand; nb must
+    be a multiple of 8 there (the mesh pads the sample axis so)."""
+    if w_scale is None:
+        tier = "bf16" if W_rows.dtype == torch.bfloat16 else None
+        W = W_rows if tier else W_rows.to(dt)
+        return SharedRotation(tier, W, None, dt)
+    rot = SharedRotation("int8", W_rows, w_scale, dt)
+    if W_rows.device.type == "cuda":
+        K, nb, n = W_rows.shape
+        if nb % _INT_MM_ALIGN:
+            raise ValueError(f"torch._int_mm takes a contraction width "
+                             f"that is a multiple of {_INT_MM_ALIGN}; the "
+                             f"planes hold {nb} rows")
+        n8 = -(-n // _INT_MM_ALIGN) * _INT_MM_ALIGN
+        rot.planes_t = torch.zeros((K, n8, nb), dtype=torch.int8,
+                                   device=W_rows.device)
+        rot.planes_t[:, :n] = W_rows.transpose(1, 2)
+        rot.w_scale_pad = torch.zeros(n8, dtype=dt, device=W_rows.device)
+        rot.w_scale_pad[:n] = w_scale
+    return rot
+
+
+def rotate_tile(G_tile: torch.Tensor, rot: SharedRotation,
+                plane: Optional[int] = None) -> torch.Tensor:
+    """(m, n) Xr = G_tile @ W in rot's dtype, n the width of W's outputs.
     G_tile: int8 dosages (the int8 tiers need them, fully observed) or
-    mean-imputed float rows. On the CPU: ops/scan.py apply_rotation."""
+    mean-imputed float rows. On the CPU: ops/scan.py apply_rotation.
+    plane: at an int8 tier, digit plane `plane`'s product alone, in exact
+    integers (int32 from torch._int_mm on the card; float64 on the CPU,
+    exact: |sum| <= 2 * 128 * n << 2^53), before the recombine (the
+    'sample' route sums it over its ranks first)."""
     from mixmogam_tpu_torch.ops import assert_fp32_matmuls
     from mixmogam_tpu_torch.ops.scan import apply_rotation
 
     if G_tile.device.type == "cpu":
+        if plane is not None:
+            return G_tile.to(torch.float64) @ rot.W[plane].to(torch.float64)
         return apply_rotation(G_tile, rot.W, rot.w_scale, rot.dt)
     assert_fp32_matmuls()
     if rot.tier is None:
@@ -98,13 +133,15 @@ def rotate_tile(G_tile: torch.Tensor, rot: SharedRotation) -> torch.Tensor:
     if G_tile.dtype != torch.int8:
         raise ValueError("the int8 digit-plane tiers take int8 dosages")
     m, n = G_tile.shape
-    n8 = rot.planes_t.shape[1]
-    if m < _INT_MM_ROWS or n8 != n:
-        Gp = torch.zeros((max(m, _INT_MM_ROWS), n8), dtype=torch.int8,
+    k8, n_out = rot.planes_t.shape[2], rot.W.shape[2]
+    if m < _INT_MM_ROWS or k8 != n:
+        Gp = torch.zeros((max(m, _INT_MM_ROWS), k8), dtype=torch.int8,
                          device=G_tile.device)
         Gp[:m, :n] = G_tile
     else:
         Gp = G_tile.contiguous()
+    if plane is not None:
+        return torch._int_mm(Gp, rot.planes_t[plane].t())[:m, :n_out]
     # the JAX package's recombine: A_i in dt times 256^i (exact: |A_i| <
     # 2^24), summed low digit first, then the column scale
     Xs = torch._int_mm(Gp, rot.planes_t[0].t()).to(rot.dt)
@@ -112,7 +149,7 @@ def rotate_tile(G_tile: torch.Tensor, rot: SharedRotation) -> torch.Tensor:
         Xs.add_(torch._int_mm(Gp, rot.planes_t[i].t()).to(rot.dt),
                 alpha=256.0 ** i)
     Xs.mul_(rot.w_scale_pad[None, :])
-    return Xs[:m, :n]
+    return Xs[:m, :n_out]
 
 
 def float_route_eig(K, eig_k, device, host_eigh=None):

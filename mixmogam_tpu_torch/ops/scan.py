@@ -387,6 +387,50 @@ def apply_rotation(G_tile: torch.Tensor, W: torch.Tensor, w_scale, dt
     return Xs * w_scale[None, :].to(dt)
 
 
+def apply_rotation_psum(G_block: torch.Tensor, W_rows, w_scale, dt, mesh,
+                        n_out: int) -> torch.Tensor:
+    """Tensor-parallel apply_rotation (the JAX package's
+    apply_rotation_psum): G_block (m, nb) holds a block of sample columns
+    and W_rows the matching contraction rows of the rotation; the partial
+    products are summed over the mesh's 'sample' axis (parallel/mesh.py::
+    all_reduce), and every rank of the group gets the (m, n_out) rotated
+    rows in dt.
+
+    W_rows: (nb, n_out) U' rows (exact), (K, nb, n_out) int8 digit planes
+    with their column scale w_scale, or (K, nb, n_out) bf16 parts; or the
+    ops/rotate.py::rotation_rows of one of them, whose card layout is then
+    prepared once. n_out is explicit, as in the JAX function: a
+    row-sharded square W defeats a shape heuristic, and it is checked.
+
+    int8: each plane's product in integers (ops/rotate.py::rotate_tile
+    with its plane: int32 on the card, the exact float64 product of
+    apply_rotation on the CPU), summed over 'sample' in those integers
+    BEFORE the base-256 recombine and the scale in dt, in apply_rotation's
+    order: bit-identical to one device's apply_rotation. bf16: the parts'
+    products accumulated locally in float32 (float64 on the CPU), then
+    summed. Exact: an fp32 GEMM with TF32 off, then summed. The float tiers
+    match one device to the partial sums' rounding."""
+    from mixmogam_tpu_torch.ops.rotate import (SharedRotation,
+                                               rotate_tile, rotation_rows)
+    from mixmogam_tpu_torch.parallel.mesh import all_reduce
+
+    rot = (W_rows if isinstance(W_rows, SharedRotation)
+           else rotation_rows(W_rows, w_scale, dt))
+    if rot.W.shape[-1] != n_out or rot.W.shape[-2] != G_block.shape[1]:
+        raise ValueError(f"apply_rotation_psum: a ({G_block.shape[1]}-"
+                         f"column) block and W rows {tuple(rot.W.shape)} "
+                         f"do not give {n_out} outputs")
+    if rot.w_scale is None:
+        return all_reduce(rotate_tile(G_block, rot), mesh, axis="sample")
+    Xs = None
+    for i in range(rot.W.shape[0]):
+        A = all_reduce(rotate_tile(G_block, rot, plane=i), mesh,
+                       axis="sample")
+        term = A.to(dt) * (256.0 ** i)
+        Xs = term if Xs is None else Xs + term
+    return Xs * rot.w_scale[None, :].to(dt)
+
+
 def build_rotated_null(null: NullModel, rotate_dtype=None) -> RotatedNull:
     """Scan constants of the null model, on the null's device and dtype.
     rotate_dtype: None (exact), a bf16 tier ('bf16', 'bf16x2', 'bf16x3',
@@ -500,6 +544,24 @@ def outside_design(G_tile: torch.Tensor, X0: torch.Tensor,
     R = G_tile - (G_tile @ X0p) @ X0.T
     gg = (G_tile * G_tile).sum(dim=1)
     return (R * R).sum(dim=1) > fi.eps * torch.clamp(gg, min=fi.tiny)
+
+
+def outside_design_psum(G_block: torch.Tensor, X0_rows: torch.Tensor,
+                        X0p_rows: torch.Tensor, mesh) -> torch.Tensor:
+    """outside_design of whole rows held as blocks of sample columns
+    (G_block, with the matching rows of X0 and X0p; zero where the block
+    pads the sample axis), on every rank of the mesh's 'sample' group: G
+    X0p summed over 'sample', then each block's |R_b|^2 and |g_b|^2 summed
+    again (two small all-reduces)."""
+    from mixmogam_tpu_torch.parallel.mesh import all_reduce
+
+    fi = torch.finfo(G_block.dtype)
+    GX = all_reduce(G_block @ X0p_rows, mesh, axis="sample")
+    R = G_block - GX @ X0_rows.T
+    rr, gg = all_reduce(torch.stack([(R * R).sum(dim=1),
+                                     (G_block * G_block).sum(dim=1)]),
+                        mesh, axis="sample")
+    return rr > fi.eps * torch.clamp(gg, min=fi.tiny)
 
 
 def scan_epilogue(Xs: torch.Tensor, Q0, y_res, rss0, dof

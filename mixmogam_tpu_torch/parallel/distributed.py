@@ -17,6 +17,16 @@ The JAX package's design, with its collectives written out:
   communication, and the (4, m_rank) statistics meet in ONE all-gather;
   p-values finalize in float64 on the host.
 
+On a mesh with a 'sample' axis (the JAX package's tensor-parallel scan,
+its _tp_resident_kernel and apply_rotation_psum), rank 0 sends each rank
+only its block of the rotation's contraction rows (scatter_from_rank0);
+each rank rotates its block of sample columns of its 'snp' rows, the
+partial products are summed over 'sample' (ops/scan.py::
+apply_rotation_psum; the int8 planes in integers), the mask of rows inside
+col(X0) comes from two more sums, kernel K3 runs the epilogue on the whole
+rows, and the statistics meet in one all-gather over 'snp'. Kinship has no
+W: its rows split over the whole world.
+
 Routes are decided for the whole mesh, so every rank takes the same route,
 raises the same refusal, and the result equals the single-device call's: a
 host source's facts (the largest dosage, missing calls, fractional
@@ -51,23 +61,36 @@ from mixmogam_tpu_torch.parallel.mesh import (Mesh, all_reduce,
 from mixmogam_tpu_torch.parallel.multihost import SnpShard, host_snp_range
 
 
-def _mesh_device(mesh: Optional[Mesh], device) -> Tuple[Mesh, torch.device]:
+def _mesh_device(mesh: Optional[Mesh], device, sample_route: bool = False
+                 ) -> Tuple[Mesh, torch.device]:
     """The mesh (default make_mesh(), whose device is the rank's card) and
-    the device the rank computes on (default the mesh's)."""
+    the device the rank computes on (default the mesh's). A 'sample' axis
+    above 1 raises NotImplementedError unless the caller has a route for
+    it (sample_route): no caller drops the axis quietly."""
     if mesh is None:
         mesh = make_mesh(devices=device)
+    if mesh.shape[1] != 1:
+        if not sample_route:
+            raise NotImplementedError(
+                "this mesh route has no 'sample' axis route (the "
+                "tensor-parallel scan): ROADMAP Queue 1 item 16d")
+        if mesh.shape[0] * mesh.shape[1] != mesh.world:
+            # a block of the samples alone would scan as the whole
+            raise ValueError(f"mesh shape {mesh.shape} != {mesh.world} "
+                             "ranks; build the mesh with make_mesh()")
     return mesh, (mesh.device if device is None else torch.device(device))
 
 
 def _local_rows(G, mesh: Mesh) -> Tuple[np.ndarray, int]:
     """(this rank's rows, the global row count M): a SnpShard's own rows, a
     ResidentGenome's shard rows (shard_packed_rows' range) unpacked on the
-    host, else rows host_snp_range gives the rank of the full matrix."""
+    host, else rows host_snp_range gives the rank's 'snp' coordinate of
+    the full matrix (the S ranks of a 'sample' group hold the same rows)."""
     from mixmogam_tpu_torch.models.resident import ResidentGenome
     from mixmogam_tpu_torch.models.source import resolve_source
 
     if isinstance(G, SnpShard):
-        lo, hi = host_snp_range(G.M, mesh.shape[0], mesh.rank)
+        lo, hi = host_snp_range(G.M, mesh.shape[0], mesh.snp_index)
         if (G.lo, G.hi) != (lo, hi):
             raise ValueError(f"rank {mesh.rank}'s shard holds rows "
                              f"[{G.lo}, {G.hi}); host_snp_range gives it "
@@ -76,9 +99,10 @@ def _local_rows(G, mesh: Mesh) -> Tuple[np.ndarray, int]:
     src = resolve_source(G)
     M = src.shape[0]
     if isinstance(src, ResidentGenome):
-        lo, hi = host_snp_range(M, mesh.shape[0], mesh.rank, tile=src.tile)
+        lo, hi = host_snp_range(M, mesh.shape[0], mesh.snp_index,
+                                tile=src.tile)
         return src[lo:hi], M
-    lo, hi = host_snp_range(M, mesh.shape[0], mesh.rank)
+    lo, hi = host_snp_range(M, mesh.shape[0], mesh.snp_index)
     rows = src[lo:hi]
     # an in-memory matrix's rows are a view; a memmap's (or a lazy
     # source's) are read into memory here
@@ -99,44 +123,82 @@ def _mesh_facts(rows: np.ndarray, mesh: Mesh, device) -> np.ndarray:
     return all_reduce(facts, mesh, dist.ReduceOp.MAX).cpu().numpy()
 
 
-def shard_packed_rows(rg, mesh: Mesh, device=None):
+def shard_packed_rows(rg, mesh: Mesh, device=None,
+                      sample_axis: bool = False):
     """This rank's packed rows of a ResidentGenome, as a container on the
     rank's device (default the mesh's). The JAX package places every
     rank's rows at once; here each rank places its own.
 
-    The rows are host_snp_range(rg.M, world, rank, tile=rg.tile), so every
-    tile of the shard has the shape the single-device scan gives it; the
-    last rank's shard keeps the container's zero pad rows up to its tile.
-    When the container's rows are on the rank's device already (or its
-    single-device upload is: ResidentGenome.on_device), the shard is a
-    view of them and a world of one uploads nothing twice; otherwise the
-    rank's bytes of host_packed go up once (counted in
-    ResidentGenome.uploads).
+    The rows are host_snp_range(rg.M, S_snp, the rank's 'snp' coordinate,
+    tile=rg.tile), so every tile of the shard has the shape the
+    single-device scan gives it; the last shard keeps the container's zero
+    pad rows up to its tile. When the container's rows are on the rank's
+    device already (or its single-device upload is: ResidentGenome.
+    on_device), the shard is a view of them and a world of one uploads
+    nothing twice; otherwise the rank's bytes of host_packed go up once
+    (counted in ResidentGenome.uploads).
 
-    Memoized on the container per (process group, rank, world, device):
-    repeated mesh calls over one genome (LOCO's chromosomes, the tiers)
-    reuse one upload. The shard holds device memory for as long as the
-    container lives."""
+    sample_axis=True (the JAX package's, for a 'sample' axis of S): the
+    byte axis is zero-padded to a multiple of 2 S (sample_blocks) and the
+    rank takes only its byte block, 4 * nb / S samples of its 'sample'
+    coordinate; its container's n is that block's sample count, and the
+    samples past the genome's n decode as 0 (zero bytes) or -1 (the last
+    byte's column padding), which the scan drops.
+
+    Memoized on the container per (process group, rank, world, device),
+    with the mesh's shape and the rank's 'sample' coordinate for a byte
+    block: repeated mesh calls over one genome (LOCO's chromosomes, the
+    tiers) reuse one upload. The shard holds device memory for as long as
+    the container lives."""
     from mixmogam_tpu_torch.models.resident import ResidentGenome, device_key
 
     tile = rg.tile
     device = device_key(mesh.device if device is None else device)
     key = (mesh.group, mesh.rank, mesh.world, device)
+    if sample_axis:
+        key += (mesh.shape, mesh.sample_index)
     shard = rg._shards.get(key)
     if shard is None:
-        lo, hi = host_snp_range(rg.M, mesh.shape[0], mesh.rank, tile=tile)
+        lo, hi = host_snp_range(rg.M, mesh.shape[0], mesh.snp_index,
+                                tile=tile)
         end = max(lo, min(-(-hi // tile) * tile, rg.host_packed.shape[0]))
+        host = rg.host_packed[lo:end]
+        n = rg.n
+        if sample_axis:
+            _, b0, b1 = sample_blocks(rg.n, mesh, packed=True)
+            host = np.zeros((end - lo, b1 - b0), dtype=np.uint8)
+            cut = rg.host_packed[lo:end, b0:b1]
+            host[:, :cut.shape[1]] = cut
+            n = 4 * (b1 - b0)
         on = rg if not rg.on_host else rg._uploads.get(device)
-        if on is not None and on.device == device:
+        if not sample_axis and on is not None and on.device == device:
             rows = on.packed[lo:end]
         else:
             ResidentGenome.uploads += 1
-            rows = torch.from_numpy(rg.host_packed[lo:end]).to(device)
-        shard = ResidentGenome(rows, hi - lo, rg.n, rg.ploidy, tile,
-                               rg.has_missing,
-                               host_packed=rg.host_packed[lo:end])
+            rows = torch.from_numpy(np.ascontiguousarray(host)).to(device)
+        shard = ResidentGenome(rows, hi - lo, n, rg.ploidy, tile,
+                               rg.has_missing, host_packed=host)
         rg._shards[key] = shard
     return shard
+
+
+def sample_blocks(n: int, mesh: Mesh, packed: bool = False
+                  ) -> Tuple[int, int, int]:
+    """(n_pad, lo, hi) of the 'sample' axis of S: the n samples padded to
+    n_pad = a multiple of 8 S, and this rank's block [lo, hi) of
+    n_pad / S. In core lo, hi are sample columns. packed=True: they are
+    byte columns of the packed rows, ceil(n / 4) bytes padded to a
+    multiple of 2 S, and n_pad = 4 bytes a byte. Each block is then a
+    multiple of 8 samples wide, as the int8 products on the card take
+    their contraction (ops/rotate.py::rotation_rows)."""
+    S, j = mesh.shape[1], mesh.sample_index
+    if packed:
+        nb = -(-((n + 3) // 4) // (2 * S)) * 2 * S
+        bb = nb // S
+        return 4 * nb, j * bb, (j + 1) * bb
+    n_pad = -(-n // (8 * S)) * 8 * S
+    w = n_pad // S
+    return n_pad, j * w, (j + 1) * w
 
 
 def distributed_kinship(G, mesh: Optional[Mesh] = None, method: str = "ibs",
@@ -156,7 +218,11 @@ def distributed_kinship(G, mesh: Optional[Mesh] = None, method: str = "ibs",
     has_missing and ploidy, with no collective. method='ibs' takes binary
     dosages only, as in the JAX package. Every rank returns the (n, n)
     float64 numpy array. device: the rank's (default the mesh's: its
-    card)."""
+    card). On a mesh with a 'sample' axis the gram has no W to shard: the
+    rows split over every rank of the world (host_snp_range(M, world,
+    rank); a rank's SnpShard is split among its 'sample' group), then one
+    world-wide all-reduce, so the integer gram is bit-equal to one
+    device's."""
     from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                     ibs_counts_resident)
     from mixmogam_tpu_torch.ops.kinship import (check_kinship_method,
@@ -166,13 +232,26 @@ def distributed_kinship(G, mesh: Optional[Mesh] = None, method: str = "ibs",
                                                 vanraden_partial)
 
     method = check_kinship_method(method)
-    mesh, device = _mesh_device(mesh, device)
+    mesh, device = _mesh_device(mesh, device, sample_route=True)
+    rows = None
+    if mesh.shape[1] > 1:
+        if isinstance(G, SnpShard):
+            # a 'sample' group holds one shard: its ranks split its rows
+            rows, M = _local_rows(G, mesh)
+            a, b = host_snp_range(rows.shape[0], mesh.shape[1],
+                                  mesh.sample_index, tile=1)
+            rows = rows[a:b]
+        # the gram has no W to shard: the rows split over the whole world
+        # (a (world, 1) view of the group) and meet in one all-reduce
+        mesh = Mesh((mesh.world, 1), mesh.group, mesh.backend, mesh.rank,
+                    mesh.world, mesh.device)
     rg = G if isinstance(G, ResidentGenome) else None
     if rg is not None:
         rows, M, n = None, rg.M, rg.n
         ploidy, missing, not_int8 = rg.ploidy, rg.has_missing, False
     else:
-        rows, M = _local_rows(G, mesh)
+        if rows is None:
+            rows, M = _local_rows(G, mesh)
         n = rows.shape[1]
         mx, missing, not_int8 = _mesh_facts(rows, mesh, device)
         ploidy = 2 if mx > 1 else 1
@@ -225,36 +304,46 @@ _NULL_SCALARS = ("pseudo_heritability", "delta", "sigma_g2", "sigma_e2",
                  "ll")
 
 
-def _replicated_null(mesh: Mesh, device, dtype, y, X0, K, eig_k, rd,
-                     float_route: bool, ngrids, llim, ulim, esp, host_eigh):
-    """(rot, srot, null scalars) on every rank: rank 0 fits the null (K or
-    eig_k needed there only) and builds the rotated null at the tier rd
-    (the packed kernels' operand), or for the float route the exact tier's
-    null and the bf16 parts of U' (srot); then one broadcast."""
+def _fit_rotated(device, dtype, y, X0, K, eig_k, rd, float_route: bool,
+                 ngrids, llim, ulim, esp, host_eigh):
+    """(payload, the float route's parts) of rank 0's null: it fits the
+    null (K or eig_k needed there only) and builds the rotated null at the
+    tier rd (the packed kernels' operand), or for the float route the
+    exact tier's null and the bf16 parts of U' (else None). payload: the
+    rotated null's fields (null_fields) and the null's scalars."""
     from mixmogam_tpu_torch.ops.reml import (esp_to_refine_iters,
                                              fit_null_model)
-    from mixmogam_tpu_torch.ops.rotate import (SharedRotation,
-                                               float_route_eig,
-                                               float_rotation)
+    from mixmogam_tpu_torch.ops.rotate import float_route_eig, float_rotation
     from mixmogam_tpu_torch.ops.scan import build_rotated_null
 
+    eig = (float_route_eig(K, eig_k, device, host_eigh) if float_route
+           else eig_k)
+    null = fit_null_model(y, X0, K=K, eig_k=eig, ngrids=ngrids, llim=llim,
+                          ulim=ulim, refine_iters=esp_to_refine_iters(
+                              esp, ngrids, llim, ulim),
+                          host_eigh=host_eigh, device=device, dtype=dtype)
+    payload = null_fields(build_rotated_null(
+        null, rotate_dtype=None if float_route else rd))
+    for k in _NULL_SCALARS:
+        payload["null_" + k] = float(getattr(null, k))
+    # the float route cuts its parts from this eigenbasis in float64
+    parts = (float_rotation(eig[1], X0, rd, dtype, device).W if float_route
+             else None)
+    return payload, parts
+
+
+def _replicated_null(mesh: Mesh, device, dtype, y, X0, K, eig_k, rd,
+                     float_route: bool, ngrids, llim, ulim, esp, host_eigh):
+    """(rot, srot, null scalars) on every rank: rank 0's _fit_rotated (srot:
+    the float route's SharedRotation of the bf16 parts of U'), then one
+    broadcast."""
+    from mixmogam_tpu_torch.ops.rotate import SharedRotation
+
     def fit():
-        eig = (float_route_eig(K, eig_k, device, host_eigh) if float_route
-               else eig_k)
-        null = fit_null_model(y, X0, K=K, eig_k=eig, ngrids=ngrids,
-                              llim=llim, ulim=ulim,
-                              refine_iters=esp_to_refine_iters(
-                                  esp, ngrids, llim, ulim),
-                              host_eigh=host_eigh, device=device,
-                              dtype=dtype)
-        rot = build_rotated_null(null,
-                                 rotate_dtype=None if float_route else rd)
-        payload = null_fields(rot)
-        # the float route cuts its parts from this eigenbasis in float64
-        payload["srot"] = (float_rotation(eig[1], X0, rd, dtype, device).W
-                           if float_route else None)
-        for k in _NULL_SCALARS:
-            payload["null_" + k] = float(getattr(null, k))
+        payload, parts = _fit_rotated(device, dtype, y, X0, K, eig_k, rd,
+                                      float_route, ngrids, llim, ulim, esp,
+                                      host_eigh)
+        payload["srot"] = parts
         return payload
 
     payload = on_rank0(fit, mesh)
@@ -262,6 +351,118 @@ def _replicated_null(mesh: Mesh, device, dtype, y, X0, K, eig_k, rd,
     srot = (None if payload["srot"] is None
             else SharedRotation(rd, payload["srot"], None, dtype))
     return rot, srot, {k: payload["null_" + k] for k in _NULL_SCALARS}
+
+
+@dataclasses.dataclass
+class TPNull:
+    """A rank's share of the rotated null on a mesh with a 'sample' axis:
+    the epilogue's constants (kernel K3's sd, y_res, Q0, rss0, dof), the
+    rank's block of the rotation's contraction rows and of the design's
+    rows, and where the block lies."""
+
+    #: the epilogue's null, with no rotation: the exact tier's and the
+    #: float route's own (sd, Q0); the folded W'' of the int8 / bf16 tiers
+    #: rotates and whitens, so sd = 1 and Q0 one zero column (K3 takes
+    #: 1 <= q <= 128: c is then exactly 0)
+    epi: object
+    #: ops/rotate.py::rotation_rows of the rank's (n_pad / S, n) block of
+    #: U' / every digit plane (with the column scale) / every bf16 part
+    W: object
+    X0: torch.Tensor          # (n_pad / S, q) rows of X0, zero past n
+    X0p: torch.Tensor         # the same of X0p
+    n: int
+    lo: int                   # the block's first sample column
+    width: int                # its sample columns below n
+
+
+def _tp_null(mesh: Mesh, device, dtype, y, X0, K, eig_k, rd,
+             float_route: bool, ngrids, llim, ulim, esp, host_eigh,
+             n_pad: int, lo: int, hi: int):
+    """(TPNull, null scalars) on every rank of a mesh with a 'sample'
+    axis: rank 0's _fit_rotated, its small constants broadcast, and each
+    rank sent only its contraction-row block [lo, hi) of the rotation (U',
+    the planes or parts of W'', or the float route's parts of U'), its
+    rows zero-padded to n_pad, by one scatter (parallel/mesh.py::
+    scatter_from_rank0): no other rank holds the whole rotation."""
+    from mixmogam_tpu_torch.ops.rotate import rotation_rows
+    from mixmogam_tpu_torch.parallel.mesh import scatter_from_rank0
+
+    held = {}
+
+    def fit():
+        payload, parts = _fit_rotated(device, dtype, y, X0, K, eig_k, rd,
+                                      float_route, ngrids, llim, ulim, esp,
+                                      host_eigh)
+        W = next(w for w in (parts, payload.pop("U"), payload.pop("planes"),
+                             payload.pop("parts")) if w is not None)
+        held["W"] = torch.nn.functional.pad(
+            W, (0, 0, 0, n_pad - W.shape[-2]))
+        payload["w_block"] = (tuple(W.shape[:-2]) + (hi - lo, W.shape[-1]),
+                              W.dtype)
+        return payload
+
+    payload = on_rank0(fit, mesh)
+    shape, wdt = payload.pop("w_block")
+    blocks = (list(torch.split(held.pop("W"), hi - lo, dim=-2))
+              if "W" in held else None)
+    Wb = scatter_from_rank0(blocks, mesh, shape, wdt)
+    del blocks
+    rot = null_from_fields(dict(payload, U=None, planes=None, parts=None))
+    n = rot.sd.shape[0]
+    if rot.folded:
+        dt = rot.sd.dtype
+        epi = dataclasses.replace(
+            rot, sd=torch.ones_like(rot.sd),
+            Q0=torch.zeros((n, 1), dtype=dt, device=rot.sd.device),
+            w_scale=None, folded=False)
+    else:
+        epi = rot
+    width = max(0, min(hi, n) - lo)
+
+    def rows_of(A):
+        out = torch.zeros((hi - lo, A.shape[1]), dtype=A.dtype,
+                          device=A.device)
+        out[:width] = A[lo:lo + width]
+        return out
+
+    tp = TPNull(epi=epi, W=rotation_rows(Wb, rot.w_scale, dtype),
+                X0=rows_of(rot.X0), X0p=rows_of(rot.X0p), n=n, lo=lo,
+                width=width)
+    return tp, {k: payload["null_" + k] for k in _NULL_SCALARS}
+
+
+def _tp_scan_tile(Gb: torch.Tensor, tp: TPNull, mesh: Mesh) -> torch.Tensor:
+    """(4, m) [f, beta, var_perc, mask] of a tile's block of sample columns
+    (int8 dosages, or mean-imputed float rows; zero past the genome's n),
+    the same on every rank of the 'sample' group: the rotation's partial
+    products summed over 'sample' (ops/scan.py::apply_rotation_psum), the
+    mask of the rows inside col(X0) from sums over 'sample'
+    (outside_design_psum), then kernel K3 on the whole rotated rows (its
+    plain version on the CPU)."""
+    from mixmogam_tpu_torch.ops.scan import (apply_rotation_psum,
+                                             emmax_scan_prerotated,
+                                             outside_design_psum)
+
+    Xs = apply_rotation_psum(Gb, tp.W, tp.W.w_scale, tp.W.dt, mesh, tp.n)
+    keep = outside_design_psum(Gb.to(tp.X0p.dtype), tp.X0, tp.X0p, mesh)
+    return emmax_scan_prerotated(Xs, tp.epi, keep)
+
+
+def _tp_imputed(G: torch.Tensor, miss: torch.Tensor, valid: torch.Tensor,
+                dtype, mesh: Mesh) -> torch.Tensor:
+    """A block of sample columns (m, nb) with its missing calls set to
+    their row's mean over the observed calls of every block (moments
+    summed over 'sample', in dtype; 0 for an all-missing row: the rule of
+    models/streaming.py::_impute_tile), and the columns past the genome's
+    n (valid False) to 0."""
+    zero = torch.zeros((), dtype=dtype, device=G.device)
+    obs = torch.where(miss | ~valid[None, :], zero, G.to(dtype))
+    cnt = ((~miss) & valid[None, :]).sum(dim=1).to(dtype)
+    tot, cnt = all_reduce(torch.stack([obs.sum(dim=1), cnt]), mesh,
+                          axis="sample")
+    mu = tot / torch.clamp(cnt, min=1)
+    return torch.where(valid[None, :], torch.where(miss, mu[:, None], obs),
+                       zero)
 
 
 def gathered_rows(block: torch.Tensor, mesh: Optional[Mesh], M: int
@@ -335,9 +536,9 @@ def null_from_fields(payload: Dict[str, object], prefix: str = ""):
 
 def rank_range(M: int, mesh: Mesh, tile: int) -> Tuple[int, int]:
     """This rank's rows [lo, hi) of an M-row host source at the call's
-    tile (multihost.host_snp_range), so each of its tiles has the shape
-    one device gives the same rows."""
-    return host_snp_range(M, mesh.shape[0], mesh.rank, tile=tile)
+    tile (multihost.host_snp_range of its 'snp' coordinate), so each of
+    its tiles has the shape one device gives the same rows."""
+    return host_snp_range(M, mesh.shape[0], mesh.snp_index, tile=tile)
 
 
 def rank_sources(mesh: Optional[Mesh], tile: int, device, rg, *hosts):
@@ -356,19 +557,46 @@ def rank_sources(mesh: Optional[Mesh], tile: int, device, rg, *hosts):
     return (None,) + tuple(None if h is None else h[lo:hi] for h in hosts)
 
 
+#: the ROADMAP Queue 1 item that brings each entry point's 'sample' route
+#: (emmax has it: its routes are distributed_emmax and
+#: distributed_emmax_resident; emma refuses the axis as the JAX package
+#: does)
+SAMPLE_AXIS_ITEM = {
+    "emmax_step_wise": "16d-ii", "emmax_loco": "16d-ii",
+    "emmax_multi_trait": "16d-ii",
+    "emmax_gxe": "16d-iii", "emmax_perm_test": "16d-iii",
+    "emmax_anova": "16d-iii", "emmax_two_snps": "16d-iii",
+    "linear_model": "16d-iii", "anova": "16d-iii", "kruskal_wallis": "16d-iii",
+}
+
+
+def refuse_sample_axis(mesh: Mesh, what: str) -> None:
+    """The refusal of a 'sample' axis above 1 by an entry point without a
+    route for it: NotImplementedError naming its ROADMAP Queue 1 item
+    (SAMPLE_AXIS_ITEM); emma's is the JAX package's own ValueError."""
+    if mesh.shape[1] == 1:
+        return
+    if what == "emma":
+        raise ValueError("mesh-distributed EMMA shards 'snp' only; use a "
+                         "('snp', 1) mesh")
+    raise NotImplementedError(
+        f"{what}(mesh=) on a 'sample' axis above 1 (the tensor-parallel "
+        f"scan) is not ported yet: ROADMAP Queue 1 item "
+        f"{SAMPLE_AXIS_ITEM[what]}")
+
+
 def mesh_entry(mesh, G, what: str, device=None) -> Tuple[Mesh, torch.device]:
     """(mesh, the rank's device: `device`, default the mesh's) of an entry
     point's mesh= route, after the checks that route makes on every rank
     before anything else: mesh is a Mesh (make_mesh()), its 'sample' axis
-    is 1 (ROADMAP Queue 1 item 16d), and G is the whole source, not a
-    rank's SnpShard (the entry points read their rows from it)."""
+    is 1 unless the entry point has a route for it (emmax;
+    refuse_sample_axis), and G is the whole source, not a rank's SnpShard
+    (the entry points read their rows from it)."""
     if not isinstance(mesh, Mesh):
         raise TypeError("mesh must be a mixmogam_tpu_torch.parallel.Mesh "
                         f"(make_mesh()); got {type(mesh).__name__}")
-    if mesh.shape[1] != 1:
-        raise NotImplementedError(
-            "a 'sample' axis above 1 (the tensor-parallel scan) is not "
-            "ported yet: ROADMAP Queue 1 item 16d")
+    if what != "emmax":
+        refuse_sample_axis(mesh, what)
     if isinstance(G, SnpShard):
         raise TypeError(f"{what}(mesh=) takes the whole matrix on every "
                         "rank; pass a rank's SnpShard to distributed_emmax")
@@ -417,7 +645,10 @@ def distributed_emmax(G, y, K=None, X0: Optional[np.ndarray] = None,
     rows inside col(X0)); fractional dosages at a bf16 tier the float route
     (ops/rotate.py, then K3). An int8 tier on missing or fractional dosages
     raises, on every rank. Then one all-gather of the (4, m_rank)
-    statistics, and float64 host p-values. dtype: a torch dtype, float32 on
+    statistics, and float64 host p-values. On a mesh with a 'sample' axis
+    every tier takes _tp_scan: each rank holds its block of U' / the
+    planes / the parts and rotates its block of sample columns, the
+    partials summed over 'sample', then K3. dtype: a torch dtype, float32 on
     the card and float64 on the CPU by default; device: the rank's
     (default the mesh's: its card)."""
     from mixmogam_tpu_torch.models.emmax import (_as_design, _incore_rows,
@@ -434,7 +665,7 @@ def distributed_emmax(G, y, K=None, X0: Optional[np.ndarray] = None,
             llim=llim, ulim=ulim, esp=esp, dtype=dtype,
             rotate_in_bf16=rotate_in_bf16, host_eigh=host_eigh,
             device=device)
-    mesh, device = _mesh_device(mesh, device)
+    mesh, device = _mesh_device(mesh, device, sample_route=True)
     if dtype is None:
         dtype = _default_dtype(device)
     y = np.asarray(y, dtype=np.float64).ravel()
@@ -442,11 +673,15 @@ def distributed_emmax(G, y, K=None, X0: Optional[np.ndarray] = None,
     X0 = _as_design(np.ones((n, 1)) if X0 is None else X0, n)
     rows, M = _local_rows(G, mesh)
     rd = normalize_rotate_tier(rotate_in_bf16)
+    sample_axis = mesh.shape[1] > 1
     # the route, for the whole mesh: packed rows where every rank's rows
     # are integer dosages, the float route where some rank's are fractional
-    G8 = as_int8_dosage(rows) if rd is not None else None
+    G8 = as_int8_dosage(rows) if rd is not None or sample_axis else None
+    # (the 'sample' route imputes float rows' NaN from its own moments)
+    nan = sample_axis and G8 is None and bool(np.isnan(rows).any())
     fractional, missing = all_reduce(torch.tensor(
-        [float(G8 is None), float(G8 is not None and (G8 < 0).any())],
+        [float(G8 is None),
+         float(G8 is not None and (G8 < 0).any() or nan)],
         dtype=torch.float64, device=device), mesh,
         dist.ReduceOp.MAX).tolist()
     if rd is not None and rd.startswith("int8") and (fractional or missing):
@@ -454,6 +689,12 @@ def distributed_emmax(G, y, K=None, X0: Optional[np.ndarray] = None,
             f"rotate_in_bf16={rotate_in_bf16!r} requires integer dosages, "
             "fully observed (digit-plane matmuls round genotypes to int8)")
     packed = rd is not None and not fractional
+    if sample_axis:
+        out, rot, nulls = _tp_scan(
+            rows if G8 is None else G8, None, missing, mesh, device, dtype,
+            y, X0, K, eig_k, rd, rd is not None and not packed, ngrids,
+            llim, ulim, esp, host_eigh, tile)
+        return _gathered_result(out, mesh, M, rot, nulls)
     rot, srot, nulls = _replicated_null(
         mesh, device, dtype, y, X0, K, eig_k, rd,
         rd is not None and not packed, ngrids, llim, ulim, esp, host_eigh)
@@ -469,6 +710,62 @@ def distributed_emmax(G, y, K=None, X0: Optional[np.ndarray] = None,
         out = _scan_incore(_incore_rows(rows, dtype), rot, srot, tile,
                            device, dtype)
     return _gathered_result(out, mesh, M, rot, nulls)
+
+
+def _tp_scan(rows: Optional[np.ndarray], rg, missing: bool, mesh: Mesh,
+             device, dtype, y, X0, K, eig_k, rd, float_route: bool, ngrids,
+             llim, ulim, esp, host_eigh, tile: int):
+    """The 'sample' route of distributed_emmax (rows: the rank's 'snp'
+    rows, int8 dosages with -1 missing or float dosages with NaN) and of
+    distributed_emmax_resident (rg: the container; rows None): ((4, m_rank)
+    statistics, the epilogue's null, null scalars). The sample axis is
+    zero-padded (sample_blocks) and each rank takes its block of columns a
+    tile at a time: in core cut from its host rows, packed unpacked on the
+    device from its rows x its byte block (shard_packed_rows(sample_axis=
+    True)). Missing calls are imputed from moments summed over 'sample'
+    (in float64 in core, as the host imputation of one device; in the
+    compute dtype packed, as its packed scans), the columns past n set to
+    0, then _tp_scan_tile."""
+    from mixmogam_tpu_torch.ops.pack2 import unpack_2bit_device
+
+    packed = rg is not None
+    n = rg.n if packed else rows.shape[1]
+    n_pad, lo, hi = sample_blocks(n, mesh, packed=packed)
+    if packed:
+        lo, hi = 4 * lo, 4 * hi
+    tp, nulls = _tp_null(mesh, device, dtype, y, X0, K, eig_k, rd,
+                         float_route, ngrids, llim, ulim, esp, host_eigh,
+                         n_pad, lo, hi)
+    valid = torch.arange(hi - lo, device=device) < tp.width
+
+    def host_block(s):
+        blk = np.zeros((min(tile, rows.shape[0] - s), hi - lo),
+                       dtype=np.int8 if rows.dtype == np.int8
+                       else np.float64)
+        blk[:, :tp.width] = rows[s:s + blk.shape[0], lo:lo + tp.width]
+        return torch.from_numpy(blk).to(device)
+
+    if packed:
+        shard = shard_packed_rows(rg, mesh, device=device, sample_axis=True)
+        tile = rg.tile
+        tiles = (unpack_2bit_device(shard.packed[s:min(s + tile, shard.M)],
+                                    hi - lo)
+                 for s in range(0, shard.M, tile))
+    else:
+        tiles = (host_block(s) for s in range(0, rows.shape[0], tile))
+    outs = []
+    for Gb in tiles:
+        if missing:
+            miss = torch.isnan(Gb) if Gb.is_floating_point() else Gb < 0
+            Gb = _tp_imputed(Gb, miss, valid,
+                             dtype if packed else torch.float64, mesh)
+        else:
+            # the last byte's column padding decodes as -1 (missing)
+            Gb = torch.where(valid[None, :], Gb, 0)
+        if Gb.dtype != torch.int8:
+            Gb = Gb.to(dtype)
+        outs.append(_tp_scan_tile(Gb, tp, mesh))
+    return row_block(outs, (4,), dtype, device), tp.epi, nulls
 
 
 def distributed_emmax_resident(rg, y, K=None, X0: Optional[np.ndarray] = None,
@@ -496,8 +793,10 @@ def distributed_emmax_resident(rg, y, K=None, X0: Optional[np.ndarray] = None,
     host p-values. The routes come from the container's own n, tile,
     has_missing and ploidy: no pass over dosages. An int8 tier on a
     container with missing calls raises, on every rank, before any
-    collective. _rows: (s, e), scan only the rows of [s, e) each rank's
-    shard holds (LOCO's chromosomes; the result covers [s, e))."""
+    collective. On a mesh with a 'sample' axis each rank uploads only its
+    rows x its byte block and scans it by _tp_scan. _rows: (s, e), scan
+    only the rows of [s, e) each rank's shard holds (LOCO's chromosomes;
+    the result covers [s, e)); a 'sample' axis refuses it."""
     from mixmogam_tpu_torch.models.emmax import _as_design
     from mixmogam_tpu_torch.models.resident import (_default_dtype,
                                                     emmax_scan_packed)
@@ -510,10 +809,16 @@ def distributed_emmax_resident(rg, y, K=None, X0: Optional[np.ndarray] = None,
     rd = normalize_rotate_tier(rotate_in_bf16)
     if rd is not None and rd.startswith("int8") and rg.has_missing:
         raise ValueError("int8 tiers need fully-observed dosages")
-    mesh, device = _mesh_device(mesh, device)
+    mesh, device = _mesh_device(mesh, device, sample_route=_rows is None)
     if dtype is None:
         dtype = _default_dtype(device)
     X0 = _as_design(np.ones((n, 1)) if X0 is None else X0, n)
+    if mesh.shape[1] > 1:
+        out, rot, nulls = _tp_scan(None, rg, rg.has_missing, mesh, device,
+                                   dtype, y, X0, K, eig_k, rd, False,
+                                   ngrids, llim, ulim, esp, host_eigh,
+                                   rg.tile)
+        return _gathered_result(out, mesh, rg.M, rot, nulls)
     s, e = (0, rg.M) if _rows is None else _rows
     rot, _, nulls = _replicated_null(mesh, device, dtype, y, X0, K, eig_k,
                                      rd, False, ngrids, llim, ulim, esp,
@@ -521,7 +826,8 @@ def distributed_emmax_resident(rg, y, K=None, X0: Optional[np.ndarray] = None,
 
     # ---- this rank's shard, no communication ----
     shard = shard_packed_rows(rg, mesh, device=device)
-    lo = host_snp_range(rg.M, mesh.shape[0], mesh.rank, tile=rg.tile)[0]
+    lo = host_snp_range(rg.M, mesh.shape[0], mesh.snp_index,
+                        tile=rg.tile)[0]
     if _rows is None:
         rows, m = shard.packed, shard.M          # with the zero pad rows
     else:

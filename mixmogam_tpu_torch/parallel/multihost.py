@@ -82,8 +82,9 @@ class SnpShard:
 def make_global_snp_array(local_rows: np.ndarray, M: int, mesh) -> SnpShard:
     """This rank's rows of the (M, n) genotype matrix as the SnpShard that
     distributed_kinship / distributed_emmax take in place of the whole
-    matrix: the rows must be the rank's host_snp_range."""
-    lo, hi = host_snp_range(M, mesh.shape[0], mesh.rank)
+    matrix: the rows must be the host_snp_range of the rank's 'snp'
+    coordinate."""
+    lo, hi = host_snp_range(M, mesh.shape[0], mesh.snp_index)
     local_rows = np.ascontiguousarray(local_rows)
     if local_rows.shape[0] != hi - lo:
         raise ValueError(f"rank {mesh.rank} holds {local_rows.shape[0]} "

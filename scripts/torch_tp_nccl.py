@@ -1,0 +1,197 @@
+"""The 'sample' tensor-parallel scan over NCCL, one rank a card.
+
+Spawns one process a rank (NCCL through tcp://localhost:<port>; gloo with
+--device cpu, for a rehearsal), each drawing the same genome from --seed:
+binary dosages of 3 populations, n samples x M SNPs. Rank 0 builds the
+kinship and its eigh on its card (K and eig_k are needed on rank 0 only).
+On the mesh of --shape (default (2, 2)) and on the SNP-only mesh
+(world, 1) of the same ranks, each rank times distributed_kinship and,
+at exact / int8x3 / bf16x3, distributed_emmax (in core) and
+distributed_emmax_resident (a host-only container, each rank uploading
+its rows x its byte block), synchronised, with a barrier before each
+call and after a first, untimed call (the communicators' set-up); and the
+bytes it handed all_reduce a call. The kernels are built before the ranks
+start. Rank 0 then holds every
+result to one device's kinship_resident / emmax_resident on its card: the
+integer kinship bit-equal, masks equal, max |dp| within the tier's
+TIER_P_DRIFT entry (exact: 1e-5, float32 partial sums in other shapes),
+on both meshes (each max |dp| printed: the SNP-only mesh's is 0 where the
+cards round alike).
+
+  python3 scripts/torch_tp_nccl.py [--world 4] [--shape 2,2]
+      [--samples 10240] [--snps 32768] [--device cuda|cpu]
+
+Prints the card's name and power limit first and one JSON line of walls,
+bytes and drifts last; exits non-zero when a rank fails or a check does.
+"""
+
+import argparse
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+TIERS = {"exact": False, "int8x3": "int8x3", "bf16x3": "bf16x3"}
+
+
+def _genome(n: int, m: int, seed: int):
+    """(m, n) int8 binary dosages of 3 populations and a trait on 10 of
+    its first rows, the same on every rank."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(0.05, 0.5, size=m)
+    freqs = rng.beta(p * 9.0, (1.0 - p) * 9.0, size=(3, m))
+    pop = rng.integers(0, 3, size=n)
+    G = (rng.random((m, n), dtype=np.float32)
+         < freqs[pop].T.astype(np.float32)).astype(np.int8)
+    causal = rng.choice(min(m, 4_096), size=10, replace=False)
+    g = G[causal].astype(np.float64)
+    y = (rng.normal(size=10) @ (g - g.mean(1, keepdims=True))
+         + rng.normal(size=n) * 2.0)
+    return G, y
+
+
+def _rank(args) -> None:
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
+                                                    emmax_resident,
+                                                    kinship_resident, scale_k)
+    from mixmogam_tpu_torch.ops.eigen import eigen_k_on
+    from mixmogam_tpu_torch.ops.scan import TIER_P_DRIFT
+    from mixmogam_tpu_torch.parallel import (distributed_emmax,
+                                             distributed_emmax_resident,
+                                             distributed_kinship,
+                                             initialize_multihost, make_mesh)
+    from mixmogam_tpu_torch.parallel.mesh import all_reduce
+
+    rank = int(os.environ["RANK"])
+    cpu = args.device == "cpu"
+    initialize_multihost(device="cpu" if cpu else None)
+    dev = torch.device("cpu") if cpu else torch.device("cuda", rank)
+    G, y = _genome(args.samples, args.snps, args.seed)
+    eig = None
+    if rank == 0:
+        one = ResidentGenome.from_source(G, device=dev)
+        K1 = kinship_resident(one)
+        eig = eigen_k_on(scale_k(K1), dev)
+    host = ResidentGenome.from_source(G, upload=False)
+    shape = tuple(int(s) for s in args.shape.split(","))
+    meshes = {"tp": make_mesh(shape, devices=args.device if cpu else None),
+              "snp": make_mesh(devices=args.device if cpu else None)}
+    walls, sent, res = {}, {}, {}
+
+    def timed(name, fn):
+        fn()                               # warm-up: communicators, caches
+        dist.barrier()
+        all_reduce.bytes = 0
+        if not cpu:
+            torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = fn()
+        if not cpu:
+            torch.cuda.synchronize()
+        walls[name] = round(time.perf_counter() - ts, 3)
+        sent[name] = all_reduce.bytes
+        res[name] = out
+
+    for key, mesh in meshes.items():
+        timed(f"{key} distributed_kinship",
+              lambda: distributed_kinship(G, mesh))
+        for tier, rb in TIERS.items():
+            timed(f"{key} distributed_emmax {tier}",
+                  lambda: distributed_emmax(G, y, eig_k=eig, mesh=mesh,
+                                            rotate_in_bf16=rb))
+            timed(f"{key} distributed_emmax_resident {tier}",
+                  lambda: distributed_emmax_resident(
+                      host, y, eig_k=eig, mesh=mesh, rotate_in_bf16=rb))
+    if rank != 0:
+        dist.barrier()
+        dist.destroy_process_group()
+        return
+    checks, bad = {}, []
+    for key in meshes:
+        same = bool(np.array_equal(res[f"{key} distributed_kinship"], K1))
+        checks[f"{key} distributed_kinship bit-equal"] = same
+        bad += [] if same else [f"{key} kinship"]
+    for tier in TIERS:
+        ref = emmax_resident(one, y, eig_k=eig, precision=tier)
+        tol = 1e-5 if tier == "exact" else TIER_P_DRIFT[tier]
+        for key in meshes:
+            for route in ("distributed_emmax", "distributed_emmax_resident"):
+                got = res[f"{key} {route} {tier}"]
+                nm = int((got["mask"] != ref["mask"]).sum())
+                dp = float(np.abs(got["ps"] - ref["ps"]).max())
+                checks[f"{key} {route} {tier}"] = {"masks_differ": nm,
+                                                   "max_dp": dp}
+                if nm or dp > tol:
+                    bad.append(f"{key} {route} {tier}")
+    print(json.dumps({"world": dist.get_world_size(), "shape": list(shape),
+                      "n": args.samples, "M": args.snps, "walls_s": walls,
+                      "reduced_bytes": sent, "checks": checks,
+                      "failed": bad}), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    if bad:
+        raise SystemExit(f"disagrees with one device: {bad}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--world", type=int, default=4)
+    ap.add_argument("--shape", default="2,2")
+    ap.add_argument("--samples", type=int, default=10_240)
+    ap.add_argument("--snps", type=int, default=32_768)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--rank", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.rank:
+        _rank(args)
+        return 0
+    if args.device == "cuda":
+        import torch
+
+        if not torch.cuda.is_available():
+            print("no CUDA card", file=sys.stderr)
+            return 1
+        from mixmogam_tpu_torch.ops import _build
+
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.strip(), flush=True)
+        _build.build_all(("ibs_gram", "rotate_scan_int8", "rotate_scan_bf16",
+                          "scan_stats"))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(args.world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(args.world),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        if args.device == "cpu":
+            env.update(OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank"]
+            + sys.argv[1:], env=env))
+    try:
+        rcs = [p.wait(timeout=1_500) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    return 0 if all(rc == 0 for rc in rcs) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -168,6 +168,26 @@ def test_csv_round_trips_across_packages(tmp_path, ploidy, missing):
     _same_gd(parsers.parse_snp_data(b), jparsers.parse_snp_data(a))
 
 
+@pytest.mark.parametrize("chunk_bytes", [None, 1 << 16])
+def test_csv_chunks_are_sized_by_bytes(tmp_path, monkeypatch, chunk_bytes):
+    """write_csv formats csv_chunk_rows(n) rows a chunk: 64 MiB at 16 bytes
+    a cell (4 Mi cells, not the JAX package's 64 M). On a matrix the step
+    cuts into several chunks (the real constant: two, the second partial;
+    a 64 KiB chunk: three of four rows or fewer), missing calls among
+    them, the file is byte-equal to the JAX package's, which writes it in
+    one chunk."""
+    if chunk_bytes is not None:
+        monkeypatch.setattr(genotype, "CSV_CHUNK_BYTES", chunk_bytes)
+    n = 1_024
+    step = genotype.csv_chunk_rows(n)
+    assert step == (64 << 20) // (16 * n) if chunk_bytes is None else 4
+    jg, g = _pair(n=n, m=step + 7, ploidy=2, missing=0.02, seed=9)
+    a, b = str(tmp_path / "a.csv"), str(tmp_path / "b.csv")
+    jg.write_csv(a)
+    g.write_csv(b)
+    assert filecmp.cmp(a, b, shallow=False)
+
+
 def test_csv_parser_edge_tokens(tmp_path):
     f = tmp_path / "e.csv"
     f.write_text("Chromosome,Position,a,b,c,d\n1,10,0,NA,2,-5\n"

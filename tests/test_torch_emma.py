@@ -38,8 +38,8 @@ from mixmogam_tpu_torch.parallel.mesh import Mesh
 
 jemma = importlib.import_module("mixmogam_tpu.models.emma")
 torch.set_num_threads(1)
-#: a mesh with a 'sample' axis of 2 (the tensor-parallel scan, ROADMAP Queue
-#: 1 item 16d), which make_mesh refuses to build
+#: a mesh with a 'sample' axis of 2 built by hand on a lone process, which
+#: emma refuses as the JAX package does (it shards 'snp' only)
 SAMPLE_AXIS_MESH = Mesh((1, 2), None, None, 0, 1, torch.device("cpu"))
 N, M = 80, 150
 
@@ -302,7 +302,7 @@ def test_emma_eig_k_equals_k(data):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(mesh=SAMPLE_AXIS_MESH), NotImplementedError, "item 16"),
+    (dict(mesh=SAMPLE_AXIS_MESH), ValueError, "shards 'snp' only"),
     (dict(K=None, device="cpu"), ValueError, "need K or eig_k"),
     (dict(test="wald", device="cpu"), ValueError, "test must be"),
 ])

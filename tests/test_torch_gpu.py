@@ -416,6 +416,86 @@ def test_card_world_of_one_remaining_scans(cuda, tmp_path):
         dist.destroy_process_group()
 
 
+_TP_RANK = r"""
+import pickle, sys
+import numpy as np
+sys.path.insert(0, {repo!r})
+import torch
+import torch.distributed as dist
+from mixmogam_tpu_torch.models.resident import ResidentGenome
+from mixmogam_tpu_torch.parallel import (distributed_emmax,
+    distributed_emmax_resident, distributed_kinship, make_mesh)
+
+rank = int(sys.argv[1])
+dist.init_process_group("gloo", init_method="file://" + {store!r},
+                        rank=rank, world_size=2)
+mesh = make_mesh((1, 2))                 # both ranks on the card
+z = np.load({data!r})
+G, y, K = z["G"], z["y"], z["K"]
+host = ResidentGenome.from_source(G, tile=1_024, upload=False)
+out = {{"K": distributed_kinship(G, mesh)}}
+for tier, rb in (("exact", False), ("int8x3", "int8x3"),
+                 ("bf16x3", "bf16x3")):
+    out["in_" + tier] = distributed_emmax(G, y, K=K, mesh=mesh,
+                                          rotate_in_bf16=rb, tile=1_024)
+    out["res_" + tier] = distributed_emmax_resident(host, y, K=K, mesh=mesh,
+                                                    rotate_in_bf16=rb)
+if rank == 0:
+    with open({out!r}, "wb") as f:
+        pickle.dump(out, f)
+dist.destroy_process_group()
+"""
+
+
+def test_card_sample_axis_on_two_gloo_ranks(cuda, tmp_path):
+    """Two gloo ranks sharing the card as a (1, 2) 'sample' mesh, n = 250
+    (padded to 256: a block of 128 a rank) x 3,000 rows: distributed_kinship
+    bit-equal to kinship_resident; distributed_emmax and
+    distributed_emmax_resident at exact / int8x3 / bf16x3 with the masks of
+    emmax_resident and p within the tier's TIER_P_DRIFT entry (exact: 1e-5,
+    the float32 exact tier's partial sums in other shapes)."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+
+    from mixmogam_tpu_torch.models.resident import (emmax_resident,
+                                                    kinship_resident)
+    from mixmogam_tpu_torch.ops.scan import TIER_P_DRIFT
+
+    n = 250
+    G, _, _ = simulate_genotypes(n, 3_000, seed=29)
+    y = G[17] * 0.5 + np.random.default_rng(29).normal(size=n)
+    rg = ResidentGenome.from_source(G, tile=1_024, device=cuda)
+    K = kinship_resident(rg)
+    data, out = str(tmp_path / "data.npz"), str(tmp_path / "out.pkl")
+    np.savez(data, G=G, y=y, K=K)
+    src = _TP_RANK.format(repo=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), store=str(tmp_path / "store"),
+        data=data, out=out)
+    procs = [subprocess.Popen([sys.executable, "-c", src, str(r)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert all(p.returncode == 0 for p in procs), logs
+    with open(out, "rb") as f:
+        got = pickle.load(f)
+    np.testing.assert_array_equal(got["K"], K)
+    for tier in ("exact", "int8x3", "bf16x3"):
+        ref = emmax_resident(rg, y, K=K, precision=tier)
+        tol = 1e-5 if tier == "exact" else TIER_P_DRIFT[tier]
+        for route in ("in_", "res_"):
+            res = got[route + tier]
+            np.testing.assert_array_equal(res["mask"], ref["mask"])
+            assert np.abs(res["ps"] - ref["ps"]).max() <= tol
+
+
 def test_card_stepwise_vs_cpu_float64(cuda):
     """emmax_step_wise on the card (float32, no device=) against the float64
     CPU path: the same cofactor path and selected models, step 0's scan

@@ -37,9 +37,10 @@ def test_no_jax_imports(path):
 
 
 #: the one function of the port that calls torch._int_mm: the shared int8
-#: rotation of the multi-trait, GxE, permutation and two-SNP scans, an XLA
-#: dot outside any Pallas kernel in the JAX package; every Pallas kernel's
-#: int8 product is a hand-written kernel (K1, K4, K2)
+#: rotation of the multi-trait, GxE, permutation and two-SNP scans and the
+#: 'sample' route's plane products, an XLA dot outside any Pallas kernel in
+#: the JAX package; every Pallas kernel's int8 product is a hand-written
+#: kernel (K1, K4, K2)
 _INT_MM_CALLER = ("mixmogam_tpu_torch/ops/rotate.py", "rotate_tile")
 
 

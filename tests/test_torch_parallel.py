@@ -47,17 +47,28 @@ from mixmogam_tpu.ops import scan as jscan
 from mixmogam_tpu.oracle.kinship import vanraden_kinship
 from mixmogam_tpu_torch.data.simulate import (simulate_genotypes,
                                               simulate_phenotype)
-from mixmogam_tpu_torch.models.emmax import emmax
+from mixmogam_tpu_torch.models.emma import emma
+from mixmogam_tpu_torch.models.emmax import emmax, emmax_anova
+from mixmogam_tpu_torch.models.gxe import emmax_gxe
+from mixmogam_tpu_torch.models.linear import (anova, kruskal_wallis,
+                                              linear_model)
 from mixmogam_tpu_torch.models.loco import emmax_loco
+from mixmogam_tpu_torch.models.multitrait import emmax_multi_trait
+from mixmogam_tpu_torch.models.permutation import emmax_perm_test
 from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                 emmax_resident,
                                                 kinship_resident, scale_k)
+from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
+from mixmogam_tpu_torch.models.twosnp import emmax_two_snps
 from mixmogam_tpu_torch.ops.kinship import kinship
 from mixmogam_tpu_torch.parallel import (distributed_emmax,
+                                         distributed_emmax_resident,
                                          distributed_kinship,
                                          distributed_train_step,
                                          make_global_snp_array, make_mesh)
+from mixmogam_tpu_torch.parallel import distributed as tdist
 from mixmogam_tpu_torch.parallel import mesh as tmesh
+from mixmogam_tpu_torch.parallel.mesh import Mesh
 from mixmogam_tpu_torch.parallel import multihost as tmultihost
 from test_torch_fold import fold_jax_tiers
 
@@ -711,11 +722,92 @@ def test_emmax_mesh_takes_no_shard(data):
         emmax(shard, data["y"], K=data["K"], mesh=_CPU_MESH, device="cpu")
 
 
-def test_the_sample_axis_waits_for_16d():
-    with pytest.raises(NotImplementedError, match="item 16d"):
-        make_mesh((1, 2), devices="cpu")
-    with pytest.raises(ValueError, match="ranks"):
-        make_mesh((2, 1), devices="cpu")
+#: a (1, 2) mesh built by hand on a lone process (make_mesh refuses it)
+_TP_MESH = Mesh((1, 2), None, None, 0, 1, torch.device("cpu"))
+
+
+def _sample_axis_refusals(data):
+    """{case: (call, exception, match)}: what still refuses a 'sample' axis
+    above 1 (the tensor-parallel scan is distributed_emmax's,
+    distributed_emmax_resident's, distributed_kinship's and emmax(mesh=)'s
+    only), before any collective."""
+    G, y, K, m = data["G"], data["y"], data["K"], _TP_MESH
+    env = np.random.default_rng(3).normal(size=y.shape[0])
+    rg = ResidentGenome.from_source(G, tile=_TILE["main"], upload=False)
+    no_route = {
+        "emmax_step_wise": lambda: emmax_step_wise(G, y, K=K, mesh=m),
+        "emmax_loco": lambda: emmax_loco(G, y, chromosomes=CHROMS, mesh=m),
+        "emmax_multi_trait": lambda: emmax_multi_trait(
+            G, np.stack([y, y[::-1]]), K=K, mesh=m),
+        "emmax_gxe": lambda: emmax_gxe(G, y, env, K=K, mesh=m),
+        "emmax_perm_test": lambda: emmax_perm_test(G, y, K=K, mesh=m),
+        "emmax_anova": lambda: emmax_anova(G, y, K=K, mesh=m),
+        "emmax_two_snps": lambda: emmax_two_snps(G, y, K=K, focal_idx=[1],
+                                                 mesh=m),
+        "linear_model": lambda: linear_model(G, y, mesh=m),
+        "anova": lambda: anova(G, y, mesh=m),
+        "kruskal_wallis": lambda: kruskal_wallis(G, y, mesh=m),
+    }
+    cases = {e: (fn, NotImplementedError,
+                 f"item {tdist.SAMPLE_AXIS_ITEM[e]}$")
+             for e, fn in no_route.items()}
+    cases.update({
+        "make_mesh (1, 2)": (lambda: make_mesh((1, 2), devices="cpu"),
+                             ValueError, "ranks"),
+        "make_mesh (2, 1)": (lambda: make_mesh((2, 1), devices="cpu"),
+                             ValueError, "ranks"),
+        "make_mesh (2, 2)": (lambda: make_mesh((2, 2), devices="cpu"),
+                             ValueError, "ranks"),
+        "_mesh_device": (lambda: tdist._mesh_device(m, None),
+                         NotImplementedError, "item 16d"),
+        "LOCO's row window": (lambda: distributed_emmax_resident(
+            rg, y, K=K, mesh=m, _rows=(0, 10)), NotImplementedError,
+            "item 16d"),
+        "emma": (lambda: emma(G, y, K=K, mesh=m), ValueError,
+                 "shards 'snp' only"),
+        # the routes that have a 'sample' route: a lone process's (1, 2)
+        # mesh would scan half the samples as the whole
+        "distributed_emmax": (lambda: distributed_emmax(G, y, K=K, mesh=m),
+                              ValueError, "make_mesh"),
+        "distributed_emmax_resident": (lambda: distributed_emmax_resident(
+            rg, y, K=K, mesh=m), ValueError, "make_mesh"),
+        "distributed_kinship": (lambda: distributed_kinship(G, m),
+                                ValueError, "make_mesh"),
+        "emmax": (lambda: emmax(G, y, K=K, mesh=m), ValueError,
+                  "make_mesh"),
+    })
+    return cases
+
+
+@pytest.mark.parametrize("case", [
+    "make_mesh (1, 2)", "make_mesh (2, 1)", "make_mesh (2, 2)",
+    "_mesh_device", "LOCO's row window", "emma", "distributed_emmax",
+    "distributed_emmax_resident", "distributed_kinship", "emmax",
+    "emmax_step_wise", "emmax_loco", "emmax_multi_trait", "emmax_gxe",
+    "emmax_perm_test", "emmax_anova", "emmax_two_snps", "linear_model",
+    "anova", "kruskal_wallis"])
+def test_what_still_refuses_a_sample_axis(data, case):
+    """A shape that does not hold the world; each route without a 'sample'
+    route (NotImplementedError naming its ROADMAP Queue 1 item: 16d-ii for
+    the campaign entry points, 16d-iii for the others; emma's is the JAX
+    package's ValueError); and the routes that have one, on a mesh that
+    is not the world's."""
+    call, exc, match = _sample_axis_refusals(data)[case]
+    with pytest.raises(exc, match=match):
+        call()
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")
+@pytest.mark.parametrize("shape", [None, (1, 1)])
+def test_a_lone_mesh_needs_a_card_unless_asked(shape):
+    """make_mesh on a lone process: the card by default (ROADMAP's rule for
+    the port's defaults), so without one it raises naming device="cpu";
+    devices="cpu" gives a world of one with no collectives."""
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        make_mesh(shape)
+    mesh = make_mesh(shape, devices="cpu")
+    assert (mesh.shape, mesh.world, mesh.distributed) == ((1, 1), 1, False)
+    assert (mesh.snp_index, mesh.sample_index) == (0, 0)
 
 
 def test_train_step_waits_for_16e():
