@@ -156,8 +156,8 @@ Phases (each prints its own seconds):
     1e-4 of exact's and its threshold within 1e-4 relative; the card
     against the float64 CPU path at n = 2,048 x 8,192 (P = 16) and under
     VanRaden's singular K at the three tiers, to the same limits. Then
-    emmax_two_snps on phase 4's top 32 exact hits: its wall and split, K3
-    launched once a focal SNP a tile (32 x 32 at M = 262,144) and nothing
+    emmax_two_snps on phase 4's top 16 exact hits: its wall and split, K3
+    launched once a focal SNP a tile (16 x 32 at M = 262,144) and nothing
     else, every focal SNP's own cond_p 1; the card against the float64 CPU
     path at n = 2,048 x 8,192 with 8 focal SNPs, with and without the
     per-focal REML (identical masks, max |dp| <= 1e-5), and under the
@@ -302,7 +302,7 @@ Phases (each prints its own seconds):
     launched as often as there: linear_model / anova / kruskal_wallis
     (mesh=) on phase 4's resident genome, emmax_gxe(mesh=) (E = 2) at
     exact and int8x3, emmax_perm_test(mesh=) (P = 128) at exact and
-    int8x3, emmax_two_snps(mesh=) on phase 4's top 32 hits, and
+    int8x3, emmax_two_snps(mesh=) on phase 4's top 8 hits, and
     emmax_anova(mesh=) on a diploid genome of n x 32,768 (2 % missing
     calls) drawn in the phase, held to a single-device call on it; (b)
     then adds the five on its two gloo ranks (the class tests, GxE and
@@ -316,8 +316,16 @@ Phases (each prints its own seconds):
     within _tp_tol, emmax(mesh=) at int8x3, each rank's (n / 2, n) block of
     U' / the planes / the parts, and the int8x3 plane products summed over
     'sample' bit-equal to one device's whole-row torch._int_mm products;
-    each call's wall, the bytes each rank reduced and its launches printed
-    (K3's added to the kernels line)
+    then on that mesh the campaign entry points (item 16d-ii), each held
+    to its single-device call: emmax_step_wise(mesh=) (3 steps on the
+    same rows; each rank stores its (16,384, n / 2) block of rotated
+    columns; the same path, cofactors and selections, min_p within
+    _tp_tol), emmax_multi_trait(mesh=) (T = 4; exact in core and int8x3
+    over the host-only container; masks equal, p within _tp_tol, int8x3's
+    f_stats bit-equal) and emmax_loco(mesh=) on the n = 2,048 x 8,192
+    LOCO fixture (masks equal, p within _tp_tol, each delta within rtol
+    1e-12); each call's wall, the bytes each rank reduced and its launches
+    printed (K1 / K4 / K3 added to the kernels line)
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}. Any
@@ -1146,7 +1154,7 @@ def _two_snp_gate(label, got, ref, p_tol) -> None:
 
 def _perm_two_snp_phase(args, kernels, launches, main, counts) -> None:
     """Phase 13: the permutation test (P = 128, three tiers) and the two-SNP
-    scan (the top 32 hits of phase 4's exact scan) on phase 4's resident
+    scan (the top 16 hits of phase 4's exact scan) on phase 4's resident
     genome and eigh; each against the float64 CPU path at n = 2,048 and
     under VanRaden's singular K."""
     import numpy as np
@@ -1234,10 +1242,10 @@ def _perm_two_snp_phase(args, kernels, launches, main, counts) -> None:
                                    precision=tier), ref_v, 254)
     print(f"   ({time.perf_counter() - ts:.3f} s)", flush=True)
 
-    # (b) the two-SNP scan on phase 4's top 32 hits: K3 once a focal SNP a
+    # (b) the two-SNP scan on phase 4's top 16 hits: K3 once a focal SNP a
     # tile, and no other kernel
     r, wall, cnt = run(emmax_two_snps, rg, y, eig_k=(phi, U),
-                       from_result={"ps": main["ps"]}, top_k=32)
+                       from_result={"ps": main["ps"]}, top_k=16)
     tiles = -(-M // subdivide_tile(rg.tile, 8_192))
     tm = r["timings_s"]
     scan = sum(tm[k] for k in ("load", "rotation", "conditional",
@@ -1251,7 +1259,7 @@ def _perm_two_snp_phase(args, kernels, launches, main, counts) -> None:
           f"{tm['load']:.3f} s, device time); eigh + nulls "
           f"{tm['null']:.3f} s; host p-values {tm['p_values']:.3f} s; "
           f"launches {cnt} ({A} x {tiles} tiles)", flush=True)
-    if cnt != counts(scan_stats=A * tiles) or A != 32:
+    if cnt != counts(scan_stats=A * tiles) or A != 16:
         raise AssertionError(f"emmax_two_snps: launches {cnt}")
     for k in ("cond_ps", "inter_ps"):
         ps = r[k]
@@ -2655,6 +2663,35 @@ for tier, rb in {rb!r}.items():
             Gd, p.t().contiguous().t()))) for a, p in zip(sums, planes)]
         del Gb, sums, planes, Gd
     del tpn
+# ---- the campaign entry points on the same (1, 2) mesh (ROADMAP item
+# 16d-ii): stepwise and multi-trait on the same rows (multi-trait exact in
+# core, int8x3 over the host-only container), LOCO on the n = 2,048
+# fixture; the counts set to 0 just before each call and read just after
+camp_launches = {{}}
+
+
+def counted(name, fn):
+    for k in kernels:
+        k.launches = 0
+    r = timed(name, fn)
+    camp_launches[name] = {{k.__name__: k.launches for k in kernels}}
+    return r
+
+
+tp_sw = counted("emmax_step_wise", lambda: emmax_step_wise(
+    Gt, y, eig_k=(phi, U), max_steps={sw_steps}, mesh=tp_mesh))
+for name, src, tier in (("mt_exact", Gt, "exact"),
+                        ("mt_int8x3", rgt, "int8x3")):
+    r = counted("emmax_multi_trait " + tier, lambda: emmax_multi_trait(
+        src, Y4[:{mt_traits}], eig_k=(phi, U), precision=tier, mesh=tp_mesh))
+    for k in ("ps", "mask", "f_stats", "betas"):
+        out["tp_" + name + "_" + k] = r[k]
+r = counted("emmax_loco", lambda: emmax_loco(
+    rgl, np.load({d!r} + "/yl.npy"), chromosomes=np.load({d!r} + "/chl.npy"),
+    mesh=tp_mesh))
+for k in ("ps", "mask", "f_stats", "betas"):
+    out["tp_loco_" + k] = r[k]
+tp_loco_deltas = {{str(c): v["delta"] for c, v in r["loco"].items()}}
 """
 
 _P18_TAIL = r"""
@@ -2667,7 +2704,9 @@ print(json.dumps({{"rank": rank, "device": str(mesh.device),
                            "reduced_bytes": tp_bytes,
                            "launches": tp_launches,
                            "w_blocks": w_blocks,
-                           "plane_sums_equal": planes_equal}},
+                           "plane_sums_equal": planes_equal,
+                           "campaign_launches": camp_launches,
+                           "loco_deltas": tp_loco_deltas}},
                    "rows": host_snp_range(G.shape[0], world, rank),
                    "resident rows": host_snp_range(
                        rgh.M, world, rank, tile=rgh.tile),
@@ -2678,7 +2717,10 @@ print(json.dumps({{"rank": rank, "device": str(mesh.device),
 if rank == 0:
     np.savez({d!r} + "/out.npz", **out)
     with open({d!r} + "/sw.pkl", "wb") as f:
-        pickle.dump(sw, f)
+        pickle.dump({{"sw": sw, "tp_sw": tp_sw}}, f)
+# no rank tears its group down while another still works (a gloo peer that
+# exits first can abort the other's teardown)
+dist.barrier()
 dist.destroy_process_group()
 """
 _P18_RANK = _P18_HEAD + _P18_SCANS + _P18_TP + _P18_TAIL
@@ -3112,6 +3154,97 @@ def _tp_gates(tps, z, refs, Gt, n, kernels, launches) -> None:
               {k: z[f"tp_int8x3_{k}"] for k in keys})
 
 
+#: phase 18 (b)'s campaign entry points on the (1, 2) mesh: stepwise's
+#: forward steps and multi-trait's traits
+_P18_TP_STEPS, _P18_TP_TRAITS = 3, 4
+
+
+def _tp_campaign_gates(tps, z, tp_sw, loco_ref, Gt, y, eig, Y, kernels,
+                       launches) -> None:
+    """Phase 18 (b)'s campaign entry points on the (1, 2) 'sample' mesh
+    (ROADMAP item 16d-ii), each held to its one-device call: stepwise on
+    the rows Gt (the same path, cofactors and selections, its re-fits'
+    criteria and delta within rtol 1e-12: rank 0 fits them as one device
+    does; each step's min_p within _tp_tol('exact'): its sums meet over
+    'sample'); multi-trait exact in core and int8x3 over the host-only
+    container (masks equal, p within _tp_tol of the tier; int8x3's f_stats
+    bit-equal, its plane sums meeting in integers); LOCO on the n = 2,048
+    fixture (masks equal, p within _tp_tol('exact'), each chromosome's
+    delta within rtol 1e-12). Each rank's walls, bytes reduced and
+    launches a call; K1 / K4 (LOCO's kinships on rank 0) and K3 launched,
+    and added to the kernels line."""
+    import numpy as np
+
+    from mixmogam_tpu_torch.models.multitrait import emmax_multi_trait
+    from mixmogam_tpu_torch.models.resident import ResidentGenome
+    from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
+
+    calls = list(tps[0]["campaign_launches"])
+    for r, tp in enumerate(tps):
+        cl = tp["campaign_launches"]
+        print(f"   (b) (1, 2) mesh, rank {r}, campaign entry points: walls "
+              f"{ {c: tp['walls_s'][c] for c in calls} } s; bytes the rank "
+              f"reduced {[tp['reduced_bytes'][c] for c in calls]}; "
+              f"launches {cl}", flush=True)
+        need = {"emmax_multi_trait exact": ("scan_stats",),
+                "emmax_multi_trait int8x3": ("scan_stats",),
+                "emmax_loco": ("scan_stats",) + (
+                    ("ibs_gram_packed", "ibs_gram_tri_packed") if r == 0
+                    else ()),
+                "emmax_step_wise": ("scan_stats",) if r == 0 else ()}
+        for call, names in need.items():
+            for name in names:
+                if cl[call][name] <= 0:
+                    raise AssertionError(f"(b) rank {r}'s {call} on the "
+                                         f"(1, 2) mesh never launched {name}")
+        for c in calls:
+            for k in kernels:
+                launches[k.__name__] += cl[c][k.__name__]
+    n, Mt = Gt.shape[1], Gt.shape[0]
+    ts = time.perf_counter()
+    ref = emmax_step_wise(Gt, y, eig_k=eig, max_steps=_P18_TP_STEPS)
+    _same_path(f"(b) (1, 2) emmax_step_wise(mesh=) vs emmax_step_wise, "
+               f"{_P18_TP_STEPS} steps, n={n} M={Mt} "
+               f"({time.perf_counter() - ts:.3f} s)",
+               {**tp_sw, "steps": [dict(s, min_p=np.nan)
+                                   for s in tp_sw["steps"]]},
+               {**ref, "steps": [dict(s, min_p=np.nan)
+                                 for s in ref["steps"]]}, rtol=1e-12)
+    dp = max(abs(a["min_p"] - b["min_p"])
+             for a, b in zip(tp_sw["steps"], ref["steps"])
+             if np.isfinite(b["min_p"]))
+    print(f"   (b) (1, 2) emmax_step_wise(mesh=): max |d min_p| {dp:.3e} "
+          f"(tol {_tp_tol('exact')})", flush=True)
+    if not dp <= _tp_tol("exact"):
+        raise AssertionError("(b) the (1, 2) stepwise scans disagree")
+    keys = ("ps", "mask", "f_stats", "betas")
+    T = Y.shape[0]
+    for tier, src in (("exact", Gt),
+                      ("int8x3", ResidentGenome.from_source(Gt))):
+        ts = time.perf_counter()
+        ref = emmax_multi_trait(src, Y, eig_k=eig, precision=tier)
+        got = {k: z[f"tp_mt_{tier}_{k}"] for k in keys}
+        _p18_gate(f"(b) (1, 2) emmax_multi_trait(mesh=) {tier} vs "
+                  f"emmax_multi_trait, T={T} n={n} M={Mt} "
+                  f"({time.perf_counter() - ts:.3f} s; tol "
+                  f"{_tp_tol(tier)})", got, ref, tol=_tp_tol(tier))
+        if tier == "int8x3" and not np.array_equal(got["f_stats"],
+                                                   ref["f_stats"]):
+            raise AssertionError("(b) the (1, 2) int8x3 multi-trait f_stats "
+                                 "are not bit-equal to one device's")
+    _p18_gate(f"(b) (1, 2) emmax_loco(mesh=) vs emmax_loco, the n=2,048 "
+              f"fixture (tol {_tp_tol('exact')})",
+              {k: z[f"tp_loco_{k}"] for k in keys}, loco_ref,
+              tol=_tp_tol("exact"))
+    for r, tp in enumerate(tps):
+        for c, v in loco_ref["loco"].items():
+            got = tp["loco_deltas"][str(c)]
+            if abs(got - v["delta"]) > 1e-12 * abs(v["delta"]):
+                raise AssertionError(f"(b) rank {r}'s (1, 2) LOCO delta of "
+                                     f"chromosome {c}: {got} vs "
+                                     f"{v['delta']}")
+
+
 def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
     """Phase 18: parallel/'s data-parallel core on the card. (a) A world of
     one over NCCL (a file store) at full width: distributed_kinship against
@@ -3245,7 +3378,8 @@ def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
     Mt = min(16_384, Mb)
     src = _P18_RANK.format(repo=os.path.dirname(os.path.abspath(__file__)),
                            store=os.path.join(d, "store"), d=d,
-                           rb=_P18_TIERS, gxe_keys=_GXE_KEYS, mt=Mt)
+                           rb=_P18_TIERS, gxe_keys=_GXE_KEYS, mt=Mt,
+                           sw_steps=_P18_TP_STEPS, mt_traits=_P18_TP_TRAITS)
     ts = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, "-c", src, str(r), "2"],
                               stdout=subprocess.PIPE,
@@ -3290,12 +3424,16 @@ def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
                        for k in ("ps", "mask", "f_stats", "betas")}, ref)
     _tp_gates(tps, z, refs, G[:Mt], n, kernels, launches)
     ts = time.perf_counter()
-    ref = emmax_loco(ResidentGenome.from_source(Gl, tile=2_048), y[:nl],
-                     chromosomes=chl)
+    loco_ref = emmax_loco(ResidentGenome.from_source(Gl, tile=2_048),
+                          y[:nl], chromosomes=chl)
     _p18_gate(f"(b) emmax_loco(mesh=) vs emmax_loco, n={nl} M={Ml} "
               f"({time.perf_counter() - ts:.3f} s)",
               {k: z[f"loco_{k}"] for k in ("ps", "mask", "f_stats",
-                                           "betas")}, ref)
+                                           "betas")}, loco_ref)
+    with open(os.path.join(d, "sw.pkl"), "rb") as f:
+        sws = pickle.load(f)
+    _tp_campaign_gates(tps, z, sws["tp_sw"], loco_ref, G[:Mt], y, (phi, U),
+                       Y4[:_P18_TP_TRAITS], kernels, launches)
     ts = time.perf_counter()
     ref = emmax_loco(ResidentGenome.from_source(Gl, tile=2_048), y[:nl],
                      chromosomes=chl_off)
@@ -3308,10 +3446,9 @@ def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
     # the campaign scans against their single-device calls on the same rows
     ts = time.perf_counter()
     ref = emmax_step_wise(rgb, y, eig_k=(phi, U), max_steps=3)
-    with open(os.path.join(d, "sw.pkl"), "rb") as f:
-        _same_path(f"(b) emmax_step_wise(mesh=) vs emmax_step_wise "
-                   f"({time.perf_counter() - ts:.3f} s)", pickle.load(f), ref,
-                   rtol=1e-12)
+    _same_path(f"(b) emmax_step_wise(mesh=) vs emmax_step_wise "
+               f"({time.perf_counter() - ts:.3f} s)", sws["sw"], ref,
+               rtol=1e-12)
     for name, src, tier in (("mt_exact", rgb, "exact"),
                             ("mt_int8x3", rgb, "int8x3"),
                             ("mt_res_exact", rgb, "exact")):

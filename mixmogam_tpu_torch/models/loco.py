@@ -357,7 +357,10 @@ def emmax_loco(G, y, chromosomes=None, method: str = "ibs",
     host once, upload=False) is scanned chromosome by chromosome through
     parallel/distributed.py::distributed_emmax_resident, each rank its
     shard's rows of the chromosome; a fractional source's rows through
-    distributed_emmax. Every rank returns the same dict. Device memory:
+    distributed_emmax. On a 'sample' axis (make_mesh((S_snp, S))) each
+    chromosome's rotation reaches each rank as its contraction-row block
+    and each rank scans its rows x its block of the samples (the
+    tensor-parallel scan). Every rank returns the same dict. Device memory:
     each rank's shard is memoized on a caller's container (it lives as
     long as the container); rank 0's kinships read the whole packed
     genome on its device, an upload that a world of one memoizes on the
@@ -551,16 +554,16 @@ def emmax_loco(G, y, chromosomes=None, method: str = "ibs",
 
 def _check_loco_mesh(mesh, precision, kw) -> None:
     """emmax_loco(mesh=)'s refusals, made on every rank before any
-    collective: a mesh that is not a Mesh, a 'sample' axis above 1 (ROADMAP
-    Queue 1 item 16d-ii), a tier other than exact, and the single-device
-    **kw (the JAX package's messages)."""
-    from mixmogam_tpu_torch.parallel.distributed import refuse_sample_axis
+    collective: a mesh that is not a Mesh, a 'sample' axis on a mesh that
+    does not hold the world (check_sample_mesh), a tier other than exact,
+    and the single-device **kw (the JAX package's messages)."""
+    from mixmogam_tpu_torch.parallel.distributed import check_sample_mesh
     from mixmogam_tpu_torch.parallel.mesh import Mesh
 
     if not isinstance(mesh, Mesh):
         raise TypeError("mesh must be a mixmogam_tpu_torch.parallel.Mesh "
                         f"(make_mesh()); got {type(mesh).__name__}")
-    refuse_sample_axis(mesh, "emmax_loco")
+    check_sample_mesh(mesh)
     if precision not in (None, "exact"):
         raise ValueError("mesh-distributed LOCO runs the exact tier; pass "
                          "precision=None/'exact'")
@@ -573,8 +576,10 @@ def _loco_scan_on_mesh(rg, host, s: int, e: int, y, eig, X0, mesh, ngrids,
                        llim, ulim, esp, dtype, device) -> dict:
     """Chromosome [s, e)'s exact scan on the mesh under rank 0's eig (None
     on the other ranks): each rank's shard rows of [s, e) of the packed
-    container, or the host route's rows [s, e) sharded by
-    distributed_emmax."""
+    container (on a 'sample' axis its shard's byte block), or the host
+    route's rows [s, e) sharded by distributed_emmax. On a 'sample' axis
+    both take the tensor-parallel scan: rank 0 scatters each chromosome's
+    rotation by contraction-row blocks (distributed.py::_tp_null)."""
     from mixmogam_tpu_torch.parallel.distributed import (
         distributed_emmax, distributed_emmax_resident)
 

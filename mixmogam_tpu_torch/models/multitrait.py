@@ -25,7 +25,11 @@ kernel; here it is a library product by tier (ops/rotate.py::rotate_tile:
 a float32 GEMM, int8 digit planes or bf16 parts with float32 outputs).
 
 mesh= (_multi_trait_on_mesh) runs the same null (_mt_null) on rank 0 and
-the same tile loop (_mt_scan) over each rank's rows.
+the same tile loop (_mt_scan) over each rank's rows. On a 'sample' axis
+each rank holds its contraction-row block of the shared rotation and
+rotates its block of each tile's sample columns; the partial products meet
+over 'sample' (ops/scan.py::apply_rotation_psum) before K3 runs once a
+trait on the whole rotated rows.
 """
 
 from __future__ import annotations
@@ -100,8 +104,9 @@ def emmax_multi_trait(G, Y, K=None, X0: Optional[np.ndarray] = None,
     mesh: a parallel.Mesh (make_mesh()) shards the scan by SNP rows, as the
     JAX package's mesh= does (_multi_trait_on_mesh): rank 0 takes the
     eigh, the T fits and the shared rotation, one broadcast replicates
-    them, each rank scans its rows, one all-gather. device: the rank's
-    (default the mesh's).
+    them, each rank scans its rows, one all-gather. A 'sample' axis also
+    shards the rotation's contraction rows and the samples (the
+    tensor-parallel scan). device: the rank's (default the mesh's).
 
     Returns ps / f_stats / betas / mask of shape (T, M), per-trait deltas
     and pseudo_heritabilities, 'dof' (an int, or a (T,) array when the
@@ -366,13 +371,17 @@ def _multi_trait_on_mesh(G, Y, K=None, X0=None, eig_k=None,
     in-core budget packed on the host (models/source.py::pack_for_mesh,
     which refuses a float source or one over the packed budget), then the
     tier resolved for the source and an int8 tier's refusal of missing or
-    fractional dosages. Then, per missingness group (or once): rank 0 takes
-    the eigh, the T fits and the shared rotation (_mt_null), one broadcast
-    replicates them; each rank scans its rows with no communication (a
-    ResidentGenome's shard, shard_packed_rows, with the group's columns
-    gathered a tile at a time; an in-core source's rank_range rows at the
-    call's tile, cut to the group's columns on the rank only); one
-    all-gather of the (T, 3, m_rank) statistics; float64 host p-values."""
+    fractional dosages, and on a 'sample' axis a missingness group over a
+    container (the JAX package's ValueError). Then, per missingness group
+    (or once): rank 0 takes the eigh, the T fits and the shared rotation
+    (_mt_null), one broadcast replicates them; each rank scans its rows
+    with no communication (a ResidentGenome's shard, shard_packed_rows,
+    with the group's columns gathered a tile at a time; an in-core
+    source's rank_range rows at the call's tile, cut to the group's
+    columns on the rank only); one all-gather of the (T, 3, m_rank)
+    statistics; float64 host p-values. On a 'sample' axis (_mt_tp_scan)
+    the rotation is scattered by contraction-row blocks instead of
+    broadcast, and each tile's rotation is summed over 'sample'."""
     from mixmogam_tpu_torch.models.emmax import _as_design, incore_budget_bytes
     from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                     _default_dtype)
@@ -408,11 +417,37 @@ def _multi_trait_on_mesh(G, Y, K=None, X0=None, eig_k=None,
     if rg is not None and rg.n != n:
         raise ValueError(f"Y has {n} samples but the resident genome holds "
                          f"{rg.n}")
+    sample_axis = mesh.shape[1] > 1
+    if sample_axis and rg is not None and np.isnan(Y).any():
+        # the JAX package's refusal: a group's columns are gathered from
+        # whole byte rows, which a rank's byte block is not
+        raise ValueError(
+            "a missing-Y pattern group over a packed container gathers "
+            "sample columns per tile and shards 'snp' only; use a "
+            "('snp', 1) mesh")
     X0 = _as_design(np.ones((n, 1)) if X0 is None else X0, n)
 
     def scan(Yg, Kg, X0g, keep=None, idx=None, eig=None):
         """One multi-trait scan of the samples `keep` (None: all)."""
         ng = Yg.shape[1]
+        all_cols = keep is None or keep.all()
+        if sample_axis:
+            ts = time.perf_counter()
+            tg, rows = tile or _default_tile(ng, tile_budget), None
+            if rg is None:
+                lo, hi = pd.rank_range(M, mesh, tg)
+                rows = np.asarray(G_src[lo:hi])
+                if not all_cols:
+                    rows = rows[:, keep]
+                # an int8 tier takes the rows as int8, as below
+                G8 = _refuse_int8(rd, None, rows)
+                rows = rows if G8 is None else np.asarray(G8)
+            h, nl = _mt_tp_scan(rows, rg, Yg, Kg, X0g, eig, rd, dtype,
+                                device, mesh, M, tg, ngrids, llim, ulim, esp)
+            nl["timings"]["scan"] = time.perf_counter() - ts
+            return _mt_result(h[:, 0].copy(), h[:, 1].copy(), h[:, 2] > 0.5,
+                              nl, ng - X0g.shape[1] - 1, tier_name,
+                              nl["timings"])
 
         def null():
             return _flat_null(_mt_null(Yg, X0g, Kg, eig, rd, dtype, device,
@@ -420,7 +455,6 @@ def _multi_trait_on_mesh(G, Y, K=None, X0=None, eig_k=None,
 
         nl = _unflat_null(pd.on_rank0(null, mesh))
         ts = time.perf_counter()
-        all_cols = keep is None or keep.all()
         if rg is not None:
             shard = pd.shard_packed_rows(rg, mesh, device=device)
             cols = (None if all_cols else torch.as_tensor(
@@ -452,16 +486,68 @@ def _multi_trait_on_mesh(G, Y, K=None, X0=None, eig_k=None,
     return scan(Y, K, X0, eig=eig_k)
 
 
+def _mt_tp_scan(rows, rg, Y, K, X0, eig_k, rd, dtype, device, mesh, M: int,
+                tile: int, ngrids, llim, ulim, esp):
+    """((T, 3, M) gathered [f, beta, mask], _mt_null's dict) of one
+    multi-trait scan on a mesh with a 'sample' axis: rank 0's _mt_null,
+    the traits' constants broadcast and each rank sent only its block of
+    the shared rotation's contraction rows (distributed.py::
+    on_rank0_rows); each tile's block of sample columns (distributed.py::
+    tp_blocks: rows, the rank's host rows already cut to the group's
+    samples, or rg, the container) rotated, the partial products summed
+    over 'sample' (ops/scan.py::apply_rotation_psum; the int8 planes in
+    integers before the recombine), the design mask from sums over
+    'sample' (outside_design_psum), K3 once a trait on the whole rotated
+    rows (_scan_tile_multitrait), and one all-gather over 'snp'."""
+    from mixmogam_tpu_torch.ops.rotate import rotation_rows
+    from mixmogam_tpu_torch.ops.scan import (apply_rotation_psum,
+                                             outside_design_psum)
+    from mixmogam_tpu_torch.parallel import distributed as pd
+
+    n = Y.shape[1]
+    n_pad, lo, hi = pd.tp_columns(n, mesh, packed=rg is not None)
+
+    def null():
+        nl = _mt_null(Y, X0, K, eig_k, rd, dtype, device, ngrids, llim,
+                      ulim, esp)
+        rot = nl.pop("rot")
+        p = _flat_null(nl)
+        p["w_scale"] = rot.w_scale
+        return p, rot.W
+
+    p, Wb = pd.on_rank0_rows(null, mesh, n_pad, lo, hi)
+    nl = _unflat_null(p)
+    W = rotation_rows(Wb, p["w_scale"], dtype)
+    del Wb
+    X0b, X0pb = (pd.block_rows(nl[k], lo, hi) for k in ("X0d", "X0p"))
+    if rg is not None:
+        missing = rg.has_missing
+    else:
+        missing = bool(np.isnan(rows).any() if rows.dtype != np.int8
+                       else (rows < 0).any())
+    outs = []
+    for Gb in pd.tp_blocks(rows, rg, missing, mesh, device, dtype, tile,
+                           lo, hi):
+        Xs = apply_rotation_psum(Gb, W, W.w_scale, W.dt, mesh, n)
+        keep = outside_design_psum(Gb.to(dtype), X0b, X0pb, mesh)
+        f, b, mk = _scan_tile_multitrait(Xs, nl["nulls"], keep)
+        outs.append(torch.stack((f, b, mk.to(f.dtype)), dim=1))
+    out = pd.row_block(outs, (Y.shape[0], 3), dtype, device)
+    return pd.gathered_rows(out, mesh, M), nl
+
+
 def _flat_null(nl: dict) -> dict:
     """_mt_null's dict as broadcast_from_rank0's payload: each trait's
-    RotatedNull and the SharedRotation field by field."""
+    RotatedNull and the SharedRotation (when it holds one) field by
+    field."""
     from mixmogam_tpu_torch.parallel.distributed import fields_of, null_fields
 
     out = {k: v for k, v in nl.items() if k not in ("nulls", "rot")}
     out["T"] = len(nl["nulls"])
     for t, r in enumerate(nl["nulls"]):
         out.update(null_fields(r, f"null{t}_"))
-    out.update(fields_of(nl["rot"], "rot_"))
+    if "rot" in nl:
+        out.update(fields_of(nl["rot"], "rot_"))
     return out
 
 
@@ -472,7 +558,8 @@ def _unflat_null(p: dict) -> dict:
 
     out = {k: p[k] for k in ("deltas", "h2s", "X0d", "X0p", "timings")}
     out["nulls"] = [null_from_fields(p, f"null{t}_") for t in range(p["T"])]
-    out["rot"] = from_fields(SharedRotation, p, "rot_")
+    if "rot_W" in p:
+        out["rot"] = from_fields(SharedRotation, p, "rot_")
     return out
 
 

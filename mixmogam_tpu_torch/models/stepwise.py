@@ -22,6 +22,14 @@ The whole-genome scans take one of four routes:
 - K = None: the identity kinship (the reference's lm_step_wise): phi = 1,
   no rotation, the imputed dosages scanned as they are.
 
+mesh= stores the rotated rows sharded by rank. On a 'sample' axis of S
+each rank of a 'sample' group stores its rows x its block c of the rotated
+columns, G_rows @ U'[:, c] ((m_rank, n_pad / S): U' reaches it as that
+block of output columns, and its rows are read whole from the host, so
+building the block takes no collective); a forward step whitens the block
+by sd[c], sums its partial x . Q0, x . y_res and |x|^2 over 'sample' and
+runs the GLS epilogue on the sums (ops/scan.py::scan_epilogue_psum).
+
 U is (I - P_X0) U (ops/scan.py::project_design), with X0 the base design:
 the span of X0 leaves the rotated rows, which keeps a float32 scan exact
 under a singular K with delta small (VanRaden's K along the intercept).
@@ -125,20 +133,27 @@ def emmax_step_wise(G, y, K=None, max_steps: int = 10,
     fits, cofactor re-tests and rotated null run on rank 0 and one
     broadcast sends them; each rank scans its rows (kernel K3) and the
     (f, mask) rows meet in one all-gather, so every rank takes the argmin
-    of the same array and returns the same dict. device: the rank's
-    (default the mesh's)."""
+    of the same array and returns the same dict. On a 'sample' axis rank
+    0 keeps U' and scatters each rank its block c of U''s output columns;
+    each rank stores G_rows @ U'[:, c] (K None: the imputed rows' columns
+    c), and a step's scan sums its block's partial sums over 'sample'
+    before the epilogue (kernel K3 fuses the whole-row sums with the
+    epilogue, so it does not run on a block of columns). device: the
+    rank's (default the mesh's)."""
     from mixmogam_tpu_torch.models.emmax import _as_design
     from mixmogam_tpu_torch.models.resident import (
         ResidentGenome, _default_dtype, _float_tiles, emmax_scan_packed,
         resident_and_device, rotate_resident_to_device)
     from mixmogam_tpu_torch.models.source import as_int8_dosage
     from mixmogam_tpu_torch.models.streaming import (
-        _host_float_tile, _impute_tile, host_tiles, rotate_streamed_to_device)
+        _host_float_tile, _impute_tile, host_tiles, rotate_streamed_to_device,
+        rotate_tiles)
     from mixmogam_tpu_torch.ops.eigen import eigen_k_on
     from mixmogam_tpu_torch.ops.reml import esp_to_refine_iters
     from mixmogam_tpu_torch.ops.scan import (emmax_scan_prerotated,
                                              emmax_scan_stats,
-                                             outside_design, project_design)
+                                             outside_design, project_design,
+                                             scan_epilogue_psum)
     from mixmogam_tpu_torch.ops.stats import f_sf_host
     from mixmogam_tpu_torch.ops.xreml import explicit_reml
     from mixmogam_tpu_torch.parallel import distributed as pd
@@ -186,6 +201,10 @@ def emmax_step_wise(G, y, K=None, max_steps: int = 10,
     X0_64 = torch.as_tensor(X0, dtype=torch.float64, device=device)
     y_64 = torch.as_tensor(y, dtype=torch.float64, device=device)
     identity_k = K is None and eig_k is None
+    if mesh is not None:
+        # rank 0's kinship decides: the other ranks need neither K nor eig_k
+        identity_k = pd.on_rank0(lambda: {"identity": identity_k},
+                                 mesh)["identity"]
 
     def basis() -> Dict:
         """phi, the projected U' with its design (X0, X0p), and y and X0
@@ -201,21 +220,50 @@ def emmax_step_wise(G, y, K=None, max_steps: int = 10,
         return {"phi": phi, "Up": Up, "X0d": X0d, "X0p": X0p,
                 "y_rot": y_rot, "X0_rot": X0_rot}
 
+    sample_axis = mesh is not None and mesh.shape[1] > 1
+    if sample_axis:
+        # this rank's block c = [c0, c1) of the rotated columns
+        n_pad, c0, c1 = pd.sample_blocks(n, mesh)
+    U_c = None
     if identity_k:
         phi = torch.ones(n, dtype=dtype, device=device)
         Up = design = None
         y_rot, X0_rot = y_64, X0_64
     else:
-        # on a mesh rank 0's, replicated by one broadcast
-        b = basis() if mesh is None else pd.on_rank0(basis, mesh)
-        phi, Up, y_rot, X0_rot = b["phi"], b["Up"], b["y_rot"], b["X0_rot"]
+        if sample_axis:
+            # rank 0 keeps U' (its re-fits' rotated cofactor rows) and
+            # sends each rank the rows c of U'^T: U'[:, c], column-major
+            held = {}
+
+            def basis_rows():
+                b = basis()
+                held["Up"] = b.pop("Up")
+                return b, held["Up"].T
+
+            b, U_cT = pd.on_rank0_rows(basis_rows, mesh, n_pad, c0, c1)
+            U_c, Up = U_cT.T, held.get("Up")
+        else:
+            # on a mesh rank 0's, replicated by one broadcast
+            b = basis() if mesh is None else pd.on_rank0(basis, mesh)
+            Up = b["Up"]
+        phi, y_rot, X0_rot = b["phi"], b["y_rot"], b["X0_rot"]
         design = (b["X0d"], b["X0p"])
         del b
     phi64 = phi.double()
 
     t0 = time.perf_counter()
     G_rot = keep = None
-    if mesh is not None:
+    if sample_axis:
+        # this rank's whole rows (the mask of rows inside col(X0) from
+        # them), stored as the block c of their rotated columns
+        lo, hi = pd.rank_range(M, mesh, tile)
+        tiles = host_tiles(src[lo:hi], dtype, device, tile)
+        if identity_k:
+            tiles = (pd.block_rows(t.T, c0, c1).T for t in tiles)
+        G_rot, keep = rotate_tiles(tiles, hi - lo, c1 - c0 if identity_k
+                                   else n, U_c, dtype, device, design)
+        del U_c
+    elif mesh is not None:
         # this rank's rows, rotated once onto its device
         lo, hi = pd.rank_range(M, mesh, tile)
         G_rot, keep = rotate_streamed_to_device(src[lo:hi], Up, dtype, tile,
@@ -333,9 +381,18 @@ def emmax_step_wise(G, y, K=None, max_steps: int = 10,
         p = pd.on_rank0(fit, mesh)
         t1 = time.perf_counter()
         rot = pd.null_from_fields(p)
-        out = (emmax_scan_prerotated(G_rot, rot, keep)[[0, 3]]
-               if G_rot.shape[0] else
-               torch.zeros((2, 0), dtype=dtype, device=device))
+        if not G_rot.shape[0]:
+            out = torch.zeros((2, 0), dtype=dtype, device=device)
+        elif sample_axis:
+            out = scan_epilogue_psum(
+                G_rot, *(pd.block_rows(v, c0, c1)
+                         for v in (rot.sd, rot.Q0, rot.y_res)),
+                rot.rss0, rot.dof, mesh, chunk=tile)
+            if keep is not None:
+                out = torch.where(keep[None, :], out, 0.0)
+            out = out[[0, 3]]
+        else:
+            out = emmax_scan_prerotated(G_rot, rot, keep)[[0, 3]]
         h = pd.gathered_rows(out, mesh, M)
         return p["step"], t1, rot, (h[0], h[1] > 0.5)
 

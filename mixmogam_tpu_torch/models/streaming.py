@@ -103,16 +103,19 @@ def host_tiles(G_src, dtype, device, tile: int = 16_384):
 
 
 def rotate_tiles(tiles, M: int, n: int, U, dtype, device, design=None):
-    """(G_rot, keep): G_rot (M, n) in dtype on device, the float tiles
-    (which cover the M rows in order) times U, a full-fp32 GEMM on the card
-    (TF32 off), or the tiles themselves for U=None (the identity K); one
-    preallocated output, so the device holds G_rot and one tile. design:
-    the (X0, X0p) of a projected U (ops/scan.py::project_design): keep is
-    then outside_design of every row, from the same tiles; else None."""
+    """(G_rot, keep): G_rot (M, k) in dtype on device, the float tiles
+    (which cover the M rows in order) times U (n, k), a full-fp32 GEMM on
+    the card (TF32 off), or the tiles themselves for U=None (the identity
+    K; k = n); one preallocated output, so the device holds G_rot and one
+    tile. U may be a block of a rotation's output columns (the 'sample'
+    route of models/stepwise.py). design: the (X0, X0p) of a projected U
+    (ops/scan.py::project_design): keep is then outside_design of every
+    row, from the same tiles; else None."""
     from mixmogam_tpu_torch.ops import assert_fp32_matmuls
     from mixmogam_tpu_torch.ops.scan import outside_design
 
-    out = torch.empty((M, n), dtype=dtype, device=device)
+    out = torch.empty((M, n if U is None else U.shape[1]), dtype=dtype,
+                      device=device)
     keep = (None if design is None
             else torch.empty(M, dtype=torch.bool, device=device))
     if U is not None:
@@ -444,8 +447,12 @@ def emmax_streamed(matrix_source, y, K=None, X0: Optional[np.ndarray] = None,
     buffers; the main thread copies it to the card on a side CUDA stream
     and queues the tile's scan on the current stream behind that copy; at
     most `inflight` tiles' (4, rows) outputs wait on the card before their
-    copy to the host. Tiles are not padded: the last one scans its own
-    rows.
+    copy to the host. The kernels' tiles are not padded: the last one
+    scans its own rows. The exact tier rotates a short last tile at the
+    height of the others, its rows then zeros, as a ResidentGenome pads
+    its rows: a GEMM may round a row differently as the product's height
+    changes (cuBLAS does), and a row's statistics then do not depend on
+    where the source ends (bit-equal to emmax_resident at the same tile).
 
     checkpoint_dir: each completed tile's statistics land there with a
     manifest (_Checkpoint), keyed on the model, tier, dtype and a sample of
@@ -617,7 +624,11 @@ def emmax_streamed(matrix_source, y, K=None, X0: Optional[np.ndarray] = None,
     def scan(td, missing):
         if rd is None:
             Gt = _impute_tile(td, dtype) if td.dtype == torch.int8 else td
-            return emmax_scan_stats(Gt.to(dtype), rot)
+            m = Gt.shape[0]
+            if m < min(tile, M):
+                Gt = torch.cat([Gt.to(dtype), Gt.new_zeros(
+                    (min(tile, M) - m, n), dtype=dtype)])
+            return emmax_scan_stats(Gt.to(dtype), rot)[:, :m]
         if missing == _FLOAT_TILE:
             if not float_route:
                 # the float route's rotation, built at its first tile

@@ -441,16 +441,26 @@ def build_rotated_null(null: NullModel, rotate_dtype=None) -> RotatedNull:
     from mixmogam_tpu_torch.ops.eigen import orthonormal_basis
 
     phi, U, delta = null.phi, null.U, null.delta
+    dt = U.dtype
     sd = 1.0 / torch.sqrt(phi + delta)
-    y_star = (null.y @ U) * sd
-    X0_star = (null.X0.T @ U).T * sd[:, None]
+    # y and X0 whitened, Q0, y_res and rss0 in float64, rounded once to
+    # the compute dtype: in float32 their own rounding alone moves the
+    # exact scan's p by about 1e-6 under a singular K
+    # (tests/test_torch_streaming.py)
+    sd64 = sd.double()
+    yX = torch.cat([null.y[None, :], null.X0.T]).double()
+    yX_rot = torch.cat([yX @ U[:, j:j + 4_096].double()
+                        for j in range(0, U.shape[1], 4_096)], dim=1)
+    y_star = yX_rot[0] * sd64
+    X0_star = yX_rot[1:].T * sd64[:, None]
     n, q = X0_star.shape
     if rotate_dtype is not None and q > DESIGN_QMAX:
         raise ValueError(f"the {rotate_dtype} tier takes null designs of up "
                          f"to {DESIGN_QMAX} columns; got {q}")
     Q0 = orthonormal_basis(X0_star)
     y_res = y_star - Q0 @ (Q0.T @ y_star)
-    rss0 = y_res @ y_res
+    rss0 = (y_res @ y_res).to(dt)
+    Q0, y_res = Q0.to(dt), y_res.to(dt)
     Ur = planes = w_scale = parts = None
     if rotate_dtype is None:
         Ur, X0, X0p = project_design(U, null.X0)
@@ -569,19 +579,28 @@ def scan_epilogue(Xs: torch.Tensor, Q0, y_res, rss0, dof
     """F statistics from whitened SNP rows Xs (m, n) -> (4, m) rows
     [f, beta, var_perc, mask] in Xs's dtype (mask as 0/1). eps and tiny
     follow the compute dtype, as ops/scan.py's scan_epilogue does."""
-    dt = Xs.dtype
-    fi = torch.finfo(dt)
     c = Xs @ Q0
     xy = Xs @ y_res
     ss = (Xs * Xs).sum(dim=1)
-    xx = ss - (c * c).sum(dim=1)
+    return epilogue_from_sums(xy, ss, (c * c).sum(dim=1), rss0, dof)
+
+
+def epilogue_from_sums(xy: torch.Tensor, ss: torch.Tensor, cc: torch.Tensor,
+                       rss0, dof) -> torch.Tensor:
+    """The GLS epilogue after a whitened row's sums: xy = x . y_res,
+    ss = |x|^2 and cc = |Q0^T x|^2, each (m,) in the compute dtype, ->
+    (4, m) [f, beta, var_perc, mask] (scan_epilogue's arithmetic after its
+    sums; scan_epilogue_psum's after the sums meet over 'sample')."""
+    dt = ss.dtype
+    fi = torch.finfo(dt)
+    xx = ss - cc
     eps = 100.0 * fi.eps
     mask = xx > eps * torch.clamp(ss, min=fi.tiny)
-    rss0 = torch.as_tensor(rss0, dtype=dt, device=Xs.device)
-    dof = torch.as_tensor(dof, dtype=dt, device=Xs.device)
-    zero = torch.zeros((), dtype=dt, device=Xs.device)
+    rss0 = torch.as_tensor(rss0, dtype=dt, device=ss.device)
+    dof = torch.as_tensor(dof, dtype=dt, device=ss.device)
+    zero = torch.zeros((), dtype=dt, device=ss.device)
     xx_safe = torch.where(mask, xx, torch.ones((), dtype=dt,
-                                               device=Xs.device))
+                                               device=ss.device))
     expl = xy * xy / xx_safe
     expl = torch.where(mask, torch.minimum(expl, rss0), zero)
     rss1 = rss0 - expl
@@ -591,6 +610,32 @@ def scan_epilogue(Xs: torch.Tensor, Q0, y_res, rss0, dof
     var_perc = torch.where(mask, expl / rss0, zero)
     return torch.stack([torch.where(mask, f, zero), beta, var_perc,
                         mask.to(dt)])
+
+
+def scan_epilogue_psum(X_block: torch.Tensor, sd_rows: torch.Tensor,
+                       Q0_rows: torch.Tensor, y_res_rows: torch.Tensor, rss0,
+                       dof, mesh, chunk: int = 16_384) -> torch.Tensor:
+    """scan_stats_plain of whole rotated rows held as blocks of their
+    columns (X_block (m, nb) with the matching entries of sd, Q0 and y_res;
+    zero where the block pads the sample axis), on every rank of the
+    mesh's 'sample' group: each block whitened by its sd and its partial
+    sums x . Q0, x . y_res and |x|^2 formed (chunk rows at a time, so no
+    whitened copy of the whole block is held), the (q + 2, m) sums summed
+    over 'sample' in one all-reduce, then epilogue_from_sums."""
+    from mixmogam_tpu_torch.parallel.mesh import all_reduce
+
+    q = Q0_rows.shape[1]
+    sums = torch.empty((q + 2, X_block.shape[0]), dtype=X_block.dtype,
+                       device=X_block.device)
+    for s in range(0, X_block.shape[0], chunk):
+        Xs = X_block[s:s + chunk] * sd_rows[None, :]
+        sums[:q, s:s + chunk] = (Xs @ Q0_rows).T
+        sums[q, s:s + chunk] = Xs @ y_res_rows
+        sums[q + 1, s:s + chunk] = (Xs * Xs).sum(dim=1)
+    sums = all_reduce(sums, mesh, axis="sample")
+    c = sums[:q].T
+    return epilogue_from_sums(sums[q], sums[q + 1], (c * c).sum(dim=1),
+                              rss0, dof)
 
 
 def emmax_scan_stats(G_tile: torch.Tensor, rot: RotatedNull

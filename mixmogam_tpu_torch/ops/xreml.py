@@ -24,9 +24,9 @@ tests/test_torch_xreml.py holds its signs on the grid to JAX's.
 
 emma_delta_scan is EMMA's per-SNP REML: every SNP j of a tile has its own
 design [X0 | g_j] and its own delta. The grid's weights are shared by all
-SNPs, so the whole grid is two products a tile (_grid_lls): the rotated
-rows times every grid point's [W0_k | w_k y] side by side, and their
-squares times every w_k. The bisection's weights are per SNP, (m, n), and
+SNPs, so the grid is two products a block of grid points (_grid_lls):
+the rotated rows times the block's [W0_k | w_k y] side by side, and their
+squares times its w_k. The bisection's weights are per SNP, (m, n), and
 its derivative is the same analytic form per SNP (_dll_snps_at), with no
 autograd graph (tests/test_torch_emma.py holds it to autograd of
 _ll_snps_at and to the JAX package's jax.grad). emma_grid and emma_refine
@@ -283,28 +283,39 @@ def _dll_snps_at(logdelta, Gt, X0_rot, y_rot, phi, reml: bool):
 #: batch elements (SNP x grid point x p^2) of one chunk of _grid_lls's
 #: assembled A: a wide design evaluates the grid a few points at a time
 _GRID_CHUNK_ELEMS = 1 << 26
+#: grid points of one product: a chunk's products run a block of this many
+#: points at a time, blocks counted from the grid's start, so a point's LL
+#: comes from the same products, bit for bit, however the grid is chunked
+#: (a BLAS may round a column differently as the product's width changes)
+_GRID_BLOCK = 8
 
 
 def _grid_lls(Gt, X0_rot, y_rot, phi, logdet_XtX, grid, reml: bool):
     """(m, k) LL of every SNP at every grid point log delta (k,): the
-    grid's shared weights w_k stacked side by side, so each chunk of grid
-    points takes two products, Gt @ [W0_k | w_k y]_k and (Gt * Gt) @ w^T."""
+    grid's shared weights w_k stacked side by side, so each block of
+    _GRID_BLOCK grid points takes two products, Gt @ [W0_k | w_k y]_k and
+    (Gt * Gt) @ w^T; a chunk holds whole blocks."""
     m, n = Gt.shape
     q = X0_rot.shape[1]
     p = q + 1
     G2 = Gt * Gt
     step = max(1, _GRID_CHUNK_ELEMS // max(m * p * p, 1))
+    step = max(_GRID_BLOCK, step - step % _GRID_BLOCK)
     out = []
     for s in range(0, grid.shape[0], step):
         d = torch.exp(grid[s:s + step])
-        k = d.shape[0]
+        blocks = range(0, d.shape[0], _GRID_BLOCK)
         w = 1.0 / (phi[None, :] + d[:, None])                   # (k, n)
         W0 = X0_rot[None, :, :] * w[:, :, None]                 # (k, n, q)
         V = torch.cat([W0, (w * y_rot[None, :])[:, :, None]], dim=2)
-        P = (Gt @ V.permute(1, 0, 2).reshape(n, k * p)).reshape(m, k, p)
+        P = torch.cat([(Gt @ V[j:j + _GRID_BLOCK].permute(1, 0, 2)
+                        .reshape(n, -1)).reshape(m, -1, p)
+                       for j in blocks], dim=1)
+        G2w = torch.cat([G2 @ w[j:j + _GRID_BLOCK].T.contiguous()
+                         for j in blocks], dim=1)
         A, b, c = _assemble(X0_rot.T @ W0, (W0 * y_rot[None, :, None]).sum(1),
                             (w * y_rot * y_rot).sum(dim=1), P[..., :q],
-                            G2 @ w.T, P[..., q])
+                            G2w, P[..., q])
         logdet_H = torch.log(phi[None, :] + d[:, None]).sum(dim=1)
         ll, _, _ = _ll_from_moments(A, b, c, logdet_H, logdet_XtX[:, None],
                                     n, p, reml)

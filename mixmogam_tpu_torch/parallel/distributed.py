@@ -61,24 +61,25 @@ from mixmogam_tpu_torch.parallel.mesh import (Mesh, all_reduce,
 from mixmogam_tpu_torch.parallel.multihost import SnpShard, host_snp_range
 
 
-def _mesh_device(mesh: Optional[Mesh], device, sample_route: bool = False
+def _mesh_device(mesh: Optional[Mesh], device
                  ) -> Tuple[Mesh, torch.device]:
-    """The mesh (default make_mesh(), whose device is the rank's card) and
-    the device the rank computes on (default the mesh's). A 'sample' axis
-    above 1 raises NotImplementedError unless the caller has a route for
-    it (sample_route): no caller drops the axis quietly."""
+    """The mesh (default make_mesh(), whose device is the rank's card),
+    checked by check_sample_mesh, and the device the rank computes on
+    (default the mesh's)."""
     if mesh is None:
         mesh = make_mesh(devices=device)
-    if mesh.shape[1] != 1:
-        if not sample_route:
-            raise NotImplementedError(
-                "this mesh route has no 'sample' axis route (the "
-                "tensor-parallel scan): ROADMAP Queue 1 item 16d")
-        if mesh.shape[0] * mesh.shape[1] != mesh.world:
-            # a block of the samples alone would scan as the whole
-            raise ValueError(f"mesh shape {mesh.shape} != {mesh.world} "
-                             "ranks; build the mesh with make_mesh()")
+    check_sample_mesh(mesh)
     return mesh, (mesh.device if device is None else torch.device(device))
+
+
+def check_sample_mesh(mesh: Mesh) -> None:
+    """A 'sample' axis above 1 must hold the world (make_mesh's mesh): on
+    a hand-built mesh that does not, a block of the samples alone would
+    scan as the whole. Raises ValueError naming make_mesh, on every rank
+    and before any collective."""
+    if mesh.shape[1] != 1 and mesh.shape[0] * mesh.shape[1] != mesh.world:
+        raise ValueError(f"mesh shape {mesh.shape} != {mesh.world} "
+                         "ranks; build the mesh with make_mesh()")
 
 
 def _local_rows(G, mesh: Mesh) -> Tuple[np.ndarray, int]:
@@ -232,7 +233,7 @@ def distributed_kinship(G, mesh: Optional[Mesh] = None, method: str = "ibs",
                                                 vanraden_partial)
 
     method = check_kinship_method(method)
-    mesh, device = _mesh_device(mesh, device, sample_route=True)
+    mesh, device = _mesh_device(mesh, device)
     rows = None
     if mesh.shape[1] > 1:
         if isinstance(G, SnpShard):
@@ -385,9 +386,6 @@ def _tp_null(mesh: Mesh, device, dtype, y, X0, K, eig_k, rd,
     rows zero-padded to n_pad, by one scatter (parallel/mesh.py::
     scatter_from_rank0): no other rank holds the whole rotation."""
     from mixmogam_tpu_torch.ops.rotate import rotation_rows
-    from mixmogam_tpu_torch.parallel.mesh import scatter_from_rank0
-
-    held = {}
 
     def fit():
         payload, parts = _fit_rotated(device, dtype, y, X0, K, eig_k, rd,
@@ -395,18 +393,9 @@ def _tp_null(mesh: Mesh, device, dtype, y, X0, K, eig_k, rd,
                                       host_eigh)
         W = next(w for w in (parts, payload.pop("U"), payload.pop("planes"),
                              payload.pop("parts")) if w is not None)
-        held["W"] = torch.nn.functional.pad(
-            W, (0, 0, 0, n_pad - W.shape[-2]))
-        payload["w_block"] = (tuple(W.shape[:-2]) + (hi - lo, W.shape[-1]),
-                              W.dtype)
-        return payload
+        return payload, W
 
-    payload = on_rank0(fit, mesh)
-    shape, wdt = payload.pop("w_block")
-    blocks = (list(torch.split(held.pop("W"), hi - lo, dim=-2))
-              if "W" in held else None)
-    Wb = scatter_from_rank0(blocks, mesh, shape, wdt)
-    del blocks
+    payload, Wb = on_rank0_rows(fit, mesh, n_pad, lo, hi)
     rot = null_from_fields(dict(payload, U=None, planes=None, parts=None))
     n = rot.sd.shape[0]
     if rot.folded:
@@ -417,18 +406,46 @@ def _tp_null(mesh: Mesh, device, dtype, y, X0, K, eig_k, rd,
             w_scale=None, folded=False)
     else:
         epi = rot
-    width = max(0, min(hi, n) - lo)
-
-    def rows_of(A):
-        out = torch.zeros((hi - lo, A.shape[1]), dtype=A.dtype,
-                          device=A.device)
-        out[:width] = A[lo:lo + width]
-        return out
-
     tp = TPNull(epi=epi, W=rotation_rows(Wb, rot.w_scale, dtype),
-                X0=rows_of(rot.X0), X0p=rows_of(rot.X0p), n=n, lo=lo,
-                width=width)
+                X0=block_rows(rot.X0, lo, hi), X0p=block_rows(rot.X0p, lo, hi),
+                n=n, lo=lo, width=max(0, min(hi, n) - lo))
     return tp, {k: payload["null_" + k] for k in _NULL_SCALARS}
+
+
+def on_rank0_rows(fn, mesh: Mesh, n_pad: int, lo: int, hi: int):
+    """(payload, this rank's block) of fn() run on rank 0, which returns
+    (payload, W) with W (..., n, k): the payload on every rank by on_rank0
+    (an exception raised on every rank), and W's rows zero-padded to n_pad
+    and cut in blocks of hi - lo, block j sent to the ranks of 'sample'
+    coordinate j by one scatter (parallel/mesh.py::scatter_from_rank0): no
+    other rank holds the whole of W."""
+    from mixmogam_tpu_torch.parallel.mesh import scatter_from_rank0
+
+    held = {}
+
+    def fit():
+        payload, W = fn()
+        held["W"] = torch.nn.functional.pad(
+            W, (0, 0, 0, n_pad - W.shape[-2]))
+        payload["_w_block"] = (tuple(W.shape[:-2]) + (hi - lo, W.shape[-1]),
+                               W.dtype)
+        return payload
+
+    payload = on_rank0(fit, mesh)
+    shape, wdt = payload.pop("_w_block")
+    blocks = (list(torch.split(held.pop("W"), hi - lo, dim=-2))
+              if "W" in held else None)
+    return payload, scatter_from_rank0(blocks, mesh, shape, wdt)
+
+
+def block_rows(A: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Rows [lo, hi) of A (a sample block of the rows of X0, of sd, ...),
+    zero past A's own rows."""
+    out = torch.zeros((hi - lo,) + tuple(A.shape[1:]), dtype=A.dtype,
+                      device=A.device)
+    width = max(0, min(hi, A.shape[0]) - lo)
+    out[:width] = A[lo:lo + width]
+    return out
 
 
 def _tp_scan_tile(Gb: torch.Tensor, tp: TPNull, mesh: Mesh) -> torch.Tensor:
@@ -558,12 +575,9 @@ def rank_sources(mesh: Optional[Mesh], tile: int, device, rg, *hosts):
 
 
 #: the ROADMAP Queue 1 item that brings each entry point's 'sample' route
-#: (emmax has it: its routes are distributed_emmax and
-#: distributed_emmax_resident; emma refuses the axis as the JAX package
-#: does)
+#: (emmax, emmax_loco, emmax_multi_trait and emmax_step_wise have it; emma
+#: refuses the axis as the JAX package does)
 SAMPLE_AXIS_ITEM = {
-    "emmax_step_wise": "16d-ii", "emmax_loco": "16d-ii",
-    "emmax_multi_trait": "16d-ii",
     "emmax_gxe": "16d-iii", "emmax_perm_test": "16d-iii",
     "emmax_anova": "16d-iii", "emmax_two_snps": "16d-iii",
     "linear_model": "16d-iii", "anova": "16d-iii", "kruskal_wallis": "16d-iii",
@@ -573,8 +587,13 @@ SAMPLE_AXIS_ITEM = {
 def refuse_sample_axis(mesh: Mesh, what: str) -> None:
     """The refusal of a 'sample' axis above 1 by an entry point without a
     route for it: NotImplementedError naming its ROADMAP Queue 1 item
-    (SAMPLE_AXIS_ITEM); emma's is the JAX package's own ValueError."""
+    (SAMPLE_AXIS_ITEM); emma's is the JAX package's own ValueError. An
+    entry point with a route takes the axis on make_mesh's mesh only
+    (check_sample_mesh)."""
     if mesh.shape[1] == 1:
+        return
+    if what != "emma" and what not in SAMPLE_AXIS_ITEM:
+        check_sample_mesh(mesh)
         return
     if what == "emma":
         raise ValueError("mesh-distributed EMMA shards 'snp' only; use a "
@@ -589,14 +608,14 @@ def mesh_entry(mesh, G, what: str, device=None) -> Tuple[Mesh, torch.device]:
     """(mesh, the rank's device: `device`, default the mesh's) of an entry
     point's mesh= route, after the checks that route makes on every rank
     before anything else: mesh is a Mesh (make_mesh()), its 'sample' axis
-    is 1 unless the entry point has a route for it (emmax;
-    refuse_sample_axis), and G is the whole source, not a rank's SnpShard
+    is 1 unless the entry point has a route for it (emmax, emmax_loco,
+    emmax_multi_trait, emmax_step_wise), and then the mesh holds the world
+    (refuse_sample_axis), and G is the whole source, not a rank's SnpShard
     (the entry points read their rows from it)."""
     if not isinstance(mesh, Mesh):
         raise TypeError("mesh must be a mixmogam_tpu_torch.parallel.Mesh "
                         f"(make_mesh()); got {type(mesh).__name__}")
-    if what != "emmax":
-        refuse_sample_axis(mesh, what)
+    refuse_sample_axis(mesh, what)
     if isinstance(G, SnpShard):
         raise TypeError(f"{what}(mesh=) takes the whole matrix on every "
                         "rank; pass a rank's SnpShard to distributed_emmax")
@@ -665,7 +684,7 @@ def distributed_emmax(G, y, K=None, X0: Optional[np.ndarray] = None,
             llim=llim, ulim=ulim, esp=esp, dtype=dtype,
             rotate_in_bf16=rotate_in_bf16, host_eigh=host_eigh,
             device=device)
-    mesh, device = _mesh_device(mesh, device, sample_route=True)
+    mesh, device = _mesh_device(mesh, device)
     if dtype is None:
         dtype = _default_dtype(device)
     y = np.asarray(y, dtype=np.float64).ravel()
@@ -714,46 +733,76 @@ def distributed_emmax(G, y, K=None, X0: Optional[np.ndarray] = None,
 
 def _tp_scan(rows: Optional[np.ndarray], rg, missing: bool, mesh: Mesh,
              device, dtype, y, X0, K, eig_k, rd, float_route: bool, ngrids,
-             llim, ulim, esp, host_eigh, tile: int):
+             llim, ulim, esp, host_eigh, tile: int,
+             window: Optional[Tuple[int, int]] = None):
     """The 'sample' route of distributed_emmax (rows: the rank's 'snp'
     rows, int8 dosages with -1 missing or float dosages with NaN) and of
     distributed_emmax_resident (rg: the container; rows None): ((4, m_rank)
-    statistics, the epilogue's null, null scalars). The sample axis is
-    zero-padded (sample_blocks) and each rank takes its block of columns a
-    tile at a time: in core cut from its host rows, packed unpacked on the
-    device from its rows x its byte block (shard_packed_rows(sample_axis=
-    True)). Missing calls are imputed from moments summed over 'sample'
-    (in float64 in core, as the host imputation of one device; in the
-    compute dtype packed, as its packed scans), the columns past n set to
-    0, then _tp_scan_tile."""
+    statistics, the epilogue's null, null scalars). Rank 0's null reaches
+    each rank as its block of the rotation (_tp_null), each tile's block of
+    sample columns comes from tp_blocks (window: the container's rows of
+    [s, e) the rank's shard holds), then _tp_scan_tile."""
+    n = rg.n if rg is not None else rows.shape[1]
+    n_pad, lo, hi = tp_columns(n, mesh, packed=rg is not None)
+    tp, nulls = _tp_null(mesh, device, dtype, y, X0, K, eig_k, rd,
+                         float_route, ngrids, llim, ulim, esp, host_eigh,
+                         n_pad, lo, hi)
+    outs = [_tp_scan_tile(Gb, tp, mesh)
+            for Gb in tp_blocks(rows, rg, missing, mesh, device, dtype,
+                                tile, lo, hi, window)]
+    return row_block(outs, (4,), dtype, device), tp.epi, nulls
+
+
+def tp_columns(n: int, mesh: Mesh, packed: bool) -> Tuple[int, int, int]:
+    """(n_pad, lo, hi) of this rank's block of sample columns on a 'sample'
+    axis: sample_blocks' in core, its byte bounds times 4 packed."""
+    n_pad, lo, hi = sample_blocks(n, mesh, packed=packed)
+    return (n_pad, 4 * lo, 4 * hi) if packed else (n_pad, lo, hi)
+
+
+def tp_blocks(rows: Optional[np.ndarray], rg, missing: bool, mesh: Mesh,
+              device, dtype, tile: int, lo: int, hi: int,
+              window: Optional[Tuple[int, int]] = None):
+    """Each tile's (m, hi - lo) block of sample columns [lo, hi)
+    (tp_columns) on the rank's device, in row order, as the 'sample' route
+    rotates it: in core cut from the rank's host rows (rows: int8 with -1
+    missing or float with NaN), a tile rows at a time; packed (rg, rows
+    None) unpacked on the device from the rank's rows x its byte block
+    (shard_packed_rows(sample_axis=True)), a container tile at a time, and
+    with window (s, e) only the rows of [s, e) the shard holds. Missing
+    calls (missing: on any rank of the group) are imputed from moments
+    summed over 'sample' (_tp_imputed: in float64 in core, as the host
+    imputation of one device; in the compute dtype packed, as its packed
+    scans), the columns past n set to 0; a block that is not int8 is cast
+    to dtype. Every rank of a 'sample' group holds the same rows, so each
+    takes the same tiles and the same collectives."""
     from mixmogam_tpu_torch.ops.pack2 import unpack_2bit_device
 
     packed = rg is not None
     n = rg.n if packed else rows.shape[1]
-    n_pad, lo, hi = sample_blocks(n, mesh, packed=packed)
-    if packed:
-        lo, hi = 4 * lo, 4 * hi
-    tp, nulls = _tp_null(mesh, device, dtype, y, X0, K, eig_k, rd,
-                         float_route, ngrids, llim, ulim, esp, host_eigh,
-                         n_pad, lo, hi)
-    valid = torch.arange(hi - lo, device=device) < tp.width
+    width = max(0, min(hi, n) - lo)
+    valid = torch.arange(hi - lo, device=device) < width
 
     def host_block(s):
         blk = np.zeros((min(tile, rows.shape[0] - s), hi - lo),
                        dtype=np.int8 if rows.dtype == np.int8
                        else np.float64)
-        blk[:, :tp.width] = rows[s:s + blk.shape[0], lo:lo + tp.width]
+        blk[:, :width] = rows[s:s + blk.shape[0], lo:lo + width]
         return torch.from_numpy(blk).to(device)
 
     if packed:
         shard = shard_packed_rows(rg, mesh, device=device, sample_axis=True)
-        tile = rg.tile
-        tiles = (unpack_2bit_device(shard.packed[s:min(s + tile, shard.M)],
-                                    hi - lo)
-                 for s in range(0, shard.M, tile))
+        a, m = 0, shard.M
+        if window is not None:
+            first = host_snp_range(rg.M, mesh.shape[0], mesh.snp_index,
+                                   tile=rg.tile)[0]
+            a = max(window[0], first) - first
+            m = max(min(window[1], first + shard.M) - first - a, 0)
+        tiles = (unpack_2bit_device(
+            shard.packed[a + s:a + min(s + rg.tile, m)], hi - lo)
+            for s in range(0, m, rg.tile))
     else:
         tiles = (host_block(s) for s in range(0, rows.shape[0], tile))
-    outs = []
     for Gb in tiles:
         if missing:
             miss = torch.isnan(Gb) if Gb.is_floating_point() else Gb < 0
@@ -762,10 +811,7 @@ def _tp_scan(rows: Optional[np.ndarray], rg, missing: bool, mesh: Mesh,
         else:
             # the last byte's column padding decodes as -1 (missing)
             Gb = torch.where(valid[None, :], Gb, 0)
-        if Gb.dtype != torch.int8:
-            Gb = Gb.to(dtype)
-        outs.append(_tp_scan_tile(Gb, tp, mesh))
-    return row_block(outs, (4,), dtype, device), tp.epi, nulls
+        yield Gb if Gb.dtype == torch.int8 else Gb.to(dtype)
 
 
 def distributed_emmax_resident(rg, y, K=None, X0: Optional[np.ndarray] = None,
@@ -796,7 +842,7 @@ def distributed_emmax_resident(rg, y, K=None, X0: Optional[np.ndarray] = None,
     collective. On a mesh with a 'sample' axis each rank uploads only its
     rows x its byte block and scans it by _tp_scan. _rows: (s, e), scan
     only the rows of [s, e) each rank's shard holds (LOCO's chromosomes;
-    the result covers [s, e)); a 'sample' axis refuses it."""
+    the result covers [s, e)), on either kind of mesh."""
     from mixmogam_tpu_torch.models.emmax import _as_design
     from mixmogam_tpu_torch.models.resident import (_default_dtype,
                                                     emmax_scan_packed)
@@ -809,17 +855,17 @@ def distributed_emmax_resident(rg, y, K=None, X0: Optional[np.ndarray] = None,
     rd = normalize_rotate_tier(rotate_in_bf16)
     if rd is not None and rd.startswith("int8") and rg.has_missing:
         raise ValueError("int8 tiers need fully-observed dosages")
-    mesh, device = _mesh_device(mesh, device, sample_route=_rows is None)
+    mesh, device = _mesh_device(mesh, device)
     if dtype is None:
         dtype = _default_dtype(device)
     X0 = _as_design(np.ones((n, 1)) if X0 is None else X0, n)
+    s, e = (0, rg.M) if _rows is None else _rows
     if mesh.shape[1] > 1:
         out, rot, nulls = _tp_scan(None, rg, rg.has_missing, mesh, device,
                                    dtype, y, X0, K, eig_k, rd, False,
                                    ngrids, llim, ulim, esp, host_eigh,
-                                   rg.tile)
-        return _gathered_result(out, mesh, rg.M, rot, nulls)
-    s, e = (0, rg.M) if _rows is None else _rows
+                                   rg.tile, window=_rows)
+        return _gathered_result(out, mesh, e - s, rot, nulls)
     rot, _, nulls = _replicated_null(mesh, device, dtype, y, X0, K, eig_k,
                                      rd, False, ngrids, llim, ulim, esp,
                                      host_eigh)

@@ -8,15 +8,20 @@ On the mesh of --shape (default (2, 2)) and on the SNP-only mesh
 (world, 1) of the same ranks, each rank times distributed_kinship and,
 at exact / int8x3 / bf16x3, distributed_emmax (in core) and
 distributed_emmax_resident (a host-only container, each rank uploading
-its rows x its byte block), synchronised, with a barrier before each
-call and after a first, untimed call (the communicators' set-up); and the
-bytes it handed all_reduce a call. The kernels are built before the ranks
-start. Rank 0 then holds every
-result to one device's kinship_resident / emmax_resident on its card: the
-integer kinship bit-equal, masks equal, max |dp| within the tier's
-TIER_P_DRIFT entry (exact: 1e-5, float32 partial sums in other shapes),
-on both meshes (each max |dp| printed: the SNP-only mesh's is 0 where the
-cards round alike).
+its rows x its byte block), and the campaign entry points:
+emmax_step_wise (3 steps, in core), emmax_multi_trait (T = 4, exact in
+core and int8x3 over the host-only container) and emmax_loco (the first
+8,192 rows of n = 2,048 samples in 3 chromosomes, packed on the host;
+its kinships and eighs on rank 0), synchronised, with a barrier before
+each call and after a first, untimed call (the communicators' set-up);
+and the bytes it handed all_reduce a call. The kernels are built before
+the ranks start. Rank 0 then holds every result to one device's call on
+its card (kinship_resident, emmax_resident, emmax_step_wise,
+emmax_multi_trait, emmax_loco): the integer kinship bit-equal, masks
+equal, max |dp| within the tier's TIER_P_DRIFT entry (exact: 1e-5,
+float32 partial sums in other shapes), stepwise's path of cofactors and
+selections equal and its min_p within 1e-5, on both meshes (each max |dp|
+printed: the SNP-only mesh's is 0 where the cards round alike).
 
   python3 scripts/torch_tp_nccl.py [--world 4] [--shape 2,2]
       [--samples 10240] [--snps 32768] [--device cuda|cpu]
@@ -62,9 +67,12 @@ def _rank(args) -> None:
     import torch
     import torch.distributed as dist
 
+    from mixmogam_tpu_torch.models.loco import emmax_loco
+    from mixmogam_tpu_torch.models.multitrait import emmax_multi_trait
     from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                     emmax_resident,
                                                     kinship_resident, scale_k)
+    from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
     from mixmogam_tpu_torch.ops.eigen import eigen_k_on
     from mixmogam_tpu_torch.ops.scan import TIER_P_DRIFT
     from mixmogam_tpu_torch.parallel import (distributed_emmax,
@@ -84,6 +92,13 @@ def _rank(args) -> None:
         K1 = kinship_resident(one)
         eig = eigen_k_on(scale_k(K1), dev)
     host = ResidentGenome.from_source(G, upload=False)
+    rng = np.random.default_rng(args.seed + 1)
+    Y = np.stack([y, y + rng.normal(size=y.size), rng.normal(size=y.size),
+                  0.5 * y + rng.normal(size=y.size)])
+    nl, ml = min(2_048, args.samples), min(8_192, args.snps)
+    Gl, yl = np.ascontiguousarray(G[:ml, :nl]), y[:nl]
+    chl = np.repeat([1, 2, 3], [ml // 4, ml // 2, ml - 3 * (ml // 4)])
+    host_l = ResidentGenome.from_source(Gl, upload=False)
     shape = tuple(int(s) for s in args.shape.split(","))
     meshes = {"tp": make_mesh(shape, devices=args.device if cpu else None),
               "snp": make_mesh(devices=args.device if cpu else None)}
@@ -113,6 +128,14 @@ def _rank(args) -> None:
             timed(f"{key} distributed_emmax_resident {tier}",
                   lambda: distributed_emmax_resident(
                       host, y, eig_k=eig, mesh=mesh, rotate_in_bf16=rb))
+        timed(f"{key} emmax_step_wise", lambda: emmax_step_wise(
+            G, y, eig_k=eig, max_steps=3, mesh=mesh))
+        for tier, src in (("exact", G), ("int8x3", host)):
+            timed(f"{key} emmax_multi_trait {tier}",
+                  lambda: emmax_multi_trait(src, Y, eig_k=eig,
+                                            precision=tier, mesh=mesh))
+        timed(f"{key} emmax_loco", lambda: emmax_loco(
+            host_l, yl, chromosomes=chl, mesh=mesh))
     if rank != 0:
         dist.barrier()
         dist.destroy_process_group()
@@ -134,6 +157,36 @@ def _rank(args) -> None:
                                                    "max_dp": dp}
                 if nm or dp > tol:
                     bad.append(f"{key} {route} {tier}")
+    refs = {"emmax_multi_trait exact": emmax_multi_trait(
+                G, Y, eig_k=eig, device=dev),
+            "emmax_multi_trait int8x3": emmax_multi_trait(
+                one, Y, eig_k=eig, precision="int8x3"),
+            "emmax_loco": emmax_loco(ResidentGenome.from_source(
+                Gl, device=dev), yl, chromosomes=chl)}
+    sw = emmax_step_wise(G, y, eig_k=eig, max_steps=3, device=dev)
+    for key in meshes:
+        for name, ref in refs.items():
+            got = res[f"{key} {name}"]
+            nm = int((got["mask"] != ref["mask"]).sum())
+            dp = float(np.abs(got["ps"] - ref["ps"]).max())
+            tol = 1e-5 if "int8x3" not in name else TIER_P_DRIFT["int8x3"]
+            checks[f"{key} {name}"] = {
+                "masks_differ": nm, "max_dp": dp,
+                "f_stats_bit_equal": bool(np.array_equal(got["f_stats"],
+                                                         ref["f_stats"]))}
+            if nm or dp > tol:
+                bad.append(f"{key} {name}")
+        got = res[f"{key} emmax_step_wise"]
+        same = ([(s["cofactors"], s["min_p_snp"]) for s in got["steps"]]
+                == [(s["cofactors"], s["min_p_snp"]) for s in sw["steps"]]
+                and got["selected"] == sw["selected"])
+        dp = max(abs(a["min_p"] - b["min_p"])
+                 for a, b in zip(got["steps"], sw["steps"])
+                 if np.isfinite(b["min_p"]))
+        checks[f"{key} emmax_step_wise"] = {"same_path": same,
+                                            "max_d_min_p": dp}
+        if not same or dp > 1e-5:
+            bad.append(f"{key} emmax_step_wise")
     print(json.dumps({"world": dist.get_world_size(), "shape": list(shape),
                       "n": args.samples, "M": args.snps, "walls_s": walls,
                       "reduced_bytes": sent, "checks": checks,
@@ -169,8 +222,8 @@ def main() -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True,
             text=True).stdout.strip(), flush=True)
-        _build.build_all(("ibs_gram", "rotate_scan_int8", "rotate_scan_bf16",
-                          "scan_stats"))
+        _build.build_all(("ibs_gram", "ibs_gram_tri", "rotate_scan_int8",
+                          "rotate_scan_bf16", "scan_stats"))
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]

@@ -208,6 +208,9 @@ run("loco_frac", lambda: emmax_loco(z["frac"], z["y"], chromosomes=chroms,
                                     mesh=mesh))
 with open({out!r}, "wb") as f:
     pickle.dump(res, f)
+# no rank tears its group down while another still works (a gloo peer that
+# exits first can abort the other's teardown)
+dist.barrier()
 dist.destroy_process_group()
 '''
 
@@ -729,16 +732,13 @@ _TP_MESH = Mesh((1, 2), None, None, 0, 1, torch.device("cpu"))
 def _sample_axis_refusals(data):
     """{case: (call, exception, match)}: what still refuses a 'sample' axis
     above 1 (the tensor-parallel scan is distributed_emmax's,
-    distributed_emmax_resident's, distributed_kinship's and emmax(mesh=)'s
-    only), before any collective."""
+    distributed_emmax_resident's, distributed_kinship's and the mesh= of
+    emmax, emmax_loco, emmax_multi_trait and emmax_step_wise only), before
+    any collective."""
     G, y, K, m = data["G"], data["y"], data["K"], _TP_MESH
     env = np.random.default_rng(3).normal(size=y.shape[0])
     rg = ResidentGenome.from_source(G, tile=_TILE["main"], upload=False)
     no_route = {
-        "emmax_step_wise": lambda: emmax_step_wise(G, y, K=K, mesh=m),
-        "emmax_loco": lambda: emmax_loco(G, y, chromosomes=CHROMS, mesh=m),
-        "emmax_multi_trait": lambda: emmax_multi_trait(
-            G, np.stack([y, y[::-1]]), K=K, mesh=m),
         "emmax_gxe": lambda: emmax_gxe(G, y, env, K=K, mesh=m),
         "emmax_perm_test": lambda: emmax_perm_test(G, y, K=K, mesh=m),
         "emmax_anova": lambda: emmax_anova(G, y, K=K, mesh=m),
@@ -758,11 +758,10 @@ def _sample_axis_refusals(data):
                              ValueError, "ranks"),
         "make_mesh (2, 2)": (lambda: make_mesh((2, 2), devices="cpu"),
                              ValueError, "ranks"),
-        "_mesh_device": (lambda: tdist._mesh_device(m, None),
-                         NotImplementedError, "item 16d"),
+        "_mesh_device": (lambda: tdist._mesh_device(m, None), ValueError,
+                         "make_mesh"),
         "LOCO's row window": (lambda: distributed_emmax_resident(
-            rg, y, K=K, mesh=m, _rows=(0, 10)), NotImplementedError,
-            "item 16d"),
+            rg, y, K=K, mesh=m, _rows=(0, 10)), ValueError, "make_mesh"),
         "emma": (lambda: emma(G, y, K=K, mesh=m), ValueError,
                  "shards 'snp' only"),
         # the routes that have a 'sample' route: a lone process's (1, 2)
@@ -775,6 +774,13 @@ def _sample_axis_refusals(data):
                                 ValueError, "make_mesh"),
         "emmax": (lambda: emmax(G, y, K=K, mesh=m), ValueError,
                   "make_mesh"),
+        "emmax_step_wise": (lambda: emmax_step_wise(G, y, K=K, mesh=m),
+                            ValueError, "make_mesh"),
+        "emmax_loco": (lambda: emmax_loco(G, y, chromosomes=CHROMS, mesh=m),
+                       ValueError, "make_mesh"),
+        "emmax_multi_trait": (lambda: emmax_multi_trait(
+            G, np.stack([y, y[::-1]]), K=K, mesh=m), ValueError,
+            "make_mesh"),
     })
     return cases
 
@@ -788,10 +794,11 @@ def _sample_axis_refusals(data):
     "anova", "kruskal_wallis"])
 def test_what_still_refuses_a_sample_axis(data, case):
     """A shape that does not hold the world; each route without a 'sample'
-    route (NotImplementedError naming its ROADMAP Queue 1 item: 16d-ii for
-    the campaign entry points, 16d-iii for the others; emma's is the JAX
-    package's ValueError); and the routes that have one, on a mesh that
-    is not the world's."""
+    route (NotImplementedError naming its ROADMAP Queue 1 item, 16d-iii;
+    emma's is the JAX package's ValueError); and the routes that have one
+    (the campaign entry points emmax_step_wise, emmax_loco and
+    emmax_multi_trait among them, and LOCO's row window), on a mesh that
+    is not the world's: ValueError naming make_mesh."""
     call, exc, match = _sample_axis_refusals(data)[case]
     with pytest.raises(exc, match=match):
         call()

@@ -115,6 +115,8 @@ run("sw_identity", lambda: emmax_step_wise(G, y, K=None, max_steps={steps},
 run("sw_missing", lambda: emmax_step_wise(z["miss"], y, K=K,
                                           max_steps={steps}, mesh=mesh,
                                           tile=tm))
+run("sw_k_on_rank0", lambda: emmax_step_wise(
+    G, y, K=K if rank == 0 else None, max_steps={steps}, mesh=mesh, tile=t))
 # ---- multi-trait ----
 for tier in {tiers!r}:
     run("mt_incore_" + tier, lambda: emmax_multi_trait(
@@ -174,6 +176,9 @@ res["shard_rows"] = {{f: [sh.M for sh in rg._shards.values()]
                       for f, rg in rgs.items()}}
 with open({out!r}, "wb") as f:
     pickle.dump(res, f)
+# no rank tears its group down while another still works (a gloo peer that
+# exits first can abort the other's teardown)
+dist.barrier()
 dist.destroy_process_group()
 '''
 
@@ -243,7 +248,7 @@ def _close(got, ref, tol=1e-10):
                                atol=tol)
 
 
-_SW = ("sw_k", "sw_identity", "sw_missing")
+_SW = ("sw_k", "sw_identity", "sw_missing", "sw_k_on_rank0")
 _MT = (tuple(f"mt_{s}_{t}" for s in ("incore", "packed") for t in TIERS)
        + ("mt_k_on_rank0", "mt_nan_incore", "mt_nan_packed",
           "mt_nan_packed_int8x3", "mt_missing_incore", "mt_missing_packed",

@@ -216,6 +216,9 @@ res["shard_rows"] = {{f: [sh.M for sh in rg._shards.values()]
                       for f, rg in rgs.items()}}
 with open({out!r}, "wb") as f:
     pickle.dump(res, f)
+# no rank tears its group down while another still works (a gloo peer that
+# exits first can abort the other's teardown)
+dist.barrier()
 dist.destroy_process_group()
 '''
 

@@ -129,6 +129,31 @@ def test_bf16_tier_imputes_missing_calls_as_the_resident_route(data):
     _close(got, emmax(rg, y, K=K, precision="bf16x3"), tol=1e-12)
 
 
+def test_exact_tier_rotates_the_last_tile_at_the_tiles_height(data,
+                                                              monkeypatch):
+    """300 rows in tiles of 64: the last tile's 44 rows reach the rotation
+    with 20 zero rows after them, at the others' height, and the scan's
+    statistics are its own rows', bit-equal to the resident route at the
+    same tile (which pads its rows to whole tiles)."""
+    heights = []
+    orig = scan.emmax_scan_stats
+
+    def spy(Gt, rot):
+        heights.append(Gt.shape[0])
+        return orig(Gt, rot)
+
+    G, y, K = data["G_miss"], data["y"], data["K"]
+    monkeypatch.setattr(scan, "emmax_scan_stats", spy)
+    got = emmax_streamed(G, y, K=K, tile=64, device="cpu",
+                         dtype=torch.float32)
+    monkeypatch.setattr(scan, "emmax_scan_stats", orig)
+    assert heights == [64] * 5
+    assert got["ps"].shape == (300,)
+    rg = ResidentGenome.from_source(G, tile=64, device="cpu")
+    _close(got, emmax(rg, y, K=K, precision="exact", dtype=torch.float32),
+           tol=0.0)
+
+
 def test_float_integer_dosages_at_a_fast_tier(data):
     """A float source of integer dosages (NaN missing) goes to the packed
     kernels as the int8 source it equals."""
