@@ -324,8 +324,19 @@ Phases (each prints its own seconds):
     over the host-only container; masks equal, p within _tp_tol, int8x3's
     f_stats bit-equal) and emmax_loco(mesh=) on the n = 2,048 x 8,192
     LOCO fixture (masks equal, p within _tp_tol, each delta within rtol
-    1e-12); each call's wall, the bytes each rank reduced and its launches
-    printed (K1 / K4 / K3 added to the kernels line)
+    1e-12); and on that mesh's first 4,096 rows (a cut of depth, so the
+    script keeps its clock) the remaining entry points (item 16d-iii),
+    each held to its single-device call on the card on the same rows:
+    emmax_gxe(mesh=) (E = 2) at exact (masks equal, p within _tp_tol) and
+    at int8x3 with an exact rescore of its top 64 interactions (the same
+    rows rescored, bit-equal off them, p within GXE_P_DRIFT),
+    emmax_perm_test(mesh=) (P = 128), emmax_two_snps(mesh=) (A = 2, K3 A
+    x tiles a rank), emmax_anova(mesh=) binary (through emmax(mesh=), K3
+    launched) and diploid on (e)'s genome (masks and dofs equal), each p
+    within _tp_tol, and linear_model / anova / kruskal_wallis (mesh=)
+    bit-equal (the axis replicates them); each call's wall beside one
+    device's, the bytes each rank reduced and its launches printed (K1 /
+    K4 / K3 added to the kernels line)
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}. Any
@@ -2670,11 +2681,11 @@ for tier, rb in {rb!r}.items():
 camp_launches = {{}}
 
 
-def counted(name, fn):
+def counted(name, fn, into=camp_launches):
     for k in kernels:
         k.launches = 0
     r = timed(name, fn)
-    camp_launches[name] = {{k.__name__: k.launches for k in kernels}}
+    into[name] = {{k.__name__: k.launches for k in kernels}}
     return r
 
 
@@ -2692,6 +2703,42 @@ r = counted("emmax_loco", lambda: emmax_loco(
 for k in ("ps", "mask", "f_stats", "betas"):
     out["tp_loco_" + k] = r[k]
 tp_loco_deltas = {{str(c): v["delta"] for c, v in r["loco"].items()}}
+# ---- the remaining entry points on the same (1, 2) mesh (ROADMAP item
+# 16d-iii), on the first {ms} rows: GxE, the permutation test, two-SNP and
+# emmax_anova's diploid test rotate by their block of the rotation's rows,
+# the binary emmax_anova goes through emmax(mesh=), the class tests
+# replicate over 'sample'; the counts set to 0 just before each call ----
+rest_launches = {{}}
+Gs = Gt[:{ms}]
+for tier, top in (("exact", 0), ("int8x3", {gxe_top})):
+    r = counted("emmax_gxe " + tier, lambda: emmax_gxe(
+        Gs, y12, env, eig_k=(phi, U), precision=tier, rescore_top=top,
+        mesh=tp_mesh), rest_launches)
+    for k in {gxe_keys!r} + ("f_inter",):
+        out["tpr_gxe_" + tier + "_" + k] = r[k]
+    for e, idx in enumerate(r["rescored_idx"]):
+        out[f"tpr_gxe_{{tier}}_rescored{{e}}"] = idx
+r = counted("emmax_perm_test", lambda: emmax_perm_test(
+    Gs, y, eig_k=(phi, U), num_perm=128, mesh=tp_mesh), rest_launches)
+for k in ("min_ps", "threshold"):
+    out["tpr_perm_" + k] = r[k]
+r = counted("emmax_two_snps", lambda: emmax_two_snps(
+    Gs, y, eig_k=(phi, U), focal_idx=np.load({d!r} + "/focal_tp.npy"),
+    mesh=tp_mesh), rest_launches)
+for k in ("cond_ps", "inter_ps"):
+    out["tpr_two_" + k] = r[k]
+for name, src in (("binary", Gs), ("diploid", np.load(
+        {d!r} + "/D.npy", mmap_mode="r")[:{ms}])):
+    r = counted("emmax_anova " + name, lambda: emmax_anova(
+        src, y, eig_k=(phi, U), mesh=tp_mesh), rest_launches)
+    for k in ("ps", "mask", "f_stats") + (("dof1", "dof2") if name ==
+                                          "diploid" else ()):
+        out[f"tpr_ea_{{name}}_{{k}}"] = r[k]
+for name, fn in (("lm", linear_model), ("anova", anova),
+                 ("kw", kruskal_wallis)):
+    r = counted(fn.__name__, lambda: fn(Gs, y, mesh=tp_mesh), rest_launches)
+    for k, v in r.items():
+        out["tpr_" + name + "_" + k] = v
 """
 
 _P18_TAIL = r"""
@@ -2706,6 +2753,7 @@ print(json.dumps({{"rank": rank, "device": str(mesh.device),
                            "w_blocks": w_blocks,
                            "plane_sums_equal": planes_equal,
                            "campaign_launches": camp_launches,
+                           "rest_launches": rest_launches,
                            "loco_deltas": tp_loco_deltas}},
                    "rows": host_snp_range(G.shape[0], world, rank),
                    "resident rows": host_snp_range(
@@ -3245,6 +3293,147 @@ def _tp_campaign_gates(tps, z, tp_sw, loco_ref, Gt, y, eig, Y, kernels,
                                      f"{v['delta']}")
 
 
+#: phase 18 (b)'s remaining entry points on the (1, 2) mesh (item 16d-iii):
+#: their rows (the first 4,096 of the mesh's 16,384: at 8,192, on an
+#: NVIDIA H100 80GB HBM3 at 700 W, they added 34 s to phase 18 and the
+#: script took 1,100 s, so cut to keep its clock), GxE's exact rescore at
+#: int8x3 and two-SNP's focal SNPs
+_P18_TP_REST_ROWS, _P18_TP_GXE_TOP, _P18_TP_FOCAL = 4_096, 64, 2
+
+
+def _tp_rest_gates(tps, z, Gs, Ds, y, gx, eig, focal, kernels,
+                   launches) -> None:
+    """Phase 18 (b)'s remaining entry points on the (1, 2) 'sample' mesh
+    (ROADMAP item 16d-iii), on the rows Gs (Ds: the diploid test's), each
+    held to its one-device call on the card on the same rows, its wall
+    beside that call's: emmax_gxe (E = 2) at exact (masks equal, p within
+    _tp_tol('exact')) and at int8x3 with an exact rescore of its top
+    _P18_TP_GXE_TOP interactions (the same rows rescored; off them every
+    statistic bit-equal, its int8 plane sums meeting in integers; the
+    rescored rows within _tp_tol('exact'); p within GXE_P_DRIFT['int8x3']);
+    emmax_perm_test (P = 128; min_ps and the threshold within
+    _tp_tol('exact')); emmax_two_snps (A = 2; p within _tp_tol('exact'),
+    the same p = 1 rows; K3 A x tiles a rank); emmax_anova binary (through
+    emmax(mesh=): masks equal, p within _tp_tol('exact'), K3 launched) and
+    diploid (masks, dof1 and dof2 equal, p within _tp_tol('exact'));
+    linear_model (K3 a tile on every rank), anova and kruskal_wallis
+    bit-equal (the 'sample' axis replicates them). Each rank's walls,
+    bytes reduced and launches printed, and added to the kernels line."""
+    import numpy as np
+    import torch
+
+    from mixmogam_tpu_torch.models.emmax import emmax_anova
+    from mixmogam_tpu_torch.models.gxe import emmax_gxe
+    from mixmogam_tpu_torch.models.linear import (anova, kruskal_wallis,
+                                                  linear_model)
+    from mixmogam_tpu_torch.models.permutation import emmax_perm_test
+    from mixmogam_tpu_torch.models.twosnp import emmax_two_snps
+    from mixmogam_tpu_torch.ops.scan import GXE_P_DRIFT
+
+    n, Ms = Gs.shape[1], Gs.shape[0]
+    A = len(focal)
+    tiles = {"emmax_two_snps": -(-Ms // 8_192), "linear_model":
+             -(-Ms // 8_192)}
+    for r, tp in enumerate(tps):
+        rl = tp["rest_launches"]
+        print(f"   (b) (1, 2) mesh, rank {r}, the remaining entry points "
+              f"on {Ms} rows: walls { {c: tp['walls_s'][c] for c in rl} } "
+              f"s; bytes the rank reduced "
+              f"{ {c: tp['reduced_bytes'][c] for c in rl} }; launches {rl}",
+              flush=True)
+        for call, run in rl.items():
+            k3 = run["scan_stats"]
+            want = (A * tiles[call] if call == "emmax_two_snps" else
+                    tiles[call] if call == "linear_model" else None)
+            if any(c for k, c in run.items() if k != "scan_stats"):
+                raise AssertionError(f"(b) rank {r}'s {call}: launches "
+                                     f"{run}, no kernel but K3 expected")
+            if call == "emmax_anova binary":
+                if k3 <= 0:
+                    raise AssertionError(f"(b) rank {r}'s {call} never "
+                                         "launched scan_stats")
+            elif k3 != (want or 0):
+                raise AssertionError(f"(b) rank {r}'s {call}: K3 {k3}, "
+                                     f"{want or 0} expected")
+            for k in kernels:
+                launches[k.__name__] += run[k.__name__]
+    walls = tps[0]["walls_s"]
+
+    def one(label, fn):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        ref = fn()
+        torch.cuda.synchronize()
+        print(f"   (b) (1, 2) {label}: mesh rank 0 {walls[label]:.3f} s, one "
+              f"device {time.perf_counter() - ts:.3f} s", flush=True)
+        return ref
+
+    tol = _tp_tol("exact")
+    keys = _GXE_KEYS + ("f_inter",)
+    for tier, top in (("exact", 0), ("int8x3", _P18_TP_GXE_TOP)):
+        ref = one(f"emmax_gxe {tier}", lambda: emmax_gxe(
+            Gs, gx["y"], gx["env"], eig_k=eig, precision=tier,
+            rescore_top=top))
+        got = {k: z[f"tpr_gxe_{tier}_{k}"] for k in keys}
+        if tier == "exact":
+            _equal_arrays(f"(b) (1, 2) emmax_gxe(mesh=) exact vs emmax_gxe, "
+                          f"E=2 n={n} M={Ms} (tol {tol})", got, ref,
+                          _GXE_KEYS, tol=tol)
+            continue
+        off = np.ones_like(ref["mask"])
+        for e, idx in enumerate(ref["rescored_idx"]):
+            if not np.array_equal(np.sort(z[f"tpr_gxe_{tier}_rescored{e}"]),
+                                  np.sort(idx)):
+                raise AssertionError("(b) the (1, 2) int8x3 GxE rescored "
+                                     "other rows than one device")
+            off[e, idx] = False
+        _equal_arrays(f"(b) (1, 2) emmax_gxe(mesh=) int8x3, off its "
+                      f"{int((~off).sum())} rescored rows, vs emmax_gxe",
+                      {k: got[k][off] for k in keys},
+                      {k: ref[k][off] for k in keys}, keys)
+        _equal_arrays(f"(b) (1, 2) emmax_gxe(mesh=) int8x3, its rescored "
+                      f"rows (exact tier; tol {tol})",
+                      {k: got[k][~off] for k in _GXE_KEYS},
+                      {k: ref[k][~off] for k in _GXE_KEYS}, _GXE_KEYS,
+                      tol=tol)
+        _equal_arrays(f"(b) (1, 2) emmax_gxe(mesh=) int8x3, all rows (tol "
+                      f"GXE_P_DRIFT {GXE_P_DRIFT['int8x3']})", got, ref,
+                      _GXE_KEYS, tol=GXE_P_DRIFT["int8x3"])
+    ref = one("emmax_perm_test", lambda: emmax_perm_test(
+        Gs, y, eig_k=eig, num_perm=128))
+    _equal_arrays(f"(b) (1, 2) emmax_perm_test(mesh=) vs emmax_perm_test, "
+                  f"P=128 (tol {tol})",
+                  {k: z[f"tpr_perm_{k}"] for k in ("min_ps", "threshold")},
+                  ref, ("min_ps", "threshold"), tol=tol)
+    ref = one("emmax_two_snps", lambda: emmax_two_snps(
+        Gs, y, eig_k=eig, focal_idx=focal))
+    got = {k: z[f"tpr_two_{k}"] for k in ("cond_ps", "inter_ps")}
+    _equal_arrays(f"(b) (1, 2) emmax_two_snps(mesh=) vs emmax_two_snps, "
+                  f"A={A} (tol {tol})", got, ref, ("cond_ps", "inter_ps"),
+                  tol=tol)
+    for k in got:
+        if not np.array_equal(got[k] == 1.0, ref[k] == 1.0):
+            raise AssertionError(f"(b) the (1, 2) two-SNP {k} mask differs")
+    for name, src, ks in (("binary", Gs, ("ps", "mask", "f_stats")),
+                          ("diploid", Ds, ("ps", "mask", "f_stats", "dof1",
+                                           "dof2"))):
+        ref = one(f"emmax_anova {name}", lambda: emmax_anova(src, y,
+                                                             eig_k=eig))
+        got = {k: z[f"tpr_ea_{name}_{k}"] for k in ks}
+        _equal_arrays(f"(b) (1, 2) emmax_anova(mesh=) {name} vs emmax_anova "
+                      f"(tol {tol}, masks and dofs equal)", got, ref,
+                      ("ps", "mask") + ks[3:], tol=tol)
+    for name, fn, ks in (
+            ("lm", linear_model, ("ps", "f_stats", "mask", "betas",
+                                  "var_perc")),
+            ("anova", anova, ("ps", "f_stats", "dof1", "dof2")),
+            ("kw", kruskal_wallis, ("ps", "stats"))):
+        ref = one(fn.__name__, lambda: fn(Gs, y))
+        _equal_arrays(f"(b) (1, 2) {fn.__name__}(mesh=) vs {fn.__name__}, "
+                      "replicated", {k: z[f"tpr_{name}_{k}"] for k in ks},
+                      ref, ks)
+
+
 def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
     """Phase 18: parallel/'s data-parallel core on the card. (a) A world of
     one over NCCL (a file store) at full width: distributed_kinship against
@@ -3253,7 +3442,8 @@ def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
     group, the sharded resident scan and emmax_loco(mesh=)
     (_resident_mesh_phase); (b) two gloo ranks sharing the card,
     subprocesses, on the first 32,768 rows, held to the single-device calls
-    by the same gates, then as a (1, 2) 'sample' mesh (_tp_gates)."""
+    by the same gates, then as a (1, 2) 'sample' mesh (_tp_gates, then
+    _tp_campaign_gates and _tp_rest_gates for the other entry points)."""
     import pickle
 
     import numpy as np
@@ -3373,13 +3563,17 @@ def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
     focal = np.argsort(main["ps"][:Mb], kind="stable")[:4]
     np.save(os.path.join(d, "focal.npy"), focal)
     np.save(os.path.join(d, "D.npy"), D)
+    Ms = min(_P18_TP_REST_ROWS, Mb)
+    focal_tp = np.argsort(main["ps"][:Ms], kind="stable")[:_P18_TP_FOCAL]
+    np.save(os.path.join(d, "focal_tp.npy"), focal_tp)
     print(f"(b) the ranks' inputs written (not the system): "
           f"{time.perf_counter() - ts:.3f} s", flush=True)
     Mt = min(16_384, Mb)
     src = _P18_RANK.format(repo=os.path.dirname(os.path.abspath(__file__)),
                            store=os.path.join(d, "store"), d=d,
                            rb=_P18_TIERS, gxe_keys=_GXE_KEYS, mt=Mt,
-                           sw_steps=_P18_TP_STEPS, mt_traits=_P18_TP_TRAITS)
+                           sw_steps=_P18_TP_STEPS, mt_traits=_P18_TP_TRAITS,
+                           ms=Ms, gxe_top=_P18_TP_GXE_TOP)
     ts = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, "-c", src, str(r), "2"],
                               stdout=subprocess.PIPE,
@@ -3434,6 +3628,8 @@ def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
         sws = pickle.load(f)
     _tp_campaign_gates(tps, z, sws["tp_sw"], loco_ref, G[:Mt], y, (phi, U),
                        Y4[:_P18_TP_TRAITS], kernels, launches)
+    _tp_rest_gates(tps, z, G[:Ms], D[:Ms], y, main["gxe12"], (phi, U),
+                   focal_tp, kernels, launches)
     ts = time.perf_counter()
     ref = emmax_loco(ResidentGenome.from_source(Gl, tile=2_048), y[:nl],
                      chromosomes=chl_off)

@@ -371,20 +371,19 @@ def _emmax_on_mesh(G, G_src, y, K, X0, eig_k, ngrids, llim, ulim, esp,
     return res
 
 
-def _anova_pair_f(A_tile: torch.Tensor, B_tile: torch.Tensor, rot, W,
+def _anova_pair_f(Aw: torch.Tensor, Bw: torch.Tensor, rot,
                   keep_a: torch.Tensor, keep_b: torch.Tensor):
     """(f, d1, dof2, mask) of the joint F-test of two genotype-class
-    indicator columns a tile: whitened by W, residualized against Q0 and
-    Gram-Schmidt'ed against each other. keep_a / keep_b: outside_design of
-    the unrotated indicators; an indicator inside col(X0) (I1 of a SNP
+    indicator columns a tile, from their whitened rows Aw, Bw (the
+    indicators times W = U' sd, whole rows): residualized against Q0 and
+    Gram-Schmidt'ed against each other. keep_a / keep_b: outside_design
+    of the unrotated indicators; an indicator inside col(X0) (I1 of a SNP
     where every sample is heterozygous: the intercept) counts as no
     column, whatever rounding leaves of it after the projected W."""
     dt = rot.sd.dtype
     fi = torch.finfo(dt)
     eps = 100.0 * fi.eps
     Q0 = rot.Q0
-    Aw = A_tile.to(dt) @ W
-    Bw = B_tile.to(dt) @ W
     Ar = Aw - (Aw @ Q0) @ Q0.T
     Br = Bw - (Bw @ Q0) @ Q0.T
     aa = (Ar * Ar).sum(dim=1)
@@ -431,13 +430,22 @@ def emmax_anova(G, y, K=None, X0=None, eig_k=None, ngrids: int = 100,
     mesh= does: rank 0 fits the null and builds its rotated null (K or
     eig_k needed there only), one broadcast replicates it, each rank tests
     its rows (rank_range at `tile`) with no communication, and the (4,
-    m_rank) results meet in one all-gather. Every rank returns the whole
-    result; device: the rank's (default the mesh's)."""
+    m_rank) results meet in one all-gather. On a 'sample' axis each rank
+    is sent only its block of W's contraction rows; the indicators' blocks
+    of sample columns are rotated and summed over 'sample'
+    (ops/scan.py::apply_rotation_psum), their masks from sums over
+    'sample' (outside_design_psum), and the pair test runs on the whole
+    rows. Every rank returns the whole result; device: the rank's (default
+    the mesh's)."""
     from mixmogam_tpu_torch.models.resident import _default_dtype
     from mixmogam_tpu_torch.ops import assert_fp32_matmuls, resolve_device
     from mixmogam_tpu_torch.ops.reml import (esp_to_refine_iters,
                                              fit_null_model)
-    from mixmogam_tpu_torch.ops.scan import build_rotated_null, outside_design
+    from mixmogam_tpu_torch.ops.rotate import rotation_rows
+    from mixmogam_tpu_torch.ops.scan import (apply_rotation_psum,
+                                             build_rotated_null,
+                                             outside_design,
+                                             outside_design_psum)
     from mixmogam_tpu_torch.ops.stats import f_sf_host
     from mixmogam_tpu_torch.parallel import distributed as pd
 
@@ -482,12 +490,35 @@ def emmax_anova(G, y, K=None, X0=None, eig_k=None, ngrids: int = 100,
                     delta=float(fit.delta),
                     h2=float(fit.pseudo_heritability))
 
-    # on a mesh rank 0's, replicated by one broadcast
-    nl = pd.on_rank0(null, mesh)
-    rot = pd.null_from_fields(nl)
-    W = rot.U * rot.sd[None, :]
     if dtype == torch.float32:
         assert_fp32_matmuls()
+    if mesh is not None and mesh.shape[1] > 1:
+        # on a 'sample' axis each rank is sent only its block of W's rows;
+        # the indicators' blocks of sample columns are rotated by it and
+        # summed over 'sample', their masks from sums over 'sample'
+        tp = pd.tp_columns(n, mesh, packed=False)
+
+        def null_w():
+            nl = null()
+            return dict(nl, U=None), nl["U"] * nl["sd"][None, :]
+
+        nl, W_b = pd.on_rank0_rows(null_w, mesh, *tp)
+        rot = pd.null_from_fields(nl)
+        W_b = rotation_rows(W_b, None, dtype)
+        X0b, X0pb = (pd.block_rows(X, *tp[1:]) for X in (rot.X0, rot.X0p))
+
+        def rotated(I):
+            I = pd.block_cols(I, *tp[1:])
+            return (apply_rotation_psum(I, W_b, None, dtype, mesh, n),
+                    outside_design_psum(I, X0b, X0pb, mesh))
+    else:
+        # on a mesh rank 0's, replicated by one broadcast
+        nl = pd.on_rank0(null, mesh)
+        rot = pd.null_from_fields(nl)
+        W = rot.U * rot.sd[None, :]
+
+        def rotated(I):
+            return I @ W, outside_design(I, rot.X0, rot.X0p)
     # the indicators of the mean-imputed dosages (a missing call falls in
     # the class nearest its SNP's mean); on a mesh this rank's rows
     _, rows = pd.rank_sources(mesh, tile, device, None, G_int)
@@ -495,11 +526,10 @@ def emmax_anova(G, y, K=None, X0=None, eig_k=None, ngrids: int = 100,
     outs = []
     for s in range(0, Gf.shape[0], tile):
         g = torch.from_numpy(Gf[s:s + tile]).to(device)
-        A = ((g - 1.0).abs() < 0.5).to(dtype)
-        B = (g >= 1.5).to(dtype)
+        (Aw, keep_a), (Bw, keep_b) = (
+            rotated(I.to(dtype)) for I in ((g - 1.0).abs() < 0.5, g >= 1.5))
         outs.append(torch.stack([v.to(dtype) for v in _anova_pair_f(
-            A, B, rot, W, outside_design(A, rot.X0, rot.X0p),
-            outside_design(B, rot.X0, rot.X0p))]))
+            Aw, Bw, rot, keep_a, keep_b)]))
     h = pd.gathered_rows(pd.row_block(outs, (4,), dtype, device), mesh,
                          G_int.shape[0])
     fs, d1s, d2s, masks = h[0], h[1], h[2], h[3] > 0.5

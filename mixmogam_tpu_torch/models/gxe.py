@@ -116,7 +116,7 @@ def _finalize(fm, fi, fj, mb, mp, dof: int):
 
 
 def _sample_space_keep(Gf: torch.Tensor, e: torch.Tensor, Xe: torch.Tensor,
-                       Xep: torch.Tensor):
+                       Xep: torch.Tensor, mesh=None):
     """(keep_b, keep_p), (m,) bool each, from the unrotated rows Gf (m, n)
     in the scan's dtype: x keeps a part outside col([X0, e]), and x o e a
     part outside col([X0, e, x]), each more than eps (the dtype's) times
@@ -129,39 +129,66 @@ def _sample_space_keep(Gf: torch.Tensor, e: torch.Tensor, Xe: torch.Tensor,
     carriers share one environment value (a singleton, or x == e for a 0/1
     environment) has x o e collinear with [x, e]. After the projected
     rotation such rows are rounding noise of the rotation's own tier, which
-    the whitened relative masks would let through."""
+    the whitened relative masks would let through.
+
+    mesh: on a 'sample' axis, Gf, e, Xe and Xep are the rank's block of
+    sample columns (zero past n) and every sum over samples is summed over
+    'sample' (three small all-reduces, as ops/scan.py::outside_design_psum
+    mirrors outside_design): every rank of the group gets the masks of the
+    whole rows."""
+    from mixmogam_tpu_torch.parallel.mesh import all_reduce
+
+    def psum(t):
+        return t if mesh is None else all_reduce(t, mesh, axis="sample")
+
     fi = torch.finfo(Gf.dtype)
     P = Gf * e
-    xr = Gf - (Gf @ Xep) @ Xe.T
-    pr = P - (P @ Xep) @ Xe.T
-    xx = (xr * xr).sum(dim=1)
-    keep_b = xx > fi.eps * torch.clamp((Gf * Gf).sum(dim=1), min=fi.tiny)
-    c = (pr * xr).sum(dim=1) / torch.where(keep_b, xx, 1.0)
+    GX, PX = psum(torch.stack([Gf @ Xep, P @ Xep]))
+    xr = Gf - GX @ Xe.T
+    pr = P - PX @ Xe.T
+    xx, gg, px, PP = psum(torch.stack([(xr * xr).sum(dim=1),
+                                       (Gf * Gf).sum(dim=1),
+                                       (pr * xr).sum(dim=1),
+                                       (P * P).sum(dim=1)]))
+    keep_b = xx > fi.eps * torch.clamp(gg, min=fi.tiny)
+    c = px / torch.where(keep_b, xx, 1.0)
     pr = pr - c[:, None] * xr
-    keep_p = keep_b & ((pr * pr).sum(dim=1) > fi.eps * torch.clamp(
-        (P * P).sum(dim=1), min=fi.tiny))
+    keep_p = keep_b & (psum((pr * pr).sum(dim=1))
+                       > fi.eps * torch.clamp(PP, min=fi.tiny))
     return keep_b, keep_p
 
 
 def _tile_stats(Gt: torch.Tensor, rot_g, rot_e, nulls, env_dt, designs,
-                lap) -> torch.Tensor:
+                lap, mesh=None) -> torch.Tensor:
     """(len(nulls), 5, m) statistics of one tile Gt (int8 dosages, or
     mean-imputed rows in the scan's dtype): the shared rotation rot_g and
-    each environment's product rotation rot_e[i] (models/multitrait.py::
+    each environment's product rotation rot_e[i] (ops/rotate.py::
     SharedRotation), then _gxe_stats_whitened with the environment's null
     nulls[i] and the masks of _sample_space_keep. env_dt: (E, n)
     environments in the scan's dtype; designs: each environment's
     ([X0, e], its pseudo-inverse transposed). lap: the stage clock's lap,
-    called after the rotations ('rotation') and the statistics."""
+    called after the rotations ('rotation') and the statistics. mesh: on a
+    'sample' axis Gt, env_dt and designs are the rank's block of sample
+    columns, the rotations its block of contraction rows
+    (ops/rotate.py::rotation_rows): each product is summed over 'sample'
+    (ops/scan.py::apply_rotation_psum) and so are the masks' sums; the
+    statistics run on the whole rotated rows."""
     from mixmogam_tpu_torch.ops.rotate import rotate_tile
+    from mixmogam_tpu_torch.ops.scan import apply_rotation_psum
+
+    def rotate(r):
+        if mesh is None:
+            return rotate_tile(Gt, r)
+        return apply_rotation_psum(Gt, r, r.w_scale, r.dt, mesh,
+                                   nulls[0].sd.shape[0])
 
     Gf = Gt.to(env_dt.dtype)
-    R = rotate_tile(Gt, rot_g)
-    Ps = [rotate_tile(Gt, r) for r in rot_e]
+    R = rotate(rot_g)
+    Ps = [rotate(r) for r in rot_e]
     lap("rotation")
     out = []
     for P, null, e, design in zip(Ps, nulls, env_dt, designs):
-        keep_b, keep_p = _sample_space_keep(Gf, e, *design)
+        keep_b, keep_p = _sample_space_keep(Gf, e, *design, mesh=mesh)
         out.append(_gxe_stats_whitened(R * null.sd, P * null.sd, null,
                                        keep_b, keep_p))
     lap("statistics")
@@ -189,6 +216,37 @@ def _source_tiles(rg, G_src, G8, dtype, device, rows: int):
                 G8[s:s + rows])).to(device)
     else:
         yield from host_tiles(G_src, dtype, device, rows)
+
+
+def _tp_rotations(nl, blocks, env: np.ndarray, tp, rd, rescore: bool,
+                  dtype, device):
+    """rotations(pre) of emmax_gxe on a 'sample' axis: (rot_g, [rot_e])
+    at the scan's tier ('') or the rescore's exact tier ('ex_'), each
+    ops/rotate.py::rotation_rows of the rank's block of contraction rows
+    (blocks, in the order null() lists its operands). The exact tier's
+    come from the one float64 block of U': U' rounded to dtype, and
+    (e o U') from the block of e times it, rounded once, as one device's
+    shared_rotation rounds the whole."""
+    from mixmogam_tpu_torch.ops.rotate import rotation_rows
+    from mixmogam_tpu_torch.parallel.distributed import block_rows
+
+    E = env.shape[1]
+    _, lo, hi = tp
+    env_b = block_rows(torch.as_tensor(env, dtype=torch.float64,
+                                       device=device), lo, hi)
+    fast = [] if rd is None else blocks[:E + 1]
+    Up_b = blocks[-1] if rd is None or rescore else None
+
+    def rotations(pre):
+        if pre == "" and rd is not None:
+            rots = [rotation_rows(W, nl[f"scale{i}"], dtype)
+                    for i, W in enumerate(fast)]
+        else:
+            rots = [rotation_rows(W, None, dtype) for W in
+                    [Up_b] + [env_b[:, e:e + 1] * Up_b for e in range(E)]]
+        return rots[0], rots[1:]
+
+    return rotations
 
 
 def emmax_gxe(G, y, env, K=None, X0: Optional[np.ndarray] = None,
@@ -231,8 +289,17 @@ def emmax_gxe(G, y, env, K=None, X0: Optional[np.ndarray] = None,
     shard_packed_rows; a host source's rows) with no communication, and
     the (E, 5, m_rank) statistics meet in one all-gather. The exact
     rescore then runs on every rank over the whole source, with the same
-    rows and values everywhere. Every rank returns the whole result;
-    device: the rank's (default the mesh's)."""
+    rows and values everywhere. On a 'sample' axis (in core; a
+    ResidentGenome raises the JAX package's ValueError) rank 0 sends each
+    rank only its block of contraction rows of each rotation (at the
+    exact tier one float64 block of U', from which a rank forms its rows
+    of e o U' as one device rounds them; at a fast tier each rotation's
+    planes or parts, and U''s block for the rescore); a tile's block of
+    sample columns is rotated, each product summed over 'sample'
+    (ops/scan.py::apply_rotation_psum), the masks from sums over 'sample'
+    (_sample_space_keep), the statistics on the whole rows, one
+    all-gather over 'snp'; the rescore takes the same route. Every rank
+    returns the whole result; device: the rank's (default the mesh's)."""
     from mixmogam_tpu_torch.models.emma import _StageClock
     from mixmogam_tpu_torch.models.emmax import _as_design
     from mixmogam_tpu_torch.ops.rotate import SharedRotation, shared_rotation
@@ -248,6 +315,7 @@ def emmax_gxe(G, y, env, K=None, X0: Optional[np.ndarray] = None,
                                              normalize_rotate_tier,
                                              probe_for_source,
                                              project_design,
+                                             quantize_rotation,
                                              resolve_precision,
                                              select_rescore_idx,
                                              tier_drift_name)
@@ -347,41 +415,82 @@ def emmax_gxe(G, y, env, K=None, X0: Optional[np.ndarray] = None,
                 torch.cat([X0_64, env64[:, e:e + 1]], dim=1), device, dtype)
         Up = project_design(U64, X0_64)[0]
         del U64
+        out["env_dt"] = env64.T.to(dtype)                     # (E, n)
         tiers = ("", "ex_") if rescore else ("",)
+        if tp is not None:
+            # the operands whose contraction rows are scattered: at a fast
+            # tier each rotation's planes (their column scale broadcast)
+            # or parts; at the exact tier U' in float64, from whose block
+            # and e's block a rank forms its e o U' rows as one device
+            # rounds them, and rounds U' itself
+            ops = []
+            for pre, tier in zip(tiers, (rd, None)):
+                if tier is None:
+                    ops.append(Up)
+                    continue
+                for i, Wop in enumerate(
+                        [Up] + [env64[:, e:e + 1] * Up for e in range(E)]):
+                    W, out[f"{pre}scale{i}"] = quantize_rotation(
+                        Wop, tier, sd_dtype=dtype)
+                    ops.append(W)
+            clock.lap("nulls")
+            out["timings"] = clock.seconds()
+            return out, ops
         for pre, tier in zip(tiers, (rd, None)):
             out.update(pd.fields_of(shared_rotation(Up, tier, dtype),
                                     pre + "rot_g_"))
             for e in range(E):
                 out.update(pd.fields_of(shared_rotation(
                     env64[:, e:e + 1] * Up, tier, dtype), f"{pre}rot_e{e}_"))
-        out["env_dt"] = env64.T.to(dtype)                     # (E, n)
         clock.lap("nulls")
         out["timings"] = clock.seconds()
         return out
 
-    def rotations(pre):
-        return (pd.from_fields(SharedRotation, nl, pre + "rot_g_"),
-                [pd.from_fields(SharedRotation, nl, f"{pre}rot_e{e}_")
-                 for e in range(E)])
+    # ---- on a mesh rank 0's, replicated by one broadcast; on a 'sample'
+    # axis each rank is sent only its block of each rotation's rows ----
+    tp = None
+    if mesh is not None and mesh.shape[1] > 1:
+        tp = pd.tp_columns(n, mesh, packed=False)
+        nl, blocks = pd.on_rank0_rows(null, mesh, *tp)
+        rotations = _tp_rotations(nl, blocks, env, tp, rd, rescore,
+                                  dtype, device)
+    else:
+        nl = pd.on_rank0(null, mesh)
 
-    # ---- on a mesh rank 0's, replicated by one broadcast ----
-    nl = pd.on_rank0(null, mesh)
+        def rotations(pre):
+            return (pd.from_fields(SharedRotation, nl, pre + "rot_g_"),
+                    [pd.from_fields(SharedRotation, nl, f"{pre}rot_e{e}_")
+                     for e in range(E)])
+
     deltas, h2s, env_dt = nl["deltas"], nl["h2s"], nl["env_dt"]
     nulls = [pd.null_from_fields(nl, f"null{e}_") for e in range(E)]
     designs = [(nl[f"Xe{e}"], nl[f"Xep{e}"]) for e in range(E)]
+    tp_mesh, cut = None, (lambda t: t)
+    if tp is not None:
+        # the rank's block of sample columns of every per-sample operand
+        tp_mesh = mesh
+        cut = (lambda t: pd.block_cols(t, *tp[1:]))
+        env_dt = cut(env_dt)
+        designs = [tuple(pd.block_rows(d, *tp[1:]) for d in design)
+                   for design in designs]
     rot_g, rot_e = rotations("")
     dof = n - X0.shape[1] - 2
     clock = _StageClock(device)
 
-    # ---- the scan, a tile at a time (on a mesh: this rank's rows) ----
+    # ---- the scan, a tile at a time (on a mesh: this rank's rows; on a
+    # 'sample' axis their block of sample columns) ----
     rows = _scan_rows(E)
     part, src, src8 = pd.rank_sources(mesh, rows, device, rg, G_src, G8)
+    tiles = (_source_tiles(part, src, src8, dtype, device, rows)
+             if tp is None else
+             pd.tp_blocks(np.asarray(src if src8 is None else src8), None,
+                          None, mesh, device, dtype, rows, *tp[1:]))
     outs = []
     clock.lap()
-    for Gt in _source_tiles(part, src, src8, dtype, device, rows):
+    for Gt in tiles:
         clock.lap("load")
         outs.append(_tile_stats(Gt, rot_g, rot_e, nulls, env_dt, designs,
-                                clock.lap))
+                                clock.lap, tp_mesh))
     del rot_g, rot_e
     timings = dict(nl["timings"], **clock.seconds())
     M = rg.M if rg is not None else G_src.shape[0]
@@ -410,9 +519,10 @@ def emmax_gxe(G, y, env, K=None, X0: Optional[np.ndarray] = None,
             for s0 in range(0, len(idx), _RESCORE_ROWS):
                 sub = idx[s0:s0 + _RESCORE_ROWS]
                 st = _tile_stats(
-                    source_rows(source, sub, dtype, device), ex_g,
+                    cut(source_rows(source, sub, dtype, device)), ex_g,
                     [ex_e[e]], [nulls[e]], env_dt[e:e + 1], [designs[e]],
-                    lambda stage=None: None)[0].cpu().double().numpy()
+                    lambda stage=None: None,
+                    tp_mesh)[0].cpu().double().numpy()
                 f_marg[e][sub], f_inter[e][sub], f_joint[e][sub] = st[:3]
                 mask_b[e][sub], mask_p[e][sub] = st[3] > 0.5, st[4] > 0.5
                 marg_ps[e][sub], inter_ps[e][sub], joint_ps[e][sub] = \

@@ -67,8 +67,10 @@ def linear_model(G, y, X0: Optional[np.ndarray] = None, dtype=None,
     eigenbasis: cheap and the same everywhere) and scans its rows with K3
     (a ResidentGenome's shard, parallel/distributed.py::shard_packed_rows;
     a host source's rows at `tile`), and the (4, m_rank) statistics meet
-    in one all-gather. Every rank returns the whole result; device: the
-    rank's (default the mesh's)."""
+    in one all-gather. A 'sample' axis replicates the scan (no W): each
+    rank of a 'sample' group scans its 'snp' rows, in core (a
+    ResidentGenome raises the JAX package's ValueError). Every rank
+    returns the whole result; device: the rank's (default the mesh's)."""
     from mixmogam_tpu_torch.models.emmax import _as_design
     from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                     _default_dtype,
@@ -213,9 +215,10 @@ def anova(G, y, ploidy: Optional[int] = None, dtype=None, mesh=None,
 
     mesh: a parallel.Mesh (make_mesh()) shards the class sums by SNP rows,
     as the JAX package's mesh= does (_class_sums_of): [1, y, y^2] is the
-    same on every rank, each rank sums its rows, one all-gather; every
-    rank returns the whole result. device: the rank's (default the
-    mesh's)."""
+    same on every rank, each rank sums its rows, one all-gather; a
+    'sample' axis replicates the sums (in core; a ResidentGenome raises
+    the JAX package's ValueError); every rank returns the whole result.
+    device: the rank's (default the mesh's)."""
     from mixmogam_tpu_torch.ops.stats import f_sf_host
     from mixmogam_tpu_torch.parallel.distributed import mesh_entry
 
@@ -318,8 +321,9 @@ def kruskal_wallis(G, y, ploidy: Optional[int] = None, dtype=None,
     and tie groups, are the same on every rank; each rank takes its rows
     (a ResidentGenome's shard; a host source's rows at `tile` on the
     missing-call route, at the class sums' own rows otherwise), one
-    all-gather. Every rank returns the whole result; device: the rank's
-    (default the mesh's)."""
+    all-gather; a 'sample' axis replicates them (in core; a ResidentGenome
+    raises the JAX package's ValueError). Every rank returns the whole
+    result; device: the rank's (default the mesh's)."""
     import scipy.stats
 
     from mixmogam_tpu_torch.models.resident import subdivide_tile

@@ -520,14 +520,9 @@ def _mt_tp_scan(rows, rg, Y, K, X0, eig_k, rd, dtype, device, mesh, M: int,
     W = rotation_rows(Wb, p["w_scale"], dtype)
     del Wb
     X0b, X0pb = (pd.block_rows(nl[k], lo, hi) for k in ("X0d", "X0p"))
-    if rg is not None:
-        missing = rg.has_missing
-    else:
-        missing = bool(np.isnan(rows).any() if rows.dtype != np.int8
-                       else (rows < 0).any())
     outs = []
-    for Gb in pd.tp_blocks(rows, rg, missing, mesh, device, dtype, tile,
-                           lo, hi):
+    for Gb in pd.tp_blocks(rows, rg, rg.has_missing if rg is not None
+                           else None, mesh, device, dtype, tile, lo, hi):
         Xs = apply_rotation_psum(Gb, W, W.w_scale, W.dt, mesh, n)
         keep = outside_design_psum(Gb.to(dtype), X0b, X0pb, mesh)
         f, b, mk = _scan_tile_multitrait(Xs, nl["nulls"], keep)

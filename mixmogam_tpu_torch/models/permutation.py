@@ -97,8 +97,14 @@ def emmax_perm_test(G, y, K=None, num_perm: int = 100,
     shard_packed_rows; a host source's rows at `tile`) with no
     communication, and the (P,) max F meet in ONE max all-reduce (the
     JAX package's pmax: order-free, so equal to one device's; a rank with
-    no rows adds zeros). Every rank returns the whole result; device: the
-    rank's (default the mesh's).
+    no rows adds zeros). On a 'sample' axis (in core; a ResidentGenome
+    raises the JAX package's ValueError) each rank is sent only its block
+    of W's contraction rows, a tile's block of sample columns is rotated
+    and summed over 'sample' (ops/scan.py::apply_rotation_psum), its mask
+    from sums over 'sample' (outside_design_psum), and the max-F epilogue
+    runs on the whole rows; the identity K has no W and replicates. Every
+    rank returns the whole result; device: the rank's (default the
+    mesh's).
 
     Returns min_ps (sorted), threshold, alpha, num_perm, delta, and
     timings_s: seconds of the null (eigh, REML, the permuted residuals and
@@ -111,6 +117,7 @@ def emmax_perm_test(G, y, K=None, num_perm: int = 100,
     from mixmogam_tpu_torch.models.emmax import _as_design
     from mixmogam_tpu_torch.models.gxe import _source_tiles
     from mixmogam_tpu_torch.ops.rotate import (SharedRotation, rotate_tile,
+                                               rotation_rows,
                                                shared_rotation)
     from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                     _default_dtype,
@@ -118,9 +125,11 @@ def emmax_perm_test(G, y, K=None, num_perm: int = 100,
     from mixmogam_tpu_torch.models.source import resolve_source
     from mixmogam_tpu_torch.ops.eigen import orthonormal_basis
     from mixmogam_tpu_torch.ops.reml import fit_null_model
-    from mixmogam_tpu_torch.ops.scan import (design_basis,
+    from mixmogam_tpu_torch.ops.scan import (apply_rotation_psum,
+                                             design_basis,
                                              normalize_rotate_tier,
                                              outside_design,
+                                             outside_design_psum,
                                              probe_for_source, project_design,
                                              resolve_precision)
     from mixmogam_tpu_torch.ops.stats import f_sf_host
@@ -189,32 +198,57 @@ def emmax_perm_test(G, y, K=None, num_perm: int = 100,
                "Y_res": Y_res64.to(dtype),
                "rss0": (Y_res64 * Y_res64).sum(dim=1).to(dtype),
                "X0d": X0d, "X0p": X0p}
-        if not identity_k:
-            out.update(pd.fields_of(shared_rotation(
-                project_design(U64, X0_64)[0] * sd64[None, :], rd, dtype),
-                "rot_"))
+        W = (None if identity_k
+             else project_design(U64, X0_64)[0] * sd64[None, :])
+        if tp is not None:
+            # the exact tier (a host source's): W's contraction rows are
+            # scattered, none for the identity K
+            return out, [] if W is None else [W.to(dtype)]
+        if W is not None:
+            out.update(pd.fields_of(shared_rotation(W, rd, dtype), "rot_"))
         return out
 
-    # ---- the null: on a mesh rank 0's, replicated by one broadcast ----
+    # ---- the null: on a mesh rank 0's, replicated by one broadcast; on a
+    # 'sample' axis each rank is sent only its block of W's rows ----
     clock = _StageClock(device)
-    nl = pd.on_rank0(null, mesh)
+    tp = None
+    if mesh is not None and mesh.shape[1] > 1:
+        tp = pd.tp_columns(n, mesh, packed=False)
+        nl, W_b = pd.on_rank0_rows(null, mesh, *tp)
+    else:
+        nl = pd.on_rank0(null, mesh)
     Q0, Y_res, rss0, X0d, X0p = (nl[k] for k in ("Q0", "Y_res", "rss0",
                                                  "X0d", "X0p"))
     identity_k = nl["identity_k"]
-    rot = (None if identity_k
-           else pd.from_fields(SharedRotation, nl, "rot_"))
+    # the identity K has no W to shard: its sweep replicates over 'sample'
+    tp = None if identity_k else tp
+    if tp is not None:
+        rot = rotation_rows(W_b[0], None, dtype)
+        X0d, X0p = (pd.block_rows(X, *tp[1:]) for X in (X0d, X0p))
+    elif not identity_k:
+        rot = pd.from_fields(SharedRotation, nl, "rot_")
     clock.lap("null")
 
-    # ---- the sweep, a tile at a time (on a mesh: this rank's rows) ----
+    # ---- the sweep, a tile at a time (on a mesh: this rank's rows; on a
+    # 'sample' axis their block of sample columns, rotated by the block of
+    # W and summed over 'sample', the mask from sums over 'sample') ----
     part, src = pd.rank_sources(mesh, tile, device, rg, G_src)
+    tiles = (_source_tiles(part, src, None, dtype, device, tile)
+             if tp is None else
+             pd.tp_blocks(np.asarray(src), None, None, mesh, device, dtype,
+                          tile, *tp[1:]))
     max_f = torch.zeros(num_perm, dtype=dtype, device=device)
     clock.lap()
-    for Gt in _source_tiles(part, src, None, dtype, device, tile):
+    for Gt in tiles:
         clock.lap("load")
         Gf = Gt.to(dtype)
-        keep = outside_design(Gf, X0d, X0p)
-        Xs = (Gf - (Gf @ X0p) @ X0d.T if identity_k
-              else rotate_tile(Gt, rot))
+        if tp is not None:
+            keep = outside_design_psum(Gf, X0d, X0p, mesh)
+            Xs = apply_rotation_psum(Gt, rot, None, dtype, mesh, n)
+        else:
+            keep = outside_design(Gf, X0d, X0p)
+            Xs = (Gf - (Gf @ X0p) @ X0d.T if identity_k
+                  else rotate_tile(Gt, rot))
         clock.lap("rotation")
         max_f = _perm_tile_max_f(Xs, Q0, Y_res, rss0, float(dof), max_f,
                                  keep, clock.lap)

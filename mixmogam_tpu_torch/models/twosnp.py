@@ -117,14 +117,22 @@ def emmax_two_snps(G, y, K=None, focal_idx: Optional[Sequence[int]] = None,
     one broadcast replicates them, each rank scans its rows (a
     ResidentGenome's shard, parallel/distributed.py::shard_packed_rows; a
     host source's rows at `tile`) with no communication, and the (A, 4,
-    m_rank) statistics meet in one all-gather. Every rank returns the whole
-    result; device: the rank's (default the mesh's)."""
+    m_rank) statistics meet in one all-gather. On a 'sample' axis each
+    rank is sent only its block of U''s contraction rows and rotates its
+    rows' block of sample columns (a ResidentGenome read as its host rows,
+    as the JAX function reads it): R and each focal SNP's product
+    (tile o g_a, from the rank's blocks of both) summed over 'sample'
+    (ops/scan.py::apply_rotation_psum), the masks from sums over 'sample',
+    kernel K3 and the pairwise statistics on the whole rotated rows. Every
+    rank returns the whole result; device: the rank's (default the
+    mesh's)."""
     from mixmogam_tpu_torch.models.emma import _StageClock
     from mixmogam_tpu_torch.models.emmax import _as_design
     from mixmogam_tpu_torch.models.gxe import (_gxe_stats_whitened,
                                                _sample_space_keep,
                                                _source_tiles)
     from mixmogam_tpu_torch.ops.rotate import (SharedRotation, rotate_tile,
+                                               rotation_rows,
                                                shared_rotation)
     from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                     _default_dtype,
@@ -134,7 +142,8 @@ def emmax_two_snps(G, y, K=None, focal_idx: Optional[Sequence[int]] = None,
     from mixmogam_tpu_torch.models.streaming import source_rows
     from mixmogam_tpu_torch.ops.eigen import eigen_k_on
     from mixmogam_tpu_torch.ops.reml import fit_null_model
-    from mixmogam_tpu_torch.ops.scan import (design_basis,
+    from mixmogam_tpu_torch.ops.scan import (apply_rotation_psum,
+                                             design_basis,
                                              emmax_scan_prerotated,
                                              project_design)
     from mixmogam_tpu_torch.ops.stats import f_sf_host
@@ -188,36 +197,63 @@ def emmax_two_snps(G, y, K=None, focal_idx: Optional[Sequence[int]] = None,
                 phi_dt, float(delta), y_rot, Xa_rot, dtype), f"null{i}_"))
             out[f"Xa{i}"], out[f"Xap{i}"] = design_basis(
                 torch.cat([X0_64, ga64[i][:, None]], dim=1), device, dtype)
-        out.update(pd.fields_of(shared_rotation(
-            project_design(U64, X0_64)[0], None, dtype), "rot_"))
+        Up = project_design(U64, X0_64)[0].to(dtype)
         clock.lap("null")
         out["timings"] = clock.seconds()
+        if tp is not None:
+            return out, Up
+        out.update(pd.fields_of(shared_rotation(Up, None, dtype), "rot_"))
         return out
 
-    # ---- on a mesh rank 0's, replicated by one broadcast ----
-    nl = pd.on_rank0(null, mesh)
+    # ---- on a mesh rank 0's, replicated by one broadcast; on a 'sample'
+    # axis each rank is sent only its block of U''s rows ----
+    tp_mesh = tp = None
+    if mesh is not None and mesh.shape[1] > 1:
+        tp_mesh, tp = mesh, pd.tp_columns(n, mesh, packed=False)
+        nl, U_b = pd.on_rank0_rows(null, mesh, *tp)
+        rot = rotation_rows(U_b, None, dtype)
+    else:
+        nl = pd.on_rank0(null, mesh)
+        rot = pd.from_fields(SharedRotation, nl, "rot_")
     nulls = [pd.null_from_fields(nl, f"null{i}_") for i in range(A)]
     designs = [(nl[f"Xa{i}"], nl[f"Xap{i}"]) for i in range(A)]
-    rot = pd.from_fields(SharedRotation, nl, "rot_")
     ga = ga64.to(dtype)
     clock = _StageClock(device)
 
     # ---- the scan: each tile rotated once, then focal by focal (on a mesh
-    # this rank's rows) ----
-    part, src = pd.rank_sources(mesh, tile, device, rg, G_src)
+    # this rank's rows; on a 'sample' axis their block of sample columns,
+    # each product summed over 'sample' and K3 on the whole rotated rows;
+    # a ResidentGenome read as its host rows, as the JAX package reads it)
+    if tp is None:
+        part, src = pd.rank_sources(mesh, tile, device, rg, G_src)
+        tiles = _source_tiles(part, src, None, dtype, device, tile)
+
+        def rotate(X):
+            return rotate_tile(X, rot)
+    else:
+        lo, hi = pd.rank_range(M, mesh, tile)
+        tiles = pd.tp_blocks(np.asarray(source[lo:hi]), None, None, mesh,
+                             device, dtype, tile, *tp[1:])
+        ga = pd.block_cols(ga, *tp[1:])
+        designs = [tuple(pd.block_rows(d, *tp[1:]) for d in design)
+                   for design in designs]
+
+        def rotate(X):
+            return apply_rotation_psum(X, rot, None, dtype, mesh, n)
     outs = []
     clock.lap()
-    for Gt in _source_tiles(part, src, None, dtype, device, tile):
+    for Gt in tiles:
         clock.lap("load")
         Gf = Gt.to(dtype)
-        R = rotate_tile(Gt, rot)
+        R = rotate(Gt)
         clock.lap("rotation")
         rows = []
         for null_a, g_a, design in zip(nulls, ga, designs):
-            keep_b, keep_p = _sample_space_keep(Gf, g_a, *design)
+            keep_b, keep_p = _sample_space_keep(Gf, g_a, *design,
+                                                mesh=tp_mesh)
             cond = emmax_scan_prerotated(R, null_a, keep_b)
             clock.lap("conditional")
-            P = rotate_tile(Gf * g_a, rot)
+            P = rotate(Gf * g_a)
             clock.lap("rotation")
             st = _gxe_stats_whitened(R * null_a.sd, P * null_a.sd, null_a,
                                      keep_b, keep_p)

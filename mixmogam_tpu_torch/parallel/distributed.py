@@ -25,7 +25,10 @@ partial products are summed over 'sample' (ops/scan.py::
 apply_rotation_psum; the int8 planes in integers), the mask of rows inside
 col(X0) comes from two more sums, kernel K3 runs the epilogue on the whole
 rows, and the statistics meet in one all-gather over 'snp'. Kinship has no
-W: its rows split over the whole world.
+W: its rows split over the whole world. Every entry point takes the axis
+(its rotations scattered by contraction-row blocks through on_rank0_rows,
+its tiles' blocks from tp_blocks; the class tests, with no W, replicate
+over it) but where the JAX package refuses it: SAMPLE_AXIS_REFUSALS.
 
 Routes are decided for the whole mesh, so every rank takes the same route,
 raises the same refusal, and the result equals the single-device call's: a
@@ -418,24 +421,34 @@ def on_rank0_rows(fn, mesh: Mesh, n_pad: int, lo: int, hi: int):
     (an exception raised on every rank), and W's rows zero-padded to n_pad
     and cut in blocks of hi - lo, block j sent to the ranks of 'sample'
     coordinate j by one scatter (parallel/mesh.py::scatter_from_rank0): no
-    other rank holds the whole of W."""
+    other rank holds the whole of W. W may be a list of such operands (a
+    rotation in several parts, or none): then a list of blocks, one
+    scatter each, in order."""
     from mixmogam_tpu_torch.parallel.mesh import scatter_from_rank0
 
     held = {}
 
     def fit():
         payload, W = fn()
-        held["W"] = torch.nn.functional.pad(
-            W, (0, 0, 0, n_pad - W.shape[-2]))
-        payload["_w_block"] = (tuple(W.shape[:-2]) + (hi - lo, W.shape[-1]),
-                               W.dtype)
+        Ws = [W] if isinstance(W, torch.Tensor) else list(W)
+        held["W"] = [torch.nn.functional.pad(w, (0, 0, 0, n_pad - w.shape[-2]))
+                     for w in Ws]
+        payload["_w_blocks"] = (isinstance(W, torch.Tensor), [
+            (tuple(w.shape[:-2]) + (hi - lo, w.shape[-1]), w.dtype)
+            for w in Ws])
         return payload
 
     payload = on_rank0(fit, mesh)
-    shape, wdt = payload.pop("_w_block")
-    blocks = (list(torch.split(held.pop("W"), hi - lo, dim=-2))
-              if "W" in held else None)
-    return payload, scatter_from_rank0(blocks, mesh, shape, wdt)
+    single, metas = payload.pop("_w_blocks")
+    Ws = held.pop("W", None)
+    blocks = []
+    for i, (shape, wdt) in enumerate(metas):
+        parts = None
+        if Ws is not None:
+            parts = list(torch.split(Ws[i], hi - lo, dim=-2))
+            Ws[i] = None           # rank 0 lets each operand go once sent
+        blocks.append(scatter_from_rank0(parts, mesh, shape, wdt))
+    return payload, (blocks[0] if single else blocks)
 
 
 def block_rows(A: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
@@ -446,6 +459,13 @@ def block_rows(A: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
     width = max(0, min(hi, A.shape[0]) - lo)
     out[:width] = A[lo:lo + width]
     return out
+
+
+def block_cols(A: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Columns [lo, hi) of A (..., n) (a block of sample columns of whole
+    rows: a focal SNP's, an environment's, a rescore's rows), zero past
+    its n."""
+    return block_rows(A.movedim(-1, 0), lo, hi).movedim(0, -1)
 
 
 def _tp_scan_tile(Gb: torch.Tensor, tp: TPNull, mesh: Mesh) -> torch.Tensor:
@@ -574,48 +594,54 @@ def rank_sources(mesh: Optional[Mesh], tile: int, device, rg, *hosts):
     return (None,) + tuple(None if h is None else h[lo:hi] for h in hosts)
 
 
-#: the ROADMAP Queue 1 item that brings each entry point's 'sample' route
-#: (emmax, emmax_loco, emmax_multi_trait and emmax_step_wise have it; emma
-#: refuses the axis as the JAX package does)
-SAMPLE_AXIS_ITEM = {
-    "emmax_gxe": "16d-iii", "emmax_perm_test": "16d-iii",
-    "emmax_anova": "16d-iii", "emmax_two_snps": "16d-iii",
-    "linear_model": "16d-iii", "anova": "16d-iii", "kruskal_wallis": "16d-iii",
+#: the JAX package's own refusals of a 'sample' axis above 1, by entry
+#: point: (True where only a ResidentGenome source is refused, its
+#: ValueError's words); every other route takes the axis
+SAMPLE_AXIS_REFUSALS = {
+    "emma": (False, "mesh-distributed EMMA shards 'snp' only; use a "
+                    "('snp', 1) mesh"),
+    "emmax_gxe": (True, "mesh-distributed resident GxE shards 'snp' only; "
+                        "use a ('snp', 1) mesh"),
+    "emmax_perm_test": (True, "mesh-distributed resident permutation "
+                              "shards 'snp' only; use a ('snp', 1) mesh"),
+    "linear_model": (True, "the pre-rotated (identity-whitening) scan has "
+                           "no rotation operator to sample-shard; use a "
+                           "('snp', 1) mesh"),
+    "anova": (True, "mesh-distributed packed class tests shard 'snp' "
+                    "only; use a ('snp', 1) mesh"),
+    "kruskal_wallis": (True, "mesh-distributed packed class tests shard "
+                             "'snp' only; use a ('snp', 1) mesh"),
 }
 
 
-def refuse_sample_axis(mesh: Mesh, what: str) -> None:
-    """The refusal of a 'sample' axis above 1 by an entry point without a
-    route for it: NotImplementedError naming its ROADMAP Queue 1 item
-    (SAMPLE_AXIS_ITEM); emma's is the JAX package's own ValueError. An
-    entry point with a route takes the axis on make_mesh's mesh only
-    (check_sample_mesh)."""
+def refuse_sample_axis(mesh: Mesh, what: str, G=None) -> None:
+    """The checks of a 'sample' axis above 1, on every rank and before any
+    collective: the JAX package's ValueError where it refuses the axis
+    (SAMPLE_AXIS_REFUSALS: emma on any source; GxE, the permutation test
+    and the class tests on a ResidentGenome), else the mesh must hold the
+    world (check_sample_mesh)."""
+    from mixmogam_tpu_torch.models.resident import ResidentGenome
+
     if mesh.shape[1] == 1:
         return
-    if what != "emma" and what not in SAMPLE_AXIS_ITEM:
-        check_sample_mesh(mesh)
-        return
-    if what == "emma":
-        raise ValueError("mesh-distributed EMMA shards 'snp' only; use a "
-                         "('snp', 1) mesh")
-    raise NotImplementedError(
-        f"{what}(mesh=) on a 'sample' axis above 1 (the tensor-parallel "
-        f"scan) is not ported yet: ROADMAP Queue 1 item "
-        f"{SAMPLE_AXIS_ITEM[what]}")
+    resident_only, words = SAMPLE_AXIS_REFUSALS.get(what, (None, None))
+    if words is not None and (not resident_only
+                              or isinstance(G, ResidentGenome)):
+        raise ValueError(words)
+    check_sample_mesh(mesh)
 
 
 def mesh_entry(mesh, G, what: str, device=None) -> Tuple[Mesh, torch.device]:
     """(mesh, the rank's device: `device`, default the mesh's) of an entry
     point's mesh= route, after the checks that route makes on every rank
-    before anything else: mesh is a Mesh (make_mesh()), its 'sample' axis
-    is 1 unless the entry point has a route for it (emmax, emmax_loco,
-    emmax_multi_trait, emmax_step_wise), and then the mesh holds the world
-    (refuse_sample_axis), and G is the whole source, not a rank's SnpShard
-    (the entry points read their rows from it)."""
+    before anything else: mesh is a Mesh (make_mesh()), a 'sample' axis
+    above 1 passes refuse_sample_axis (the JAX package's refusals; the
+    mesh holds the world), and G is the whole source, not a rank's
+    SnpShard (the entry points read their rows from it)."""
     if not isinstance(mesh, Mesh):
         raise TypeError("mesh must be a mixmogam_tpu_torch.parallel.Mesh "
                         f"(make_mesh()); got {type(mesh).__name__}")
-    refuse_sample_axis(mesh, what)
+    refuse_sample_axis(mesh, what, G)
     if isinstance(G, SnpShard):
         raise TypeError(f"{what}(mesh=) takes the whole matrix on every "
                         "rank; pass a rank's SnpShard to distributed_emmax")
@@ -774,11 +800,15 @@ def tp_blocks(rows: Optional[np.ndarray], rg, missing: bool, mesh: Mesh,
     summed over 'sample' (_tp_imputed: in float64 in core, as the host
     imputation of one device; in the compute dtype packed, as its packed
     scans), the columns past n set to 0; a block that is not int8 is cast
-    to dtype. Every rank of a 'sample' group holds the same rows, so each
-    takes the same tiles and the same collectives."""
+    to dtype. missing None: whether the rows hold a missing call. Every
+    rank of a 'sample' group holds the same rows, so each takes the same
+    tiles, finds the same missing calls and makes the same collectives."""
     from mixmogam_tpu_torch.ops.pack2 import unpack_2bit_device
 
     packed = rg is not None
+    if missing is None:
+        missing = bool((rows < 0).any() if rows.dtype == np.int8
+                       else np.isnan(rows).any())
     n = rg.n if packed else rows.shape[1]
     width = max(0, min(hi, n) - lo)
     valid = torch.arange(hi - lo, device=device) < width

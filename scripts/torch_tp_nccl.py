@@ -12,13 +12,19 @@ its rows x its byte block), and the campaign entry points:
 emmax_step_wise (3 steps, in core), emmax_multi_trait (T = 4, exact in
 core and int8x3 over the host-only container) and emmax_loco (the first
 8,192 rows of n = 2,048 samples in 3 chromosomes, packed on the host;
-its kinships and eighs on rank 0), synchronised, with a barrier before
+its kinships and eighs on rank 0), and on the first 8,192 rows the
+remaining entry points: emmax_gxe (E = 2, exact and int8x3 with an
+exact rescore of its top 64), emmax_perm_test (P = 128), emmax_two_snps
+(A = 2), emmax_anova (binary, and diploid on two blocks of rows summed)
+and linear_model / anova / kruskal_wallis, synchronised, with a barrier
+before
 each call and after a first, untimed call (the communicators' set-up);
 and the bytes it handed all_reduce a call. The kernels are built before
 the ranks start. Rank 0 then holds every result to one device's call on
 its card (kinship_resident, emmax_resident, emmax_step_wise,
-emmax_multi_trait, emmax_loco): the integer kinship bit-equal, masks
-equal, max |dp| within the tier's TIER_P_DRIFT entry (exact: 1e-5,
+emmax_multi_trait, emmax_loco and the remaining entry points): the
+integer kinship bit-equal, the class tests within 1e-12, masks equal,
+max |dp| within the tier's TIER_P_DRIFT entry (GxE's GXE_P_DRIFT; exact: 1e-5,
 float32 partial sums in other shapes), stepwise's path of cofactors and
 selections equal and its min_p within 1e-5, on both meshes (each max |dp|
 printed: the SNP-only mesh's is 0 where the cards round alike).
@@ -62,19 +68,45 @@ def _genome(n: int, m: int, seed: int):
     return G, y
 
 
+#: the entry points the 'sample' axis replicates, held within 1e-12 of one
+#: card (a 'snp' shard's rows tile otherwise than one card's)
+_REPLICATED = ("linear_model", "anova", "kruskal_wallis")
+
+
+def _result_keys(ref):
+    """(p-value keys, the statistic held for bit-equality, mask keys) of an
+    entry point's result dict."""
+    if "inter_ps" in ref and "marginal_ps" in ref:
+        return (("marginal_ps", "inter_ps", "joint_ps"), "f_inter",
+                ("mask", "mask_inter"))
+    if "cond_ps" in ref:
+        return ("cond_ps", "inter_ps"), "cond_ps", ()
+    if "min_ps" in ref:
+        return ("min_ps", "threshold"), "min_ps", ()
+    if "stats" in ref:
+        return ("ps",), "stats", ()
+    return ("ps",), "f_stats", ("mask",) if "mask" in ref else ()
+
+
 def _rank(args) -> None:
     import numpy as np
     import torch
     import torch.distributed as dist
 
+    from mixmogam_tpu_torch.models.emmax import emmax_anova
+    from mixmogam_tpu_torch.models.gxe import emmax_gxe
+    from mixmogam_tpu_torch.models.linear import (anova, kruskal_wallis,
+                                                  linear_model)
     from mixmogam_tpu_torch.models.loco import emmax_loco
     from mixmogam_tpu_torch.models.multitrait import emmax_multi_trait
     from mixmogam_tpu_torch.models.resident import (ResidentGenome,
                                                     emmax_resident,
                                                     kinship_resident, scale_k)
+    from mixmogam_tpu_torch.models.permutation import emmax_perm_test
     from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
+    from mixmogam_tpu_torch.models.twosnp import emmax_two_snps
     from mixmogam_tpu_torch.ops.eigen import eigen_k_on
-    from mixmogam_tpu_torch.ops.scan import TIER_P_DRIFT
+    from mixmogam_tpu_torch.ops.scan import GXE_P_DRIFT, TIER_P_DRIFT
     from mixmogam_tpu_torch.parallel import (distributed_emmax,
                                              distributed_emmax_resident,
                                              distributed_kinship,
@@ -99,6 +131,14 @@ def _rank(args) -> None:
     Gl, yl = np.ascontiguousarray(G[:ml, :nl]), y[:nl]
     chl = np.repeat([1, 2, 3], [ml // 4, ml // 2, ml - 3 * (ml // 4)])
     host_l = ResidentGenome.from_source(Gl, upload=False)
+    # the remaining entry points on the first 8,192 rows: two environments
+    # and a trait with an interaction on row 2, and diploid dosages (the
+    # sum of two blocks of binary rows)
+    ms = min(8_192, args.snps // 2)
+    Gs, D = G[:ms], G[:ms] + G[ms:2 * ms]
+    env = np.column_stack([rng.normal(size=y.size),
+                           (rng.random(y.size) < 0.5) * 1.0])
+    y12 = y + 0.7 * G[2] * env[:, 0]
     shape = tuple(int(s) for s in args.shape.split(","))
     meshes = {"tp": make_mesh(shape, devices=args.device if cpu else None),
               "snp": make_mesh(devices=args.device if cpu else None)}
@@ -136,6 +176,19 @@ def _rank(args) -> None:
                                             precision=tier, mesh=mesh))
         timed(f"{key} emmax_loco", lambda: emmax_loco(
             host_l, yl, chromosomes=chl, mesh=mesh))
+        for tier, top in (("exact", 0), ("int8x3", 64)):
+            timed(f"{key} emmax_gxe {tier}", lambda: emmax_gxe(
+                Gs, y12, env, eig_k=eig, precision=tier, rescore_top=top,
+                mesh=mesh))
+        timed(f"{key} emmax_perm_test", lambda: emmax_perm_test(
+            Gs, y, eig_k=eig, num_perm=128, mesh=mesh))
+        timed(f"{key} emmax_two_snps", lambda: emmax_two_snps(
+            Gs, y, eig_k=eig, focal_idx=[0, 1], mesh=mesh))
+        for name, src in (("binary", Gs), ("diploid", D)):
+            timed(f"{key} emmax_anova {name}", lambda: emmax_anova(
+                src, y, eig_k=eig, mesh=mesh))
+        for fn in (linear_model, anova, kruskal_wallis):
+            timed(f"{key} {fn.__name__}", lambda: fn(Gs, y, mesh=mesh))
     if rank != 0:
         dist.barrier()
         dist.destroy_process_group()
@@ -164,16 +217,33 @@ def _rank(args) -> None:
             "emmax_loco": emmax_loco(ResidentGenome.from_source(
                 Gl, device=dev), yl, chromosomes=chl)}
     sw = emmax_step_wise(G, y, eig_k=eig, max_steps=3, device=dev)
+    refs.update({
+        "emmax_gxe exact": emmax_gxe(Gs, y12, env, eig_k=eig, device=dev),
+        "emmax_gxe int8x3": emmax_gxe(Gs, y12, env, eig_k=eig,
+                                      precision="int8x3", rescore_top=64,
+                                      device=dev),
+        "emmax_perm_test": emmax_perm_test(Gs, y, eig_k=eig, num_perm=128,
+                                           device=dev),
+        "emmax_two_snps": emmax_two_snps(Gs, y, eig_k=eig, focal_idx=[0, 1],
+                                         device=dev),
+        "emmax_anova binary": emmax_anova(Gs, y, eig_k=eig, device=dev),
+        "emmax_anova diploid": emmax_anova(D, y, eig_k=eig, device=dev),
+        **{fn.__name__: fn(Gs, y, device=dev)
+           for fn in (linear_model, anova, kruskal_wallis)}})
     for key in meshes:
         for name, ref in refs.items():
             got = res[f"{key} {name}"]
-            nm = int((got["mask"] != ref["mask"]).sum())
-            dp = float(np.abs(got["ps"] - ref["ps"]).max())
-            tol = 1e-5 if "int8x3" not in name else TIER_P_DRIFT["int8x3"]
+            ps, stat, mask = _result_keys(ref)
+            nm = int(sum((np.asarray(got[k]) != np.asarray(ref[k])).sum()
+                         for k in mask))
+            dp = max(float(np.abs(got[k] - ref[k]).max()) for k in ps)
+            tol = (GXE_P_DRIFT["int8x3"] if name == "emmax_gxe int8x3"
+                   else TIER_P_DRIFT["int8x3"] if "int8x3" in name
+                   else 1e-12 if name in _REPLICATED else 1e-5)
             checks[f"{key} {name}"] = {
                 "masks_differ": nm, "max_dp": dp,
-                "f_stats_bit_equal": bool(np.array_equal(got["f_stats"],
-                                                         ref["f_stats"]))}
+                f"{stat}_bit_equal": bool(np.array_equal(got[stat],
+                                                         ref[stat]))}
             if nm or dp > tol:
                 bad.append(f"{key} {name}")
         got = res[f"{key} emmax_step_wise"]

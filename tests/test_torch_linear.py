@@ -257,9 +257,10 @@ def test_default_device_is_the_card_or_an_error(diploid, entry):
 
 @pytest.mark.parametrize("entry", sorted(_ENTRIES))
 def test_mesh_is_refused(diploid, entry):
-    """mesh= takes only a parallel.Mesh, and one with a 'sample' axis of 1
-    (the tensor-parallel scan waits for ROADMAP Queue 1 item 16d); the
-    mesh= routes themselves are held in tests/test_torch_parallel_scans.py."""
+    """mesh= takes only a parallel.Mesh, and a 'sample' axis above 1 only
+    on a mesh that holds its world (make_mesh's); the mesh= routes
+    themselves are held in tests/test_torch_parallel_scans.py and, on a
+    'sample' axis, tests/test_torch_parallel_tp_scans.py."""
     import dataclasses
 
     from mixmogam_tpu_torch.parallel import make_mesh
@@ -268,7 +269,7 @@ def test_mesh_is_refused(diploid, entry):
     with pytest.raises(TypeError, match="make_mesh"):
         _ENTRIES[entry](G, y, K, mesh=object(), device="cpu")
     tp = dataclasses.replace(make_mesh(devices="cpu"), shape=(1, 2))
-    with pytest.raises(NotImplementedError, match="item 16d"):
+    with pytest.raises(ValueError, match="make_mesh"):
         _ENTRIES[entry](G, y, K, mesh=tp, device="cpu")
 
 

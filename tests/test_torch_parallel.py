@@ -730,15 +730,16 @@ _TP_MESH = Mesh((1, 2), None, None, 0, 1, torch.device("cpu"))
 
 
 def _sample_axis_refusals(data):
-    """{case: (call, exception, match)}: what still refuses a 'sample' axis
-    above 1 (the tensor-parallel scan is distributed_emmax's,
-    distributed_emmax_resident's, distributed_kinship's and the mesh= of
-    emmax, emmax_loco, emmax_multi_trait and emmax_step_wise only), before
-    any collective."""
+    """{case: (call, exception, match)}: what refuses a 'sample' axis
+    above 1, before any collective: the JAX package's own refusals (emma
+    on any source; GxE, the permutation test and the class tests over a
+    ResidentGenome, in its words), and on a mesh that does not hold its
+    world (a lone process's hand-built (1, 2) mesh) every route that takes
+    the axis, naming make_mesh."""
     G, y, K, m = data["G"], data["y"], data["K"], _TP_MESH
     env = np.random.default_rng(3).normal(size=y.shape[0])
     rg = ResidentGenome.from_source(G, tile=_TILE["main"], upload=False)
-    no_route = {
+    routes = {
         "emmax_gxe": lambda: emmax_gxe(G, y, env, K=K, mesh=m),
         "emmax_perm_test": lambda: emmax_perm_test(G, y, K=K, mesh=m),
         "emmax_anova": lambda: emmax_anova(G, y, K=K, mesh=m),
@@ -748,9 +749,21 @@ def _sample_axis_refusals(data):
         "anova": lambda: anova(G, y, mesh=m),
         "kruskal_wallis": lambda: kruskal_wallis(G, y, mesh=m),
     }
-    cases = {e: (fn, NotImplementedError,
-                 f"item {tdist.SAMPLE_AXIS_ITEM[e]}$")
-             for e, fn in no_route.items()}
+    cases = {e: (fn, ValueError, "make_mesh") for e, fn in routes.items()}
+    packed = {
+        "emmax_gxe resident": (lambda: emmax_gxe(rg, y, env, K=K, mesh=m),
+                               "resident GxE shards 'snp' only"),
+        "emmax_perm_test resident": (lambda: emmax_perm_test(
+            rg, y, K=K, mesh=m), "resident permutation shards 'snp' only"),
+        "linear_model resident": (lambda: linear_model(rg, y, mesh=m),
+                                  "no rotation operator to sample-shard"),
+        "anova resident": (lambda: anova(rg, y, mesh=m),
+                           "packed class tests shard 'snp' only"),
+        "kruskal_wallis resident": (lambda: kruskal_wallis(rg, y, mesh=m),
+                                    "packed class tests shard 'snp' only"),
+    }
+    cases.update({c: (fn, ValueError, match)
+                  for c, (fn, match) in packed.items()})
     cases.update({
         "make_mesh (1, 2)": (lambda: make_mesh((1, 2), devices="cpu"),
                              ValueError, "ranks"),
@@ -791,14 +804,17 @@ def _sample_axis_refusals(data):
     "distributed_emmax_resident", "distributed_kinship", "emmax",
     "emmax_step_wise", "emmax_loco", "emmax_multi_trait", "emmax_gxe",
     "emmax_perm_test", "emmax_anova", "emmax_two_snps", "linear_model",
-    "anova", "kruskal_wallis"])
+    "anova", "kruskal_wallis", "emmax_gxe resident",
+    "emmax_perm_test resident", "linear_model resident", "anova resident",
+    "kruskal_wallis resident"])
 def test_what_still_refuses_a_sample_axis(data, case):
-    """A shape that does not hold the world; each route without a 'sample'
-    route (NotImplementedError naming its ROADMAP Queue 1 item, 16d-iii;
-    emma's is the JAX package's ValueError); and the routes that have one
-    (the campaign entry points emmax_step_wise, emmax_loco and
-    emmax_multi_trait among them, and LOCO's row window), on a mesh that
-    is not the world's: ValueError naming make_mesh."""
+    """A shape that does not hold the world; the JAX package's refusals of
+    the axis (emma; GxE, the permutation test and the class tests over a
+    ResidentGenome), each its ValueError in its words; and every route
+    that takes the axis (each entry point of docs/DISTRIBUTED.md's table
+    but emma, and LOCO's row window), on a mesh that is not the world's:
+    ValueError naming make_mesh. No entry point raises
+    NotImplementedError for the axis."""
     call, exc, match = _sample_axis_refusals(data)[case]
     with pytest.raises(exc, match=match):
         call()

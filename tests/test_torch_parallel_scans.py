@@ -648,10 +648,13 @@ def _entries(data):
                                    "emmax_gxe", "emmax_two_snps"])
 def test_the_entry_points_take_a_mesh_with_no_sample_axis(data, entry):
     """A mesh= that is no parallel.Mesh raises TypeError; a 'sample' axis
-    above 1 raises NotImplementedError naming item 16d, before any work."""
+    above 1 on a mesh that does not hold its world (a lone process's) raises
+    ValueError naming make_mesh, before any work: every one of these entry
+    points takes the axis on make_mesh's mesh
+    (tests/test_torch_parallel_tp_scans.py)."""
     call = _entries(data)[entry]
     with pytest.raises(TypeError, match="make_mesh"):
         call(object())
     tp = dataclasses.replace(make_mesh(devices="cpu"), shape=(1, 2))
-    with pytest.raises(NotImplementedError, match="item 16d"):
+    with pytest.raises(ValueError, match="make_mesh"):
         call(tp)
