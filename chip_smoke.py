@@ -265,9 +265,19 @@ Phases (each prints its own seconds):
     distributed_kinship bit-equal to kinship_resident, distributed_emmax
     at exact, int8x3 and bf16x3 equal to emmax_resident (identical masks,
     max |dp| <= 1e-12; whether bit-equal printed), K1, K3, K2 and K5 each
-    launched by the distributed calls; (c) in the same group, the sharded
-    resident scan: from_source(upload=False) of phase 4's genome (its
-    wall; torch.cuda.memory_allocated() unchanged across it), emmax(mesh=)
+    launched by the distributed calls; then distributed_train_step (ROADMAP
+    item 16e) on phase 4's genome and phase 9's T = 50 traits, top_k 8:
+    its wall and split (kinship, eigh + spectrum, REML, nulls, broadcast,
+    rotation and K3 from CUDA events, top-k + gather), K1 once and K3 T x
+    16 tiles and nothing else, K bit-equal to phase 4's integer gram over
+    M, every delta within 1e-6 relative of phase 9's exact multi-trait
+    null (its eigh of scale_k(K), its explicit REML at esp 1e-6) times
+    mean(diag(K)), traits 0 and 49 within 1e-10 of fit_null_model(method=
+    'spectrum'), top_idx the top F of phase 9's exact multi-trait scan
+    (ties to the lower row), top_f within 1e-4 relative; (c) in the same
+    group, the sharded resident scan: from_source(upload=False) of phase
+    4's genome (its wall; torch.cuda.memory_allocated() unchanged across
+    it), emmax(mesh=)
     over that host-only container at exact, int8x3 and bf16x3, first call
     and again, each bit-equal to emmax_resident, the shard uploads (1, then
     0); distributed_kinship over it bit-equal to kinship_resident;
@@ -336,7 +346,15 @@ Phases (each prints its own seconds):
     within _tp_tol, and linear_model / anova / kruskal_wallis (mesh=)
     bit-equal (the axis replicates them); each call's wall beside one
     device's, the bytes each rank reduced and its launches printed (K1 /
-    K4 / K3 added to the kernels line)
+    K4 / K3 added to the kernels line); then on the same two ranks
+    distributed_train_step (item 16e; T = 4, top_k 8, the 32,768 rows) on
+    the (2, 1) and the (1, 2) mesh and, in rank 0's process, a world of one:
+    top_f, top_idx, deltas and K bit-equal across the three, K bit-equal to
+    one device's integer gram, K1 once and K3 4 x tiles a call on a rank
+    (added to the kernels line), and each rank's split printed; and
+    parallel/dryrun.py::dryrun_rank on the (2, 1) mesh (the JAX dry run's
+    phases at n = 32 x 64, each mesh call held to one device's), its
+    summary line printed
 
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}. Any
@@ -2741,11 +2759,45 @@ for name, fn in (("lm", linear_model), ("anova", anova),
         out["tpr_" + name + "_" + k] = v
 """
 
+#: phase 18 (b): the train step on both meshes of the same ranks and a
+#: world of one in rank 0's process, then the dry run on the (2, 1) mesh
+#: (_step_gates holds them)
+_P18_STEP = r"""
+# ---- distributed_train_step (ROADMAP item 16e) on the (2, 1) and (1, 2)
+# meshes of the two ranks, with phase 9's first {mt_traits} traits; in rank
+# 0's process a world of one (no process group); then the JAX dry run's
+# phases on the (2, 1) mesh ----
+from mixmogam_tpu_torch.parallel import distributed_train_step
+from mixmogam_tpu_torch.parallel.dryrun import dryrun_rank
+from mixmogam_tpu_torch.parallel.mesh import Mesh
+step_launches, step_split = {{}}, {{}}
+calls = [("snp", mesh), ("tp", tp_mesh)]
+if rank == 0:
+    calls.append(("one", Mesh((1, 1), None, None, 0, 1, mesh.device)))
+for name, m in calls:
+    r = counted("distributed_train_step " + name,
+                lambda: distributed_train_step(m, G, Y4[:{mt_traits}],
+                                               top_k={top}), step_launches)
+    step_split[name] = {{k: round(v, 4) for k, v in r["timings_s"].items()}}
+    for k in ("top_f", "top_idx", "deltas", "K"):
+        out["step_" + name + "_" + k] = r[k]
+ts = time.perf_counter()
+dry_line = dryrun_rank(mesh)
+dry_wall = time.perf_counter() - ts
+"""
+
 _P18_TAIL = r"""
 print(json.dumps({{"rank": rank, "device": str(mesh.device),
                    "backend": mesh.backend,
                    "tp": {{"mesh": [list(tp_mesh.shape), tp_mesh.snp_index,
                                     tp_mesh.sample_index],
+                           "step": {{"launches": step_launches,
+                                     "split_s": step_split,
+                                     "walls_s": {{k: round(v, 3) for k, v in
+                                                  tp_walls.items()
+                                                  if "train_step" in k}},
+                                     "dryrun": dry_line,
+                                     "dryrun_s": round(dry_wall, 3)}},
                            "walls_s": {{k: round(v, 3)
                                         for k, v in tp_walls.items()}},
                            "reduced_bytes": tp_bytes,
@@ -2771,7 +2823,7 @@ if rank == 0:
 dist.barrier()
 dist.destroy_process_group()
 """
-_P18_RANK = _P18_HEAD + _P18_SCANS + _P18_TP + _P18_TAIL
+_P18_RANK = _P18_HEAD + _P18_SCANS + _P18_TP + _P18_STEP + _P18_TAIL
 
 _P18_TIERS = {"exact": False, "int8x3": "int8x3", "bf16x3": "bf16x3"}
 #: phase 18 (b): max |dp| of emmax_loco(mesh=) against one device's call at
@@ -3205,6 +3257,141 @@ def _tp_gates(tps, z, refs, Gt, n, kernels, launches) -> None:
 #: phase 18 (b)'s campaign entry points on the (1, 2) mesh: stepwise's
 #: forward steps and multi-trait's traits
 _P18_TP_STEPS, _P18_TP_TRAITS = 3, 4
+#: phase 18's train step: its top_k (the JAX step's default)
+_P18_TOP = 8
+
+
+def _train_step_phase(kernels, launches, main, G, mesh, Kr) -> None:
+    """Phase 18 (a)'s train step (ROADMAP item 16e), in the world of one
+    over NCCL at full width: distributed_train_step on phase 4's host
+    genome and phase 9's T = 50 traits, top_k _P18_TOP; its wall, its
+    split (timings_s) and its launches (K1 once, K3 once a trait a tile
+    and nothing else, added to the kernels line). Gates: K bit-equal to
+    phase 4's integer gram over M (kinship_resident, Kr); against phase 9's
+    emmax_multi_trait at the exact tier on the same rows and traits, which
+    shares none of the step's null (its eigh of scale_k(K) = K / c, c =
+    mean(diag(K)), its explicit REML a trait): each delta within 1e-6
+    relative of c times phase 9's (scaling K by 1/c scales delta by 1/c;
+    phase 9's REML stops at esp 1e-6, 18 bisections of a 0.2-wide bracket
+    in log delta, within 3.8e-7 of the optimum, the step's 32 within
+    2.3e-11), top_idx its top F (ties to the lower row), top_f within 1e-4
+    relative of those F; and the first and last traits' deltas within
+    1e-10 of fit_null_model(method='spectrum'), the step's arithmetic one
+    trait at a time (each its own eigh of S(K+I)S: two, not T, to keep the
+    clock)."""
+    import numpy as np
+    import torch
+
+    from mixmogam_tpu_torch.models.multitrait import _default_tile
+    from mixmogam_tpu_torch.ops.reml import fit_null_model
+    from mixmogam_tpu_torch.parallel import distributed_train_step
+
+    mt = main["mt9"]
+    Y = mt["Y"]
+    T, n = Y.shape
+    M = G.shape[0]
+    tiles = -(-M // _default_tile(n, 1 << 28))
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    r = distributed_train_step(mesh, G, Y, top_k=_P18_TOP)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - ts
+    run = {k.__name__: k.launches for k in kernels}
+    for name, cnt in run.items():
+        launches[name] += cnt
+    tm = r["timings_s"]
+    print(f"(a) distributed_train_step, T={T} n={n} M={M}, top_k "
+          f"{_P18_TOP}: {wall:.3f} s; split (s): kinship "
+          f"{tm['kinship']:.3f}, eigh + spectrum {tm['eigh_spectrum']:.3f}, "
+          f"REML ({T} batched) {tm['reml']:.3f}, nulls + rotation operand "
+          f"{tm['nulls']:.3f}, broadcast {tm['broadcast']:.3f}, rotation "
+          f"(load + design mask + fp32 GEMM, CUDA events) "
+          f"{tm['rotation']:.3f}, K3 (CUDA events) {tm['k3']:.3f}, top-k + "
+          f"gather {tm['topk_gather']:.3f}; launches {run}", flush=True)
+    want = {k.__name__: 0 for k in kernels}
+    want.update(ibs_gram_packed=1, scan_stats=T * tiles)
+    if run != want:
+        raise AssertionError(f"(a) train step: launches {run}, expected K1 "
+                             f"once and K3 {T} x {tiles}")
+    if (r["top_f"].shape != (T, _P18_TOP) or not np.isfinite(
+            r["top_f"]).all() or not (r["top_f"] > 0).all()):
+        raise AssertionError("(a) train step: malformed top_f")
+    same = np.array_equal(r["K"], Kr)
+    print(f"   K vs phase 4's integer gram / M: "
+          f"{'bit-equal' if same else 'NOT equal'}", flush=True)
+    if not same:
+        raise AssertionError("(a) train step: K is not bit-equal")
+    ref = float(np.mean(np.diag(Kr))) * mt["exact"]["deltas"]
+    dd = float(np.max(np.abs(r["deltas"] - ref) / ref))
+    ts = time.perf_counter()
+    one = {t: float(fit_null_model(Y[t], np.ones((n, 1)), K=Kr,
+                                   method="spectrum").delta)
+           for t in (0, T - 1)}
+    d1 = max(abs(r["deltas"][t] - v) / v for t, v in one.items())
+    print(f"   deltas vs phase 9's exact multi-trait null x mean(diag(K)): "
+          f"max rel {dd:.3e}; traits 0 and {T - 1} vs fit_null_model("
+          f"method='spectrum'): max rel {d1:.3e} "
+          f"({time.perf_counter() - ts:.3f} s)", flush=True)
+    if dd > 1e-6 or d1 > 1e-10:
+        raise AssertionError("(a) train step: deltas off the REML")
+    f9 = mt["exact"]["f_stats"]
+    order = np.stack([np.lexsort((np.arange(M), -f9[t]))[:_P18_TOP]
+                      for t in range(T)])
+    ref_f = np.take_along_axis(f9, order, axis=1)
+    idx_same = np.array_equal(r["top_idx"], order)
+    df = float(np.max(np.abs(r["top_f"] - ref_f) / ref_f))
+    print(f"   top_idx vs phase 9's exact multi-trait top F: "
+          f"{'equal' if idx_same else 'NOT equal'}; top_f max rel {df:.3e}",
+          flush=True)
+    if not idx_same or df > 1e-4:
+        raise AssertionError("(a) train step: the top-k differs from "
+                             "phase 9's multi-trait scan")
+
+
+def _step_gates(tps, z, Kb, M, T, n, kernels, launches) -> None:
+    """Phase 18 (b)'s train step and dry run: on each rank the train step's
+    split, launches (K1 once a call where the rank holds rows, K3 T x its
+    tiles; added to the kernels line) and the dry run's summary line; the
+    (2, 1), (1, 2) and world-of-one results bit-equal (top_f, top_idx,
+    deltas, K), K bit-equal to one device's integer gram of the M rows
+    (Kb)."""
+    import numpy as np
+
+    from mixmogam_tpu_torch.models.multitrait import _default_tile
+    from mixmogam_tpu_torch.parallel.multihost import host_snp_range
+
+    tile = _default_tile(n, 1 << 28)
+    for r, tp in enumerate(tps):
+        st = tp["step"]
+        print(f"   (b) rank {r}: distributed_train_step walls "
+              f"{st['walls_s']} s, split {st['split_s']}, launches "
+              f"{st['launches']}; dryrun_rank on the (2, 1) mesh "
+              f"{st['dryrun_s']:.3f} s: {st['dryrun']}", flush=True)
+        for call, run in st["launches"].items():
+            lo, hi = ((0, M) if call.endswith(" one")
+                      else host_snp_range(M, 2, r, tile=tile))
+            rows_tiles = -(-(hi - lo) // tile)
+            if (run["ibs_gram_packed"] != int(hi > lo)
+                    or run["scan_stats"] != T * rows_tiles):
+                raise AssertionError(f"(b) rank {r}, {call}: launches "
+                                     f"{run}")
+            for k in kernels:
+                launches[k.__name__] += run[k.__name__]
+        if not st["dryrun"].startswith("dryrun_multichip OK"):
+            raise AssertionError(f"(b) rank {r}: the dry run failed")
+    for key in ("top_f", "top_idx", "deltas", "K"):
+        ref = z[f"step_one_{key}"]
+        for name in ("snp", "tp"):
+            if not np.array_equal(z[f"step_{name}_{key}"], ref):
+                raise AssertionError(f"(b) train step on the {name} mesh: "
+                                     f"{key} differs from a world of one")
+    if not np.array_equal(z["step_one_K"], Kb):
+        raise AssertionError("(b) train step: K is not the integer gram")
+    print("   (b) distributed_train_step on (2, 1), (1, 2) and a world of "
+          "one: top_f, top_idx, deltas and K bit-equal; K bit-equal to "
+          "kinship_resident", flush=True)
 
 
 def _tp_campaign_gates(tps, z, tp_sw, loco_ref, Gt, y, eig, Y, kernels,
@@ -3438,12 +3625,13 @@ def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
     """Phase 18: parallel/'s data-parallel core on the card. (a) A world of
     one over NCCL (a file store) at full width: distributed_kinship against
     kinship_resident (bit-equal), distributed_emmax at exact / int8x3 /
-    bf16x3 against emmax_resident, K1 / K3 / K2 / K5 launched; (c) in that
-    group, the sharded resident scan and emmax_loco(mesh=)
-    (_resident_mesh_phase); (b) two gloo ranks sharing the card,
-    subprocesses, on the first 32,768 rows, held to the single-device calls
-    by the same gates, then as a (1, 2) 'sample' mesh (_tp_gates, then
-    _tp_campaign_gates and _tp_rest_gates for the other entry points)."""
+    bf16x3 against emmax_resident, K1 / K3 / K2 / K5 launched, then the
+    train step (_train_step_phase); (c) in that group, the sharded resident
+    scan and emmax_loco(mesh=) (_resident_mesh_phase); (b) two gloo ranks
+    sharing the card, subprocesses, on the first 32,768 rows, held to the
+    single-device calls by the same gates, then as a (1, 2) 'sample' mesh
+    (_tp_gates, then _step_gates, _tp_campaign_gates and _tp_rest_gates
+    for the other entry points)."""
     import pickle
 
     import numpy as np
@@ -3523,6 +3711,8 @@ def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
             _p18_gate(f"distributed_emmax {tier} vs emmax_resident "
                       f"({time.perf_counter() - ts:.3f} s)", dists[tier], ref)
         del dists, ref
+        _train_step_phase(kernels, launches, main, G, mesh, Kr)
+        torch.cuda.empty_cache()
         rgh = _resident_mesh_phase(kernels, launches, main, G, mesh, Kr)
         del Kr
         _campaign_mesh_phase(kernels, launches, main, G, mesh, rgh)
@@ -3573,7 +3763,7 @@ def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
                            store=os.path.join(d, "store"), d=d,
                            rb=_P18_TIERS, gxe_keys=_GXE_KEYS, mt=Mt,
                            sw_steps=_P18_TP_STEPS, mt_traits=_P18_TP_TRAITS,
-                           ms=Ms, gxe_top=_P18_TP_GXE_TOP)
+                           ms=Ms, gxe_top=_P18_TP_GXE_TOP, top=_P18_TOP)
     ts = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, "-c", src, str(r), "2"],
                               stdout=subprocess.PIPE,
@@ -3617,6 +3807,7 @@ def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
                       {k: z[f"{name}{tier}_{k}"]
                        for k in ("ps", "mask", "f_stats", "betas")}, ref)
     _tp_gates(tps, z, refs, G[:Mt], n, kernels, launches)
+    _step_gates(tps, z, Kb, Mb, _P18_TP_TRAITS, n, kernels, launches)
     ts = time.perf_counter()
     loco_ref = emmax_loco(ResidentGenome.from_source(Gl, tile=2_048),
                           y[:nl], chromosomes=chl)

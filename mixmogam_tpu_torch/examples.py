@@ -16,10 +16,9 @@ Plots are drawn where matplotlib is installed and skipped, with a line
 saying so, where it is not. Each scenario's wall is printed as
 "[example] <name>: <seconds> s".
 
-One scenario of the JAX examples waits for the port's later items:
-mesh_campaign (mesh-sharded entry points) waits for ROADMAP Queue 1 item
-16e (distributed_train_step; its entry points all take mesh=); it is not
-in EXAMPLES.
+mesh_campaign runs its entry points with mesh=make_mesh(): a world of one
+in a lone process (on the card, or the CPU under --device cpu), every rank
+of the group when launched under torchrun.
 """
 
 from __future__ import annotations
@@ -508,8 +507,56 @@ def example_cohort_vcf_packed(ctx: Ctx):
           "(NaN = missing; routed to the non-int8 tiers)")
 
 
+def example_mesh_campaign(ctx: Ctx):
+    """The campaign's entry points through mesh=: stepwise MLMM, LOCO, GxE,
+    the permutation sweep, multi-trait with a missing phenotype block, EMMA
+    and Kruskal-Wallis, each SNP-sharded over the ranks of make_mesh()
+    (nulls on rank 0 and broadcast, a rank's rows scanned, one gather). A
+    lone process is a world of one; under torchrun the same code spans
+    every rank. The JAX example's cohort, 96 x 600."""
+    from mixmogam_tpu_torch.data.simulate import (simulate_genotypes,
+                                                  simulate_phenotype)
+    from mixmogam_tpu_torch.models.emma import emma
+    from mixmogam_tpu_torch.models.gxe import emmax_gxe
+    from mixmogam_tpu_torch.models.linear import kruskal_wallis
+    from mixmogam_tpu_torch.models.loco import emmax_loco
+    from mixmogam_tpu_torch.models.multitrait import emmax_multi_trait
+    from mixmogam_tpu_torch.models.permutation import emmax_perm_test
+    from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
+    from mixmogam_tpu_torch.oracle.kinship import ibs_kinship, scale_k
+    from mixmogam_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(devices=ctx.device)
+    shape = {"snp": mesh.shape[0], "sample": mesh.shape[1]}
+    G, ch, po = simulate_genotypes(96, 600, seed=30)
+    y, causal = simulate_phenotype(G, h2=0.6, n_causal=3, seed=30)
+    K = scale_k(ibs_kinship(G.astype(np.float64)))
+    sw = emmax_step_wise(G, y, K=K, max_steps=3, mesh=mesh)
+    print(f"mesh {shape}: stepwise selected "
+          f"{sw['selected']['ebic']['cofactors']} (causal: "
+          f"{sorted(int(c) for c in causal)})")
+    lc = emmax_loco(G, y, chromosomes=ch, ploidy=1, mesh=mesh)
+    print(f"LOCO min p {np.min(lc['ps']):.2e} over "
+          f"{len(lc['loco'])} chromosomes")
+    rng = np.random.default_rng(1)
+    env = (rng.random(96) < 0.5).astype(np.float64)
+    gx = emmax_gxe(G, y, env, K=K, mesh=mesh)
+    pm = emmax_perm_test(G, y, K=K, num_perm=16, seed=2, mesh=mesh)
+    print(f"GxE min interaction p {np.min(gx['inter_ps']):.2e}; "
+          f"permutation threshold {pm['threshold']:.2e}")
+    Y = np.stack([y, y * 0.5 + rng.normal(size=96)])
+    Y[1, :9] = np.nan
+    mt = emmax_multi_trait(G, Y, K=K, mesh=mesh)
+    em = emma(G, y, K=K, tile=64, mesh=mesh)
+    kw = kruskal_wallis(G, y, mesh=mesh)
+    print(f"multi-trait min p {np.min(mt['ps']):.2e} (T=2, one trait "
+          f"9 samples missing); EMMA exact min p {np.min(em['ps']):.2e}; "
+          f"KW min p {np.min(kw['ps']):.2e} - all mesh-sharded")
+
+
 EXAMPLES = {
     "emmax": example_emmax,
+    "mesh_campaign": example_mesh_campaign,
     "multi_env_gxe": example_multi_env_gxe,
     "many_phenotypes_missing": example_many_phenotypes_missing,
     "cohort_vcf_packed": example_cohort_vcf_packed,

@@ -35,8 +35,14 @@ raises the same refusal, and the result equals the single-device call's: a
 host source's facts (the largest dosage, missing calls, fractional
 dosages) meet in one small all-reduce; a ResidentGenome's (M, n, tile,
 has_missing, ploidy) are the same on every rank, so its routes need no
-pass over dosages and no collective. distributed_train_step (the JAX
-package's training-step dry run) waits for ROADMAP Queue 1 item 16e.
+pass over dosages and no collective.
+
+distributed_train_step, the JAX package's end-to-end step: the kinship
+all-reduce (kernel K1 on integer rows), eigh, the projected spectrum and a
+batched REML on rank 0 with one broadcast, each rank's rows rotated a tile
+at a time and scanned by kernel K3 once a trait, a top-k a trait and one
+all-gather. parallel/dryrun.py drives it and every campaign entry point on
+a mesh (the JAX package's __graft_entry__.dryrun_multichip).
 
 The entry points' own mesh= routes (models/emmax.py, loco.py, stepwise.py,
 multitrait.py, emma.py, gxe.py, permutation.py, linear.py, twosnp.py) are
@@ -227,8 +233,7 @@ def distributed_kinship(G, mesh: Optional[Mesh] = None, method: str = "ibs",
     rank); a rank's SnpShard is split among its 'sample' group), then one
     world-wide all-reduce, so the integer gram is bit-equal to one
     device's."""
-    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
-                                                    ibs_counts_resident)
+    from mixmogam_tpu_torch.models.resident import ResidentGenome
     from mixmogam_tpu_torch.ops.kinship import (check_kinship_method,
                                                 finish_on_device,
                                                 ibs_float_partial,
@@ -276,10 +281,8 @@ def distributed_kinship(G, mesh: Optional[Mesh] = None, method: str = "ibs",
                                                    device=device)
             else:
                 shard = None
-            S = (ibs_counts_resident(shard, ploidy=1).to(torch.int64)
-                 if shard is not None and shard.M else
-                 torch.zeros((n, n), dtype=torch.int64, device=device))
-            return finish_on_device(all_reduce(S, mesh), float(M))
+            return finish_on_device(
+                all_reduce(_ibs_counts(shard, n, device), mesh), float(M))
         if rows is None:
             rows, _ = _local_rows(rg, mesh)
         part = ibs_float_partial(rows, 1, _KINSHIP_CHUNK, dtype,
@@ -295,6 +298,17 @@ def distributed_kinship(G, mesh: Optional[Mesh] = None, method: str = "ibs",
                                    device=device)])
     flat = all_reduce(flat, mesh)
     return finish_on_device(flat[:-1].reshape(n, n), float(flat[-1]))
+
+
+def _ibs_counts(shard, n: int, device) -> torch.Tensor:
+    """The (n, n) int64 sharing counts of kernel K1 over a rank's packed
+    binary rows (a ResidentGenome; zeros where the rank holds none): the
+    partial that one all-reduce sums over the ranks."""
+    from mixmogam_tpu_torch.models.resident import ibs_counts_resident
+
+    if shard is None or not shard.M:
+        return torch.zeros((n, n), dtype=torch.int64, device=device)
+    return ibs_counts_resident(shard, ploidy=1).to(torch.int64)
 
 
 #: rows a chunk of the float kinships' host imputation (kinship()'s default)
@@ -916,8 +930,221 @@ def distributed_emmax_resident(rg, y, K=None, X0: Optional[np.ndarray] = None,
     return _gathered_result(out, mesh, e - s, rot, nulls)
 
 
-def distributed_train_step(*args, **kwargs):
-    """The JAX package's training-step dry run over the mesh: not ported
-    yet (ROADMAP Queue 1 item 16e)."""
-    raise NotImplementedError("distributed_train_step is not ported yet: "
-                              "ROADMAP Queue 1 item 16e")
+def _step_int8(rows) -> Optional[np.ndarray]:
+    """A rank's rows as int8 when every value is an integer the int8 rows
+    hold as it is (int8 rows pass through, -1 included), else None: float
+    rows with NaN or a fraction, negative or large values elsewhere. The
+    cast of such rows to float is exact, so the step computes the same on
+    either form."""
+    from mixmogam_tpu_torch.models.source import as_int8_dosage
+
+    if (np.dtype(rows.dtype) != np.int8
+            and np.issubdtype(rows.dtype, np.floating)
+            and np.isnan(rows).any()):
+        return None            # as_int8_dosage would read NaN as -1
+    return as_int8_dosage(rows)
+
+
+def _raw_ibs_partial(rows, n: int, device) -> torch.Tensor:
+    """The JAX step's _ibs_partial of a rank's rows as they are: 2 C'C -
+    s 1' - 1 s' + m, in float64 on device, _KINSHIP_CHUNK rows at a time,
+    with no imputation and whatever the dosages (the float form of K1's
+    binary sharing count)."""
+    from mixmogam_tpu_torch.ops.kinship import _ibs_binary_update
+
+    part = torch.zeros((n, n), dtype=torch.float64, device=device)
+    for s in range(0, rows.shape[0], _KINSHIP_CHUNK):
+        C = torch.from_numpy(np.asarray(rows[s:s + _KINSHIP_CHUNK],
+                                        dtype=np.float64)).to(device)
+        _ibs_binary_update(part, C, float(C.shape[0]))
+    return part
+
+
+def rank_top(F: torch.Tensor, lo: int, k: int) -> torch.Tensor:
+    """A rank's candidates for the top k of each trait: F (T, m) holds the
+    statistics of its rows [lo, lo + m); returns (T, 2, min(k, m)) float64,
+    [:, 0] the largest F of each trait and [:, 1] their global row indices
+    (exact below 2^53), ties in row order (a stable sort)."""
+    order = torch.sort(F, dim=1, descending=True, stable=True).indices[:, :k]
+    return torch.stack([torch.gather(F, 1, order).double(),
+                        (order + lo).double()], dim=1)
+
+
+def select_top(h: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(values (T, k), row indices (T, k) int64) of the top k of each
+    trait among every rank's rank_top candidates h (T, 2, C): F descending,
+    the lower row first among equal F, as jax.lax.top_k orders them."""
+    vals, idx = h[:, 0], h[:, 1].astype(np.int64)
+    pick = np.lexsort((idx, -vals), axis=-1)[:, :k]
+    return (np.take_along_axis(vals, pick, axis=1),
+            np.take_along_axis(idx, pick, axis=1))
+
+
+def distributed_train_step(mesh: Optional[Mesh], G, Y, top_k: int = 8,
+                           tile: Optional[int] = None, device=None
+                           ) -> Dict[str, np.ndarray]:
+    """One end-to-end multi-trait GWAS step over the mesh: the JAX
+    package's distributed_train_step, with its arguments and return keys
+    (top_f (T, k), top_idx (T, k), deltas (T,) and K (n, n), numpy on
+    every rank) and timings_s.
+
+    G: the (M, n) dosage matrix on every rank; Y: (T, n), a row a trait.
+    1. K = (2 C'C - s 1' - 1 s' + m) / M, the JAX step's binary
+       allele-sharing gram, unscaled, float64. Fully observed binary
+       integer rows (float rows of 0 and 1 too) take distributed_kinship's
+       integer route: kernel K1 on each rank's packed rows, one int64
+       all-reduce. Any other G takes the same formula on its values as they
+       are, in float64 (_raw_ibs_partial), one all-reduce: the JAX step has
+       no ploidy refusal and no imputation, so neither has this.
+    2. On rank 0, then one broadcast (on_rank0): eigh(K) and the spectrum
+       of S(K+I)S in float64 (ops/eigen.py), the T REML fits in float64,
+       batched over the traits (ops/reml.py::reml_from_spectrum, X0 the
+       intercept), the traits' whitened nulls and the shared rotation
+       U' = (I - P_X0) U (multi-trait's _trait_nulls and shared_rotation).
+    3. Each rank's rows (rank_range at `tile`), a tile at a time: the
+       design mask and one rotation G U' (an fp32 library GEMM on the card,
+       TF32 off; integer rows go up as int8, binary rows as K1's packed
+       rows, unpacked on the device), then kernel K3 once a trait.
+    4. A rank's top_k rows a trait by F with their global indices, one
+       all-gather of (T, 2, k) a rank (gather_rows), the final selection
+       on the host. Ties take the lower row first, as jax.lax.top_k does;
+       masked rows have F = 0, so where a trait has fewer than top_k
+       unmasked rows its masked rows of lowest index fill its list.
+
+    Where the JAX step differs (ROADMAP, "Where the reference itself
+    deviates"): its REML runs in float32, its rotation is U, and top_k > M
+    returns padding rows on a mesh of more than one device; here REML is
+    float64, the rotation U', and top_k outside [1, M] raises ValueError on
+    every rank. The JAX step shards G over 'snp' alone: on a mesh with a
+    'sample' axis this step takes the world as a (world, 1) view, as
+    distributed_kinship does. The rows of a rank start on a tile boundary,
+    so every tile is the one a single device scans: top_f, top_idx and
+    deltas are bit-equal across mesh shapes, and K is too where the gram
+    is integer.
+
+    The scan runs in float32 on the card and float64 on the CPU. tile:
+    rows a tile (default multi-trait's, at most 16,384); device: the
+    rank's (default the mesh's: its card). mesh None is
+    make_mesh(devices=device), which raises without a card unless
+    device="cpu". timings_s: seconds of kinship, eigh_spectrum, reml and
+    nulls (rank 0's), broadcast (elsewhere with the wait for rank 0),
+    rotation (the tile's load, the design mask and the GEMM), k3 and
+    topk_gather, from CUDA events on the card (EMMA's _StageClock)."""
+    from mixmogam_tpu_torch.models.emma import _StageClock
+    from mixmogam_tpu_torch.models.multitrait import (_default_tile,
+                                                      _flat_null,
+                                                      _scan_tile_multitrait,
+                                                      _trait_nulls,
+                                                      _unflat_null)
+    from mixmogam_tpu_torch.models.resident import (ResidentGenome,
+                                                    _default_dtype)
+    from mixmogam_tpu_torch.models.source import resolve_source
+    from mixmogam_tpu_torch.ops.kinship import finish_on_device
+    from mixmogam_tpu_torch.ops.pack2 import unpack_2bit_device
+    from mixmogam_tpu_torch.ops.rotate import rotate_tile
+    from mixmogam_tpu_torch.ops.scan import outside_design
+
+    mesh, device = _mesh_device(mesh, device)
+    flat = Mesh((mesh.world, 1), mesh.group, mesh.backend, mesh.rank,
+                mesh.world, device)
+    G = resolve_source(G)
+    Y = np.atleast_2d(np.asarray(Y, dtype=np.float64))
+    T, n = Y.shape
+    if len(G.shape) != 2 or G.shape[1] != n:
+        raise ValueError(f"G has shape {tuple(G.shape)}; Y has {n} samples")
+    M = G.shape[0]
+    if not 1 <= top_k <= M:
+        raise ValueError(f"top_k={top_k} must lie in [1, M = {M}]")
+    dtype = _default_dtype(device)
+    tile = _default_tile(n, 1 << 28) if tile is None else int(tile)
+    lo, hi = rank_range(M, flat, tile)
+    rows = np.asarray(G[lo:hi])
+    clock = _StageClock(device)
+
+    # ---- 1. the kinship: one all-reduce of every rank's partial ----
+    R8 = _step_int8(rows)
+    here = R8 is not None and (not R8.size or (R8.min() >= 0
+                                               and R8.max() <= 1))
+    binary = not all_reduce(torch.tensor([0.0 if here else 1.0],
+                                         dtype=torch.float64, device=device),
+                            flat, dist.ReduceOp.MAX).item()
+    shard = None
+    if binary:
+        if rows.shape[0]:
+            shard = ResidentGenome.from_source(R8, ploidy=1, tile=tile,
+                                               device=device)
+        part = _ibs_counts(shard, n, device)
+    else:
+        part = _raw_ibs_partial(rows, n, device)
+    K = finish_on_device(all_reduce(part, flat), float(M))
+    del part
+    clock.lap("kinship")
+
+    # ---- 2. rank 0's eigh, spectrum, REML and nulls; one broadcast ----
+    def null():
+        from mixmogam_tpu_torch.ops.eigen import (eigen_k_on,
+                                                  projected_spectrum)
+        from mixmogam_tpu_torch.ops.reml import reml_from_spectrum
+        from mixmogam_tpu_torch.ops.rotate import shared_rotation
+        from mixmogam_tpu_torch.ops.scan import project_design
+
+        t = _StageClock(device)
+        phi, U = eigen_k_on(K, device)
+        X0 = torch.ones((n, 1), dtype=torch.float64, device=device)
+        xi, V = projected_spectrum(K, X0, device=device)
+        t.lap("eigh_spectrum")
+        Y64 = torch.as_tensor(Y, device=device)
+        fit = reml_from_spectrum((Y64 @ V) ** 2, xi)
+        deltas = fit["delta"].cpu().numpy()
+        t.lap("reml")
+        del V, xi
+        U64 = torch.as_tensor(U).to(device=device, dtype=torch.float64)
+        phi = torch.as_tensor(phi).to(device)
+        nulls = _trait_nulls(phi.to(dtype), Y64 @ U64, U64.T @ X0, deltas,
+                             dtype)
+        Up, X0d, X0p = project_design(U64, X0)
+        del U64
+        rot = shared_rotation(Up, None, dtype)
+        del Up
+        t.lap("nulls")
+        return _flat_null({
+            "deltas": deltas,
+            "h2s": fit["pseudo_heritability"].cpu().numpy(),
+            "nulls": nulls, "rot": rot, "X0d": X0d.to(dtype),
+            "X0p": X0p.to(dtype), "timings": t.seconds()})
+
+    nl = _unflat_null(on_rank0(null, flat))
+    clock.lap("null")
+
+    # ---- 3. this rank's rows: a tile rotated once, K3 once a trait ----
+    fs = []
+    for s in range(0, hi - lo, tile):
+        e = min(s + tile, hi - lo)
+        if binary:
+            Gt = unpack_2bit_device(shard.packed[s:e], n)
+        else:
+            Gt = torch.from_numpy(np.ascontiguousarray(
+                rows[s:e] if R8 is None else R8[s:e])).to(device)
+        keep = outside_design(Gt.to(dtype), nl["X0d"], nl["X0p"])
+        Xr = rotate_tile(Gt if Gt.dtype == torch.int8 else Gt.to(dtype),
+                         nl["rot"])
+        clock.lap("rotation")
+        fs.append(_scan_tile_multitrait(Xr, nl["nulls"], keep)[0])
+        clock.lap("k3")
+        del Gt, Xr, keep
+
+    # ---- 4. a rank's top-k a trait, one all-gather, the selection ----
+    F = (torch.cat(fs, dim=1) if fs
+         else torch.zeros((T, 0), dtype=dtype, device=device))
+    del fs
+    vals, top_idx = select_top(
+        gather_rows(rank_top(F, lo, top_k), flat).cpu().numpy(), top_k)
+    top_f = vals.astype(torch.empty((), dtype=dtype).numpy().dtype)
+    clock.lap("topk_gather")
+    timings = {"rotation": 0.0, "k3": 0.0, **nl["timings"],
+               **clock.seconds()}
+    # off rank 0 the null's lap is the wait for rank 0 and the broadcast
+    timings["broadcast"] = max(0.0, timings.pop("null") - sum(
+        nl["timings"].values()))
+    return {"top_f": top_f, "top_idx": top_idx, "deltas": nl["deltas"],
+            "K": K, "timings_s": timings}

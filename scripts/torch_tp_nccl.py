@@ -16,9 +16,9 @@ its kinships and eighs on rank 0), and on the first 8,192 rows the
 remaining entry points: emmax_gxe (E = 2, exact and int8x3 with an
 exact rescore of its top 64), emmax_perm_test (P = 128), emmax_two_snps
 (A = 2), emmax_anova (binary, and diploid on two blocks of rows summed)
-and linear_model / anova / kruskal_wallis, synchronised, with a barrier
-before
-each call and after a first, untimed call (the communicators' set-up);
+and linear_model / anova / kruskal_wallis, and distributed_train_step
+(T = 4, top_k 8), synchronised, with a barrier before each call and
+after a first, untimed call (the communicators' set-up);
 and the bytes it handed all_reduce a call. The kernels are built before
 the ranks start. Rank 0 then holds every result to one device's call on
 its card (kinship_resident, emmax_resident, emmax_step_wise,
@@ -27,7 +27,9 @@ integer kinship bit-equal, the class tests within 1e-12, masks equal,
 max |dp| within the tier's TIER_P_DRIFT entry (GxE's GXE_P_DRIFT; exact: 1e-5,
 float32 partial sums in other shapes), stepwise's path of cofactors and
 selections equal and its min_p within 1e-5, on both meshes (each max |dp|
-printed: the SNP-only mesh's is 0 where the cards round alike).
+printed: the SNP-only mesh's is 0 where the cards round alike); and the
+train step's top_f, top_idx, deltas and K bit-equal between the two
+meshes, its K bit-equal to one card's integer gram.
 
   python3 scripts/torch_tp_nccl.py [--world 4] [--shape 2,2]
       [--samples 10240] [--snps 32768] [--device cuda|cpu]
@@ -110,6 +112,7 @@ def _rank(args) -> None:
     from mixmogam_tpu_torch.parallel import (distributed_emmax,
                                              distributed_emmax_resident,
                                              distributed_kinship,
+                                             distributed_train_step,
                                              initialize_multihost, make_mesh)
     from mixmogam_tpu_torch.parallel.mesh import all_reduce
 
@@ -189,6 +192,8 @@ def _rank(args) -> None:
                 src, y, eig_k=eig, mesh=mesh))
         for fn in (linear_model, anova, kruskal_wallis):
             timed(f"{key} {fn.__name__}", lambda: fn(Gs, y, mesh=mesh))
+        timed(f"{key} distributed_train_step",
+              lambda: distributed_train_step(mesh, G, Y, top_k=8))
     if rank != 0:
         dist.barrier()
         dist.destroy_process_group()
@@ -257,6 +262,14 @@ def _rank(args) -> None:
                                             "max_d_min_p": dp}
         if not same or dp > 1e-5:
             bad.append(f"{key} emmax_step_wise")
+    # the train step: the same bits on both meshes, K one card's gram
+    a, b = (res[f"{key} distributed_train_step"] for key in meshes)
+    same = {k: bool(np.array_equal(a[k], b[k]))
+            for k in ("top_f", "top_idx", "deltas", "K")}
+    same["K is one card's gram"] = bool(np.array_equal(a["K"], K1))
+    checks["distributed_train_step bit-equal"] = same
+    if not all(same.values()):
+        bad.append("distributed_train_step")
     print(json.dumps({"world": dist.get_world_size(), "shape": list(shape),
                       "n": args.samples, "M": args.snps, "walls_s": walls,
                       "reduced_bytes": sent, "checks": checks,

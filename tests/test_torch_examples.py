@@ -74,20 +74,33 @@ def test_reference_classes_h2_matches_the_jax_example(run):
 
 def test_the_scenario_names_are_the_jax_examples_less_mesh_campaign():
     """EXAMPLES holds every scenario of examples/examples.py (read from its
-    source, which makes a directory when imported) but mesh_campaign,
-    which waits for the port's parallel/."""
+    source, which makes a directory when imported), mesh_campaign
+    included, in the same order."""
     from mixmogam_tpu_torch.examples import EXAMPLES
 
     tree = ast.parse((ROOT / "examples" / "examples.py").read_text())
     node = next(n for n in tree.body if isinstance(n, ast.Assign)
                 and n.targets[0].id == "EXAMPLES")
-    names = {k.value for k in node.value.keys}
-    assert set(EXAMPLES) == names - {"mesh_campaign"}
+    names = [k.value for k in node.value.keys]
+    assert list(EXAMPLES) == names
 
 
 def test_an_unknown_name_is_refused(tmp_path):
-    r = _run("--device", "cpu", "mesh_campaign", cwd=tmp_path)
+    r = _run("--device", "cpu", "no_such_scenario", cwd=tmp_path)
     assert r.returncode != 0 and "unknown example" in r.stderr
+
+
+def test_mesh_campaign_runs_on_the_cpu(tmp_path):
+    """The mesh-sharded campaign on a world of one (make_mesh(devices=
+    "cpu")): every entry point runs through mesh= and prints its line."""
+    r = _run("--device", "cpu", "--samples", "60", "--snps", "400",
+             "mesh_campaign", cwd=tmp_path)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert re.search(r"^\[example\] mesh_campaign: [0-9.]+ s$", r.stdout,
+                     re.M)
+    assert "mesh {'snp': 1, 'sample': 1}: stepwise selected" in r.stdout
+    assert "over 5 chromosomes" in r.stdout
+    assert "all mesh-sharded" in r.stdout
 
 
 def test_the_card_is_the_default(tmp_path):

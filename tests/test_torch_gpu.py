@@ -1476,3 +1476,43 @@ def test_card_loco_float_route_vs_resident(cuda):
         b = emmax_loco(Gf, y, ch, precision=tier, device="cpu")
         np.testing.assert_array_equal(a["mask"], b["mask"])
         assert np.abs(a["ps"] - b["ps"]).max() <= 1e-5
+
+
+@pytest.mark.parametrize("ploidy", [1, 2])
+def test_card_train_step_vs_cpu_float64(cuda, ploidy):
+    """distributed_train_step on a world of one on the card (no device=)
+    against the CPU in float64, n = 300, M = 1,000 at a 256-row tile, T = 3:
+    K bit-equal (binary: K1 once; diploid: the float64 gram, no K1), deltas
+    within 1e-8 relative (cuSOLVER's eigh against LAPACK's), top_idx equal,
+    top_f within 1e-4 relative; K3 once a trait a tile."""
+    from mixmogam_tpu_torch.data.simulate import simulate_phenotype
+    from mixmogam_tpu_torch.parallel import distributed_train_step
+
+    G, _, _ = simulate_genotypes(300, 1_000, ploidy=ploidy, seed=61)
+    y, _ = simulate_phenotype(G, h2=0.6, n_causal=4, seed=61)
+    rng = np.random.default_rng(61)
+    Y = np.stack([y, y + rng.normal(size=300), rng.normal(size=300)])
+    before = {k: k.launches for k in (ibs_gram_packed, scan_stats)}
+    a = distributed_train_step(None, G, Y, top_k=8, tile=256)
+    assert {k: k.launches - v for k, v in before.items()} == {
+        ibs_gram_packed: int(ploidy == 1), scan_stats: 3 * 4}
+    b = distributed_train_step(None, G, Y, top_k=8, tile=256, device="cpu")
+    np.testing.assert_array_equal(a["K"], b["K"])
+    np.testing.assert_allclose(a["deltas"], b["deltas"], rtol=1e-8)
+    np.testing.assert_array_equal(a["top_idx"], b["top_idx"])
+    np.testing.assert_allclose(a["top_f"], b["top_f"], rtol=1e-4)
+    assert a["top_f"].dtype == np.float32
+
+
+def test_card_dryrun_entry_vs_cpu(cuda):
+    """The tile forward step (parallel/dryrun.py::entry) on the card, an
+    fp32 GEMM and K3, against its CPU run: f_stats within 1e-4."""
+    from mixmogam_tpu_torch.parallel.dryrun import entry
+
+    fn, args = entry()
+    before = scan_stats.launches
+    got = fn(*args).cpu().numpy()
+    assert scan_stats.launches == before + 1
+    fn, args = entry(device="cpu")
+    np.testing.assert_allclose(got, fn(*args).numpy(), rtol=1e-4,
+                               atol=1e-4)

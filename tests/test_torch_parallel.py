@@ -64,7 +64,6 @@ from mixmogam_tpu_torch.ops.kinship import kinship
 from mixmogam_tpu_torch.parallel import (distributed_emmax,
                                          distributed_emmax_resident,
                                          distributed_kinship,
-                                         distributed_train_step,
                                          make_global_snp_array, make_mesh)
 from mixmogam_tpu_torch.parallel import distributed as tdist
 from mixmogam_tpu_torch.parallel import mesh as tmesh
@@ -831,11 +830,6 @@ def test_a_lone_mesh_needs_a_card_unless_asked(shape):
     mesh = make_mesh(shape, devices="cpu")
     assert (mesh.shape, mesh.world, mesh.distributed) == ((1, 1), 1, False)
     assert (mesh.snp_index, mesh.sample_index) == (0, 0)
-
-
-def test_train_step_waits_for_16e():
-    with pytest.raises(NotImplementedError, match="item 16e"):
-        distributed_train_step()
 
 
 def test_a_shard_must_be_the_ranks_range(data):
