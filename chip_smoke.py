@@ -32,16 +32,27 @@ Phases (each prints its own seconds):
     card's data-sheet peak for their type) and, for K1 and K4, beside one
     torch._int_mm over the unpacked int8 rows; beside K2 and K5 stand their
     products alone through the library on unpacked rows (torch._int_mm a
-    plane, a bf16 matmul a part), which the port never calls
+    plane, a bf16 matmul a part), which the port never calls. Then the
+    'high' tier (no kernel of its own): its three bf16 library products
+    with float32 outputs (ops/rotate.py::rotate_high; two on integer rows)
+    and the exact tier's mask and K3, on one 16,384-row tile of integer
+    and of imputed rows, against the plain version on the card (the same
+    bf16 splits, each product in float64, then K3's plain version): the
+    products within n 2^-24 of sum |g u|, K3 on them within its limits,
+    the whole within them on integer rows and in f and masks on imputed
+    rows (beta printed beside the exact tier's own), timed beside the exact
+    tier's fp32 GEMM on the same rows and beside their bound
   4 the main path at full width: draw the genome -> ResidentGenome on the
     card
     -> kinship_resident (K1) -> scale_k -> eigh on the card (float64)
-    -> fit_null_model -> emmax_resident at 'exact' (K3), 'int8x3' (K2)
-    and 'bf16x3' (K5); every kernel's launch count must be > 0, and each
-    fast tier within max |dp| 1e-4 of exact; each scan's rate beside PR 7's,
-    and the fast tiers' mask of the rows inside col(X0) timed alone. Then
-    the card's drift table: every tier (int8x2, int8x3, int8x4, bf16,
-    bf16x2, bf16x3; the 'c' spellings run the same kernels) against exact
+    -> fit_null_model -> emmax_resident at 'exact' (K3), 'int8x3' (K2),
+    'bf16x3' (K5) and 'high' (three bf16 passes, then K3 once an
+    8,192-row tile; TF32 still off after it); every kernel's launch count
+    must be > 0, and each fast tier within max |dp| 1e-4 of exact; each
+    scan's rate beside PR 7's, and the fast tiers' mask of the rows inside
+    col(X0) timed alone. Then the card's drift table: every tier (int8x2,
+    int8x3, int8x4, bf16, bf16x2, bf16x3, high; the 'c' spellings run the
+    same kernels) against exact
     on four fixtures: the intercept-only design, an intercept and 19
     covariates, 128 columns, and VanRaden's singular K of the genome (f64
     products) with delta at its bound (a trait in its 100 leading
@@ -63,13 +74,14 @@ Phases (each prints its own seconds):
     K_loco equal to scale_k of K1's gram over the other chromosomes' rows
     (max |d| <= 1e-12)
   7 the facade at full width, from the same files: api.run_gwas on the
-    card with method='emmax' at 'exact', 'int8x3' and 'bf16x3'; each
+    card with method='emmax' at 'exact', 'int8x3', 'bf16x3' and 'high'
+    (TF32 still off after it); each
     call's timings_s and route (in-core, or packed and resident) are
     printed; its p-values must equal (max |dp| <= 1e-12) those of the
     port's emmax called on the same filtered rows, y and K, the ranked CSV
     must parse back to the same p-values, and the kernels' launch counts
     must be the tabled ones (PERF.md section 6), as for phase 6's call.
-    Then at n = 2,048 x 8,192 with 2 % missing calls: run_gwas with the IBS
+    Then at n = 2,048 x 4,096 with 2 % missing calls: run_gwas with the IBS
     and with the VanRaden kinship (float32 matmuls on the card) against the
     same call on the float64 CPU path: max |dK| <= 1e-5, max |dp| <= 1e-4;
     on that genome, VanRaden's K_loco of the middle chromosome in float64 on
@@ -97,7 +109,7 @@ Phases (each prints its own seconds):
     wall, REML, scan, rate and p-values, and its rotation, design mask and
     one K3 launch on a tile alone; three traits against emmax_resident at
     the same tier (identical masks, max |dp| <= 1e-5), each fast tier
-    against exact (max |dp| <= 1e-4). Then at n = 2,048 x 8,192, 8 traits
+    against exact (max |dp| <= 1e-4). Then at n = 2,048 x 4,096, 8 traits
     in three missing-phenotype groups, the card against the float64 CPU
     path (identical masks, max |dp| <= 1e-5). Then run_gwas_multi(batched=
     True) from phase 6's PLINK fileset and a 4-trait phenotype CSV: equal
@@ -129,7 +141,8 @@ Phases (each prints its own seconds):
     launching K1 once, lm K3 once a tile
 12 gBLUP and GxE: emmax_gxe on phase 4's resident genome with two
     environments (N(0, 1) and 0/1; an interaction planted at SNP 100) at
-    'exact' and every int8 and bf16 tier: each wall, its scan's rotations
+    'exact', every int8 and bf16 tier and 'high': each wall, its scan's
+    rotations
     and statistics apart (CUDA events), E M / scan GxE-tests/s and the host
     p-values' seconds; no kernel launch (the rotations are library
     products, the statistics plain torch); each tier's max |dp| on the
@@ -138,7 +151,7 @@ Phases (each prints its own seconds):
     1e-4), and every interaction with exact p <= 0.05 / M below the tier's
     rescore cut (ops/scan.py::rescore_p_cut on GXE_P_DRIFT; the largest
     such p printed). The card
-    against the float64 CPU path at n = 2,048 x 8,192 (identical masks,
+    against the float64 CPU path at n = 2,048 x 4,096 (identical masks,
     max |dp| <= 1e-5), and under VanRaden's singular K at the three tiers
     (<= 1e-4). gblup on phase 4's eigh, reliability() and gblup_cv (5
     folds, an eigh a fold) on its K, each timed; on 2,048 samples the card
@@ -156,10 +169,10 @@ Phases (each prints its own seconds):
     1e-4 of exact's and its threshold within 1e-4 relative; the card
     against the float64 CPU path at n = 2,048 x 8,192 (P = 16) and under
     VanRaden's singular K at the three tiers, to the same limits. Then
-    emmax_two_snps on phase 4's top 16 exact hits: its wall and split, K3
-    launched once a focal SNP a tile (16 x 32 at M = 262,144) and nothing
+    emmax_two_snps on phase 4's top 4 exact hits: its wall and split, K3
+    launched once a focal SNP a tile (4 x 32 at M = 262,144) and nothing
     else, every focal SNP's own cond_p 1; the card against the float64 CPU
-    path at n = 2,048 x 8,192 with 8 focal SNPs, with and without the
+    path at n = 2,048 x 8,192 with 4 focal SNPs, with and without the
     per-focal REML (identical masks, max |dp| <= 1e-5), and under the
     singular K (<= 1e-4)
 14 the spectrum REML, the class facade and the examples: (a)
@@ -184,7 +197,9 @@ Phases (each prints its own seconds):
     mixmogam_tpu_torch.examples: every ported scenario at its default size
     in a temporary directory, each wall printed; any scenario that raises
     fails the phase, and so does streaming_at_scale without its part (a)
- 15 the streamed scan (models/streaming.py::emmax_streamed): (a) an int8
+ 15 the streamed scan (models/streaming.py::emmax_streamed): (a0) at
+    'high' on phase 4's genome, tile 8,192 (K3 once a tile), bit-equal to
+    emmax_resident at 'high' (the same tile); (a) an int8
     host source of n x 4M rows (BASELINE #3's 10,240 x 1,048,576; the
     first M rows are phase 4's genome, the rest drawn on the card, timed
     apart), emmax(stream=True, tile=32,768) on phase 4's eigh at exact,
@@ -194,19 +209,21 @@ Phases (each prints its own seconds):
     waited on the prep thread and the card's busy share of the loop, and
     each kernel alone on a 32,768-row tile; (b) a streamed exact scan with
     checkpoint_dir in a subprocess over a lazy source drawn from a seed
-    (n x 131,072, 4,096-row tiles), SIGKILLed once 3 tile files exist and
+    (n x 65,536, 4,096-row tiles), SIGKILLed once 3 tile files exist and
     resumed here: at least 3 tiles restored, equal to an uninterrupted run
     (max |dp| <= 1e-12), and again after the manifest is cut to half its
     bytes; (c) float32 dosages in [0, 2] with 1 % NaN, n x 9M/8 (12.1 GB at
     full size, past the in-core budget): emmax with no stream= must stream
     by itself, rows
     [0, 32,768) equal to emmax(stream=False) on them (max |dp| <= 1e-6);
-    then precision='bf16x3' streams them through the float route (K3 once
-    a tile, no K5): its wall, rate and stream_stats, rows [0, 32,768)
-    equal to the in-core float route on them (max |dp| <= 1e-6, equal
-    masks), the whole within FRACTIONAL_P_DRIFT['bf16x3'] of the streamed
+    then precision='bf16x3' with stream=True streams the first 65,536 of
+    them through the float route (K3 once a tile, no K5): its wall, rate
+    and stream_stats, rows [0, 32,768) equal to the in-core float route on
+    them (max |dp| <= 1e-6, equal masks), the whole within
+    FRACTIONAL_P_DRIFT['bf16x3'] of the streamed
     exact scan with equal masks; (d) emmax_multi_trait,
-    T = 8, on (c)'s source: streamed (every tile read from the host), K3 T
+    T = 8, on (c)'s first 65,536 rows, streamed by stream_budget_bytes=1
+    (every tile read from the host), K3 T
     times a tile, rows [0, 32,768) equal to the in-core multi-trait scan
     (max |dp| <= 1e-6), trait 0 within phase 9's 1e-5 of (c)'s single-trait
     p; (e) the CLI's run --stream on --checkpoint-dir on phase 6's PLINK
@@ -225,7 +242,7 @@ Phases (each prints its own seconds):
     emmax at 'exact' and 'int8x3' from the CSV and at 'bf16x3' from the
     VCF.gz, each equal (max |dp| <= 1e-12, the same masks) to the same
     call from phase 6's PLINK fileset, K1 once and K3 / K2 / K5; the exact
-    call from the CSV's first 2,048 rows on the native and on the Python
+    call from the CSV's first 512 rows on the native and on the Python
     route, equal to each other (parse_snp_data's seconds on both routes,
     both parses equal to the source); (d) from_source(G,
     cache_path=) on phase 4's genome cold, warm and validated, with
@@ -238,25 +255,27 @@ Phases (each prints its own seconds):
  17 imputed (fractional) dosages: the imputed form of phase 4's genome
     drawn on the card (g * 0.97 + 0.01 + U(-0.01, 0.01), 1 % NaN, float32):
     (a) emmax in core (stream=False) at M = 32,768 (1.3 GB) on phase 4's
-    eigh at exact, bf16x3, bf16x2 and bf16, each wall and rate, K3 once a
-    tile and nothing else, the bf16 rotation and the mask + K3 of one
-    16,384-row tile timed alone; each bf16 tier against exact with equal
-    masks and max |dp| <= FRACTIONAL_P_DRIFT; bf16x3 with rescore_top
+    eigh at exact, bf16x3, bf16x2, bf16 and 'high' (the dosages split
+    too), each wall and rate, K3 once a tile and nothing else, the bf16
+    rotation and the mask + K3 of one 16,384-row tile timed alone; each
+    tier against exact with equal masks and max |dp| <=
+    FRACTIONAL_P_DRIFT; bf16x3 with rescore_top
     rescores every SNP with exact p <= 0.05 / M (to exact's p, 1e-12),
     its count printed; (b) at n = 2,048 x 2,048 the card against the
-    float64 CPU path at the three bf16 tiers on one host eigh (equal masks,
+    float64 CPU path at the three bf16 tiers and 'high' on one host eigh
+    (equal masks,
     max |dp| <= 1e-5), and the bf16x3 products' float32 sums against the
     float64 products of the same bf16 operands (max |d| / sum |g w| <=
     n 2^-24);
-    (d) emmax_loco on the first 16,384 rows in 3 chromosomes (TAIR10's
-    proportions, 3-5 merged) at exact and bf16x3 (IBS) and exact
+    (d) emmax_loco on the first 16,384 rows in 2 chromosomes (TAIR10's
+    proportions, 2-5 merged) at exact and bf16x3 (IBS) and exact
     (VanRaden): each wall,
     each chromosome's log lines (gram+fetch, algebra+eigh, fit+scan), K3
     once a chromosome tile and nothing else; bf16x3 within
     FRACTIONAL_P_DRIFT of exact with equal masks; the host route's
     loco_kinships on phase 6's integer genome (chromosomes 3-5 merged)
     cast to float32 against the resident route's (K1 / K4): max |dK| <=
-    1e-6; (e) a DS VCF of the first 512 imputed rows in 2 chromosomes (the
+    1e-6; (e) a DS VCF of the first 256 imputed rows in 2 chromosomes (the
     Python route parses DS): run_gwas
     emmax_loco and emmax bf16x3 from it, each equal to the direct call on
     its rows, y and K (max |dp| <= 1e-12)
@@ -312,8 +331,8 @@ Phases (each prints its own seconds):
     launched as often as there: linear_model / anova / kruskal_wallis
     (mesh=) on phase 4's resident genome, emmax_gxe(mesh=) (E = 2) at
     exact and int8x3, emmax_perm_test(mesh=) (P = 128) at exact and
-    int8x3, emmax_two_snps(mesh=) on phase 4's top 8 hits, and
-    emmax_anova(mesh=) on a diploid genome of n x 32,768 (2 % missing
+    int8x3, emmax_two_snps(mesh=) on phase 4's top 2 hits, and
+    emmax_anova(mesh=) on a diploid genome of n x 16,384 (2 % missing
     calls) drawn in the phase, held to a single-device call on it; (b)
     then adds the five on its two gloo ranks (the class tests, GxE and
     the permutation test over each rank's shard of its host-only
@@ -446,7 +465,7 @@ def _library_ms(fn, what: str):
     return _cuda_ms(fn)
 
 
-def _check_stats(name, got, ref):
+def _check_stats(name, got, ref, beta_atol=1e-5):
     """K2/K3 against their plain versions: the JAX kernel tests'
     tolerances (tests/test_kernels.py: f rtol 1e-4 / atol 1e-4, beta
     atol 1e-5) and identical masks. Returns max |df|."""
@@ -461,7 +480,7 @@ def _check_stats(name, got, ref):
     if not bool((df <= 1e-4 + 1e-4 * r[0].abs()).all()):
         raise AssertionError(f"{name}: f differs by up to {df.max():.3e}")
     db = (g[1] - r[1]).abs().max().item()
-    if db > 1e-5:
+    if db > beta_atol:
         raise AssertionError(f"{name}: beta differs by up to {db:.3e}")
     if not bool(torch.isfinite(g).all()):
         raise AssertionError(f"{name}: non-finite output")
@@ -829,7 +848,18 @@ def _gxe_drift(a, b) -> tuple:
 
 #: the tiers each drift table holds, beside 'exact' (the 'c' spellings
 #: run their tier's kernel)
-_DRIFT_TIERS = ("int8x2", "int8x3", "int8x4", "bf16", "bf16x2", "bf16x3")
+_DRIFT_TIERS = ("int8x2", "int8x3", "int8x4", "bf16", "bf16x2", "bf16x3",
+                "high")
+
+
+def _check_tf32_off(after: str) -> None:
+    """TF32 still off after a call: the 'high' tier's bf16 products leave
+    the float32 GEMMs at full fp32 (ops/__init__.py's pin)."""
+    import torch
+
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError(f"TF32 was switched on after {after}")
 
 
 def _rule_entry(dp: float) -> float:
@@ -863,6 +893,91 @@ def _drift_table(label, runs, table) -> dict:
               f"{table.get(tier, float('nan')):g} (2x rounded up to one "
               f"digit: {_rule_entry(worst[tier]):g})", flush=True)
     return worst
+
+
+def _high_products(null, G1, g, dev, rows: int, n: int) -> None:
+    """Phase 3's check of the 'high' tier (no kernel of its own: three
+    bf16 library products with float32 outputs, ops/rotate.py::
+    rotate_high, then the exact tier's mask and K3) on one tile of
+    integer rows and of imputed rows, against its plain version on the
+    card (ops/scan.py::apply_rotation_high: the same bf16 splits, each
+    product in float64, summed in float32; then scan_stats_plain): the
+    products within float32's bound of their float64 values (n 2^-24 of
+    sum |g u|), K3 on them within its limits, and the whole within the
+    kernels' limits (f rtol / atol 1e-4, masks; beta atol 1e-5 on integer
+    rows; on imputed rows beta is printed beside the exact tier's fp32
+    GEMM's own reach, the tensor cores' float32 sums of rows whose offset
+    U' cancels being the larger). The products are timed beside the exact
+    tier's fp32 GEMM on the same rows and beside their bound."""
+    import dataclasses
+
+    import torch
+
+    from mixmogam_tpu_torch.ops.hopper_scan import scan_stats_plain
+    from mixmogam_tpu_torch.ops.rotate import rotate_high
+    from mixmogam_tpu_torch.ops.scan import (apply_rotation_high,
+                                             build_rotated_null,
+                                             emmax_scan_stats,
+                                             outside_design)
+
+    rot = build_rotated_null(null, matmul_precision="high")
+    G8 = torch.as_tensor(G1, device=dev)
+    noise = torch.rand(G8.shape, generator=g, device=dev)
+    for kind, Gt in (("integer", G8),
+                     ("imputed", G8.float() * 0.97 + 0.01
+                      + (noise - 0.5) * 0.02)):
+        keep = outside_design(Gt.float(), rot.X0, rot.X0p)
+
+        def plain(X):
+            return torch.where(keep[None, :], scan_stats_plain(
+                X, rot.sd, rot.y_res, rot.Q0, rot.rss0, rot.dof), 0.0)
+
+        # the products against their float64 values on the same splits
+        Xc = rotate_high(Gt, rot.high, torch.float32)
+        X64 = apply_rotation_high(Gt, rot.high, torch.float64)
+        mag = apply_rotation_high(Gt.abs(), rot.high.abs(), torch.float64)
+        ratio = float(((Xc.double() - X64).abs()
+                       / mag.clamp_min(1e-300)).max())
+        del X64, mag
+        if ratio > n * 2.0 ** -24:
+            raise AssertionError(f"'high' {kind} rows: the products' float32 "
+                                 f"sums off by {ratio:.3e} of sum |g u|")
+        got = emmax_scan_stats(Gt, rot)
+        k3err = _check_stats(f"'high' {kind} rows: K3 on the products", got,
+                             plain(Xc))
+        del Xc
+        ref = plain(apply_rotation_high(Gt, rot.high, torch.float32))
+        # the exact tier's fp32 GEMM (then K3) against the same kind of
+        # plain construction, float64 products of the unsplit operands
+        ex = emmax_scan_stats(Gt, dataclasses.replace(rot, high=None))
+        db_ex = float((ex[1] - plain((Gt.double() @ rot.U.double())
+                                     .float())[1]).abs().max())
+        del ex
+        err = _check_stats(f"'high' {kind} rows", got, ref,
+                           beta_atol=1e-5 if kind == "integer"
+                           else float("inf"))
+        dbeta = float((got[1] - ref[1]).abs().max())
+        ms = _cuda_ms(lambda: rotate_high(Gt, rot.high, torch.float32))
+        gemm = _cuda_ms(lambda: Gt.float() @ rot.U)
+        whole = _cuda_ms(lambda: emmax_scan_stats(Gt, rot))
+        pms = _cuda_ms(lambda: apply_rotation_high(Gt, rot.high,
+                                                   torch.float32))
+        passes = 2 if Gt.dtype == torch.int8 else 3
+        bnd = _bound(2.0 * passes * rows * n * n, "bf16", Gt, rot.high,
+                     torch.empty((rows, n)))
+        print(f"'high' {kind} rows n={n} rows={rows}: the {passes} bf16 "
+              f"products' float32 sums vs float64 on the same splits: max "
+              f"|d| / sum|g u| {ratio:.3e} (n u = {n * 2.0 ** -24:.3e}); "
+              f"K3 on them vs plain: max|df| {k3err:.3e}; products + mask "
+              f"+ K3 vs the plain version: max|df| {err:.3e}, max|dbeta| "
+              f"{dbeta:.3e} (the exact tier's fp32 GEMM vs its float64 "
+              f"products: {db_ex:.3e}); the products {ms:.3f} ms (bound "
+              f"{bnd['bound_ms']:.3f} ms by {bnd['bound_by']}), the exact "
+              f"tier's fp32 GEMM {gemm:.3f} ms, products + mask + K3 "
+              f"{whole:.3f} ms, plain {pms:.3f} ms", flush=True)
+        del got, keep, ref
+    _check_tf32_off("the 'high' products")
+    del rot, G8, noise, Gt
 
 
 def _main_path_drift(args, rg, phi, U, y, res) -> dict:
@@ -1030,7 +1145,7 @@ def _gxe_gblup_phase(args, kernels, launches, main, facade, files, acc,
 
     # (b) the card (float32) against the float64 CPU path
     ts = time.perf_counter()
-    Gb, _, _ = simulate_genotypes(2_048, 8_192, ploidy=1,
+    Gb, _, _ = simulate_genotypes(2_048, 4_096, ploidy=1,
                                   seed=args.seed + 121)
     yb, _ = simulate_phenotype(Gb, h2=0.5, n_causal=5, seed=args.seed + 121)
     rb = np.random.default_rng(args.seed + 121)
@@ -1040,7 +1155,7 @@ def _gxe_gblup_phase(args, kernels, launches, main, facade, files, acc,
     nm, dp = _gxe_drift(emmax_gxe(Gb, yb, eb, K=Kb, precision="exact"),
                         emmax_gxe(Gb, yb, eb, K=Kb, precision="exact",
                                   device="cpu"))
-    print(f"   emmax_gxe exact, card f32 vs CPU f64 (n=2048, M=8192, E=2): "
+    print(f"   emmax_gxe exact, card f32 vs CPU f64 (n=2048, M=4096, E=2): "
           f"{nm} mask(s) differ, max|dp| {dp:.3e} "
           f"({time.perf_counter() - ts:.3f} s)", flush=True)
     if nm or dp > 1e-5:
@@ -1271,10 +1386,10 @@ def _perm_two_snp_phase(args, kernels, launches, main, counts) -> None:
                                    precision=tier), ref_v, 254)
     print(f"   ({time.perf_counter() - ts:.3f} s)", flush=True)
 
-    # (b) the two-SNP scan on phase 4's top 16 hits: K3 once a focal SNP a
+    # (b) the two-SNP scan on phase 4's top 4 hits: K3 once a focal SNP a
     # tile, and no other kernel
     r, wall, cnt = run(emmax_two_snps, rg, y, eig_k=(phi, U),
-                       from_result={"ps": main["ps"]}, top_k=16)
+                       from_result={"ps": main["ps"]}, top_k=4)
     tiles = -(-M // subdivide_tile(rg.tile, 8_192))
     tm = r["timings_s"]
     scan = sum(tm[k] for k in ("load", "rotation", "conditional",
@@ -1288,7 +1403,7 @@ def _perm_two_snp_phase(args, kernels, launches, main, counts) -> None:
           f"{tm['load']:.3f} s, device time); eigh + nulls "
           f"{tm['null']:.3f} s; host p-values {tm['p_values']:.3f} s; "
           f"launches {cnt} ({A} x {tiles} tiles)", flush=True)
-    if cnt != counts(scan_stats=A * tiles) or A != 16:
+    if cnt != counts(scan_stats=A * tiles) or A != 4:
         raise AssertionError(f"emmax_two_snps: launches {cnt}")
     for k in ("cond_ps", "inter_ps"):
         ps = r[k]
@@ -1303,14 +1418,14 @@ def _perm_two_snp_phase(args, kernels, launches, main, counts) -> None:
     del r
     torch.cuda.empty_cache()
 
-    # the card against the float64 CPU path at n = 2,048, 8 focal SNPs
+    # the card against the float64 CPU path at n = 2,048, 4 focal SNPs
     # (with the per-focal REML too), and under the singular K
     ts = time.perf_counter()
-    focal = [100, 200, 300, 1_000, 2_000, 4_000, 6_000, 8_000]
+    focal = [100, 1_000, 4_000, 8_000]
     for refit in (False, True):
         kw = dict(K=Kb, focal_idx=focal, refit_delta_per_focal=refit)
         _two_snp_gate(f"emmax_two_snps, card f32 vs CPU f64 (n=2048, "
-                      f"M=8192, A=8, refit_delta_per_focal={refit})",
+                      f"M=8192, A=4, refit_delta_per_focal={refit})",
                       emmax_two_snps(Gb, yb, **kw),
                       emmax_two_snps(Gb, yb, device="cpu", **kw), 1e-5)
     kw = dict(K=Kv, focal_idx=[0, 1_000, 2_999])
@@ -1622,6 +1737,28 @@ def _stream_phase(args, kernels, launches, main, G, files, tmp) -> None:
             launches[name] += c
         return out, cnt, dt
 
+    # (a0) the 'high' tier streamed (K3 a tile behind its three bf16
+    # passes) against emmax_resident on phase 4's genome, bit for bit at
+    # the same tile: 8,192 rows, the resident route's scan tile at 'high'
+    # (subdivide_tile(16,384, 8,192))
+    hr, cnt_r, dt_r = run(emmax_resident, main["rg"], y, eig_k=eig,
+                          precision="high")
+    hs, cnt_s, dt_s = run(emmax, G, y, eig_k=eig, stream=True, tile=8_192,
+                          precision="high")
+    same = [k for k in ("ps", "f_stats", "betas", "mask")
+            if not np.array_equal(hs[k], hr[k])]
+    print(f"(a0) emmax stream=True high, M={M}, tile 8192: {dt_s:.3f} s = "
+          f"{M / dt_s:,.0f} SNP-tests/s; launches {cnt_s}; vs "
+          f"emmax_resident high ({dt_r:.3f} s, launches {cnt_r}): "
+          f"{'bit-equal' if not same else 'differs in ' + str(same)}",
+          flush=True)
+    tiles_h = -(-M // 8_192)
+    if (same or cnt_s["scan_stats"] != tiles_h
+            or cnt_r["scan_stats"] != tiles_h):
+        raise AssertionError("(a0) the streamed 'high' scan is not the "
+                             "resident one")
+    del hr, hs
+
     # (a) BASELINE #3's shape: n x 4M, int8, phase 4's genome first
     tile_a = 32_768
     Mb = 4 * M
@@ -1713,7 +1850,7 @@ def _stream_phase(args, kernels, launches, main, G, files, tmp) -> None:
     torch.cuda.empty_cache()
 
     # (b) kill and resume: a lazy source drawn from a seed, n samples
-    Mk, tile_k = 32 * 4_096, 4_096
+    Mk, tile_k = 16 * 4_096, 4_096
     src = _SeededRows(Mk, n, args.seed + 160)
     ck = os.path.join(tmp, "kill_ck")
     npz = os.path.join(tmp, "eig.npz")
@@ -1799,20 +1936,23 @@ def _stream_phase(args, kernels, launches, main, G, files, tmp) -> None:
     if nm or dp > 1e-6 or cnt["scan_stats"] != ss["tiles"]:
         raise AssertionError("(c) imputed dosages off")
     # the bf16x3 tier on these dosages: streamed through the float route
-    # (the bf16 products by the parts of U', then K3 a tile), held to the
-    # in-core float route on rows [0, 32,768) and to the exact tier
-    sb, cnt, dt = run(emmax, Gf, y, eig_k=eig, precision="bf16x3")
+    # (the bf16 products by the parts of U', then K3 a tile) on the first
+    # Mx rows (a cut of depth for the script's clock), held to the in-core
+    # float route on rows [0, 32,768) and to the streamed exact scan
+    Mx = min(2 * head, Mc)
+    sb, cnt, dt = run(emmax, Gf[:Mx], y, eig_k=eig, stream=True,
+                      precision="bf16x3")
     ss = sb.get("stream_stats") or {}
     rb, _, dt_i = run(emmax, Gf[:head], y, eig_k=eig, stream=False,
                       precision="bf16x3")
     nm = int((sb["mask"][:head] != rb["mask"]).sum())
     dp = float(np.abs(sb["ps"][:head] - rb["ps"]).max())
-    nx = int((sb["mask"] != st["mask"]).sum())
-    dx = float(np.abs(sb["ps"] - st["ps"]).max())
+    nx = int((sb["mask"] != st["mask"][:Mx]).sum())
+    dx = float(np.abs(sb["ps"] - st["ps"][:Mx]).max())
     sst = {k: (round(v, 3) if isinstance(v, float) else v)
            for k, v in ss.items()}
-    print(f"   emmax bf16x3 (streamed by itself), M={Mc}: {dt:.3f} s = "
-          f"{Mc / dt:,.0f} SNP-tests/s; stream_stats {json.dumps(sst)}"
+    print(f"   emmax bf16x3 (stream=True), the first M={Mx} rows: {dt:.3f} "
+          f"s = {Mx / dt:,.0f} SNP-tests/s; stream_stats {json.dumps(sst)}"
           f"; launches {cnt}; rows [0, {head}) vs the in-core float route "
           f"({dt_i:.3f} s): {nm} mask(s) differ, max|dp| {dp:.3e}; vs the "
           f"streamed exact scan: {nx} mask(s) differ, max|dp| {dx:.3e} "
@@ -1828,21 +1968,26 @@ def _stream_phase(args, kernels, launches, main, G, files, tmp) -> None:
     T = 8
     Y = np.vstack([y[None], _draw_traits(G[:16_384], T - 1,
                                          args.seed + 180)])
+    # on (c)'s first Md rows, which the budget of one byte streams: the
+    # route past the in-core budget, cut in depth for the script's clock
+    Md = min(2 * head, Mc)
     reads = []
     host_tile = source_mod.host_tile
     source_mod.host_tile = lambda *a: reads.append(a[1]) or host_tile(*a)
     try:
-        mt, cnt, dt = run(emmax_multi_trait, Gf, Y, eig_k=eig)
+        mt, cnt, dt = run(emmax_multi_trait, Gf[:Md], Y, eig_k=eig,
+                          stream_budget_bytes=1)
     finally:
         source_mod.host_tile = host_tile
-    tiles_d = -(-Mc // 16_384)
+    tiles_d = -(-Md // 16_384)
     mi, _, dt_i = run(emmax_multi_trait, Gf[:head], Y, eig_k=eig,
                       stream_budget_bytes=1 << 62)
     d_in = float(np.abs(mt["ps"][:, :head] - mi["ps"]).max())
     nm = int((mt["mask"][:, :head] != mi["mask"]).sum())
-    d_one = float(np.abs(mt["ps"][0] - st["ps"]).max())
-    print(f"(d) emmax_multi_trait T={T} on (c)'s source: {dt:.3f} s = "
-          f"{T * Mc / dt:,.0f} SNP-trait tests/s; timings_s "
+    d_one = float(np.abs(mt["ps"][0] - st["ps"][:Md]).max())
+    print(f"(d) emmax_multi_trait T={T} on (c)'s first {Md} rows, "
+          f"stream_budget_bytes=1: {dt:.3f} s = "
+          f"{T * Md / dt:,.0f} SNP-trait tests/s; timings_s "
           f"{json.dumps({k: round(v, 3) for k, v in mt['timings_s'].items()})}"
           f"; {len(reads)} tiles read from the host (streamed); launches "
           f"{cnt}; rows [0, {head}) vs the in-core multi-trait scan "
@@ -1953,7 +2098,7 @@ def _host_data_phase(args, kernels, launches, main, G, files, tmp,
                              "must be binary")
     Mf = min(args.facade_snps, M)
     Ma, Mv, Mz, Mp = (min(r, M) for r in (32_768, 16_384, 8_192, 256))
-    Mpy = min(2_048, Mf)                 # the Python route's facade rows
+    Mpy = min(512, Mf)                   # the Python route's facade rows
     # the facade genome's layout for the first Mf rows, chromosome 5 after
     chrom = np.r_[_tair10_chromosomes(Mf),
                   np.full(Ma - Mf, 5)].astype(np.int32)
@@ -2254,11 +2399,12 @@ def _fractional_phase(args, kernels, launches, main, G, tmp, acc) -> None:
     from mixmogam_tpu_torch.ops.hopper_scan import scan_stats
     from mixmogam_tpu_torch.ops.kinship import kinship
     from mixmogam_tpu_torch.ops.reml import fit_null_model
-    from mixmogam_tpu_torch.ops.rotate import (float_rotation, rotate_tile,
-                                               scan_float_rows)
+    from mixmogam_tpu_torch.ops.rotate import (float_rotation, rotate_high,
+                                               rotate_tile, scan_float_rows)
     from mixmogam_tpu_torch.ops.scan import (FRACTIONAL_P_DRIFT,
                                              apply_rotation,
                                              build_rotated_null,
+                                             emmax_scan_stats,
                                              rescore_p_cut)
     from mixmogam_tpu_torch.utils.caching import cached_kinship
 
@@ -2304,15 +2450,26 @@ def _fractional_phase(args, kernels, launches, main, G, tmp, acc) -> None:
                           dtype=torch.float32)
     rot = build_rotated_null(null)
     Gt = torch.as_tensor(np.nan_to_num(Gf[:tile], nan=0.5), device=dev)
-    for tier in ("bf16x3", "bf16x2", "bf16"):
+    for tier in ("bf16x3", "bf16x2", "bf16", "high"):
         r, cnt, dt = run(emmax, Gf, y, eig_k=(phi, U), stream=False,
                          precision=tier)
         nm = int((r["mask"] != ex["mask"]).sum())
         dp = float(np.abs(r["ps"] - ex["ps"]).max())
-        srot = float_rotation(U, np.ones((n, 1)), tier, torch.float32, dev)
-        rot_ms = _cuda_ms(lambda: rotate_tile(Gt, srot))
-        k3_ms = _cuda_ms(lambda: scan_float_rows(Gt, srot, rot)) - rot_ms
-        del srot
+        if tier == "high":
+            # the exact tier's route: U' and each float32 row split into
+            # bf16 hi + lo, three products (ops/rotate.py::rotate_high)
+            rot_h = build_rotated_null(null, matmul_precision="high")
+            rot_ms = _cuda_ms(lambda: rotate_high(Gt, rot_h.high,
+                                                  torch.float32))
+            k3_ms = _cuda_ms(lambda: emmax_scan_stats(Gt, rot_h)) - rot_ms
+            del rot_h
+            _check_tf32_off("emmax high on imputed dosages")
+        else:
+            srot = float_rotation(U, np.ones((n, 1)), tier, torch.float32,
+                                  dev)
+            rot_ms = _cuda_ms(lambda: rotate_tile(Gt, srot))
+            k3_ms = _cuda_ms(lambda: scan_float_rows(Gt, srot, rot)) - rot_ms
+            del srot
         print(f"   emmax {tier}, stream=False, M={Ma}: {dt:.3f} s = "
               f"{Ma / dt:,.0f} SNP-tests/s; a {tile}-row tile alone: the "
               f"bf16 rotation {rot_ms:.3f} ms, the mask and K3 "
@@ -2351,7 +2508,7 @@ def _fractional_phase(args, kernels, launches, main, G, tmp, acc) -> None:
                    Gbf).astype(np.float64)
     # one float64 eigenbasis (host LAPACK) for both sides
     eigb = eigen_k_on(scale_k(kinship(Gbf, ploidy=1)), "cpu")
-    for tier in ("bf16x3", "bf16x2", "bf16"):
+    for tier in ("bf16x3", "bf16x2", "bf16", "high"):
         a, cnt, _ = run(emmax, Gbf, yb, eig_k=eigb, precision=tier,
                         stream=False)
         b = emmax(Gbf, yb, eig_k=eigb, precision=tier, stream=False,
@@ -2381,11 +2538,11 @@ def _fractional_phase(args, kernels, launches, main, G, tmp, acc) -> None:
         raise AssertionError("(b) the bf16 products do not sum in float32")
     del srot, Gt, got, ref, mag, parts, imp
 
-    # (d) LOCO on the fractional source in 3 chromosomes (TAIR10's 3-5
-    # merged), cut to 16,384 rows for the script's clock (three calls of
-    # three eighs and grams each)
+    # (d) LOCO on the fractional source in 2 chromosomes (TAIR10's 2-5
+    # merged), cut to 16,384 rows and 2 chromosomes for the script's clock
+    # (three calls of an eigh and a gram a chromosome)
     Md = min(16_384, Ma)
-    chrom = np.minimum(_tair10_chromosomes(Md), 3)
+    chrom = np.minimum(_tair10_chromosomes(Md), 2)
     ranges = loco_mod._chrom_ranges(chrom)
     tiles_d = sum(-(-(e - s) // tile) for _, s, e in ranges)
     # the per-chromosome lines: an earlier phase may have raised the
@@ -2442,7 +2599,7 @@ def _fractional_phase(args, kernels, launches, main, G, tmp, acc) -> None:
     del kf, kr, host
 
     # (e) the facade from a DS VCF of imputed dosages
-    Me = min(512, Ma)
+    Me = min(256, Ma)
     che = np.repeat([1, 2], [Me // 2, Me - Me // 2])
     vcf = os.path.join(tmp, "imputed.vcf")
     ts = time.perf_counter()
@@ -3144,11 +3301,11 @@ def _remaining_mesh_phase(args, kernels, launches, main, mesh):
         k3_as("emmax_perm_test", run, 0)
         _equal_arrays(f"(e) emmax_perm_test(mesh=) {tier} vs phase 13's", r,
                       perm[tier]["res"], ("min_ps", "threshold"))
-    # the first 8 of phase 13's focal SNPs (its top hits, in p order): each
-    # focal SNP's rows are its own, so they equal phase 13's first 8 rows
+    # the first 2 of phase 13's focal SNPs (its top hits, in p order): each
+    # focal SNP's rows are its own, so they equal phase 13's first 2 rows
     two = main.pop("two13")
     A = len(two["res"]["focal_idx"])
-    Ae = min(8, A)
+    Ae = min(2, A)
     r, wall, run = timed(lambda: emmax_two_snps(
         rg, y, eig_k=eig, from_result={"ps": main["ps"]}, top_k=Ae,
         mesh=mesh))
@@ -3163,9 +3320,9 @@ def _remaining_mesh_phase(args, kernels, launches, main, mesh):
                   ("focal_idx", "cond_ps", "inter_ps"))
     del two, r
     torch.cuda.empty_cache()
-    # emmax_anova's diploid test on n x 32,768 drawn here, 2 % missing
+    # emmax_anova's diploid test on n x 16,384 drawn here, 2 % missing
     ts = time.perf_counter()
-    D = _draw_genotypes(n, 32_768, ploidy=2, missing_rate=0.02,
+    D = _draw_genotypes(n, 16_384, ploidy=2, missing_rate=0.02,
                         seed=args.seed + 180)
     print(f"(e) a diploid genome n={n} M={D.shape[0]}, 2 % missing calls, "
           f"drawn (not the system): {time.perf_counter() - ts:.3f} s",
@@ -3946,7 +4103,7 @@ def main(argv=None) -> int:
                                                     emmax_scan_packed,
                                                     kinship_resident,
                                                     row_means_packed,
-                                                    scale_k)
+                                                    scale_k, subdivide_tile)
     from mixmogam_tpu_torch.ops import _build
     from mixmogam_tpu_torch.ops.eigen import eigen_k
     from mixmogam_tpu_torch.ops.hopper_kinship import (
@@ -4263,7 +4420,9 @@ def main(argv=None) -> int:
         pass
     else:
         raise AssertionError("K3 took 129 columns of Q0")
-    del Xr, Xo, a3, aq, rot, null, U, rg1, rgc, G1, Gc, S, S_ref, got
+    del Xr, Xo, a3, aq, rot
+    _high_products(null, G1, g, dev, rows, n)
+    del null, U, rg1, rgc, G1, Gc, S, S_ref, got
     torch.cuda.empty_cache()
     _phase("3 kernels vs plain", t0)
 
@@ -4303,20 +4462,34 @@ def main(argv=None) -> int:
           f"(h2 {float(null.pseudo_heritability):.4f})", flush=True)
     res = {}
     pr7_rate = {"exact": 237_211, "int8x3": 2_394_025, "bf16x3": 1_172_266}
-    for tier in ("exact", "int8x3", "bf16x3"):
-        rot = build_rotated_null(null, None if tier == "exact" else tier)
+    for tier in ("exact", "int8x3", "bf16x3", "high"):
+        # 'high': the exact tier's route, its rotation in three bf16
+        # passes, scanned at the JAX package's tile for its matmul tiers
+        rot = build_rotated_null(
+            null, None if tier in ("exact", "high") else tier,
+            matmul_precision="high" if tier == "high" else None)
+        stile = rg.tile if tier != "high" else subdivide_tile(rg.tile, 8_192)
         torch.cuda.synchronize()
         ts = time.perf_counter()
-        emmax_scan_packed(rg.packed, rot, n, rg.tile)
+        emmax_scan_packed(rg.packed, rot, n, stile)
         torch.cuda.synchronize()
         dt_scan = time.perf_counter() - ts
+        k3_before = scan_stats.launches
         ts = time.perf_counter()
         res[tier] = emmax_resident(rg, y, eig_k=(phi, U), precision=tier)
         dt_all = time.perf_counter() - ts
+        k3_call = scan_stats.launches - k3_before
+        pr7 = (f"PR 7: {pr7_rate[tier]:,}" if tier in pr7_rate
+               else f"K3 launches a call {k3_call}, {stile}-row tiles")
         print(f"scan {tier}: {dt_scan:.3f} s = {M / dt_scan:,.0f} "
-              f"SNP-tests/s (PR 7: {pr7_rate[tier]:,}); emmax_resident "
+              f"SNP-tests/s ({pr7}); emmax_resident "
               f"{tier} (null fit + scan + p-values): {dt_all:.3f} s",
               flush=True)
+        if tier == "high":
+            _check_tf32_off("emmax_resident high")
+            if k3_call != -(-M // stile):
+                raise AssertionError(f"emmax_resident high: K3 launched "
+                                     f"{k3_call} times")
         if tier == "int8x3":
             # the fast tiers' mask of the rows inside col(X0), alone: one
             # pass over the packed genome (unpack, f32, outside_design)
@@ -4352,11 +4525,12 @@ def main(argv=None) -> int:
         if r["dof"] != n - 2:
             raise AssertionError(f"{tier}: dof {r['dof']} != {n - 2}")
     dps = {t: float(np.abs(res[t]["ps"] - ex["ps"]).max())
-           for t in ("int8x3", "bf16x3")}
+           for t in ("int8x3", "bf16x3", "high")}
     top = set(np.argsort(ex["ps"])[:20].tolist())
     hits = len(top & set(causal.tolist()))
     print(f"int8x3 vs exact: max|dp| {dps['int8x3']:.3e}; bf16x3 vs exact: "
-          f"max|dp| {dps['bf16x3']:.3e}; causal SNPs among the exact top "
+          f"max|dp| {dps['bf16x3']:.3e}; high vs exact: max|dp| "
+          f"{dps['high']:.3e}; causal SNPs among the exact top "
           f"20: {hits} of {len(causal)}", flush=True)
     if max(dps.values()) > 1e-4 or hits < 3:
         raise AssertionError("main path results off")
@@ -4600,11 +4774,16 @@ def main(argv=None) -> int:
            direct_emmax("bf16x3"),
            lambda g2: counts(ibs_gram_packed=1, rotate_scan_bf16_packed=1),
            precision="bf16x3")
+    facade("emmax high", files + (os.path.join(tmp, "high"),),
+           direct_emmax("high"),
+           lambda g2: counts(ibs_gram_packed=1, scan_stats=tiles(g2)),
+           precision="high")
+    _check_tf32_off("run_gwas emmax high")
 
     # missing calls and the VanRaden kinship: float32 matmuls on the
     # card against the float64 CPU path, from the same files
     ts = time.perf_counter()
-    nm, Mm = 2_048, 8_192
+    nm, Mm = 2_048, 4_096
     Gm, chm, pom = simulate_genotypes(nm, Mm, ploidy=2, missing_rate=0.02,
                                       seed=args.seed + 50)
     ym, _ = simulate_phenotype(Gm, h2=0.5, n_causal=5, seed=args.seed + 50)
@@ -4876,7 +5055,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # missingness groups on the card against the float64 CPU path
     ts = time.perf_counter()
-    ns9, ms9 = 2_048, 8_192
+    ns9, ms9 = 2_048, 4_096
     Gs9, _, _ = simulate_genotypes(ns9, ms9, ploidy=1, seed=args.seed + 91)
     Ys9 = _draw_traits(Gs9, 8, seed=args.seed + 92)
     rng9 = np.random.default_rng(args.seed + 93)

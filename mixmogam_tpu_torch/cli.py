@@ -82,7 +82,8 @@ def _add_run(sub):
                         "observed integer dosages, else exact; fast: "
                         "int8x2 (else bf16) on the card with an exact "
                         "rescore of the top 1024 hits; both exact on the "
-                        "CPU; high is not ported")
+                        "CPU; high=the exact route with its rotation in "
+                        "three bf16 passes (TF32 stays off)")
     p.add_argument("--rescore-top", type=int, default=0,
                    help="with a fast --precision tier: re-test the top-K "
                         "SNPs (+ anything near Bonferroni) at the exact "
@@ -207,10 +208,6 @@ def main(argv=None) -> int:
         cov = ([int(x) for x in args.covariate_pids.split(",")]
                if args.covariate_pids else None)
         tier_kw = {}
-        if args.precision == "high":
-            ap.error("--precision high is not ported: on the card it would "
-                     "be a TF32 rotation, and the port pins TF32 off "
-                     "(ROADMAP Queue 1 item 4)")
         if args.precision != "exact":
             if args.method != "emmax":
                 ap.error(f"--precision {args.precision} is only supported "

@@ -80,10 +80,12 @@ def _incore_rows(G, dtype) -> np.ndarray:
 def _scan_incore(Gf: np.ndarray, rot, srot, tile: int, device, dtype
                  ) -> torch.Tensor:
     """(4, m) [f, beta, var_perc, mask] of the host rows Gf on `device`, a
-    tile at a time: the exact tier (fp32 GEMM by U', then K3), or with
-    srot the float route (ops/rotate.py: the bf16 parts of U', then K3).
-    Fully observed int8 rows go to the device as int8, float rows in the
-    compute dtype (the footprint should_stream assumed)."""
+    tile at a time: the exact tier (fp32 GEMM by U', or with rot.high the
+    'high' tier's three bf16 passes; then K3), or with srot the float
+    route (ops/rotate.py: the bf16 parts of U', then K3). Fully observed
+    int8 rows go to the device as int8 and reach the rotation so (the
+    'high' tier skips their zero lo part), float rows in the compute dtype
+    (the footprint should_stream assumed)."""
     from mixmogam_tpu_torch.ops.rotate import scan_float_rows
     from mixmogam_tpu_torch.ops.scan import emmax_scan_stats
 
@@ -99,7 +101,7 @@ def _scan_incore(Gf: np.ndarray, rot, srot, tile: int, device, dtype
     if G_dev.dtype != torch.int8:
         G_dev = G_dev.to(dtype)
     G_dev = G_dev.to(device)
-    return torch.cat([scan(G_dev[s:s + tile].to(dtype))
+    return torch.cat([scan(G_dev[s:s + tile])
                       for s in range(0, G_dev.shape[0], tile)], dim=1)
 
 
@@ -122,6 +124,26 @@ def incore_budget_bytes(device) -> Optional[int]:
 _RESIDENT_NO_RESUME = ("checkpoint_dir applies to streamed mode; the "
                        "resident route has no resume (its scan is device "
                        "compute over the packed genome)")
+_MP_RESIDENT = ("matmul_precision is not supported on the resident path; "
+                "use precision='high'")
+
+
+def _legacy_matmul_precision(matmul_precision):
+    """The JAX package's legacy matmul_precision kwarg -> the 'high' tier's
+    matmul precision or None: 'high' is the three-pass bf16 tier, 'highest'
+    (or 'float32') the exact tier the port always runs; any other value
+    would lower the exact tier's float32 GEMM (TF32 or one bf16 pass),
+    which the port does not do."""
+    from mixmogam_tpu_torch.ops.scan import HIGH
+
+    if matmul_precision in (None, "", "highest", "float32"):
+        return None
+    if matmul_precision == HIGH:
+        return HIGH
+    raise ValueError(
+        f"matmul_precision={matmul_precision!r}: the port takes 'high' (the "
+        "three-pass bf16 tier) or 'highest'; its float32 GEMMs run with "
+        "TF32 off")
 
 
 def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
@@ -149,7 +171,13 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
     while the card's int8x3 drift entry exceeds AUTO_MAX_DRIFT, 'fast' is
     int8x2 for integer dosages, else bf16, with rescore_top = 1024). The
     int8 tiers take integer dosages only; the bf16 tiers
-    take fractional ones too (the float route). rescore_top: a fast tier's
+    take fractional ones too (the float route). 'high': the exact tier's
+    route with its rotation in three bf16 passes (ops/rotate.py::
+    rotate_high; the dosages split too), on every single-device route;
+    mesh= refuses it, as the JAX package does. matmul_precision: the JAX
+    package's legacy spelling of 'high' (None, 'high', or 'highest', the
+    exact tier), in core only (the resident and streamed routes and mesh=
+    raise the JAX package's ValueErrors). rescore_top: a fast tier's
     threshold-complete exact rescore (finalize_scan); rescore_cut_M: the
     study's SNP count for its cut when G is part of the study (LOCO).
 
@@ -180,6 +208,7 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
                                              fit_null_model)
     from mixmogam_tpu_torch.ops.rotate import float_route_eig, float_rotation
     from mixmogam_tpu_torch.ops.scan import (build_rotated_null,
+                                             is_integer_dosage, matmul_tier,
                                              normalize_rotate_tier,
                                              probe_for_source,
                                              resolve_precision)
@@ -201,9 +230,7 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
     if str(precision) == "fast" and not rescore_top:
         # 'fast' pairs its tier with the threshold-complete exact rescore
         rescore_top = 1024
-    if matmul_precision:
-        raise NotImplementedError("the 'high' matmul tier is not ported "
-                                  "yet: ROADMAP Queue 1 item 4")
+    mp = _legacy_matmul_precision(matmul_precision)
     kw = dict(ngrids=ngrids, llim=llim, ulim=ulim, esp=esp,
               with_betas=with_betas, precision=precision,
               rotate_in_bf16=rotate_in_bf16, rescore_top=rescore_top,
@@ -213,6 +240,8 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
     if rg_given:
         if checkpoint_dir is not None:
             raise ValueError(_RESIDENT_NO_RESUME)
+        if mp:
+            raise ValueError(_MP_RESIDENT)
         return emmax_resident(G_src.on_device(device), y, K=K, X0=X0,
                               eig_k=eig_k, dtype=dtype, **kw)
     device = resolve_device(device)
@@ -230,6 +259,8 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
             <= resident_budget_bytes(device)):
         if checkpoint_dir is not None:
             raise ValueError(_RESIDENT_NO_RESUME)
+        if mp:
+            raise ValueError(_MP_RESIDENT)
         rg = ResidentGenome.from_source(G_src, device=device)
         return emmax_resident(rg, y, K=K, X0=X0, eig_k=eig_k, dtype=dtype,
                               **kw)
@@ -238,6 +269,10 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
     if stream:
         from mixmogam_tpu_torch.models.streaming import emmax_streamed
 
+        if mp:
+            # the legacy knob: streamed mode takes the unified name
+            raise ValueError("matmul_precision is not supported in streamed "
+                             "mode; use precision='high'")
         return emmax_streamed(
             G_src, y, K=K, X0=X0, eig_k=eig_k, tile=max(tile, 8192),
             checkpoint_dir=checkpoint_dir, dtype=dtype, host_eigh=host_eigh,
@@ -248,12 +283,16 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
 
     rb, tier_name = rotate_in_bf16, None
     if precision is not None:
-        if rotate_in_bf16:
+        if rotate_in_bf16 or matmul_precision:
             raise ValueError("pass either precision= or the legacy "
-                             "rotate_in_bf16 kwarg, not both")
+                             "rotate_in_bf16/matmul_precision kwargs, "
+                             "not both")
         rb, tier_name = resolve_precision(
             precision, G=probe_for_source(None, G_src), device=device)
-    rd = normalize_rotate_tier(rb)
+    rd, mp_tier = matmul_tier(normalize_rotate_tier(rb))
+    # the legacy knob with a rotation tier: the tier's route, as the JAX
+    # package's kernels run it
+    mp = mp_tier or (mp if rd is None else None)
     if rd is not None:
         # int8 and bf16 tiers on integer dosages run on packed rows
         # (kernels K2 / K5): pack them (-1 / NaN missing; K5 imputes per
@@ -287,7 +326,7 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
                           eigh_dtype=(np.float32 if str(precision) == "fast"
                                       else None),
                           device=device, dtype=dtype)
-    rot = build_rotated_null(null)
+    rot = build_rotated_null(null, matmul_precision=mp)
     # the float route: each tile cast to bf16 and rotated by the bf16 parts
     # of the exact tier's U', then K3 (ops/rotate.py)
     srot = (None if rd is None
@@ -299,8 +338,12 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
         betas=h[1].copy() if with_betas else None,
         var_perc=h[2].copy() if with_betas else None,
         with_betas=with_betas, rescore_top=rescore_top, rd=rd,
-        dof=int(rot.dof), rescore_cut_M=rescore_cut_M,
-        fractional=rd is not None,
+        matmul_precision=mp, dof=int(rot.dof), rescore_cut_M=rescore_cut_M,
+        # the float route's drift; at 'high' that of fractional dosages
+        # where the rows are not integers
+        fractional=rd is not None or bool(
+            mp and rescore_top and Gf.dtype != np.int8
+            and not is_integer_dosage(Gf)),
         tier_name=tier_name)
 
 
@@ -319,6 +362,7 @@ def _emmax_on_mesh(G, G_src, y, K, X0, eig_k, ngrids, llim, ulim, esp,
                                                     resident_budget_bytes)
     from mixmogam_tpu_torch.models.source import pack_for_mesh, should_stream
     from mixmogam_tpu_torch.ops.scan import (probe_for_source,
+                                             refuse_high_on_mesh,
                                              resolve_precision)
     from mixmogam_tpu_torch.parallel.distributed import (
         distributed_emmax, distributed_emmax_resident, mesh_entry)
@@ -360,6 +404,7 @@ def _emmax_on_mesh(G, G_src, y, K, X0, eig_k, ngrids, llim, ulim, esp,
                              "rotate_in_bf16 kwarg, not both")
         rb, _ = resolve_precision(
             precision, G=probe_for_source(rg, G_src), device=device)
+        refuse_high_on_mesh(rb)
     kw = dict(K=K, X0=X0, mesh=mesh, eig_k=eig_k, ngrids=ngrids, llim=llim,
               ulim=ulim, esp=esp, dtype=dtype, rotate_in_bf16=rb,
               host_eigh=host_eigh, device=device)

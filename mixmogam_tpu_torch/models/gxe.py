@@ -239,7 +239,7 @@ def _tp_rotations(nl, blocks, env: np.ndarray, tp, rd, rescore: bool,
 
     def rotations(pre):
         if pre == "" and rd is not None:
-            rots = [rotation_rows(W, nl[f"scale{i}"], dtype)
+            rots = [rotation_rows(W, nl[f"scale{i}"], dtype, rd)
                     for i, W in enumerate(fast)]
         else:
             rots = [rotation_rows(W, None, dtype) for W in
@@ -266,9 +266,10 @@ def emmax_gxe(G, y, env, K=None, X0: Optional[np.ndarray] = None,
     null design. K (n, n) or eig_k = (phi, U). dtype: float32 on the card,
     float64 on the CPU by default. precision: None / 'exact', 'int8x2' /
     'int8x3' / 'int8x4' (fully observed integer dosages only), 'bf16' /
-    'bf16x2' / 'bf16x3', 'auto' and 'fast' (ops/scan.py::resolve_precision:
-    on the CPU both exact; 'fast' sets rescore_top = 1024), for both
-    rotations. rescore_top: re-test that many leading interaction hits per
+    'bf16x2' / 'bf16x3', 'high' (each rotation's operand and each tile
+    split for three bf16 passes, ops/rotate.py::rotate_high), 'auto' and
+    'fast' (ops/scan.py::resolve_precision: on the CPU both exact; 'fast'
+    sets rescore_top = 1024), for both rotations. rescore_top: re-test that many leading interaction hits per
     environment (and every one under the tier's p cut, ops/scan.py::
     select_rescore_idx with GxE's own drift, GXE_P_DRIFT) at the exact
     tier.
@@ -360,7 +361,7 @@ def emmax_gxe(G, y, env, K=None, X0: Optional[np.ndarray] = None,
     rd, tier_name = None, "exact"
     G_src = None if rg is not None else resolve_source(G)
     if precision is not None:
-        rb, tier_name = resolve_precision(                # 'high' raises
+        rb, tier_name = resolve_precision(
             precision, G=probe_for_source(rg, G_src), device=device)
         rd = normalize_rotate_tier(rb)
     G8 = None

@@ -345,7 +345,8 @@ def emmax_loco(G, y, chromosomes=None, method: str = "ibs",
     a ResidentGenome scans on its own device (a host-only one on
     `device`). Fractional dosages take the host route: float kinships on
     `device` and each chromosome's float rows scanned by the in-core emmax
-    (the exact tier, or a bf16 tier's float route; int8 tiers raise).
+    (the exact tier, 'high', or a bf16 tier's float route; int8 tiers
+    raise).
     **kw goes to each chromosome's emmax_resident or emmax (e.g.
     rescore_top); the rescore cut counts the whole genome's SNPs.
 

@@ -95,9 +95,11 @@ def emmax_multi_trait(G, Y, K=None, X0: Optional[np.ndarray] = None,
     eigh. dtype: float32 on the card, float64 on
     the CPU by default. precision: 'exact', 'auto' (ops/scan.py::
     resolve_precision: on the CPU exact), 'int8x2' / 'int8x3' / 'int8x4'
-    (fully observed integer dosages only) or 'bf16' / 'bf16x2' / 'bf16x3'
-    for the shared rotation; 'fast'
-    raises (no rescore pass). tile: SNP rows a tile (None: the resident
+    (fully observed integer dosages only), 'bf16' / 'bf16x2' / 'bf16x3' or
+    'high' (the three-pass bf16 split of U' and of each tile, ops/rotate.py::
+    rotate_high) for the shared rotation, split once; 'fast' raises (no
+    rescore pass), and so does any tier on a streamed source, as in the
+    JAX package. tile: SNP rows a tile (None: the resident
     genome's tile, else as many rows as keep one rotated tile under
     tile_budget values, at most 16,384).
 
@@ -216,7 +218,7 @@ def emmax_multi_trait(G, Y, K=None, X0: Optional[np.ndarray] = None,
 
 def _refuse_fast(precision) -> None:
     """The refusals of a tier name that come before any routing: 'fast'
-    (no rescore pass here), then unknown names and 'high'."""
+    (no rescore pass here), then unknown names."""
     from mixmogam_tpu_torch.ops.scan import resolve_precision
 
     if str(precision) == "fast":
@@ -224,7 +226,7 @@ def _refuse_fast(precision) -> None:
             "multi-trait has no rescore pass; pick an explicit tier "
             "('int8x3' / 'bf16x3' are fp32-grade) or leave exact")
     if precision is not None:
-        resolve_precision(precision)      # unknown names and 'high' raise
+        resolve_precision(precision)      # unknown names raise
 
 
 def _refuse_int8(rd, rg, G):
@@ -512,12 +514,12 @@ def _mt_tp_scan(rows, rg, Y, K, X0, eig_k, rd, dtype, device, mesh, M: int,
                       ulim, esp)
         rot = nl.pop("rot")
         p = _flat_null(nl)
-        p["w_scale"] = rot.w_scale
+        p["w_scale"], p["tier"] = rot.w_scale, rot.tier
         return p, rot.W
 
     p, Wb = pd.on_rank0_rows(null, mesh, n_pad, lo, hi)
     nl = _unflat_null(p)
-    W = rotation_rows(Wb, p["w_scale"], dtype)
+    W = rotation_rows(Wb, p["w_scale"], dtype, p["tier"])
     del Wb
     X0b, X0pb = (pd.block_rows(nl[k], lo, hi) for k in ("X0d", "X0p"))
     outs = []

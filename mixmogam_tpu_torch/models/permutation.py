@@ -86,8 +86,9 @@ def emmax_perm_test(G, y, K=None, num_perm: int = 100,
     'int8x3' / 'int8x4' (fully observed dosages only), 'bf16' / 'bf16x2' /
     'bf16x3', 'auto' and 'fast' (ops/scan.py::resolve_precision: on the
     card int8x3 / int8x2 for a fully observed container, exact / bf16 for
-    one with missing calls; on the CPU both exact), for the rotation;
-    'high' raises.
+    one with missing calls; on the CPU both exact) or 'high' (the split of
+    U'·sd and of each tile in three bf16 passes, ops/rotate.py::
+    rotate_high), for the rotation.
 
     mesh: a parallel.Mesh (make_mesh()) shards the sweep by SNP rows, as
     the JAX package's mesh= does: rank 0 fits the null, draws the

@@ -393,7 +393,9 @@ def emmax_scan_packed(packed: torch.Tensor, rot, n: int, tile: int,
     imputing). Both take rot.scan_q0 (no columns for the folded W'' of
     build_rotated_null) and then the mask of the rows inside col(X0)
     (design_mask_packed, one pass over the packed rows a call). Exact
-    tier: per tile, unpack (+ mean-impute) -> fp32 GEMM by U -> K3."""
+    tier: per tile, unpack (+ mean-impute) -> fp32 GEMM by U (with
+    rot.high, the 'high' tier's three bf16 passes on the int8 rows or the
+    imputed ones) -> K3."""
     from mixmogam_tpu_torch.models.streaming import _impute_tile
     from mixmogam_tpu_torch.ops.hopper_scan import (rotate_scan_bf16_packed,
                                                     rotate_scan_int8_packed,
@@ -405,7 +407,9 @@ def emmax_scan_packed(packed: torch.Tensor, rot, n: int, tile: int,
         outs = []
         for s in range(0, packed.shape[0], tile):
             Gt = unpack_2bit_device(packed[s:s + tile], n)
-            Gt = _impute_tile(Gt, dt) if impute else Gt.to(dt)
+            # int8 rows go as they are: the rotation casts them (and the
+            # 'high' tier skips their zero lo part)
+            Gt = _impute_tile(Gt, dt) if impute else Gt
             outs.append(emmax_scan_stats(Gt, rot))
         return torch.cat(outs, dim=1)
     # the kernels' prepared W, built once per rotated null and kept with it
@@ -459,13 +463,16 @@ def emmax_resident(rg: ResidentGenome, y, K=None, X0=None, eig_k=None,
     """EMMAX over a ResidentGenome — the JAX package's emmax_resident
     semantics and return dict, on rg's device. Missing genotypes are
     mean-imputed on the device on the exact and bf16 tiers; int8 tiers
-    refuse them. rescore_cut_M: the study's SNP count for the rescore cut
+    refuse them. 'high' runs the exact tier's route, each tile's rows
+    rotated in three bf16 passes (ops/rotate.py::rotate_high), at the JAX
+    package's scan tile for its matmul tiers, subdivide_tile(rg.tile,
+    8,192). rescore_cut_M: the study's SNP count for the rescore cut
     when rg holds part of it (LOCO's chromosomes)."""
     from mixmogam_tpu_torch.models.emmax import _as_design
     from mixmogam_tpu_torch.models.streaming import finalize_scan
     from mixmogam_tpu_torch.ops.reml import (esp_to_refine_iters,
                                              fit_null_model)
-    from mixmogam_tpu_torch.ops.scan import (build_rotated_null,
+    from mixmogam_tpu_torch.ops.scan import (build_rotated_null, matmul_tier,
                                              normalize_rotate_tier,
                                              probe_for_source,
                                              resolve_precision)
@@ -491,7 +498,7 @@ def emmax_resident(rg: ResidentGenome, y, K=None, X0=None, eig_k=None,
                              "rotate_in_bf16 kwarg, not both")
         rotate_in_bf16, tier_name = resolve_precision(
             precision, G=probe_for_source(rg), device=device)
-    rd = normalize_rotate_tier(rotate_in_bf16)
+    rd, mp = matmul_tier(normalize_rotate_tier(rotate_in_bf16))
     if rd is not None and rd.startswith("int8") and rg.has_missing:
         raise ValueError(
             "int8 digit-plane tiers need fully-observed dosages; this "
@@ -504,8 +511,11 @@ def emmax_resident(rg: ResidentGenome, y, K=None, X0=None, eig_k=None,
                           eigh_dtype=(np.float32 if str(precision) == "fast"
                                       else None),
                           device=device, dtype=dtype)
-    rot = build_rotated_null(null, rotate_dtype=rd)
-    out = emmax_scan_packed(rg.packed, rot, rg.n, rg.tile,
+    rot = build_rotated_null(null, rotate_dtype=rd, matmul_precision=mp)
+    # the JAX package's scan tile for its matmul tiers (the exact tier's
+    # is rg.tile; the packed kernels take every row in one launch)
+    scan_tile = rg.tile if mp is None else subdivide_tile(rg.tile, 8_192)
+    out = emmax_scan_packed(rg.packed, rot, rg.n, scan_tile,
                             impute=rg.has_missing)
     h = out[:, :rg.M].detach().cpu().double().numpy()
     return finalize_scan(
@@ -513,7 +523,8 @@ def emmax_resident(rg: ResidentGenome, y, K=None, X0=None, eig_k=None,
         betas=h[1].copy() if with_betas else None,
         var_perc=h[2].copy() if with_betas else None,
         with_betas=with_betas, rescore_top=rescore_top, rd=rd,
-        tier_name=tier_name, dof=int(rot.dof), rescore_cut_M=rescore_cut_M)
+        matmul_precision=mp, tier_name=tier_name, dof=int(rot.dof),
+        rescore_cut_M=rescore_cut_M, fractional=bool(mp and rg.has_missing))
 
 
 def _float_tiles(rg: ResidentGenome, dtype):

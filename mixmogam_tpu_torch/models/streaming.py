@@ -153,15 +153,18 @@ def rotate_streamed_to_device(G_src, U, dtype=None, tile: int = 16_384,
 def finalize_scan(matrix_source, null, dtype, f_stats, mask,
                   betas=None, var_perc=None, with_betas: bool = True,
                   rescore_top: int = 0, rd=None, tier_name=None,
-                  dof: int = 0, rescore_cut_M=None, fractional=False):
+                  dof: int = 0, rescore_cut_M=None, fractional=False,
+                  matmul_precision=None):
     """p-value finalize + threshold-complete exact rescore + output dict,
     shared by the in-core and resident paths. f_stats/mask (and betas/
     var_perc when given) are float64/bool host arrays, patched in place by
-    the rescore pass, which engages only on an int8 or bf16 tier (rd set).
-    rescore_cut_M: the study's SNP count for the rescore cut when these
-    rows are part of it (LOCO); default the row count. fractional: the
-    bf16 tier scanned fractional dosages (the float route), whose drift
-    sets the cut (ops/scan.py::FRACTIONAL_P_DRIFT)."""
+    the rescore pass, which engages only on an approximate tier: an int8
+    or bf16 tier (rd set) or 'high' (matmul_precision, ops/scan.py::
+    matmul_tier). rescore_cut_M: the study's SNP count for the rescore cut
+    when these rows are part of it (LOCO); default the row count.
+    fractional: the tier scanned fractional dosages (a bf16 tier's float
+    route, or 'high' on imputed rows), whose drift sets the cut
+    (ops/scan.py::FRACTIONAL_P_DRIFT)."""
     from mixmogam_tpu_torch.ops.scan import (select_rescore_idx,
                                              tier_drift_name)
     from mixmogam_tpu_torch.ops.stats import f_sf_host as _fsf
@@ -169,8 +172,9 @@ def finalize_scan(matrix_source, null, dtype, f_stats, mask,
     dof = int(dof)
     ps = np.where(mask, _fsf(f_stats, 1.0, dof), 1.0)
     rescored = np.zeros(0, dtype=np.int64)
-    if rescore_top and rd is not None:
-        idx = select_rescore_idx(ps, rescore_top, tier_drift_name(rd),
+    if rescore_top and (rd is not None or matmul_precision):
+        idx = select_rescore_idx(ps, rescore_top,
+                                 tier_drift_name(rd, matmul_precision),
                                  M_cut=rescore_cut_M, fractional=fractional)
         idx, d_ex = _exact_rescore(matrix_source, idx, null, dtype)
         f_stats[idx] = d_ex["f_stats"]
@@ -188,7 +192,7 @@ def finalize_scan(matrix_source, null, dtype, f_stats, mask,
         "sigma_e2": float(null.sigma_e2), "dof": dof,
         "ll_null": float(null.ll),
         "precision_tier": (tier_name if tier_name is not None
-                           else (rd or "exact")),
+                           else (matmul_precision or rd or "exact")),
     }
     if with_betas and betas is not None:
         out["betas"] = betas
@@ -230,14 +234,16 @@ def _exact_rescore(matrix_source, idx, null, dtype, tile: int = 16_384):
 
 
 def _run_key(src, M: int, n: int, tile: int, delta: float, q: int, rd,
-             dtype, y: np.ndarray, X0: np.ndarray) -> str:
+             mp, dtype, y: np.ndarray, X0: np.ndarray) -> str:
     """The checkpoint run key: sha256 of the shapes, the tile, delta, q,
-    the tier and the compute dtype (the port's torch name, so that a JAX
+    the tier (rd and the matmul precision mp, ops/scan.py::matmul_tier:
+    'high' or None, so an exact run's tiles are never taken for a 'high'
+    run's) and the compute dtype (the port's torch name, so that a JAX
     run's directory is never taken for a port run's), of y and X0, and of
     a sample of source rows {0, M - 1, every M // 32} (the genotypes can
     change under the same model; hashing the whole source would read it
     twice); first 12 hex digits, the JAX package's key layout."""
-    h = hashlib.sha256(f"{M}:{n}:{tile}:{delta:.10g}:{q}:{rd}:None:"
+    h = hashlib.sha256(f"{M}:{n}:{tile}:{delta:.10g}:{q}:{rd}:{mp}:"
                        f"{dtype}".encode())
     h.update(np.ascontiguousarray(y).tobytes())
     h.update(np.ascontiguousarray(np.asarray(X0, np.float64)).tobytes())
@@ -436,7 +442,10 @@ def emmax_streamed(matrix_source, y, K=None, X0: Optional[np.ndarray] = None,
     (ops/scan.py::FRACTIONAL_P_DRIFT). 'auto' and 'fast' resolve by
     ops/scan.py::resolve_precision (on the card a fully observed int8
     source takes int8x3 / int8x2 and any other source exact / bf16; on the
-    CPU both are exact), 'fast' with rescore_top = 1024; 'high' raises.
+    CPU both are exact), 'fast' with rescore_top = 1024. 'high' takes the
+    exact tier's route, each tile rotated in three bf16 passes
+    (ops/rotate.py::rotate_high; a fully observed int8 tile as int8, its
+    zero lo part skipped), and its checkpoint key carries 'high'.
     rescore_cut_M: the study's SNP count for the rescore cut when the
     source is part of it (LOCO).
     pack_transfer is accepted and changes nothing: the port ships int8 and
@@ -476,7 +485,7 @@ def emmax_streamed(matrix_source, y, K=None, X0: Optional[np.ndarray] = None,
                                                float_rotation,
                                                scan_float_rows)
     from mixmogam_tpu_torch.ops.scan import (build_rotated_null,
-                                             emmax_scan_stats,
+                                             emmax_scan_stats, matmul_tier,
                                              normalize_rotate_tier,
                                              resolve_precision)
 
@@ -517,7 +526,7 @@ def emmax_streamed(matrix_source, y, K=None, X0: Optional[np.ndarray] = None,
                      else np.zeros((1, 1), dtype=np.int8))
         rotate_in_bf16, tier_name = resolve_precision(precision, G=probe,
                                                       device=device)
-    rd = normalize_rotate_tier(rotate_in_bf16)
+    rd, mp = matmul_tier(normalize_rotate_tier(rotate_in_bf16))
     # a float source at a bf16 tier: each tile of integer dosages goes to
     # K5 packed, each fractional tile takes the float route (ops/rotate.py),
     # which cuts its parts from the null's eigenbasis in float64
@@ -534,7 +543,7 @@ def emmax_streamed(matrix_source, y, K=None, X0: Optional[np.ndarray] = None,
                           eigh_dtype=(np.float32 if str(precision) == "fast"
                                       else None),
                           device=device, dtype=dtype)
-    rot = build_rotated_null(null, rotate_dtype=rd)
+    rot = build_rotated_null(null, rotate_dtype=rd, matmul_precision=mp)
     if rd is not None:
         # K2 / K5 take rss0 and dof as host numbers: read them once here,
         # not at each tile's launch (a read from the card waits for its
@@ -546,7 +555,7 @@ def emmax_streamed(matrix_source, y, K=None, X0: Optional[np.ndarray] = None,
     n_tiles = -(-M // tile)
     ck = (_Checkpoint(checkpoint_dir,
                       _run_key(matrix_source, M, n, tile, float(null.delta),
-                               q, rd, dtype, y, X0),
+                               q, rd, mp, dtype, y, X0),
                       n_tiles, float(null.delta))
           if checkpoint_dir else None)
     f_stats = np.zeros(M)
@@ -599,7 +608,11 @@ def emmax_streamed(matrix_source, y, K=None, X0: Optional[np.ndarray] = None,
             return b, None, kind
         if int8_source:
             chunk = np.asarray(raw, dtype=np.int8)
-        missing = _check_fast_tile(chunk, t, rd) if rd is not None else None
+        if rd is not None:
+            missing = _check_fast_tile(chunk, t, rd)
+        else:
+            # the 'high' tier rotates a fully observed int8 tile as int8
+            missing = bool(mp) and bool((chunk < 0).any())
         if ring is None:
             return None, np.array(chunk), missing
         b = ring.take()
@@ -623,12 +636,15 @@ def emmax_streamed(matrix_source, y, K=None, X0: Optional[np.ndarray] = None,
 
     def scan(td, missing):
         if rd is None:
-            Gt = _impute_tile(td, dtype) if td.dtype == torch.int8 else td
+            # an int8 tile is imputed, but at 'high' a fully observed one
+            # stays int8 (the resident route's rows at that tier)
+            Gt = (_impute_tile(td, dtype)
+                  if td.dtype == torch.int8 and (mp is None or missing)
+                  else td)
             m = Gt.shape[0]
             if m < min(tile, M):
-                Gt = torch.cat([Gt.to(dtype), Gt.new_zeros(
-                    (min(tile, M) - m, n), dtype=dtype)])
-            return emmax_scan_stats(Gt.to(dtype), rot)[:, :m]
+                Gt = torch.cat([Gt, Gt.new_zeros((min(tile, M) - m, n))])
+            return emmax_scan_stats(Gt, rot)[:, :m]
         if missing == _FLOAT_TILE:
             if not float_route:
                 # the float route's rotation, built at its first tile
@@ -699,6 +715,8 @@ def emmax_streamed(matrix_source, y, K=None, X0: Optional[np.ndarray] = None,
                         betas=betas, var_perc=var_perc,
                         with_betas=with_betas, rescore_top=rescore_top,
                         rd=rd, tier_name=tier_name, dof=dof,
-                        rescore_cut_M=rescore_cut_M, fractional=float_tiles)
+                        rescore_cut_M=rescore_cut_M, matmul_precision=mp,
+                        fractional=float_tiles or bool(mp
+                                                       and not int8_source))
     res["stream_stats"] = stats
     return res

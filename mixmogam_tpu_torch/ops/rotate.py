@@ -12,9 +12,12 @@ products, by tier:
   one int8 GEMM with int32 sums a plane on the int8 tile, recombined in
   base 256 in the compute dtype in the JAX package's order;
 - 'bf16' / 'bf16x2' / 'bf16x3': the split parts of U', one bf16 GEMM a
-  part with a float32 output, summed in float32.
+  part with a float32 output, summed in float32;
+- 'high' (rotate_high): the three-pass bf16 split of XLA's Precision.HIGH,
+  U' and the tile each split into bf16 hi + lo (ops/scan.py::split_high),
+  three bf16 GEMMs with float32 outputs, summed in float32.
 On the CPU every tier takes ops/scan.py::apply_rotation (exact float64
-products of the digit planes and parts).
+products of the digit planes and parts; apply_rotation_high for 'high').
 
 The float route (float_rotation, scan_float_rows): fractional dosages at a
 bf16 tier. Kernel K5 reads packed 2-bit rows, which hold integer dosages
@@ -46,7 +49,7 @@ class SharedRotation:
     transposed and zero-padded to a multiple of 8, (K, n8, n8), so that
     each plane is a column-major operand."""
 
-    tier: Optional[str]          # None: exact
+    tier: Optional[str]          # None: exact; 'high': W its (2, n, n) split
     W: torch.Tensor              # U' (n, n), planes or parts (K, n, n)
     w_scale: Optional[torch.Tensor]
     dt: torch.dtype
@@ -57,11 +60,15 @@ class SharedRotation:
 def shared_rotation(Up: torch.Tensor, rotate_dtype, dt) -> SharedRotation:
     """The SharedRotation of U' (float64 or the compute dtype, on the
     scan's device) at the tier `rotate_dtype` (normalize_rotate_tier's
-    name, None for exact)."""
-    from mixmogam_tpu_torch.ops.scan import quantize_rotation
+    name, None for exact). 'high' holds the split of U' in dt
+    (ops/scan.py::split_high), as the exact tier's operand would be
+    rounded."""
+    from mixmogam_tpu_torch.ops.scan import HIGH, quantize_rotation, split_high
 
     if rotate_dtype is None:
         return SharedRotation(None, Up.to(dt), None, dt)
+    if rotate_dtype == HIGH:
+        return SharedRotation(HIGH, split_high(Up.to(dt)), None, dt)
     W, ws = quantize_rotation(Up, rotate_dtype, sd_dtype=dt)
     rot = SharedRotation(rotate_dtype, W, ws, dt)
     if ws is not None and Up.device.type == "cuda":
@@ -75,14 +82,20 @@ def shared_rotation(Up: torch.Tensor, rotate_dtype, dt) -> SharedRotation:
     return rot
 
 
-def rotation_rows(W_rows: torch.Tensor, w_scale, dt) -> SharedRotation:
+def rotation_rows(W_rows: torch.Tensor, w_scale, dt, tier=None
+                  ) -> SharedRotation:
     """The SharedRotation of a block of a rotation's contraction rows, as
     the tensor-parallel scan holds it (ops/scan.py::apply_rotation_psum):
     (nb, n) U' rows in dt ('exact'), (K, nb, n) int8 digit planes with
-    their (n,) column scale w_scale, or (K, nb, n) bf16 parts. On the card
+    their (n,) column scale w_scale, (K, nb, n) bf16 parts, or with tier
+    'high' the (2, nb, n) split of U''s rows. On the card
     the planes are kept transposed, (K, n8, nb) with n padded to a
     multiple of 8, as torch._int_mm's column-major right operand; nb must
     be a multiple of 8 there (the mesh pads the sample axis so)."""
+    from mixmogam_tpu_torch.ops.scan import HIGH
+
+    if tier == HIGH:
+        return SharedRotation(HIGH, W_rows, None, dt)
     if w_scale is None:
         tier = "bf16" if W_rows.dtype == torch.bfloat16 else None
         W = W_rows if tier else W_rows.to(dt)
@@ -111,10 +124,12 @@ def rotate_tile(G_tile: torch.Tensor, rot: SharedRotation,
     plane: at an int8 tier, digit plane `plane`'s product alone, in exact
     integers (int32 from torch._int_mm on the card; float64 on the CPU,
     exact: |sum| <= 2 * 128 * n << 2^53), before the recombine (the
-    'sample' route sums it over its ranks first)."""
+    'sample' route sums it over its ranks first). 'high': rotate_high."""
     from mixmogam_tpu_torch.ops import assert_fp32_matmuls
-    from mixmogam_tpu_torch.ops.scan import apply_rotation
+    from mixmogam_tpu_torch.ops.scan import HIGH, apply_rotation
 
+    if rot.tier == HIGH:
+        return rotate_high(G_tile, rot.W, rot.dt)
     if G_tile.device.type == "cpu":
         if plane is not None:
             return G_tile.to(torch.float64) @ rot.W[plane].to(torch.float64)
@@ -150,6 +165,41 @@ def rotate_tile(G_tile: torch.Tensor, rot: SharedRotation,
                 alpha=256.0 ** i)
     Xs.mul_(rot.w_scale_pad[None, :])
     return Xs[:m, :n_out]
+
+
+def rotate_high(G_tile: torch.Tensor, parts: torch.Tensor, dt
+                ) -> torch.Tensor:
+    """(m, n) Xr ~ G_tile @ U' at the 'high' tier, in dt: parts = (U_hi,
+    U_lo), ops/scan.py::split_high of U'; the tile split the same way
+    (int8 dosages: G_lo = 0, whose product is skipped, which leaves the
+    float32 sum unchanged bit for bit; float rows: split_high of the rows
+    as the exact tier would cast them), then
+
+        Xr = (G_hi U_lo + G_lo U_hi) + G_hi U_hi,
+
+    each product one torch.mm of bf16 operands with a float32 output,
+    summed in float32 in that order: the three passes of XLA's bf16_3x
+    (Precision.HIGH on a TPU), the two small terms first. TF32 stays off
+    (assert_fp32_matmuls): every product here takes bf16 operands. On
+    the CPU: ops/scan.py::apply_rotation_high, its plain version. A CUDA
+    tile never falls back to the float32 GEMM."""
+    from mixmogam_tpu_torch.ops import assert_fp32_matmuls
+    from mixmogam_tpu_torch.ops.scan import apply_rotation_high, split_high
+
+    if G_tile.device.type == "cpu":
+        return apply_rotation_high(G_tile, parts, dt)
+    assert_fp32_matmuls()
+    Uh, Ul = parts[0], parts[1]
+    if G_tile.dtype == torch.int8:
+        Gh, Gl = G_tile.to(torch.bfloat16), None
+    else:
+        Gh, Gl = split_high(G_tile.to(dt))
+    Xs = torch.mm(Gh, Ul, out_dtype=torch.float32)
+    if Gl is not None:
+        Xs += torch.mm(Gl, Uh, out_dtype=torch.float32)
+        del Gl
+    Xs += torch.mm(Gh, Uh, out_dtype=torch.float32)
+    return Xs.to(dt)
 
 
 def float_route_eig(K, eig_k, device, host_eigh=None):

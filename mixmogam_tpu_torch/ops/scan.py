@@ -11,8 +11,11 @@ kernel K3 whitens and runs the epilogue), the int8 digit-plane tiers
 'int8x2/3/4' (kernel K2 on the packed rows) and the split-W bf16 tiers
 'bf16' / 'bf16x2' / 'bf16x3' (kernel K5 on the packed rows; the 'c'
 concat spellings are an XLA layout choice and take the same K5 path).
-'high' would mean TF32 on the card, which the port pins off
-(ops/__init__.py); it raises (ROADMAP Queue 1). 'auto' and 'fast' follow
+'high' is the JAX package's three-pass bf16 rotation (XLA's
+Precision.HIGH on a TPU): the exact tier's route, U' and the dosage rows
+each split into bf16 hi + lo parts, G·U' ~ G_hi·U_lo + G_lo·U_hi +
+G_hi·U_hi in bf16 products with float32 outputs, then K3; TF32 stays off
+(ops/__init__.py, ops/rotate.py::rotate_high). 'auto' and 'fast' follow
 the JAX package's rule with "the device is CUDA" in place of "the backend
 is a TPU": on the card, integer dosages take int8x3 ('auto', while the
 card's own TIER_P_DRIFT entry for int8x3 stays within AUTO_MAX_DRIFT,
@@ -34,10 +37,6 @@ import numpy as np
 import torch
 
 from mixmogam_tpu_torch.ops.reml import NullModel
-
-_HIGH_NOT_PORTED = ("the 'high' tier (a TF32 rotation GEMM on the card) is "
-                    "not ported: the port pins TF32 off (ROADMAP Queue 1 "
-                    "item 4); use 'exact', 'bf16x3' or 'int8x3'")
 
 
 @dataclasses.dataclass
@@ -62,6 +61,10 @@ class RotatedNull:
     planes: Optional[torch.Tensor] = None  # (K, n, n) int8, int8xK tiers
     w_scale: Optional[torch.Tensor] = None  # (n,) int8xK tiers
     parts: Optional[torch.Tensor] = None   # (K, n, n) bf16, bf16 tiers
+    #: the 'high' tier: the (2, n, n) bf16 (hi, lo) split of U (split_high),
+    #: beside U; the exact tier's route rotates by it (ops/rotate.py::
+    #: rotate_high)
+    high: Optional[torch.Tensor] = None
     #: the exact tier's design: X0 and X0p = X0 (X0^T X0)^-1, (n, q) each.
     #: Its U is then (I - P_X0) U (project_design), and the scan masks the
     #: rows that lie in X0's span in sample space (outside_design)
@@ -95,12 +98,20 @@ _INT8_TIERS = frozenset({"int8x2", "int8x3", "int8x4"})
 _BF16_TIERS = frozenset({"bf16x2", "bf16x3", "bf16x2c", "bf16x3c"})
 _ROTATE_TIERS = _INT8_TIERS | _BF16_TIERS
 
+#: the 'high' tier's name: a matmul precision of the exact tier's route in
+#: the JAX package (its PRECISION_TIERS value (False, 'high')), not a
+#: rotation tier
+HIGH = "high"
+
 
 def normalize_rotate_tier(rotate_in_bf16):
     """The JAX package's tier spelling -> None (exact fp32), 'bf16' (the
     1-pass tier, which the JAX function returns as jnp.bfloat16) or a
     split/digit tier name ('bf16x3', 'int8x3', ...). Unknown names raise
-    ValueError, as in the JAX package."""
+    ValueError, as in the JAX package. HIGH (resolve_precision's 'high')
+    stays HIGH: the shared-rotation scans (multi-trait, GxE, the
+    permutation test) take it as their rotation's tier, the exact tier's
+    route splits it off (matmul_tier)."""
     if not rotate_in_bf16:
         return None
     if rotate_in_bf16 is True:
@@ -108,6 +119,8 @@ def normalize_rotate_tier(rotate_in_bf16):
     s = str(rotate_in_bf16)
     if s in ("bf16", "bfloat16"):
         return "bf16"
+    if s == HIGH:
+        return HIGH
     if not s.startswith(("bf16", "int8")):
         s = "bf16" + s
     if s not in _ROTATE_TIERS:
@@ -115,6 +128,22 @@ def normalize_rotate_tier(rotate_in_bf16):
             f"unknown rotation tier {rotate_in_bf16!r}; choose from "
             f"False (exact fp32), True/'bf16', {sorted(_ROTATE_TIERS)}")
     return s
+
+
+def matmul_tier(rd):
+    """normalize_rotate_tier's result -> the JAX package's (rotate tier,
+    matmul precision) pair: (None, 'high') for HIGH, the exact tier's route
+    with its rotation split in three bf16 passes; (rd, None) otherwise."""
+    return (None, HIGH) if rd == HIGH else (rd, None)
+
+
+def refuse_high_on_mesh(rd) -> None:
+    """The JAX package's ValueError for 'high' on the mesh path
+    (mixmogam_tpu/models/emmax.py:207): its distributed scans take the
+    rotation tiers only."""
+    if rd == HIGH:
+        raise ValueError("the 'high' matmul tier is not supported on the "
+                         "mesh path")
 
 
 def bf16_parts_count(rotate_dtype) -> int:
@@ -125,9 +154,11 @@ def bf16_parts_count(rotate_dtype) -> int:
     return int(rotate_dtype[5]) if rotate_dtype in _BF16_TIERS else 0
 
 
-#: user-facing precision names -> rotate tier ('high' is refused)
+#: user-facing precision names -> rotate tier ('high': HIGH, which
+#: matmul_tier splits off)
 PRECISION_TIERS = {
     "exact": False,
+    "high": HIGH,
     "bf16": True,
     "bf16x2": "bf16x2", "bf16x3": "bf16x3",
     "bf16x2c": "bf16x2c", "bf16x3c": "bf16x3c",
@@ -175,8 +206,9 @@ def resolve_precision(precision: str, G=None, device=None):
     int8x3 entry of TIER_P_DRIFT is at most AUTO_MAX_DRIFT, else 'exact';
     'fast' gives int8x2 for integer dosages and bf16 otherwise (callers
     pair it with rescore_top). On the CPU, or with no device, both give
-    'exact', as in the JAX package off the TPU. 'high' raises
-    NotImplementedError: on the card it would be TF32."""
+    'exact', as in the JAX package off the TPU. 'high' gives (HIGH,
+    'high'): the three-pass bf16 rotation on the exact tier's route
+    (matmul_tier), with TF32 off."""
     p = str(precision)
     if p in ("auto", "fast"):
         on_card = device is not None and torch.device(device).type == "cuda"
@@ -186,8 +218,6 @@ def resolve_precision(precision: str, G=None, device=None):
                  and TIER_P_DRIFT["int8x3"] <= AUTO_MAX_DRIFT else "exact")
         else:
             p = "int8x2" if int_ok else ("bf16" if on_card else "exact")
-    if p == "high":
-        raise NotImplementedError(_HIGH_NOT_PORTED)
     if p not in PRECISION_TIERS:
         raise ValueError(
             f"unknown precision tier {precision!r}; choose from "
@@ -204,10 +234,12 @@ def resolve_precision(precision: str, G=None, device=None):
 #: is the smallest one-significant-digit value at least twice its tier's
 #: largest. int8x3 / int8x4 / bf16x3 drift alike: what is left is the
 #: float32 exact tier's own rounding, not the tier's. The 'c' spellings
-#: run their tier's kernel. 'high' has no entry: it is refused here and
-#: gets one when it is ported. Feeds the rescore cut.
+#: run their tier's kernel. 'high' (the three bf16 passes, then K3):
+#: largest max |dp| 1.471e-5 over the same four fixtures on the same card
+#: (chip_smoke.py's phase 4 functions). Feeds the rescore cut.
 TIER_P_DRIFT = {
     "exact": 0.0,
+    "high": 3e-5,
     "bf16": 2e-2,
     "bf16x2": 3e-5, "bf16x2c": 3e-5,
     "bf16x3": 2e-5, "bf16x3c": 2e-5,
@@ -221,10 +253,12 @@ TIER_P_DRIFT = {
 #: marginal, interaction and joint tests), on the card: NVIDIA H100 80GB
 #: HBM3, 700.00 W (chip_smoke.py phase 12: E = 2 on phase 4's genome;
 #: int8x2 1.575e-3, int8x3 4.472e-5, int8x4 7.314e-6, bf16 7.936e-3,
-#: bf16x2 1.082e-4, bf16x3 7.692e-6), by the same rule. Feeds GxE's
-#: rescore cut.
+#: bf16x2 1.082e-4, bf16x3 7.692e-6; high 1.082e-4: on integer dosages its
+#: products are bf16x2's of U', G_lo being zero), by the same rule. Feeds
+#: GxE's rescore cut.
 GXE_P_DRIFT = {
     "exact": 0.0,
+    "high": 3e-4,
     "bf16": 2e-2,
     "bf16x2": 3e-4, "bf16x2c": 3e-4,
     "bf16x3": 2e-5, "bf16x3c": 2e-5,
@@ -240,8 +274,13 @@ GXE_P_DRIFT = {
 #: rounds to bf16's 8 significant bits before any product, and that
 #: rounding bounds every tier alike. Sized from the drift measured against
 #: the exact tier (tests/test_torch_fractional.py, chip_smoke.py phase 17).
-#: Feeds the rescore cut of the float route.
+#: 'high' splits the dosages too (hi + lo: 16 significant bits), so it does
+#: not round them to bf16: on the card, NVIDIA H100 80GB HBM3, 700.00 W,
+#: phase 17 (a)'s imputed rows gave max |dp| 2.518e-5 against exact (bf16x3
+#: 4.762e-3), and the entry is the rule's value (twice, one digit up).
+#: Feeds the rescore cut of the float route and of 'high' on imputed rows.
 FRACTIONAL_P_DRIFT = {
+    "high": 6e-5,
     "bf16": 3e-2,
     "bf16x2": 2e-2, "bf16x2c": 2e-2,
     "bf16x3": 2e-2, "bf16x3c": 2e-2,
@@ -249,8 +288,8 @@ FRACTIONAL_P_DRIFT = {
 
 
 def tier_drift_name(rd, matmul_precision=None) -> str:
-    """normalize_rotate_tier's result (+ matmul_precision) -> the
-    TIER_P_DRIFT key of the active scan tier."""
+    """normalize_rotate_tier's result (+ matmul_precision, matmul_tier's
+    'high') -> the TIER_P_DRIFT key of the active scan tier."""
     if isinstance(rd, str):
         return rd
     return matmul_precision or "exact"
@@ -310,12 +349,14 @@ def quantize_rotation(W: torch.Tensor, rotate_dtype, sd_dtype=None):
       Subnormal residuals flush to zero as in XLA, which makes the parts
       bit-equal to JAX's for a float64 W; for a float32 W with subnormal
       entries (below 1.2e-38) the lower parts may differ from XLA's.
+    - HIGH: the bf16x2 parts, (2, n, n): the 'high' tier's hi + lo split
+      (split_high).
 
     Bit-equal to the JAX package's quantize_rotation
     (tests/test_torch_ops.py, tests/test_torch_bf16.py)."""
     if rotate_dtype is None:
         return W, None
-    k = bf16_parts_count(rotate_dtype)
+    k = 2 if rotate_dtype == HIGH else bf16_parts_count(rotate_dtype)
     if k:
         resid = W.to(torch.float32)
         if W.dtype != torch.float32:
@@ -351,6 +392,36 @@ def quantize_rotation(W: torch.Tensor, rotate_dtype, sd_dtype=None):
         planes.append(d.to(torch.int8))
         r = torch.floor_divide(r - d, 256)
     return torch.stack(planes), w_scale
+
+
+def split_high(x: torch.Tensor) -> torch.Tensor:
+    """The 'high' tier's split of a float (or int8) tensor: (2, *x.shape)
+    bf16 (hi, lo), hi the round-to-nearest-even bf16 cast of x in float32,
+    lo that of the float32 residual, subnormals flushed (quantize_rotation's
+    bf16x2 rule, bit-equal to the JAX package's parts of a float32 x).
+    hi + lo holds 16 of float32's 24 significant bits; an int8 dosage (or
+    any integer up to 256 in magnitude) has lo = 0."""
+    return quantize_rotation(x, HIGH)[0]
+
+
+def apply_rotation_high(G_tile: torch.Tensor, parts: torch.Tensor, dt
+                        ) -> torch.Tensor:
+    """The 'high' tier's rotation in plain torch (the plain version of
+    ops/rotate.py::rotate_high): G_tile split by split_high (int8 rows: lo
+    = 0, its product skipped), parts = split_high(U'), then
+    (G_hi U_lo + G_lo U_hi) + G_hi U_hi, each product on float64 copies of
+    the bf16 values (a bf16 x bf16 product is exact in float64) rounded to
+    dt, summed in dt in that order. The three passes of XLA's bf16_3x: the
+    G_lo U_lo product is left out."""
+    Uh, Ul = (p.to(torch.float64) for p in parts)
+    if G_tile.dtype == torch.int8:
+        Gh, Gl = G_tile.to(torch.float64), None
+    else:
+        Gh, Gl = (p.to(torch.float64) for p in split_high(G_tile))
+    Xs = (Gh @ Ul).to(dt)
+    if Gl is not None:
+        Xs = Xs + (Gl @ Uh).to(dt)
+    return Xs + (Gh @ Uh).to(dt)
 
 
 def apply_rotation(G_tile: torch.Tensor, W: torch.Tensor, w_scale, dt
@@ -431,13 +502,16 @@ def apply_rotation_psum(G_block: torch.Tensor, W_rows, w_scale, dt, mesh,
     return Xs * rot.w_scale[None, :].to(dt)
 
 
-def build_rotated_null(null: NullModel, rotate_dtype=None) -> RotatedNull:
+def build_rotated_null(null: NullModel, rotate_dtype=None,
+                       matmul_precision=None) -> RotatedNull:
     """Scan constants of the null model, on the null's device and dtype.
     rotate_dtype: None (exact), a bf16 tier ('bf16', 'bf16x2', 'bf16x3',
     'bf16x2c', 'bf16x3c') or an int8 tier ('int8x2' / 'int8x3' /
     'int8x4'). The exact tier rotates by the projected U (project_design);
     the others quantize the folded W'' (fold_design), and take designs of
-    up to DESIGN_QMAX columns."""
+    up to DESIGN_QMAX columns. matmul_precision HIGH (matmul_tier's): the
+    exact tier with the split of its projected U beside it (RotatedNull.
+    high), which emmax_scan_stats then rotates by."""
     from mixmogam_tpu_torch.ops.eigen import orthonormal_basis
 
     phi, U, delta = null.phi, null.U, null.delta
@@ -462,8 +536,14 @@ def build_rotated_null(null: NullModel, rotate_dtype=None) -> RotatedNull:
     rss0 = (y_res @ y_res).to(dt)
     Q0, y_res = Q0.to(dt), y_res.to(dt)
     Ur = planes = w_scale = parts = None
+    high = None
     if rotate_dtype is None:
         Ur, X0, X0p = project_design(U, null.X0)
+        if matmul_precision == HIGH:
+            high = split_high(Ur)
+        elif matmul_precision is not None:
+            raise ValueError(f"unknown matmul precision {matmul_precision!r}"
+                             f"; the port runs {HIGH!r} or none")
     else:
         X0, X0p = design_basis(null.X0, U.device, U.dtype)
         W = fold_design(U, sd, null.X0)
@@ -476,7 +556,8 @@ def build_rotated_null(null: NullModel, rotate_dtype=None) -> RotatedNull:
                        dof=torch.tensor(n - q - 1, dtype=sd.dtype,
                                         device=sd.device),
                        U=Ur, planes=planes, w_scale=w_scale, parts=parts,
-                       X0=X0, X0p=X0p, folded=rotate_dtype is not None)
+                       high=high, X0=X0, X0p=X0p,
+                       folded=rotate_dtype is not None)
 
 
 def design_basis(X0: torch.Tensor, device, dtype):
@@ -640,18 +721,22 @@ def scan_epilogue_psum(X_block: torch.Tensor, sd_rows: torch.Tensor,
 
 def emmax_scan_stats(G_tile: torch.Tensor, rot: RotatedNull
                      ) -> torch.Tensor:
-    """(4, m) [f, beta, var_perc, mask] for one tile of float dosage rows
-    (mean-imputed) at the exact tier: Xr = G_tile @ U (full fp32 GEMM on
-    the card, TF32 off), then scan_stats (kernel K3 on CUDA); the rows
-    inside the null design's span come out masked (outside_design)."""
+    """(4, m) [f, beta, var_perc, mask] for one tile of dosage rows (int8,
+    or mean-imputed floats) at the exact tier: Xr = G_tile @ U (full fp32
+    GEMM on the card, TF32 off; with rot.high the 'high' tier's three bf16
+    passes, ops/rotate.py::rotate_high), then scan_stats (kernel K3 on
+    CUDA); the rows inside the null design's span come out masked
+    (outside_design)."""
     from mixmogam_tpu_torch.ops import assert_fp32_matmuls
+    from mixmogam_tpu_torch.ops.rotate import rotate_high
 
     if rot.U is None:
         raise ValueError("emmax_scan_stats runs the exact tier; int8 and "
                          "bf16 tiers scan packed rows (rotate_scan_int8_"
                          "packed / rotate_scan_bf16_packed)")
     assert_fp32_matmuls()
-    Xr = apply_rotation(G_tile, rot.U, None, rot.U.dtype)
+    Xr = (apply_rotation(G_tile, rot.U, None, rot.U.dtype)
+          if rot.high is None else rotate_high(G_tile, rot.high, rot.U.dtype))
     keep = (None if rot.X0p is None else
             outside_design(G_tile.to(rot.X0p.dtype), rot.X0, rot.X0p))
     return emmax_scan_prerotated(Xr, rot, keep)

@@ -716,8 +716,10 @@ def distributed_emmax(G, y, K=None, X0: Optional[np.ndarray] = None,
                                                     _default_dtype,
                                                     emmax_scan_packed)
     from mixmogam_tpu_torch.models.source import as_int8_dosage
-    from mixmogam_tpu_torch.ops.scan import normalize_rotate_tier
+    from mixmogam_tpu_torch.ops.scan import (normalize_rotate_tier,
+                                             refuse_high_on_mesh)
 
+    refuse_high_on_mesh(normalize_rotate_tier(rotate_in_bf16))
     if isinstance(G, ResidentGenome):
         return distributed_emmax_resident(
             G, y, K=K, X0=X0, mesh=mesh, eig_k=eig_k, ngrids=ngrids,
@@ -890,13 +892,15 @@ def distributed_emmax_resident(rg, y, K=None, X0: Optional[np.ndarray] = None,
     from mixmogam_tpu_torch.models.emmax import _as_design
     from mixmogam_tpu_torch.models.resident import (_default_dtype,
                                                     emmax_scan_packed)
-    from mixmogam_tpu_torch.ops.scan import normalize_rotate_tier
+    from mixmogam_tpu_torch.ops.scan import (normalize_rotate_tier,
+                                             refuse_high_on_mesh)
 
     y = np.asarray(y, dtype=np.float64).ravel()
     n = y.shape[0]
     if n != rg.n:
         raise ValueError(f"y has {n} samples, resident genome {rg.n}")
     rd = normalize_rotate_tier(rotate_in_bf16)
+    refuse_high_on_mesh(rd)
     if rd is not None and rd.startswith("int8") and rg.has_missing:
         raise ValueError("int8 tiers need fully-observed dosages")
     mesh, device = _mesh_device(mesh, device)

@@ -231,8 +231,13 @@ def test_precision_names_match_jax():
         rb, mp, name = jscan.resolve_precision(p)
         ours = scan.resolve_precision(p)
         assert ours == (rb, name) and mp is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scan.resolve_precision("high")
+    # 'high': JAX's (False, 'high') pair, the exact tier's route with the
+    # 'high' matmul precision (ops/scan.py::matmul_tier)
+    rb, mp, name = jscan.resolve_precision("high")
+    ours = scan.resolve_precision("high")
+    assert ours == (scan.HIGH, name) == ("high", "high")
+    assert scan.matmul_tier(scan.normalize_rotate_tier(ours[0])) == (
+        jscan.normalize_rotate_tier(rb), mp)
     for bad in ("bf16x4", "int8"):
         with pytest.raises(ValueError):
             scan.resolve_precision(bad)

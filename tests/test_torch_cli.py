@@ -118,7 +118,8 @@ def test_info_names_torch_and_never_jax(capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--precision", "high"], ["--method", "emmax_loco", "--stream", "on"],
+    ["--method", "lm", "--precision", "high"],
+    ["--method", "emmax_loco", "--stream", "on"],
     ["--method", "lm", "--checkpoint-dir", "ck"], ["--precision", "nope"],
     ["--method", "emmax_loco", "--precision", "bf16"],
     ["--method", "emmax_loco", "--rescore-top", "4"],

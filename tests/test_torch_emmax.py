@@ -162,16 +162,30 @@ def test_emmax_routes_resident_genome_and_facade():
                                 dict(precision="high"),
                                 dict(matmul_precision="high")])
 def test_unported_options_raise(kw, small_dataset, kinship_small):
-    """What is still unported raises, naming its ROADMAP item: 'high'
-    (item 4), on the mesh route too (the mesh routes are
-    tests/test_torch_parallel.py's)."""
+    """'high' is ported: the mesh route raises the JAX package's ValueError
+    (its distributed scans take rotation tiers only; the mesh routes are
+    tests/test_torch_parallel.py's), one device runs it, and the legacy
+    matmul_precision='high' in core equals precision='high' bit for bit,
+    within TIER_P_DRIFT['high'] of the JAX package's call (on the CPU JAX
+    runs 'high' as its exact tier)."""
+    from mixmogam_tpu_torch.ops.scan import TIER_P_DRIFT
+
+    G, y = small_dataset["G"], small_dataset["y"]
     if "mesh" in kw:
         from mixmogam_tpu_torch.parallel import make_mesh
 
         kw = dict(kw, mesh=make_mesh(devices=kw["mesh"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        emmax(small_dataset["G"], small_dataset["y"], K=kinship_small, **kw,
-              device="cpu")
+        with pytest.raises(ValueError, match="not supported on the mesh"):
+            emmax(G, y, K=kinship_small, **kw, device="cpu")
+        return
+    got = emmax(G, y, K=kinship_small, **kw, device="cpu")
+    ref = j_emmax(G, y, K=kinship_small, **kw)
+    assert got["precision_tier"] == ref["precision_tier"] == "high"
+    np.testing.assert_array_equal(got["mask"], ref["mask"])
+    assert np.abs(got["ps"] - ref["ps"]).max() <= TIER_P_DRIFT["high"]
+    np.testing.assert_array_equal(
+        got["ps"], emmax(G, y, K=kinship_small, precision="high",
+                         device="cpu")["ps"])
 
 
 def _entry_points():

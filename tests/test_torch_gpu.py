@@ -1516,3 +1516,69 @@ def test_card_dryrun_entry_vs_cpu(cuda):
     fn, args = entry(device="cpu")
     np.testing.assert_allclose(got, fn(*args).numpy(), rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("rows", ["int8", "imputed"])
+def test_card_high_vs_cpu_float64(cuda, rows):
+    """precision='high' on the card (no device=): the exact tier's route,
+    each tile rotated in three bf16 passes with float32 outputs, then K3;
+    against the port's float64 CPU path at n = 2,048 within the tier's
+    drift entry (TIER_P_DRIFT['high'], FRACTIONAL_P_DRIFT['high'] on
+    imputed rows), identical masks; TF32 still off after the call."""
+    from mixmogam_tpu_torch.ops.scan import FRACTIONAL_P_DRIFT, TIER_P_DRIFT
+
+    if rows == "int8":
+        G, y, K = _stream_fixture(n=2_048, m=3_000)
+        tol = TIER_P_DRIFT["high"]
+    else:
+        _, G, y, K = _fractional(2_048, 3_000, 33)
+        tol = FRACTIONAL_P_DRIFT["high"]
+    k3 = scan_stats.launches
+    got = emmax(G, y, K=K, precision="high", tile=1_024)
+    assert scan_stats.launches - k3 == 3
+    assert got["precision_tier"] == "high"
+    ref = emmax(G, y, K=K, device="cpu")
+    np.testing.assert_array_equal(got["mask"], ref["mask"])
+    assert np.abs(got["ps"] - ref["ps"]).max() <= tol
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_card_high_streamed_equals_resident(cuda):
+    """The streamed 'high' scan (int8 tiles, the short last one rotated at
+    the tiles' height) bit-equal to emmax_resident at the same tile."""
+    from mixmogam_tpu_torch.models.streaming import emmax_streamed
+
+    G, y, K = _stream_fixture()
+    rg = ResidentGenome.from_source(G, tile=1_024)
+    ref = emmax(rg, y, K=K, precision="high")
+    got = emmax_streamed(G, y, K=K, tile=1_024, precision="high")
+    for k in ("ps", "f_stats", "betas", "mask"):
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+
+@pytest.mark.parametrize("rows", ["int8", "imputed"])
+def test_card_high_products_vs_plain(cuda, rows):
+    """ops/rotate.py::rotate_high's library products against the plain
+    version (ops/scan.py::apply_rotation_high on the same bf16 splits, in
+    float64): float32 sums within n 2^-24 of sum |g u|; int8 rows skip
+    the G_lo product bit-equal to the same rows as float32."""
+    from mixmogam_tpu_torch.ops.rotate import rotate_high
+    from mixmogam_tpu_torch.ops.scan import apply_rotation_high, split_high
+
+    n, m = 1_000, 700
+    g = torch.Generator(device="cpu").manual_seed(5)
+    U = torch.linalg.qr(torch.randn(n, n, generator=g,
+                                    dtype=torch.float64))[0]
+    G8 = torch.randint(0, 3, (m, n), generator=g, dtype=torch.int8)
+    G = (G8 if rows == "int8" else
+         G8.float() * 0.97 + 0.01 + torch.rand(m, n, generator=g) * 0.02)
+    parts = split_high(U.float())
+    got = rotate_high(G.to(cuda), parts.to(cuda), torch.float32).cpu()
+    ref = apply_rotation_high(G, parts, torch.float64)
+    scale = (G.double().abs() @ U.abs()).max()
+    assert float((got.double() - ref).abs().max() / scale) <= n * 2.0 ** -24
+    if rows == "int8":
+        assert torch.equal(got, rotate_high(G.float().to(cuda),
+                                            parts.to(cuda),
+                                            torch.float32).cpu())

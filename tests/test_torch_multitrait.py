@@ -303,7 +303,8 @@ def test_a_tile_is_rotated_once_and_scanned_once_a_trait(data, monkeypatch):
 
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(precision="fast"), ValueError, "no rescore pass"),
-    (dict(precision="high"), NotImplementedError, "TF32"),
+    (dict(stream_budget_bytes=1, precision="high"), ValueError,
+     "in-core or resident"),
     (dict(mesh=SAMPLE_AXIS_MESH), ValueError, "make_mesh"),
     (dict(stream_budget_bytes=1, precision="int8x3"), ValueError,
      "in-core or resident"),

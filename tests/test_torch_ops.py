@@ -141,16 +141,16 @@ def test_explicit_reml_copy(q, ml):
 
 
 def test_numpy_helper_copies(monkeypatch):
-    """The drift table holds the card's own values (chip_smoke.py phase 4)
-    for the JAX package's tiers but 'high', which the port refuses; the
+    """The drift table holds the card's own values (chip_smoke.py phases 4
+    and 12) for every tier of the JAX package, 'high' included; the
     rescore cut and selection are the JAX functions' copies, held to them
     with the JAX table pointed at the port's values."""
     rng = np.random.default_rng(4)
-    assert set(scan.TIER_P_DRIFT) == set(jscan.TIER_P_DRIFT) - {"high"}
+    assert set(scan.TIER_P_DRIFT) == set(jscan.TIER_P_DRIFT)
     assert set(scan.GXE_P_DRIFT) == set(scan.TIER_P_DRIFT)
     monkeypatch.setattr(jscan, "TIER_P_DRIFT", dict(scan.TIER_P_DRIFT))
     ps = rng.uniform(size=500) ** 4
-    for tier in ("int8x2", "int8x3", "bf16x3", "exact", "nope"):
+    for tier in ("int8x2", "int8x3", "bf16x3", "high", "exact", "nope"):
         cut = scan.rescore_p_cut(500, tier)
         drift = scan.TIER_P_DRIFT.get(tier, max(scan.TIER_P_DRIFT.values()))
         assert cut == 0.05 / 500 + 8.0 * drift
@@ -257,8 +257,7 @@ def test_tier_names():
     assert scan.resolve_precision("int8x2") == ("int8x2", "int8x2")
     assert scan.resolve_precision("bf16") == (True, "bf16")
     assert scan.resolve_precision("bf16x3") == ("bf16x3", "bf16x3")
-    with pytest.raises(NotImplementedError):
-        scan.resolve_precision("high")
+    assert scan.resolve_precision("high") == ("high", "high")
     with pytest.raises(ValueError):
         scan.resolve_precision("int8")
 

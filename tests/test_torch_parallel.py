@@ -645,7 +645,7 @@ _CPU_MESH = make_mesh(devices="cpu")
     (dict(checkpoint_dir="ck"), ValueError, "checkpoint_dir"),
     (dict(rescore_top=8), ValueError, "rescore_top"),
     (dict(matmul_precision="high"), ValueError, "matmul_precision"),
-    (dict(precision="high"), NotImplementedError, "item 4"),
+    (dict(precision="high"), ValueError, "not supported on the mesh path"),
     (dict(precision="int8x3", rotate_in_bf16="bf16x3"), ValueError,
      "either precision"),
 ])

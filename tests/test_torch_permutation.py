@@ -206,8 +206,14 @@ def test_refusals(data):
     with pytest.raises(ValueError, match="int8"):
         permutation.emmax_perm_test(rgm, y, K=K, precision="int8x2")
     rg = ResidentGenome.from_source(G, device="cpu")
-    with pytest.raises(NotImplementedError, match="TF32"):
-        permutation.emmax_perm_test(rg, y, K=K, precision="high")
+    # 'high' runs on a ResidentGenome (tests/test_torch_high.py holds it to
+    # the JAX package); a host source refuses it, as in the JAX package
+    hi = permutation.emmax_perm_test(rg, y, K=K, num_perm=2,
+                                     precision="high")
+    assert np.isfinite(hi["min_ps"]).all()
+    with pytest.raises(ValueError, match="ResidentGenome"):
+        permutation.emmax_perm_test(G, y, K=K, precision="high",
+                                    device="cpu")
     with pytest.raises(TypeError, match="make_mesh"):
         permutation.emmax_perm_test(G, y, K=K, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="samples"):

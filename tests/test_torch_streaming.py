@@ -409,13 +409,14 @@ def test_refused_combinations(data, kw, match, tmp_path):
     ("int8_missing", "int8x3", ValueError, "fully-observed"),
     ("float_nan", "int8x3", ValueError, "fractional"),
     ("float_nan", "bf16x3", None, None),
-    ("int8", "high", NotImplementedError, "TF32"),
+    ("int8", "high", None, None),
 ])
 def test_tier_refusals(data, kind, precision, exc, match):
     """The tiers a streamed source refuses; fractional dosages at bf16x3
     are no longer refused: they stream through the float route and equal
     the in-core call (tests/test_torch_fractional.py holds the route to
-    the JAX package)."""
+    the JAX package); nor is 'high', which streams the exact tier's route
+    and equals the in-core call."""
     kw = dict(K=data["K"], precision=precision, device="cpu")
     if exc is None:
         got = emmax(_source(data, kind), data["y"], stream=True, **kw)
