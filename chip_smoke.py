@@ -34,14 +34,16 @@ Phases (each prints its own seconds):
     products alone through the library on unpacked rows (torch._int_mm a
     plane, a bf16 matmul a part), which the port never calls. Then the
     'high' tier (no kernel of its own): its three bf16 library products
-    with float32 outputs (ops/rotate.py::rotate_high; two on integer rows)
-    and the exact tier's mask and K3, on one 16,384-row tile of integer
-    and of imputed rows, against the plain version on the card (the same
-    bf16 splits, each product in float64, then K3's plain version): the
-    products within n 2^-24 of sum |g u|, K3 on them within its limits,
-    the whole within them on integer rows and in f and masks on imputed
-    rows (beta printed beside the exact tier's own), timed beside the exact
-    tier's fp32 GEMM on the same rows and beside their bound
+    with float32 outputs (ops/rotate.py::rotate_high; two on integer rows;
+    on imputed rows one product a chunk of 2,048 samples a pass, added in
+    cuBLAS's FMA epilogue) and the exact tier's mask and K3, on one
+    16,384-row tile of integer rows and on three of imputed rows (seeds
+    --seed + 11, 12 and 13), against the plain version on the card (the
+    same bf16 splits, each product in float64, then K3's plain version):
+    the products within n 2^-24 of sum |g u|, K3 on them within its
+    limits, the whole within them (beta atol 1e-5 on every tile; beta
+    printed beside the exact tier's own), timed beside the exact tier's
+    fp32 GEMM on the same rows and beside their bound
   4 the main path at full width: draw the genome -> ResidentGenome on the
     card
     -> kinship_resident (K1) -> scale_k -> eigh on the card (float64)
@@ -314,7 +316,7 @@ Phases (each prints its own seconds):
     gloo collectives take CUDA tensors in this torch printed; the walls;
     then on the same rows the three campaign scans on the two ranks,
     emmax_step_wise(mesh=) (3 steps), emmax_multi_trait(mesh=) (4 traits)
-    at exact and int8x3 and over each rank's shard of a host-only
+    at exact, int8x3 and 'high' and over each rank's shard of a host-only
     container, and emma(mesh=), each held to its single-device call by
     the same gates (stepwise: the same path and selections, min_p and the
     criteria within rtol 1e-12); (d) in (a)'s group, item 16c's first
@@ -334,10 +336,10 @@ Phases (each prints its own seconds):
     int8x3, emmax_two_snps(mesh=) on phase 4's top 2 hits, and
     emmax_anova(mesh=) on a diploid genome of n x 16,384 (2 % missing
     calls) drawn in the phase, held to a single-device call on it; (b)
-    then adds the five on its two gloo ranks (the class tests, GxE and
-    the permutation test over each rank's shard of its host-only
-    container, two-SNP with A = 4 and emmax_anova on the host rows), each
-    within 1e-12 of its single-device call with identical masks; and, on
+    then adds the five on its two gloo ranks (the class tests, GxE and the
+    permutation test at exact, int8x3 and 'high' over each rank's shard of its
+    host-only container, two-SNP with A = 4 and emmax_anova on the host rows),
+    each within 1e-12 of its single-device call with identical masks; and, on
     the same two ranks as a (1, 2) 'sample' mesh (item 16d-i) on the first
     16,384 rows (one tile), distributed_kinship bit-equal to one device,
     distributed_emmax and distributed_emmax_resident at exact / int8x3 /
@@ -349,17 +351,20 @@ Phases (each prints its own seconds):
     to its single-device call: emmax_step_wise(mesh=) (3 steps on the
     same rows; each rank stores its (16,384, n / 2) block of rotated
     columns; the same path, cofactors and selections, min_p within
-    _tp_tol), emmax_multi_trait(mesh=) (T = 4; exact in core and int8x3
-    over the host-only container; masks equal, p within _tp_tol, int8x3's
-    f_stats bit-equal) and emmax_loco(mesh=) on the n = 2,048 x 8,192
-    LOCO fixture (masks equal, p within _tp_tol, each delta within rtol
-    1e-12); and on that mesh's first 4,096 rows (a cut of depth, so the
-    script keeps its clock) the remaining entry points (item 16d-iii),
+    _tp_tol), emmax_multi_trait(mesh=) (T = 4; exact and 'high' in core
+    and int8x3 over the host-only container; masks equal, p within _tp_tol,
+    'high' within bf16x3's, int8x3's f_stats bit-equal) and emmax_loco(mesh=)
+    on the n = 2,048 x 8,192 LOCO fixture (masks equal, p within _tp_tol,
+    each delta within rtol 1e-12); and on that mesh's first 4,096 rows (a
+    cut of depth, so the script keeps its clock) the remaining entry points (item 16d-iii),
     each held to its single-device call on the card on the same rows:
     emmax_gxe(mesh=) (E = 2) at exact (masks equal, p within _tp_tol) and
     at int8x3 with an exact rescore of its top 64 interactions (the same
-    rows rescored, bit-equal off them, p within GXE_P_DRIFT),
-    emmax_perm_test(mesh=) (P = 128), emmax_two_snps(mesh=) (A = 2, K3 A
+    rows rescored, bit-equal off them, p within GXE_P_DRIFT) and at
+    'high' (masks equal, p within bf16x3's _tp_tol),
+    emmax_perm_test(mesh=) (P = 128; at 'high' it must raise the JAX
+    package's refusal on both ranks, in core and over a container),
+    emmax_two_snps(mesh=) (A = 2, K3 A
     x tiles a rank), emmax_anova(mesh=) binary (through emmax(mesh=), K3
     launched) and diploid on (e)'s genome (masks and dofs equal), each p
     within _tp_tol, and linear_model / anova / kruskal_wallis (mesh=)
@@ -895,37 +900,53 @@ def _drift_table(label, runs, table) -> dict:
     return worst
 
 
-def _high_products(null, G1, g, dev, rows: int, n: int) -> None:
-    """Phase 3's check of the 'high' tier (no kernel of its own: three
-    bf16 library products with float32 outputs, ops/rotate.py::
-    rotate_high, then the exact tier's mask and K3) on one tile of
-    integer rows and of imputed rows, against its plain version on the
-    card (ops/scan.py::apply_rotation_high: the same bf16 splits, each
-    product in float64, summed in float32; then scan_stats_plain): the
-    products within float32's bound of their float64 values (n 2^-24 of
-    sum |g u|), K3 on them within its limits, and the whole within the
-    kernels' limits (f rtol / atol 1e-4, masks; beta atol 1e-5 on integer
-    rows; on imputed rows beta is printed beside the exact tier's fp32
-    GEMM's own reach, the tensor cores' float32 sums of rows whose offset
-    U' cancels being the larger). The products are timed beside the exact
-    tier's fp32 GEMM on the same rows and beside their bound."""
+#: phase 3: the imputed tiles the 'high' products are held on, each drawn
+#: from args.seed + one of these (its genotypes, its noise and its trait)
+_HIGH_DRAWS = (11, 12, 13)
+
+
+def _high_products(null, G1, dev, rows: int, n: int, seed: int) -> None:
+    """Phase 3's check of the 'high' tier (no kernel of its own: bf16
+    library products with float32 outputs, ops/rotate.py::rotate_high,
+    then the exact tier's mask and K3) on one tile of integer rows (G1,
+    two products over all n) and on three tiles of imputed rows (the
+    seeds args.seed + _HIGH_DRAWS: g * 0.97 + 0.01 + U(-0.01, 0.01) of
+    the genotype model's rows, each with its own trait; three products a
+    chunk of ops/rotate.py::HIGH_CHUNK samples), against its plain version
+    on the card (ops/scan.py::apply_rotation_high: the same bf16 splits,
+    each product in float64, summed in float32; then scan_stats_plain):
+    the products within float32's bound of their float64 values (n 2^-24
+    of sum |g u|), K3 on them within its limits, and the whole within the
+    kernels' limits (f rtol / atol 1e-4, masks, beta atol 1e-5), beta
+    printed beside the exact tier's fp32 GEMM's own reach. The products
+    are timed beside the exact tier's fp32 GEMM on the same rows and
+    beside their bound."""
     import dataclasses
 
     import torch
 
     from mixmogam_tpu_torch.ops.hopper_scan import scan_stats_plain
-    from mixmogam_tpu_torch.ops.rotate import rotate_high
+    from mixmogam_tpu_torch.ops.rotate import HIGH_CHUNK, rotate_high
     from mixmogam_tpu_torch.ops.scan import (apply_rotation_high,
                                              build_rotated_null,
                                              emmax_scan_stats,
                                              outside_design)
 
-    rot = build_rotated_null(null, matmul_precision="high")
-    G8 = torch.as_tensor(G1, device=dev)
-    noise = torch.rand(G8.shape, generator=g, device=dev)
-    for kind, Gt in (("integer", G8),
-                     ("imputed", G8.float() * 0.97 + 0.01
-                      + (noise - 0.5) * 0.02)):
+    def tiles():
+        yield "integer", torch.as_tensor(G1, device=dev), null
+        for d in _HIGH_DRAWS:
+            gd = torch.Generator(device=dev).manual_seed(seed + d)
+            G8 = torch.as_tensor(_draw_genotypes(n, rows, seed=seed + d),
+                                 device=dev)
+            yd = torch.randn(n, generator=gd, device=dev)
+            noise = torch.rand(G8.shape, generator=gd, device=dev)
+            yield (f"imputed (seed {seed + d})",
+                   G8.float() * 0.97 + 0.01 + (noise - 0.5) * 0.02,
+                   dataclasses.replace(null, y=yd))
+            del G8, noise
+
+    for kind, Gt, nl in tiles():
+        rot = build_rotated_null(nl, matmul_precision="high")
         keep = outside_design(Gt.float(), rot.X0, rot.X0p)
 
         def plain(X):
@@ -953,9 +974,7 @@ def _high_products(null, G1, g, dev, rows: int, n: int) -> None:
         db_ex = float((ex[1] - plain((Gt.double() @ rot.U.double())
                                      .float())[1]).abs().max())
         del ex
-        err = _check_stats(f"'high' {kind} rows", got, ref,
-                           beta_atol=1e-5 if kind == "integer"
-                           else float("inf"))
+        err = _check_stats(f"'high' {kind} rows", got, ref)
         dbeta = float((got[1] - ref[1]).abs().max())
         ms = _cuda_ms(lambda: rotate_high(Gt, rot.high, torch.float32))
         gemm = _cuda_ms(lambda: Gt.float() @ rot.U)
@@ -963,21 +982,24 @@ def _high_products(null, G1, g, dev, rows: int, n: int) -> None:
         pms = _cuda_ms(lambda: apply_rotation_high(Gt, rot.high,
                                                    torch.float32))
         passes = 2 if Gt.dtype == torch.int8 else 3
+        chunks = ("one product a pass" if Gt.dtype == torch.int8 else
+                  f"{-(-n // HIGH_CHUNK)} chunks of {HIGH_CHUNK} samples a "
+                  f"pass")
         bnd = _bound(2.0 * passes * rows * n * n, "bf16", Gt, rot.high,
                      torch.empty((rows, n)))
         print(f"'high' {kind} rows n={n} rows={rows}: the {passes} bf16 "
-              f"products' float32 sums vs float64 on the same splits: max "
-              f"|d| / sum|g u| {ratio:.3e} (n u = {n * 2.0 ** -24:.3e}); "
-              f"K3 on them vs plain: max|df| {k3err:.3e}; products + mask "
-              f"+ K3 vs the plain version: max|df| {err:.3e}, max|dbeta| "
-              f"{dbeta:.3e} (the exact tier's fp32 GEMM vs its float64 "
-              f"products: {db_ex:.3e}); the products {ms:.3f} ms (bound "
+              f"products ({chunks}), float32 sums vs float64 on the same "
+              f"splits: max |d| / sum|g u| {ratio:.3e} (n u = "
+              f"{n * 2.0 ** -24:.3e}); K3 on them vs plain: max|df| "
+              f"{k3err:.3e}; products + mask + K3 vs the plain version: "
+              f"max|df| {err:.3e}, max|dbeta| {dbeta:.3e} (gate 1e-5; the "
+              f"exact tier's fp32 GEMM vs its float64 products: "
+              f"{db_ex:.3e}); the products {ms:.3f} ms (bound "
               f"{bnd['bound_ms']:.3f} ms by {bnd['bound_by']}), the exact "
               f"tier's fp32 GEMM {gemm:.3f} ms, products + mask + K3 "
               f"{whole:.3f} ms, plain {pms:.3f} ms", flush=True)
-        del got, keep, ref
+        del got, keep, ref, rot, Gt
     _check_tf32_off("the 'high' products")
-    del rot, G8, noise, Gt
 
 
 def _main_path_drift(args, rg, phi, U, y, res) -> dict:
@@ -2737,7 +2759,8 @@ sw = emmax_step_wise(G, y, eig_k=(phi, U), max_steps=3, mesh=mesh)
 walls["emmax_step_wise"] = time.perf_counter() - ts
 Y4 = np.load({d!r} + "/Y4.npy")
 for name, src, tier in (("mt_exact", G, "exact"), ("mt_int8x3", G, "int8x3"),
-                        ("mt_res_exact", rgh, "exact")):
+                        ("mt_res_exact", rgh, "exact"),
+                        ("mt_high", G, "high")):
     ts = time.perf_counter()
     r = emmax_multi_trait(src, Y4, eig_k=(phi, U), precision=tier, mesh=mesh)
     walls["emmax_multi_trait " + name[3:]] = time.perf_counter() - ts
@@ -2759,7 +2782,7 @@ for name, fn in (("lm", linear_model), ("anova", anova),
     for k, v in r.items():
         out[name + "_" + k] = v
 y12, env = np.load({d!r} + "/y12.npy"), np.load({d!r} + "/env.npy")
-for tier in ("exact", "int8x3"):
+for tier in ("exact", "int8x3", "high"):
     ts = time.perf_counter()
     r = emmax_gxe(rgh, y12, env, eig_k=(phi, U), precision=tier, mesh=mesh)
     walls["emmax_gxe " + tier] = time.perf_counter() - ts
@@ -2867,7 +2890,7 @@ def counted(name, fn, into=camp_launches):
 tp_sw = counted("emmax_step_wise", lambda: emmax_step_wise(
     Gt, y, eig_k=(phi, U), max_steps={sw_steps}, mesh=tp_mesh))
 for name, src, tier in (("mt_exact", Gt, "exact"),
-                        ("mt_int8x3", rgt, "int8x3")):
+                        ("mt_int8x3", rgt, "int8x3"), ("mt_high", Gt, "high")):
     r = counted("emmax_multi_trait " + tier, lambda: emmax_multi_trait(
         src, Y4[:{mt_traits}], eig_k=(phi, U), precision=tier, mesh=tp_mesh))
     for k in ("ps", "mask", "f_stats", "betas"):
@@ -2885,7 +2908,7 @@ tp_loco_deltas = {{str(c): v["delta"] for c, v in r["loco"].items()}}
 # replicate over 'sample'; the counts set to 0 just before each call ----
 rest_launches = {{}}
 Gs = Gt[:{ms}]
-for tier, top in (("exact", 0), ("int8x3", {gxe_top})):
+for tier, top in (("exact", 0), ("int8x3", {gxe_top}), ("high", 0)):
     r = counted("emmax_gxe " + tier, lambda: emmax_gxe(
         Gs, y12, env, eig_k=(phi, U), precision=tier, rescore_top=top,
         mesh=tp_mesh), rest_launches)
@@ -2897,6 +2920,16 @@ r = counted("emmax_perm_test", lambda: emmax_perm_test(
     Gs, y, eig_k=(phi, U), num_perm=128, mesh=tp_mesh), rest_launches)
 for k in ("min_ps", "threshold"):
     out["tpr_perm_" + k] = r[k]
+# 'high' on this axis: the permutation test refuses it, as the JAX package
+# does (in core it takes no tier; a container refuses the 'sample' axis)
+perm_high = {{}}
+for name, src in (("in core", Gs), ("container", rgt)):
+    try:
+        emmax_perm_test(src, y, eig_k=(phi, U), num_perm=128,
+                        precision="high", mesh=tp_mesh)
+        perm_high[name] = "ran"
+    except ValueError as e:
+        perm_high[name] = str(e)
 r = counted("emmax_two_snps", lambda: emmax_two_snps(
     Gs, y, eig_k=(phi, U), focal_idx=np.load({d!r} + "/focal_tp.npy"),
     mesh=tp_mesh), rest_launches)
@@ -2963,6 +2996,7 @@ print(json.dumps({{"rank": rank, "device": str(mesh.device),
                            "plane_sums_equal": planes_equal,
                            "campaign_launches": camp_launches,
                            "rest_launches": rest_launches,
+                           "perm_high": perm_high,
                            "loco_deltas": tp_loco_deltas}},
                    "rows": host_snp_range(G.shape[0], world, rank),
                    "resident rows": host_snp_range(
@@ -3558,13 +3592,13 @@ def _tp_campaign_gates(tps, z, tp_sw, loco_ref, Gt, y, eig, Y, kernels,
     the rows Gt (the same path, cofactors and selections, its re-fits'
     criteria and delta within rtol 1e-12: rank 0 fits them as one device
     does; each step's min_p within _tp_tol('exact'): its sums meet over
-    'sample'); multi-trait exact in core and int8x3 over the host-only
-    container (masks equal, p within _tp_tol of the tier; int8x3's f_stats
-    bit-equal, its plane sums meeting in integers); LOCO on the n = 2,048
-    fixture (masks equal, p within _tp_tol('exact'), each chromosome's
-    delta within rtol 1e-12). Each rank's walls, bytes reduced and
-    launches a call; K1 / K4 (LOCO's kinships on rank 0) and K3 launched,
-    and added to the kernels line."""
+    'sample'); multi-trait exact and 'high' in core and int8x3 over the
+    host-only container (masks equal, p within _tp_tol of the tier, 'high'
+    within bf16x3's; int8x3's f_stats bit-equal, its plane sums meeting in
+    integers); LOCO on the n = 2,048 fixture (masks equal, p within
+    _tp_tol('exact'), each chromosome's delta within rtol 1e-12). Each
+    rank's walls, bytes reduced and launches a call; K1 / K4 (LOCO's
+    kinships on rank 0) and K3 launched, and added to the kernels line."""
     import numpy as np
 
     from mixmogam_tpu_torch.models.multitrait import emmax_multi_trait
@@ -3580,6 +3614,7 @@ def _tp_campaign_gates(tps, z, tp_sw, loco_ref, Gt, y, eig, Y, kernels,
               f"launches {cl}", flush=True)
         need = {"emmax_multi_trait exact": ("scan_stats",),
                 "emmax_multi_trait int8x3": ("scan_stats",),
+                "emmax_multi_trait high": ("scan_stats",),
                 "emmax_loco": ("scan_stats",) + (
                     ("ibs_gram_packed", "ibs_gram_tri_packed") if r == 0
                     else ()),
@@ -3612,14 +3647,16 @@ def _tp_campaign_gates(tps, z, tp_sw, loco_ref, Gt, y, eig, Y, kernels,
     keys = ("ps", "mask", "f_stats", "betas")
     T = Y.shape[0]
     for tier, src in (("exact", Gt),
-                      ("int8x3", ResidentGenome.from_source(Gt))):
+                      ("int8x3", ResidentGenome.from_source(Gt)),
+                      ("high", Gt)):
         ts = time.perf_counter()
         ref = emmax_multi_trait(src, Y, eig_k=eig, precision=tier)
         got = {k: z[f"tp_mt_{tier}_{k}"] for k in keys}
+        tol = _tp_tol("bf16x3" if tier == "high" else tier)
         _p18_gate(f"(b) (1, 2) emmax_multi_trait(mesh=) {tier} vs "
                   f"emmax_multi_trait, T={T} n={n} M={Mt} "
-                  f"({time.perf_counter() - ts:.3f} s; tol "
-                  f"{_tp_tol(tier)})", got, ref, tol=_tp_tol(tier))
+                  f"({time.perf_counter() - ts:.3f} s; tol {tol})", got,
+                  ref, tol=tol)
         if tier == "int8x3" and not np.array_equal(got["f_stats"],
                                                    ref["f_stats"]):
             raise AssertionError("(b) the (1, 2) int8x3 multi-trait f_stats "
@@ -3654,11 +3691,14 @@ def _tp_rest_gates(tps, z, Gs, Ds, y, gx, eig, focal, kernels,
     _tp_tol('exact')) and at int8x3 with an exact rescore of its top
     _P18_TP_GXE_TOP interactions (the same rows rescored; off them every
     statistic bit-equal, its int8 plane sums meeting in integers; the
-    rescored rows within _tp_tol('exact'); p within GXE_P_DRIFT['int8x3']);
+    rescored rows within _tp_tol('exact'); p within GXE_P_DRIFT['int8x3'])
+    and at 'high' (masks equal, p within _tp_tol('bf16x3'));
     emmax_perm_test (P = 128; min_ps and the threshold within
-    _tp_tol('exact')); emmax_two_snps (A = 2; p within _tp_tol('exact'),
-    the same p = 1 rows; K3 A x tiles a rank); emmax_anova binary (through
-    emmax(mesh=): masks equal, p within _tp_tol('exact'), K3 launched) and
+    _tp_tol('exact'); at 'high' the JAX package's refusal on both ranks,
+    in core and over a container); emmax_two_snps (A = 2; p within
+    _tp_tol('exact'), the same p = 1 rows; K3 A x tiles a rank); emmax_anova
+    binary (through emmax(mesh=): masks equal, p within _tp_tol('exact'), K3
+    launched) and
     diploid (masks, dof1 and dof2 equal, p within _tp_tol('exact'));
     linear_model (K3 a tile on every rank), anova and kruskal_wallis
     bit-equal (the 'sample' axis replicates them). Each rank's walls,
@@ -3714,15 +3754,19 @@ def _tp_rest_gates(tps, z, Gs, Ds, y, gx, eig, focal, kernels,
 
     tol = _tp_tol("exact")
     keys = _GXE_KEYS + ("f_inter",)
-    for tier, top in (("exact", 0), ("int8x3", _P18_TP_GXE_TOP)):
+    for tier, top in (("exact", 0), ("int8x3", _P18_TP_GXE_TOP),
+                      ("high", 0)):
         ref = one(f"emmax_gxe {tier}", lambda: emmax_gxe(
             Gs, gx["y"], gx["env"], eig_k=eig, precision=tier,
             rescore_top=top))
         got = {k: z[f"tpr_gxe_{tier}_{k}"] for k in keys}
-        if tier == "exact":
-            _equal_arrays(f"(b) (1, 2) emmax_gxe(mesh=) exact vs emmax_gxe, "
-                          f"E=2 n={n} M={Ms} (tol {tol})", got, ref,
-                          _GXE_KEYS, tol=tol)
+        if tier != "int8x3":
+            # 'high' is held as bf16x3 is on this axis: its products'
+            # float32 sums meet over 'sample'
+            tt = tol if tier == "exact" else _tp_tol("bf16x3")
+            _equal_arrays(f"(b) (1, 2) emmax_gxe(mesh=) {tier} vs "
+                          f"emmax_gxe, E=2 n={n} M={Ms} (tol {tt})", got,
+                          ref, _GXE_KEYS, tol=tt)
             continue
         off = np.ones_like(ref["mask"])
         for e, idx in enumerate(ref["rescored_idx"]):
@@ -3749,6 +3793,18 @@ def _tp_rest_gates(tps, z, Gs, Ds, y, gx, eig, focal, kernels,
                   f"P=128 (tol {tol})",
                   {k: z[f"tpr_perm_{k}"] for k in ("min_ps", "threshold")},
                   ref, ("min_ps", "threshold"), tol=tol)
+    why = {"in core": "tiered permutation sweeps need a ResidentGenome",
+           "container": "resident permutation shards 'snp' only"}
+    for r, tp in enumerate(tps):
+        for src, msg in why.items():
+            if msg not in tp["perm_high"][src]:
+                raise AssertionError(f"(b) rank {r}'s (1, 2) emmax_perm_test "
+                                     f"at 'high' {src}: "
+                                     f"{tp['perm_high'][src]!r}, not the "
+                                     f"JAX package's refusal")
+    print(f"   (b) (1, 2) emmax_perm_test(mesh=) at 'high' refused on both "
+          f"ranks, in core and over a container: "
+          f"{tps[0]['perm_high']}", flush=True)
     ref = one("emmax_two_snps", lambda: emmax_two_snps(
         Gs, y, eig_k=eig, focal_idx=focal))
     got = {k: z[f"tpr_two_{k}"] for k in ("cond_ps", "inter_ps")}
@@ -3995,7 +4051,8 @@ def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
                rtol=1e-12)
     for name, src, tier in (("mt_exact", rgb, "exact"),
                             ("mt_int8x3", rgb, "int8x3"),
-                            ("mt_res_exact", rgb, "exact")):
+                            ("mt_res_exact", rgb, "exact"),
+                            ("mt_high", rgb, "high")):
         ts = time.perf_counter()
         ref = emmax_multi_trait(src, Y4, eig_k=(phi, U), precision=tier)
         _p18_gate(f"(b) emmax_multi_trait(mesh=) {name[3:]} vs "
@@ -4021,7 +4078,7 @@ def _parallel_phase(args, kernels, launches, main, G, tmp) -> None:
                       {k: z[f"{name}_{k}"] for k in keys}, ref, keys,
                       tol=1e-12)
     gx = main.pop("gxe12")
-    for tier in ("exact", "int8x3"):
+    for tier in ("exact", "int8x3", "high"):
         ts = time.perf_counter()
         ref = emmax_gxe(rgb, gx["y"], gx["env"], eig_k=(phi, U),
                         precision=tier)
@@ -4421,7 +4478,7 @@ def main(argv=None) -> int:
     else:
         raise AssertionError("K3 took 129 columns of Q0")
     del Xr, Xo, a3, aq, rot
-    _high_products(null, G1, g, dev, rows, n)
+    _high_products(null, G1, dev, rows, n, args.seed)
     del null, U, rg1, rgc, G1, Gc, S, S_ref, got
     torch.cuda.empty_cache()
     _phase("3 kernels vs plain", t0)

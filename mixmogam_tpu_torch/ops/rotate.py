@@ -15,7 +15,8 @@ products, by tier:
   part with a float32 output, summed in float32;
 - 'high' (rotate_high): the three-pass bf16 split of XLA's Precision.HIGH,
   U' and the tile each split into bf16 hi + lo (ops/scan.py::split_high),
-  three bf16 GEMMs with float32 outputs, summed in float32.
+  three bf16 GEMMs with float32 outputs, summed in float32 (float rows:
+  one GEMM a chunk of HIGH_CHUNK contraction samples a pass).
 On the CPU every tier takes ops/scan.py::apply_rotation (exact float64
 products of the digit planes and parts; apply_rotation_high for 'high').
 
@@ -39,6 +40,9 @@ import torch
 #: torch._int_mm takes more than 16 rows, and a contraction and an output
 #: width that are multiples of 8
 _INT_MM_ROWS, _INT_MM_ALIGN = 17, 8
+#: contraction samples a bf16 product of rotate_high sums on the tensor
+#: cores before its sum leaves them (float rows)
+HIGH_CHUNK = 2_048
 
 
 @dataclasses.dataclass
@@ -167,6 +171,13 @@ def rotate_tile(G_tile: torch.Tensor, rot: SharedRotation,
     return Xs[:m, :n_out]
 
 
+def contraction_chunks(n: int, chunk: int):
+    """[(s, e), ...]: [0, n) cut into consecutive chunks of `chunk`
+    contraction samples, the last one shorter where chunk does not divide
+    n (rotate_high's chunks)."""
+    return [(s, min(s + chunk, n)) for s in range(0, n, chunk)]
+
+
 def rotate_high(G_tile: torch.Tensor, parts: torch.Tensor, dt
                 ) -> torch.Tensor:
     """(m, n) Xr ~ G_tile @ U' at the 'high' tier, in dt: parts = (U_hi,
@@ -177,12 +188,21 @@ def rotate_high(G_tile: torch.Tensor, parts: torch.Tensor, dt
 
         Xr = (G_hi U_lo + G_lo U_hi) + G_hi U_hi,
 
-    each product one torch.mm of bf16 operands with a float32 output,
-    summed in float32 in that order: the three passes of XLA's bf16_3x
+    each product torch.mm of bf16 operands with a float32 output, summed
+    in float32 in that order: the three passes of XLA's bf16_3x
     (Precision.HIGH on a TPU), the two small terms first. TF32 stays off
     (assert_fp32_matmuls): every product here takes bf16 operands. On
     the CPU: ops/scan.py::apply_rotation_high, its plain version. A CUDA
-    tile never falls back to the float32 GEMM."""
+    tile never falls back to the float32 GEMM.
+
+    Float rows split the contraction: each pass runs one product a chunk
+    of HIGH_CHUNK samples (contraction_chunks), so the tensor cores'
+    float32 sums, which lose more than a float32 FMA does, run over
+    HIGH_CHUNK samples only, and torch.addmm adds each chunk's product into
+    one float32 accumulator in cuBLAS's FMA epilogue. The pass order holds
+    across the chunks: every chunk of G_hi U_lo, then of G_lo U_hi, then
+    of G_hi U_hi. int8 rows keep one product a pass over all n: their
+    sums hold beta to 1e-5 without chunks."""
     from mixmogam_tpu_torch.ops import assert_fp32_matmuls
     from mixmogam_tpu_torch.ops.scan import apply_rotation_high, split_high
 
@@ -191,14 +211,19 @@ def rotate_high(G_tile: torch.Tensor, parts: torch.Tensor, dt
     assert_fp32_matmuls()
     Uh, Ul = parts[0], parts[1]
     if G_tile.dtype == torch.int8:
-        Gh, Gl = G_tile.to(torch.bfloat16), None
-    else:
-        Gh, Gl = split_high(G_tile.to(dt))
-    Xs = torch.mm(Gh, Ul, out_dtype=torch.float32)
-    if Gl is not None:
-        Xs += torch.mm(Gl, Uh, out_dtype=torch.float32)
-        del Gl
-    Xs += torch.mm(Gh, Uh, out_dtype=torch.float32)
+        Gh = G_tile.to(torch.bfloat16)
+        Xs = torch.mm(Gh, Ul, out_dtype=torch.float32)
+        Xs += torch.mm(Gh, Uh, out_dtype=torch.float32)
+        return Xs.to(dt)
+    Gh, Gl = split_high(G_tile.to(dt))
+    Xs = None
+    for A, B in ((Gh, Ul), (Gl, Uh), (Gh, Uh)):
+        for s, e in contraction_chunks(A.shape[1], HIGH_CHUNK):
+            if Xs is None:
+                Xs = torch.mm(A[:, s:e], B[s:e], out_dtype=torch.float32)
+            else:
+                torch.addmm(Xs, A[:, s:e], B[s:e], out_dtype=torch.float32,
+                            out=Xs)
     return Xs.to(dt)
 
 

@@ -16,17 +16,20 @@ its kinships and eighs on rank 0), and on the first 8,192 rows the
 remaining entry points: emmax_gxe (E = 2, exact and int8x3 with an
 exact rescore of its top 64), emmax_perm_test (P = 128), emmax_two_snps
 (A = 2), emmax_anova (binary, and diploid on two blocks of rows summed)
-and linear_model / anova / kruskal_wallis, and distributed_train_step
-(T = 4, top_k 8), synchronised, with a barrier before each call and
+and linear_model / anova / kruskal_wallis, distributed_train_step
+(T = 4, top_k 8), and at precision='high' emmax_multi_trait (in core),
+emmax_gxe (in core) and emmax_perm_test (over a host-only container of
+those rows; on a 'sample' axis it must raise the JAX package's refusal),
+synchronised, with a barrier before each call and
 after a first, untimed call (the communicators' set-up);
 and the bytes it handed all_reduce a call. The kernels are built before
 the ranks start. Rank 0 then holds every result to one device's call on
 its card (kinship_resident, emmax_resident, emmax_step_wise,
 emmax_multi_trait, emmax_loco and the remaining entry points): the
-integer kinship bit-equal, the class tests within 1e-12, masks equal,
-max |dp| within the tier's TIER_P_DRIFT entry (GxE's GXE_P_DRIFT; exact: 1e-5,
-float32 partial sums in other shapes), stepwise's path of cofactors and
-selections equal and its min_p within 1e-5, on both meshes (each max |dp|
+integer kinship bit-equal, the class tests within 1e-12, masks equal, max |dp|
+within the tier's TIER_P_DRIFT entry (GxE's GXE_P_DRIFT; exact: 1e-5, float32
+partial sums in other shapes; 'high': bf16x3's), stepwise's path of cofactors
+and selections equal and its min_p within 1e-5, on both meshes (each max |dp|
 printed: the SNP-only mesh's is 0 where the cards round alike); and the
 train step's top_f, top_idx, deltas and K bit-equal between the two
 meshes, its K bit-equal to one card's integer gram.
@@ -139,13 +142,14 @@ def _rank(args) -> None:
     # sum of two blocks of binary rows)
     ms = min(8_192, args.snps // 2)
     Gs, D = G[:ms], G[:ms] + G[ms:2 * ms]
+    host_s = ResidentGenome.from_source(Gs, upload=False)
     env = np.column_stack([rng.normal(size=y.size),
                            (rng.random(y.size) < 0.5) * 1.0])
     y12 = y + 0.7 * G[2] * env[:, 0]
     shape = tuple(int(s) for s in args.shape.split(","))
     meshes = {"tp": make_mesh(shape, devices=args.device if cpu else None),
               "snp": make_mesh(devices=args.device if cpu else None)}
-    walls, sent, res = {}, {}, {}
+    walls, sent, res, refused = {}, {}, {}, {}
 
     def timed(name, fn):
         fn()                               # warm-up: communicators, caches
@@ -194,6 +198,23 @@ def _rank(args) -> None:
             timed(f"{key} {fn.__name__}", lambda: fn(Gs, y, mesh=mesh))
         timed(f"{key} distributed_train_step",
               lambda: distributed_train_step(mesh, G, Y, top_k=8))
+        # 'high': multi-trait and GxE in core; the permutation test over a
+        # host-only container, which a 'sample' axis refuses (in core it
+        # takes no tier), as the JAX package does
+        timed(f"{key} emmax_multi_trait high", lambda: emmax_multi_trait(
+            G, Y, eig_k=eig, precision="high", mesh=mesh))
+        timed(f"{key} emmax_gxe high", lambda: emmax_gxe(
+            Gs, y12, env, eig_k=eig, precision="high", mesh=mesh))
+        if mesh.shape[1] == 1:
+            timed(f"{key} emmax_perm_test high", lambda: emmax_perm_test(
+                host_s, y, eig_k=eig, num_perm=128, precision="high",
+                mesh=mesh))
+        else:
+            try:
+                emmax_perm_test(host_s, y, eig_k=eig, num_perm=128,
+                                precision="high", mesh=mesh)
+            except ValueError as e:
+                refused[f"{key} emmax_perm_test high"] = str(e)
     if rank != 0:
         dist.barrier()
         dist.destroy_process_group()
@@ -234,9 +255,22 @@ def _rank(args) -> None:
         "emmax_anova binary": emmax_anova(Gs, y, eig_k=eig, device=dev),
         "emmax_anova diploid": emmax_anova(D, y, eig_k=eig, device=dev),
         **{fn.__name__: fn(Gs, y, device=dev)
-           for fn in (linear_model, anova, kruskal_wallis)}})
+           for fn in (linear_model, anova, kruskal_wallis)},
+        "emmax_multi_trait high": emmax_multi_trait(
+            G, Y, eig_k=eig, precision="high", device=dev),
+        "emmax_gxe high": emmax_gxe(Gs, y12, env, eig_k=eig,
+                                    precision="high", device=dev),
+        "emmax_perm_test high": emmax_perm_test(
+            ResidentGenome.from_source(Gs, device=dev), y, eig_k=eig,
+            num_perm=128, precision="high")})
     for key in meshes:
         for name, ref in refs.items():
+            if f"{key} {name}" in refused:
+                msg = refused[f"{key} {name}"]
+                checks[f"{key} {name}"] = {"refused": msg}
+                if "shards 'snp' only" not in msg:
+                    bad.append(f"{key} {name}")
+                continue
             got = res[f"{key} {name}"]
             ps, stat, mask = _result_keys(ref)
             nm = int(sum((np.asarray(got[k]) != np.asarray(ref[k])).sum()
@@ -244,6 +278,7 @@ def _rank(args) -> None:
             dp = max(float(np.abs(got[k] - ref[k]).max()) for k in ps)
             tol = (GXE_P_DRIFT["int8x3"] if name == "emmax_gxe int8x3"
                    else TIER_P_DRIFT["int8x3"] if "int8x3" in name
+                   else TIER_P_DRIFT["bf16x3"] if name.endswith("high")
                    else 1e-12 if name in _REPLICATED else 1e-5)
             checks[f"{key} {name}"] = {
                 "masks_differ": nm, "max_dp": dp,

@@ -1582,3 +1582,36 @@ def test_card_high_products_vs_plain(cuda, rows):
         assert torch.equal(got, rotate_high(G.float().to(cuda),
                                             parts.to(cuda),
                                             torch.float32).cpu())
+
+
+@pytest.mark.parametrize("n", [4_096, 5_000])
+def test_card_high_imputed_beta_vs_plain(cuda, n):
+    """rotate_high on a tile of imputed rows (chunks of HIGH_CHUNK
+    contraction samples; at n = 5,000 the last chunk is short), then the
+    exact tier's mask and K3, against the plain version on the same bf16
+    splits (apply_rotation_high: each product in float64, summed in
+    float32; then scan_stats_plain): f within K3's limits, masks equal
+    and beta within 1e-5, the gate chip_smoke.py phase 3 holds imputed
+    rows to."""
+    from mixmogam_tpu_torch.ops.rotate import HIGH_CHUNK, rotate_high
+    from mixmogam_tpu_torch.ops.scan import (apply_rotation_high,
+                                             emmax_scan_stats,
+                                             outside_design)
+
+    assert n > HIGH_CHUNK
+    rot = build_rotated_null(_null(n, 1, cuda, seed=9),
+                             matmul_precision="high")
+    g = torch.Generator(device="cpu").manual_seed(9)
+    G8 = torch.randint(0, 2, (1_500, n), generator=g, dtype=torch.int8)
+    G = (G8.float() * 0.97 + 0.01
+         + (torch.rand(G8.shape, generator=g) - 0.5) * 0.02).to(cuda)
+    keep = outside_design(G, rot.X0, rot.X0p)
+    got = emmax_scan_stats(G, rot)
+    ref = torch.where(keep[None, :], scan_stats_plain(
+        apply_rotation_high(G, rot.high, torch.float32), rot.sd, rot.y_res,
+        rot.Q0, rot.rss0, rot.dof), 0.0)
+    _close(got, ref)
+    scale = apply_rotation_high(G.abs(), rot.high.abs(), torch.float64)
+    err = (rotate_high(G, rot.high, torch.float32).double()
+           - apply_rotation_high(G, rot.high, torch.float64)).abs() / scale
+    assert float(err.max()) <= n * 2.0 ** -24

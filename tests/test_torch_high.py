@@ -378,6 +378,32 @@ def test_run_gwas_and_the_cli_at_high(data, tmp_path):
                      "--precision", "high"]) == 0
 
 
+@pytest.mark.parametrize("n, chunk", [(1_000, 300), (96, 32), (50, 64)])
+def test_contraction_chunks_sum_to_the_whole(n, chunk):
+    """rotate_high's chunks (ops/rotate.py::contraction_chunks) cover
+    [0, n) once, in order, the last one short where chunk does not divide
+    n; apply_rotation_high summed over them in float64 equals the whole
+    to 1e-12 of its scale."""
+    from mixmogam_tpu_torch.ops.rotate import contraction_chunks
+
+    cuts = contraction_chunks(n, chunk)
+    assert cuts[0][0] == 0 and cuts[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(cuts, cuts[1:]))
+    assert all(e - s == chunk for s, e in cuts[:-1])
+    assert 0 < cuts[-1][1] - cuts[-1][0] <= chunk
+    rng = np.random.default_rng(4)
+    U = torch.as_tensor(np.linalg.qr(rng.normal(size=(n, n)))[0])
+    G = torch.as_tensor(rng.integers(0, 3, (40, n)) * 0.97
+                        + rng.uniform(-0.01, 0.01, (40, n)))
+    parts = scan.split_high(U)
+    whole = scan.apply_rotation_high(G, parts, torch.float64)
+    summed = sum(scan.apply_rotation_high(G[:, s:e], parts[:, s:e],
+                                          torch.float64)
+                 for s, e in cuts)
+    scale = float((G.abs() @ U.abs()).max())
+    assert float((summed - whole).abs().max()) <= 1e-12 * scale
+
+
 def test_mesh_routes_raise_the_jax_packages_value_errors(data):
     from mixmogam_tpu_torch.models.loco import emmax_loco
     from mixmogam_tpu_torch.parallel import make_mesh

@@ -20,7 +20,9 @@ package's own mesh= call under x64 on the conftest's 8-device mesh
 (multi-trait's fast tiers with the JAX reference quantizing the port's
 U' = (I - P_X0) U, test_torch_multitrait.jax_projected; EMMA within
 tests/test_torch_emma.py's bound against JAX: 1e-8 in p, 1e-6 in log
-delta). The refusals raise on every rank."""
+delta; 'high' within TIER_P_DRIFT['high'] of the JAX package's 'high'
+call, which runs as exact on the CPU, with identical masks). The refusals
+raise on every rank."""
 
 import os
 import pickle
@@ -43,6 +45,7 @@ from mixmogam_tpu_torch.models.emma import emma
 from mixmogam_tpu_torch.models.multitrait import emmax_multi_trait
 from mixmogam_tpu_torch.models.resident import ResidentGenome
 from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
+from mixmogam_tpu_torch.ops.scan import TIER_P_DRIFT
 from test_torch_multitrait import jax_projected
 from test_torch_parallel import _data
 
@@ -50,7 +53,10 @@ jemma = importlib.import_module("mixmogam_tpu.models.emma")
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLDS = (2, 3)
-TIERS = ("exact", "int8x3", "bf16x3")
+TIERS = ("exact", "int8x3", "bf16x3", "high")
+#: the 'high' tier's drift entry (against the JAX package, which runs
+#: 'high' as its exact tier on the CPU; tests/test_torch_high.py)
+HIGH = TIER_P_DRIFT["high"]
 #: the in-core scans' tile and the containers' (main's rows split over
 #: every rank; miss's 300 rows leave rank 2 of the world of 3 with none)
 _TILE = {"main": 128, "missing": 256}
@@ -358,10 +364,16 @@ def _mt_inputs(data, case):
     return src, jsrc, Y, tier
 
 
-def _mt_close(got, ref, tol=1e-10):
-    _close(got, ref, tol)
-    np.testing.assert_allclose(got["f_stats"], np.asarray(ref["f_stats"]),
-                               rtol=1e-9, atol=1e-9)
+def _mt_close(got, ref, tol=1e-10, high=False):
+    """Masks equal, p within tol, f_stats within 1e-9, the same REML
+    (log delta within 1e-10) and dof; high: the port's 'high' against the
+    JAX package's (exact on the CPU), masks equal and p within
+    TIER_P_DRIFT['high'], the REML as before."""
+    _close(got, ref, HIGH if high else tol)
+    if not high:
+        np.testing.assert_allclose(got["f_stats"],
+                                   np.asarray(ref["f_stats"]), rtol=1e-9,
+                                   atol=1e-9)
     np.testing.assert_allclose(np.log(got["deltas"]),
                                np.log(np.asarray(ref["deltas"])), rtol=0,
                                atol=1e-10)
@@ -386,15 +398,18 @@ def test_multi_trait_matches_the_single_device_port(worlds, data, world,
 
 @pytest.mark.parametrize("case", _MT)
 def test_multi_trait_matches_jax(worlds, data, case, monkeypatch):
+    """The JAX package's emmax_multi_trait(mesh=) on the conftest's mesh;
+    'high' within TIER_P_DRIFT['high'] of the JAX package's 'high' call,
+    which runs as exact here (tests/test_torch_high.py's bound)."""
     src, jsrc, Y, tier = _mt_inputs(data, case)
-    if tier not in (None, "exact"):
+    if tier not in (None, "exact", "high"):
         jax_projected(monkeypatch)
     ref = jmt.emmax_multi_trait(jsrc, Y, K=data["K"], precision=tier,
                                 mesh=_jax_mesh())
     for w in WORLDS:
         got = _ok(worlds[w][0], case)
         assert sorted(ref) == sorted(set(got) - {"timings_s"})
-        _mt_close(got, ref)
+        _mt_close(got, ref, high=tier == "high")
 
 
 @pytest.mark.parametrize("world", WORLDS)

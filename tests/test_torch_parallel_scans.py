@@ -27,8 +27,13 @@ its fast tiers with the JAX reference quantizing the port's U' =
 (I - P_X0) U, test_torch_multitrait.jax_projected). GxE's fast tiers hold
 to the JAX package's exact call within the fast tiers' bound against
 exact (1e-4, test_torch_gxe.py) with identical masks: the JAX package's
-own fast tiers quantize the unprojected U and e o U. The refusals raise on
-every rank."""
+own fast tiers quantize the unprojected U and e o U. 'high' (GxE in core
+and packed, the permutation test packed) is held to one device as every
+tier is, and to the JAX package's 'high' call, which runs as exact on the
+CPU, within TIER_P_DRIFT['high'] (GXE_P_DRIFT['high'] for GxE) with
+identical masks, tests/test_torch_high.py's bounds; in core the
+permutation test refuses it as the JAX package does. The refusals raise
+on every rank."""
 
 import dataclasses
 import importlib
@@ -50,6 +55,7 @@ from mixmogam_tpu_torch.models.emmax import emmax_anova
 from mixmogam_tpu_torch.models.permutation import emmax_perm_test
 from mixmogam_tpu_torch.models.resident import ResidentGenome
 from mixmogam_tpu_torch.models.twosnp import emmax_two_snps
+from mixmogam_tpu_torch.ops.scan import GXE_P_DRIFT, TIER_P_DRIFT
 from mixmogam_tpu_torch.parallel import make_mesh
 from test_torch_multitrait import jax_projected
 from test_torch_parallel import _data
@@ -62,7 +68,10 @@ jtwo = importlib.import_module("mixmogam_tpu.models.twosnp")
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLDS = (2, 3)
-TIERS = ("exact", "int8x3", "bf16x3")
+TIERS = ("exact", "int8x3", "bf16x3", "high")
+#: the 'high' tier's drift entries (against the JAX package, which runs
+#: 'high' as its exact tier on the CPU; tests/test_torch_high.py)
+HIGH, GXE_HIGH = TIER_P_DRIFT["high"], GXE_P_DRIFT["high"]
 #: the containers' tiles and the in-core calls' (main's and dip's rows
 #: split over every rank; miss's 300 rows at 256 leave rank 2 of 3 none)
 _TILE = {"main": 128, "missing": 256, "dip": 128}
@@ -198,6 +207,8 @@ run("no_gxe_int8_packed_missing", lambda: emmax_gxe(
 run("no_gxe_k", lambda: emmax_gxe(G, y, env, mesh=mesh))
 run("no_perm_host_tier", lambda: emmax_perm_test(G, y, K=K, mesh=mesh,
                                                  precision="int8x3"))
+run("no_perm_host_high", lambda: emmax_perm_test(G, y, K=K, mesh=mesh,
+                                                 precision="high"))
 run("no_perm_int8_missing", lambda: emmax_perm_test(
     rgs["missing"], y, K=K, mesh=mesh, precision="int8x2"))
 run("no_two_k", lambda: emmax_two_snps(G, y, focal_idx=[1], mesh=mesh))
@@ -310,6 +321,15 @@ def _same(a, b) -> None:
             _same(u, v)
     else:
         np.testing.assert_array_equal(a, b)
+
+
+def _tier(case):
+    """A case's precision: the tier its name ends with, else None."""
+    return next((t for t in TIERS[1:] if case.endswith("_" + t)), None)
+
+
+#: the quantized tiers (the JAX reference quantizes the port's U')
+_FAST = ("int8x3", "bf16x3")
 
 
 def _source(data, case, jax_side=False):
@@ -449,7 +469,7 @@ def test_emmax_anova_matches_jax(worlds, data, case):
 # ---- the permutation test -------------------------------------------------------
 
 def _perm_call(data, case, jax_side=False):
-    tier = next((t for t in TIERS[1:] if case.endswith(t)), None)
+    tier = _tier(case)
     src, f = _source(data, case.replace("perm_identity_packed",
                                         "perm_packed"), jax_side)
     K = None if "identity" in case else data["K"]
@@ -476,15 +496,19 @@ def test_perm_test_matches_the_single_device_port(worlds, data, world, case):
 @pytest.mark.parametrize("case", _PERM)
 def test_perm_test_matches_jax(worlds, data, case, monkeypatch):
     """The same permutations and max F: min_ps and the threshold within
-    1e-8 relative (tests/test_torch_permutation.py's bound)."""
-    if case[-6:] in TIERS[1:]:
+    1e-8 relative (tests/test_torch_permutation.py's bound); 'high' within
+    its drift entry (tests/test_torch_high.py's bound: the JAX package
+    runs it as exact here)."""
+    tier = _tier(case)
+    if tier in _FAST:
         jax_projected(monkeypatch)
+    tol = (dict(rtol=HIGH, atol=HIGH) if tier == "high" else
+           dict(rtol=1e-8))
     ref = _perm_call(data, case, jax_side=True)(mesh=_jax_mesh())
     for w in WORLDS:
         got = _ok(worlds[w][0], case)
-        np.testing.assert_allclose(got["min_ps"], ref["min_ps"], rtol=1e-8)
-        np.testing.assert_allclose(got["threshold"], ref["threshold"],
-                                   rtol=1e-8)
+        np.testing.assert_allclose(got["min_ps"], ref["min_ps"], **tol)
+        np.testing.assert_allclose(got["threshold"], ref["threshold"], **tol)
 
 
 # ---- GxE --------------------------------------------------------------------------
@@ -493,7 +517,7 @@ _GXE_P = ("marginal_ps", "inter_ps", "joint_ps")
 
 
 def _gxe_call(data, case, jax_side=False):
-    tier = next((t for t in TIERS[1:] if case.endswith(t)), None)
+    tier = _tier(case)
     src, _ = _source(data, case, jax_side)
     env = data["env"][:, 0] if case == "gxe_single_env" else data["env"]
     kw = dict(K=data["K"], precision=tier)
@@ -534,12 +558,15 @@ def test_gxe_matches_jax(worlds, data, case):
     call, with identical masks: that file's bound of a fast tier against
     exact. The JAX package's own fast tiers quantize U and e o U, not U'
     and e o U', and let the rounding of a degenerate product row through
-    its mask (the port masks those rows from the dosages)."""
-    fast = case[-6:] in TIERS[1:] or case == "gxe_rescore"
-    exact = case.rsplit("_", 1)[0] if case[-6:] in TIERS[1:] else (
+    its mask (the port masks those rows from the dosages). 'high' within
+    GXE_P_DRIFT['high'] of the JAX package's 'high' call, which runs as
+    exact here (tests/test_torch_high.py's bound)."""
+    tier = _tier(case)
+    fast = tier in _FAST or case == "gxe_rescore"
+    exact = case.rsplit("_", 1)[0] if tier in _FAST else (
         "gxe_incore" if fast else case)
     ref = _gxe_call(data, exact, jax_side=True)(mesh=_jax_mesh())
-    tol = 1e-4 if fast else 1e-8
+    tol = 1e-4 if fast else GXE_HIGH if tier == "high" else 1e-8
     for w in WORLDS:
         got = _ok(worlds[w][0], case)
         _gxe_close(got, ref, tol=tol)
@@ -614,6 +641,7 @@ def test_each_rank_holds_its_shard(worlds, data, world):
     ("no_gxe_int8_packed_missing", "ValueError", "fully-observed"),
     ("no_gxe_k", "ValueError", "need K or eig_k"),
     ("no_perm_host_tier", "ValueError", "ResidentGenome"),
+    ("no_perm_host_high", "ValueError", "ResidentGenome"),
     ("no_perm_int8_missing", "ValueError", "fully-observed"),
     ("no_two_k", "ValueError", "need K or eig_k"),
     ("no_two_focal", "ValueError", "explicit focal set"),

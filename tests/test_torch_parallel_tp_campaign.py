@@ -25,7 +25,9 @@ within rtol 1e-8; LOCO's per-chromosome delta within rtol 1e-10); against
 the JAX package's mesh= calls on the same mesh shape over the conftest's
 virtual devices in x64, p within 1e-10 (multi-trait's fast tiers with the
 JAX reference quantizing the port's U' = (I - P_X0) U,
-test_torch_multitrait.jax_projected)."""
+test_torch_multitrait.jax_projected; 'high' within TIER_P_DRIFT['high']
+of the JAX package's 'high' call, which runs as exact on the CPU, with
+identical masks)."""
 
 import os
 import pickle
@@ -47,6 +49,7 @@ from mixmogam_tpu_torch.models.loco import emmax_loco
 from mixmogam_tpu_torch.models.multitrait import emmax_multi_trait
 from mixmogam_tpu_torch.models.resident import ResidentGenome
 from mixmogam_tpu_torch.models.stepwise import emmax_step_wise
+from mixmogam_tpu_torch.ops.scan import TIER_P_DRIFT
 from mixmogam_tpu_torch.parallel.multihost import host_snp_range
 from test_torch_multitrait import jax_projected
 from test_torch_parallel_tp import _data
@@ -56,7 +59,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: world size -> mesh shape
 SHAPES = {2: (1, 2), 4: (2, 2)}
 WORLDS = tuple(SHAPES)
-TIERS = ("exact", "int8x3", "bf16x3")
+TIERS = ("exact", "int8x3", "bf16x3", "high")
+#: the 'high' tier's drift entry (against the JAX package, which runs
+#: 'high' as its exact tier on the CPU; tests/test_torch_high.py)
+HIGH = TIER_P_DRIFT["high"]
 TILE = 64
 N, M = 99, 300
 #: n = 99 padded to 112 on both routes: a rank's block of 56 samples
@@ -423,10 +429,16 @@ def _mt_inputs(data, case):
     return src, jsrc, Y, tier, X0
 
 
-def _mt_close(got, ref, tol=1e-10):
-    _close(got, ref, tol)
-    np.testing.assert_allclose(got["f_stats"], np.asarray(ref["f_stats"]),
-                               rtol=1e-9, atol=1e-9)
+def _mt_close(got, ref, tol=1e-10, high=False):
+    """Masks equal, p within tol, f_stats within 1e-9, the same REML
+    (log delta within 1e-10) and dof; high: the port's 'high' against the
+    JAX package's (exact on the CPU), masks equal and p within
+    TIER_P_DRIFT['high'], the REML as before."""
+    _close(got, ref, HIGH if high else tol)
+    if not high:
+        np.testing.assert_allclose(got["f_stats"],
+                                   np.asarray(ref["f_stats"]), rtol=1e-9,
+                                   atol=1e-9)
     np.testing.assert_allclose(np.log(got["deltas"]),
                                np.log(np.asarray(ref["deltas"])), rtol=0,
                                atol=1e-10)
@@ -464,40 +476,45 @@ def test_int8_f_stats_are_bit_equal(worlds, world, case, one):
 
 
 _MT_JAX = ("mt_incore_exact", "mt_incore_int8x3", "mt_incore_bf16x3",
-           "mt_packed_exact", "mt_packed_int8x3", "mt_packed_bf16x3",
-           "mt_miss_packed", "mt_nan_incore")
+           "mt_incore_high", "mt_packed_exact", "mt_packed_int8x3",
+           "mt_packed_bf16x3", "mt_packed_high", "mt_miss_packed",
+           "mt_nan_incore")
 
 
 @pytest.mark.parametrize("case", _MT_JAX)
 @pytest.mark.parametrize("world", WORLDS)
 def test_multi_trait_matches_jax(worlds, data, world, case, monkeypatch):
     """The JAX package's emmax_multi_trait(mesh=) on the same mesh shape
-    (its test_multitrait_mesh_parity and _resident_source)."""
+    (its test_multitrait_mesh_parity and _resident_source); 'high' within
+    TIER_P_DRIFT['high'] of the JAX package's 'high' call, which runs as
+    exact here (tests/test_torch_high.py's bound)."""
     src, jsrc, Y, tier, X0 = _mt_inputs(data, case)
-    if tier not in (None, "exact"):
+    if tier not in (None, "exact", "high"):
         jax_projected(monkeypatch)
     ref = jmt.emmax_multi_trait(jsrc, Y, K=data["K"], precision=tier,
                                 mesh=_jax_mesh(world))
     got = _ok(worlds[world][0], case)
     assert sorted(ref) == sorted(set(got) - {"timings_s"})
-    _mt_close(got, ref)
+    _mt_close(got, ref, high=tier == "high")
 
 
 @pytest.mark.parametrize("case", ["mt_incore_exact", "mt_incore_int8x3",
-                                  "mt_packed_bf16x3", "mt_miss_packed",
-                                  "mt_nan_incore"])
+                                  "mt_packed_bf16x3", "mt_incore_high",
+                                  "mt_miss_packed", "mt_nan_incore"])
 @pytest.mark.parametrize("world", WORLDS)
 def test_each_multi_trait_rank_holds_its_block_of_the_rotation(worlds, world,
                                                                case):
     """One scatter a scan (a missingness group each): the rank's (n_pad / S,
-    n) rows of U', or of each digit plane / bf16 part; n the group's."""
+    n) rows of U', or of each digit plane / bf16 part ('high': U''s hi and
+    lo); n the group's."""
     for res in worlds[world]:
         got = res[case + "/held"]["scattered"]
         if case == "mt_nan_incore":
             # three groups: all 99 samples, 88 (pad 96) and 95 (pad 96)
             assert sorted(got) == sorted([(BLOCK, N), (48, 88), (48, 95)])
             continue
-        lead = (3,) if case.endswith(("int8x3", "bf16x3")) else ()
+        lead = ((3,) if case.endswith(("int8x3", "bf16x3")) else
+                (2,) if case.endswith("high") else ())
         assert got == [lead + (BLOCK, N)]
         assert res[case + "/held"]["stored"] == []
 

@@ -29,7 +29,12 @@ conftest's virtual devices in x64, p within 1e-10 (the permutation test
 1e-10 relative in min_ps and the threshold; GxE on the first 96 samples,
 its fast tier within 1e-4 of the JAX package's exact call with identical
 masks, as tests/test_torch_parallel_scans.py holds them: the JAX
-package's own fast tiers quantize the unprojected U and e o U)."""
+package's own fast tiers quantize the unprojected U and e o U; GxE at
+'high', each rank sent its block of the hi and lo parts of U' and of each
+e o U', within GXE_P_DRIFT['high'] of the JAX package's 'high' call,
+which runs as exact on the CPU). The permutation test refuses 'high' on a
+'sample' axis either way, as the JAX package does: in core it takes no
+tier, and a container refuses the axis."""
 
 import importlib
 import os
@@ -50,6 +55,7 @@ from mixmogam_tpu_torch.models.emmax import emmax_anova
 from mixmogam_tpu_torch.models.permutation import emmax_perm_test
 from mixmogam_tpu_torch.models.resident import ResidentGenome
 from mixmogam_tpu_torch.models.twosnp import emmax_two_snps
+from mixmogam_tpu_torch.ops.scan import GXE_P_DRIFT
 from test_torch_parallel_tp import _data
 
 jemmax = importlib.import_module("mixmogam_tpu.models.emmax")
@@ -136,7 +142,7 @@ def run(name, fn):
 
 rg = ResidentGenome.from_source(G, tile=t, upload=False)
 # ---- GxE ----
-for tier in ("exact", "int8x3", "bf16x3"):
+for tier in ("exact", "int8x3", "bf16x3", "high"):
     run("gxe_" + tier, lambda: emmax_gxe(G, y, env, K=K, mesh=mesh,
                                          precision=tier))
 run("gxe_int8x3_rescore", lambda: emmax_gxe(
@@ -149,7 +155,8 @@ run("gxe_single_env", lambda: emmax_gxe(G, y, env[:, 0], K=K, mesh=mesh))
 e = 96
 for name, src, kw in (("exact", G, {{}}), ("missing", z["miss"], {{}}),
                       ("int8x3_rescore", G, dict(precision="int8x3",
-                                                 rescore_top=8))):
+                                                 rescore_top=8)),
+                      ("high", G, dict(precision="high"))):
     run("gxe_even_" + name, lambda: emmax_gxe(src[:, :e], y[:e], env[:e],
                                               K=K[:e, :e], mesh=mesh, **kw))
 # one device's int8x3 call in this process: its f_stats are held to the
@@ -192,6 +199,14 @@ for name, src, tt in (("incore", G, t), ("missing", z["miss"], t),
 # ---- the JAX package's refusals, on every rank before any collective ----
 run("no_gxe_resident", lambda: emmax_gxe(rg, y, env, K=K, mesh=mesh))
 run("no_perm_resident", lambda: emmax_perm_test(rg, y, K=K, mesh=mesh))
+# 'high': GxE and the permutation test over a container keep the refusal;
+# in core the permutation test takes no tier (the JAX package's ValueError)
+run("no_gxe_resident_high", lambda: emmax_gxe(rg, y, env, K=K, mesh=mesh,
+                                              precision="high"))
+run("no_perm_resident_high", lambda: emmax_perm_test(
+    rg, y, K=K, mesh=mesh, precision="high"))
+run("no_perm_incore_high", lambda: emmax_perm_test(
+    G, y, K=K, tile=t, mesh=mesh, precision="high"))
 run("no_lm_resident", lambda: linear_model(rg, y, mesh=mesh))
 run("no_an_resident", lambda: anova(rg, y, mesh=mesh))
 run("no_kw_resident", lambda: kruskal_wallis(rg, y, mesh=mesh))
@@ -294,9 +309,10 @@ def _same(a, b) -> None:
         np.testing.assert_array_equal(a, b)
 
 
-_GXE = ("gxe_exact", "gxe_int8x3", "gxe_bf16x3", "gxe_int8x3_rescore",
-        "gxe_missing", "gxe_cov", "gxe_single_env", "gxe_even_exact",
-        "gxe_even_missing", "gxe_even_int8x3_rescore")
+_GXE = ("gxe_exact", "gxe_int8x3", "gxe_bf16x3", "gxe_high",
+        "gxe_int8x3_rescore", "gxe_missing", "gxe_cov", "gxe_single_env",
+        "gxe_even_exact", "gxe_even_missing", "gxe_even_int8x3_rescore",
+        "gxe_even_high")
 _PERM = ("perm_exact", "perm_missing", "perm_identity")
 _TWO = ("two_incore", "two_missing", "two_resident")
 _EA = ("ea_binary", "ea_dip", "ea_dipm")
@@ -325,7 +341,8 @@ _GXE_P = ("marginal_ps", "inter_ps", "joint_ps")
 
 
 def _gxe_call(data, case, jax_side=False):
-    tier = next((t for t in ("int8x3", "bf16x3") if t in case), None)
+    tier = next((t for t in ("int8x3", "bf16x3", "high") if t in case),
+                None)
     src = data["miss"] if case.endswith("missing") else data["G"]
     y, env, K = data["y"], data["env"], data["K"]
     if case == "gxe_single_env":
@@ -388,19 +405,23 @@ def test_int8_gxe_f_stats_are_bit_equal(worlds, world, case):
 
 
 @pytest.mark.parametrize("case", ["gxe_even_exact", "gxe_even_missing",
-                                  "gxe_even_int8x3_rescore"])
+                                  "gxe_even_int8x3_rescore",
+                                  "gxe_even_high"])
 @pytest.mark.parametrize("world", WORLDS)
 def test_gxe_matches_jax(worlds, data, world, case):
     """The JAX package's emmax_gxe(mesh=) on the same mesh shape (in core,
     its table's 'sample' route), on the first 96 samples: its in-core
     sharding over 'sample' takes n divisible by S. At exact within 1e-10;
     the int8x3 tier (with its exact rescore) within 1e-4 of the JAX exact
-    call, with identical masks."""
+    call, with identical masks; 'high' within GXE_P_DRIFT['high'] of the
+    JAX package's 'high' call, which runs as exact here
+    (tests/test_torch_high.py's bound)."""
     fast = "int8" in case
     ref = _gxe_call(data, "gxe_even_exact" if fast else case,
                     jax_side=True)(mesh=_jax_mesh(world))
     got = _ok(worlds[world][0], case)
-    _gxe_close(got, ref, tol=1e-4 if fast else 1e-10)
+    _gxe_close(got, ref, tol=1e-4 if fast else GXE_P_DRIFT["high"]
+               if "high" in case else 1e-10)
     np.testing.assert_allclose(got["deltas"], np.asarray(ref["deltas"]),
                                rtol=1e-10)
 
@@ -589,11 +610,13 @@ _HELD = {
     "gxe_exact": [(BLOCK, N)],
     "gxe_int8x3": [(3, BLOCK, N)] * 3,
     "gxe_bf16x3": [(3, BLOCK, N)] * 3,
+    "gxe_high": [(2, BLOCK, N)] * 3,
     "gxe_int8x3_rescore": [(3, BLOCK, N)] * 3 + [(BLOCK, N)],
     "gxe_missing": [(BLOCK, N)], "gxe_cov": [(BLOCK, N)],
     "gxe_single_env": [(BLOCK, N)], "gxe_even_exact": [(48, 96)],
     "gxe_even_missing": [(48, 96)],
     "gxe_even_int8x3_rescore": [(3, 48, 96)] * 3 + [(48, 96)],
+    "gxe_even_high": [(2, 48, 96)] * 3,
     "perm_exact": [(BLOCK, N)], "perm_missing": [(BLOCK, N)],
     "perm_identity": [],
     "two_incore": [(BLOCK, N)], "two_missing": [(BLOCK, N)],
@@ -619,6 +642,10 @@ def test_each_rank_holds_its_block_of_each_rotation(worlds, world, case):
 @pytest.mark.parametrize("case, match", [
     ("no_gxe_resident", "resident GxE shards 'snp' only"),
     ("no_perm_resident", "resident permutation shards 'snp' only"),
+    ("no_gxe_resident_high", "resident GxE shards 'snp' only"),
+    ("no_perm_resident_high", "resident permutation shards 'snp' only"),
+    ("no_perm_incore_high", "tiered permutation sweeps need a "
+                            "ResidentGenome"),
     ("no_lm_resident", "no rotation operator to sample-shard"),
     ("no_an_resident", "packed class tests shard 'snp' only"),
     ("no_kw_resident", "packed class tests shard 'snp' only"),
